@@ -21,7 +21,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from carca_tpu_torch.config import ModelConfig
+from carca_tpu_torch.config import ModelConfig, TrainConfig
 from carca_tpu_torch.models.embeddings import item_table_width
 
 # JAX ModelConfig fields with no counterpart here: TPU-only knobs
@@ -72,3 +72,21 @@ def model_config_from_jax(cfg: Any) -> ModelConfig:
     if unknown:
         raise ValueError(f"JAX config fields with no counterpart here: {sorted(unknown)}")
     return ModelConfig(**d)
+
+
+def train_config_from_jax(cfg: Any) -> TrainConfig:
+    """A ``carca_tpu`` TrainConfig (or its ``dataclasses.asdict`` dict) →
+    this package's ``TrainConfig``: the fields the train step reads. The
+    others configure what is not ported yet (the fit loop, eval,
+    checkpoints, EMA) and are dropped, except two that would change the
+    step itself and so raise: a multi-device mesh and the row-sparse
+    item-table Adam forced on."""
+    d = dict(dataclasses.asdict(cfg) if dataclasses.is_dataclass(cfg) else cfg)
+    if int(np.prod(d.get("mesh_shape") or ())) > 1:
+        raise ValueError(f"mesh_shape={d['mesh_shape']}: the port trains on one device "
+                         "(ROADMAP slice 7)")
+    if d.get("sparse_items_adam") is True:
+        raise ValueError("sparse_items_adam=True: the row-sparse item-table Adam is not "
+                         "ported yet (ROADMAP slice 6)")
+    names = {f.name for f in dataclasses.fields(TrainConfig)}
+    return TrainConfig(**{k: v for k, v in d.items() if k in names})

@@ -1,8 +1,8 @@
 """Model configuration (counterpart of ``carca_tpu/config.py``).
 
-Only what the serving slice needs: ``ModelConfig`` with its validation and
-the ``beauty`` preset (BASELINE configs[0]). Field names and defaults follow
-the JAX package, except:
+``ModelConfig`` with its validation and the ``beauty`` preset (BASELINE
+configs[0]), and ``TrainConfig`` with the fields the train step reads. Field
+names and defaults follow the JAX package, except:
 
 * ``use_kernel`` replaces ``use_pallas``. ``"auto"`` (and ``True``) routes
   attention through the CUDA kernel wrapper
@@ -12,9 +12,9 @@ the JAX package, except:
   falling back. ``False`` always runs the plain version, on any device.
   There is no size threshold: the TPU's measured crossover does not carry
   over to the GPU.
-* ``pack_tables`` and ``remat`` are gone: lane packing exists only for the
-  TPU's (8, 128) tiling (``params_from_jax`` unpacks), and the port has no
-  training path yet.
+* ``pack_tables`` is gone: lane packing exists only for the TPU's (8, 128)
+  tiling (``params_from_jax`` unpacks). ``remat`` is gone: the attention
+  kernels never store the weights, and the rest of the step fits the card.
 """
 
 from __future__ import annotations
@@ -26,6 +26,8 @@ EMBEDDINGS = ("all", "attrctx", "attr", "id", "mlpid")
 ENCODINGS = ("identity", "learnable", "positional")
 DECODERS = ("ca", "dot", "wdot")
 COMPUTE_DTYPES = ("float32", "bfloat16")
+LOSSES = ("bce", "softmax")
+LR_SCHEDULES = ("none", "cosine", "exponential")
 
 
 @dataclass(frozen=True)
@@ -75,6 +77,37 @@ class ModelConfig:
     @property
     def head_dim(self) -> int:
         return self.d // self.n_heads
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The train step's hyperparameters (``carca_tpu.config.TrainConfig``,
+    reference defaults ``scripts/training.py:40-59``). The fit loop's fields
+    (epochs, early stop, eval, checkpoints, EMA, meshes) wait for their
+    slices (ROADMAP queue A)."""
+
+    lr: float = 1e-3
+    loss: str = "bce"  # "bce" (the reference) | "softmax" (sampled softmax)
+    n_train_negatives: int = 1  # negatives per positive train position
+    lr_schedule: str = "none"  # none | cosine | exponential
+    lr_decay_steps: int = 0  # horizon in steps (0 → constant lr)
+    lr_decay_rate: float = 0.1  # exponential: rate per horizon; cosine: alpha
+    beta1: float = 0.9
+    beta2: float = 0.98
+    l2_reg: float = 0.0  # torch Adam weight_decay semantics (grad += wd * p)
+    batch_size: int = 256
+    seed: int = 0
+    inner_steps: int = 8  # train steps per call of the scanned step
+
+    def __post_init__(self) -> None:
+        if self.loss not in LOSSES:
+            raise ValueError(f"TrainConfig.loss must be one of {LOSSES}, got {self.loss!r}")
+        if self.lr_schedule not in LR_SCHEDULES:
+            raise ValueError(f"unknown lr_schedule {self.lr_schedule!r}; want one of {LR_SCHEDULES}")
+        if self.n_train_negatives < 1:
+            raise ValueError("n_train_negatives must be >= 1")
+        if self.inner_steps < 1:
+            raise ValueError("inner_steps must be >= 1")
 
 
 def preset(name: str, n_items: int = 0, n_attrs: int = 0, n_ctx: int = 0) -> ModelConfig:

@@ -29,11 +29,23 @@
 // wrapper needs no head split or merge copies. No tensor cores yet: the
 // products are tiny (dh = 32) and fp32-exact parity with the plain
 // version comes first.
+//
+// Weight dropout (_fwd_kernel's _dropout_bits): after the re-mask, weight
+// (b, h, i, j) is kept iff the Philox bits of its linear index under the
+// call's seed fall below floor((1 - p) * 2^32), and then divided by 1 - p
+// (philox.cuh). K2 (attention_bwd.cu) regenerates the same bits, so no
+// [B, H, Lq, Lk] mask is stored. The kernel is a template on dropout: with
+// p = 0 it is the dropout-free kernel, instruction for instruction.
+// carca_attention_keep_mask writes the same bits out as a bool mask, for
+// the checks that feed them to the plain version.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -62,12 +74,14 @@ size_t smem_bytes(int lk, int dh) {
 }
 
 // q [B, Lq, H*dh], k/v [B, Lk, H*dh], qm [B, Lq], km [B, Lk] -> out [B, Lq, H*dh]
+template <bool kDropout>
 __global__ void __launch_bounds__(kWarps * 32)
 attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ qm,
                      const float* __restrict__ km, float* __restrict__ out,
                      int H, int Lq, int Lk, int dh, int has_causal, int causal,
-                     float scale, int bf16) {
+                     float scale, int bf16, uint64_t seed, uint32_t threshold,
+                     float keep) {
   extern __shared__ float smem[];
   const int ldk = dh + 1;
   float* ks = smem;                 // [Lk][dh + 1]
@@ -119,10 +133,13 @@ attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       sum += p;
     }
     sum = warp_sum(sum);
+    const uint64_t row_idx = ((uint64_t)(b * H + h) * Lq + i) * Lk;
     for (int j = lane; j < Lk; j += 32) {
       float m = qmi * kms[j];
       if (has_causal && j > i + causal) m = 0.f;
-      wrow[j] = round_cd(wrow[j] / sum * m, bf16);  // post-softmax re-mask
+      float w = wrow[j] / sum * m;  // post-softmax re-mask
+      if (kDropout) w = carca::philox_keep(seed, row_idx + j, threshold) ? w / keep : 0.f;
+      wrow[j] = round_cd(w, bf16);
     }
     __syncwarp();
 
@@ -135,6 +152,30 @@ attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// out[idx] = keep bit of attention weight idx, idx over [B, H, Lq, Lk]
+__global__ void keep_mask_kernel(bool* __restrict__ out, uint64_t n, uint64_t seed,
+                                 uint32_t threshold) {
+  for (uint64_t idx = (uint64_t)blockIdx.x * blockDim.x + threadIdx.x; idx < n;
+       idx += (uint64_t)gridDim.x * blockDim.x)
+    out[idx] = carca::philox_keep(seed, idx, threshold);
+}
+
+template <bool kDropout>
+cudaError_t launch_fwd(const float* q, const float* k, const float* v, const float* qm,
+                       const float* km, float* out, int B, int H, int Lq, int Lk, int dh,
+                       int has_causal, int causal, float scale, int bf16, uint64_t seed,
+                       uint32_t threshold, float keep, cudaStream_t stream) {
+  const size_t smem = smem_bytes(Lk, dh);
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_fwd_kernel<kDropout>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Lq + kTileQ - 1) / kTileQ, H, B);
+  attention_fwd_kernel<kDropout><<<grid, kWarps * 32, smem, stream>>>(
+      q, k, v, qm, km, out, H, Lq, Lk, dh, has_causal, causal, scale, bf16, seed,
+      threshold, keep);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -145,20 +186,28 @@ const char* carca_error_string(int err) {
 
 size_t carca_attention_fwd_smem_bytes(int lk, int dh) { return smem_bytes(lk, dh); }
 
+// dropout = 0: seed, threshold and keep are ignored.
 int carca_attention_fwd(const void* q, const void* k, const void* v, const void* qm,
                         const void* km, void* out, int B, int H, int Lq, int Lk,
                         int dh, int has_causal, int causal, float scale, int bf16,
+                        int dropout, uint64_t seed, uint32_t threshold, float keep,
                         void* stream) {
-  const size_t smem = smem_bytes(Lk, dh);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Lq + kTileQ - 1) / kTileQ, H, B);
-  attention_fwd_kernel<<<grid, kWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(qm),
-      static_cast<const float*>(km), static_cast<float*>(out), H, Lq, Lk, dh,
-      has_causal, causal, scale, bf16);
+  auto launch = dropout ? launch_fwd<true> : launch_fwd<false>;
+  return (int)launch(static_cast<const float*>(q), static_cast<const float*>(k),
+                     static_cast<const float*>(v), static_cast<const float*>(qm),
+                     static_cast<const float*>(km), static_cast<float*>(out), B, H, Lq,
+                     Lk, dh, has_causal, causal, scale, bf16, seed, threshold, keep,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// out: n = B * H * Lq * Lk bools (torch.bool is one byte)
+int carca_attention_keep_mask(void* out, uint64_t n, uint64_t seed, uint32_t threshold,
+                              void* stream) {
+  if (n == 0) return 0;
+  const uint64_t blocks = (n + 255) / 256;
+  keep_mask_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0,
+                     static_cast<cudaStream_t>(stream)>>>(static_cast<bool*>(out), n, seed,
+                                                          threshold);
   return (int)cudaGetLastError();
 }
 

@@ -10,9 +10,10 @@
   exactly 0;
 * dropout on the attention weights (``:258``).
 
-``masked_attention`` is the plain version: the oracle for the CUDA kernel
-in ``ops/flash_attention.py`` and its CPU path. Only the ``bhqk``
-formulation of the JAX package is ported.
+``masked_attention`` is the plain version: the oracle for the CUDA kernels
+in ``ops/flash_attention.py`` (autograd over it is the oracle of the
+backward kernel) and their CPU path. Only the ``bhqk`` formulation of the
+JAX package is ported.
 """
 
 from __future__ import annotations
@@ -60,10 +61,16 @@ def masked_attention(
     train: bool = False,
     generator: Optional[torch.Generator] = None,
     compute_dtype: str = "float32",
+    keep_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The reference attention on post-projection tensors: q [B, Lq, d],
     k/v [B, Lk, d], masks [B, Lq]/[B, Lk] (float 0/1) → [B, Lq, d] float32.
-    ``compute_dtype`` rounds only the product inputs; sums are float32."""
+    ``compute_dtype`` rounds only the product inputs; sums are float32.
+
+    ``keep_mask`` [B, H, Lq, Lk] (bool), when given, replaces the
+    generator's draw: the weights are kept where it is True and divided by
+    1 − ``dropout_rate`` (``train`` and ``generator`` are then unused).
+    This is how the plain version is fed the kernels' own Philox bits."""
     b, lq, d = q.shape
     m = pair_mask(q_mask.to(torch.float32), k_mask.to(torch.float32), causal)
     add = torch.where(m > 0, 0.0, NEG_MASK).to(torch.float32)
@@ -76,7 +83,10 @@ def masked_attention(
     logits = (logits + add[:, None]) / scale
     w = torch.softmax(logits, dim=-1)
     w = w * m[:, None]  # post-softmax re-mask (src/carca.py:256)
-    wd = layers.dropout(w, dropout_rate, train, generator)  # on weights (:258)
+    if keep_mask is not None:  # on weights (:258)
+        wd = torch.where(keep_mask, w / (1.0 - dropout_rate), torch.zeros((), device=w.device))
+    else:
+        wd = layers.dropout(w, dropout_rate, train, generator)
     out = torch.einsum("bhqk,bhke->bhqe", layers.round_to(wd, compute_dtype), vh)
     return out.permute(0, 2, 1, 3).reshape(b, lq, d)
 
@@ -103,6 +113,7 @@ class MHA(nn.Module):
         dropout_rate: float,
         train: bool,
         generator: Optional[torch.Generator] = None,
+        seed_generator: Optional[torch.Generator] = None,
         compute_dtype: str = "float32",
         use_kernel=False,
     ) -> torch.Tensor:
@@ -110,8 +121,10 @@ class MHA(nn.Module):
 
         ``use_kernel`` True or "auto" hands the call to ``fused_attention``,
         which alone picks by device: the plain version on CPU tensors, the
-        kernel on CUDA tensors — or a raise, for weight dropout or autograd.
-        ``False`` runs the plain version on any device."""
+        kernels on CUDA tensors (K1 forward, K2 backward under autograd,
+        weight dropout keyed by a seed from the CPU ``seed_generator``) —
+        or a raise, never the plain version. ``False`` runs the plain
+        version on any device, its dropout drawn from ``generator``."""
         if train and dropout_rate > 0.0 and generator is None:
             raise ValueError("dropout requires a generator when train=True and rate>0")
         q = self.wq(query, compute_dtype)
@@ -123,7 +136,7 @@ class MHA(nn.Module):
             return fused_attention(
                 q, k, v, q_mask, k_mask, causal=causal, scale=scale,
                 dropout_rate=dropout_rate if train else 0.0, generator=generator,
-                n_heads=n_heads, compute_dtype=compute_dtype)
+                seed_generator=seed_generator, n_heads=n_heads, compute_dtype=compute_dtype)
         return masked_attention(
             q, k, v, q_mask, k_mask, n_heads=n_heads, causal=causal,
             scale=scale, dropout_rate=dropout_rate, train=train,

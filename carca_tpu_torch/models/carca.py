@@ -7,7 +7,9 @@ encoding, decode against the encoded profile, and concatenate the scores.
 ``CARCA`` holds the parameters under the JAX package's names (``embed``,
 ``blocks.<i>``, ``norm``, ``decoder``), so ``bridge.params_from_jax``
 yields its ``state_dict``. Train/eval is the module's mode; dropout draws
-from the ``generator`` the caller passes.
+from the ``generator`` the caller passes (on the tensors' device), and the
+attention kernels' weight dropout on the card from seeds drawn by the CPU
+``seed_generator``.
 """
 
 from __future__ import annotations
@@ -44,9 +46,11 @@ class CARCA(nn.Module):
     def forward(self, profile: Group, targets: Sequence[Group], *,
                 attrs_table: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
+                seed_generator: Optional[torch.Generator] = None,
                 return_logits: bool = False) -> torch.Tensor:
         return carca_apply(self, profile, targets, attrs_table=attrs_table,
-                           generator=generator, return_logits=return_logits)
+                           generator=generator, seed_generator=seed_generator,
+                           return_logits=return_logits)
 
 
 def encode_profile(
@@ -55,6 +59,7 @@ def encode_profile(
     *,
     attrs_table: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    seed_generator: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The profile tower: (encoded profile [B, L, d], p_mask [B, L])."""
     cfg = model.cfg
@@ -63,7 +68,7 @@ def encode_profile(
     p_e = model.embed(p_x, p_a, p_c, p_mask, target=False, attrs_table=attrs_table)
     p_e = layers.dropout(p_e, cfg.dropout, model.training, generator)  # src/carca.py:416
     for block in model.blocks:
-        p_e = block(p_e, p_mask, generator)
+        p_e = block(p_e, p_mask, generator, seed_generator)
     return model.norm(p_e), p_mask  # src/carca.py:421
 
 
@@ -75,6 +80,7 @@ def score_targets(
     *,
     attrs_table: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    seed_generator: Optional[torch.Generator] = None,
     return_logits: bool = False,
 ) -> torch.Tensor:
     """Embed + decode each target group; concat scores
@@ -98,7 +104,7 @@ def score_targets(
         o_e = model.embed(o_x, o_a, o_c, o_mask, target=True, attrs_table=attrs_table)
         y = model.decoder(o_e, o_mask, torch.cat([p_e] * g, 0),
                           torch.cat([p_mask] * g, 0), generator=generator,
-                          return_logits=return_logits)
+                          seed_generator=seed_generator, return_logits=return_logits)
         # [G·B, T] → scores concatenated group-major along the last axis
         return y.reshape(g, b, -1).permute(1, 0, 2).reshape(b, -1)
 
@@ -107,6 +113,7 @@ def score_targets(
         o_mask = get_mask(o_x)
         o_e = model.embed(o_x, o_a, o_c, o_mask, target=True, attrs_table=attrs_table)
         ys.append(model.decoder(o_e, o_mask, p_e, p_mask, generator=generator,
+                                seed_generator=seed_generator,
                                 return_logits=return_logits))
     return torch.cat(ys, dim=-1)
 
@@ -118,11 +125,13 @@ def carca_apply(
     *,
     attrs_table: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    seed_generator: Optional[torch.Generator] = None,
     return_logits: bool = False,
 ) -> torch.Tensor:
     """Full forward: profile + target groups → concatenated scores
     (train [B, 2L] for [pos, neg]; eval [B, T+1] for one group)."""
     p_e, p_mask = encode_profile(model, profile, attrs_table=attrs_table,
-                                 generator=generator)
+                                 generator=generator, seed_generator=seed_generator)
     return score_targets(model, p_e, p_mask, targets, attrs_table=attrs_table,
-                         generator=generator, return_logits=return_logits)
+                         generator=generator, seed_generator=seed_generator,
+                         return_logits=return_logits)

@@ -43,6 +43,7 @@ class Decoder(nn.Module):
         p_mask: torch.Tensor,
         *,
         generator: Optional[torch.Generator] = None,
+        seed_generator: Optional[torch.Generator] = None,
         return_logits: bool = False,
     ) -> torch.Tensor:
         """``return_logits=True`` skips the probability mapping."""
@@ -52,8 +53,8 @@ class Decoder(nn.Module):
             s = self.attn(o, p, p, o_mask, p_mask, n_heads=cfg.n_heads,
                           causal=-1 if train else None,  # src/carca.py:339
                           dropout_rate=cfg.dropout, train=train,
-                          generator=generator, compute_dtype=cfg.compute_dtype,
-                          use_kernel=cfg.use_kernel)
+                          generator=generator, seed_generator=seed_generator,
+                          compute_dtype=cfg.compute_dtype, use_kernel=cfg.use_kernel)
             if cfg.residual_ca:
                 s = s + o
             y = self.ffn(s, cfg.compute_dtype)[..., 0].to(torch.float32)

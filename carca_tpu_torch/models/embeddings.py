@@ -12,7 +12,12 @@ Positional encoding only when ``target=False`` (``src/carca.py:91-92``);
 the output is zeroed at pad positions (``src/carca.py:94``). Attribute
 vectors may be gathered on the device from ``attrs_table`` (``a=None``).
 The item table is never lane-packed here; ``bridge.params_from_jax``
-unpacks a packed JAX table.
+unpacks a packed JAX table. Its rows are gathered with ``F.embedding``: the
+same values as ``items[x]``, but a backward that sorts the ids and sums each
+id's rows as one segment. The backward of ``items[x]`` (an accumulating
+index_put) walks repeated ids one by one on the card, and popular items
+repeat thousands of times per batch: it took 12.5 ms of a 15.4 ms flagship
+train step on an H100 (PERF.md §5).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from carca_tpu_torch.config import ModelConfig
@@ -81,16 +87,16 @@ class Embedding(nn.Module):
 
         if kind == "all":  # src/carca.py:85-95
             q = self.feats(torch.cat([attrs(), c], dim=-1), cd)
-            z = self.items[x] * scale
+            z = F.embedding(x, self.items) * scale
             e = self.joint(torch.cat([z, q], dim=-1), cd)
         elif kind == "attrctx":  # src/carca.py:114-122
             e = self.joint(self.feats(torch.cat([attrs(), c], dim=-1), cd), cd)
         elif kind == "attr":  # src/carca.py:141-149
             e = self.joint(self.feats(attrs(), cd), cd)
         elif kind == "id":  # src/carca.py:163-171
-            e = self.items[x] * scale
+            e = F.embedding(x, self.items) * scale
         else:  # mlpid, src/carca.py:189-198 — √d scale (not √g) on the g-dim table
-            e = self.feats(self.items[x] * scale, cd)
+            e = self.feats(F.embedding(x, self.items) * scale, cd)
 
         if not target:
             e = self.enc(e)

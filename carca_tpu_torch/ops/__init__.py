@@ -1,8 +1,10 @@
-"""Hand-written CUDA kernels for the serving path, each beside its plain
-PyTorch version:
+"""Hand-written CUDA kernels for the serving path and the train step, each
+beside its plain PyTorch version:
 
 * :mod:`carca_tpu_torch.ops.flash_attention` — ``fused_attention``, the
-  masked attention forward (kernel K1, ``csrc/attention_fwd.cu``);
+  masked attention forward with weight dropout (kernel K1,
+  ``csrc/attention_fwd.cu``) and, under autograd, its backward
+  (``attention_bwd``, kernel K2, ``csrc/attention_bwd.cu``);
 * :mod:`carca_tpu_torch.ops.retrieval_topk` — ``catalog_topk``, the
   streaming catalog top-k over an f32 index (kernel K3,
   ``csrc/catalog_topk.cu``).
@@ -13,7 +15,7 @@ the first launch (``ops/_build.py``).
 """
 
 from carca_tpu_torch.ops._build import build
-from carca_tpu_torch.ops.flash_attention import fused_attention
+from carca_tpu_torch.ops.flash_attention import attention_bwd, fused_attention
 from carca_tpu_torch.ops.retrieval_topk import (
     QuantizedIndex,
     catalog_topk,
@@ -21,5 +23,5 @@ from carca_tpu_torch.ops.retrieval_topk import (
     quantize_index,
 )
 
-__all__ = ["build", "fused_attention", "catalog_topk", "QuantizedIndex",
+__all__ = ["build", "fused_attention", "attention_bwd", "catalog_topk", "QuantizedIndex",
            "quantize_index", "dequantize_index"]

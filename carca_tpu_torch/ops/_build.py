@@ -1,9 +1,10 @@
 """Build and load the CUDA kernels in ``carca_tpu_torch/csrc/``.
 
-Every ``*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, loaded with ``ctypes``. The build
-goes to ``build/carca_tpu_torch/<hash>/`` under the repository root, keyed
-by a hash of the sources and flags, at the first kernel launch (or an
+Every ``*.cu`` file is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all of them started together, and the objects are linked into
+one shared library with a plain C interface, loaded with ``ctypes``. The
+build goes to ``build/carca_tpu_torch/<hash>/`` under the repository root,
+keyed by a hash of the sources and flags, at the first kernel launch (or an
 explicit ``build()``), so a fresh checkout builds everything it runs.
 
 Calling convention of every C entry point: tensors are passed as
@@ -31,16 +32,24 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "carca_tpu_torch"
 LIB_NAME = "libcarca_tpu_torch.so"
 SMEM_LIMIT = 232_448  # bytes of dynamic shared memory one block may use on sm_90
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-shared",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+_U64 = ctypes.c_uint64
+_U32 = ctypes.c_uint32
 # C signatures of csrc/*.cu: name -> (restype, argtypes)
 SIGNATURES = {
     "carca_error_string": (ctypes.c_char_p, [_I]),
     "carca_attention_fwd_smem_bytes": (ctypes.c_size_t, [_I, _I]),
     "carca_attention_fwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                 _I, _I, ctypes.c_float, _I, _P]),
+                                 _I, _I, _F, _I, _I, _U64, _U32, _F, _P]),
+    "carca_attention_keep_mask": (_I, [_P, _U64, _U64, _U32, _P]),
+    "carca_attention_bwd_smem_bytes": (ctypes.c_size_t, [_I, _I]),
+    "carca_attention_bwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _I, _I, _I, _I, _F, _I, _I, _U64, _U32, _F, _P]),
     "carca_catalog_topk_smem_bytes": (ctypes.c_size_t, [_I, _I, _I]),
     "carca_catalog_topk": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _P]),
@@ -58,7 +67,7 @@ def sources() -> list:
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for p in sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -85,16 +94,25 @@ def build() -> BuildResult:
     if lib.exists():
         return BuildResult(lib, 0.0, log_file.read_text() if log_file.exists() else "")
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [Path(tmp) / f"{cu.stem}.o" for cu in sorted(CSRC.glob("*.cu"))]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(CSRC / f"{obj.stem}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for obj in objs]
+        outs = [(obj.stem, proc.communicate()[0], proc.returncode)  # waits for every one
+                for obj, proc in zip(objs, procs)]
+        log = "".join(f"== {name}.cu\n{out}" for name, out, _ in outs)
+        failed = [name for name, _, rc in outs if rc != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
         tmp_lib = Path(tmp) / LIB_NAME
-        proc = subprocess.run(
-            [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp_lib), *cu],
-            capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
+        link = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp_lib), *map(str, objs)],
+                              capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"linking the kernels failed (exit {link.returncode}):\n{log}")
         log_file.write_text(log)
         os.replace(tmp_lib, lib)  # atomic: a concurrent loader never sees half a file
     return BuildResult(lib, time.perf_counter() - t0, log)

@@ -1,41 +1,125 @@
 """Fused masked multi-head attention (counterpart of
 ``carca_tpu/ops/flash_attention.py::fused_attention``).
 
-The wrapper for kernel K1 (``csrc/attention_fwd.cu``), which replaces the
-TPU's ``_fwd_kernel``: the pair mask, the additive −(2³²−1) mask before the
-√(d/H) division, the fp32 softmax, the post-softmax re-mask and w·V in one
-launch, with no [B, H, Lq, Lk] tensor in device memory. Its plain version
-is ``models.attention.masked_attention``.
+Two kernels, each beside its plain version:
 
-This is the one place that picks kernel or plain, by device alone. On CPU
-tensors ``fused_attention`` runs the plain version (with weight dropout
-drawn from ``generator`` in training). On CUDA tensors it launches K1 or
-raises — it never falls back. What K1 does not take yet raises: weight
-dropout and inputs that need a gradient (the backward kernel and its
-Philox dropout are a later slice), and a key length whose K/V tiles
-overflow shared memory. A caller that wants the plain version on the card
-calls ``masked_attention`` (``use_kernel=False``).
+* K1 (``csrc/attention_fwd.cu``) replaces the TPU's ``_fwd_kernel``: the
+  pair mask, the additive −(2³²−1) mask before the √(d/H) division, the
+  fp32 softmax, the post-softmax re-mask, the weight dropout and w·V in one
+  launch, with no [B, H, Lq, Lk] tensor in device memory. Plain version:
+  ``models.attention.masked_attention``.
+* K2 (``csrc/attention_bwd.cu``) replaces ``_bwd_kernel``: dq, dk, dv from
+  the output's gradient, recomputing the weights and regenerating the same
+  dropout bits. Plain version: ``attention_grads_plain``, autograd over
+  ``masked_attention``.
+
+Weight dropout on the card draws no tensor: both kernels derive the keep
+bit of weight (b, h, i, j) from a stateless Philox4x32-10 keyed by a 64-bit
+seed (``csrc/philox.cuh``), which ``fused_attention`` draws per call from a
+CPU ``torch.Generator`` (``seed_generator``), so no seed costs a device
+sync. ``philox_bits`` is the same generator in numpy; ``attention_keep_mask``
+returns the bits as a mask, so checks can feed them to the plain version.
+
+``fused_attention`` is the one place that picks kernel or plain, by device
+alone. On CPU tensors it runs the plain version (weight dropout drawn from
+``generator``) and autograd differentiates it. On CUDA tensors it launches
+K1 — through ``torch.autograd.Function`` with K2 as its backward when an
+input needs a gradient — or raises; it never falls back. What the kernels
+do not take raises: a non-float32 or non-contiguous input, and a key
+length whose tiles overflow shared memory.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from carca_tpu_torch.models.attention import masked_attention
 from carca_tpu_torch.ops import _build
 
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57  # Philox4x32 multipliers
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85  # Philox4x32 key bumps
+_M32 = 0xFFFFFFFF
+SEED_LIMIT = 2**63 - 1  # seeds are drawn in [0, SEED_LIMIT)
 
-def _check_cuda_inputs(q, k, v, q_mask, k_mask, n_heads):
-    for name, t in (("q", q), ("k", k), ("v", v), ("q_mask", q_mask),
-                    ("k_mask", k_mask)):
+
+def philox4x32_10(counter: Sequence[np.ndarray], key: Tuple[int, int]) -> Tuple[np.ndarray, ...]:
+    """Philox4x32-10 on numpy words (each a uint64 array holding 32-bit
+    values): the same function as ``csrc/philox.cuh::philox4x32_10``."""
+    c0, c1, c2, c3 = (np.asarray(c, np.uint64) for c in counter)
+    k0, k1 = key
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + _W0) & _M32, (k1 + _W1) & _M32
+        p0 = c0 * np.uint64(_M0)
+        p1 = c2 * np.uint64(_M1)
+        c0, c1, c2, c3 = ((p1 >> np.uint64(32)) ^ c1 ^ np.uint64(k0), p1 & np.uint64(_M32),
+                          (p0 >> np.uint64(32)) ^ c3 ^ np.uint64(k1), p0 & np.uint64(_M32))
+    return c0, c1, c2, c3
+
+
+def philox_bits(seed: int, idx: np.ndarray) -> np.ndarray:
+    """32 random bits (uint32) of each element index under ``seed``
+    (``philox.cuh::philox_bits``)."""
+    idx = np.asarray(idx, np.uint64)
+    zero = np.zeros_like(idx)
+    out = philox4x32_10((idx & np.uint64(_M32), idx >> np.uint64(32), zero, zero),
+                        (seed & _M32, (seed >> 32) & _M32))
+    return out[0].astype(np.uint32)
+
+
+def keep_threshold(dropout_rate: float) -> int:
+    """Keep iff bits < ⌊(1−p)·2³²⌋, clamped to 2³²−1
+    (``carca_tpu/ops/flash_attention.py::_dropout_bits``)."""
+    return min(int((1.0 - dropout_rate) * 2.0**32), 2**32 - 1)
+
+
+def attention_keep_mask(seed: int, shape: Tuple[int, int, int, int], dropout_rate: float,
+                        device: torch.device | str = "cpu") -> torch.Tensor:
+    """The kernels' keep mask [B, H, Lq, Lk] (bool) for ``seed``: on a CUDA
+    device a launch of the same Philox code K1 and K2 run, on the CPU the
+    numpy ``philox_bits``."""
+    device = torch.device(device)
+    threshold = keep_threshold(dropout_rate)
+    n = int(np.prod(shape))
+    if device.type == "cpu":
+        bits = philox_bits(seed, np.arange(n, dtype=np.uint64))
+        return torch.from_numpy(bits < np.uint32(threshold)).reshape(shape)
+    if device.type != "cuda":
+        raise ValueError(f"attention_keep_mask runs on cpu or cuda, got {device}")
+    out = torch.empty(shape, dtype=torch.bool, device=device)
+    lib = _build.library()
+    with torch.cuda.device(device):
+        err = lib.carca_attention_keep_mask(
+            out.data_ptr(), n, seed, threshold, torch.cuda.current_stream(device).cuda_stream)
+    _build.check(err, "attention_keep_mask")
+    return out
+
+
+def attention_grads_plain(q, k, v, q_mask, k_mask, grad_out, *, causal, scale,
+                          n_heads=1, compute_dtype="float32", keep_mask=None,
+                          dropout_rate=0.0):
+    """K2's plain version: (dq, dk, dv) by autograd over ``masked_attention``
+    with the given keep mask, on any device."""
+    with torch.enable_grad():
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        out = masked_attention(qq, kk, vv, q_mask, k_mask, n_heads=n_heads, causal=causal,
+                               scale=scale, dropout_rate=dropout_rate, keep_mask=keep_mask,
+                               compute_dtype=compute_dtype)
+        return torch.autograd.grad(out, (qq, kk, vv), grad_out)
+
+
+def _check_cuda_inputs(tensors, n_heads):
+    q, k, v, q_mask, k_mask = tensors[:5]
+    for name, t in zip(("q", "k", "v", "q_mask", "k_mask", "grad_out"), tensors):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype != torch.float32:
-            raise TypeError(f"the attention kernel takes float32 {name}, got {t.dtype}")
+            raise TypeError(f"the attention kernels take float32 {name}, got {t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"the attention kernel takes a contiguous {name}")
+            raise ValueError(f"the attention kernels take a contiguous {name}")
     b, lq, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[2] != d:
         raise ValueError(f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not match q {tuple(q.shape)}")
@@ -43,8 +127,106 @@ def _check_cuda_inputs(q, k, v, q_mask, k_mask, n_heads):
         raise ValueError("masks must be [B, Lq] and [B, Lk]")
     if d % n_heads:
         raise ValueError(f"d={d} is not divisible by n_heads={n_heads}")
-    if b > 65_535 or n_heads > 65_535:
-        raise ValueError(f"batch {b} or heads {n_heads} exceed the kernel's grid")
+    if b > 65_535 or n_heads > 65_535 or b * n_heads >= 2**31:
+        raise ValueError(f"batch {b} or heads {n_heads} exceed the kernels' grid")
+    if k.shape[1] == 0 and b and lq:
+        raise ValueError("the attention kernels need at least one key")
+
+
+def _check_smem(which: str, smem: int, lk: int, dh: int) -> None:
+    if smem > _build.SMEM_LIMIT:
+        raise ValueError(
+            f"Lk={lk}, dh={dh} needs {smem} bytes of shared memory in the attention "
+            f"{which} kernel; a block holds at most {_build.SMEM_LIMIT}")
+
+
+def _dropout_args(dropout_rate: float, seed: int):
+    if dropout_rate <= 0.0:
+        return 0, 0, 0, 1.0
+    if not 0.0 < dropout_rate < 1.0:
+        raise ValueError(f"dropout_rate must lie in [0, 1), got {dropout_rate}")
+    return 1, seed, keep_threshold(dropout_rate), 1.0 - dropout_rate
+
+
+def _launch_fwd(q, k, v, q_mask, k_mask, *, causal, scale, n_heads, compute_dtype,
+                dropout_rate, seed):
+    b, lq, d = q.shape
+    lk = k.shape[1]
+    dh = d // n_heads
+    out = torch.empty_like(q)
+    if b == 0 or lq == 0:
+        return out
+    lib = _build.library()
+    _check_smem("forward", lib.carca_attention_fwd_smem_bytes(lk, dh), lk, dh)
+    with torch.cuda.device(q.device):
+        err = lib.carca_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_mask.data_ptr(),
+            k_mask.data_ptr(), out.data_ptr(), b, n_heads, lq, lk, dh,
+            int(causal is not None), int(causal or 0), float(scale),
+            int(compute_dtype == "bfloat16"), *_dropout_args(dropout_rate, seed),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "attention_fwd")
+    fused_attention.launches += 1
+    return out
+
+
+def attention_bwd(q, k, v, q_mask, k_mask, grad_out, *, causal: Optional[int], scale: float,
+                  n_heads: int = 1, compute_dtype: str = "float32",
+                  dropout_rate: float = 0.0, seed: int = 0):
+    """Gradients (dq, dk, dv) of fused attention's output [B, Lq, d] with
+    respect to q, k, v, given ``grad_out``. The forward must have run with
+    the same ``dropout_rate`` and ``seed``. On CUDA tensors: kernel K2; on
+    CPU tensors: ``attention_grads_plain`` with the Philox keep mask of
+    ``seed``."""
+    b, lq, d = q.shape
+    lk = k.shape[1]
+    if q.device.type == "cpu":
+        keep = (attention_keep_mask(seed, (b, n_heads, lq, lk), dropout_rate)
+                if dropout_rate > 0.0 else None)
+        return attention_grads_plain(q, k, v, q_mask, k_mask, grad_out, causal=causal,
+                                     scale=scale, n_heads=n_heads, keep_mask=keep,
+                                     dropout_rate=dropout_rate, compute_dtype=compute_dtype)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention_bwd runs on cpu or cuda tensors, got {q.device}")
+    _check_cuda_inputs((q, k, v, q_mask, k_mask, grad_out), n_heads)
+    if grad_out.shape != q.shape:
+        raise ValueError(f"grad_out {tuple(grad_out.shape)} does not match q {tuple(q.shape)}")
+    dh = d // n_heads
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if b == 0 or lk == 0:
+        return dq, dk, dv
+    lib = _build.library()
+    _check_smem("backward", lib.carca_attention_bwd_smem_bytes(lk, dh), lk, dh)
+    with torch.cuda.device(q.device):
+        err = lib.carca_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_mask.data_ptr(), k_mask.data_ptr(),
+            grad_out.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n_heads,
+            lq, lk, dh, int(causal is not None), int(causal or 0), float(scale),
+            int(compute_dtype == "bfloat16"), *_dropout_args(dropout_rate, seed),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "attention_bwd")
+    attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+attention_bwd.launches = 0  # K2 launches, for checks that the path ran K2
+
+
+class _KernelAttention(torch.autograd.Function):
+    """K1 forward, K2 backward. Saves q, k, v, the masks and the seed —
+    never the weights, which K2 recomputes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_mask, k_mask, opts):
+        ctx.save_for_backward(q, k, v, q_mask, k_mask)
+        ctx.opts = opts
+        return _launch_fwd(q, k, v, q_mask, k_mask, **opts)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, q_mask, k_mask = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(q, k, v, q_mask, k_mask, grad_out.contiguous(), **ctx.opts)
+        return dq, dk, dv, None, None, None
 
 
 def fused_attention(
@@ -58,12 +240,15 @@ def fused_attention(
     scale: float,
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    seed_generator: Optional[torch.Generator] = None,
     n_heads: int = 1,
     compute_dtype: str = "float32",
 ) -> torch.Tensor:
     """Attention on post-projection tensors: q [B, Lq, d], k/v [B, Lk, d],
     masks [B, Lq]/[B, Lk] (float 0/1) → merged-head context [B, Lq, d]
-    float32. ``generator`` draws the weight dropout of the CPU path."""
+    float32, with weight dropout at ``dropout_rate``. ``generator`` draws
+    the dropout of the CPU path; ``seed_generator`` (a CPU generator) draws
+    the kernels' Philox seed on the card."""
     if compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype!r}")
     if q.device.type == "cpu":
@@ -73,39 +258,18 @@ def fused_attention(
             generator=generator, compute_dtype=compute_dtype)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention runs on cpu or cuda tensors, got {q.device}")
+    _check_cuda_inputs((q, k, v, q_mask, k_mask), n_heads)
+    seed = 0
     if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "weight dropout in the attention kernel lands with its backward "
-            "kernel (ROADMAP queue B, B2); run the plain masked_attention")
+        if seed_generator is None or seed_generator.device.type != "cpu":
+            raise ValueError("weight dropout on the card needs a CPU seed_generator "
+                             "to draw the kernels' Philox seed")
+        seed = int(torch.randint(SEED_LIMIT, (), generator=seed_generator))
+    opts = dict(causal=causal, scale=scale, n_heads=n_heads, compute_dtype=compute_dtype,
+                dropout_rate=dropout_rate, seed=seed)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "the attention kernel has no backward yet (ROADMAP queue B, B2); "
-            "call it under torch.no_grad() or run the plain masked_attention")
-    _check_cuda_inputs(q, k, v, q_mask, k_mask, n_heads)
-    b, lq, d = q.shape
-    lk = k.shape[1]
-    dh = d // n_heads
-    out = torch.empty_like(q)
-    if b == 0 or lq == 0:
-        return out
-    if lk == 0:
-        raise ValueError("the attention kernel needs at least one key")
-    lib = _build.library()
-    smem = lib.carca_attention_fwd_smem_bytes(lk, dh)
-    if smem > _build.SMEM_LIMIT:
-        raise ValueError(
-            f"Lk={lk}, dh={dh} needs {smem} bytes of shared memory for K/V; "
-            f"the kernel holds at most {_build.SMEM_LIMIT}")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.carca_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_mask.data_ptr(),
-            k_mask.data_ptr(), out.data_ptr(), b, n_heads, lq, lk, dh,
-            int(causal is not None), int(causal or 0), float(scale),
-            int(compute_dtype == "bfloat16"), stream)
-    _build.check(err, "attention_fwd")
-    fused_attention.launches += 1
-    return out
+        return _KernelAttention.apply(q, k, v, q_mask, k_mask, opts)
+    return _launch_fwd(q, k, v, q_mask, k_mask, **opts)
 
 
-fused_attention.launches = 0  # kernel launches, for checks that the path ran K1
+fused_attention.launches = 0  # K1 launches, for checks that the path ran K1

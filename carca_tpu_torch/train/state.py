@@ -1,0 +1,77 @@
+"""Train state (counterpart of ``carca_tpu/train/state.py``): the model,
+its optimizer, the run's generators and the step count, in one object.
+
+``make_optimizer`` is ``torch.optim.Adam`` with the reference's settings
+(``scripts/training.py:174``): betas (beta1, beta2), eps 1e-8 and classic
+L2 (``weight_decay`` adds l2·p to the gradient before the moments), which
+is what the JAX package builds as ``add_decayed_weights`` ahead of
+``scale_by_adam``. The sinusoidal ``pe`` table is a buffer here, not a
+parameter, so it needs no decay mask.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import torch
+
+from carca_tpu_torch.config import ModelConfig, TrainConfig
+from carca_tpu_torch.models.carca import CARCA
+
+
+@dataclass
+class TrainState:
+    """``generator`` lives on the model's device and draws the plain
+    dropouts and the negatives; ``seed_generator`` lives on the CPU and
+    draws each attention kernel's Philox seed, so no draw waits for the
+    device. ``step`` counts optimizer updates on the host."""
+
+    model: CARCA
+    optimizer: torch.optim.Optimizer
+    generator: torch.Generator
+    seed_generator: torch.Generator
+    schedule: Optional[Callable[[int], float]] = None
+    step: int = 0
+
+
+def make_schedule(tc: TrainConfig) -> Optional[Callable[[int], float]]:
+    """The learning rate as a function of the update count (None for a
+    constant lr): ``optax.cosine_decay_schedule(lr, steps, alpha=rate)`` or
+    ``optax.exponential_decay(lr, steps, rate)`` (``carca_tpu/train/
+    state.py:46-58``)."""
+    if tc.lr_schedule == "none" or tc.lr_decay_steps <= 0:
+        return None
+    lr, steps, rate = tc.lr, tc.lr_decay_steps, tc.lr_decay_rate
+    if tc.lr_schedule == "cosine":
+        def cosine(count: int) -> float:
+            frac = min(count, steps) / steps
+            return lr * ((1.0 - rate) * 0.5 * (1.0 + math.cos(math.pi * frac)) + rate)
+        return cosine
+    if tc.lr_schedule == "exponential":
+        return lambda count: lr * rate ** (count / steps)
+    raise ValueError(f"unknown lr_schedule {tc.lr_schedule!r}")
+
+
+def make_optimizer(tc: TrainConfig, params) -> torch.optim.Adam:
+    return torch.optim.Adam(params, lr=tc.lr, betas=(tc.beta1, tc.beta2), eps=1e-8,
+                            weight_decay=tc.l2_reg)
+
+
+def create_train_state(mc: ModelConfig, tc: TrainConfig,
+                       device: torch.device | str = "cpu",
+                       model: Optional[CARCA] = None) -> TrainState:
+    """Fresh weights from ``tc.seed`` (drawn on the CPU, then moved), unless
+    ``model`` is given; fresh Adam moments; generators seeded from
+    ``tc.seed``."""
+    device = torch.device(device)
+    if model is None:
+        model = CARCA(mc, generator=torch.Generator().manual_seed(tc.seed), device=device)
+    return TrainState(
+        model=model,
+        optimizer=make_optimizer(tc, model.parameters()),
+        generator=torch.Generator(device=device).manual_seed(tc.seed + 1),
+        seed_generator=torch.Generator().manual_seed(tc.seed + 2),
+        schedule=make_schedule(tc),
+    )

@@ -1,0 +1,202 @@
+"""The attention backward (K2's plain version and the autograd plumbing
+around the kernels) and the weight dropout's bits, on the CPU.
+
+Gradients: the port's ``attention_bwd`` and autograd through its
+``fused_attention`` (plain versions, on CPU tensors) against ``jax.vjp`` of
+the JAX package's ``fused_attention``, which runs B1/B2 in interpret mode.
+Inputs are numpy arrays from a seed; dropout is off, since the two
+frameworks' bits cannot agree. Tolerance 1e-5 (f32 summation order);
+gradients of fully masked rows must be exactly 0 in both.
+
+Dropout: the numpy Philox against the Random123 known-answer vectors and
+against values of ``csrc/philox.cuh`` compiled for the host; the keep mask's
+layout, share and determinism; ``masked_attention``'s ``keep_mask`` against
+a numpy formula; and the plain draw's keep rate and 1/(1−p) scale.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from carca_tpu.ops.flash_attention import fused_attention as jax_fused_attention
+from carca_tpu_torch.models.attention import masked_attention
+from carca_tpu_torch.ops import flash_attention as fa
+from carca_tpu_torch.ops.flash_attention import (attention_bwd, attention_grads_plain,
+                                                 attention_keep_mask, fused_attention,
+                                                 keep_threshold, philox4x32_10, philox_bits)
+
+torch.set_num_threads(1)
+
+TOL = 1e-5
+H = 2
+D = 16
+
+
+def make(seed, b, lq, lk, d=D):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((b, n, d)).astype(np.float32) for n in (lq, lk, lk))
+    g = rng.standard_normal((b, lq, d)).astype(np.float32)
+    qm = (rng.random((b, lq)) > 0.2).astype(np.float32)
+    km = (rng.random((b, lk)) > 0.2).astype(np.float32)
+    qm[0, 0] = 0.0  # a padded query row
+    km[1, :] = 0.0  # a batch row with every key masked
+    km[0, 0] = 1.0
+    return q, k, v, qm, km, g
+
+
+def jax_grads(q, k, v, qm, km, g, **kw):
+    _, vjp = jax.vjp(lambda a, b, c: jax_fused_attention(a, b, c, qm, km, **kw), q, k, v)
+    return [np.asarray(x) for x in vjp(g)]
+
+
+@pytest.mark.parametrize("causal", [None, 0, -1])
+@pytest.mark.parametrize("lq,lk", [(8, 8), (12, 5)])
+def test_attention_bwd_matches_jax(causal, lq, lk):
+    q, k, v, qm, km, g = make(0, 3, lq, lk)
+    kw = dict(causal=causal, scale=(D / H) ** 0.5, n_heads=H)
+    t = torch.from_numpy
+    got = [x.numpy() for x in attention_bwd(t(q), t(k), t(v), t(qm), t(km), t(g), **kw)]
+    want = jax_grads(q, k, v, qm, km, g, **kw)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a, w, rtol=TOL, atol=TOL, err_msg=name)
+    dq, dk, dv = got
+    # the all-keys-masked batch row and the padded query row: exact zeros
+    assert (dq[1] == 0).all() and (dk[1] == 0).all() and (dv[1] == 0).all()
+    assert (dq[0, 0] == 0).all() and (want[0][0, 0] == 0).all()
+
+
+def test_fused_attention_autograd_on_cpu_matches_jax():
+    q, k, v, qm, km, g = make(1, 2, 8, 8)
+    kw = dict(causal=0, scale=(D / H) ** 0.5, n_heads=H)
+    qq, kk, vv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = fused_attention(qq, kk, vv, torch.from_numpy(qm), torch.from_numpy(km), **kw)
+    out.backward(torch.from_numpy(g))
+    for a, w in zip((qq.grad, kk.grad, vv.grad), jax_grads(q, k, v, qm, km, g, **kw)):
+        np.testing.assert_allclose(a.numpy(), w, rtol=TOL, atol=TOL)
+
+
+def test_kernel_autograd_function_plumbing(monkeypatch):
+    """The autograd.Function the card uses (K1 forward, K2 backward), with
+    the K1 launch replaced by its plain version fed the same Philox bits
+    and K2 by its CPU path: gradients equal autograd of the plain version,
+    and the seed reaches both directions."""
+    q, k, v, qm, km, g = make(2, 3, 8, 6)
+    opts = dict(causal=-1, scale=(D / H) ** 0.5, n_heads=H, compute_dtype="float32",
+                dropout_rate=0.5, seed=987654321)
+    mask = attention_keep_mask(opts["seed"], (3, H, 8, 6), 0.5)
+
+    def plain_launch(q, k, v, q_mask, k_mask, *, seed, dropout_rate, **kw):
+        keep = attention_keep_mask(seed, (q.shape[0], kw["n_heads"], q.shape[1], k.shape[1]),
+                                   dropout_rate)
+        return masked_attention(q, k, v, q_mask, k_mask, dropout_rate=dropout_rate,
+                                keep_mask=keep, **kw)
+
+    monkeypatch.setattr(fa, "_launch_fwd", plain_launch)
+    t = torch.from_numpy
+    qq, kk, vv = (t(x).requires_grad_() for x in (q, k, v))
+    out = fa._KernelAttention.apply(qq, kk, vv, t(qm), t(km), opts)
+    out.backward(t(g))
+    want = attention_grads_plain(t(q), t(k), t(v), t(qm), t(km), t(g), keep_mask=mask,
+                                 **{n: opts[n] for n in ("causal", "scale", "n_heads",
+                                                         "dropout_rate")})
+    for a, w in zip((qq.grad, kk.grad, vv.grad), want):
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
+    assert 0 < mask.float().mean() < 1
+
+
+def test_keep_mask_all_true_equals_no_dropout():
+    q, k, v, qm, km, _ = (torch.from_numpy(x) for x in make(3, 2, 8, 8))
+    kw = dict(n_heads=H, causal=0, scale=(D / H) ** 0.5)
+    full = masked_attention(q, k, v, qm, km, **kw)
+    keep = torch.ones(2, H, 8, 8, dtype=torch.bool)
+    assert torch.equal(masked_attention(q, k, v, qm, km, keep_mask=keep, **kw), full)
+
+
+def test_keep_mask_matches_numpy_formula():
+    """out = (keep ? w·m/(1−p) : 0) · V per head, w the reference softmax."""
+    q, k, v, qm, km, _ = make(4, 2, 6, 7)
+    p, scale, causal = 0.3, (D / H) ** 0.5, 0
+    rng = np.random.default_rng(5)
+    keep = rng.random((2, H, 6, 7)) < 1 - p
+    dh = D // H
+    qh, kh, vh = (x.reshape(x.shape[0], x.shape[1], H, dh).transpose(0, 2, 1, 3)
+                  for x in (q, k, v))
+    m = qm[:, :, None] * km[:, None, :] * np.tril(np.ones((6, 7)), causal)[None]
+    z = (np.einsum("bhqe,bhke->bhqk", qh, kh) + np.where(m > 0, 0.0, -(2.0**32) + 1)[:, None])
+    z = z / scale
+    w = np.exp(z - z.max(-1, keepdims=True))
+    w = w / w.sum(-1, keepdims=True) * m[:, None]
+    wd = np.where(keep, w / (1 - p), 0.0)
+    want = np.einsum("bhqk,bhke->bhqe", wd, vh).transpose(0, 2, 1, 3).reshape(2, 6, D)
+    t = torch.from_numpy
+    got = masked_attention(t(q), t(k), t(v), t(qm), t(km), n_heads=H, causal=causal,
+                           scale=scale, dropout_rate=p, keep_mask=t(keep)).numpy()
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+
+
+def test_plain_weight_dropout_keep_rate_and_scale():
+    """One-hot values expose the dropped weights: each is 0 or w/(1−p), and
+    the kept share is 1−p."""
+    b, lq, lk, p = 64, 8, 8, 0.4
+    rng = np.random.default_rng(6)
+    q, k = (torch.from_numpy(rng.standard_normal((b, n, D)).astype(np.float32))
+            for n in (lq, lk))
+    v = torch.zeros(b, lk, D)
+    for h in range(H):
+        v[:, :, h * (D // H): h * (D // H) + lk] = torch.eye(lk)
+    ones_q, ones_k = torch.ones(b, lq), torch.ones(b, lk)
+    kw = dict(n_heads=H, causal=None, scale=1.0)
+    w = masked_attention(q, k, v, ones_q, ones_k, **kw)
+    wd = masked_attention(q, k, v, ones_q, ones_k, dropout_rate=p, train=True,
+                          generator=torch.Generator().manual_seed(0), **kw)
+    kept = wd != 0
+    assert abs(kept.float().mean().item() - (1 - p)) < 0.02
+    torch.testing.assert_close(wd[kept], w[kept] / (1 - p))
+
+
+KAT = [  # Random123 kat_vectors, philox4x32 with 10 rounds: (counter, key, output)
+    ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2, (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+]
+
+
+@pytest.mark.parametrize("counter,key,want", KAT)
+def test_philox_known_answers(counter, key, want):
+    got = philox4x32_10([np.array([c], np.uint64) for c in counter], key)
+    assert tuple(int(x[0]) for x in got) == want
+
+
+def test_philox_bits_match_the_cuda_header():
+    """``philox_bits`` against ``csrc/philox.cuh::philox_bits`` compiled for
+    the host (seed and counter both wider than 32 bits)."""
+    seeds = [0, 12345678901234567, 0xFEDCBA9876543210]
+    idx = np.array([0, 4294967311, 8589934622], np.uint64)
+    got = [int(x) for s in seeds for x in philox_bits(s, idx)]
+    assert got == [1713891541, 1544441189, 2670835308, 2600972695, 764465634,
+                   3020522137, 3125510988, 2505872895, 2128679241]
+
+
+def test_keep_mask_layout_share_and_seeds():
+    shape = (4, 2, 50, 50)
+    m = attention_keep_mask(77, shape, 0.5)
+    assert m.shape == shape and m.dtype == torch.bool
+    assert torch.equal(m, attention_keep_mask(77, shape, 0.5))
+    assert not torch.equal(m, attention_keep_mask(78, shape, 0.5))
+    b, h, i, j = 3, 1, 17, 42  # element ((b·H + h)·Lq + i)·Lk + j
+    idx = ((b * 2 + h) * 50 + i) * 50 + j
+    assert bool(m[b, h, i, j]) == bool(philox_bits(77, np.array([idx]))[0] < 2**31)
+    big = attention_keep_mask(5, (1, 1, 1000, 1000), 0.5)
+    assert abs(big.float().mean().item() - 0.5) < 0.002
+    assert keep_threshold(0.5) == 2**31 and keep_threshold(0.0) == 2**32 - 1
+
+
+def test_bwd_wrappers_reject_devices_without_a_path():
+    x = torch.zeros(1, 2, 4, device="meta")
+    m = torch.ones(1, 2, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        attention_bwd(x, x, x, m, m, x, causal=0, scale=1.0, n_heads=2)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        attention_keep_mask(0, (1, 1, 2, 2), 0.5, "meta")

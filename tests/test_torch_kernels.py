@@ -4,8 +4,11 @@ These tests need an NVIDIA GPU with nvcc (they build ``csrc/`` first) and
 skip elsewhere. Run them on the card with
 ``python -m pytest --noconftest tests/test_torch_kernels.py -q`` (the
 shared ``tests/conftest.py`` imports jax, which that machine may lack).
-Tolerances: K1 1e-5 abs/rel at f32 (summation order), 2e-2 at bf16; K3
-ids equal and values within 1e-5 (both sum in the same order).
+Tolerances: K1 1e-5 abs/rel at f32 (summation order), 2e-2 at bf16; K2
+1e-5 relative norm per gradient at f32, 2e-2 at bf16 (the plain version's
+autograd does not round dO and dS to bf16, K2 does, as the TPU kernel did);
+K3 ids equal and values within 1e-5 (both sum in the same order). With
+weight dropout the plain version is fed the kernels' own Philox keep mask.
 """
 
 import numpy as np
@@ -13,7 +16,9 @@ import pytest
 import torch
 
 from carca_tpu_torch.models.attention import MHA, masked_attention
-from carca_tpu_torch.ops.flash_attention import fused_attention
+from carca_tpu_torch.ops.flash_attention import (SEED_LIMIT, attention_bwd,
+                                                 attention_grads_plain, attention_keep_mask,
+                                                 fused_attention)
 from carca_tpu_torch.ops.retrieval_topk import catalog_topk, catalog_topk_plain
 
 pytestmark = pytest.mark.cuda
@@ -51,36 +56,127 @@ def test_attention_kernel_matches_plain(dev, causal, lq, lk, b, cd, tol):
     assert torch.count_nonzero(got[0]) == 0
 
 
+def seed_of(i):
+    """The Philox seed fused_attention draws from Generator().manual_seed(i)."""
+    return int(torch.randint(SEED_LIMIT, (), generator=torch.Generator().manual_seed(i)))
+
+
+@pytest.mark.parametrize("causal,lq,lk,b", [(0, 50, 50, 8), (None, 40, 50, 8),
+                                            (-1, 50, 50, 8), (0, 33, 70, 3)])
+@pytest.mark.parametrize("cd,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_attention_kernel_dropout_matches_plain_fed_its_bits(dev, causal, lq, lk, b, cd, tol):
+    q, k, v, qm, km = attn_inputs(dev, b, lq, lk, 64)
+    kw = dict(causal=causal, scale=32 ** 0.5, n_heads=2, compute_dtype=cd, dropout_rate=0.5)
+    got = fused_attention(q, k, v, qm, km, seed_generator=torch.Generator().manual_seed(3), **kw)
+    keep = attention_keep_mask(seed_of(3), (b, 2, lq, lk), 0.5, dev)
+    want = masked_attention(q, k, v, qm, km, keep_mask=keep, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    assert torch.count_nonzero(got[0]) == 0
+
+
+def test_keep_mask_on_the_card_equals_the_numpy_generator(dev):
+    shape = (3, 2, 50, 70)
+    for seed in (0, 2**40 + 17, SEED_LIMIT - 1):
+        assert torch.equal(attention_keep_mask(seed, shape, 0.3, dev).cpu(),
+                           attention_keep_mask(seed, shape, 0.3))
+
+
+def rel(a, b):
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("causal,lq,lk,b", [(0, 50, 50, 8), (-1, 50, 50, 16),
+                                            (0, 200, 200, 4), (None, 33, 70, 3),
+                                            (0, 1, 1, 1)])
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("cd,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_attention_bwd_kernel_matches_plain_autograd(dev, causal, lq, lk, b, rate, cd, tol):
+    q, k, v, qm, km = attn_inputs(dev, b, lq, lk, 64)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(9)).to(dev)
+    kw = dict(causal=causal, scale=32 ** 0.5, n_heads=2, compute_dtype=cd, dropout_rate=rate)
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    before = attention_bwd.launches
+    out = fused_attention(qq, kk, vv, qm, km, seed_generator=torch.Generator().manual_seed(4),
+                          **kw)
+    out.backward(g)
+    keep = attention_keep_mask(seed_of(4), (b, 2, lq, lk), rate, dev) if rate else None
+    want = attention_grads_plain(q, k, v, qm, km, g, keep_mask=keep, **kw)
+    torch.cuda.synchronize()
+    assert attention_bwd.launches == before + 1
+    for got, w in zip((qq.grad, kk.grad, vv.grad), want):
+        assert rel(got, w) <= tol
+    assert torch.count_nonzero(qq.grad[0]) == 0  # every key of batch row 0 is masked
+    assert torch.count_nonzero(qq.grad[qm == 0]) == 0
+    assert torch.count_nonzero(kk.grad[0]) == 0 and torch.count_nonzero(vv.grad[0]) == 0
+
+
+def test_attention_bwd_kernel_is_deterministic(dev):
+    q, k, v, qm, km = attn_inputs(dev, 32, 50, 50, 64)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)).to(dev)
+    kw = dict(causal=-1, scale=32 ** 0.5, n_heads=2, dropout_rate=0.5, seed=123)
+    a = attention_bwd(q, k, v, qm, km, g, **kw)
+    b = attention_bwd(q, k, v, qm, km, g, **kw)
+    c = attention_bwd(q, k, v, qm, km, g, **dict(kw, seed=124))
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert not torch.equal(a[2], c[2])
+
+
 def test_attention_kernel_raises_on_what_it_lacks(dev):
+    """Dropout and autograd now run the kernels; what they cannot take
+    still raises: a non-contiguous or non-float32 input, dropout without a
+    CPU seed generator, and tiles that overflow shared memory (the
+    backward's budget is the tighter)."""
     q, k, v, qm, km = attn_inputs(dev, 2, 8, 8, 16)
-    with pytest.raises(NotImplementedError):
-        fused_attention(q, k, v, qm, km, causal=0, scale=1.0, n_heads=2, dropout_rate=0.1)
-    with pytest.raises(NotImplementedError):
-        fused_attention(q.requires_grad_(), k, v, qm, km, causal=0, scale=1.0, n_heads=2)
+    kw = dict(causal=0, scale=1.0, n_heads=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_attention(q.transpose(0, 1), k, v, qm, km, **kw)
+    with pytest.raises(TypeError, match="float32"):
+        fused_attention(q.double(), k, v, qm, km, **kw)
+    with pytest.raises(ValueError, match="seed_generator"):
+        fused_attention(q, k, v, qm, km, dropout_rate=0.1, **kw)
+    with pytest.raises(ValueError, match="seed_generator"):
+        fused_attention(q, k, v, qm, km, dropout_rate=0.1,
+                        seed_generator=torch.Generator(device=dev), **kw)
     big = torch.zeros(1, 4000, 64, device=dev)
     with pytest.raises(ValueError, match="shared memory"):
         fused_attention(big[:, :8], big, big, torch.ones(1, 8, device=dev),
                         torch.ones(1, 4000, device=dev), causal=None, scale=1.0, n_heads=1)
+    mid = torch.zeros(1, 300, 64, device=dev)  # the forward fits, the backward does not
+    qg = mid[:, :8].clone().requires_grad_()
+    out = fused_attention(qg, mid, mid, torch.ones(1, 8, device=dev),
+                          torch.ones(1, 300, device=dev), causal=None, scale=1.0, n_heads=1)
+    with pytest.raises(ValueError, match="shared memory"):
+        out.sum().backward()
 
 
 def test_mha_auto_on_cuda_raises_instead_of_falling_back(dev):
-    """use_kernel="auto" on CUDA tensors never runs the plain version: weight
-    dropout and autograd raise; use_kernel=False is the way to the plain
-    version on the card."""
+    """use_kernel="auto" on CUDA tensors never runs the plain version: in
+    training it launches K1 forward and K2 backward, with the plain path's
+    gradients at dropout 0; weight dropout without a seed generator raises;
+    use_kernel=False is the way to the plain version on the card."""
     mha = MHA(16, torch.Generator().manual_seed(0)).to(dev)
     x = torch.randn(2, 6, 16, generator=torch.Generator().manual_seed(1)).to(dev)
     m = torch.ones(2, 6, device=dev)
-    kw = dict(n_heads=2, causal=0, dropout_rate=0.5)
+    kw = dict(n_heads=2, causal=0)
     g = torch.Generator(device=dev).manual_seed(2)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        mha(x, x, x, m, m, train=True, generator=g, use_kernel="auto", **kw)
-    with pytest.raises(NotImplementedError, match="backward"):
-        mha(x, x, x, m, m, train=False, use_kernel="auto", **kw)  # params need grads
-    before = fused_attention.launches
-    assert mha(x, x, x, m, m, train=True, generator=g, use_kernel=False, **kw).shape == x.shape
-    with torch.no_grad():
-        mha(x, x, x, m, m, train=False, use_kernel="auto", **kw)
-    assert fused_attention.launches == before + 1
+    with pytest.raises(ValueError, match="seed_generator"):
+        mha(x, x, x, m, m, train=True, generator=g, dropout_rate=0.5, use_kernel="auto", **kw)
+    before = (fused_attention.launches, attention_bwd.launches)
+    mha(x, x, x, m, m, train=True, dropout_rate=0.0, use_kernel="auto", **kw).sum().backward()
+    assert (fused_attention.launches, attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    kernel_grads = [p.grad.clone() for p in mha.parameters()]
+    mha.zero_grad()
+    mha(x, x, x, m, m, train=True, dropout_rate=0.0, use_kernel=False, **kw).sum().backward()
+    for a, b in zip(kernel_grads, (p.grad for p in mha.parameters())):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    out = mha(x, x, x, m, m, train=True, generator=g, dropout_rate=0.5, use_kernel="auto",
+              seed_generator=torch.Generator().manual_seed(5), **kw)
+    out.sum().backward()
+    assert fused_attention.launches == before[0] + 2 and attention_bwd.launches == before[1] + 2
+    assert mha(x, x, x, m, m, train=True, generator=g, dropout_rate=0.5, use_kernel=False,
+               **kw).shape == x.shape
 
 
 @pytest.mark.parametrize("b,r,k,offset,n_items", [

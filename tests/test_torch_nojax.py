@@ -14,6 +14,7 @@ FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "flax", "carca_tpu")
 
 
 def test_serving_and_ops_import_without_jax():
+    """The serving, training and ops modules import without jax."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     probe = subprocess.run([sys.executable, "-c", "import sys; print('jax' in sys.modules)"],
                            capture_output=True, text=True, env=env, cwd=ROOT, timeout=120)
@@ -23,6 +24,10 @@ def test_serving_and_ops_import_without_jax():
         "import sys\n"
         "import carca_tpu_torch.serve.service, carca_tpu_torch.serve.recommender\n"
         "import carca_tpu_torch.ops, carca_tpu_torch.bridge\n"
+        "import carca_tpu_torch.train.loop, carca_tpu_torch.train.state\n"
+        "import carca_tpu_torch.data.device_pipeline, carca_tpu_torch.data.dataset\n"
+        "import carca_tpu_torch.parallel.sampling, carca_tpu_torch.models.losses\n"
+        "import carca_tpu_torch.bench\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
     )
