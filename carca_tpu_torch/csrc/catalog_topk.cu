@@ -1,36 +1,45 @@
-// K3: streaming catalog top-k over an f32 index, for Hopper (sm_90a).
+// K3: streaming catalog top-k over an f32, bf16 or int8 index, for Hopper
+// (sm_90a).
 //
 // Replaces the TPU kernel carca_tpu/ops/retrieval_topk.py::_kernel (the
-// f32 branch: _extract_topk_inplace plus the running-list merge), reached
-// from catalog_topk(method="stream"). Plain version:
+// f32 branch with _extract_topk_inplace, and the packed bf16/int8 branch
+// with _extract_topk_packed and _float_key, plus the running-list merge),
+// reached from catalog_topk(method="stream"). Plain version:
 // carca_tpu_torch/ops/retrieval_topk.py::catalog_topk_plain.
 //
-// Contract: vals/ids [B, k] = the top-k of s[b, r] = q[b] . e[r] over the
-// index rows r in [0, R), ordered by value descending and, on equal
-// values, by lowest row id first (lax.top_k's order). Rows r >= lim0, and
-// row 0 when mask_row0, score -inf. Returned ids are r + id_offset, and a
-// -inf slot (k beyond the valid rows) returns id 0.
+// Contract: vals/ids [B, k] = the top-k of s[b, r] = score(q[b], e[r])
+// over the index rows r in [0, R), ordered by value descending and, on
+// equal values, by lowest row id first (lax.top_k's order). Rows r >=
+// lim0, and row 0 when mask_row0, score -inf. Returned ids are r +
+// id_offset, and a -inf slot (k beyond the valid rows) returns id 0.
+// score() is scoring.cuh's: the bf16 query operand against a bf16 or int8
+// index, products summed over d in index order with each sum rounded,
+// the int8 row scale applied after the sum.
 //
-// Exact order, not just exact values: each score is the fp32 sum
-// ((q0*e0 + q1*e1) + q2*e2) + ... with every product and sum rounded on
-// its own (__fmul_rn / __fadd_rn, no FMA contraction). The plain version
-// adds the products in the same order with separate rounding, so both
-// compute bit-identical scores and the ids agree exactly even on
-// near-ties. Each candidate is ordered by one 64-bit key: the
-// order-preserving integer of the score (the _float_key trick of the JAX
-// package, sign bit flipped to make it unsigned) in the high word and the
-// complemented row id in the low word. Keys are unique per row, ties go
-// to the lowest id, and no id bit ever enters a float (the flush-to-zero
-// trap of packing ids into mantissas, which a zero query would hit).
+// Exact order, not just exact values: the plain version adds the products
+// in the same order with the same rounding, so both compute bit-identical
+// scores and the ids agree exactly even on near-ties. Each candidate is
+// ordered by one 64-bit key: the order-preserving integer of the score
+// (the _float_key trick of the JAX package, sign bit flipped to make it
+// unsigned) in the high word and the complemented row id in the low word.
+// Keys are unique per row, ties go to the lowest id, and no id bit ever
+// enters a float (the flush-to-zero trap of packing ids into mantissas,
+// which a zero query would hit). For bf16 and int8 indexes the TPU kernel
+// packs a 12-bit lane id into the low bits of a 32-bit key, so its values
+// come back truncated (by at most 2^-11 relative) and its near-tie order is
+// unspecified; this kernel keeps the full key for every index type, so its
+// values are the true float32 scores and its ids are exact. The packing
+// exists because Mosaic has no sort and each suppress round costs a VMEM
+// pass; this kernel sorts.
 //
 // Design. The TPU kernel extracts k winners per chunk by k rounds of
 // max-and-suppress; at the serving k = 562 that is 562 passes over every
 // tile, so it is not carried over. Instead:
-//   1. chunk_topk_kernel: one block per (catalog chunk of C rows, QB
+//   1. chunk_topk_kernel<T>: one block per (catalog chunk of C rows, QB
 //      queries). The block stages its queries and, tile by tile, the
-//      chunk's rows in shared memory (rows padded to d+1 floats against
-//      bank conflicts), scores every (query, row) pair, and keeps the
-//      [QB, C] keys in shared memory (64 KB). A bitonic sort of each
+//      chunk's rows in shared memory as float (rows padded to d+1 floats
+//      against bank conflicts), scores every (query, row) pair, and keeps
+//      the [QB, C] keys in shared memory (64 KB). A bitonic sort of each
 //      query's C keys (descending) yields the chunk's top k, written to a
 //      scratch [B, n_chunks, k]. C is the power of two >= max(k, 1024)
 //      and QB = min(8192 / C, B), so the keys fill at most 64 KB.
@@ -40,17 +49,20 @@
 //      greater-or-equal for the right, so ranks are a permutation) and
 //      writes itself if the rank is below k.
 //   3. decode_kernel: keys -> (value, id + id_offset), -inf -> id 0.
-// What bounds it on the H100: scoring is B*R*d FMAs over shared memory
-// (2 loads per FMA) and the bitonic sort is O(C log^2 C) compare-swaps per
-// (query, chunk); the catalog itself (R*d*4 bytes, 25.6 MB at 100k rows
-// and d = 64) is read once per query block and stays in the 50 MB L2.
-// Tensor cores, a radix select in place of the full sort, and fewer
-// catalog re-reads are later work.
+// What bounds it on the H100: scoring is B*R*d multiply-adds over shared
+// memory and the bitonic sort is O(C log^2 C) compare-swaps per (query,
+// chunk), so it is bound by operations, not by the index's bytes (R*d*4
+// bytes at f32, 25.6 MB at 100k rows and d = 64, read once per query
+// block). The merge scratch is B * ceil(R/C) * k * 8 bytes, plus half
+// that: ~17 GB at B = 256, 10M rows and k = 562. Tensor cores, a radix
+// select in place of the full sort and a bounded merge are later work.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "scoring.cuh"
 
 namespace {
 
@@ -73,10 +85,11 @@ size_t phase1_smem(int C, int QB, int d) {
 }
 
 // cand[b, chunk, :k] = the chunk's top-k keys for query b, descending.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-chunk_topk_kernel(const float* __restrict__ q, const float* __restrict__ e,
-                  u64* __restrict__ cand, int B, int R, int d, int k, int C, int QB,
-                  int lim0, int mask_row0, int tile) {
+chunk_topk_kernel(const float* __restrict__ q, const T* __restrict__ e,
+                  const float* __restrict__ scales, u64* __restrict__ cand, int B, int R,
+                  int d, int k, int C, int QB, int lim0, int mask_row0, int tile) {
   extern __shared__ u64 keys[];                            // [QB][C]
   float* qs = reinterpret_cast<float*>(keys + QB * C);     // [QB][d]
   float* es = qs + QB * d;                                 // [tile][d + 1]
@@ -88,7 +101,8 @@ chunk_topk_kernel(const float* __restrict__ q, const float* __restrict__ e,
 
   for (int idx = threadIdx.x; idx < QB * d; idx += blockDim.x) {
     const int qi = idx / d;
-    qs[idx] = (b0 + qi < B) ? q[(size_t)(b0 + qi) * d + idx % d] : 0.f;
+    qs[idx] = (b0 + qi < B) ? carca::query_operand<T>(q[(size_t)(b0 + qi) * d + idx % d])
+                            : 0.f;
   }
   for (int t0 = 0; t0 < C; t0 += tile) {
     const int rows = min(tile, C - t0);
@@ -96,7 +110,7 @@ chunk_topk_kernel(const float* __restrict__ q, const float* __restrict__ e,
     for (int idx = threadIdx.x; idx < rows * d; idx += blockDim.x) {
       const int rr = idx / d, j = idx % d;
       const int row = c0 + t0 + rr;
-      es[rr * ld + j] = row < R ? e[(size_t)row * d + j] : 0.f;
+      es[rr * ld + j] = row < R ? carca::widen<T>(e[(size_t)row * d + j]) : 0.f;
     }
     __syncthreads();
     for (int p = threadIdx.x; p < QB * rows; p += blockDim.x) {
@@ -110,7 +124,8 @@ chunk_topk_kernel(const float* __restrict__ q, const float* __restrict__ e,
           const float* qv = qs + qi * d;
           const float* ev = es + rr * ld;
           float s = 0.f;
-          for (int j = 0; j < d; ++j) s = __fadd_rn(s, __fmul_rn(qv[j], ev[j]));
+          for (int j = 0; j < d; ++j) s = carca::add_term<T>(s, qv[j], ev[j]);
+          if (scales != nullptr) s = __fmul_rn(s, scales[row]);
           key = make_key(s, row);
         }
       }
@@ -195,26 +210,19 @@ __global__ void decode_kernel(const u64* __restrict__ keys, float* __restrict__ 
   ids[p] = (long long)(~(unsigned int)(key & 0xFFFFFFFFull)) + id_offset;
 }
 
-}  // namespace
-
-extern "C" {
-
-size_t carca_catalog_topk_smem_bytes(int C, int QB, int d) { return phase1_smem(C, QB, d); }
-
-// buf0: [B, n_chunks, k] u64, buf1: [B, ceil(n_chunks / 2), k] u64 scratch,
-// n_chunks = ceil(R / C). vals [B, k] f32, ids [B, k] int64.
-int carca_catalog_topk(const void* q, const void* e, void* vals, void* ids, void* buf0,
-                       void* buf1, int B, int R, int d, int k, int C, int QB, int lim0,
-                       int mask_row0, int id_offset, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <typename T>
+int launch_topk(const void* q, const void* e, const void* scales, void* vals, void* ids,
+                void* buf0, void* buf1, int B, int R, int d, int k, int C, int QB, int lim0,
+                int mask_row0, int id_offset, cudaStream_t st) {
   const size_t smem = phase1_smem(C, QB, d);
   cudaError_t err = cudaFuncSetAttribute(
-      chunk_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      chunk_topk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int n = (R + C - 1) / C;
-  chunk_topk_kernel<<<dim3(n, (B + QB - 1) / QB), kThreads, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(e),
-      static_cast<u64*>(buf0), B, R, d, k, C, QB, lim0, mask_row0, tile_rows(d));
+  chunk_topk_kernel<T><<<dim3(n, (B + QB - 1) / QB), kThreads, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const T*>(e),
+      static_cast<const float*>(scales), static_cast<u64*>(buf0), B, R, d, k, C, QB, lim0,
+      mask_row0, tile_rows(d));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   u64* src = static_cast<u64*>(buf0);
@@ -233,6 +241,36 @@ int carca_catalog_topk(const void* q, const void* e, void* vals, void* ids, void
   decode_kernel<<<(total + kThreads - 1) / kThreads, kThreads, 0, st>>>(
       src, static_cast<float*>(vals), static_cast<long long*>(ids), total, id_offset);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+size_t carca_catalog_topk_smem_bytes(int C, int QB, int d) { return phase1_smem(C, QB, d); }
+
+// e: [R, d] of the type dtype names (carca::IndexType); scales: [R] float
+// for an int8 index, else null. buf0: [B, n_chunks, k] u64, buf1:
+// [B, ceil(n_chunks / 2), k] u64 scratch, n_chunks = ceil(R / C).
+// vals [B, k] f32, ids [B, k] int64.
+int carca_catalog_topk(const void* q, const void* e, const void* scales, void* vals,
+                       void* ids, void* buf0, void* buf1, int B, int R, int d, int k, int C,
+                       int QB, int lim0, int mask_row0, int id_offset, int dtype,
+                       void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case carca::kF32:
+      return launch_topk<float>(q, e, nullptr, vals, ids, buf0, buf1, B, R, d, k, C, QB,
+                                lim0, mask_row0, id_offset, st);
+    case carca::kBF16:
+      return launch_topk<__nv_bfloat16>(q, e, nullptr, vals, ids, buf0, buf1, B, R, d, k,
+                                        C, QB, lim0, mask_row0, id_offset, st);
+    case carca::kI8:
+      return launch_topk<int8_t>(q, e, scales, vals, ids, buf0, buf1, B, R, d, k, C, QB,
+                                 lim0, mask_row0, id_offset, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

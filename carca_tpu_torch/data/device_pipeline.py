@@ -29,10 +29,11 @@ from carca_tpu_torch.parallel.sampling import device_sample_negatives, retries_f
 
 
 class DeviceDataset:
-    """The catalog and per-split window bounds as tensors on ``device``."""
+    """The catalog and per-split window bounds as tensors on ``device``
+    (the card unless the caller asks for the CPU)."""
 
     def __init__(self, catalog: Catalog, seq_len: int, target_len: int,
-                 test: bool = True, device: torch.device | str = "cpu"):
+                 test: bool = True, device: torch.device | str = "cuda"):
         self.L = int(seq_len)
         self.T = int(target_len)
         self.n_items = catalog.n_items

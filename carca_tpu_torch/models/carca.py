@@ -28,10 +28,11 @@ Group = Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]
 
 class CARCA(nn.Module):
     """Fresh weights come from ``torch.Generator().manual_seed(seed)``,
-    drawn on the CPU and then moved to ``device``."""
+    drawn on the CPU and then moved to ``device``: the card unless the
+    caller asks for the CPU (``device="cpu"``)."""
 
     def __init__(self, cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         super().__init__()
         if generator is None:
             generator = torch.Generator().manual_seed(0)

@@ -4,9 +4,11 @@ part of ``carca_tpu/parallel/retrieval.py``).
 The catalog is embedded once with the item tower (a query-independent
 context, zeros by default: the two-tower approximation for ctx-fusing
 embeddings), and queries are the dot decoder's eval query — the last
-profile state (``src/carca.py:362``). ``topk_given_queries`` streams the
-index through ``ops.retrieval_topk.catalog_topk`` (kernel K3 on a CUDA
-tensor), over-retrieving ``k + E`` when E history items are excluded.
+profile state (``src/carca.py:362``). ``topk_given_queries`` ranks an f32,
+bf16 or int8 (``QuantizedIndex``) index through
+``ops.retrieval_topk.catalog_topk`` (kernels K3 and K4 on CUDA tensors),
+over-retrieving ``k + E`` when E history items are excluded. The
+row-sharded paths wait for the multi-GPU slice (ROADMAP slice 7).
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ from typing import Optional, Tuple
 import torch
 
 from carca_tpu_torch.config import ModelConfig
-from carca_tpu_torch.ops.retrieval_topk import catalog_topk
+from carca_tpu_torch.models.carca import encode_profile
+from carca_tpu_torch.ops.retrieval_topk import Index, QuantizedIndex, catalog_topk
 
 NEG_INF = float("-inf")
 
@@ -28,12 +31,14 @@ def embed_catalog(
     *,
     global_ids: Optional[torch.Tensor] = None,
     row_chunk: int = 1 << 20,
+    out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Item-tower embeddings [R, d] of the rows ``attrs_rows`` [R, n_attrs]
-    whose item ids are ``global_ids`` [R] (default ``arange(R)``). Id 0 and
-    ids ≥ n_items embed to zero. No positional encoding (targets,
-    ``src/carca.py:91-92``). Catalogs beyond ``row_chunk`` rows are
-    embedded in slices, so the [R, g] hidden layer never exists whole."""
+    whose item ids are ``global_ids`` [R] (default ``arange(R)``), in
+    ``out_dtype`` (bf16 makes a bf16 index). Id 0 and ids ≥ n_items embed
+    to zero. No positional encoding (targets, ``src/carca.py:91-92``).
+    Catalogs beyond ``row_chunk`` rows are embedded in slices, so the
+    [R, g] hidden layer never exists whole."""
     cfg = model.cfg
     r = attrs_rows.shape[0]
     dev = attrs_rows.device
@@ -48,7 +53,7 @@ def embed_catalog(
         cc = ctx[None, :].expand(a.shape[0], cfg.n_ctx)
         mask = ((gid != 0) & (gid < cfg.n_items)).to(torch.float32)
         out.append(model.embed(gid[None], a[None], cc[None], mask[None],
-                               target=True)[0])
+                               target=True)[0].to(out_dtype))
     return out[0] if len(out) == 1 else torch.cat(out, 0)
 
 
@@ -64,6 +69,13 @@ def query_from_encoded(p_e: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         if cfg.l2_norm:
             q = q / q.norm(dim=-1, keepdim=True).clamp_min(1e-12)
     return q
+
+
+def queries(model, profile, attrs_table: torch.Tensor) -> torch.Tensor:
+    """Encode the profile (p_x, p_a, p_c) in the model's mode (eval for
+    retrieval) and reduce it to the retrieval query [B, d]."""
+    p_e, _ = encode_profile(model, profile, attrs_table=attrs_table)
+    return query_from_encoded(p_e, model.cfg)
 
 
 def catalog_in_decoder_space(e: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -94,7 +106,7 @@ def filter_excluded(v: torch.Tensor, ids: torch.Tensor, exclude: torch.Tensor,
 
 def topk_given_queries(
     q: torch.Tensor,
-    e: torch.Tensor,
+    e: Index,
     cfg: ModelConfig,
     k: int,
     *,
@@ -103,20 +115,51 @@ def topk_given_queries(
     row_ids: Optional[torch.Tensor] = None,
     method: str = "auto",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k of queries [B, d] against an f32 index [R, d]: (scores [B, k],
-    item ids [B, k]). ``exclude`` [B, E] masks ids per user. ``row_ids``
-    [R] makes ``e`` a compacted index whose row r holds item
-    ``row_ids[r]`` (row 0 is the pad, id 0); returned ids are global."""
-    rows = e.shape[0]
+    """Top-k of queries [B, d] against an index [R, d] (f32, bf16 or a
+    ``QuantizedIndex``): (scores [B, k], item ids [B, k]). ``exclude``
+    [B, E] masks ids per user. ``row_ids`` [R] makes ``e`` a compacted index
+    whose row r holds item ``row_ids[r]`` (row 0 is the pad, id 0); returned
+    ids are global. A ``QuantizedIndex`` is built from decoder-space rows
+    (its scales bake the row geometry in), so it needs
+    ``in_decoder_space=True``."""
+    quantized = isinstance(e, QuantizedIndex)
+    rows = e.rows if quantized else e.shape[0]
     if k > rows:
         raise ValueError(f"top-k k={k} exceeds the catalog size {rows}")
+    if quantized and not in_decoder_space:
+        raise ValueError("a QuantizedIndex is built from decoder-space embeddings; "
+                         "pass in_decoder_space=True (see quantize_index)")
     if not in_decoder_space:
         e = catalog_in_decoder_space(e, cfg)
     n_local = rows if row_ids is not None else cfg.n_items
     kk = min(k + (exclude.shape[1] if exclude is not None else 0), rows)
-    v, rid = catalog_topk(q, e, kk, n_items=n_local, method=method)
+    v, rid = catalog_topk(q.contiguous(), e, kk, n_items=n_local, method=method)
     if row_ids is not None:
         rid = row_ids[rid]
     if exclude is None:  # then kk == k — nothing to re-rank
         return v, rid
     return filter_excluded(v, rid, exclude.long(), k)
+
+
+def full_catalog_topk(
+    model,
+    profile,
+    attrs_table: torch.Tensor,
+    k: int,
+    *,
+    ctx: Optional[torch.Tensor] = None,
+    exclude: Optional[torch.Tensor] = None,
+    catalog_emb: Optional[Index] = None,
+    method: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k items over the whole catalog on one device: (scores [B, k],
+    item ids [B, k]). ``exclude`` [B, E] removes ids per user (0 entries are
+    no-ops). ``catalog_emb``: a precomputed ``embed_catalog`` output, or a
+    ``QuantizedIndex`` (decoder space by construction), so that a sweep of
+    many query batches embeds the catalog once."""
+    q = queries(model, profile, attrs_table)
+    e = catalog_emb if catalog_emb is not None else embed_catalog(
+        model, attrs_table, ctx,
+        global_ids=torch.arange(attrs_table.shape[0], device=attrs_table.device))
+    return topk_given_queries(q, e, model.cfg, k, exclude=exclude, method=method,
+                              in_decoder_space=isinstance(e, QuantizedIndex))

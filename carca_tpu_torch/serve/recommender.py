@@ -2,11 +2,12 @@
 ``carca_tpu/serve/recommender.py``).
 
 * **Stage 1 — retrieval.** The catalog is embedded once at load time with
-  the item tower and kept on the device. Per request the profile tower
-  encodes the history, and ``catalog_topk`` (kernel K3 on the GPU) streams
-  the index against the last profile state; the [B, n_items] score matrix
-  never exists. The user's visible history is excluded (over-retrieve
-  k + L, filter, re-top-k).
+  the item tower and kept on the device, as float32 or, with ``quantize``,
+  as a per-row int8 ``QuantizedIndex``. Per request the profile tower
+  encodes the history, and ``catalog_topk`` ranks the index against the
+  last profile state: kernel K3 (stream) or K4 (tournament) on the GPU, as
+  "auto" picks; the [B, n_items] score matrix never exists. The user's
+  visible history is excluded (over-retrieve k + L, filter, re-top-k).
 * **Stage 2 — reranking.** For ``decoder="ca"`` the shortlist is rescored
   by the real decoder under the request context (eval semantics, no
   causal mask) — the encoder and decoder attention run kernel K1 on the
@@ -29,12 +30,17 @@ import numpy as np
 import torch
 
 from carca_tpu_torch.models.carca import CARCA, encode_profile, score_targets
+from carca_tpu_torch.ops.retrieval_topk import quantize_index
 from carca_tpu_torch.parallel.retrieval import (catalog_in_decoder_space,
                                                 embed_catalog,
                                                 query_from_encoded, stable_topk,
                                                 topk_given_queries)
 
 NEG_INF = float("-inf")
+# quantize="auto" stores an index of this many rows or more as int8. It is
+# the JAX package's rule (carca_tpu/serve/recommender.py:182-183) and is
+# kept: it changes which answers come back, not only their speed.
+QUANTIZE_AUTO_MIN_ROWS = 1_000_000
 
 
 def pad_histories(
@@ -76,8 +82,11 @@ class Recommender:
     attributes (row 0 = pad). ``shortlist``: stage-1 candidates fed to the
     reranker (``ca`` only). ``index_ids``: optional global ids to index
     (e.g. items with ≥1 event — the seen-items posture); stage 1 then
-    embeds and streams only those rows. The int8 stage-1 index of the JAX
-    package (``quantize``) comes with its kernel (ROADMAP slice 2).
+    embeds and streams only those rows. ``quantize``: ``True | False |
+    "auto"``, store the stage-1 index as per-row symmetric int8
+    (``quantize_index``), a quarter of the f32 scan; stage-1 scores become
+    approximate and the ``ca`` reranker rescores the shortlist exactly.
+    "auto" quantizes an index of ≥ ``QUANTIZE_AUTO_MIN_ROWS`` rows.
     """
 
     def __init__(
@@ -90,7 +99,11 @@ class Recommender:
         batch_buckets: Sequence[int] = (1, 8, 64, 256),
         default_ctx: Optional[np.ndarray] = None,
         index_ids: Optional[np.ndarray] = None,
+        quantize=False,
     ):
+        # identity checks: `1 in (True, False, "auto")` holds because 1 == True
+        if not (quantize is True or quantize is False or quantize == "auto"):
+            raise ValueError(f"quantize must be True/False/'auto', got {quantize!r}")
         cfg = model.cfg
         self.model = model.eval()
         self.cfg = cfg
@@ -110,13 +123,16 @@ class Recommender:
                                            device=self.device)
             index_size = len(ids)
         self.shortlist = min(shortlist, index_size)
+        do_quant = quantize is True or (quantize == "auto"
+                                        and index_size >= QUANTIZE_AUTO_MIN_ROWS)
         # real candidates only: the pad row can never be a recommendation
         self._index_rows = index_size if index_ids is not None else cfg.n_items - 1
         with torch.inference_mode():
             rows = self.attrs if self.row_ids is None else self.attrs[self.row_ids]
             e = catalog_in_decoder_space(
                 embed_catalog(self.model, rows, global_ids=self.row_ids), cfg)
-            self.catalog_emb = e.contiguous()
+            self.catalog_emb = quantize_index(e) if do_quant else e.contiguous()
+            del e
         self._rerank = cfg.decoder == "ca"
 
     def _bucket(self, b: int) -> int:

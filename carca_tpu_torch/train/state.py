@@ -60,11 +60,13 @@ def make_optimizer(tc: TrainConfig, params) -> torch.optim.Adam:
 
 
 def create_train_state(mc: ModelConfig, tc: TrainConfig,
-                       device: torch.device | str = "cpu",
+                       device: torch.device | str | None = None,
                        model: Optional[CARCA] = None) -> TrainState:
     """Fresh weights from ``tc.seed`` (drawn on the CPU, then moved), unless
     ``model`` is given; fresh Adam moments; generators seeded from
-    ``tc.seed``."""
+    ``tc.seed``. ``device`` defaults to ``model``'s device, else the card."""
+    if device is None:
+        device = next(model.parameters()).device if model is not None else "cuda"
     device = torch.device(device)
     if model is None:
         model = CARCA(mc, generator=torch.Generator().manual_seed(tc.seed), device=device)

@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path and train step on one NVIDIA GPU.
+"""Drive the PyTorch port's serving paths and train step on one NVIDIA GPU.
 
     python3 chip_smoke.py             # from the repository root, on a machine with a card
     python3 chip_smoke.py --profile   # also phase 7: profiler breakdowns of recommend and the train step
 
-Phases, one or more lines each; any failure raises and exits non-zero:
+Phases, one or more lines each, each ending with its seconds; any failure
+raises and exits non-zero:
 
 1. device  — a CUDA card must be present (there is no CPU fallback);
              prints nvidia-smi's name and power limit; TF32 off.
-2. build   — compiles kernels K1, K2 and K3 from carca_tpu_torch/csrc/
-             (one nvcc per source, all started together).
+2. build   — compiles kernels K1–K4 from carca_tpu_torch/csrc/ (one nvcc
+             per source, all started together).
 3. K1      — the attention forward kernel against its plain version on
              CUDA tensors at the serving and training shapes; one raise it
              must give. With weight dropout p = 0.5: the keep share over
@@ -24,17 +25,37 @@ Phases, one or more lines each; any failure raises and exits non-zero:
              shapes: per-tensor relative error, exact zeros for fully
              masked rows, two runs bit-equal; fwd+bwd and bwd-only times
              against the plain version's.
-4. K3      — the top-k kernel against its plain version (ids equal); and
-             one raise it must give.
+4. K3      — the stream top-k kernel over f32, bf16 and int8 indexes against
+             its plain version (ids equal, values within 1e-5): ties,
+             id_offset with an n_items limit, k beyond the valid rows, zero
+             queries; one raise it must give.
+4c. K4     — the group-max kernel in both layouts ([G, B] and [B, G])
+             bit-equal to its plain version at f32/bf16/int8 (ties across
+             group boundaries, an n_items limit, B = 1, zero queries); the
+             tournament (K4 + rerank, flat and recursive) equal to the
+             stream, ids and values, up to 1M rows at B = 256, k = 562.
 5. slice   — the beauty preset at full width (d=64, g=256, 2 blocks, 2
              heads, L=50, ca decoder) with random weights from seed 0,
              serving synthetic_catalog(4096 users, 99,999 items): JSON-lines
              requests and one recommend per batch bucket, over the seen
-             index and the full index. Both kernels' launch counts must
-             rise during this phase. The same requests then go through
-             the same weights on the CPU plain path, and must agree.
-6. timing  — recommend p50/p95 and throughput per bucket, and each kernel
-             beside its plain version at the slice shapes (CUDA events).
+             index and the full index. K1 and K3 must launch. The same
+             requests then go through the same weights on the CPU plain
+             path, and must agree.
+5c. 10M    — the same preset over synthetic_catalog(4096 users, 9,999,999
+             items) with quantize="auto": an int8 index of 10,000,000 rows.
+             JSON-lines requests and one recommend per bucket; K1 and the
+             stage-1 kernel "auto" picks must launch. Stage 1 alone (32
+             queries, k = 562) against the card's plain version; the
+             requests and buckets 1 and 8 against the CPU plain path.
+5d. bench  — carca_tpu_torch/bench_retrieval.py at 10M items, kernel legs
+             (bf16 and int8 indexes, stream, tournament, auto), with the
+             recursive stage 2 forced: K3 over bf16 and int8 rows and K4's
+             [B, G] layout must launch.
+6. timing  — recommend p50/p95 and throughput per bucket (100k slice; 10M
+             slice over the int8 and an f32 index), each kernel beside its
+             plain version at the slices' shapes (CUDA events), K3's merge
+             scratch and the tournament's memory at 10M rows, and
+             F.scaled_dot_product_attention beside K1/K2 (timed only).
 7. profile — only with --profile: per bucket, a torch.profiler trace of
              recommend (device busy time and share, device operations per
              call, the heaviest of them), and the host cost of one K1 launch;
@@ -52,12 +73,17 @@ Phases, one or more lines each; any failure raises and exits non-zero:
              mean of the first 8; then train_examples_per_sec_flagship with
              the kernels and with the plain path, and peak device memory.
 
-The serving slice (phase 5) and the train step (phase 8) are the two main
-paths: each runs with the launch counters set to 0 just before it and read
-just after. The line before the last is a JSON object listing the kernels;
+The main paths are the 100k slice (phase 5), the 10M slice (5c), the
+retrieval bench (5d) and the train step (8): each runs with every launch
+counter set to 0 just before it and read just after. The line before the
+last is a JSON object listing the kernels, each with its launches on the
+path that runs it, its error against its plain version, its time, the plain
+version's, its bound (bytes over 3.35 TB/s against operations over the
+peak of their operand type) and the library call's time where one exists;
 the last line is {"ok": true, "device": {...}}.
 """
 
+import argparse
 import copy
 import json
 import statistics
@@ -67,25 +93,34 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from carca_tpu_torch import bench
+from carca_tpu_torch import bench, bench_retrieval
 from carca_tpu_torch.config import preset
 from carca_tpu_torch.data.device_pipeline import assemble_train
 from carca_tpu_torch.data.synthetic import synthetic_catalog
-from carca_tpu_torch.models.attention import masked_attention
-from carca_tpu_torch.models.carca import CARCA
+from carca_tpu_torch.models.attention import NEG_MASK, masked_attention, pair_mask
+from carca_tpu_torch.models.carca import CARCA, encode_profile
 from carca_tpu_torch.ops import _build
+from carca_tpu_torch.ops import retrieval_topk as rt
 from carca_tpu_torch.ops.flash_attention import (SEED_LIMIT, attention_bwd,
                                                  attention_grads_plain,
                                                  attention_keep_mask, fused_attention,
                                                  philox_bits)
-from carca_tpu_torch.ops.retrieval_topk import catalog_topk, catalog_topk_plain
+from carca_tpu_torch.ops.retrieval_topk import (QuantizedIndex, catalog_topk,
+                                                catalog_topk_plain, groupmax, groupmax_plain,
+                                                quantize_index)
+from carca_tpu_torch.parallel.retrieval import query_from_encoded
 from carca_tpu_torch.serve.recommender import Recommender
 from carca_tpu_torch.serve.service import HostCSR, history, run_bench, serve_lines
 from carca_tpu_torch.train.loop import train_loss
 
 SEED = 0
 N_USERS, N_REAL_ITEMS = 4096, 99_999
+N_REAL_ITEMS_10M = 9_999_999  # the >=1M-row slice: 10,000,000 item ids
+STAGE1_B = 32  # stage 1 at 10M rows against the plain [B, 10M] sort, which B = 256 would make tens of GB
+K4_BIG_ROWS = 1_000_000  # the largest tournament-vs-stream case of phase 4c
+BENCH_ITEMS = 10_000_000  # the retrieval bench path of phase 5d
 SHORTLIST, K = 512, 10
 BUCKETS = (1, 8, 64, 256)
 B, L, D, H = 256, 50, 64, 2
@@ -96,6 +131,12 @@ K2_TOL, K2_TOL_BF16 = 1e-5, 2e-2  # relative norm per gradient tensor
 P_DROP = 0.5
 KEEP_SHARE_TOL = 0.002
 K3_TOL = 1e-5
+INDEX_KINDS = ("f32", "bf16", "int8")
+# the card's peaks for bound_ms (NVIDIA's H100 SXM data sheet): bytes/s of
+# HBM3, and dense operations/s by the operands' type (float32 outside the
+# tensor cores; bf16 also for int8 rows, whose operand is the bf16 query)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 SLICE_TIE_TOL, SLICE_SCORE_TOL = 1e-5, 1e-4
 # GPU kernels vs CPU plain, relative. Gradients: 1e-3 per tensor, because
 # two float32 paths cannot agree closer on this batch: on the CPU, the plain
@@ -141,11 +182,46 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_vs_plain(kernel, plain, reps: int = 20):
+def kernel_vs_plain(kernel, plain, reps: int = 20, plain_reps: int = None):
     """(kernel ms, plain ms), each the mean of two runs in the order plain,
     kernel, kernel, plain."""
-    p1, k1, k2, p2 = (cuda_ms(f, reps) for f in (plain, kernel, kernel, plain))
+    plain_reps = reps if plain_reps is None else plain_reps
+    p1, k1, k2, p2 = (cuda_ms(f, n) for f, n in ((plain, plain_reps), (kernel, reps),
+                                                   (kernel, reps), (plain, plain_reps)))
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def bound(bytes_moved: float, ops: float, operand: str):
+    """(least ms, what binds it): each input read once and each output
+    written once at the HBM rate, against the operations at the peak rate
+    of their operand type."""
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[operand] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count to 0, just before a main path runs."""
+    fused_attention.launches = 0
+    attention_bwd.launches = 0
+    catalog_topk.launches = 0
+    catalog_topk.launches_by_index.update({kind: 0 for kind in INDEX_KINDS})
+    groupmax.launches = 0
+    groupmax.launches_by_layout.update({0: 0, 1: 0})
+
+
+def counts() -> dict:
+    return {"attention_fwd": fused_attention.launches,
+            "attention_bwd": attention_bwd.launches,
+            **{f"catalog_topk_{kind}": n for kind, n in catalog_topk.launches_by_index.items()},
+            **{f"groupmax_layout{lay}": n for lay, n in groupmax.launches_by_layout.items()}}
+
+
+def as_index(e, kind: str):
+    """The f32 rows e as an index of ``kind``."""
+    if kind == "int8":
+        return quantize_index(e)
+    return e.to(torch.bfloat16) if kind == "bf16" else e
 
 
 # --------------------------------------------------------------------------
@@ -382,7 +458,7 @@ def time_k2(card, name, inputs, g, seed, **kw):
 
 def k3_case(name, q, e, k, **kw):
     with torch.no_grad():
-        v, i = catalog_topk(q, e, k, **kw)
+        v, i = catalog_topk(q, e, k, method="stream", **kw)
         pv, pi = catalog_topk_plain(q, e, k, **kw)
     torch.cuda.synchronize()
     check(torch.equal(i, pi), f"K3 {name}: ids differ from the plain version "
@@ -394,35 +470,109 @@ def k3_case(name, q, e, k, **kw):
     return err, v, i
 
 
-def phase_k3() -> float:
+def phase_k3() -> dict:
+    """K3 over f32, bf16 and int8 indexes against the plain version; returns
+    the worst value error per index type."""
     gen = torch.Generator().manual_seed(20)
     q = torch.randn(B, D, generator=gen).to(DEVICE)
     full = torch.randn(N_REAL_ITEMS + 1, D, generator=gen).to(DEVICE)
     seen = full[:19_156].contiguous()
-    worst = 0.0
-    for rows_name, e in (("100,000 rows", full), ("19,156 rows", seen)):
-        for k in (KK, K):
-            worst = max(worst, k3_case(f"{rows_name} k={k}", q, e, k)[0])
     dup = seen.clone()
     dup[1000:1400] = dup[7]  # 400 exact ties with row 7
     dup[5000:5100] = dup[12]
-    worst = max(worst, k3_case("duplicated rows k=562", q, dup, KK)[0])
-    worst = max(worst, k3_case("id_offset=1000, n_items limit k=562", q, seen, KK,
-                               id_offset=1000, n_items=1000 + 15_000)[0])
-    _, v, i = k3_case("k beyond the 399 valid rows", q, seen[:400].contiguous(), KK)
-    check(bool((i[:, 399:] == 0).all()) and bool(torch.isneginf(v[:, 399:]).all()),
-          "K3: slots past the valid rows must be -inf with id 0")
     qz = q.clone()
     qz[:8] = 0.0  # batch padding embeds to zero
-    _, v, i = k3_case("zero queries k=562", qz, seen, KK)
-    check(torch.equal(i[:8].cpu(), torch.arange(1, KK + 1).expand(8, KK)),
-          "K3: a zero query must return the lowest ids in order")
+    worst = {}
+    for kind in INDEX_KINDS:
+        full_i, seen_i, dup_i = (as_index(t, kind) for t in (full, seen, dup))
+        few_i = as_index(seen[:400].contiguous(), kind)
+        errs = []
+        for rows_name, e in (("100,000 rows", full_i), ("19,156 rows", seen_i)):
+            for k in (KK, K):
+                errs.append(k3_case(f"{kind} {rows_name} k={k}", q, e, k)[0])
+        errs.append(k3_case(f"{kind} duplicated rows k=562", q, dup_i, KK)[0])
+        errs.append(k3_case(f"{kind} id_offset=1000, n_items limit k=562", q, seen_i, KK,
+                            id_offset=1000, n_items=1000 + 15_000)[0])
+        err, v, i = k3_case(f"{kind} k beyond the 399 valid rows", q, few_i, KK)
+        errs.append(err)
+        check(bool((i[:, 399:] == 0).all()) and bool(torch.isneginf(v[:, 399:]).all()),
+              f"K3 {kind}: slots past the valid rows must be -inf with id 0")
+        err, v, i = k3_case(f"{kind} zero queries k=562", qz, seen_i, KK)
+        errs.append(err)
+        check(torch.equal(i[:8].cpu(), torch.arange(1, KK + 1).expand(8, KK)),
+              f"K3 {kind}: a zero query must return the lowest ids in order")
+        worst[kind] = max(errs)
     try:
-        catalog_topk(q, seen, K, method="tournament")
-    except NotImplementedError as exc:
-        log("K3", case="method='tournament' raises", raised=str(exc)[:80])
+        catalog_topk(q, seen.to(torch.int8), K, method="stream")
+    except TypeError as exc:
+        log("K3", case="an int8 index without its scales raises", raised=str(exc)[:80])
     else:
-        raise RuntimeError("K3 accepted the tournament method, which has no kernel")
+        raise RuntimeError("K3 accepted int8 rows without their scales")
+    return worst
+
+
+# --------------------------------------------------------------------------
+# phase 4c: K4 against its plain version; the tournament against the stream
+# --------------------------------------------------------------------------
+
+def phase_k4() -> dict:
+    """K4 in both layouts bit-equal to groupmax_plain, and the tournament
+    (K4 + rerank) equal to the stream (K3), ids and values, flat and
+    recursive, at f32/bf16/int8. Returns the worst |K4 - plain| per layout."""
+    gen = torch.Generator().manual_seed(22)
+    q = torch.randn(B, D, generator=gen).to(DEVICE)
+    q[:8] = 0.0  # zero queries
+    e = torch.randn(20_000, D, generator=gen).to(DEVICE)
+    e[120:140] = e[3]  # exact ties straddling the first group boundary
+    e[1000:1400] = e[7]  # and three more
+    big = torch.randn(K4_BIG_ROWS, D, generator=gen).to(DEVICE)
+    worst = {0: 0.0, 1: 0.0}
+    before = groupmax.launches
+    for kind in INDEX_KINDS:
+        for name, qq, ee, lim0, row0 in (
+                ("ties across groups, zero queries, B=256", q, e, 20_000, True),
+                ("n_items limit, no pad row, B=33", q[:33], e[:19_156], 15_000, False),
+                ("B=1", q[8:9], e[:2_049], 2_049, True)):
+            idx = as_index(ee.contiguous(), kind)
+            rows, scales = (idx.qvals, idx.scales) if kind == "int8" else (idx, None)
+            for layout in (0, 1):
+                got = groupmax(qq.contiguous(), rows, scales, lim0, row0, layout)
+                want = groupmax_plain(qq, rows, scales, lim0, row0, layout)
+                torch.cuda.synchronize()
+                check(got.shape == want.shape and torch.equal(got, want),
+                      f"K4 {kind} {name} layout {layout}: not bit-equal to the plain version")
+                fin = torch.isfinite(want)
+                worst[layout] = max(worst[layout],
+                                    (got[fin] - want[fin]).abs().max().item() if fin.any() else 0.0)
+            log("K4", case=f"{kind} {name}", bit_equal=True, layouts=[0, 1])
+    check(groupmax.launches > before, "K4 never launched")
+    old = rt._RECURSIVE_MIN_GROUPS
+    try:
+        for kind in INDEX_KINDS:
+            small, big_i = as_index(e[:19_156].contiguous(), kind), as_index(big, kind)
+            few = as_index(e[:400].contiguous(), kind)
+            cases = (("duplicated rows k=562", q, small, KK, {}),
+                     ("id_offset=1000, n_items limit k=562", q[:33], small, KK,
+                      dict(id_offset=1000, n_items=16_000)),
+                     ("zero queries k=10", q[:16], as_index(e, kind), K, {}),
+                     ("B=1 k=10", q[8:9], small, K, {}),
+                     ("k beyond the 399 valid rows", q[:16], few, KK, {}),
+                     ("1M rows B=256 k=562", q, big_i, KK, {}))
+            for recursive in (False, True):
+                rt._RECURSIVE_MIN_GROUPS = 1 if recursive else old
+                for name, qq, idx, k, kw in cases:
+                    qq = qq.contiguous()
+                    with torch.no_grad():
+                        tv, ti = catalog_topk(qq, idx, k, method="tournament", **kw)
+                        sv, si = catalog_topk(qq, idx, k, method="stream", **kw)
+                    torch.cuda.synchronize()
+                    check(torch.equal(ti, si) and torch.equal(tv, sv),
+                          f"tournament {kind} {name} recursive={recursive}: differs from "
+                          f"the stream ({int((ti != si).sum())} ids)")
+                log("K4", case=f"{kind} tournament == stream", recursive=recursive,
+                    cases=[c[0] for c in cases])
+    finally:
+        rt._RECURSIVE_MIN_GROUPS = old
     return worst
 
 
@@ -457,14 +607,14 @@ def bucket_requests(host, seed):
     return out
 
 
-def check_response(resp, want_k, index_set, hist):
+def check_response(resp, want_k, in_index, hist):
     check("error" not in resp, f"request {resp.get('id')} failed: {resp}")
     items, scores = resp["items"], resp["scores"]
     check(len(items) == want_k, f"request {resp.get('id')}: {len(items)} items, want {want_k}")
     check(all(np.isfinite(scores)), "non-finite score in a response")
     check(all(scores[a] >= scores[a + 1] for a in range(len(scores) - 1)),
           "scores out of order")
-    check(set(items) <= index_set, "an item outside the index was recommended")
+    check(all(map(in_index, items)), "an item outside the index was recommended")
     check(not set(items) & set(hist[-L:]), "a visible-history item was recommended")
 
 
@@ -509,19 +659,17 @@ def phase_slice():
 
     lines = request_lines(cat, host)
     reqs = bucket_requests(host, SEED + 1)
-    fused_attention.launches = 0
-    catalog_topk.launches = 0
+    reset_counts()
     responses = list(serve_lines(rec, host, lines, k=K))
     got = {}
     for name, r in (("seen", rec), ("full", rec_full)):
         for bb, (hists, ctxs) in reqs.items():
             got[name, bb] = r.recommend(hists, k=K, ctxs=ctxs)
     torch.cuda.synchronize()
-    launches = {"attention_fwd": fused_attention.launches,
-                "catalog_topk": catalog_topk.launches}
+    launches = counts()
     log("slice", launches=launches)
     check(launches["attention_fwd"] > 0, "the slice never launched K1")
-    check(launches["catalog_topk"] > 0, "the slice never launched K3")
+    check(launches["catalog_topk_f32"] > 0, "the slice never launched K3")
 
     index_set = set(seen_ids.tolist())
     want_k = [K, K, 25, K, K, K, None, 3]
@@ -532,7 +680,7 @@ def phase_slice():
         if wk is None:
             check("error" in resp, "the malformed line must answer an error")
             continue
-        check_response(resp, wk, index_set, hist)
+        check_response(resp, wk, index_set.__contains__, hist)
     for (name, bb), (ids, sc) in got.items():
         check(ids.shape == (bb, K) and bool(np.isfinite(sc).all()),
               f"{name} bucket {bb}: shape {ids.shape} or non-finite scores")
@@ -562,6 +710,179 @@ def phase_slice():
     log("slice", cpu_agreement="ok", near_tie_slots=near_ties,
         cpu_seconds=time.perf_counter() - t0)
     return rec, rec_full, host, launches
+
+
+# --------------------------------------------------------------------------
+# phase 5c: the >=1M-row serving slice (10M items, int8 index)
+# --------------------------------------------------------------------------
+
+def stage1_queries(rec, hists, ctxs):
+    """The retrieval queries [B, d] that recommend computes for hists."""
+    p_x, p_c, _ = rec._inputs(hists, ctxs, None)
+    with torch.inference_mode():
+        p_e, _ = encode_profile(rec.model, (p_x, None, p_c), attrs_table=rec.attrs)
+        return query_from_encoded(p_e, rec.cfg)[:len(hists)].contiguous()
+
+
+def phase_slice_10m():
+    """The beauty preset over 10,000,000 item ids with quantize="auto" (an
+    int8 index). Returns (recommender, host, launches, catalog)."""
+    t0 = time.perf_counter()
+    cat = synthetic_catalog(n_users=N_USERS, n_real_items=N_REAL_ITEMS_10M, seed=SEED)
+    host = HostCSR(cat)
+    cfg = preset("beauty", n_items=cat.n_items, n_attrs=cat.n_attrs, n_ctx=cat.n_ctx)
+    model = CARCA(cfg, generator=torch.Generator().manual_seed(SEED), device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    rec = Recommender(model, cat.attrs, shortlist=SHORTLIST, batch_buckets=BUCKETS,
+                      quantize="auto")
+    check(isinstance(rec.catalog_emb, QuantizedIndex), "quantize='auto' kept a float index")
+    check(rec.catalog_emb.rows == cat.n_items, "10M index shape")
+    build_peak = torch.cuda.max_memory_allocated() / 2**20
+    rec.warmup(k=K)
+    torch.cuda.synchronize()
+    method = rt.resolve_method("auto", cat.n_items, KK)
+    log("slice_10m", setup_s=time.perf_counter() - t0, n_items=cat.n_items,
+        n_events=int(len(cat.items)), index="int8", index_rows=rec.catalog_emb.rows,
+        index_mib=(rec.catalog_emb.qvals.numel() + 4 * rec.catalog_emb.rows) / 2**20,
+        stage1_method=method, build_peak_device_mib=build_peak,
+        device_mib=torch.cuda.memory_allocated() / 2**20)
+
+    lines = request_lines(cat, host)
+    reqs = bucket_requests(host, SEED + 3)
+    reset_counts()
+    responses = list(serve_lines(rec, host, lines, k=K))
+    got = {bb: rec.recommend(hists, k=K, ctxs=ctxs) for bb, (hists, ctxs) in reqs.items()}
+    torch.cuda.synchronize()
+    launches = counts()
+    log("slice_10m", launches=launches)
+    check(launches["attention_fwd"] > 0, "the 10M slice never launched K1")
+    if method == "tournament":
+        check(launches["groupmax_layout0"] > 0, "the 10M slice never launched K4")
+    else:
+        check(launches["catalog_topk_int8"] > 0, "the 10M slice never launched K3 (int8)")
+
+    want_k = [K, K, 25, K, K, K, None, 3]
+    hists = [history(host, 0)[0], history(host, 5)[0], history(host, 17)[0],
+             history(host, 3)[0], history(host, 3)[0], list(range(1, 90)), None,
+             history(host, N_USERS - 1)[0]]
+    for resp, wk, hist in zip(responses, want_k, hists):
+        if wk is None:
+            check("error" in resp, "the malformed line must answer an error")
+            continue
+        check_response(resp, wk, lambda i: 0 < i < cat.n_items, hist)
+    for bb, (ids, sc) in got.items():
+        check(ids.shape == (bb, K) and bool(np.isfinite(sc).all()),
+              f"10M bucket {bb}: shape {ids.shape} or non-finite scores")
+
+    # stage 1 alone at 10M rows against the card's plain version
+    q = stage1_queries(rec, reqs[64][0][:STAGE1_B], reqs[64][1][:STAGE1_B])
+    with torch.no_grad():
+        v, i = catalog_topk(q, rec.catalog_emb, KK, n_items=cat.n_items)
+        pv, pi = catalog_topk_plain(q, rec.catalog_emb, KK, n_items=cat.n_items)
+    torch.cuda.synchronize()
+    check(torch.equal(i, pi), f"10M stage 1 ({method}): {int((i != pi).sum())} ids differ "
+                              f"from the plain version")
+    torch.testing.assert_close(v, pv, rtol=K3_TOL, atol=K3_TOL)
+    log("slice_10m", case=f"stage 1, {STAGE1_B} queries x 10M rows k={KK}, {method} vs plain",
+        ids_equal=True, max_abs_err=(v - pv).abs().max().item())
+
+    # the same requests, the same weights, the CPU plain path
+    t0 = time.perf_counter()
+    cpu_model = copy.deepcopy(model).cpu()
+    rec_cpu = Recommender(cpu_model, cat.attrs, shortlist=SHORTLIST, batch_buckets=BUCKETS,
+                          quantize="auto")
+    near_ties = 0
+    for resp, cpu_resp in zip(responses, serve_lines(rec_cpu, host, lines, k=K)):
+        if "error" in resp:
+            check("error" in cpu_resp, "CPU path answered a malformed line")
+            continue
+        near_ties += compare(f"10M request {resp['id']}", resp["items"], resp["scores"],
+                             cpu_resp["items"], cpu_resp["scores"])
+    for bb in (1, 8):  # the plain 10M stage 1 is slow on the host; 1 and 8 cover it
+        cids, csc = rec_cpu.recommend(reqs[bb][0], k=K, ctxs=reqs[bb][1])
+        near_ties += compare(f"10M bucket {bb}", *got[bb], cids, csc)
+    log("slice_10m", cpu_agreement="ok", near_tie_slots=near_ties,
+        cpu_seconds=time.perf_counter() - t0)
+    del rec_cpu, cpu_model
+    return rec, host, launches, cat
+
+
+# --------------------------------------------------------------------------
+# phase 5d: the retrieval bench path at 10M rows (bf16 and int8 indexes)
+# --------------------------------------------------------------------------
+
+def phase_bench_10m(card):
+    """carca_tpu_torch.bench_retrieval at 10M items, --kernel_only (a bf16
+    float index and an int8 index; stream, tournament and "auto" legs) with
+    the recursive stage 2 forced: the path that runs K3 over bf16 and int8
+    rows and K4 in its query-major layout."""
+    args = argparse.Namespace(items=BENCH_ITEMS, attrs=32, batch=B, k=K, d=D, seq_len=L,
+                              steps=3, kernel_only=True, sweep=False)
+    old = rt._RECURSIVE_MIN_GROUPS
+    rt._RECURSIVE_MIN_GROUPS = 1
+    reset_counts()
+    try:
+        out = bench_retrieval.run(args)
+    finally:
+        rt._RECURSIVE_MIN_GROUPS = old
+    torch.cuda.synchronize()
+    launches = counts()
+    log("bench_10m", card=card, recursive_stage2=True, launches=launches, **out)
+    for name in ("catalog_topk_bf16", "catalog_topk_int8", "groupmax_layout1"):
+        check(launches[name] > 0, f"the 10M bench path never launched {name}")
+    return launches
+
+
+def timing_10m(card, rec, host, cat):
+    """recommend per bucket over the int8 index against the f32 index, and
+    K3 (bf16, int8) and K4 (both layouts) against their plain versions at
+    the slice's shapes, with peak device memory."""
+    timings = {}
+    for row in run_bench(rec, host, k=K, iters=30):
+        log("timing_10m", card=card, index="int8", **row)
+    rec_f32 = Recommender(rec.model, cat.attrs, shortlist=SHORTLIST, batch_buckets=BUCKETS,
+                          quantize=False)
+    for row in run_bench(rec_f32, host, k=K, iters=30):
+        log("timing_10m", card=card, index="f32", **row)
+    e32 = rec_f32.catalog_emb
+    del rec_f32
+    qi = rec.catalog_emb
+    n = cat.n_items
+    hists, ctxs = bucket_requests(host, SEED + 4)[256]
+    q = stage1_queries(rec, hists, ctxs)  # [256, 64]
+    with torch.no_grad():
+        for layout in (0, 1):
+            ms, plain = kernel_vs_plain(
+                lambda: groupmax(q, qi.qvals, qi.scales, n, True, layout),
+                lambda: groupmax_plain(q, qi.qvals, qi.scales, n, True, layout),
+                reps=20, plain_reps=2)
+            timings["K4", layout] = (ms, plain)
+            log("timing", card=card, kernel="K4 groupmax", layout=layout,
+                shape=f"[{B},{D}] x {n} int8 rows", ms=ms, plain_ms=plain)
+        q32 = q[:STAGE1_B].contiguous()
+        for kind, idx in (("bf16", e32.to(torch.bfloat16)), ("int8", qi)):
+            ms, plain = kernel_vs_plain(
+                lambda: catalog_topk(q32, idx, K, n_items=n, method="stream"),
+                lambda: catalog_topk_plain(q32, idx, K, n_items=n), reps=5, plain_reps=2)
+            timings["K3", kind] = (ms, plain)
+            log("timing", card=card, kernel=f"K3 catalog_topk {kind}",
+                shape=f"[{STAGE1_B},{D}] x {n} rows k={K}", ms=ms, plain_ms=plain)
+        del e32
+        torch.cuda.synchronize()
+        for k in (K, KK):
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ms = cuda_ms(lambda: catalog_topk(q, qi, k, n_items=n, method="stream"), 2)
+            log("timing", card=card, kernel="K3 catalog_topk int8",
+                shape=f"[{B},{D}] x {n} rows k={k}", ms=ms,
+                scratch_peak_mib=(torch.cuda.max_memory_allocated() - base) / 2**20)
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: catalog_topk(q, qi, k, n_items=n, method="tournament"), 3)
+            log("timing", card=card, path="tournament (K4 + stages 2-3) int8",
+                shape=f"[{B},{D}] x {n} rows k={k}", ms=ms,
+                peak_extra_mib=(torch.cuda.max_memory_allocated() - base) / 2**20)
+    log("timing_10m", card=card, peak_device_mib=torch.cuda.max_memory_allocated() / 2**20)
+    return timings
 
 
 # --------------------------------------------------------------------------
@@ -596,7 +917,7 @@ def phase_timing(card, rec, rec_full, host):
             f"causal 0 dropout {P_DROP}", ms=ms, plain_ms=plain)
         for name, e in (("seen", rec.catalog_emb), ("full", rec_full.catalog_emb)):
             q = torch.randn(B, D, generator=torch.Generator().manual_seed(31)).to(DEVICE)
-            ms, plain = kernel_vs_plain(lambda: catalog_topk(q, e, KK),
+            ms, plain = kernel_vs_plain(lambda: catalog_topk(q, e, KK, method="stream"),
                                         lambda: catalog_topk_plain(q, e, KK))
             timings["K3", name] = (ms, plain)
             log("timing", card=card, kernel="K3 catalog_topk", shape=f"[{B},{D}] x "
@@ -664,15 +985,13 @@ def phase_train(card, profile_run=False):
 
     # the main path: the flagship at dropout 0.5, K = 8 steps per call
     s = bench.build_setup("flagship", 256, DEVICE)
-    fused_attention.launches = 0
-    attention_bwd.launches = 0
+    reset_counts()
     losses = []
     for i in range(TRAIN_CALLS):
         s.state, k_losses = s.step(s.state, s.attrs, s.dd.arrays, s.chunks[i % len(s.chunks)])
         losses.append(k_losses)
     torch.cuda.synchronize()
-    launches = {"attention_fwd": fused_attention.launches,
-                "attention_bwd": attention_bwd.launches}
+    launches = counts()
     losses = torch.cat(losses).cpu()
     log("train", case="flagship dropout 0.5", steps=len(losses), launches=launches,
         first_8=losses[:8].tolist(), last_8=losses[-8:].tolist())
@@ -753,7 +1072,7 @@ def profile_train(card, s, use_kernel) -> None:
         top_ms_per_step=top)
 
 
-def phase_profile(card, rec, host, calls: int = 10) -> None:
+def phase_profile(card, rec, host, index: str = "seen", calls: int = 10) -> None:
     """torch.profiler trace of ``calls`` recommend calls per bucket (seen
     index): device busy time (union of kernel and copy intervals), device
     operations per call, busy share of the unprofiled wall time, and the
@@ -784,45 +1103,125 @@ def phase_profile(card, rec, host, calls: int = 10) -> None:
             return (time.perf_counter() - t0) * 1e3
 
         wall_ms, wall_prof_ms, busy_ms, ops, top = device_trace(run, calls)
-        log("profile", card=card, index="seen", batch=bb, calls=calls,
+        log("profile", card=card, index=index, batch=bb, calls=calls,
             wall_ms=wall_ms, wall_profiled_ms=wall_prof_ms, device_busy_ms=busy_ms,
             busy_share=busy_ms / wall_ms, device_ops_per_call=ops, top_ms_per_call=top)
+
+
+def library_attention(card) -> dict:
+    """F.scaled_dot_product_attention beside K1 and K2, timed only (the port
+    never calls it), at the timed K1/K2 shape: encoder [256,50,64], 2 heads,
+    causal 0, weight dropout 0.5. It takes the same additive mask; unlike
+    the kernels it does not re-mask after the softmax, so a fully masked
+    query row gets uniform weights instead of zeros, and it draws its own
+    dropout bits."""
+    q, k, v, qm, km = k1_inputs(L, L, 33)
+    scale = (D / H) ** 0.5
+    add = torch.where(pair_mask(qm, km, 0) > 0, 0.0, NEG_MASK)[:, None] / scale
+
+    def heads(x):
+        return x.view(x.shape[0], L, H, D // H).transpose(1, 2).contiguous().requires_grad_()
+
+    qh, kh, vh = heads(q), heads(k), heads(v)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=add, dropout_p=P_DROP,
+                                              scale=1.0 / scale)
+
+    with torch.no_grad():
+        fwd = cuda_ms(sdpa, 20)
+    out = sdpa()
+    g = torch.randn_like(out)
+    bwd = cuda_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), g, retain_graph=True), 20)
+    log("timing", card=card, library="F.scaled_dot_product_attention",
+        shape="encoder [256,50,64] causal 0 dropout 0.5", fwd_ms=fwd, bwd_ms=bwd)
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def kernel_entries(k1_err, k2_err, k3_err, k4_err, timings, k2_times, library, launches):
+    """The kernels line: every kernel with its launches on the path that
+    runs it, its error against the plain version, its time, the plain
+    version's, the bound and the library call."""
+    f32, act = 4, B * L * D * 4  # bytes of one [256, 50, 64] f32 activation
+    n10 = N_REAL_ITEMS_10M + 1
+    r_seen = 19_157  # rows of the 100k slice's seen index, K3's timed shape
+    entries = []
+
+    def add(name, source, replaces, n, err, ms_plain, bytes_moved, ops, operand, lib=None):
+        b_ms, b_by = bound(bytes_moved, ops, operand)
+        entries.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": n, "max_abs_err": err, "ms": ms_plain[0],
+                        "plain_ms": ms_plain[1], "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": lib})
+
+    add("attention_fwd", "carca_tpu_torch/csrc/attention_fwd.cu",
+        "carca_tpu/ops/flash_attention.py:113", launches["train"]["attention_fwd"], k1_err,
+        timings["K1", "train"], 4 * act + 2 * B * L * f32, 4 * B * L * L * D, "float32",
+        library["fwd"])
+    add("attention_bwd", "carca_tpu_torch/csrc/attention_bwd.cu",
+        "carca_tpu/ops/flash_attention.py:130", launches["train"]["attention_bwd"], k2_err,
+        k2_times[K2_CASES[0][0]]["bwd"], 7 * act + 2 * B * L * f32, 10 * B * L * L * D,
+        "float32", library["bwd"])
+    add("catalog_topk", "carca_tpu_torch/csrc/catalog_topk.cu",
+        "carca_tpu/ops/retrieval_topk.py:526", launches["slice"]["catalog_topk_f32"],
+        k3_err["f32"], timings["K3", "seen"], r_seen * D * f32 + B * D * f32 + B * KK * 12,
+        2 * B * r_seen * D, "float32")
+    for kind, row_bytes in (("bf16", 2 * D), ("int8", D + f32)):
+        add(f"catalog_topk_{kind}", "carca_tpu_torch/csrc/catalog_topk.cu",
+            "carca_tpu/ops/retrieval_topk.py:526", launches["bench"][f"catalog_topk_{kind}"],
+            k3_err[kind], timings["K3", kind],
+            n10 * row_bytes + STAGE1_B * D * f32 + STAGE1_B * K * 12,
+            2 * STAGE1_B * n10 * D, "bfloat16")
+    groups = -(-n10 // 128)
+    for layout, replaces, path in ((0, "carca_tpu/ops/retrieval_topk.py:183", "slice_10m"),
+                                   (1, "carca_tpu/ops/retrieval_topk.py:235", "bench")):
+        add("groupmax" if layout == 0 else "groupmax_bq", "carca_tpu_torch/csrc/groupmax.cu",
+            replaces, launches[path][f"groupmax_layout{layout}"], k4_err[layout],
+            timings["K4", layout], n10 * (D + f32) + B * D * f32 + groups * B * f32,
+            2 * B * n10 * D, "bfloat16")
+    return entries
 
 
 def main() -> None:
     profile_run = "--profile" in sys.argv[1:]
     if set(sys.argv[1:]) - {"--profile"}:
         raise SystemExit(f"usage: {sys.argv[0]} [--profile]")
-    card = phase_device()
-    phase_build()
-    k1_err = phase_k1()
-    k2_err, k2_times = phase_k2(card)
-    k3_err = phase_k3()
-    rec, rec_full, host, serve_launches = phase_slice()
-    timings = phase_timing(card, rec, rec_full, host)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        log("phase_seconds", name=name, seconds=seconds[name])
+        return out
+
+    card = timed("1 device", phase_device)
+    timed("2 build", phase_build)
+    k1_err = timed("3 K1", phase_k1)
+    k2_err, k2_times = timed("3b K2", phase_k2, card)
+    k3_err = timed("4 K3", phase_k3)
+    k4_err = timed("4c K4", phase_k4)
+    rec, rec_full, host, serve_launches = timed("5 slice 100k", phase_slice)
+    timings = timed("6 timing 100k", phase_timing, card, rec, rec_full, host)
     if profile_run:
-        phase_profile(card, rec, host)
+        timed("7 profile 100k", phase_profile, card, rec, host)
     del rec, rec_full
-    train_launches, _ = phase_train(card, profile_run)
-    log("launches", serving=serve_launches, training=train_launches)
-    k2_enc = k2_times[K2_CASES[0][0]]["bwd"]
-    print(json.dumps({"kernels": [
-        {"name": "attention_fwd", "route": "cuda",
-         "source": "carca_tpu_torch/csrc/attention_fwd.cu",
-         "replaces": "carca_tpu/ops/flash_attention.py:113",
-         "launches": train_launches["attention_fwd"], "max_abs_err": k1_err,
-         "ms": timings["K1", "train"][0], "plain_ms": timings["K1", "train"][1]},
-        {"name": "attention_bwd", "route": "cuda",
-         "source": "carca_tpu_torch/csrc/attention_bwd.cu",
-         "replaces": "carca_tpu/ops/flash_attention.py:130",
-         "launches": train_launches["attention_bwd"], "max_abs_err": k2_err,
-         "ms": k2_enc[0], "plain_ms": k2_enc[1]},
-        {"name": "catalog_topk", "route": "cuda",
-         "source": "carca_tpu_torch/csrc/catalog_topk.cu",
-         "replaces": "carca_tpu/ops/retrieval_topk.py:526",
-         "launches": serve_launches["catalog_topk"], "max_abs_err": k3_err,
-         "ms": timings["K3", "seen"][0], "plain_ms": timings["K3", "seen"][1]},
-    ]}), flush=True)
+    rec10, host10, launches_10m, cat10 = timed("5c slice 10M", phase_slice_10m)
+    if profile_run:
+        timed("7 profile 10M", phase_profile, card, rec10, host10, "10M int8")
+    timings.update(timed("6 timing 10M", timing_10m, card, rec10, host10, cat10))
+    del rec10, host10, cat10
+    torch.cuda.empty_cache()
+    bench_launches = timed("5d bench 10M", phase_bench_10m, card)
+    torch.cuda.empty_cache()
+    library = timed("6 library", library_attention, card)
+    train_launches, _ = timed("8 train", phase_train, card, profile_run)
+    launches = {"slice": serve_launches, "slice_10m": launches_10m, "bench": bench_launches,
+                "train": train_launches}
+    log("launches", **launches)
+    log("phase_seconds", total=sum(seconds.values()), **seconds)
+    print(json.dumps({"kernels": kernel_entries(k1_err, k2_err, k3_err, k4_err, timings,
+                                                k2_times, library, launches)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -39,7 +39,7 @@ def test_params_roundtrip(embedding, pack):
         assert params["embed"]["items"].shape[-1] == 128  # really packed
     pcfg = model_config_from_jax(dataclasses.asdict(cfg))
     sd = params_from_jax(params, pcfg)
-    model = load_into(CARCA(pcfg), params)  # strict: same keys and shapes
+    model = load_into(CARCA(pcfg, device="cpu"), params)  # strict: same keys and shapes
     assert set(sd) == set(model.state_dict())
     want_items = unpack_rows(params["embed"]["items"], width)[:N_ITEMS]
     np.testing.assert_array_equal(model.embed.items.detach().numpy(), want_items)
@@ -70,7 +70,7 @@ def test_packed_params_score_like_jax():
     want = np.asarray(jax_carca_apply(params, cfg, (p_x, None, p_c),
                                       [(o_x, None, o_c)], train=False,
                                       attrs_table=attrs))
-    model = load_into(CARCA(model_config_from_jax(dataclasses.asdict(cfg))),
+    model = load_into(CARCA(model_config_from_jax(dataclasses.asdict(cfg)), device="cpu"),
                       jax.tree.map(np.asarray, params)).eval()
     t = torch.from_numpy
     with torch.no_grad():

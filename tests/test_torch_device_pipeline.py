@@ -61,7 +61,7 @@ def test_windowing_matches_jax(mode, test):
 def test_device_dataset_arrays_match_jax(catalogs):
     jcat, cat = catalogs
     want = JaxDeviceDataset(jcat, L, T, test=True)
-    got = DeviceDataset(cat, L, T, test=True)
+    got = DeviceDataset(cat, L, T, test=True, device="cpu")
     assert set(want.arrays) - set(got.arrays) == {"evt_packed"}  # not ported
     for name, t in got.arrays.items():
         np.testing.assert_array_equal(t.numpy(), np.asarray(want.arrays[name]), err_msg=name)
@@ -76,7 +76,7 @@ def test_assemble_train_matches_jax(catalogs, n_neg, reject_width):
     user rows, −1 padding rows included; negatives keep the contract."""
     jcat, cat = catalogs
     jdd = JaxDeviceDataset(jcat, L, T, test=True)
-    dd = DeviceDataset(cat, L, T, test=True)
+    dd = DeviceDataset(cat, L, T, test=True, device="cpu")
     rw = dd.hist_max if reject_width < 0 else reject_width
     rows = np.concatenate([dd.users("train")[:30], [-1, -1]]).astype(np.int32)
     want = jax_assemble_train(jdd.arrays, L, jcat.n_items, jnp.asarray(rows),

@@ -7,8 +7,11 @@ shared ``tests/conftest.py`` imports jax, which that machine may lack).
 Tolerances: K1 1e-5 abs/rel at f32 (summation order), 2e-2 at bf16; K2
 1e-5 relative norm per gradient at f32, 2e-2 at bf16 (the plain version's
 autograd does not round dO and dS to bf16, K2 does, as the TPU kernel did);
-K3 ids equal and values within 1e-5 (both sum in the same order). With
-weight dropout the plain version is fed the kernels' own Philox keep mask.
+K3 ids equal and values within 1e-5 (both sum in the same order), at f32,
+bf16 and int8; K4 bit-equal to its plain version (one arithmetic, and a
+maximum has no rounding), and the tournament (K4 and its rerank) equal to
+the stream (K3), ids and values. With weight dropout the plain version is
+fed the kernels' own Philox keep mask.
 """
 
 import numpy as np
@@ -19,7 +22,8 @@ from carca_tpu_torch.models.attention import MHA, masked_attention
 from carca_tpu_torch.ops.flash_attention import (SEED_LIMIT, attention_bwd,
                                                  attention_grads_plain, attention_keep_mask,
                                                  fused_attention)
-from carca_tpu_torch.ops.retrieval_topk import catalog_topk, catalog_topk_plain
+from carca_tpu_torch.ops.retrieval_topk import (catalog_topk, catalog_topk_plain, groupmax,
+                                                groupmax_plain, quantize_index)
 
 pytestmark = pytest.mark.cuda
 
@@ -198,11 +202,103 @@ def test_topk_kernel_matches_plain(dev, b, r, k, offset, n_items):
     torch.testing.assert_close(v, pv, rtol=1e-5, atol=1e-5)
 
 
+def as_index(e, kind):
+    if kind == "f32":
+        return e
+    if kind == "bf16":
+        return e.to(torch.bfloat16)
+    return quantize_index(e)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("b,r,k,offset,n_items", [
+    (33, 19_156, 562, 0, None), (33, 3_000, 40, 7, 2_500), (33, 300, 600, 0, 250),
+    (1, 2_049, 1, 0, None), (4, 5_000, 10, 0, None)])
+def test_topk_kernel_variants_match_plain(dev, kind, b, r, k, offset, n_items):
+    """K3 over a bf16 or int8 index: the query rounded to bf16, the int8
+    scale after the sum, ids exact."""
+    g = torch.Generator(device="cpu").manual_seed(r + 1)
+    q = torch.randn(b, 64, generator=g)
+    e = torch.randn(r, 64, generator=g)
+    e[100:120] = e[min(5, r - 1)]
+    q[b // 2] = 0.0
+    index = as_index(e.to(dev), kind)
+    kw = dict(n_items=n_items, id_offset=offset)
+    before = catalog_topk.launches
+    v, i = catalog_topk(q.to(dev), index, k, method="stream", **kw)
+    pv, pi = catalog_topk_plain(q.to(dev), index, k, **kw)
+    torch.cuda.synchronize()
+    assert catalog_topk.launches == before + 1
+    assert torch.equal(i, pi)
+    torch.testing.assert_close(v, pv, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("layout", [0, 1])
+@pytest.mark.parametrize("b,r,lim0,mask_row0", [
+    (256, 20_000, 20_000, True), (33, 19_156, 15_000, False), (17, 1_000, 1_000, True),
+    (9, 300, 250, True), (1, 2_049, 2_049, True), (5, 129, 129, False)])
+def test_groupmax_kernel_bit_equal_to_plain(dev, kind, layout, b, r, lim0, mask_row0):
+    g = torch.Generator(device="cpu").manual_seed(b * r)
+    q = torch.randn(b, 64, generator=g)
+    e = torch.randn(r, 64, generator=g)
+    e[120:140] = e[min(3, r - 1)]  # exact ties across a group boundary
+    q[0] = 0.0
+    q, e = q.to(dev), e.to(dev)
+    index = as_index(e, kind)
+    rows, scales = (index.qvals, index.scales) if kind == "int8" else (index, None)
+    before = groupmax.launches
+    got = groupmax(q, rows, scales, lim0, mask_row0, layout)
+    want = groupmax_plain(q, rows, scales, lim0, mask_row0, layout)
+    torch.cuda.synchronize()
+    assert groupmax.launches == before + 1
+    assert got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("recursive", [False, True])
+@pytest.mark.parametrize("b,r,k,offset,n_items", [
+    (33, 19_156, 562, 0, None), (64, 5_000, 10, 0, None), (33, 3_000, 40, 7, 2_500),
+    (9, 300, 600, 0, 250), (1, 2_049, 1, 0, None)])
+def test_tournament_equals_stream_on_the_card(dev, monkeypatch, kind, recursive,
+                                              b, r, k, offset, n_items):
+    import carca_tpu_torch.ops.retrieval_topk as rt
+
+    if recursive:
+        monkeypatch.setattr(rt, "_RECURSIVE_MIN_GROUPS", 1)
+    g = torch.Generator(device="cpu").manual_seed(r + 2)
+    q = torch.randn(b, 64, generator=g)
+    e = torch.randn(r, 64, generator=g)
+    e[100:300] = e[min(7, r - 1)]  # 200 exact ties over two group boundaries
+    q[b // 2] = 0.0
+    index = as_index(e.to(dev), kind)
+    kw = dict(n_items=n_items, id_offset=offset)
+    before = groupmax.launches
+    tv, ti = catalog_topk(q.to(dev), index, k, method="tournament", **kw)
+    sv, si = catalog_topk(q.to(dev), index, k, method="stream", **kw)
+    torch.cuda.synchronize()
+    assert groupmax.launches == before + 1
+    assert torch.equal(ti, si) and torch.equal(tv, sv)
+
+
 def test_topk_kernel_raises_on_what_it_lacks(dev):
+    """Every index type and both methods now run kernels on the card; what
+    they cannot take still raises: an int8 tensor without its scales, a
+    non-contiguous index, an index on another device, non-float32 queries."""
     q = torch.randn(4, 8, device=dev)
     e = torch.randn(100, 8, device=dev)
-    with pytest.raises(NotImplementedError):
-        catalog_topk(q, e, 5, method="tournament")
-    with pytest.raises(NotImplementedError):
-        catalog_topk(q, e.to(torch.bfloat16), 5)
-    assert np.isfinite(catalog_topk(q, e, 5)[0].cpu().numpy()).all()
+    before = (catalog_topk.launches, groupmax.launches)
+    for method in ("stream", "tournament"):
+        for index in (e, e.to(torch.bfloat16), quantize_index(e)):
+            assert np.isfinite(catalog_topk(q, index, 5, method=method)[0].cpu().numpy()).all()
+    assert (catalog_topk.launches, groupmax.launches) == (before[0] + 3, before[1] + 3)
+    for method in ("stream", "tournament"):
+        with pytest.raises(TypeError, match="QuantizedIndex"):
+            catalog_topk(q, e.to(torch.int8), 5, method=method)
+        with pytest.raises(ValueError, match="contiguous"):
+            catalog_topk(q, torch.randn(8, 200, device=dev).t(), 5, method=method)
+        with pytest.raises(ValueError, match="index on"):
+            catalog_topk(q, e.cpu(), 5, method=method)
+        with pytest.raises(TypeError, match="float32 queries"):
+            catalog_topk(q.double(), e, 5, method=method)

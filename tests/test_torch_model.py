@@ -47,7 +47,7 @@ def run_both(jcfg, targets_twice=False, seed=0):
     want = np.asarray(jax_carca_apply(
         params, jcfg, (p_x, None, p_c), groups, train=False, attrs_table=attrs))
 
-    model = CARCA(model_config_from_jax(dataclasses.asdict(jcfg)))
+    model = CARCA(model_config_from_jax(dataclasses.asdict(jcfg)), device="cpu")
     load_into(model, jax.tree.map(np.asarray, params)).eval()
     t = torch.from_numpy
     with torch.no_grad():
@@ -88,8 +88,33 @@ def test_same_shape_target_groups_fold_matches_jax():
 
 def test_fresh_init_is_seeded_and_zero_pads():
     cfg = model_config_from_jax(dataclasses.asdict(jax_cfg()))
-    a = CARCA(cfg, generator=torch.Generator().manual_seed(5))
-    b = CARCA(cfg, generator=torch.Generator().manual_seed(5))
+    a = CARCA(cfg, generator=torch.Generator().manual_seed(5), device="cpu")
+    b = CARCA(cfg, generator=torch.Generator().manual_seed(5), device="cpu")
     for (ka, va), (kb, vb) in zip(a.state_dict().items(), b.state_dict().items()):
         assert ka == kb and torch.equal(va, vb)
     assert torch.count_nonzero(a.embed.items[0]) == 0
+
+
+def test_entry_points_default_to_the_card():
+    """CARCA, create_train_state and DeviceDataset place their tensors on
+    the card unless the caller asks for the CPU: without a card they raise
+    instead of landing on the host."""
+    from carca_tpu_torch.config import TrainConfig
+    from carca_tpu_torch.data.device_pipeline import DeviceDataset
+    from carca_tpu_torch.data.synthetic import synthetic_catalog
+    from carca_tpu_torch.train.state import create_train_state
+
+    cfg = model_config_from_jax(dataclasses.asdict(jax_cfg()))
+    cat = synthetic_catalog(n_users=8, n_real_items=20, seed=0)
+    builds = (lambda: CARCA(cfg).embed.items,
+              lambda: create_train_state(cfg, TrainConfig()).model.embed.items,
+              lambda: DeviceDataset(cat, L, T).arrays["items"])
+    for build in builds:
+        if torch.cuda.is_available():
+            assert build().device.type == "cuda"
+        else:
+            with pytest.raises((AssertionError, RuntimeError)):
+                build()
+    cpu_state = create_train_state(cfg, TrainConfig(), device="cpu")
+    assert cpu_state.model.embed.items.device.type == "cpu"
+    assert create_train_state(cfg, TrainConfig(), model=cpu_state.model).generator.device.type == "cpu"

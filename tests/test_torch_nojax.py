@@ -27,7 +27,7 @@ def test_serving_and_ops_import_without_jax():
         "import carca_tpu_torch.train.loop, carca_tpu_torch.train.state\n"
         "import carca_tpu_torch.data.device_pipeline, carca_tpu_torch.data.dataset\n"
         "import carca_tpu_torch.parallel.sampling, carca_tpu_torch.models.losses\n"
-        "import carca_tpu_torch.bench\n"
+        "import carca_tpu_torch.bench, carca_tpu_torch.bench_retrieval\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
     )

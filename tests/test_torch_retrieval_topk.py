@@ -80,6 +80,18 @@ def test_ordered_scores_agree_with_matmul():
     np.testing.assert_allclose(s, q @ e.T, rtol=TOL, atol=TOL)
 
 
+def test_ordered_scores_of_an_int8_index_scale_the_bf16_sum():
+    """The int8 plain score: the bf16-rounded query against the int8 rows,
+    summed, then times the row scale — in float64 the same up to the f32
+    sum's rounding."""
+    q, e = data(9, r=70, d=16)
+    qi = quantize_index(torch.from_numpy(e))
+    got = ordered_scores(torch.from_numpy(q), qi).numpy()
+    qb = torch.from_numpy(q).to(torch.bfloat16).double().numpy()
+    want = (qb @ qi.qvals.double().numpy().T) * qi.scales.double().numpy()
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+
+
 def test_quantize_index_matches_jax():
     _, e = data(6, r=40)
     e[3] = 0.0  # the pad row gets scale 0
@@ -93,16 +105,25 @@ def test_quantize_index_matches_jax():
 
 
 def test_unported_variants_raise_on_cpu_too():
-    """The tournament method and bf16/int8 indexes have no kernel yet; the
-    CPU path refuses them as the CUDA path does, instead of answering with
-    the f32 stream result."""
+    """The tournament and bf16/int8 indexes now run (their kernels are
+    ported) and answer as the f32 stream does up to the index's own
+    rounding; what no kernel takes still raises on the CPU as on the card:
+    int8 rows without their scales, scales of the wrong shape, a float64
+    index."""
     q, e = (torch.from_numpy(a) for a in data(7, r=64))
-    with pytest.raises(NotImplementedError, match="tournament"):
-        catalog_topk(q, e, 5, method="tournament")
-    with pytest.raises(NotImplementedError, match="f32 index"):
-        catalog_topk(q, quantize_index(e), 5)
-    with pytest.raises(NotImplementedError, match="f32 index"):
-        catalog_topk(q, e.to(torch.bfloat16), 5)
+    sv, si = catalog_topk(q, e, 5, method="stream")
+    tv, ti = catalog_topk(q, e, 5, method="tournament")
+    assert torch.equal(si, ti) and torch.equal(sv, tv)
+    for index in (e.to(torch.bfloat16), quantize_index(e)):
+        v, i = catalog_topk(q, index, 5)
+        assert v.shape == (5, 5) and torch.isfinite(v).all() and (i > 0).all()
+    with pytest.raises(TypeError, match="QuantizedIndex"):
+        catalog_topk(q, e.to(torch.int8), 5)
+    qi = quantize_index(e)
+    with pytest.raises(ValueError, match="scales"):
+        catalog_topk(q, qi._replace(scales=qi.scales[0]), 5)
+    with pytest.raises(TypeError, match="float32, bfloat16"):
+        catalog_topk(q, e.double(), 5, method="tournament")
 
 
 def test_rejects_unknown_method():

@@ -51,7 +51,7 @@ def build_pair(cat, decoder, seed=1, **rec_kw):
                           n_heads=2, dropout=0.0, embedding="all", decoder=decoder,
                           l2_norm=decoder == "wdot")
     params = carca_init(jax.random.PRNGKey(seed), jcfg)
-    model = load_into(CARCA(model_config_from_jax(dataclasses.asdict(jcfg))),
+    model = load_into(CARCA(model_config_from_jax(dataclasses.asdict(jcfg)), device="cpu"),
                       jax.tree.map(np.asarray, params))
     return (JaxRecommender(params, jcfg, cat.attrs, **rec_kw),
             Recommender(model, cat.attrs, **rec_kw))
@@ -180,7 +180,7 @@ def test_run_bench_rows(cat):
 
     cfg = ModelConfig(n_items=cat.n_items, n_attrs=cat.n_attrs, n_ctx=cat.n_ctx,
                       d=16, g=32, seq_len=8, n_blocks=1, decoder="dot")
-    rec = Recommender(CARCA(cfg, generator=torch.Generator().manual_seed(0)),
+    rec = Recommender(CARCA(cfg, generator=torch.Generator().manual_seed(0), device="cpu"),
                       cat.attrs, batch_buckets=(1, 4))
     rows = run_bench(rec, HostCSR(cat), k=3, iters=4)
     assert [r["batch"] for r in rows] == [1, 4]

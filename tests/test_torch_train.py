@@ -147,7 +147,7 @@ def test_train_loss_and_gradients_match_jax(catalog, use_pallas, loss_kind, n_ne
         jcfg, p, batch, jax.random.PRNGKey(0), attrs, loss_kind=loss_kind,
         logq=logq))(params)
 
-    model = CARCA(model_config_from_jax(dataclasses.asdict(jcfg)))
+    model = CARCA(model_config_from_jax(dataclasses.asdict(jcfg)), device="cpu")
     load_into(model, jax.tree.map(np.asarray, params)).train()
     tb = {k: torch.from_numpy(v.copy()) for k, v in batch.items()}
     got = train_loss(model, tb, torch.from_numpy(attrs), loss_kind=loss_kind,
@@ -172,10 +172,10 @@ def test_adam_with_l2_and_cosine_matches_optax():
     params = carca_init(jax.random.PRNGKey(1), jcfg)
     tx = jax_make_optimizer(jtc)
     opt_state = tx.init(params)
-    model = CARCA(model_config_from_jax(dataclasses.asdict(jcfg)))
+    model = CARCA(model_config_from_jax(dataclasses.asdict(jcfg)), device="cpu")
     load_into(model, jax.tree.map(np.asarray, params))
     tc = train_config_from_jax(jtc)
-    state = create_train_state(model.cfg, tc, model=model)
+    state = create_train_state(model.cfg, tc, device="cpu", model=model)
     rng = np.random.default_rng(2)
     for step in range(3):
         grads = jax.tree.map(lambda p: rng.standard_normal(p.shape).astype(np.float32), params)
@@ -217,7 +217,7 @@ def small_setup(dropout=0.5):
     cat = synthetic_catalog(n_users=60, n_real_items=100, seed=3)
     mc = model_config_from_jax(dataclasses.asdict(jax_cfg(dropout=dropout, use_pallas="auto")))
     tc = TrainConfig(batch_size=B, inner_steps=2)
-    dd = DeviceDataset(cat, L, 10)
+    dd = DeviceDataset(cat, L, 10, device="cpu")
     users = dd.users("train")
     rows = torch.as_tensor(np.stack([users[:B], users[B:2 * B]]), dtype=torch.int64)
     return mc, tc, dd, torch.as_tensor(cat.attrs), rows
@@ -236,8 +236,8 @@ def test_scanned_step_equals_single_steps(variant):
         counts = torch.bincount(dd.arrays["items"].long(), minlength=mc.n_items).float()
         kw = dict(reject_width=dd.hist_max, neg_pop=True,
                   logq=torch.log(counts.clamp_min(1.0) / counts.sum()))
-    a = create_train_state(mc, tc)
-    b = create_train_state(mc, tc)
+    a = create_train_state(mc, tc, device="cpu")
+    b = create_train_state(mc, tc, device="cpu")
     a, losses = make_scanned_device_train_step(mc, 2, tc, **kw)(a, attrs, dd.arrays, rows)
     step = make_device_train_step(mc, tc, **kw)
     single = []
@@ -256,7 +256,7 @@ def test_train_step_moves_the_weights_and_uses_the_kernel_switch_on_cpu():
     wrapper's plain version: no kernel launches, the weights move."""
     mc, tc, dd, attrs, rows = small_setup()
     assert mc.use_kernel == "auto"
-    state = create_train_state(mc, tc)
+    state = create_train_state(mc, tc, device="cpu")
     before = [p.detach().clone() for p in state.model.parameters()]
     launches = (fused_attention.launches, attention_bwd.launches)
     state, loss = make_device_train_step(mc, tc)(state, attrs, dd.arrays, rows[0])
