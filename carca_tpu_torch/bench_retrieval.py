@@ -22,7 +22,7 @@ queries/s of every leg, and every leg's top-k device time alone.
 
 ``--sweep`` embeds 10M items once and times ``catalog_topk`` alone (CUDA
 events) with the stream and the tournament, over the first 100k, 1M, 2M, 5M
-and 10M rows, B ∈ {1, 256}, k ∈ {10, 562}, f32 and int8 indexes (bf16 at
+and 10M rows, B ∈ {1, 8, 64, 256}, k ∈ {10, 562}, f32 and int8 indexes (bf16 at
 10M), and the flat against the recursive stage 2 at 10M: one JSON line per
 case. It is the measurement behind "auto"'s thresholds and
 ``_RECURSIVE_MIN_GROUPS`` in ``ops/retrieval_topk.py``. Needs a CUDA card.
@@ -43,7 +43,7 @@ from carca_tpu_torch.parallel.retrieval import (catalog_in_decoder_space, embed_
                                                 full_catalog_topk, queries)
 
 SWEEP_ROWS = (100_000, 1_000_000, 2_000_000, 5_000_000, 10_000_000)
-SWEEP_BATCHES = (1, 256)
+SWEEP_BATCHES = (1, 8, 64, 256)
 SWEEP_KS = (10, 562)
 
 
@@ -118,7 +118,7 @@ def run(args) -> dict:
         "headline_leg": headline,
         **{f"queries_per_sec_{n}": r for n, r in qps.items()},
         **{f"topk_ms_{n}": t for n, t in topk_ms.items()},
-        "auto_method": rt.resolve_method("auto", args.items, args.k),
+        "auto_method": rt.resolve_method("auto", args.items, args.k, args.batch),
         "catalog_items": args.items, "catalog_embed_seconds": t_embed,
         "emb_dtype": str(emb_dtype).removeprefix("torch."), "top_k": args.k,
         "batch": args.batch, "device": torch.cuda.get_device_name(0),
@@ -179,7 +179,7 @@ def _case(q, index, k, rows, dtype, b) -> dict:
                                       and torch.equal(results["stream"][0],
                                                       results["tournament"][0]))
     out["faster"] = min(("stream", "tournament"), key=lambda m: out[f"{m}_ms"])
-    out["auto"] = rt.resolve_method("auto", rows, k)
+    out["auto"] = rt.resolve_method("auto", rows, k, b)
     return out
 
 

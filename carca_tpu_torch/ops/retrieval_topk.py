@@ -17,8 +17,9 @@ and on that kernel's plain version for CPU tensors:
   memory-bounded slices: plain tensor work, as in the JAX package. From
   ``_RECURSIVE_MIN_GROUPS`` groups stage 2 runs two levels over 128-group
   super-groups (layout 1).
-* ``"auto"``: the tournament from ``_TOURNAMENT_MIN_ROWS`` rows on
-  (``_TOURNAMENT_MIN_ROWS_BIG_K`` for k ≥ 48), else the stream.
+* ``"auto"``: the tournament from ``_TOURNAMENT_MIN_ROWS`` rows on for
+  k < 48 at a batch of ``_TOURNAMENT_MIN_BATCH`` or more, from
+  ``_TOURNAMENT_MIN_ROWS_BIG_K`` rows otherwise; else the stream.
 
 One arithmetic scores everywhere (``ordered_scores`` here,
 ``csrc/scoring.cuh`` in the kernels): against a bf16 or int8 index the
@@ -57,13 +58,15 @@ MAX_K = 16_384  # the largest chunk whose keys a K3 block sorts in shared memory
 GROUP = 128  # rows per tournament group
 BIG_K = 48  # from this k on, "auto" takes the tournament from _TOURNAMENT_MIN_ROWS_BIG_K rows
 # Stream/tournament crossover measured on the H100 (PERF.md, "crossover";
-# carca_tpu_torch/bench_retrieval.py --sweep). k < 48: from 1M rows the
-# tournament is 7-10x faster at B = 256 and ~1 ms slower at B = 1. k >= 48:
-# its rerank of (k + 8) x 128 rows per query costs ~50-70 ms at B = 256
-# whatever the row count; at 2M rows it wins over an int8 index (52.6 vs
-# 67.0 ms), from 5M over every index at B = 256.
+# carca_tpu_torch/bench_retrieval.py --sweep over B = 1/8/64/256). The
+# stream's time grows with B x rows; the tournament's stage 3 with B x k,
+# and at small B it is ~1-2 ms of launches. k < 48: from 1M rows the
+# tournament is 4-10x faster at B >= 64, ties at B = 8, and at B = 1 is
+# slower up to 2M rows. k >= 48: from 5M rows it wins at every B; at 2M
+# only over an int8 index.
 _TOURNAMENT_MIN_ROWS = 1_000_000
-_TOURNAMENT_MIN_ROWS_BIG_K = 2_000_000
+_TOURNAMENT_MIN_ROWS_BIG_K = 5_000_000
+_TOURNAMENT_MIN_BATCH = 8
 # Two-level stage 2 from this many groups on; off: at 10M rows it did not
 # beat the flat stage 2 on the H100 (PERF.md).
 _RECURSIVE_MIN_GROUPS = 1 << 62
@@ -278,14 +281,12 @@ def groupmax(q: torch.Tensor, e: torch.Tensor, scales: Optional[torch.Tensor],
             out.data_ptr(), b, r, d, max(0, min(lim0, r)), int(mask_row0), n_groups, layout,
             _DTYPE_CODE[e.dtype], stream)
     _build.check(err, "groupmax")
-    groupmax.launches += 1
-    groupmax.launches_by_layout[layout] += 1
+    groupmax.launches[layout] += 1
     return out
 
 
-# kernel launches, for checks that a path ran K4 (and in which layout)
-groupmax.launches = 0
-groupmax.launches_by_layout = {0: 0, 1: 0}
+# kernel launches by layout, for checks that a path ran K4
+groupmax.launches = {0: 0, 1: 0}
 
 
 def _tournament_topk(q, e, scales, k: int, lim0: int, mask_row0: bool, id_offset: int):
@@ -373,19 +374,19 @@ def _stream_kernel(q, e, scales, k: int, lim0: int, mask_row0: bool, id_offset: 
             vals.data_ptr(), ids.data_ptr(), buf0.data_ptr(), buf1.data_ptr(), b, r, d, k,
             c, qb, lim0, int(mask_row0), int(id_offset), _DTYPE_CODE[e.dtype], stream)
     _build.check(err, "catalog_topk")
-    catalog_topk.launches += 1
-    catalog_topk.launches_by_index[INDEX_KINDS[e.dtype]] += 1
+    catalog_topk.launches[INDEX_KINDS[e.dtype]] += 1
     return vals, ids
 
 
-def resolve_method(method: str, rows: int, k: int) -> str:
-    """"auto" → "tournament" from the measured crossover on, else
-    "stream"; the other methods as they are."""
+def resolve_method(method: str, rows: int, k: int, batch: int) -> str:
+    """"auto" → "tournament" from the crossover measured for (k, batch)
+    on, else "stream"; the other methods as they are."""
     if method not in ("auto", "stream", "tournament"):
         raise ValueError(f"method must be auto|stream|tournament, got {method!r}")
     if method != "auto":
         return method
-    big = rows >= (_TOURNAMENT_MIN_ROWS_BIG_K if k >= BIG_K else _TOURNAMENT_MIN_ROWS)
+    fast = k < BIG_K and batch >= _TOURNAMENT_MIN_BATCH
+    big = rows >= (_TOURNAMENT_MIN_ROWS if fast else _TOURNAMENT_MIN_ROWS_BIG_K)
     return "tournament" if big and rows >= 2 * GROUP else "stream"
 
 
@@ -408,7 +409,7 @@ def catalog_topk(
     if k < 1:
         raise ValueError(f"k must be positive, got {k}")
     e, scales = _unpack(catalog_emb)
-    method = resolve_method(method, e.shape[0], k)
+    method = resolve_method(method, e.shape[0], k, q.shape[0])
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"catalog_topk runs on cpu or cuda tensors, got {q.device}")
     lim0, mask_row0 = _window(e.shape[0], n_items, id_offset)
@@ -419,6 +420,5 @@ def catalog_topk(
     return _stream_kernel(q, e, scales, k, lim0, mask_row0, id_offset)
 
 
-# kernel launches, for checks that a path ran K3 (and over which index type)
-catalog_topk.launches = 0
-catalog_topk.launches_by_index = {kind: 0 for kind in INDEX_KINDS.values()}
+# kernel launches by index type, for checks that a path ran K3
+catalog_topk.launches = {kind: 0 for kind in INDEX_KINDS.values()}

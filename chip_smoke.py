@@ -44,16 +44,20 @@ raises and exits non-zero:
 5c. 10M    — the same preset over synthetic_catalog(4096 users, 9,999,999
              items) with quantize="auto": an int8 index of 10,000,000 rows.
              JSON-lines requests and one recommend per bucket; K1 and the
-             stage-1 kernel "auto" picks must launch. Stage 1 alone (32
-             queries, k = 562) against the card's plain version; the
-             requests and buckets 1 and 8 against the CPU plain path.
+             stage-1 kernel "auto" picks must launch. Stage 1 alone (k =
+             562) at buckets 8 and 64 (K4's one- and eight-queries-per-warp
+             builds) against the card's plain version; the requests and
+             buckets 1 and 8 against the CPU plain path.
 5d. bench  — carca_tpu_torch/bench_retrieval.py at 10M items, kernel legs
              (bf16 and int8 indexes, stream, tournament, auto), with the
              recursive stage 2 forced: K3 over bf16 and int8 rows and K4's
              [B, G] layout must launch.
 6. timing  — recommend p50/p95 and throughput per bucket (100k slice; 10M
              slice over the int8 and an f32 index), each kernel beside its
-             plain version at the slices' shapes (CUDA events), K3's merge
+             plain version at the slices' shapes (CUDA events) and checked
+             against it there (K4 bit-equal in both layouts at [256,64] x
+             10M int8 rows; K3 bf16/int8 ids equal, values within 1e-5, at
+             [32,64] x 10M rows), K3's merge
              scratch and the tournament's memory at 10M rows, and
              F.scaled_dot_product_attention beside K1/K2 (timed only).
 7. profile — only with --profile: per bucket, a torch.profiler trace of
@@ -118,7 +122,8 @@ from carca_tpu_torch.train.loop import train_loss
 SEED = 0
 N_USERS, N_REAL_ITEMS = 4096, 99_999
 N_REAL_ITEMS_10M = 9_999_999  # the >=1M-row slice: 10,000,000 item ids
-STAGE1_B = 32  # stage 1 at 10M rows against the plain [B, 10M] sort, which B = 256 would make tens of GB
+STAGE1_BUCKETS = (8, 64)  # stage 1 at 10M rows against the plain [B, 10M] sort (B = 256: tens of GB)
+K3_10M_B = 32  # K3 bf16/int8 at 10M rows against the plain [B, 10M] sort
 K4_BIG_ROWS = 1_000_000  # the largest tournament-vs-stream case of phase 4c
 BENCH_ITEMS = 10_000_000  # the retrieval bench path of phase 5d
 SHORTLIST, K = 512, 10
@@ -204,17 +209,15 @@ def reset_counts() -> None:
     """Every kernel's launch count to 0, just before a main path runs."""
     fused_attention.launches = 0
     attention_bwd.launches = 0
-    catalog_topk.launches = 0
-    catalog_topk.launches_by_index.update({kind: 0 for kind in INDEX_KINDS})
-    groupmax.launches = 0
-    groupmax.launches_by_layout.update({0: 0, 1: 0})
+    catalog_topk.launches.update({kind: 0 for kind in INDEX_KINDS})
+    groupmax.launches.update({0: 0, 1: 0})
 
 
 def counts() -> dict:
     return {"attention_fwd": fused_attention.launches,
             "attention_bwd": attention_bwd.launches,
-            **{f"catalog_topk_{kind}": n for kind, n in catalog_topk.launches_by_index.items()},
-            **{f"groupmax_layout{lay}": n for lay, n in groupmax.launches_by_layout.items()}}
+            **{f"catalog_topk_{kind}": n for kind, n in catalog_topk.launches.items()},
+            **{f"groupmax_layout{lay}": n for lay, n in groupmax.launches.items()}}
 
 
 def as_index(e, kind: str):
@@ -527,7 +530,7 @@ def phase_k4() -> dict:
     e[1000:1400] = e[7]  # and three more
     big = torch.randn(K4_BIG_ROWS, D, generator=gen).to(DEVICE)
     worst = {0: 0.0, 1: 0.0}
-    before = groupmax.launches
+    before = sum(groupmax.launches.values())
     for kind in INDEX_KINDS:
         for name, qq, ee, lim0, row0 in (
                 ("ties across groups, zero queries, B=256", q, e, 20_000, True),
@@ -545,7 +548,7 @@ def phase_k4() -> dict:
                 worst[layout] = max(worst[layout],
                                     (got[fin] - want[fin]).abs().max().item() if fin.any() else 0.0)
             log("K4", case=f"{kind} {name}", bit_equal=True, layouts=[0, 1])
-    check(groupmax.launches > before, "K4 never launched")
+    check(sum(groupmax.launches.values()) > before, "K4 never launched")
     old = rt._RECURSIVE_MIN_GROUPS
     try:
         for kind in INDEX_KINDS:
@@ -740,11 +743,11 @@ def phase_slice_10m():
     build_peak = torch.cuda.max_memory_allocated() / 2**20
     rec.warmup(k=K)
     torch.cuda.synchronize()
-    method = rt.resolve_method("auto", cat.n_items, KK)
+    methods = {bb: rt.resolve_method("auto", cat.n_items, KK, bb) for bb in BUCKETS}
     log("slice_10m", setup_s=time.perf_counter() - t0, n_items=cat.n_items,
         n_events=int(len(cat.items)), index="int8", index_rows=rec.catalog_emb.rows,
         index_mib=(rec.catalog_emb.qvals.numel() + 4 * rec.catalog_emb.rows) / 2**20,
-        stage1_method=method, build_peak_device_mib=build_peak,
+        stage1_method=methods, build_peak_device_mib=build_peak,
         device_mib=torch.cuda.memory_allocated() / 2**20)
 
     lines = request_lines(cat, host)
@@ -756,9 +759,9 @@ def phase_slice_10m():
     launches = counts()
     log("slice_10m", launches=launches)
     check(launches["attention_fwd"] > 0, "the 10M slice never launched K1")
-    if method == "tournament":
+    if "tournament" in methods.values():
         check(launches["groupmax_layout0"] > 0, "the 10M slice never launched K4")
-    else:
+    if "stream" in methods.values():
         check(launches["catalog_topk_int8"] > 0, "the 10M slice never launched K3 (int8)")
 
     want_k = [K, K, 25, K, K, K, None, 3]
@@ -774,17 +777,19 @@ def phase_slice_10m():
         check(ids.shape == (bb, K) and bool(np.isfinite(sc).all()),
               f"10M bucket {bb}: shape {ids.shape} or non-finite scores")
 
-    # stage 1 alone at 10M rows against the card's plain version
-    q = stage1_queries(rec, reqs[64][0][:STAGE1_B], reqs[64][1][:STAGE1_B])
-    with torch.no_grad():
-        v, i = catalog_topk(q, rec.catalog_emb, KK, n_items=cat.n_items)
-        pv, pi = catalog_topk_plain(q, rec.catalog_emb, KK, n_items=cat.n_items)
-    torch.cuda.synchronize()
-    check(torch.equal(i, pi), f"10M stage 1 ({method}): {int((i != pi).sum())} ids differ "
-                              f"from the plain version")
-    torch.testing.assert_close(v, pv, rtol=K3_TOL, atol=K3_TOL)
-    log("slice_10m", case=f"stage 1, {STAGE1_B} queries x 10M rows k={KK}, {method} vs plain",
-        ids_equal=True, max_abs_err=(v - pv).abs().max().item())
+    # stage 1 alone at 10M rows against the card's plain version, at served buckets
+    for bb in STAGE1_BUCKETS:
+        q = stage1_queries(rec, *reqs[bb])
+        with torch.no_grad():
+            v, i = catalog_topk(q, rec.catalog_emb, KK, n_items=cat.n_items)
+            pv, pi = catalog_topk_plain(q, rec.catalog_emb, KK, n_items=cat.n_items)
+        torch.cuda.synchronize()
+        check(torch.equal(i, pi), f"10M stage 1 bucket {bb} ({methods[bb]}): "
+                                  f"{int((i != pi).sum())} ids differ from the plain version")
+        torch.testing.assert_close(v, pv, rtol=K3_TOL, atol=K3_TOL)
+        log("slice_10m", case=f"stage 1, bucket {bb} x 10M rows k={KK}, {methods[bb]} vs plain",
+            ids_equal=True, max_abs_err=(v - pv).abs().max().item())
+        del v, i, pv, pi
 
     # the same requests, the same weights, the CPU plain path
     t0 = time.perf_counter()
@@ -835,9 +840,10 @@ def phase_bench_10m(card):
 
 def timing_10m(card, rec, host, cat):
     """recommend per bucket over the int8 index against the f32 index, and
-    K3 (bf16, int8) and K4 (both layouts) against their plain versions at
-    the slice's shapes, with peak device memory."""
-    timings = {}
+    K3 (bf16, int8) and K4 (both layouts) checked against and timed beside
+    their plain versions at the slice's shapes, with peak device memory.
+    Returns (timings, {kernel: max |error|})."""
+    timings, errs = {}, {}
     for row in run_bench(rec, host, k=K, iters=30):
         log("timing_10m", card=card, index="int8", **row)
     rec_f32 = Recommender(rec.model, cat.attrs, shortlist=SHORTLIST, batch_buckets=BUCKETS,
@@ -852,21 +858,39 @@ def timing_10m(card, rec, host, cat):
     q = stage1_queries(rec, hists, ctxs)  # [256, 64]
     with torch.no_grad():
         for layout in (0, 1):
+            got = groupmax(q, qi.qvals, qi.scales, n, True, layout)
+            want = groupmax_plain(q, qi.qvals, qi.scales, n, True, layout)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape and torch.equal(got, want),
+                  f"K4 layout {layout} at [{B},{D}] x {n} int8 rows: not bit-equal to the "
+                  f"plain version")
+            fin = torch.isfinite(want)
+            errs["K4", layout] = (got[fin] - want[fin]).abs().max().item()
+            del got, want, fin
             ms, plain = kernel_vs_plain(
                 lambda: groupmax(q, qi.qvals, qi.scales, n, True, layout),
                 lambda: groupmax_plain(q, qi.qvals, qi.scales, n, True, layout),
                 reps=20, plain_reps=2)
             timings["K4", layout] = (ms, plain)
             log("timing", card=card, kernel="K4 groupmax", layout=layout,
-                shape=f"[{B},{D}] x {n} int8 rows", ms=ms, plain_ms=plain)
-        q32 = q[:STAGE1_B].contiguous()
+                shape=f"[{B},{D}] x {n} int8 rows", bit_equal=True, max_abs_err=errs["K4", layout],
+                ms=ms, plain_ms=plain)
+        q32 = q[:K3_10M_B].contiguous()
         for kind, idx in (("bf16", e32.to(torch.bfloat16)), ("int8", qi)):
+            v, i = catalog_topk(q32, idx, K, n_items=n, method="stream")
+            pv, pi = catalog_topk_plain(q32, idx, K, n_items=n)
+            torch.cuda.synchronize()
+            check(torch.equal(i, pi), f"K3 {kind} at [{K3_10M_B},{D}] x {n} rows: "
+                                      f"{int((i != pi).sum())} ids differ from the plain version")
+            torch.testing.assert_close(v, pv, rtol=K3_TOL, atol=K3_TOL)
+            errs["K3", kind] = (v - pv).abs().max().item()
             ms, plain = kernel_vs_plain(
                 lambda: catalog_topk(q32, idx, K, n_items=n, method="stream"),
                 lambda: catalog_topk_plain(q32, idx, K, n_items=n), reps=5, plain_reps=2)
             timings["K3", kind] = (ms, plain)
             log("timing", card=card, kernel=f"K3 catalog_topk {kind}",
-                shape=f"[{STAGE1_B},{D}] x {n} rows k={K}", ms=ms, plain_ms=plain)
+                shape=f"[{K3_10M_B},{D}] x {n} rows k={K}", ids_equal=True,
+                max_abs_err=errs["K3", kind], ms=ms, plain_ms=plain)
         del e32
         torch.cuda.synchronize()
         for k in (K, KK):
@@ -882,7 +906,7 @@ def timing_10m(card, rec, host, cat):
                 shape=f"[{B},{D}] x {n} rows k={k}", ms=ms,
                 peak_extra_mib=(torch.cuda.max_memory_allocated() - base) / 2**20)
     log("timing_10m", card=card, peak_device_mib=torch.cuda.max_memory_allocated() / 2**20)
-    return timings
+    return timings, errs
 
 
 # --------------------------------------------------------------------------
@@ -1170,8 +1194,8 @@ def kernel_entries(k1_err, k2_err, k3_err, k4_err, timings, k2_times, library, l
         add(f"catalog_topk_{kind}", "carca_tpu_torch/csrc/catalog_topk.cu",
             "carca_tpu/ops/retrieval_topk.py:526", launches["bench"][f"catalog_topk_{kind}"],
             k3_err[kind], timings["K3", kind],
-            n10 * row_bytes + STAGE1_B * D * f32 + STAGE1_B * K * 12,
-            2 * STAGE1_B * n10 * D, "bfloat16")
+            n10 * row_bytes + K3_10M_B * D * f32 + K3_10M_B * K * 12,
+            2 * K3_10M_B * n10 * D, "bfloat16")
     groups = -(-n10 // 128)
     for layout, replaces, path in ((0, "carca_tpu/ops/retrieval_topk.py:183", "slice_10m"),
                                    (1, "carca_tpu/ops/retrieval_topk.py:235", "bench")):
@@ -1209,7 +1233,12 @@ def main() -> None:
     rec10, host10, launches_10m, cat10 = timed("5c slice 10M", phase_slice_10m)
     if profile_run:
         timed("7 profile 10M", phase_profile, card, rec10, host10, "10M int8")
-    timings.update(timed("6 timing 10M", timing_10m, card, rec10, host10, cat10))
+    timings_10m, errs_10m = timed("6 timing 10M", timing_10m, card, rec10, host10, cat10)
+    timings.update(timings_10m)
+    for kind in ("bf16", "int8"):
+        k3_err[kind] = max(k3_err[kind], errs_10m["K3", kind])
+    for layout in (0, 1):
+        k4_err[layout] = max(k4_err[layout], errs_10m["K4", layout])
     del rec10, host10, cat10
     torch.cuda.empty_cache()
     bench_launches = timed("5d bench 10M", phase_bench_10m, card)

@@ -189,13 +189,22 @@ def test_stream_meets_the_packed_contract_of_jax(kind, k):
 
 
 def test_auto_routes_on_rows_and_k():
-    assert rt.resolve_method("auto", rt._TOURNAMENT_MIN_ROWS - 1, 10) == "stream"
-    assert rt.resolve_method("auto", rt._TOURNAMENT_MIN_ROWS, 10) == "tournament"
-    assert rt.resolve_method("auto", rt._TOURNAMENT_MIN_ROWS_BIG_K, rt.BIG_K) == "tournament"
-    assert rt.resolve_method("auto", 2 * GROUP - 1, 10 ** 6) == "stream"
-    assert rt.resolve_method("stream", 10 ** 9, 10) == "stream"
+    rows, rows_big_k, batch = (rt._TOURNAMENT_MIN_ROWS, rt._TOURNAMENT_MIN_ROWS_BIG_K,
+                               rt._TOURNAMENT_MIN_BATCH)
+    assert rows < rows_big_k and batch > 1
+    assert rt.resolve_method("auto", rows - 1, 10, batch) == "stream"
+    assert rt.resolve_method("auto", rows, 10, batch) == "tournament"
+    assert rt.resolve_method("auto", rows, 10, 256) == "tournament"
+    # a small batch, or a large k, takes the tournament only from the larger row count
+    assert rt.resolve_method("auto", rows, 10, batch - 1) == "stream"
+    assert rt.resolve_method("auto", rows, rt.BIG_K, 256) == "stream"
+    assert rt.resolve_method("auto", rows_big_k - 1, rt.BIG_K, 256) == "stream"
+    assert rt.resolve_method("auto", rows_big_k, rt.BIG_K, 256) == "tournament"
+    assert rt.resolve_method("auto", rows_big_k, 10, 1) == "tournament"
+    assert rt.resolve_method("auto", 2 * GROUP - 1, 10 ** 6, 256) == "stream"
+    assert rt.resolve_method("stream", 10 ** 9, 10, 256) == "stream"
     with pytest.raises(ValueError, match="method"):
-        rt.resolve_method("heap", 10, 1)
+        rt.resolve_method("heap", 10, 1, 1)
 
 
 # --------------------------------------------------------------------------
