@@ -10,241 +10,219 @@
 //   keep  = the same Philox bits as K1 (philox.cuh), kp = 1 - p;
 //   w_d   = keep ? w_raw * m / kp : 0                  (the forward's weights)
 //   dW    = dO_i V^T, through dropout (keep ? dW / kp : 0) and re-mask (* m);
-//   dZ    = w_raw * (dW - sum_j dW_j w_raw_j),  dS = dZ / scale;
+//   D     = sum_j dW_j w_raw_j,  dS = w_raw * (dW - D) / scale;
 //   dQ_i  = dS K,   dK += dS^T q_i,   dV += w_d^T dO_i.
 // No gradient flows to the masks. A fully masked row has m = 0 everywhere,
-// so dW = 0, dS = 0 and w_d = 0: its dQ row and its share of dK/dV are
-// exactly zero. With bf16 compute the product inputs (q, k, v, dO, dS,
+// so dW = 0, D = 0, dS = 0 and w_d = 0: its dQ row and its share of dK/dV
+// are exactly zero. With bf16 compute the product inputs (q, k, v, dO, dS,
 // w_d) are rounded to bf16, as _bwd_kernel's .astype(cd) do; every sum
 // stays fp32.
 //
-// Design. The TPU kernel accumulates dK/dV across the sequential q-block
-// grid axis. Hopper's blocks run in no order, so nothing is carried between
-// blocks: one block owns one (b, h) and loops over q-tiles of kTileQ rows
-// inside. K, V and the dK/dV accumulators stay in shared memory for the
-// whole loop. For each tile, one warp per query row recomputes w_raw,
-// regenerates the dropout bits and forms dS and w_d into shared [tile, Lk]
-// buffers (lanes over keys, warp shuffles for the row max, sum and dot), and
-// writes its dQ row (lanes over dh); then the block adds dS^T Q and
-// w_d^T dO into the accumulators, each thread owning fixed (j, e) entries.
-// So there are no atomics anywhere: the sums run in one fixed order and two
-// runs give bit-equal gradients. Shared memory: 4 * (2 Lk (dh+1) + 2 Lk dh
-// + Lk + 2 kTileQ dh + 2 kTileQ Lk + kWarps Lk) bytes, 48.8 KB at Lk = 50,
-// dh = 32 and 170.6 KB at Lk = 200 (the men shape); grid B * H blocks (512
-// for the flagship encoder, 1,024 for its decoder).
+// What bounds it on the H100: five [Lq, Lk, dh] products per (b, h) against
+// 7 [L, dh] float32 tensors of traffic (~9 multiply-adds per byte at
+// L = 50): device memory, 23 MB at the encoder shape (~7 us), is the floor.
+// A first design (one block per (b, h), one warp per query row) ran at 7 %
+// of it: serial dh- and Lk-long FMA chains, four block barriers per 32-row
+// tile, one Philox call per weight, and shared memory that grew with Lk
+// (170.6 KB at Lk = 200: one block per SM, and no room past Lk ~160 at
+// dh = 64).
 //
-// What bounds it on the H100: five products of Lq Lk dh FMAs per (b, h)
-// (the scores' recompute, dO V^T, dS K, dS^T Q, w_d^T dO) against
-// (3 Lq + 4 Lk) dh * 4 bytes of traffic: ~9 FMAs per byte at L = 50, so
-// the kernel is bound by latency and the serial per-lane FMA chains, not by
-// device memory. No tensor cores yet: parity first.
+// Design: FlashAttention-2's backward, in launches without atomics.
+// 0. The keep bits of the call's weights, packed (attention_tile.cuh::
+//    keep_bits_kernel: one Philox call per four weights), with dropout on.
+// 1. dQ pass (attention_tile.cuh::rows_kernel<.., true>), one block per
+//    (64 query rows, h, b): the row statistics (max, sum, D) over the key
+//    tiles, then dQ = dS K over them again, in registers (one walk with one
+//    key tile); the statistics go to a [3, B H Lq] scratch.
+// 2. dK/dV pass (dkv_kernel below), one block per (64 keys, h, b): each
+//    warp owns 16 keys, loops over the query tiles in steps of 32 queries,
+//    recomputes S^T = K Q^T and dW^T = V dO^T by mma.sync, turns them into
+//    w_d^T and dS^T in registers with the stored statistics, and accumulates
+//    dV += w_d^T dO and dK += dS^T Q in registers; each block writes its
+//    keys' rows once.
+// Every sum runs in one fixed order, so two runs are bit-equal. Shared
+// memory is four [64, dh + 4] tiles whatever Lq and Lk (37 KB at dh = 32,
+// 70 KB at dh = 64); both passes fit in 128 registers at dh <= 32, so four
+// blocks share an SM and the flagship's 512 (b, h) blocks run in one wave.
+// Now each pass is bound by the latency of its mma.sync chains and barriers
+// at 16 warps per SM, not by bytes. The warp's fragment rows g and g + 8 are
+// keys 2g and 2g + 1, so a lane's two keys are adjacent in the packed keep
+// bits and one word serves both.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
-#include <stdint.h>
-
-#include "philox.cuh"
+#include "attention_tile.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kTileQ = 32;  // query rows per tile; warp w owns rows w, w + 8, ...
-constexpr float kNegMask = -4294967295.0f;  // -(2^32 - 1), src/carca.py:251
+using carca::attn::Args;
+using carca::attn::kThreads;
+using carca::attn::kTile;
 
-__device__ __forceinline__ float round_cd(float x, int bf16) {
-  return bf16 ? __bfloat162float(__float2bfloat16(x)) : x;
+constexpr int kNH = 4;  // n8 blocks of a 32-query half tile
+
+template <int kDh>
+constexpr size_t dkv_smem_bytes() {
+  return sizeof(float) * (4 * kTile * (kDh + 4) + 5 * kTile);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
+// Block (key tile, h, b) -> dk, dv rows of its keys; reads the dQ pass's
+// statistics from a.stats.
+template <int kDh, bool kBf16>
+__global__ void __launch_bounds__(kThreads, carca::attn::min_blocks<kDh>())
+dkv_kernel(const Args a, float* __restrict__ dk, float* __restrict__ dv) {
+  using namespace carca::attn;
+  constexpr int LD = kDh + 4;
+  extern __shared__ float4 smem4[];
+  float* ks = reinterpret_cast<float*>(smem4);  // [kTile][LD] keys, then dk
+  float* vs = ks + kTile * LD;                   // [kTile][LD] values, then dv
+  float* qs = vs + kTile * LD;                   // [kTile][LD] query tile
+  float* dos = qs + kTile * LD;                  // [kTile][LD] dO tile
+  float* kms = dos + kTile * LD;                 // [kTile]
+  float* qms = kms + kTile;                      // [kTile]
+  float* mst = qms + kTile;                      // [kTile] row max
+  float* lst = mst + kTile;                      // [kTile] 1 / row sum
+  float* dst = lst + kTile;                      // [kTile] D
 
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
+  const int key0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int d = a.H * a.dh;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int keys = min(kTile, a.Lk - key0);
+  const bool vec_dims = a.dh % 4 == 0 && d % 4 == 0;
+  const size_t koff = ((size_t)b * a.Lk + key0) * d + (size_t)h * a.dh;
+  load_tile<kDh>(ks, a.k + koff, keys, d, a.dh, vec_dims && aligned16(a.k));
+  load_tile<kDh>(vs, a.v + koff, keys, d, a.dh, vec_dims && aligned16(a.v));
+  load_mask(kms, a.km + (size_t)b * a.Lk + key0, keys);
 
-size_t smem_bytes(int lk, int dh) {
-  return sizeof(float) * ((size_t)2 * lk * (dh + 1) + (size_t)2 * lk * dh + lk +
-                          (size_t)2 * kTileQ * dh + (size_t)2 * kTileQ * lk +
-                          (size_t)kWarps * lk);
-}
+  const int r0 = 16 * warp + 2 * g;  // this lane's keys: tile rows r0 and r0 + 1
+  const int j0 = key0 + r0;
+  const uint64_t bh = (uint64_t)b * a.H + h;
+  const size_t n_stats = (size_t)a.B * a.H * a.Lq;
+  const bool vec_q = vec_dims && aligned16(a.q), vec_do = vec_dims && aligned16(a.dout);
 
-// q/dout/dq [B, Lq, H*dh], k/v/dk/dv [B, Lk, H*dh], qm [B, Lq], km [B, Lk];
-// block (b * H + h)
-template <bool kDropout>
-__global__ void __launch_bounds__(kWarps * 32)
-attention_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ qm,
-                     const float* __restrict__ km, const float* __restrict__ dout,
-                     float* __restrict__ dq, float* __restrict__ dk,
-                     float* __restrict__ dv, int H, int Lq, int Lk, int dh,
-                     int has_causal, int causal, float scale, int bf16, uint64_t seed,
-                     uint32_t threshold, float keep) {
-  extern __shared__ float smem[];
-  const int ldk = dh + 1;
-  float* ks = smem;                  // [Lk][dh + 1]
-  float* vs = ks + Lk * ldk;         // [Lk][dh + 1]
-  float* dks = vs + Lk * ldk;        // [Lk][dh] accumulator
-  float* dvs = dks + Lk * dh;        // [Lk][dh] accumulator
-  float* kms = dvs + Lk * dh;        // [Lk]
-  float* qs = kms + Lk;              // [kTileQ][dh]
-  float* dos = qs + kTileQ * dh;     // [kTileQ][dh]
-  float* dss = dos + kTileQ * dh;    // [kTileQ][Lk]: dW, then dS
-  float* wds = dss + kTileQ * Lk;    // [kTileQ][Lk]: w_d
-  float* ps = wds + kTileQ * Lk;     // [kWarps][Lk]: exp, then w_raw
-
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const int d = H * dh;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-
-  for (int idx = threadIdx.x; idx < Lk * dh; idx += blockDim.x) {
-    const int j = idx / dh, e = idx % dh;
-    const size_t g = ((size_t)b * Lk + j) * d + (size_t)h * dh + e;
-    ks[j * ldk + e] = round_cd(k[g], bf16);
-    vs[j * ldk + e] = round_cd(v[g], bf16);
-    dks[idx] = 0.f;
-    dvs[idx] = 0.f;
-  }
-  for (int j = threadIdx.x; j < Lk; j += blockDim.x) kms[j] = km[(size_t)b * Lk + j];
-
-  float* prow = ps + warp * Lk;
-  for (int row0 = 0; row0 < Lq; row0 += kTileQ) {
-    const int rows = min(kTileQ, Lq - row0);
-    __syncthreads();  // K/V staged; the previous tile's buffers are consumed
-    for (int idx = threadIdx.x; idx < rows * dh; idx += blockDim.x) {
-      const int t = idx / dh, e = idx % dh;
-      const size_t g = ((size_t)b * Lq + row0 + t) * d + (size_t)h * dh + e;
-      qs[idx] = round_cd(q[g], bf16);
-      dos[idx] = round_cd(dout[g], bf16);
+  float dka[kDh / 8][4], dva[kDh / 8][4];
+  zero(dka);
+  zero(dva);
+  for (int row0 = 0; row0 < a.Lq; row0 += kTile) {
+    const int rows = min(kTile, a.Lq - row0);
+    const size_t qoff = ((size_t)b * a.Lq + row0) * d + (size_t)h * a.dh;
+    __syncthreads();  // the previous query tile is consumed
+    load_tile<kDh>(qs, a.q + qoff, rows, d, a.dh, vec_q);
+    load_tile<kDh>(dos, a.dout + qoff, rows, d, a.dh, vec_do);
+    load_mask(qms, a.qm + (size_t)b * a.Lq + row0, rows);
+    for (int i = threadIdx.x; i < kTile; i += kThreads) {
+      const size_t at = bh * a.Lq + row0 + i;
+      const bool in = i < rows;  // padded rows: w = 0 below
+      mst[i] = in ? a.stats[at] : 0.f;
+      lst[i] = in ? 1.f / a.stats[n_stats + at] : 1.f;
+      dst[i] = in ? a.stats[2 * n_stats + at] : 0.f;
     }
     __syncthreads();
 
-    for (int t = warp; t < rows; t += kWarps) {
-      const int i = row0 + t;  // absolute query row
-      const float qmi = qm[(size_t)b * Lq + i];
-      const float* qrow = qs + t * dh;
-      const float* dorow = dos + t * dh;
-      float* dsrow = dss + t * Lk;
-      float* wdrow = wds + t * Lk;
-
-      // the forward's softmax, in K1's order of operations
-      float mx = -INFINITY;
-      for (int j = lane; j < Lk; j += 32) {
-        float s = 0.f;
-        for (int e = 0; e < dh; ++e) s = fmaf(qrow[e], ks[j * ldk + e], s);
-        const bool live = qmi * kms[j] > 0.f && !(has_causal && j > i + causal);
-        const float z = (s + (live ? 0.f : kNegMask)) / scale;
-        prow[j] = z;
-        mx = fmaxf(mx, z);
-      }
-      mx = warp_max(mx);
-      float sum = 0.f;
-      for (int j = lane; j < Lk; j += 32) {
-        const float p = expf(prow[j] - mx);
-        prow[j] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-
-      const uint64_t row_idx = ((uint64_t)(b * H + h) * Lq + i) * Lk;
-      float dot = 0.f;
-      for (int j = lane; j < Lk; j += 32) {
-        float m = qmi * kms[j];
-        if (has_causal && j > i + causal) m = 0.f;
-        const float w_raw = prow[j] / sum;
-        float dw = 0.f;
-        for (int e = 0; e < dh; ++e) dw = fmaf(dorow[e], vs[j * ldk + e], dw);
-        float wd = w_raw * m;
-        if (kDropout) {
-          const bool kept = carca::philox_keep(seed, row_idx + j, threshold);
-          wd = kept ? wd / keep : 0.f;
-          dw = kept ? dw / keep : 0.f;
+    // the tile's queries in steps of 32: [16 keys, 32 queries] score tiles
+    // keep the lane within 128 registers
+#pragma unroll 1
+    for (int q0 = 0; q0 < rows; q0 += 32) {
+      const float* qh = qs + q0 * LD;
+      const float* doh = dos + q0 * LD;
+      // keep bits of keys j0, j0 + 1 for each query column (padded rows and
+      // keys weigh nothing), loaded ahead of the products
+      uint32_t kb[kNH][2];
+#pragma unroll
+      for (int n = 0; n < kNH; ++n)
+#pragma unroll
+        for (int cq = 0; cq < 2; ++cq) {
+          const int i = row0 + q0 + 8 * n + 2 * t + cq;
+          kb[n][cq] = a.dropout && i < a.Lq && j0 < a.Lk
+                          ? keep_window(a.bits, (bh * a.Lq + i) * a.Lk + j0).x
+                          : 0u;
         }
-        dw *= m;  // through the re-mask
-        prow[j] = w_raw;
-        dsrow[j] = dw;
-        wdrow[j] = round_cd(wd, bf16);
-        dot = fmaf(dw, w_raw, dot);
+      float st[kNH][4], dw[kNH][4];  // S^T then w_d^T; dW^T then dS^T (keys x queries)
+      zero(st);
+      zero(dw);
+      mma_rows_bt<kDh, kBf16, kNH>(st, ks + r0 * LD, ks + (r0 + 1) * LD, qh, g, t);
+      mma_rows_bt<kDh, kBf16, kNH>(dw, vs + r0 * LD, vs + (r0 + 1) * LD, doh, g, t);
+#pragma unroll
+      for (int n = 0; n < kNH; ++n) {
+#pragma unroll
+        for (int cq = 0; cq < 2; ++cq) {  // query column q0 + 8n + 2t + cq
+          const int il = q0 + 8 * n + 2 * t + cq, i = row0 + il;
+          const float qmi = qms[il], mi = mst[il], li = lst[il], di = dst[il];
+          const bool kept[2] = {(kb[n][cq] & 1u) != 0, (kb[n][cq] & 2u) != 0};
+#pragma unroll
+          for (int rk = 0; rk < 2; ++rk) {  // key j0 + rk: fragment element cq + 2 rk
+            const int c = cq + 2 * rk, j = j0 + rk;
+            const float m = pair_mask(a, qmi, kms[r0 + rk], i, j);
+            const float w = i < a.Lq ? exp_shifted(logit(a, st[n][c], m, j) - mi) * li : 0.f;
+            float wd = w * m, dwm = dw[n][c];
+            if (a.dropout) {
+              wd = kept[rk] ? wd * a.inv_keep : 0.f;
+              dwm = kept[rk] ? dwm * a.inv_keep : 0.f;
+            }
+            st[n][c] = wd;
+            dw[n][c] = w * (dwm * m - di) * a.inv_scale;
+          }
+        }
       }
-      dot = warp_sum(dot);
-      for (int j = lane; j < Lk; j += 32)
-        dsrow[j] = round_cd(prow[j] * (dsrow[j] - dot) / scale, bf16);
-      __syncwarp();
-
-      const size_t qoff = ((size_t)b * Lq + i) * d + (size_t)h * dh;
-      for (int e = lane; e < dh; e += 32) {
-        float acc = 0.f;
-        for (int j = 0; j < Lk; ++j) acc = fmaf(dsrow[j], ks[j * ldk + e], acc);
-        dq[qoff + e] = acc;
-      }
-      __syncwarp();  // prow is rewritten by the warp's next row
-    }
-    __syncthreads();
-
-    // dK += dS^T Q, dV += w_d^T dO over the tile's rows, in row order
-    for (int idx = threadIdx.x; idx < Lk * dh; idx += blockDim.x) {
-      const int j = idx / dh, e = idx % dh;
-      float a = dks[idx], c = dvs[idx];
-      for (int t = 0; t < rows; ++t) {
-        a = fmaf(dss[t * Lk + j], qs[t * dh + e], a);
-        c = fmaf(wds[t * Lk + j], dos[t * dh + e], c);
-      }
-      dks[idx] = a;
-      dvs[idx] = c;
+      mma_regs_b<kDh, kBf16, kNH>(dva, st, doh, g, t);
+      mma_regs_b<kDh, kBf16, kNH>(dka, dw, qh, g, t);
     }
   }
+
+  // a warp reads and writes only its own rows of ks and vs
+  put_rows<kDh>(ks, dka, r0, r0 + 1, t);
+  put_rows<kDh>(vs, dva, r0, r0 + 1, t);
   __syncthreads();
+  store_tile<kDh>(dk + koff, ks, keys, d, a.dh, vec_dims && aligned16(dk));
+  store_tile<kDh>(dv + koff, vs, keys, d, a.dh, vec_dims && aligned16(dv));
+}
 
-  for (int idx = threadIdx.x; idx < Lk * dh; idx += blockDim.x) {
-    const int j = idx / dh, e = idx % dh;
-    const size_t g = ((size_t)b * Lk + j) * d + (size_t)h * dh + e;
-    dk[g] = dks[idx];
-    dv[g] = dvs[idx];
+struct Backward {
+  const Args& a;
+  float* dk;
+  float* dv;
+  cudaStream_t stream;
+  template <int kDh, bool kBf16>
+  cudaError_t operator()() const {
+    cudaError_t err = carca::attn::launch_keep_bits(a, stream);
+    if (err != cudaSuccess) return err;
+    if (a.Lq > 0) {  // dq and the row statistics
+      err = carca::attn::launch_rows<kDh, kBf16, true>(a, stream);
+      if (err != cudaSuccess) return err;
+    }
+    constexpr size_t smem = dkv_smem_bytes<kDh>();
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(
+          dkv_kernel<kDh, kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return err;
+    }
+    const dim3 grid((a.Lk + kTile - 1) / kTile, a.H, a.B);
+    dkv_kernel<kDh, kBf16><<<grid, kThreads, smem, stream>>>(a, dk, dv);
+    return cudaGetLastError();
   }
-}
-
-template <bool kDropout>
-cudaError_t launch_bwd(const float* q, const float* k, const float* v, const float* qm,
-                       const float* km, const float* dout, float* dq, float* dk,
-                       float* dv, int B, int H, int Lq, int Lk, int dh, int has_causal,
-                       int causal, float scale, int bf16, uint64_t seed,
-                       uint32_t threshold, float keep, cudaStream_t stream) {
-  const size_t smem = smem_bytes(Lk, dh);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_bwd_kernel<kDropout>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  attention_bwd_kernel<kDropout><<<B * H, kWarps * 32, smem, stream>>>(
-      q, k, v, qm, km, dout, dq, dk, dv, H, Lq, Lk, dh, has_causal, causal, scale, bf16,
-      seed, threshold, keep);
-  return cudaGetLastError();
-}
+};
 
 }  // namespace
 
 extern "C" {
 
-size_t carca_attention_bwd_smem_bytes(int lk, int dh) { return smem_bytes(lk, dh); }
-
-// dropout = 0: seed, threshold and keep are ignored. dq/dk/dv are written
-// whole (every row, every head), so they need no zeroing.
+// dropout = 0: seed, threshold, keep and bits are ignored. dq/dk/dv are
+// written whole (every row, every head), so they need no zeroing; stats is
+// scratch of 3 * B * H * Lq floats, bits of ceil(B * H * Lq * Lk / 32) + 2
+// words. Heads of up to 128 dims; a wider head returns cudaErrorInvalidValue.
 int carca_attention_bwd(const void* q, const void* k, const void* v, const void* qm,
                         const void* km, const void* dout, void* dq, void* dk, void* dv,
-                        int B, int H, int Lq, int Lk, int dh, int has_causal, int causal,
-                        float scale, int bf16, int dropout, uint64_t seed,
+                        void* stats, void* bits, int B, int H, int Lq, int Lk, int dh,
+                        int has_causal,
+                        int causal, float scale, int bf16, int dropout, uint64_t seed,
                         uint32_t threshold, float keep, void* stream) {
-  auto launch = dropout ? launch_bwd<true> : launch_bwd<false>;
-  return (int)launch(static_cast<const float*>(q), static_cast<const float*>(k),
-                     static_cast<const float*>(v), static_cast<const float*>(qm),
-                     static_cast<const float*>(km), static_cast<const float*>(dout),
-                     static_cast<float*>(dq), static_cast<float*>(dk),
-                     static_cast<float*>(dv), B, H, Lq, Lk, dh, has_causal, causal, scale,
-                     bf16, seed, threshold, keep, static_cast<cudaStream_t>(stream));
+  const Args a{static_cast<const float*>(q), static_cast<const float*>(k),
+               static_cast<const float*>(v), static_cast<const float*>(qm),
+               static_cast<const float*>(km), static_cast<const float*>(dout),
+               static_cast<float*>(dq), static_cast<float*>(stats),
+               static_cast<uint32_t*>(bits), B, H, Lq, Lk, dh, has_causal, causal, 1.f / scale, dropout, seed, threshold,
+               1.f / keep};
+  return (int)carca::attn::dispatch(
+      dh, bf16, Backward{a, static_cast<float*>(dk), static_cast<float*>(dv),
+                         static_cast<cudaStream_t>(stream)});
 }
 
 }  // extern "C"

@@ -13,20 +13,29 @@ Two kernels, each beside its plain version:
   dropout bits. Plain version: ``attention_grads_plain``, autograd over
   ``masked_attention``.
 
+Both kernels run their products on the tensor cores (``mma.sync``: 3xTF32
+for float32 compute, bf16 operands for bfloat16) over 64-row tiles, so
+shared memory does not grow with the key length; heads of up to
+``MAX_HEAD_DIM`` dims are taken (``head_tile``). K2 runs as two launches,
+dQ with the row statistics, then dK/dV, through a ``[3, B·H·Lq]`` float32
+scratch (``bwd_stats_shape``).
+
 Weight dropout on the card draws no tensor: both kernels derive the keep
 bit of weight (b, h, i, j) from a stateless Philox4x32-10 keyed by a 64-bit
-seed (``csrc/philox.cuh``), which ``fused_attention`` draws per call from a
-CPU ``torch.Generator`` (``seed_generator``), so no seed costs a device
-sync. ``philox_bits`` is the same generator in numpy; ``attention_keep_mask``
-returns the bits as a mask, so checks can feed them to the plain version.
+seed (``csrc/philox.cuh``): word idx % 4 of the block at counter idx / 4,
+idx = ((b·H + h)·Lq + i)·Lk + j. ``fused_attention`` draws the seed per
+call from a CPU ``torch.Generator`` (``seed_generator``), so no seed costs a
+device sync. ``philox_bits`` is the same generator in numpy;
+``attention_keep_mask`` returns the bits as a mask, so checks can feed them
+to the plain version.
 
 ``fused_attention`` is the one place that picks kernel or plain, by device
 alone. On CPU tensors it runs the plain version (weight dropout drawn from
 ``generator``) and autograd differentiates it. On CUDA tensors it launches
 K1 — through ``torch.autograd.Function`` with K2 as its backward when an
 input needs a gradient — or raises; it never falls back. What the kernels
-do not take raises: a non-float32 or non-contiguous input, and a key
-length whose tiles overflow shared memory.
+do not take raises: a non-float32 or non-contiguous input, and a head
+wider than ``MAX_HEAD_DIM``.
 """
 
 from __future__ import annotations
@@ -43,6 +52,8 @@ _M0, _M1 = 0xD2511F53, 0xCD9E8D57  # Philox4x32 multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85  # Philox4x32 key bumps
 _M32 = 0xFFFFFFFF
 SEED_LIMIT = 2**63 - 1  # seeds are drawn in [0, SEED_LIMIT)
+HEAD_TILES = (16, 32, 64, 128)  # head widths the kernels are built for (csrc/attention_tile.cuh)
+MAX_HEAD_DIM = HEAD_TILES[-1]
 
 
 def philox4x32_10(counter: Sequence[np.ndarray], key: Tuple[int, int]) -> Tuple[np.ndarray, ...]:
@@ -61,13 +72,15 @@ def philox4x32_10(counter: Sequence[np.ndarray], key: Tuple[int, int]) -> Tuple[
 
 
 def philox_bits(seed: int, idx: np.ndarray) -> np.ndarray:
-    """32 random bits (uint32) of each element index under ``seed``
+    """32 random bits (uint32) of each element index under ``seed``: word
+    idx % 4 of the Philox block at counter idx / 4
     (``philox.cuh::philox_bits``)."""
     idx = np.asarray(idx, np.uint64)
-    zero = np.zeros_like(idx)
-    out = philox4x32_10((idx & np.uint64(_M32), idx >> np.uint64(32), zero, zero),
-                        (seed & _M32, (seed >> 32) & _M32))
-    return out[0].astype(np.uint32)
+    counter = idx >> np.uint64(2)
+    zero = np.zeros_like(counter)
+    words = philox4x32_10((counter & np.uint64(_M32), counter >> np.uint64(32), zero, zero),
+                          (seed & _M32, (seed >> 32) & _M32))
+    return np.choose((idx & np.uint64(3)).astype(np.intp), words).astype(np.uint32)
 
 
 def keep_threshold(dropout_rate: float) -> int:
@@ -79,8 +92,8 @@ def keep_threshold(dropout_rate: float) -> int:
 def attention_keep_mask(seed: int, shape: Tuple[int, int, int, int], dropout_rate: float,
                         device: torch.device | str = "cpu") -> torch.Tensor:
     """The kernels' keep mask [B, H, Lq, Lk] (bool) for ``seed``: on a CUDA
-    device a launch of the same Philox code K1 and K2 run, on the CPU the
-    numpy ``philox_bits``."""
+    device the packed bits of the pre-pass K1 and K2 run, unpacked; on the
+    CPU the numpy ``philox_bits``."""
     device = torch.device(device)
     threshold = keep_threshold(dropout_rate)
     n = int(np.prod(shape))
@@ -89,13 +102,15 @@ def attention_keep_mask(seed: int, shape: Tuple[int, int, int, int], dropout_rat
         return torch.from_numpy(bits < np.uint32(threshold)).reshape(shape)
     if device.type != "cuda":
         raise ValueError(f"attention_keep_mask runs on cpu or cuda, got {device}")
-    out = torch.empty(shape, dtype=torch.bool, device=device)
+    words = torch.empty(keep_bits_words(n), dtype=torch.int32, device=device)
     lib = _build.library()
     with torch.cuda.device(device):
-        err = lib.carca_attention_keep_mask(
-            out.data_ptr(), n, seed, threshold, torch.cuda.current_stream(device).cuda_stream)
+        err = lib.carca_attention_keep_bits(
+            words.data_ptr(), n, seed, threshold, torch.cuda.current_stream(device).cuda_stream)
     _build.check(err, "attention_keep_mask")
-    return out
+    shifts = torch.arange(32, dtype=torch.int32, device=device)
+    bits = (words[:-(-n // 32), None] >> shifts) & 1  # bit e of word w: weight 32 w + e
+    return bits.bool().reshape(-1)[:n].reshape(shape)
 
 
 def attention_grads_plain(q, k, v, q_mask, k_mask, grad_out, *, causal, scale,
@@ -133,11 +148,33 @@ def _check_cuda_inputs(tensors, n_heads):
         raise ValueError("the attention kernels need at least one key")
 
 
-def _check_smem(which: str, smem: int, lk: int, dh: int) -> None:
-    if smem > _build.SMEM_LIMIT:
-        raise ValueError(
-            f"Lk={lk}, dh={dh} needs {smem} bytes of shared memory in the attention "
-            f"{which} kernel; a block holds at most {_build.SMEM_LIMIT}")
+def head_tile(dh: int) -> int:
+    """The head width the kernels are built for: ``dh`` rounded up to one of
+    ``HEAD_TILES`` (zero-padded columns); a wider head raises."""
+    for tile in HEAD_TILES:
+        if dh <= tile:
+            return tile
+    raise ValueError(f"the attention kernels take heads of at most {MAX_HEAD_DIM} dims, "
+                     f"got dh={dh}")
+
+
+def keep_bits_words(n_weights: int) -> int:
+    """Words of the packed keep bits the kernels' dropout pre-pass writes:
+    bit idx % 32 of word idx / 32 for each weight idx, and two words more,
+    which a kernel's read of the 64 weights from idx on may touch."""
+    return -(-n_weights // 32) + 2
+
+
+def _keep_bits(dropout_rate: float, n_weights: int, device) -> Optional[torch.Tensor]:
+    if dropout_rate <= 0.0:
+        return None
+    return torch.empty(keep_bits_words(n_weights), dtype=torch.int32, device=device)
+
+
+def bwd_stats_shape(b: int, n_heads: int, lq: int) -> Tuple[int, int]:
+    """K2's scratch: row max, row sum and sum_j dW_j·w_j of every query row
+    [3, B·H·Lq] (float32), written by its dQ pass, read by its dK/dV pass."""
+    return 3, b * n_heads * lq
 
 
 def _dropout_args(dropout_rate: float, seed: int):
@@ -156,12 +193,14 @@ def _launch_fwd(q, k, v, q_mask, k_mask, *, causal, scale, n_heads, compute_dtyp
     out = torch.empty_like(q)
     if b == 0 or lq == 0:
         return out
+    head_tile(dh)
+    bits = _keep_bits(dropout_rate, b * n_heads * lq * lk, q.device)
     lib = _build.library()
-    _check_smem("forward", lib.carca_attention_fwd_smem_bytes(lk, dh), lk, dh)
     with torch.cuda.device(q.device):
         err = lib.carca_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_mask.data_ptr(),
-            k_mask.data_ptr(), out.data_ptr(), b, n_heads, lq, lk, dh,
+            k_mask.data_ptr(), out.data_ptr(), None if bits is None else bits.data_ptr(),
+            b, n_heads, lq, lk, dh,
             int(causal is not None), int(causal or 0), float(scale),
             int(compute_dtype == "bfloat16"), *_dropout_args(dropout_rate, seed),
             torch.cuda.current_stream(q.device).cuda_stream)
@@ -195,12 +234,15 @@ def attention_bwd(q, k, v, q_mask, k_mask, grad_out, *, causal: Optional[int], s
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if b == 0 or lk == 0:
         return dq, dk, dv
+    head_tile(dh)
+    stats = torch.empty(bwd_stats_shape(b, n_heads, lq), dtype=torch.float32, device=q.device)
+    bits = _keep_bits(dropout_rate, b * n_heads * lq * lk, q.device)
     lib = _build.library()
-    _check_smem("backward", lib.carca_attention_bwd_smem_bytes(lk, dh), lk, dh)
     with torch.cuda.device(q.device):
         err = lib.carca_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_mask.data_ptr(), k_mask.data_ptr(),
-            grad_out.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n_heads,
+            grad_out.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            stats.data_ptr(), None if bits is None else bits.data_ptr(), b, n_heads,
             lq, lk, dh, int(causal is not None), int(causal or 0), float(scale),
             int(compute_dtype == "bfloat16"), *_dropout_args(dropout_rate, seed),
             torch.cuda.current_stream(q.device).cuda_stream)

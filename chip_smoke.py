@@ -12,8 +12,9 @@ raises and exits non-zero:
 2. build   — compiles kernels K1–K4 from carca_tpu_torch/csrc/ (one nvcc
              per source, all started together).
 3. K1      — the attention forward kernel against its plain version on
-             CUDA tensors at the serving and training shapes; one raise it
-             must give. With weight dropout p = 0.5: the keep share over
+             CUDA tensors at the serving and training shapes and at men's
+             [256,200,64] (four key tiles); one raise it must give. With
+             weight dropout p = 0.5: the keep share over
              1.28M weights within 0.5 ± 0.002, the same seed giving the same
              bits and another seed other bits, the card's Philox bits equal
              to the numpy generator's, and K1's output equal to the plain
@@ -22,9 +23,11 @@ raises and exits non-zero:
              against autograd over the plain version, with dropout off and
              on, at the encoder [256,50,64] causal 0, decoder
              [512,50,64]x[512,50,64] causal -1 and men [256,200,64] causal 0
-             shapes: per-tensor relative error, exact zeros for fully
-             masked rows, two runs bit-equal; fwd+bwd and bwd-only times
-             against the plain version's.
+             shapes, and at two that raised before K2 took key tiles
+             ([256,200,128] with 64-dim heads, [256,320,64]): per-tensor
+             relative error, exact zeros for fully masked rows, two runs
+             bit-equal; fwd+bwd and bwd-only times against the plain
+             version's.
 4. K3      — the stream top-k kernel over f32, bf16 and int8 indexes against
              its plain version (ids equal, values within 1e-5): ties,
              id_offset with an n_items limit, k beyond the valid rows, zero
@@ -58,8 +61,10 @@ raises and exits non-zero:
              against it there (K4 bit-equal in both layouts at [256,64] x
              10M int8 rows; K3 bf16/int8 ids equal, values within 1e-5, at
              [32,64] x 10M rows), K3's merge
-             scratch and the tournament's memory at 10M rows, and
-             F.scaled_dot_product_attention beside K1/K2 (timed only).
+             scratch and the tournament's memory at 10M rows, K1 at the
+             encoder, decoder, men and rerank shapes, and
+             F.scaled_dot_product_attention forward and backward at the same
+             shapes beside K1/K2 (timed only).
 7. profile — only with --profile: per bucket, a torch.profiler trace of
              recommend (device busy time and share, device operations per
              call, the heaviest of them), and the host cost of one K1 launch;
@@ -129,11 +134,21 @@ BENCH_ITEMS = 10_000_000  # the retrieval bench path of phase 5d
 SHORTLIST, K = 512, 10
 BUCKETS = (1, 8, 64, 256)
 B, L, D, H = 256, 50, 64, 2
+L_MEN = 200  # the men config's sequence length (carca_tpu_torch/bench.py)
 KK = SHORTLIST + L  # stage 1 retrieves the shortlist plus the exclusion slack
 DEVICE = torch.device("cuda")
 K1_TOL, K1_TOL_BF16 = 1e-5, 2e-2
 K2_TOL, K2_TOL_BF16 = 1e-5, 2e-2  # relative norm per gradient tensor
 P_DROP = 0.5
+# the shapes K1/K2 are timed at: (batch, Lq, Lk, causal, weight dropout);
+# encoder and decoder are the flagship train step's calls, men the men
+# config's encoder, rerank the serving slice's stage 2 (forward only)
+ATTN_SHAPES = {
+    "encoder": (B, L, L, 0, P_DROP),
+    "decoder": (2 * B, L, L, -1, P_DROP),
+    "men": (B, L_MEN, L_MEN, 0, P_DROP),
+    "rerank": (B, SHORTLIST, L, None, 0.0),
+}
 KEEP_SHARE_TOL = 0.002
 K3_TOL = 1e-5
 INDEX_KINDS = ("f32", "bf16", "int8")
@@ -278,9 +293,9 @@ def padded_masks(gen, b, lq, lk, dev):
     return qm.to(dev), km.to(dev)
 
 
-def k1_inputs(lq, lk, seed, b=B):
+def k1_inputs(lq, lk, seed, b=B, d=D):
     gen = torch.Generator().manual_seed(seed)
-    q, k, v = (torch.randn(b, n, D, generator=gen).to(DEVICE) for n in (lq, lk, lk))
+    q, k, v = (torch.randn(b, n, d, generator=gen).to(DEVICE) for n in (lq, lk, lk))
     qm, km = padded_masks(gen, b, lq, lk, DEVICE)
     return q, k, v, qm, km
 
@@ -290,6 +305,7 @@ K1_CASES = [  # (name, Lq, Lk, causal, compute dtype)
     ("rerank q [256,512,64] kv [256,50,64]", SHORTLIST, L, None, "float32"),
     ("train-time decoder [256,50,64] causal -1", L, L, -1, "float32"),
     ("encoder [256,50,64] causal 0 bf16", L, L, 0, "bfloat16"),
+    ("men [256,200,64] causal 0", L_MEN, L_MEN, 0, "float32"),
 ]
 
 
@@ -363,12 +379,16 @@ def phase_k1_dropout() -> float:
 # phase 3b: K2 against autograd over the plain version
 # --------------------------------------------------------------------------
 
-K2_CASES = [  # (name, B, Lq, Lk, causal, compute dtype)
-    ("encoder [256,50,64] causal 0", B, L, L, 0, "float32"),
-    ("decoder [512,50,64]x[512,50,64] causal -1", 2 * B, L, L, -1, "float32"),
-    ("men [256,200,64] causal 0", B, 200, 200, 0, "float32"),
-    ("encoder [256,50,64] causal 0 bf16", B, L, L, 0, "bfloat16"),
+K2_CASES = [  # (name, B, Lq, Lk, causal, compute dtype, d); the first three are timed
+    ("encoder [256,50,64] causal 0", B, L, L, 0, "float32", D),
+    ("decoder [512,50,64]x[512,50,64] causal -1", 2 * B, L, L, -1, "float32", D),
+    ("men [256,200,64] causal 0", B, L_MEN, L_MEN, 0, "float32", D),
+    ("encoder [256,50,64] causal 0 bf16", B, L, L, 0, "bfloat16", D),
+    # shared memory refused these before K2 walked key tiles (Lk > ~160 at dh = 64)
+    ("[256,200,128] 64-dim heads causal 0", B, L_MEN, L_MEN, 0, "float32", 2 * D),
+    ("[256,320,64] causal 0", B, 320, 320, 0, "float32", D),
 ]
+K2_TIMED = {"encoder": K2_CASES[0][0], "decoder": K2_CASES[1][0], "men": K2_CASES[2][0]}
 
 
 def rel_err(got, want, floor: float = 1e-30) -> float:
@@ -387,13 +407,13 @@ def kernel_grads(inputs, g, seed, **kw):
 def phase_k2(card) -> tuple:
     """Returns (worst f32 abs error, {case: timings})."""
     worst, timings = 0.0, {}
-    for i, (name, b, lq, lk, causal, cd) in enumerate(K2_CASES):
-        inputs = k1_inputs(lq, lk, 60 + i, b=b)
+    for i, (name, b, lq, lk, causal, cd, d) in enumerate(K2_CASES):
+        inputs = k1_inputs(lq, lk, 60 + i, b=b, d=d)
         q, k, v, qm, km = inputs
         g = torch.randn(q.shape, generator=torch.Generator().manual_seed(70 + i)).to(DEVICE)
         tol = K2_TOL if cd == "float32" else K2_TOL_BF16
         for rate in (0.0, P_DROP):
-            kw = dict(causal=causal, scale=(D / H) ** 0.5, n_heads=H, compute_dtype=cd,
+            kw = dict(causal=causal, scale=(d / H) ** 0.5, n_heads=H, compute_dtype=cd,
                       dropout_rate=rate)
             before = attention_bwd.launches
             _, *got = kernel_grads(inputs, g, i, **kw)
@@ -422,8 +442,10 @@ def phase_k2(card) -> tuple:
                 worst = max(worst, abs_err)
             log("K2", case=name, dropout=rate, dtype=cd, rel_err=errs, max_abs_err=abs_err,
                 tol=tol, bit_equal_runs=True)
-        timings[name] = time_k2(card, name, inputs, g, i, causal=causal, scale=(D / H) ** 0.5,
-                                n_heads=H, compute_dtype=cd, dropout_rate=P_DROP)
+        if name in K2_TIMED.values():
+            timings[name] = time_k2(card, name, inputs, g, i, causal=causal,
+                                    scale=(d / H) ** 0.5, n_heads=H, compute_dtype=cd,
+                                    dropout_rate=P_DROP)
     return worst, timings
 
 
@@ -919,26 +941,27 @@ def phase_timing(card, rec, rec_full, host):
             log("timing", card=card, index=name, **row)
     timings = {}
     with torch.no_grad():
-        for name, lq, causal in (("encoder", L, 0), ("rerank", SHORTLIST, None)):
-            q, k, v, qm, km = k1_inputs(lq, L, 30)
-            kw = dict(causal=causal, scale=(D / H) ** 0.5, n_heads=H)
-            ms, plain = kernel_vs_plain(lambda: fused_attention(q, k, v, qm, km, **kw),
-                                        lambda: masked_attention(q, k, v, qm, km, **kw))
+        # the serving encoder's call, without dropout
+        q, k, v, qm, km = k1_inputs(L, L, 30)
+        kw = dict(causal=0, scale=(D / H) ** 0.5, n_heads=H)
+        ms, plain = kernel_vs_plain(lambda: fused_attention(q, k, v, qm, km, **kw),
+                                    lambda: masked_attention(q, k, v, qm, km, **kw))
+        log("timing", card=card, kernel="K1 attention_fwd", shape="encoder [256,50,64] causal 0",
+            ms=ms, plain_ms=plain)
+        # the timed shapes, with the train step's weight dropout where it has
+        # one: the plain version draws its mask from a device generator, as
+        # the plain path does
+        for name, (b, lq, lk, causal, rate) in ATTN_SHAPES.items():
+            q, k, v, qm, km = k1_inputs(lq, lk, 32, b=b)
+            kw = dict(causal=causal, scale=(D / H) ** 0.5, n_heads=H, dropout_rate=rate)
+            seeds = torch.Generator().manual_seed(0)
+            gen = torch.Generator(device=DEVICE).manual_seed(0)
+            ms, plain = kernel_vs_plain(
+                lambda: fused_attention(q, k, v, qm, km, seed_generator=seeds, **kw),
+                lambda: masked_attention(q, k, v, qm, km, train=rate > 0, generator=gen, **kw))
             timings["K1", name] = (ms, plain)
-            log("timing", card=card, kernel="K1 attention_fwd", shape=name,
-                ms=ms, plain_ms=plain)
-        # the train step's encoder call, with weight dropout: the plain
-        # version draws its mask from a device generator, as the plain path does
-        q, k, v, qm, km = k1_inputs(L, L, 32)
-        kw = dict(causal=0, scale=(D / H) ** 0.5, n_heads=H, dropout_rate=P_DROP)
-        seeds = torch.Generator().manual_seed(0)
-        gen = torch.Generator(device=DEVICE).manual_seed(0)
-        ms, plain = kernel_vs_plain(
-            lambda: fused_attention(q, k, v, qm, km, seed_generator=seeds, **kw),
-            lambda: masked_attention(q, k, v, qm, km, train=True, generator=gen, **kw))
-        timings["K1", "train"] = (ms, plain)
-        log("timing", card=card, kernel="K1 attention_fwd", shape="encoder [256,50,64] "
-            f"causal 0 dropout {P_DROP}", ms=ms, plain_ms=plain)
+            log("timing", card=card, kernel="K1 attention_fwd", shape=f"{name} [{b},{lq},{D}] x "
+                f"[{b},{lk},{D}] causal {causal} dropout {rate}", ms=ms, plain_ms=plain)
         for name, e in (("seen", rec.catalog_emb), ("full", rec_full.catalog_emb)):
             q = torch.randn(B, D, generator=torch.Generator().manual_seed(31)).to(DEVICE)
             ms, plain = kernel_vs_plain(lambda: catalog_topk(q, e, KK, method="stream"),
@@ -1134,39 +1157,48 @@ def phase_profile(card, rec, host, index: str = "seen", calls: int = 10) -> None
 
 def library_attention(card) -> dict:
     """F.scaled_dot_product_attention beside K1 and K2, timed only (the port
-    never calls it), at the timed K1/K2 shape: encoder [256,50,64], 2 heads,
-    causal 0, weight dropout 0.5. It takes the same additive mask; unlike
-    the kernels it does not re-mask after the softmax, so a fully masked
-    query row gets uniform weights instead of zeros, and it draws its own
-    dropout bits."""
-    q, k, v, qm, km = k1_inputs(L, L, 33)
-    scale = (D / H) ** 0.5
-    add = torch.where(pair_mask(qm, km, 0) > 0, 0.0, NEG_MASK)[:, None] / scale
+    never calls it), forward and (where the shape trains) backward at each
+    of ATTN_SHAPES, 2 heads, with the shape's causal offset and weight
+    dropout. It takes the same additive mask; unlike the kernels it does not
+    re-mask after the softmax, so a fully masked query row gets uniform
+    weights instead of zeros, and it draws its own dropout bits. Returns
+    {shape: {"fwd": ms, "bwd": ms or None}}."""
+    out_ms = {}
+    for name, (b, lq, lk, causal, rate) in ATTN_SHAPES.items():
+        q, k, v, qm, km = k1_inputs(lq, lk, 33, b=b)
+        scale = (D / H) ** 0.5
+        add = torch.where(pair_mask(qm, km, causal) > 0, 0.0, NEG_MASK)[:, None] / scale
 
-    def heads(x):
-        return x.view(x.shape[0], L, H, D // H).transpose(1, 2).contiguous().requires_grad_()
+        def heads(x):
+            return (x.view(x.shape[0], x.shape[1], H, D // H).transpose(1, 2).contiguous()
+                    .requires_grad_())
 
-    qh, kh, vh = heads(q), heads(k), heads(v)
+        qh, kh, vh = heads(q), heads(k), heads(v)
 
-    def sdpa():
-        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=add, dropout_p=P_DROP,
-                                              scale=1.0 / scale)
+        def sdpa():
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=add, dropout_p=rate,
+                                                  scale=1.0 / scale)
 
-    with torch.no_grad():
-        fwd = cuda_ms(sdpa, 20)
-    out = sdpa()
-    g = torch.randn_like(out)
-    bwd = cuda_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), g, retain_graph=True), 20)
-    log("timing", card=card, library="F.scaled_dot_product_attention",
-        shape="encoder [256,50,64] causal 0 dropout 0.5", fwd_ms=fwd, bwd_ms=bwd)
-    return {"fwd": fwd, "bwd": bwd}
+        with torch.no_grad():
+            fwd = cuda_ms(sdpa, 20)
+        bwd = None
+        if rate > 0:  # the shapes the train step differentiates
+            out = sdpa()
+            g = torch.randn_like(out)
+            bwd = cuda_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), g, retain_graph=True),
+                          20)
+        out_ms[name] = {"fwd": fwd, "bwd": bwd}
+        log("timing", card=card, library="F.scaled_dot_product_attention",
+            shape=f"{name} [{b},{lq},{D}] x [{b},{lk},{D}] causal {causal} dropout {rate}",
+            fwd_ms=fwd, bwd_ms=bwd)
+    return out_ms
 
 
 def kernel_entries(k1_err, k2_err, k3_err, k4_err, timings, k2_times, library, launches):
     """The kernels line: every kernel with its launches on the path that
     runs it, its error against the plain version, its time, the plain
     version's, the bound and the library call."""
-    f32, act = 4, B * L * D * 4  # bytes of one [256, 50, 64] f32 activation
+    f32 = 4
     n10 = N_REAL_ITEMS_10M + 1
     r_seen = 19_157  # rows of the 100k slice's seen index, K3's timed shape
     entries = []
@@ -1178,14 +1210,24 @@ def kernel_entries(k1_err, k2_err, k3_err, k4_err, timings, k2_times, library, l
                         "plain_ms": ms_plain[1], "bound_ms": b_ms, "bound_by": b_by,
                         "library_ms": lib})
 
-    add("attention_fwd", "carca_tpu_torch/csrc/attention_fwd.cu",
-        "carca_tpu/ops/flash_attention.py:113", launches["train"]["attention_fwd"], k1_err,
-        timings["K1", "train"], 4 * act + 2 * B * L * f32, 4 * B * L * L * D, "float32",
-        library["fwd"])
-    add("attention_bwd", "carca_tpu_torch/csrc/attention_bwd.cu",
-        "carca_tpu/ops/flash_attention.py:130", launches["train"]["attention_bwd"], k2_err,
-        k2_times[K2_CASES[0][0]]["bwd"], 7 * act + 2 * B * L * f32, 10 * B * L * L * D,
-        "float32", library["bwd"])
+    # K1 and K2 at each timed shape: bytes of q/out (K2: q, dO, dq) at Lq and
+    # k/v (K2: k, v, dk, dv) at Lk plus the masks; 2 (K2: 5) products of
+    # Lq Lk d multiply-adds, counted whole (causal masking skips none)
+    for shape, (b, lq, lk, causal, rate) in ATTN_SHAPES.items():
+        suffix = "" if shape == "encoder" else f"_{shape}"
+        path = "slice" if shape == "rerank" else "train"
+        masks = b * (lq + lk) * f32
+        add(f"attention_fwd{suffix}", "carca_tpu_torch/csrc/attention_fwd.cu",
+            "carca_tpu/ops/flash_attention.py:113", launches[path]["attention_fwd"], k1_err,
+            timings["K1", shape], 2 * b * (lq + lk) * D * f32 + masks, 4 * b * lq * lk * D,
+            "float32", library[shape]["fwd"])
+        entries[-1]["shape"] = shape
+        if shape in K2_TIMED:
+            add(f"attention_bwd{suffix}", "carca_tpu_torch/csrc/attention_bwd.cu",
+                "carca_tpu/ops/flash_attention.py:130", launches["train"]["attention_bwd"],
+                k2_err, k2_times[K2_TIMED[shape]]["bwd"], (3 * lq + 4 * lk) * b * D * f32 + masks,
+                10 * b * lq * lk * D, "float32", library[shape]["bwd"])
+            entries[-1]["shape"] = shape
     add("catalog_topk", "carca_tpu_torch/csrc/catalog_topk.cu",
         "carca_tpu/ops/retrieval_topk.py:526", launches["slice"]["catalog_topk_f32"],
         k3_err["f32"], timings["K3", "seen"], r_seen * D * f32 + B * D * f32 + B * KK * 12,

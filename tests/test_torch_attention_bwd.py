@@ -22,9 +22,11 @@ import torch
 from carca_tpu.ops.flash_attention import fused_attention as jax_fused_attention
 from carca_tpu_torch.models.attention import masked_attention
 from carca_tpu_torch.ops import flash_attention as fa
-from carca_tpu_torch.ops.flash_attention import (attention_bwd, attention_grads_plain,
-                                                 attention_keep_mask, fused_attention,
-                                                 keep_threshold, philox4x32_10, philox_bits)
+from carca_tpu_torch.ops.flash_attention import (MAX_HEAD_DIM, attention_bwd,
+                                                 attention_grads_plain, attention_keep_mask,
+                                                 bwd_stats_shape, fused_attention, head_tile,
+                                                 keep_bits_words, keep_threshold, philox4x32_10,
+                                                 philox_bits)
 
 torch.set_num_threads(1)
 
@@ -171,12 +173,20 @@ def test_philox_known_answers(counter, key, want):
 
 def test_philox_bits_match_the_cuda_header():
     """``philox_bits`` against ``csrc/philox.cuh::philox_bits`` compiled for
-    the host (seed and counter both wider than 32 bits)."""
+    the host (seed and counter both wider than 32 bits; element idx is word
+    idx % 4 of the block at counter idx / 4, so a run of nine indices covers
+    every word and three blocks)."""
     seeds = [0, 12345678901234567, 0xFEDCBA9876543210]
     idx = np.array([0, 4294967311, 8589934622], np.uint64)
     got = [int(x) for s in seeds for x in philox_bits(s, idx)]
-    assert got == [1713891541, 1544441189, 2670835308, 2600972695, 764465634,
-                   3020522137, 3125510988, 2505872895, 2128679241]
+    assert got == [1713891541, 546332099, 3529594346, 2600972695, 1487611530,
+                   4137111991, 3125510988, 3648977377, 1979677775]
+    run = [int(x) for x in philox_bits(77, np.arange(1000, 1009, dtype=np.uint64))]
+    assert run == [341326468, 301031501, 2197624868, 2816637557, 288712322,
+                   1605879960, 2502573607, 90936140, 2758960768]
+    words = philox4x32_10([np.array([250], np.uint64), np.array([0], np.uint64),
+                           np.array([0], np.uint64), np.array([0], np.uint64)], (77, 0))
+    assert run[:4] == [int(w[0]) for w in words]  # 1000 / 4 = block 250
 
 
 def test_keep_mask_layout_share_and_seeds():
@@ -200,3 +210,33 @@ def test_bwd_wrappers_reject_devices_without_a_path():
         attention_bwd(x, x, x, m, m, x, causal=0, scale=1.0, n_heads=2)
     with pytest.raises(ValueError, match="cpu or cuda"):
         attention_keep_mask(0, (1, 1, 2, 2), 0.5, "meta")
+
+
+@pytest.mark.parametrize("dh,tile", [(1, 16), (8, 16), (16, 16), (17, 32), (32, 32),
+                                     (33, 64), (64, 64), (100, 128), (128, 128)])
+def test_head_tile_rounds_up_to_a_built_width(dh, tile):
+    """The kernels are built for heads of 16/32/64/128 dims; a narrower head
+    runs in the next one up, its columns zero-padded in shared memory."""
+    assert head_tile(dh) == tile
+
+
+@pytest.mark.parametrize("dh", [MAX_HEAD_DIM + 1, 256])
+def test_head_tile_raises_past_the_widest(dh):
+    with pytest.raises(ValueError, match="at most"):
+        head_tile(dh)
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 32, 33, 64, 1_280_000, 20_480_000])
+def test_keep_bits_words_cover_every_window(n):
+    """One bit per weight, and room for the kernels' reads of 64 weights
+    (three words) from any weight of the call, the last one included."""
+    words = keep_bits_words(n)
+    assert words >= -(-n // 32)
+    if n:
+        assert ((n - 1) >> 5) + 2 < words
+
+
+def test_bwd_stats_shape():
+    """K2's scratch: row max, row sum and sum_j dW_j·w_j per query row and head."""
+    assert bwd_stats_shape(256, 2, 50) == (3, 25_600)
+    assert bwd_stats_shape(1, 1, 1) == (3, 1)

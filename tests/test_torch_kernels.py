@@ -4,9 +4,10 @@ These tests need an NVIDIA GPU with nvcc (they build ``csrc/`` first) and
 skip elsewhere. Run them on the card with
 ``python -m pytest --noconftest tests/test_torch_kernels.py -q`` (the
 shared ``tests/conftest.py`` imports jax, which that machine may lack).
-Tolerances: K1 1e-5 abs/rel at f32 (summation order), 2e-2 at bf16; K2
-1e-5 relative norm per gradient at f32, 2e-2 at bf16 (the plain version's
-autograd does not round dO and dS to bf16, K2 does, as the TPU kernel did);
+Tolerances: K1 1e-5 abs/rel at f32 (summation order; 3xTF32 products keep
+float32 accuracy), 2e-2 at bf16; K2 1e-5 relative norm per gradient at f32,
+2e-2 at bf16 (the plain version's autograd does not round dO and dS to
+bf16, K2 does, as the TPU kernel did);
 K3 ids equal and values within 1e-5 (both sum in the same order), at f32,
 bf16 and int8; K4 bit-equal to its plain version (one arithmetic, and a
 maximum has no rounding), and the tournament (K4 and its rerank) equal to
@@ -19,7 +20,7 @@ import pytest
 import torch
 
 from carca_tpu_torch.models.attention import MHA, masked_attention
-from carca_tpu_torch.ops.flash_attention import (SEED_LIMIT, attention_bwd,
+from carca_tpu_torch.ops.flash_attention import (MAX_HEAD_DIM, SEED_LIMIT, attention_bwd,
                                                  attention_grads_plain, attention_keep_mask,
                                                  fused_attention)
 from carca_tpu_torch.ops.retrieval_topk import (catalog_topk, catalog_topk_plain, groupmax,
@@ -38,6 +39,8 @@ def dev():
 
 
 def attn_inputs(dev, b, lq, lk, d, seed=0):
+    """q/k/v [b, L, d] and masks: random padded query rows, batch row 0
+    with every key masked."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     q, k, v = (torch.randn(b, n, d, generator=g) for n in (lq, lk, lk))
     qm = (torch.rand(b, lq, generator=g) > 0.2).float()
@@ -115,23 +118,109 @@ def test_attention_bwd_kernel_matches_plain_autograd(dev, causal, lq, lk, b, rat
     assert torch.count_nonzero(kk.grad[0]) == 0 and torch.count_nonzero(vv.grad[0]) == 0
 
 
-def test_attention_bwd_kernel_is_deterministic(dev):
-    q, k, v, qm, km = attn_inputs(dev, 32, 50, 50, 64)
+@pytest.mark.parametrize("lq,lk", [(50, 50), (200, 320)])
+def test_attention_bwd_kernel_is_deterministic(dev, lq, lk):
+    """No atomics: two runs of K2 (and of K1) are bit-equal, with one key
+    tile and with several; another seed changes the result."""
+    q, k, v, qm, km = attn_inputs(dev, 32, lq, lk, 64)
     g = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)).to(dev)
     kw = dict(causal=-1, scale=32 ** 0.5, n_heads=2, dropout_rate=0.5, seed=123)
     a = attention_bwd(q, k, v, qm, km, g, **kw)
     b = attention_bwd(q, k, v, qm, km, g, **kw)
     c = attention_bwd(q, k, v, qm, km, g, **dict(kw, seed=124))
+    fkw = dict(causal=-1, scale=32 ** 0.5, n_heads=2, dropout_rate=0.5)
+    f1, f2 = (fused_attention(q, k, v, qm, km, seed_generator=torch.Generator().manual_seed(7),
+                              **fkw) for _ in range(2))
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert not torch.equal(a[2], c[2])
+    assert torch.equal(f1, f2)
+
+
+RAGGED = [(1, 1), (17, 63), (50, 50), (63, 65), (65, 17), (200, 200), (1, 200), (200, 1)]
+
+
+@pytest.mark.parametrize("lq,lk", RAGGED)
+@pytest.mark.parametrize("causal", [None, 0, -1])
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("cd,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_attention_kernels_ragged_tiles(dev, lq, lk, causal, rate, cd, tol):
+    """K1 and K2 at lengths that are not multiples of the 16-row fragments
+    or the 64-row tiles (one tile, a ragged second tile, several key
+    tiles), against the plain version fed the kernels' keep mask: fully
+    masked query rows and a batch row with every key masked come out
+    exactly 0 in both directions."""
+    b = 3
+    q, k, v, qm, km = attn_inputs(dev, b, lq, lk, 64, seed=lq * 1000 + lk)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(lk)).to(dev)
+    kw = dict(causal=causal, scale=32 ** 0.5, n_heads=2, compute_dtype=cd, dropout_rate=rate)
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    out = fused_attention(qq, kk, vv, qm, km, seed_generator=torch.Generator().manual_seed(6),
+                          **kw)
+    out.backward(g)
+    keep = attention_keep_mask(seed_of(6), (b, 2, lq, lk), rate, dev) if rate else None
+    want = masked_attention(q, k, v, qm, km, keep_mask=keep, **kw)
+    want_grads = attention_grads_plain(q, k, v, qm, km, g, keep_mask=keep, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.detach(), want, rtol=tol, atol=tol)
+    for got, w in zip((qq.grad, kk.grad, vv.grad), want_grads):
+        assert rel(got, w) <= tol
+    dead = (qm == 0) | (km.sum(1, keepdim=True) == 0)
+    assert torch.count_nonzero(out.detach()[dead]) == 0
+    assert torch.count_nonzero(qq.grad[dead]) == 0
+    assert torch.count_nonzero(kk.grad[0]) == 0 and torch.count_nonzero(vv.grad[0]) == 0
+
+
+@pytest.mark.parametrize("b,lq,lk,d,heads", [
+    (4, 200, 200, 128, 2),  # dh = 64 at Lk = 200: K2 needed 170.6 KB of shared memory
+    (4, 100, 320, 64, 2),   # dh = 32 at Lk = 320
+    (2, 8, 4000, 64, 1),    # K1 staged all of K/V: 2 MB at Lk = 4000
+])
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+def test_attention_kernels_take_the_shapes_that_used_to_raise(dev, b, lq, lk, d, heads, rate):
+    """Key lengths whose K/V tiles overflowed shared memory in the earlier
+    kernels: shared memory is now a fixed number of 64-row tiles."""
+    q, k, v, qm, km = attn_inputs(dev, b, lq, lk, d, seed=lk)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(2)).to(dev)
+    kw = dict(causal=0, scale=(d / heads) ** 0.5, n_heads=heads, dropout_rate=rate)
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    out = fused_attention(qq, kk, vv, qm, km, seed_generator=torch.Generator().manual_seed(8),
+                          **kw)
+    out.backward(g)
+    keep = attention_keep_mask(seed_of(8), (b, heads, lq, lk), rate, dev) if rate else None
+    want_grads = attention_grads_plain(q, k, v, qm, km, g, keep_mask=keep, **kw)
+    torch.testing.assert_close(out.detach(), masked_attention(q, k, v, qm, km, keep_mask=keep,
+                                                              **kw), rtol=1e-5, atol=1e-5)
+    for got, w in zip((qq.grad, kk.grad, vv.grad), want_grads):
+        assert rel(got, w) <= 1e-5
+
+
+@pytest.mark.parametrize("dh,heads", [(6, 1), (8, 2), (16, 2), (24, 2), (40, 1), (64, 1),
+                                      (100, 1), (128, 2)])
+@pytest.mark.parametrize("cd,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_attention_kernels_every_head_tile(dev, dh, heads, cd, tol):
+    """Each head tile the kernels are built for (16/32/64/128), with
+    zero-padded columns, and row strides that rule out 16-byte loads (dh =
+    6) or allow them."""
+    d = dh * heads
+    q, k, v, qm, km = attn_inputs(dev, 5, 37, 70, d, seed=dh)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(3)).to(dev)
+    kw = dict(causal=0, scale=dh ** 0.5, n_heads=heads, compute_dtype=cd)
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    out = fused_attention(qq, kk, vv, qm, km, **kw)
+    out.backward(g)
+    want_grads = attention_grads_plain(q, k, v, qm, km, g, **kw)
+    torch.testing.assert_close(out.detach(), masked_attention(q, k, v, qm, km, **kw),
+                               rtol=tol, atol=tol)
+    for got, w in zip((qq.grad, kk.grad, vv.grad), want_grads):
+        assert rel(got, w) <= tol
 
 
 def test_attention_kernel_raises_on_what_it_lacks(dev):
-    """Dropout and autograd now run the kernels; what they cannot take
-    still raises: a non-contiguous or non-float32 input, dropout without a
-    CPU seed generator, and tiles that overflow shared memory (the
-    backward's budget is the tighter)."""
+    """Dropout and autograd run the kernels at every key length; what they
+    cannot take still raises: a non-contiguous or non-float32 input,
+    dropout without a CPU seed generator, and a head wider than
+    MAX_HEAD_DIM (forward and backward)."""
     q, k, v, qm, km = attn_inputs(dev, 2, 8, 8, 16)
     kw = dict(causal=0, scale=1.0, n_heads=2)
     with pytest.raises(ValueError, match="contiguous"):
@@ -143,16 +232,12 @@ def test_attention_kernel_raises_on_what_it_lacks(dev):
     with pytest.raises(ValueError, match="seed_generator"):
         fused_attention(q, k, v, qm, km, dropout_rate=0.1,
                         seed_generator=torch.Generator(device=dev), **kw)
-    big = torch.zeros(1, 4000, 64, device=dev)
-    with pytest.raises(ValueError, match="shared memory"):
-        fused_attention(big[:, :8], big, big, torch.ones(1, 8, device=dev),
-                        torch.ones(1, 4000, device=dev), causal=None, scale=1.0, n_heads=1)
-    mid = torch.zeros(1, 300, 64, device=dev)  # the forward fits, the backward does not
-    qg = mid[:, :8].clone().requires_grad_()
-    out = fused_attention(qg, mid, mid, torch.ones(1, 8, device=dev),
-                          torch.ones(1, 300, device=dev), causal=None, scale=1.0, n_heads=1)
-    with pytest.raises(ValueError, match="shared memory"):
-        out.sum().backward()
+    wide = torch.zeros(1, 8, MAX_HEAD_DIM + 8, device=dev)
+    ones = torch.ones(1, 8, device=dev)
+    with pytest.raises(ValueError, match="at most"):
+        fused_attention(wide, wide, wide, ones, ones, causal=None, scale=1.0, n_heads=1)
+    with pytest.raises(ValueError, match="at most"):
+        attention_bwd(wide, wide, wide, ones, ones, wide, causal=None, scale=1.0, n_heads=1)
 
 
 def test_mha_auto_on_cuda_raises_instead_of_falling_back(dev):
