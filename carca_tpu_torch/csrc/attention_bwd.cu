@@ -42,7 +42,9 @@
 //    keys' rows once.
 // Every sum runs in one fixed order, so two runs are bit-equal. Shared
 // memory is four [64, dh + 4] tiles whatever Lq and Lk (37 KB at dh = 32,
-// 70 KB at dh = 64); both passes fit in 128 registers at dh <= 32, so four
+// 70 KB at dh = 64; a head wider than 128 dims runs in 128-column chunks,
+// each chunk of dQ, dK and dV with its own walk that sums the scores over
+// every chunk); both passes fit in 128 registers at dh <= 32, so four
 // blocks share an SM and the flagship's 512 (b, h) blocks run in one wave.
 // Now each pass is bound by the latency of its mma.sync chains and barriers
 // at 16 warps per SM, not by bytes. The warp's fragment rows g and g + 8 are
@@ -88,91 +90,120 @@ dkv_kernel(const Args a, float* __restrict__ dk, float* __restrict__ dv) {
   const int keys = min(kTile, a.Lk - key0);
   const bool vec_dims = a.dh % 4 == 0 && d % 4 == 0;
   const size_t koff = ((size_t)b * a.Lk + key0) * d + (size_t)h * a.dh;
-  load_tile<kDh>(ks, a.k + koff, keys, d, a.dh, vec_dims && aligned16(a.k));
-  load_tile<kDh>(vs, a.v + koff, keys, d, a.dh, vec_dims && aligned16(a.v));
+  const int nch = n_chunks<kDh>(a.dh);
+  const bool vec_k = vec_dims && aligned16(a.k), vec_v = vec_dims && aligned16(a.v);
+  const bool vec_q = vec_dims && aligned16(a.q), vec_do = vec_dims && aligned16(a.dout);
+  // the K and V columns of chunk c
+  auto stage_keys = [&](int c) {
+    const int w = chunk_width<kDh>(a.dh, c);
+    load_tile<kDh>(ks, a.k + koff + c * kDh, keys, d, w, vec_k);
+    load_tile<kDh>(vs, a.v + koff + c * kDh, keys, d, w, vec_v);
+  };
+  // the Q and dO columns of chunk c for the query tile at qoff
+  auto stage_rows = [&](int c, size_t qoff, int rows) {
+    const int w = chunk_width<kDh>(a.dh, c);
+    load_tile<kDh>(qs, a.q + qoff + c * kDh, rows, d, w, vec_q);
+    load_tile<kDh>(dos, a.dout + qoff + c * kDh, rows, d, w, vec_do);
+  };
+  if (nch == 1) stage_keys(0);
   load_mask(kms, a.km + (size_t)b * a.Lk + key0, keys);
 
   const int r0 = 16 * warp + 2 * g;  // this lane's keys: tile rows r0 and r0 + 1
   const int j0 = key0 + r0;
   const uint64_t bh = (uint64_t)b * a.H + h;
   const size_t n_stats = (size_t)a.B * a.H * a.Lq;
-  const bool vec_q = vec_dims && aligned16(a.q), vec_do = vec_dims && aligned16(a.dout);
 
-  float dka[kDh / 8][4], dva[kDh / 8][4];
-  zero(dka);
-  zero(dva);
-  for (int row0 = 0; row0 < a.Lq; row0 += kTile) {
-    const int rows = min(kTile, a.Lq - row0);
-    const size_t qoff = ((size_t)b * a.Lq + row0) * d + (size_t)h * a.dh;
-    __syncthreads();  // the previous query tile is consumed
-    load_tile<kDh>(qs, a.q + qoff, rows, d, a.dh, vec_q);
-    load_tile<kDh>(dos, a.dout + qoff, rows, d, a.dh, vec_do);
-    load_mask(qms, a.qm + (size_t)b * a.Lq + row0, rows);
-    for (int i = threadIdx.x; i < kTile; i += kThreads) {
-      const size_t at = bh * a.Lq + row0 + i;
-      const bool in = i < rows;  // padded rows: w = 0 below
-      mst[i] = in ? a.stats[at] : 0.f;
-      lst[i] = in ? 1.f / a.stats[n_stats + at] : 1.f;
-      dst[i] = in ? a.stats[2 * n_stats + at] : 0.f;
-    }
-    __syncthreads();
+  // once per column chunk of dK and dV (one but for heads wider than 128)
+  for (int ch = 0; ch < nch; ++ch) {
+    float dka[kDh / 8][4], dva[kDh / 8][4];
+    zero(dka);
+    zero(dva);
+    for (int row0 = 0; row0 < a.Lq; row0 += kTile) {
+      const int rows = min(kTile, a.Lq - row0);
+      const size_t qoff = ((size_t)b * a.Lq + row0) * d + (size_t)h * a.dh;
+      __syncthreads();  // the previous query tile is consumed
+      if (nch == 1) stage_rows(0, qoff, rows);
+      load_mask(qms, a.qm + (size_t)b * a.Lq + row0, rows);
+      for (int i = threadIdx.x; i < kTile; i += kThreads) {
+        const size_t at = bh * a.Lq + row0 + i;
+        const bool in = i < rows;  // padded rows: w = 0 below
+        mst[i] = in ? a.stats[at] : 0.f;
+        lst[i] = in ? 1.f / a.stats[n_stats + at] : 1.f;
+        dst[i] = in ? a.stats[2 * n_stats + at] : 0.f;
+      }
+      __syncthreads();
 
-    // the tile's queries in steps of 32: [16 keys, 32 queries] score tiles
-    // keep the lane within 128 registers
+      // the tile's queries in steps of 32: [16 keys, 32 queries] score tiles
+      // keep the lane within 128 registers
 #pragma unroll 1
-    for (int q0 = 0; q0 < rows; q0 += 32) {
-      const float* qh = qs + q0 * LD;
-      const float* doh = dos + q0 * LD;
-      // keep bits of keys j0, j0 + 1 for each query column (padded rows and
-      // keys weigh nothing), loaded ahead of the products
-      uint32_t kb[kNH][2];
+      for (int q0 = 0; q0 < rows; q0 += 32) {
+        const float* qh = qs + q0 * LD;
+        const float* doh = dos + q0 * LD;
+        // keep bits of keys j0, j0 + 1 for each query column (padded rows and
+        // keys weigh nothing), loaded ahead of the products
+        uint32_t kb[kNH][2];
 #pragma unroll
-      for (int n = 0; n < kNH; ++n)
+        for (int n = 0; n < kNH; ++n)
 #pragma unroll
-        for (int cq = 0; cq < 2; ++cq) {
-          const int i = row0 + q0 + 8 * n + 2 * t + cq;
-          kb[n][cq] = a.dropout && i < a.Lq && j0 < a.Lk
-                          ? keep_window(a.bits, (bh * a.Lq + i) * a.Lk + j0).x
-                          : 0u;
+          for (int cq = 0; cq < 2; ++cq) {
+            const int i = row0 + q0 + 8 * n + 2 * t + cq;
+            kb[n][cq] = a.dropout && i < a.Lq && j0 < a.Lk
+                            ? keep_window(a.bits, (bh * a.Lq + i) * a.Lk + j0).x
+                            : 0u;
+          }
+        float st[kNH][4], dw[kNH][4];  // S^T then w_d^T; dW^T then dS^T (keys x queries)
+        zero(st);
+        zero(dw);
+        for (int c = 0; c < nch; ++c) {  // S^T and dW^T sum over the column chunks
+          if (nch > 1) {
+            __syncthreads();
+            stage_keys(c);
+            stage_rows(c, qoff, rows);
+            __syncthreads();
+          }
+          mma_rows_bt<kDh, kBf16, kNH>(st, ks + r0 * LD, ks + (r0 + 1) * LD, qh, g, t);
+          mma_rows_bt<kDh, kBf16, kNH>(dw, vs + r0 * LD, vs + (r0 + 1) * LD, doh, g, t);
         }
-      float st[kNH][4], dw[kNH][4];  // S^T then w_d^T; dW^T then dS^T (keys x queries)
-      zero(st);
-      zero(dw);
-      mma_rows_bt<kDh, kBf16, kNH>(st, ks + r0 * LD, ks + (r0 + 1) * LD, qh, g, t);
-      mma_rows_bt<kDh, kBf16, kNH>(dw, vs + r0 * LD, vs + (r0 + 1) * LD, doh, g, t);
 #pragma unroll
-      for (int n = 0; n < kNH; ++n) {
+        for (int n = 0; n < kNH; ++n) {
 #pragma unroll
-        for (int cq = 0; cq < 2; ++cq) {  // query column q0 + 8n + 2t + cq
-          const int il = q0 + 8 * n + 2 * t + cq, i = row0 + il;
-          const float qmi = qms[il], mi = mst[il], li = lst[il], di = dst[il];
-          const bool kept[2] = {(kb[n][cq] & 1u) != 0, (kb[n][cq] & 2u) != 0};
+          for (int cq = 0; cq < 2; ++cq) {  // query column q0 + 8n + 2t + cq
+            const int il = q0 + 8 * n + 2 * t + cq, i = row0 + il;
+            const float qmi = qms[il], mi = mst[il], li = lst[il], di = dst[il];
+            const bool kept[2] = {(kb[n][cq] & 1u) != 0, (kb[n][cq] & 2u) != 0};
 #pragma unroll
-          for (int rk = 0; rk < 2; ++rk) {  // key j0 + rk: fragment element cq + 2 rk
-            const int c = cq + 2 * rk, j = j0 + rk;
-            const float m = pair_mask(a, qmi, kms[r0 + rk], i, j);
-            const float w = i < a.Lq ? exp_shifted(logit(a, st[n][c], m, j) - mi) * li : 0.f;
-            float wd = w * m, dwm = dw[n][c];
-            if (a.dropout) {
-              wd = kept[rk] ? wd * a.inv_keep : 0.f;
-              dwm = kept[rk] ? dwm * a.inv_keep : 0.f;
+            for (int rk = 0; rk < 2; ++rk) {  // key j0 + rk: fragment element cq + 2 rk
+              const int c = cq + 2 * rk, j = j0 + rk;
+              const float m = pair_mask(a, qmi, kms[r0 + rk], i, j);
+              const float w = i < a.Lq ? exp_shifted(logit(a, st[n][c], m, j) - mi) * li : 0.f;
+              float wd = w * m, dwm = dw[n][c];
+              if (a.dropout) {
+                wd = kept[rk] ? wd * a.inv_keep : 0.f;
+                dwm = kept[rk] ? dwm * a.inv_keep : 0.f;
+              }
+              st[n][c] = wd;
+              dw[n][c] = w * (dwm * m - di) * a.inv_scale;
             }
-            st[n][c] = wd;
-            dw[n][c] = w * (dwm * m - di) * a.inv_scale;
           }
         }
+        if (nch > 1) {  // chunk ch's columns of Q and dO
+          __syncthreads();
+          stage_rows(ch, qoff, rows);
+          __syncthreads();
+        }
+        mma_regs_b<kDh, kBf16, kNH>(dva, st, doh, g, t);
+        mma_regs_b<kDh, kBf16, kNH>(dka, dw, qh, g, t);
       }
-      mma_regs_b<kDh, kBf16, kNH>(dva, st, doh, g, t);
-      mma_regs_b<kDh, kBf16, kNH>(dka, dw, qh, g, t);
     }
-  }
 
-  // a warp reads and writes only its own rows of ks and vs
-  put_rows<kDh>(ks, dka, r0, r0 + 1, t);
-  put_rows<kDh>(vs, dva, r0, r0 + 1, t);
-  __syncthreads();
-  store_tile<kDh>(dk + koff, ks, keys, d, a.dh, vec_dims && aligned16(dk));
-  store_tile<kDh>(dv + koff, vs, keys, d, a.dh, vec_dims && aligned16(dv));
+    // a warp reads and writes only its own rows of ks and vs
+    put_rows<kDh>(ks, dka, r0, r0 + 1, t);
+    put_rows<kDh>(vs, dva, r0, r0 + 1, t);
+    __syncthreads();
+    const int w = chunk_width<kDh>(a.dh, ch);
+    store_tile<kDh>(dk + koff + ch * kDh, ks, keys, d, w, vec_dims && aligned16(dk));
+    store_tile<kDh>(dv + koff + ch * kDh, vs, keys, d, w, vec_dims && aligned16(dv));
+  }
 }
 
 struct Backward {
@@ -207,7 +238,7 @@ extern "C" {
 // dropout = 0: seed, threshold, keep and bits are ignored. dq/dk/dv are
 // written whole (every row, every head), so they need no zeroing; stats is
 // scratch of 3 * B * H * Lq floats, bits of ceil(B * H * Lq * Lk / 32) + 2
-// words. Heads of up to 128 dims; a wider head returns cudaErrorInvalidValue.
+// words. Any head width: heads wider than 128 dims run in 128-column chunks.
 int carca_attention_bwd(const void* q, const void* k, const void* v, const void* qm,
                         const void* km, const void* dout, void* dq, void* dk, void* dv,
                         void* stats, void* bits, int B, int H, int Lq, int Lk, int dh,

@@ -37,7 +37,9 @@
 // grow with Lk. With dropout a pre-pass packs the call's keep bits (one
 // Philox call per four weights) and the kernel reads three words per row
 // and key tile. Heads are addressed in place inside [B, L, d] (offset
-// h * dh), so the wrapper needs no head split or merge copies. Four blocks
+// h * dh), so the wrapper needs no head split or merge copies. A head wider
+// than 128 dims sums S over 128-column chunks and walks the key tiles once
+// more per chunk of the output (rare: every configuration has dh = 32). Four blocks
 // share an SM at dh <= 32 (128 registers); the kernel is bound by the
 // latency of its mma.sync chains, exp and barriers, not by bytes.
 // carca_attention_keep_bits runs the pre-pass alone, for the checks that
@@ -69,8 +71,8 @@ const char* carca_error_string(int err) {
 }
 
 // dropout = 0: seed, threshold, keep and bits are ignored; bits is scratch
-// of ceil(B * H * Lq * Lk / 32) + 2 words. Heads of up to 128 dims; a wider
-// head returns cudaErrorInvalidValue.
+// of ceil(B * H * Lq * Lk / 32) + 2 words. Any head width: heads wider
+// than 128 dims run in 128-column chunks.
 int carca_attention_fwd(const void* q, const void* k, const void* v, const void* qm,
                         const void* km, void* out, void* bits, int B, int H, int Lq, int Lk,
                         int dh, int has_causal, int causal, float scale, int bf16,

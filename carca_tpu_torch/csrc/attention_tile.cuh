@@ -7,8 +7,11 @@
 // K2's dK/dV pass); each warp owns 16 of them. Keys (or queries) are
 // walked in tiles of 64 as well, so shared memory holds a fixed number of
 // [64, kDh + 4] float tiles whatever Lq and Lk are; kDh is the head width
-// rounded up to 16, 32, 64 or 128 (zero-padded columns). The row stride
-// kDh + 4 makes every fragment load below free of bank conflicts.
+// rounded up to 32, 64 or 128 (zero-padded columns). A head wider than 128
+// dims runs at kDh = 128 in column chunks: the score products sum over the
+// chunks, and each chunk of the output (dQ, dK, dV) takes its own walk over
+// the other dimension, so shared memory stays fixed there too. The row
+// stride kDh + 4 makes every fragment load below free of bank conflicts.
 //
 // Products (mma.sync, m16n8, fp32 accumulators):
 // * float32 compute: m16n8k8 TF32 with the 3xTF32 split. Each operand x is
@@ -43,10 +46,22 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kTile = 16 * kWarps;  // rows of a block tile, and keys (queries) of a step
 constexpr int kNT = kTile / 8;      // n8 blocks across a [16, kTile] score tile
 constexpr float kNegMask = -4294967295.0f;  // -(2^32 - 1), src/carca.py:251
+constexpr int kWidestTile = 128;
 
-// The head width a kernel is built for: dh rounded up to 16/32/64/128, or 0.
-inline int head_tile(int dh) {
-  return dh <= 16 ? 16 : dh <= 32 ? 32 : dh <= 64 ? 64 : dh <= 128 ? 128 : 0;
+// The head width a kernel is built for: dh rounded up to 32/64/128; wider
+// heads run at 128 in column chunks.
+inline int head_tile(int dh) { return dh <= 32 ? 32 : dh <= 64 ? 64 : kWidestTile; }
+
+// Column chunks of a head at tile kDh (more than one only at the widest
+// tile), and the width of chunk c.
+template <int kDh>
+__device__ __forceinline__ int n_chunks(int dh) {
+  return kDh == kWidestTile ? (dh + kDh - 1) / kDh : 1;
+}
+
+template <int kDh>
+__device__ __forceinline__ int chunk_width(int dh, int c) {
+  return min(kDh, dh - c * kDh);
 }
 
 struct Args {
@@ -374,7 +389,9 @@ constexpr size_t rows_smem_bytes() {
 // as dO . O from the forward's output, FlashAttention-2's shortcut, which
 // would save pass 1 past one key tile): where the softmax backward cancels
 // exactly -- a row with one live key, as row 0 under causal 0 -- dS then
-// comes out exactly 0, as in the plain version.
+// comes out exactly 0, as in the plain version. A head wider than 128 dims
+// (kDh = 128, nch > 1 chunks): S and dW sum over the chunks, staged with
+// the rows, and pass 2 runs once per chunk of the output.
 template <int kDh, bool kBf16, bool kBwd>
 __global__ void __launch_bounds__(kThreads, min_blocks<kDh>()) rows_kernel(const Args a) {
   constexpr int LD = kDh + 4;
@@ -392,9 +409,16 @@ __global__ void __launch_bounds__(kThreads, min_blocks<kDh>()) rows_kernel(const
   const int rows = min(kTile, a.Lq - row0);
   const bool vec_dims = a.dh % 4 == 0 && d % 4 == 0;
   const size_t qoff = ((size_t)b * a.Lq + row0) * d + (size_t)h * a.dh;
-  load_tile<kDh>(qs, a.q + qoff, rows, d, a.dh, vec_dims && aligned16(a.q));
+  const int nch = n_chunks<kDh>(a.dh);
+  const bool vec_q = vec_dims && aligned16(a.q), vec_do = vec_dims && aligned16(a.dout);
+  // the Q (and dO) columns of chunk c
+  auto stage_rows = [&](int c) {
+    const int w = chunk_width<kDh>(a.dh, c);
+    load_tile<kDh>(qs, a.q + qoff + c * kDh, rows, d, w, vec_q);
+    if constexpr (kBwd) load_tile<kDh>(dos, a.dout + qoff + c * kDh, rows, d, w, vec_do);
+  };
+  if (nch == 1) stage_rows(0);
   const int nkt = (a.Lk + kTile - 1) / kTile;
-  if constexpr (kBwd) load_tile<kDh>(dos, a.dout + qoff, rows, d, a.dh, vec_dims && aligned16(a.dout));
   load_mask(qms, a.qm + (size_t)b * a.Lq + row0, rows);
 
   const int r0 = 16 * warp + g;  // this lane's tile rows r0 and r0 + 8
@@ -409,29 +433,34 @@ __global__ void __launch_bounds__(kThreads, min_blocks<kDh>()) rows_kernel(const
   float dw[kBwd ? kNT : 1][4];   // dW through dropout and re-mask, then dS
   float mx[2] = {-INFINITY, -INFINITY}, inv_l[2], dd[2] = {0.f, 0.f};
 
-  // Stage key tile kt (K, and V when `with_v`), compute S (and dW) for it.
+  // Stage key tile kt (K, and V when `with_v`), compute S (and dW) for it,
+  // summed over the head's column chunks (staged with Q and dO when nch > 1).
   auto scores = [&](int kt, bool with_v) {
     const int key0 = kt * kTile, keys = min(kTile, a.Lk - key0);
     const size_t koff = ((size_t)b * a.Lk + key0) * d + (size_t)h * a.dh;
-    __syncthreads();  // the previous tile is consumed
-    load_tile<kDh>(ks, a.k + koff, keys, d, a.dh, vec_k);
-    if (with_v) load_tile<kDh>(vs, a.v + koff, keys, d, a.dh, vec_v);
-    load_mask(kms, a.km + (size_t)b * a.Lk + key0, keys);
-    __syncthreads();
     uint2 kw[kBwd ? 2 : 1];  // keep bits of the tile's keys in rows i0, i0 + 8
-    if constexpr (kBwd) {  // loaded ahead of the products, which hide their latency
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int i = i0 + 8 * r;
-        kw[r] = a.dropout && i < a.Lq ? keep_window(a.bits, (bh * a.Lq + i) * a.Lk + key0)
-                                      : make_uint2(0u, 0u);
-      }
-    }
     zero(s);
-    mma_rows_bt<kDh, kBf16, kNT>(s, a_r0, a_r0 + 8 * LD, ks, g, t);
-    if constexpr (kBwd) {
-      zero(dw);
-      mma_rows_bt<kDh, kBf16, kNT>(dw, d_r0, d_r0 + 8 * LD, vs, g, t);
+    if constexpr (kBwd) zero(dw);
+    for (int c = 0; c < nch; ++c) {
+      const int w = chunk_width<kDh>(a.dh, c);
+      __syncthreads();  // the previous tile is consumed
+      if (nch > 1) stage_rows(c);
+      load_tile<kDh>(ks, a.k + koff + c * kDh, keys, d, w, vec_k);
+      if (with_v) load_tile<kDh>(vs, a.v + koff + c * kDh, keys, d, w, vec_v);
+      if (c == 0) load_mask(kms, a.km + (size_t)b * a.Lk + key0, keys);
+      __syncthreads();
+      if constexpr (kBwd) {  // loaded ahead of the products, which hide their latency
+        if (c == 0) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int i = i0 + 8 * r;
+            kw[r] = a.dropout && i < a.Lq ? keep_window(a.bits, (bh * a.Lq + i) * a.Lk + key0)
+                                          : make_uint2(0u, 0u);
+          }
+        }
+      }
+      mma_rows_bt<kDh, kBf16, kNT>(s, a_r0, a_r0 + 8 * LD, ks, g, t);
+      if constexpr (kBwd) mma_rows_bt<kDh, kBf16, kNT>(dw, d_r0, d_r0 + 8 * LD, vs, g, t);
     }
 #pragma unroll
     for (int n = 0; n < kNT; ++n) {
@@ -462,7 +491,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks<kDh>()) rows_kernel(const
     // pass 1: the row statistics
     float l[2] = {0.f, 0.f}, dsum[2] = {0.f, 0.f};
     for (int kt = 0; kt < nkt; ++kt) {
-      scores(kt, kBwd || nkt == 1);
+      scores(kt, kBwd || (nkt == 1 && nch == 1));
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         float tmax = -INFINITY;
@@ -499,64 +528,78 @@ __global__ void __launch_bounds__(kThreads, min_blocks<kDh>()) rows_kernel(const
     }
   }
 
-  // pass 2: weights, and the product with V (forward) or K (backward)
-  float acc[kDh / 8][4];
-  zero(acc);
-  for (int kt = 0; kt < nkt; ++kt) {
-    if (nkt > 1) scores(kt, true);
-    const int key0 = kt * kTile;
-    uint2 kw[2] = {make_uint2(0u, 0u), make_uint2(0u, 0u)};  // the forward's keep bits
-    if (!kBwd && a.dropout) {
+  // pass 2, once per column chunk of the output: weights, and the product
+  // with V (forward) or K (backward)
+  for (int ch = 0; ch < nch; ++ch) {
+    float acc[kDh / 8][4];
+    zero(acc);
+    for (int kt = 0; kt < nkt; ++kt) {
+      if (nkt > 1) scores(kt, kBwd || nch == 1);
+      const int key0 = kt * kTile;
+      if (nkt > 1 || ch == 0) {  // else this tile's weights are still in registers
+        uint2 kw[2] = {make_uint2(0u, 0u), make_uint2(0u, 0u)};  // the forward's keep bits
+        if (!kBwd && a.dropout) {
 #pragma unroll
-      for (int r = 0; r < 2; ++r)
-        if (i0 + 8 * r < a.Lq) kw[r] = keep_window(a.bits, (bh * a.Lq + i0 + 8 * r) * a.Lk + key0);
-    }
-#pragma unroll
-    for (int n = 0; n < kNT; ++n) {
-      const int jl = 8 * n + 2 * t, j = key0 + jl;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int i = i0 + 8 * r;
-        float w[2];
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const float z = s[n][2 * r + c];
-          w[c] = (nkt == 1 ? z : exp_shifted(z - mx[r])) * inv_l[r];  // the softmax, w_raw
+          for (int r = 0; r < 2; ++r)
+            if (i0 + 8 * r < a.Lq)
+              kw[r] = keep_window(a.bits, (bh * a.Lq + i0 + 8 * r) * a.Lk + key0);
         }
-        if constexpr (kBwd) {
 #pragma unroll
-          for (int c = 0; c < 2; ++c)
-            dw[n][2 * r + c] = w[c] * (dw[n][2 * r + c] - dd[r]) * a.inv_scale;
-        } else {
-          const float qmi = qms[r0 + 8 * r];
-          w[0] *= pair_mask(a, qmi, kms[jl], i, j);  // the post-softmax re-mask
-          w[1] *= pair_mask(a, qmi, kms[jl + 1], i, j + 1);
-          if (a.dropout) {
-            const uint32_t kb = (n < 4 ? kw[r].x : kw[r].y) >> (jl % 32);
-            w[0] = kb & 1u ? w[0] * a.inv_keep : 0.f;
-            w[1] = kb & 2u ? w[1] * a.inv_keep : 0.f;
+        for (int n = 0; n < kNT; ++n) {
+          const int jl = 8 * n + 2 * t, j = key0 + jl;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int i = i0 + 8 * r;
+            float w[2];
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const float z = s[n][2 * r + c];
+              w[c] = (nkt == 1 ? z : exp_shifted(z - mx[r])) * inv_l[r];  // the softmax, w_raw
+            }
+            if constexpr (kBwd) {
+#pragma unroll
+              for (int c = 0; c < 2; ++c)
+                dw[n][2 * r + c] = w[c] * (dw[n][2 * r + c] - dd[r]) * a.inv_scale;
+            } else {
+              const float qmi = qms[r0 + 8 * r];
+              w[0] *= pair_mask(a, qmi, kms[jl], i, j);  // the post-softmax re-mask
+              w[1] *= pair_mask(a, qmi, kms[jl + 1], i, j + 1);
+              if (a.dropout) {
+                const uint32_t kb = (n < 4 ? kw[r].x : kw[r].y) >> (jl % 32);
+                w[0] = kb & 1u ? w[0] * a.inv_keep : 0.f;
+                w[1] = kb & 2u ? w[1] * a.inv_keep : 0.f;
+              }
+              s[n][2 * r] = w[0];
+              s[n][2 * r + 1] = w[1];
+            }
           }
-          s[n][2 * r] = w[0];
-          s[n][2 * r + 1] = w[1];
         }
       }
+      if (nch > 1) {  // chunk ch's columns of K (backward) or V (forward)
+        const size_t koff = ((size_t)b * a.Lk + key0) * d + (size_t)h * a.dh + ch * kDh;
+        __syncthreads();
+        load_tile<kDh>(kBwd ? ks : vs, (kBwd ? a.k : a.v) + koff, min(kTile, a.Lk - key0), d,
+                       chunk_width<kDh>(a.dh, ch), kBwd ? vec_k : vec_v);
+        __syncthreads();
+      }
+      if constexpr (kBwd) {
+        mma_regs_b<kDh, kBf16, kNT>(acc, dw, ks, g, t);
+      } else {
+        mma_regs_b<kDh, kBf16, kNT>(acc, s, vs, g, t);
+      }
     }
-    if constexpr (kBwd) {
-      mma_regs_b<kDh, kBf16, kNT>(acc, dw, ks, g, t);
-    } else {
-      mma_regs_b<kDh, kBf16, kNT>(acc, s, vs, g, t);
-    }
-  }
 
-  // a warp reads and writes only its own rows of qs
-  put_rows<kDh>(qs, acc, r0, r0 + 8, t);
+    // a warp reads and writes only its own rows of qs
+    put_rows<kDh>(qs, acc, r0, r0 + 8, t);
+    __syncthreads();
+    store_tile<kDh>(a.out + qoff + ch * kDh, qs, rows, d, chunk_width<kDh>(a.dh, ch),
+                    vec_dims && aligned16(a.out));
+  }
   if constexpr (kBwd) {
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       if (t == 0 && i0 + 8 * r < a.Lq) a.stats[2 * n_rows + bh * a.Lq + i0 + 8 * r] = dd[r];
   }
-  __syncthreads();
-  store_tile<kDh>(a.out + qoff, qs, rows, d, a.dh, vec_dims && aligned16(a.out));
 }
 
 // Launch the query-major kernel at head tile kDh.
@@ -577,7 +620,6 @@ cudaError_t launch_rows(const Args& a, cudaStream_t stream) {
 template <typename Fn>
 cudaError_t dispatch(int dh, int bf16, Fn&& fn) {
   switch (head_tile(dh)) {
-    case 16: return bf16 ? fn.template operator()<16, true>() : fn.template operator()<16, false>();
     case 32: return bf16 ? fn.template operator()<32, true>() : fn.template operator()<32, false>();
     case 64: return bf16 ? fn.template operator()<64, true>() : fn.template operator()<64, false>();
     case 128:

@@ -15,10 +15,11 @@ Two kernels, each beside its plain version:
 
 Both kernels run their products on the tensor cores (``mma.sync``: 3xTF32
 for float32 compute, bf16 operands for bfloat16) over 64-row tiles, so
-shared memory does not grow with the key length; heads of up to
-``MAX_HEAD_DIM`` dims are taken (``head_tile``). K2 runs as two launches,
-dQ with the row statistics, then dK/dV, through a ``[3, B·H·Lq]`` float32
-scratch (``bwd_stats_shape``).
+shared memory does not grow with the key length; a head is built for 32,
+64 or 128 dims, and a wider one runs in 128-column chunks, so any key
+length and head width runs. K2 runs as two launches, dQ with the row
+statistics, then dK/dV, through a ``[3, B·H·Lq]`` float32 scratch
+(``bwd_stats_shape``).
 
 Weight dropout on the card draws no tensor: both kernels derive the keep
 bit of weight (b, h, i, j) from a stateless Philox4x32-10 keyed by a 64-bit
@@ -34,12 +35,12 @@ alone. On CPU tensors it runs the plain version (weight dropout drawn from
 ``generator``) and autograd differentiates it. On CUDA tensors it launches
 K1 — through ``torch.autograd.Function`` with K2 as its backward when an
 input needs a gradient — or raises; it never falls back. What the kernels
-do not take raises: a non-float32 or non-contiguous input, and a head
-wider than ``MAX_HEAD_DIM``.
+do not take raises: a non-float32 or non-contiguous input.
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -52,8 +53,6 @@ _M0, _M1 = 0xD2511F53, 0xCD9E8D57  # Philox4x32 multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85  # Philox4x32 key bumps
 _M32 = 0xFFFFFFFF
 SEED_LIMIT = 2**63 - 1  # seeds are drawn in [0, SEED_LIMIT)
-HEAD_TILES = (16, 32, 64, 128)  # head widths the kernels are built for (csrc/attention_tile.cuh)
-MAX_HEAD_DIM = HEAD_TILES[-1]
 
 
 def philox4x32_10(counter: Sequence[np.ndarray], key: Tuple[int, int]) -> Tuple[np.ndarray, ...]:
@@ -148,16 +147,6 @@ def _check_cuda_inputs(tensors, n_heads):
         raise ValueError("the attention kernels need at least one key")
 
 
-def head_tile(dh: int) -> int:
-    """The head width the kernels are built for: ``dh`` rounded up to one of
-    ``HEAD_TILES`` (zero-padded columns); a wider head raises."""
-    for tile in HEAD_TILES:
-        if dh <= tile:
-            return tile
-    raise ValueError(f"the attention kernels take heads of at most {MAX_HEAD_DIM} dims, "
-                     f"got dh={dh}")
-
-
 def keep_bits_words(n_weights: int) -> int:
     """Words of the packed keep bits the kernels' dropout pre-pass writes:
     bit idx % 32 of word idx / 32 for each weight idx, and two words more,
@@ -193,7 +182,6 @@ def _launch_fwd(q, k, v, q_mask, k_mask, *, causal, scale, n_heads, compute_dtyp
     out = torch.empty_like(q)
     if b == 0 or lq == 0:
         return out
-    head_tile(dh)
     bits = _keep_bits(dropout_rate, b * n_heads * lq * lk, q.device)
     lib = _build.library()
     with torch.cuda.device(q.device):
@@ -206,6 +194,7 @@ def _launch_fwd(q, k, v, q_mask, k_mask, *, causal, scale, n_heads, compute_dtyp
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "attention_fwd")
     fused_attention.launches += 1
+    fused_attention.launches_by_shape[lq, lk, causal] += 1
     return out
 
 
@@ -234,7 +223,6 @@ def attention_bwd(q, k, v, q_mask, k_mask, grad_out, *, causal: Optional[int], s
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if b == 0 or lk == 0:
         return dq, dk, dv
-    head_tile(dh)
     stats = torch.empty(bwd_stats_shape(b, n_heads, lq), dtype=torch.float32, device=q.device)
     bits = _keep_bits(dropout_rate, b * n_heads * lq * lk, q.device)
     lib = _build.library()
@@ -248,10 +236,12 @@ def attention_bwd(q, k, v, q_mask, k_mask, grad_out, *, causal: Optional[int], s
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "attention_bwd")
     attention_bwd.launches += 1
+    attention_bwd.launches_by_shape[lq, lk, causal] += 1
     return dq, dk, dv
 
 
 attention_bwd.launches = 0  # K2 launches, for checks that the path ran K2
+attention_bwd.launches_by_shape = Counter()  # the same by (Lq, Lk, causal)
 
 
 class _KernelAttention(torch.autograd.Function):
@@ -315,3 +305,4 @@ def fused_attention(
 
 
 fused_attention.launches = 0  # K1 launches, for checks that the path ran K1
+fused_attention.launches_by_shape = Counter()  # the same by (Lq, Lk, causal)

@@ -24,7 +24,8 @@ raises and exits non-zero:
              on, at the encoder [256,50,64] causal 0, decoder
              [512,50,64]x[512,50,64] causal -1 and men [256,200,64] causal 0
              shapes, and at two that raised before K2 took key tiles
-             ([256,200,128] with 64-dim heads, [256,320,64]): per-tensor
+             ([256,200,128] with 64-dim heads, [256,320,64]), and with
+             256-dim heads (128-column chunks) at Lk = 50 and 200: per-tensor
              relative error, exact zeros for fully masked rows, two runs
              bit-equal; fwd+bwd and bwd-only times against the plain
              version's.
@@ -68,8 +69,10 @@ raises and exits non-zero:
 7. profile — only with --profile: per bucket, a torch.profiler trace of
              recommend (device busy time and share, device operations per
              call, the heaviest of them), and the host cost of one K1 launch;
-             after phase 8, the same for one call of the train step (K = 8
-             steps) with the kernels and with the plain path.
+             device µs per launch of each of K1/K2's device kernels at the
+             timed attention shapes; after phase 8, the same as for
+             recommend for one call of the train step (K = 8 steps) with the
+             kernels and with the plain path.
 8. train   — the flagship setup of carca_tpu_torch/bench.py (bench.py's
              build_setup: d=64, g=256, 2 blocks, 2 heads, L=50, batch 256,
              K=8 steps per call, catalog and batch assembly on the card).
@@ -88,7 +91,9 @@ counter set to 0 just before it and read just after. The line before the
 last is a JSON object listing the kernels, each with its launches on the
 path that runs it, its error against its plain version, its time, the plain
 version's, its bound (bytes over 3.35 TB/s against operations over the
-peak of their operand type) and the library call's time where one exists;
+peak of how they run: 3xTF32 for K1/K2) and the library call's time where
+one exists; K1/K2 have one entry per timed shape, with the launches at
+that shape;
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -153,10 +158,12 @@ KEEP_SHARE_TOL = 0.002
 K3_TOL = 1e-5
 INDEX_KINDS = ("f32", "bf16", "int8")
 # the card's peaks for bound_ms (NVIDIA's H100 SXM data sheet): bytes/s of
-# HBM3, and dense operations/s by the operands' type (float32 outside the
-# tensor cores; bf16 also for int8 rows, whose operand is the bf16 query)
+# HBM3, and dense operations/s by how the products run: float32 outside the
+# tensor cores (K3, K4 on f32 rows), float32 on the tensor cores as 3xTF32
+# (K1, K2: three TF32 products of 495 TFLOP/s each), bf16 (also for int8
+# rows, whose operand is the bf16 query)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_OPS_PER_S = {"float32": 67e12, "3xtf32": 495e12 / 3, "bfloat16": 989e12}
 SLICE_TIE_TOL, SLICE_SCORE_TOL = 1e-5, 1e-4
 # GPU kernels vs CPU plain, relative. Gradients: 1e-3 per tensor, because
 # two float32 paths cannot agree closer on this batch: on the CPU, the plain
@@ -224,13 +231,22 @@ def reset_counts() -> None:
     """Every kernel's launch count to 0, just before a main path runs."""
     fused_attention.launches = 0
     attention_bwd.launches = 0
+    fused_attention.launches_by_shape.clear()
+    attention_bwd.launches_by_shape.clear()
     catalog_topk.launches.update({kind: 0 for kind in INDEX_KINDS})
     groupmax.launches.update({0: 0, 1: 0})
+
+
+def shape_key(lq, lk, causal) -> str:
+    return f"{lq}x{lk} causal {causal}"
 
 
 def counts() -> dict:
     return {"attention_fwd": fused_attention.launches,
             "attention_bwd": attention_bwd.launches,
+            **{f"attention_{kind}_by_shape": {shape_key(*key): n for key, n in by.items()}
+               for kind, by in (("fwd", fused_attention.launches_by_shape),
+                                ("bwd", attention_bwd.launches_by_shape))},
             **{f"catalog_topk_{kind}": n for kind, n in catalog_topk.launches.items()},
             **{f"groupmax_layout{lay}": n for lay, n in groupmax.launches.items()}}
 
@@ -387,6 +403,9 @@ K2_CASES = [  # (name, B, Lq, Lk, causal, compute dtype, d); the first three are
     # shared memory refused these before K2 walked key tiles (Lk > ~160 at dh = 64)
     ("[256,200,128] 64-dim heads causal 0", B, L_MEN, L_MEN, 0, "float32", 2 * D),
     ("[256,320,64] causal 0", B, 320, 320, 0, "float32", D),
+    # heads wider than 128 dims, in 128-column chunks (one key tile, then four)
+    ("[64,50,512] 256-dim heads causal 0", 64, L, L, 0, "float32", 8 * D),
+    ("[64,200,512] 256-dim heads causal 0", 64, L_MEN, L_MEN, 0, "float32", 8 * D),
 ]
 K2_TIMED = {"encoder": K2_CASES[0][0], "decoder": K2_CASES[1][0], "men": K2_CASES[2][0]}
 
@@ -1119,6 +1138,40 @@ def profile_train(card, s, use_kernel) -> None:
         top_ms_per_step=top)
 
 
+def profile_attention(card, reps: int = 10) -> None:
+    """Device µs per launch of each of K1/K2's device kernels (the keep-bits
+    pre-pass, K1, K2's dQ and dK/dV passes) at ATTN_SHAPES: ``reps`` runs
+    of K1, and of K2 where the shape trains, under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, (b, lq, lk, causal, rate) in ATTN_SHAPES.items():
+        q, k, v, qm, km = k1_inputs(lq, lk, 34, b=b)
+        g = torch.randn(q.shape, generator=torch.Generator().manual_seed(35)).to(DEVICE)
+        kw = dict(causal=causal, scale=(D / H) ** 0.5, n_heads=H, dropout_rate=rate)
+        seeds = torch.Generator().manual_seed(0)
+
+        def run():
+            fused_attention(q, k, v, qm, km, seed_generator=seeds, **kw)
+            if rate > 0:  # the shapes the train step differentiates
+                attention_bwd(q, k, v, qm, km, g, seed=5, **kw)
+
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+        per_kernel = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+                per_kernel.setdefault(e.name[:70], []).append(e.time_range.elapsed_us())
+        log("profile", card=card, path="attention kernels", shape=name, dropout=rate,
+            us_per_launch={n: sum(ts) / len(ts) for n, ts in per_kernel.items()},
+            launches={n: len(ts) for n, ts in per_kernel.items()})
+
+
 def phase_profile(card, rec, host, index: str = "seen", calls: int = 10) -> None:
     """torch.profiler trace of ``calls`` recommend calls per bucket (seen
     index): device busy time (union of kernel and copy intervals), device
@@ -1212,21 +1265,27 @@ def kernel_entries(k1_err, k2_err, k3_err, k4_err, timings, k2_times, library, l
 
     # K1 and K2 at each timed shape: bytes of q/out (K2: q, dO, dq) at Lq and
     # k/v (K2: k, v, dk, dv) at Lk plus the masks; 2 (K2: 5) products of
-    # Lq Lk d multiply-adds, counted whole (causal masking skips none)
+    # Lq Lk d multiply-adds, counted whole (causal masking skips none), at
+    # the 3xTF32 rate. Launches at the shape on the path that runs it (the
+    # train step runs encoder and decoder; men runs in phases 3, 3b and 6
+    # alone, so its count is 0)
     for shape, (b, lq, lk, causal, rate) in ATTN_SHAPES.items():
         suffix = "" if shape == "encoder" else f"_{shape}"
         path = "slice" if shape == "rerank" else "train"
+        key = shape_key(lq, lk, causal)
         masks = b * (lq + lk) * f32
         add(f"attention_fwd{suffix}", "carca_tpu_torch/csrc/attention_fwd.cu",
-            "carca_tpu/ops/flash_attention.py:113", launches[path]["attention_fwd"], k1_err,
+            "carca_tpu/ops/flash_attention.py:113",
+            launches[path]["attention_fwd_by_shape"].get(key, 0), k1_err,
             timings["K1", shape], 2 * b * (lq + lk) * D * f32 + masks, 4 * b * lq * lk * D,
-            "float32", library[shape]["fwd"])
+            "3xtf32", library[shape]["fwd"])
         entries[-1]["shape"] = shape
         if shape in K2_TIMED:
             add(f"attention_bwd{suffix}", "carca_tpu_torch/csrc/attention_bwd.cu",
-                "carca_tpu/ops/flash_attention.py:130", launches["train"]["attention_bwd"],
+                "carca_tpu/ops/flash_attention.py:130",
+                launches["train"]["attention_bwd_by_shape"].get(key, 0),
                 k2_err, k2_times[K2_TIMED[shape]]["bwd"], (3 * lq + 4 * lk) * b * D * f32 + masks,
-                10 * b * lq * lk * D, "float32", library[shape]["bwd"])
+                10 * b * lq * lk * D, "3xtf32", library[shape]["bwd"])
             entries[-1]["shape"] = shape
     add("catalog_topk", "carca_tpu_torch/csrc/catalog_topk.cu",
         "carca_tpu/ops/retrieval_topk.py:526", launches["slice"]["catalog_topk_f32"],
@@ -1286,6 +1345,8 @@ def main() -> None:
     bench_launches = timed("5d bench 10M", phase_bench_10m, card)
     torch.cuda.empty_cache()
     library = timed("6 library", library_attention, card)
+    if profile_run:
+        timed("7 profile attention", profile_attention, card)
     train_launches, _ = timed("8 train", phase_train, card, profile_run)
     launches = {"slice": serve_launches, "slice_10m": launches_10m, "bench": bench_launches,
                 "train": train_launches}

@@ -22,11 +22,10 @@ import torch
 from carca_tpu.ops.flash_attention import fused_attention as jax_fused_attention
 from carca_tpu_torch.models.attention import masked_attention
 from carca_tpu_torch.ops import flash_attention as fa
-from carca_tpu_torch.ops.flash_attention import (MAX_HEAD_DIM, attention_bwd,
-                                                 attention_grads_plain, attention_keep_mask,
-                                                 bwd_stats_shape, fused_attention, head_tile,
-                                                 keep_bits_words, keep_threshold, philox4x32_10,
-                                                 philox_bits)
+from carca_tpu_torch.ops.flash_attention import (attention_bwd, attention_grads_plain,
+                                                 attention_keep_mask, bwd_stats_shape,
+                                                 fused_attention, keep_bits_words,
+                                                 keep_threshold, philox4x32_10, philox_bits)
 
 torch.set_num_threads(1)
 
@@ -212,18 +211,22 @@ def test_bwd_wrappers_reject_devices_without_a_path():
         attention_keep_mask(0, (1, 1, 2, 2), 0.5, "meta")
 
 
-@pytest.mark.parametrize("dh,tile", [(1, 16), (8, 16), (16, 16), (17, 32), (32, 32),
-                                     (33, 64), (64, 64), (100, 128), (128, 128)])
-def test_head_tile_rounds_up_to_a_built_width(dh, tile):
-    """The kernels are built for heads of 16/32/64/128 dims; a narrower head
-    runs in the next one up, its columns zero-padded in shared memory."""
-    assert head_tile(dh) == tile
-
-
-@pytest.mark.parametrize("dh", [MAX_HEAD_DIM + 1, 256])
-def test_head_tile_raises_past_the_widest(dh):
-    with pytest.raises(ValueError, match="at most"):
-        head_tile(dh)
+@pytest.mark.parametrize("dh", [132, 256, 300])
+@pytest.mark.parametrize("causal", [0, -1])
+def test_wide_heads_match_jax(dh, causal):
+    """Heads wider than 128 dims, which the kernels take in 128-column
+    chunks: the port's output and gradients (plain versions, the ones the
+    card tests hold K1/K2 to) against the JAX package's."""
+    q, k, v, qm, km, g = make(7, 2, 9, 70, d=H * dh)
+    kw = dict(causal=causal, scale=dh ** 0.5, n_heads=H)
+    qq, kk, vv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = fused_attention(qq, kk, vv, torch.from_numpy(qm), torch.from_numpy(km), **kw)
+    out.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(out.detach().numpy(),
+                               np.asarray(jax_fused_attention(q, k, v, qm, km, **kw)),
+                               rtol=TOL, atol=TOL)
+    for a, w in zip((qq.grad, kk.grad, vv.grad), jax_grads(q, k, v, qm, km, g, **kw)):
+        np.testing.assert_allclose(a.numpy(), w, rtol=TOL, atol=TOL)
 
 
 @pytest.mark.parametrize("n", [0, 1, 31, 32, 33, 64, 1_280_000, 20_480_000])

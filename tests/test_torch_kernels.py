@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from carca_tpu_torch.models.attention import MHA, masked_attention
-from carca_tpu_torch.ops.flash_attention import (MAX_HEAD_DIM, SEED_LIMIT, attention_bwd,
+from carca_tpu_torch.ops.flash_attention import (SEED_LIMIT, attention_bwd,
                                                  attention_grads_plain, attention_keep_mask,
                                                  fused_attention)
 from carca_tpu_torch.ops.retrieval_topk import (catalog_topk, catalog_topk_plain, groupmax,
@@ -104,6 +104,8 @@ def test_attention_bwd_kernel_matches_plain_autograd(dev, causal, lq, lk, b, rat
     kw = dict(causal=causal, scale=32 ** 0.5, n_heads=2, compute_dtype=cd, dropout_rate=rate)
     qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
     before = attention_bwd.launches
+    at_shape = (fused_attention.launches_by_shape[lq, lk, causal],
+                attention_bwd.launches_by_shape[lq, lk, causal])
     out = fused_attention(qq, kk, vv, qm, km, seed_generator=torch.Generator().manual_seed(4),
                           **kw)
     out.backward(g)
@@ -111,6 +113,8 @@ def test_attention_bwd_kernel_matches_plain_autograd(dev, causal, lq, lk, b, rat
     want = attention_grads_plain(q, k, v, qm, km, g, keep_mask=keep, **kw)
     torch.cuda.synchronize()
     assert attention_bwd.launches == before + 1
+    assert (fused_attention.launches_by_shape[lq, lk, causal],
+            attention_bwd.launches_by_shape[lq, lk, causal]) == (at_shape[0] + 1, at_shape[1] + 1)
     for got, w in zip((qq.grad, kk.grad, vv.grad), want):
         assert rel(got, w) <= tol
     assert torch.count_nonzero(qq.grad[0]) == 0  # every key of batch row 0 is masked
@@ -195,15 +199,18 @@ def test_attention_kernels_take_the_shapes_that_used_to_raise(dev, b, lq, lk, d,
         assert rel(got, w) <= 1e-5
 
 
-@pytest.mark.parametrize("dh,heads", [(6, 1), (8, 2), (16, 2), (24, 2), (40, 1), (64, 1),
-                                      (100, 1), (128, 2)])
+@pytest.mark.parametrize("dh,heads,lk", [(6, 1, 70), (8, 2, 70), (16, 2, 70), (24, 2, 70),
+                                         (40, 1, 70), (64, 1, 70), (100, 1, 70), (128, 2, 70),
+                                         (131, 1, 50), (136, 1, 70), (256, 2, 50),
+                                         (300, 1, 130)])
 @pytest.mark.parametrize("cd,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
-def test_attention_kernels_every_head_tile(dev, dh, heads, cd, tol):
-    """Each head tile the kernels are built for (16/32/64/128), with
+def test_attention_kernels_every_head_tile(dev, dh, heads, lk, cd, tol):
+    """Each head tile the kernels are built for (32/64/128), with
     zero-padded columns, and row strides that rule out 16-byte loads (dh =
-    6) or allow them."""
+    6, 131) or allow them; heads wider than 128 dims in 128-column chunks,
+    with one key tile (Lk = 50) and with several."""
     d = dh * heads
-    q, k, v, qm, km = attn_inputs(dev, 5, 37, 70, d, seed=dh)
+    q, k, v, qm, km = attn_inputs(dev, 5, 37, lk, d, seed=dh)
     g = torch.randn(q.shape, generator=torch.Generator().manual_seed(3)).to(dev)
     kw = dict(causal=0, scale=dh ** 0.5, n_heads=heads, compute_dtype=cd)
     qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
@@ -217,10 +224,9 @@ def test_attention_kernels_every_head_tile(dev, dh, heads, cd, tol):
 
 
 def test_attention_kernel_raises_on_what_it_lacks(dev):
-    """Dropout and autograd run the kernels at every key length; what they
-    cannot take still raises: a non-contiguous or non-float32 input,
-    dropout without a CPU seed generator, and a head wider than
-    MAX_HEAD_DIM (forward and backward)."""
+    """Dropout and autograd run the kernels at every key length and head
+    width; what they cannot take still raises: a non-contiguous or
+    non-float32 input, and dropout without a CPU seed generator."""
     q, k, v, qm, km = attn_inputs(dev, 2, 8, 8, 16)
     kw = dict(causal=0, scale=1.0, n_heads=2)
     with pytest.raises(ValueError, match="contiguous"):
@@ -232,12 +238,6 @@ def test_attention_kernel_raises_on_what_it_lacks(dev):
     with pytest.raises(ValueError, match="seed_generator"):
         fused_attention(q, k, v, qm, km, dropout_rate=0.1,
                         seed_generator=torch.Generator(device=dev), **kw)
-    wide = torch.zeros(1, 8, MAX_HEAD_DIM + 8, device=dev)
-    ones = torch.ones(1, 8, device=dev)
-    with pytest.raises(ValueError, match="at most"):
-        fused_attention(wide, wide, wide, ones, ones, causal=None, scale=1.0, n_heads=1)
-    with pytest.raises(ValueError, match="at most"):
-        attention_bwd(wide, wide, wide, ones, ones, wide, causal=None, scale=1.0, n_heads=1)
 
 
 def test_mha_auto_on_cuda_raises_instead_of_falling_back(dev):
