@@ -1141,9 +1141,11 @@ def profile_train(card, s, use_kernel) -> None:
 def profile_attention(card, reps: int = 10) -> None:
     """Device µs per launch of each of K1/K2's device kernels (the keep-bits
     pre-pass, K1, K2's dQ and dK/dV passes) at ATTN_SHAPES: ``reps`` runs
-    of K1, and of K2 where the shape trains, under torch.profiler."""
+    of K1, and of K2 where the shape trains, under torch.profiler, after a
+    profiled warm-up step of as many runs (a trace of a few short launches
+    alone lost some or all of them)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for name, (b, lq, lk, causal, rate) in ATTN_SHAPES.items():
         q, k, v, qm, km = k1_inputs(lq, lk, 34, b=b)
@@ -1159,10 +1161,13 @@ def profile_attention(card, reps: int = 10) -> None:
         for _ in range(3):
             run()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                run()
-            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):  # the warm-up step, then the recorded one
+                for _ in range(reps):
+                    run()
+                torch.cuda.synchronize()
+                prof.step()
         per_kernel = {}
         for e in prof.events():
             if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
