@@ -1,58 +1,279 @@
-// The catalog-scoring arithmetic shared by K3 (catalog_topk.cu) and K4
-// (groupmax.cu), and repeated by the plain versions in
-// carca_tpu_torch/ops/retrieval_topk.py (ordered_scores, the tournament's
-// rerank). All of them must compute bit-identical scores: K3's ids agree
-// with the plain sort only then, and the tournament's containment argument
-// (the winner groups hold the true top-k) is exact only when K4's group
-// maxima equal the rerank's scores bit for bit.
+// The catalog-scoring routine shared by K3 (catalog_topk.cu), K4
+// (groupmax.cu) and the tournament's rerank (groupmax.cu,
+// carca_tournament_rerank): one warp scores a tile of 16 index rows (the M
+// side of mma.sync) against 8 queries (the N side) on the tensor cores.
 //
-// score(q, row) = ((q0*e0 + q1*e1) + q2*e2) + ... over d in index order,
-// each product and each sum rounded on its own, then times the row's int8
-// scale (after the sum, once). The index element type picks the operands:
-//   float          q as given, e as given; products rounded (__fmul_rn)
-//   __nv_bfloat16  q rounded to bf16 (nearest even, as torch's
-//                  .to(torch.bfloat16)), e widened; every product is exact
-//                  in float32 (8 x 8 significant bits), so an FMA gives the
-//                  same bits as a rounded product followed by a rounded sum
-//   int8_t         q rounded to bf16, e widened (exact); products exact
-//                  (8 x 7 bits), so again an FMA
+// score(q, row) is one fixed instruction sequence:
+//   bf16 and int8 index  mma.sync m16n8k16, bf16 operands, f32 accumulator.
+//                        The query is rounded to bf16 (nearest even, as
+//                        torch's .to(torch.bfloat16)); int8 rows are widened
+//                        to bf16, which is exact.
+//   f32 index            mma.sync m16n8k8 3xTF32 (mma.cuh: the hi/lo split
+//                        and the order lo*hi, hi*lo, hi*hi of K1/K2).
+// The k-steps run in ascending order from a zero accumulator over the row
+// width zero-padded to kD (64 or 128, score_width); inside a k-step the
+// physical columns map to mma's k slots by one fixed permutation (below),
+// the same for the rows and the query. An int8 row's scale multiplies the
+// finished sum once (__fmul_rn), and the mask (-inf) comes after that.
+//
+// Why one routine: a score then depends only on (q, row) and this
+// instruction sequence, not on the tile position, the other rows and
+// queries, or the kernel that ran it. So K4's group maxima equal the
+// rerank's scores bit for bit, which makes the tournament's containment
+// argument exact (the k + 8 best groups hold the true top-k), and the
+// tournament returns K3's ids and values exactly. chip_smoke.py (phase 4c)
+// and the card tests check both equalities.
+//
+// Against the plain versions (ops/retrieval_topk.py: ordered_scores, the
+// rerank's _ordered_dot), which sum the products in index order with each
+// sum rounded: both add the same d products (exact in f32 for bf16/int8
+// operands; within ~2^-21 relative of the true product under 3xTF32) in
+// two summation orders, so a score differs by at most
+//     1e-5 * sum_j |q_j * e_rj|   (times the int8 row scale)
+// which is the tolerance the checks hold the kernels to; ids may differ
+// only where two candidates' plain scores lie within that bound at the
+// k-th place.
+//
+// What bounds the routine on the H100: mma.sync reaches a fraction of the
+// tensor cores' wgmma peak (989 TFLOP/s bf16), and every mma needs its
+// fragments from shared memory or registers; the callers keep the A
+// fragments of their rows in registers across many query tiles (K4) or
+// score a tile once (K3, the rerank), where the index's bytes or the
+// selection bound them instead. wgmma would be faster but is an
+// instruction family of its own: all three kernels move to it together or
+// not at all.
+//
+// Fragment layout (lane = 4 g + t). A row's k-step s covers its physical
+// columns [K s, K s + K), K = 16 (bf16) or 8 (tf32). For bf16 a lane loads
+// columns 16 s + 4 t .. 16 s + 4 t + 3 of rows g and g + 8 in one load;
+// they fill mma's k slots 2t, 2t+1 (a0/a1) and 2t+8, 2t+9 (a2/a3). For tf32
+// it loads columns 8 s + 2 t, 8 s + 2 t + 1 into k slots t and t + 4. The
+// query's fragment follows the same map, so every product pairs equal
+// columns. Rows sit in shared memory in their own type, row stride
+// row_stride_bytes (bank-conflict-free for these loads), staged by cp.async.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "mma.cuh"
 
 namespace carca {
 
-template <typename T>
-__device__ __forceinline__ float widen(T x);
-template <>
-__device__ __forceinline__ float widen<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float widen<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <>
-__device__ __forceinline__ float widen<int8_t>(int8_t x) { return (float)x; }
-
-// the query operand against an index of element type T
-template <typename T>
-__device__ __forceinline__ float query_operand(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-template <>
-__device__ __forceinline__ float query_operand<float>(float x) { return x; }
-
-// s + q*e with the rounding the contract names
-template <typename T>
-__device__ __forceinline__ float add_term(float s, float q, float e) {
-  return __fmaf_rn(q, e, s);  // q*e is exact here
-}
-template <>
-__device__ __forceinline__ float add_term<float>(float s, float q, float e) {
-  return __fadd_rn(s, __fmul_rn(q, e));
-}
-
 // index dtype codes of the C entry points (ops/retrieval_topk.py::_DTYPE_CODE)
 enum IndexType { kF32 = 0, kBF16 = 1, kI8 = 2 };
+
+constexpr int kMaxScoreWidth = 128;  // widest row the kernels are built for
+
+// The row width the kernels score at: d zero-padded to 64 or 128 (0: too wide).
+inline int score_width(int d) { return d <= 64 ? 64 : d <= kMaxScoreWidth ? 128 : 0; }
+
+// Shared-memory row stride: int8 rows take 32-bit loads (stride = 4 words
+// mod 8), bf16/f32 rows 64-bit loads (stride = 8 words mod 16).
+template <typename T>
+__host__ __device__ constexpr int row_stride_bytes(int kD) {
+  return kD * (int)sizeof(T) + (sizeof(T) == 1 ? 16 : 32);
+}
+
+template <typename T>
+constexpr bool kIsF32 = std::is_same<T, float>::value;
+
+// columns per k-step
+template <typename T>
+constexpr int kStep = kIsF32<T> ? 8 : 16;
+
+struct ABf16 {
+  uint32_t x[4];
+};
+struct ATf32 {
+  Split x[4];
+};
+template <typename T>
+using AFrag = typename std::conditional<kIsF32<T>, ATf32, ABf16>::type;
+// a query's fragment for one k-step: two packed bf16 pairs, or two floats
+// (split into TF32 hi/lo when used)
+template <typename T>
+using QFrag = typename std::conditional<kIsF32<T>, float2, uint2>::type;
+
+__device__ __forceinline__ uint32_t pack_i8_pair(uint32_t w, int shift) {
+  return pack_bf16((float)(int8_t)(w >> shift), (float)(int8_t)(w >> (shift + 8)));
+}
+
+// The A fragments of 16 rows (row_g = row g of the tile, row g + 8 is 8
+// strides on) over KS k-steps, from shared memory.
+template <typename T, int KS>
+__device__ __forceinline__ void load_a(AFrag<T> (&a)[KS], const char* row_g, int stride,
+                                       int t) {
+  const char* row_g8 = row_g + 8 * stride;
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+    if constexpr (kIsF32<T>) {
+      const float2 u = *reinterpret_cast<const float2*>(row_g + 4 * (8 * s + 2 * t));
+      const float2 v = *reinterpret_cast<const float2*>(row_g8 + 4 * (8 * s + 2 * t));
+      a[s].x[0] = split(u.x);
+      a[s].x[1] = split(v.x);
+      a[s].x[2] = split(u.y);
+      a[s].x[3] = split(v.y);
+    } else if constexpr (sizeof(T) == 2) {
+      const uint2 u = *reinterpret_cast<const uint2*>(row_g + 2 * (16 * s + 4 * t));
+      const uint2 v = *reinterpret_cast<const uint2*>(row_g8 + 2 * (16 * s + 4 * t));
+      a[s].x[0] = u.x;
+      a[s].x[1] = v.x;
+      a[s].x[2] = u.y;
+      a[s].x[3] = v.y;
+    } else {
+      const uint32_t u = *reinterpret_cast<const uint32_t*>(row_g + 16 * s + 4 * t);
+      const uint32_t v = *reinterpret_cast<const uint32_t*>(row_g8 + 16 * s + 4 * t);
+      a[s].x[0] = pack_i8_pair(u, 0);
+      a[s].x[1] = pack_i8_pair(v, 0);
+      a[s].x[2] = pack_i8_pair(u, 16);
+      a[s].x[3] = pack_i8_pair(v, 16);
+    }
+  }
+}
+
+// Query q's fragment for k-step s at lane column t (zeros past d, and for a
+// null q: a padding query).
+template <typename T>
+__device__ __forceinline__ QFrag<T> query_frag(const float* __restrict__ q, int d, int s,
+                                               int t) {
+  auto at = [&](int j) { return (q != nullptr && j < d) ? __ldg(q + j) : 0.f; };
+  if constexpr (kIsF32<T>) {
+    return make_float2(at(8 * s + 2 * t), at(8 * s + 2 * t + 1));
+  } else {
+    const int j = 16 * s + 4 * t;
+    return make_uint2(pack_bf16(at(j), at(j + 1)), pack_bf16(at(j + 2), at(j + 3)));
+  }
+}
+
+// c = the scores of the tile's 16 rows against the 8 queries: lane (g, t)
+// gets rows g (c[0], c[1]) and g + 8 (c[2], c[3]) against queries 2t
+// (c[0], c[2]) and 2t + 1 (c[1], c[3]). The one scoring routine.
+template <typename T, int KS>
+__device__ __forceinline__ void score_tile(float (&c)[4], const AFrag<T> (&a)[KS],
+                                           const QFrag<T> (&b)[KS]) {
+  c[0] = c[1] = c[2] = c[3] = 0.f;
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+    if constexpr (kIsF32<T>) {
+      mma_3xtf32(c, a[s].x, split(b[s].x), split(b[s].y));
+    } else {
+      mma_bf16(c, a[s].x, b[s].x, b[s].y);
+    }
+  }
+}
+
+// The finished score: the int8 scale after the sum, then the mask.
+template <typename T>
+__device__ __forceinline__ float finish(float c, float scale, bool valid) {
+  if constexpr (std::is_same<T, int8_t>::value) c = __fmul_rn(c, scale);
+  return valid ? c : -INFINITY;
+}
+
+// Local row r scores at all: r < lim0 (the wrapper clamps lim0 <= R), and
+// not the pad row 0.
+__device__ __forceinline__ bool row_valid(int r, int lim0, int mask_row0) {
+  return r < lim0 && !(r == 0 && mask_row0);
+}
+
+// ---------------------------------------------------------------------------
+// staging rows into shared memory
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [row0, row0 + n) of e [R, d] into dst (row stride `stride` bytes,
+// kD columns), zeros past R and past d, by every thread of the block. With
+// `vec` (e 16-byte aligned, d * sizeof(T) a multiple of 16) the copy is
+// cp.async in 16-byte chunks, to be waited on with cp_async_wait; otherwise
+// plain loads and stores.
+template <typename T>
+__device__ __forceinline__ void stage_rows(char* dst, const T* __restrict__ e, long long row0,
+                                           int n, long long R, int d, int kD, int stride,
+                                           bool vec) {
+  if (vec) {
+    const int chunks = kD * (int)sizeof(T) / 16;
+    const int live = d * (int)sizeof(T) / 16;
+    for (int idx = threadIdx.x; idx < n * chunks; idx += blockDim.x) {
+      const int r = idx / chunks, c = idx - r * chunks;
+      const long long row = row0 + r;
+      const bool in = row < R && c < live;
+      const char* src = reinterpret_cast<const char*>(e) + (in ? row * d * sizeof(T) + 16 * c : 0);
+      cp_async16(dst + r * stride + 16 * c, src, in ? 16 : 0);
+    }
+  } else {
+    using Raw = typename std::conditional<
+        sizeof(T) == 1, uint8_t, typename std::conditional<sizeof(T) == 2, uint16_t,
+                                                           uint32_t>::type>::type;
+    const Raw* src = reinterpret_cast<const Raw*>(e);
+    for (int idx = threadIdx.x; idx < n * kD; idx += blockDim.x) {
+      const int r = idx / kD, j = idx - r * kD;
+      const long long row = row0 + r;
+      reinterpret_cast<Raw*>(dst + r * stride)[j] = (row < R && j < d) ? src[row * d + j] : Raw(0);
+    }
+  }
+}
+
+// Scales [row0, row0 + n) of an int8 index into dst (zeros past R), by
+// every thread of the block: cp.async in 16-byte chunks when `scales` is
+// 16-byte aligned (row0 and n are multiples of 4 at every call), else
+// plain loads. A no-op without scales.
+__device__ __forceinline__ void stage_scales(float* dst, const float* __restrict__ scales,
+                                             long long row0, int n, long long R) {
+  if (scales == nullptr) return;
+  if ((reinterpret_cast<uintptr_t>(scales) & 15) == 0) {
+    for (int c = threadIdx.x; c < n / 4; c += blockDim.x) {
+      const long long row = row0 + 4 * c;
+      const int bytes = row >= R ? 0 : (int)min(16LL, 4 * (R - row));
+      cp_async16(dst + 4 * c, scales + (bytes ? row : 0), bytes);
+    }
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+      dst[i] = row0 + i < R ? scales[row0 + i] : 0.f;
+  }
+}
+
+// Whether stage_rows may use cp.async for e [R, d].
+template <typename T>
+inline bool vec_rows(const void* e, int d) {
+  return (reinterpret_cast<uintptr_t>(e) & 15) == 0 && (d * sizeof(T)) % 16 == 0;
+}
+
+// fn.template operator()<T, kD>() for the index type and row width.
+template <typename Fn>
+int dispatch_index(int dtype, int d, Fn&& fn) {
+  const int kD = score_width(d);
+  if (kD == 0) return (int)cudaErrorInvalidValue;
+  switch (dtype) {
+    case kF32:
+      return kD == 64 ? fn.template operator()<float, 64>() : fn.template operator()<float, 128>();
+    case kBF16:
+      return kD == 64 ? fn.template operator()<__nv_bfloat16, 64>()
+                      : fn.template operator()<__nv_bfloat16, 128>();
+    case kI8:
+      return kD == 64 ? fn.template operator()<int8_t, 64>()
+                      : fn.template operator()<int8_t, 128>();
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
 
 }  // namespace carca

@@ -5,9 +5,11 @@ beside its plain PyTorch version:
   masked attention forward with weight dropout (kernel K1,
   ``csrc/attention_fwd.cu``) and, under autograd, its backward
   (``attention_bwd``, kernel K2, ``csrc/attention_bwd.cu``);
-* :mod:`carca_tpu_torch.ops.retrieval_topk` — ``catalog_topk``, the
-  streaming catalog top-k over an f32 index (kernel K3,
-  ``csrc/catalog_topk.cu``).
+* :mod:`carca_tpu_torch.ops.retrieval_topk` — ``catalog_topk`` over an
+  f32, bf16 or int8 index: the stream top-k (kernel K3,
+  ``csrc/catalog_topk.cu``) or the tournament (group maxima, kernel K4, and
+  its rerank, ``csrc/groupmax.cu``), all three on one tensor-core scoring
+  routine (``csrc/scoring.cuh``).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises. ``build()`` compiles the kernels ahead of

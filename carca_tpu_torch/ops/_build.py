@@ -40,6 +40,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _U64 = ctypes.c_uint64
 _U32 = ctypes.c_uint32
+_I64 = ctypes.c_int64
 # C signatures of csrc/*.cu: name -> (restype, argtypes)
 SIGNATURES = {
     "carca_error_string": (ctypes.c_char_p, [_I]),
@@ -48,11 +49,13 @@ SIGNATURES = {
     "carca_attention_keep_bits": (_I, [_P, _U64, _U64, _U32, _P]),
     "carca_attention_bwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                  _I, _I, _I, _I, _F, _I, _I, _U64, _U32, _F, _P]),
-    "carca_catalog_topk_smem_bytes": (ctypes.c_size_t, [_I, _I, _I]),
-    "carca_catalog_topk": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                _I, _I, _I, _I, _I, _P]),
+    "carca_catalog_topk_smem_bytes": (ctypes.c_size_t, [_I, _I, _I, _I, _I]),
+    "carca_catalog_topk": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _I64, _I, _P]),
     "carca_groupmax_smem_bytes": (ctypes.c_size_t, [_I, _I]),
     "carca_groupmax": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "carca_tournament_rerank_smem_bytes": (ctypes.c_size_t, [_I, _I]),
+    "carca_tournament_rerank": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
 
 

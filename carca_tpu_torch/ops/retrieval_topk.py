@@ -13,23 +13,28 @@ and on that kernel's plain version for CPU tensors:
   ``_groupmax_kernel`` (layout 0, group-major [G, B]) and
   ``_groupmax_bq_kernel`` (layout 1, query-major [B, G]); plain version
   ``groupmax_plain``. Stage 2 keeps the k + 8 best groups (a stable sort:
-  ties to the lowest group) and stage 3 rescores their rows in
-  memory-bounded slices: plain tensor work, as in the JAX package. From
-  ``_RECURSIVE_MIN_GROUPS`` groups stage 2 runs two levels over 128-group
-  super-groups (layout 1).
-* ``"auto"``: the tournament from ``_TOURNAMENT_MIN_ROWS`` rows on for
-  k < 48 at a batch of ``_TOURNAMENT_MIN_BATCH`` or more, from
-  ``_TOURNAMENT_MIN_ROWS_BIG_K`` rows otherwise; else the stream.
+  ties to the lowest group) and stage 3 rescores their rows with the rerank
+  kernel (``tournament_rerank``, ``csrc/groupmax.cu``; plain version
+  ``tournament_rerank_plain``). From ``_RECURSIVE_MIN_GROUPS`` groups stage
+  2 runs two levels over 128-group super-groups (layout 1).
+* ``"auto"``: for k < 48 the tournament from ``_TOURNAMENT_MIN_ROWS`` rows
+  at a batch of ``_TOURNAMENT_MIN_BATCH`` or more, for larger k from
+  ``_TOURNAMENT_MIN_ROWS_BIG_K`` rows; else the stream.
 
-One arithmetic scores everywhere (``ordered_scores`` here,
-``csrc/scoring.cuh`` in the kernels): against a bf16 or int8 index the
-query is rounded to bf16 first (the JAX package's ``q.astype(cd)``); the
-products are summed over d in index order, each product and each sum
-rounded on its own; an int8 row's scale multiplies the sum, after it. The
-kernels and the plain versions therefore agree bit for bit: K3's ids equal
-the plain sort's even on near-ties, and K4's group maxima equal stage 3's
-scores, which makes the tournament's containment argument exact, so
-stream and tournament return the same ids and values.
+Scores. The kernels K3, K4 and the rerank score with one tensor-core
+routine (``csrc/scoring.cuh``): against a bf16 or int8 index the query is
+rounded to bf16 first (the JAX package's ``q.astype(cd)``) and the products
+run as bf16 ``mma.sync``; against an f32 index as 3xTF32; an int8 row's
+scale multiplies the finished sum. A score depends only on the query and
+the row, so the three kernels agree bit for bit: K4's group maxima equal
+the rerank's scores, which makes the tournament's containment argument
+exact, and stream and tournament return the same ids and values on the
+card. The plain versions (``ordered_scores``, ``_ordered_dot``) add the same
+products in index order, each sum rounded, so on the CPU the stream and the
+tournament agree exactly as well; the kernels differ from them only by the
+summation order: |kernel − plain| ≤ 1e-5 · Σⱼ|q_j e_rj| (× the int8 scale),
+and ids differ only where two candidates' plain scores lie within that
+bound at the k-th place (``SCORE_ORDER_TOL``).
 
 Order: values descending, ties to the lowest id (``lax.top_k``'s order);
 rows ≥ ``n_items`` and the pad id 0 score −inf; a −inf slot returns id 0.
@@ -54,23 +59,37 @@ import torch
 from carca_tpu_torch.ops import _build
 
 NEG_INF = float("-inf")
-MAX_K = 16_384  # the largest chunk whose keys a K3 block sorts in shared memory
+MAX_K = 16_384  # the largest k whose running list and final sort fit K3's shared memory
+MAX_D = 128  # the widest rows the retrieval kernels are built for (csrc/scoring.cuh)
 GROUP = 128  # rows per tournament group
-BIG_K = 48  # from this k on, "auto" takes the tournament from _TOURNAMENT_MIN_ROWS_BIG_K rows
+# The kernels against the plain versions: two summation orders of the same
+# d products, |kernel - plain| <= SCORE_ORDER_TOL * sum_j |q_j e_rj| (x the
+# int8 scale); see csrc/scoring.cuh.
+SCORE_ORDER_TOL = 1e-5
+BIG_K = 48  # from this k on, "auto" reads the row count alone
 # Stream/tournament crossover measured on the H100 (PERF.md, "crossover";
-# carca_tpu_torch/bench_retrieval.py --sweep over B = 1/8/64/256). The
-# stream's time grows with B x rows; the tournament's stage 3 with B x k,
-# and at small B it is ~1-2 ms of launches. k < 48: from 1M rows the
-# tournament is 4-10x faster at B >= 64, ties at B = 8, and at B = 1 is
-# slower up to 2M rows. k >= 48: from 5M rows it wins at every B; at 2M
-# only over an int8 index.
-_TOURNAMENT_MIN_ROWS = 1_000_000
-_TOURNAMENT_MIN_ROWS_BIG_K = 5_000_000
-_TOURNAMENT_MIN_BATCH = 8
-# Two-level stage 2 from this many groups on; off: at 10M rows it did not
-# beat the flat stage 2 on the H100 (PERF.md).
+# carca_tpu_torch/bench_retrieval.py --sweep over B = 1/8/64/256, 100k-10M
+# rows, f32/bf16/int8, k = 10 and 562). k < 48: the stream wins at B <= 8
+# up to 10M rows (its cost grows with B x rows, the tournament's sorts and
+# launches are ~0.1-0.6 ms), the tournament from B = 64 (at 100k rows only
+# narrowly, and not over an int8 index at B = 64). k >= 48: the stream
+# wins at 100k rows, the tournament from 1M at every B.
+_TOURNAMENT_MIN_ROWS = 100_000
+_TOURNAMENT_MIN_ROWS_BIG_K = 1_000_000
+_TOURNAMENT_MIN_BATCH = 64
+# Two-level stage 2 from this many groups on; off: at 10M rows it saved 4-8 %
+# at B = 256 and cost 5-11 % at B <= 8 on the H100 (PERF.md).
 _RECURSIVE_MIN_GROUPS = 1 << 62
-_RERANK_SLICE_BYTES = 128 << 20  # gathered index rows per stage-3 slice
+_RERANK_SLICE_BYTES = 128 << 20  # gathered index rows per slice of the plain rerank
+# K3's plan (csrc/catalog_topk.cu, stream_plan): 128-row tiles, at most 8
+# queries per select block, and about two waves of two select blocks per SM
+# of the H100's 132.
+_K3_TILE = 128
+_K3_MAX_QB = 8
+_K3_BIG_ROWS = 1_000_000
+_K3_BLOCKS = 4 * 132
+_K3_SMEM_TARGET = 112 << 10  # per select block, so that two fit on an SM
+_K3_SPLIT_K = 4  # a split holds at least this many times k rows (and 1024)
 _SCORE_CHUNK = 1 << 26  # plain scores per row chunk (256 MB of float32)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}  # carca::IndexType
 INDEX_KINDS = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
@@ -164,6 +183,70 @@ def ordered_scores(q: torch.Tensor, index: Index) -> torch.Tensor:
     return out
 
 
+def _scores_of_rows(q: torch.Tensor, e: torch.Tensor, scales: Optional[torch.Tensor],
+                    rows: torch.Tensor) -> torch.Tensor:
+    """[B, n] plain scores of each query q[b] against its own local rows
+    rows[b] (clamped into the index), in memory-bounded slices."""
+    b, d = q.shape
+    qo = query_operand(q, e.dtype)
+    per_row = max(1, b * d * e.element_size())
+    step = max(GROUP, _RERANK_SLICE_BYTES // per_row // GROUP * GROUP)
+    out = [q.new_zeros(b, 0)]
+    for c0 in range(0, rows.shape[1], step):
+        r = rows[:, c0:c0 + step].clamp(0, e.shape[0] - 1)
+        rows_t = torch.empty((d, *r.shape), dtype=torch.float32, device=q.device)
+        rows_t.copy_(e[r].permute(2, 0, 1))  # [d, B, n]
+        s = _ordered_dot(qo, rows_t)
+        if scales is not None:
+            s.mul_(scales[0][r])
+        out.append(s)
+    return torch.cat(out, dim=1)
+
+
+def ordered_scores_at(q: torch.Tensor, index: Index, rows: torch.Tensor) -> torch.Tensor:
+    """``ordered_scores`` at local rows [B, n] only: [B, n] float32."""
+    e, scales = _unpack(index)
+    return _scores_of_rows(q, e, scales, rows)
+
+
+def score_magnitude_at(q: torch.Tensor, index: Index, rows: torch.Tensor) -> torch.Tensor:
+    """Σⱼ |q_j · e_rj| (× the int8 scale) at local rows [B, n]: what the
+    summation-order tolerance SCORE_ORDER_TOL scales."""
+    e, scales = _unpack(index)
+    return _scores_of_rows(q.abs(), e.abs(), scales, rows)
+
+
+def compare_within_order_tol(v: torch.Tensor, i: torch.Tensor, pv: torch.Tensor,
+                             pi: torch.Tensor, q: torch.Tensor, index: Index,
+                             id_offset: int = 0) -> Tuple[float, int]:
+    """Hold a kernel's top-k (v, i) to the plain version's (pv, pi) for the
+    same queries: −inf slots alike; every value within SCORE_ORDER_TOL · M_b
+    of the plain value in its slot, M_b the largest Σⱼ|q_j e_rj| over query
+    b's returned rows of either side; and where ids differ, the kernel's row
+    scores (plain arithmetic) within twice that of the plain value in its
+    slot: a near-tie at the k-th place or inside the list. Returns (max
+    |v − pv| over finite slots, slots whose ids differ); raises ValueError
+    otherwise."""
+    fin = torch.isfinite(pv)
+    if not torch.equal(torch.isfinite(v), fin):
+        raise ValueError("the kernel's -inf slots differ from the plain version's")
+    rows_k, rows_p = (i - id_offset).clamp(min=0), (pi - id_offset).clamp(min=0)
+    mag = torch.maximum(score_magnitude_at(q, index, rows_k), score_magnitude_at(q, index, rows_p))
+    bound = SCORE_ORDER_TOL * torch.where(fin, mag, 0).double().amax(dim=1, keepdim=True)
+    bound = bound.expand_as(mag)
+    err = torch.where(fin, (v.double() - pv.double()).abs(), 0)
+    if bool((err > bound).any()):
+        raise ValueError(f"values beyond the summation-order bound: max |err| "
+                         f"{err.max().item():.3g}, bound {bound.max().item():.3g}")
+    diff = (i != pi) & fin
+    if bool(diff.any()):
+        gap = (ordered_scores_at(q, index, rows_k).double() - pv.double()).abs()
+        if bool((gap[diff] > 2 * bound[diff]).any()):
+            raise ValueError(f"{int(diff.sum())} ids differ from the plain version and "
+                             f"are not near-ties (plain score gap {gap[diff].max().item():.3g})")
+    return (err.max().item() if err.numel() else 0.0), int(diff.sum())
+
+
 def _invalid(rows: torch.Tensor, lim0: int, mask_row0: bool) -> torch.Tensor:
     """Local rows that score −inf: ≥ lim0, and row 0 when it is the pad."""
     return (rows >= lim0) | ((rows == 0) & mask_row0)
@@ -248,6 +331,19 @@ def _cuda_operands(q: torch.Tensor, e: torch.Tensor, scales: Optional[torch.Tens
     if not (q.is_contiguous() and e.is_contiguous()
             and (scales is None or scales.is_contiguous())):
         raise ValueError(f"{what} takes contiguous queries and index")
+    if q.shape[1] > MAX_D:
+        raise ValueError(f"{what}: rows of d={q.shape[1]}; the kernels are built for d <= {MAX_D}")
+
+
+def _launch(what: str, device: torch.device, smem: int, fn, *args) -> None:
+    """Call a C entry point on the device's current stream, after checking
+    its shared memory, and raise on a CUDA error."""
+    if smem > _build.SMEM_LIMIT:
+        raise ValueError(f"{what} needs {smem} bytes of shared memory per block; "
+                         f"a block holds at most {_build.SMEM_LIMIT}")
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    _build.check(err, what)
 
 
 def groupmax(q: torch.Tensor, e: torch.Tensor, scales: Optional[torch.Tensor],
@@ -270,17 +366,11 @@ def groupmax(q: torch.Tensor, e: torch.Tensor, scales: Optional[torch.Tensor],
     if b == 0 or r == 0:
         return out.fill_(NEG_INF)
     lib = _build.library()
-    smem = lib.carca_groupmax_smem_bytes(b, d)
-    if smem > _build.SMEM_LIMIT:
-        raise ValueError(f"d={d} needs {smem} bytes of shared memory per block; "
-                         f"the kernel holds at most {_build.SMEM_LIMIT}")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.carca_groupmax(
+    code = _DTYPE_CODE[e.dtype]
+    _launch("groupmax", q.device, lib.carca_groupmax_smem_bytes(d, code), lib.carca_groupmax,
             q.data_ptr(), e.data_ptr(), None if scales is None else scales.data_ptr(),
             out.data_ptr(), b, r, d, max(0, min(lim0, r)), int(mask_row0), n_groups, layout,
-            _DTYPE_CODE[e.dtype], stream)
-    _build.check(err, "groupmax")
+            code)
     groupmax.launches[layout] += 1
     return out
 
@@ -289,14 +379,75 @@ def groupmax(q: torch.Tensor, e: torch.Tensor, scales: Optional[torch.Tensor],
 groupmax.launches = {0: 0, 1: 0}
 
 
+def _winner_rows(gi: torch.Tensor) -> torch.Tensor:
+    """[B, kg] group ids → their [B, kg · 128] local rows."""
+    return (gi[:, :, None] * GROUP + torch.arange(GROUP, device=gi.device)).reshape(
+        gi.shape[0], -1)
+
+
+def tournament_rerank_plain(q: torch.Tensor, e: torch.Tensor, scales: Optional[torch.Tensor],
+                            gi: torch.Tensor, lim0: int, mask_row0: bool) -> torch.Tensor:
+    """The plain version of ``tournament_rerank``: the rows of each query's
+    winner groups gathered in memory-bounded slices and scored in index
+    order (``_ordered_dot``), then masked."""
+    lids = _winner_rows(gi)
+    return _scores_of_rows(q, e, scales, lids).masked_fill(
+        _invalid(lids, lim0, mask_row0), NEG_INF)
+
+
+def _rerank_operands(q: torch.Tensor, e: torch.Tensor, scales: Optional[torch.Tensor],
+                     gi: torch.Tensor) -> None:
+    """Raise unless (q, e, scales, gi) are what the rerank kernel takes."""
+    _cuda_operands(q, e, scales, "tournament_rerank")
+    if gi.device != q.device or gi.dtype != torch.int64:
+        raise TypeError(f"tournament_rerank takes int64 group ids on {q.device}, got "
+                        f"{gi.dtype} on {gi.device}")
+    if gi.dim() != 2 or gi.shape[0] != q.shape[0] or not gi.is_contiguous():
+        raise ValueError(f"tournament_rerank takes contiguous group ids [{q.shape[0]}, kg], "
+                         f"got {tuple(gi.shape)}")
+
+
+def tournament_rerank(q: torch.Tensor, e: torch.Tensor, scales: Optional[torch.Tensor],
+                      gi: torch.Tensor, lim0: int, mask_row0: bool) -> torch.Tensor:
+    """Stage 3 of the tournament: [B, kg · 128] float32 scores of the rows
+    of each query's kg winner groups gi [B, kg] (int64, ascending), rows
+    ≥ lim0 and the pad row 0 (when ``mask_row0``) −inf. The rerank kernel
+    (``csrc/groupmax.cu``, K4's scoring routine) on CUDA tensors, the plain
+    version on CPU tensors."""
+    if q.device.type == "cpu":
+        return tournament_rerank_plain(q, e, scales, gi, lim0, mask_row0)
+    if q.device.type != "cuda":
+        raise ValueError(f"tournament_rerank runs on cpu or cuda tensors, got {q.device}")
+    _rerank_operands(q, e, scales, gi)
+    b, d = q.shape
+    r, kg = e.shape[0], gi.shape[1]
+    out = torch.empty(b, kg * GROUP, dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.library()
+    code = _DTYPE_CODE[e.dtype]
+    _launch("tournament_rerank", q.device, lib.carca_tournament_rerank_smem_bytes(d, code),
+            lib.carca_tournament_rerank, q.data_ptr(), e.data_ptr(),
+            None if scales is None else scales.data_ptr(), gi.data_ptr(), out.data_ptr(), b, r,
+            d, kg, max(0, min(lim0, r)), int(mask_row0), code)
+    tournament_rerank.launches += 1
+    return out
+
+
+# kernel launches, for checks that a path ran the rerank kernel
+tournament_rerank.launches = 0
+
+
 def _tournament_topk(q, e, scales, k: int, lim0: int, mask_row0: bool, id_offset: int):
     """Top-k by group maxima (stage 1, ``groupmax``), the k + 8 best groups
-    (stage 2) and an exact rescoring of their rows (stage 3). The union of
-    the k best groups holds the true top-k: an element of it in an unpicked
-    group would follow k group maxima in (value, lowest id) order. K4 and
-    stage 3 score bit-identically, so the containment is exact; the 8 extra
-    groups are the JAX package's margin for its two summation orders, kept
-    so that both packages rerank the same groups."""
+    (stage 2) and an exact rescoring of their rows (stage 3,
+    ``tournament_rerank``). The union of the k best groups holds the true
+    top-k: an element of it in an unpicked group would follow k group
+    maxima in (value, lowest id) order. K4 and the rerank score
+    bit-identically (one routine on the card, one order on the CPU), so the
+    containment is exact; the 8 extra groups are the JAX package's margin
+    for its two summation orders, kept so that both packages rerank the same
+    groups."""
     b, d = q.shape
     r = e.shape[0]
     dev = q.device
@@ -319,29 +470,53 @@ def _tournament_topk(q, e, scales, k: int, lim0: int, mask_row0: bool, id_offset
         gi = _stable_desc(gm.t(), min(k + 8, gm.shape[0])).sort(dim=1).values
     # winner groups ascending: candidates run in global row order, so the
     # stable sort below breaks ties to the lowest id, as the stream does
-    lids = (gi[:, :, None] * GROUP + offs).reshape(b, -1)  # [B, kg * 128]
-    qo = query_operand(q, e.dtype)
-    per_group = b * GROUP * d * e.element_size()
-    step = max(1, _RERANK_SLICE_BYTES // per_group) * GROUP
-    scores = []
-    for c0 in range(0, lids.shape[1], step):
-        rows = lids[:, c0:c0 + step].clamp(max=r - 1)
-        rows_t = torch.empty((d, *rows.shape), dtype=torch.float32, device=dev)
-        rows_t.copy_(e[rows].permute(2, 0, 1))  # [d, B, n]
-        s = _ordered_dot(qo, rows_t)
-        if scales is not None:
-            s.mul_(scales[0][rows])
-        scores.append(s)
-    s2 = torch.cat(scores, dim=1).masked_fill(_invalid(lids, lim0, mask_row0), NEG_INF)
-    return _top_k(s2, lids, k, id_offset)
+    s2 = tournament_rerank(q, e, scales, gi.contiguous(), lim0, mask_row0)
+    return _top_k(s2, _winner_rows(gi), k, id_offset)
 
 
-def _plan(k: int, b: int) -> Tuple[int, int]:
-    """(chunk rows C, queries per block QB) of K3: C is the power of two ≥
-    max(k, 1024); QB·C keys fill at most 64 KB of shared memory, and a
-    batch smaller than that sorts no empty query rows."""
-    c = max(1024, 1 << (k - 1).bit_length())
-    return c, max(1, min(8192 // c, b))
+class StreamPlan(NamedTuple):
+    """K3's launch plan: queries per select block, list slots beyond k, row
+    splits, rows per split (a multiple of 128), and the scratch's bytes (B ·
+    splits · k · 8)."""
+
+    qb: int
+    slack: int
+    splits: int
+    rows_per_split: int
+    scratch_bytes: int
+
+
+def _k3_select_smem(k: int, qb: int, slack: int, d: int, itemsize: int) -> int:
+    """Shared memory of K3's select block (csrc/catalog_topk.cu: the row
+    ring, the running lists and thresholds, counts, a histogram per warp)."""
+    kd = 64 if d <= 64 else MAX_D
+    ring = 2 * _K3_TILE * (kd * itemsize + (16 if itemsize == 1 else 32) + 4)
+    return ring + 8 * (qb * (k + slack) + qb) + 4 * _K3_MAX_QB + 4 * 256 * 8
+
+
+def stream_plan(k: int, b: int, r: int, d: int, itemsize: int) -> StreamPlan:
+    """Queries per select block (≤ 8) and list slack (256–1024) that keep
+    the block within _K3_SMEM_TARGET: from _K3_BIG_ROWS rows the most
+    queries at slack 256 (each select block reads the index once, so fewer
+    blocks read fewer bytes, and small blocks keep more of them resident),
+    below it the most slack first (the index sits in L2, and every 'slack'
+    keys past the threshold cost one radix select). Then
+    as many row splits as fill about _K3_BLOCKS blocks, each split at least
+    max(1024, _K3_SPLIT_K · k) rows. The scratch is B · splits · k · 8 bytes
+    with B · splits ≤ B + _K3_BLOCKS · qb: it does not grow with R."""
+    qbs, slacks = (8, 4, 2, 1), (1024, 512, 256)
+    pairs = ([(q, 256) for q in qbs] if r >= _K3_BIG_ROWS
+             else [(q, s) for s in slacks for q in qbs])
+    qb, slack = next(((q, s) for q, s in pairs
+                      if _k3_select_smem(k, q, s, d, itemsize) <= _K3_SMEM_TARGET), (1, 256))
+    qb = max(1, min(qb, b))
+    qblocks = -(-b // qb)
+    want = max(1, -(-_K3_BLOCKS // qblocks))
+    min_rows = max(8 * _K3_TILE, _K3_SPLIT_K * k)
+    rows = max(-(-r // want), min_rows, 1)
+    rows = -(-rows // _K3_TILE) * _K3_TILE
+    splits = max(1, -(-r // rows))
+    return StreamPlan(qb, slack, splits, rows, b * splits * k * 8)
 
 
 def _stream_kernel(q, e, scales, k: int, lim0: int, mask_row0: bool, id_offset: int):
@@ -350,43 +525,37 @@ def _stream_kernel(q, e, scales, k: int, lim0: int, mask_row0: bool, id_offset: 
     b, d = q.shape
     r = e.shape[0]
     if k > MAX_K:
-        raise ValueError(f"k={k} exceeds the kernel's largest chunk ({MAX_K})")
-    if b > 65_535:
-        raise ValueError(f"query batch {b} exceeds the kernel's grid; split it")
-    c, qb = _plan(k, b)
-    lib = _build.library()
-    smem = lib.carca_catalog_topk_smem_bytes(c, qb, d)
-    if smem > _build.SMEM_LIMIT:
-        raise ValueError(f"d={d} needs {smem} bytes of shared memory per block; "
-                         f"the kernel holds at most {_build.SMEM_LIMIT}")
+        raise ValueError(f"k={k} exceeds the kernel's largest list ({MAX_K})")
     vals = torch.empty(b, k, dtype=torch.float32, device=q.device)
     ids = torch.empty(b, k, dtype=torch.int64, device=q.device)
     if b == 0 or r == 0:
         return vals.fill_(NEG_INF), ids.zero_()
-    n_chunks = -(-r // c)
-    buf0 = torch.empty(b * n_chunks * k, dtype=torch.int64, device=q.device)
-    buf1 = torch.empty(max(1, b * (-(-n_chunks // 2)) * k), dtype=torch.int64,
-                       device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.carca_catalog_topk(
-            q.data_ptr(), e.data_ptr(), None if scales is None else scales.data_ptr(),
-            vals.data_ptr(), ids.data_ptr(), buf0.data_ptr(), buf1.data_ptr(), b, r, d, k,
-            c, qb, lim0, int(mask_row0), int(id_offset), _DTYPE_CODE[e.dtype], stream)
-    _build.check(err, "catalog_topk")
+    plan = stream_plan(k, b, r, d, e.element_size())
+    scratch = torch.empty(b * plan.splits * k, dtype=torch.int64, device=q.device)
+    lib = _build.library()
+    code = _DTYPE_CODE[e.dtype]
+    _launch("catalog_topk", q.device,
+            lib.carca_catalog_topk_smem_bytes(k, plan.qb, plan.slack, d, code),
+            lib.carca_catalog_topk, q.data_ptr(), e.data_ptr(),
+            None if scales is None else scales.data_ptr(), vals.data_ptr(), ids.data_ptr(),
+            scratch.data_ptr(), b, r, d, k, plan.qb, plan.slack, plan.splits,
+            plan.rows_per_split, lim0,
+            int(mask_row0), int(id_offset), code)
     catalog_topk.launches[INDEX_KINDS[e.dtype]] += 1
     return vals, ids
 
 
 def resolve_method(method: str, rows: int, k: int, batch: int) -> str:
-    """"auto" → "tournament" from the crossover measured for (k, batch)
-    on, else "stream"; the other methods as they are."""
+    """"auto" → "tournament" where the crossover measured for (rows, k,
+    batch) says so, else "stream"; the other methods as they are."""
     if method not in ("auto", "stream", "tournament"):
         raise ValueError(f"method must be auto|stream|tournament, got {method!r}")
     if method != "auto":
         return method
-    fast = k < BIG_K and batch >= _TOURNAMENT_MIN_BATCH
-    big = rows >= (_TOURNAMENT_MIN_ROWS if fast else _TOURNAMENT_MIN_ROWS_BIG_K)
+    if k < BIG_K:
+        big = batch >= _TOURNAMENT_MIN_BATCH and rows >= _TOURNAMENT_MIN_ROWS
+    else:
+        big = rows >= _TOURNAMENT_MIN_ROWS_BIG_K
     return "tournament" if big and rows >= 2 * GROUP else "stream"
 
 

@@ -195,16 +195,29 @@ def test_auto_routes_on_rows_and_k():
     assert rt.resolve_method("auto", rows - 1, 10, batch) == "stream"
     assert rt.resolve_method("auto", rows, 10, batch) == "tournament"
     assert rt.resolve_method("auto", rows, 10, 256) == "tournament"
-    # a small batch, or a large k, takes the tournament only from the larger row count
+    # a small batch at a small k keeps the stream at any row count
     assert rt.resolve_method("auto", rows, 10, batch - 1) == "stream"
+    assert rt.resolve_method("auto", 10 ** 9, 10, 1) == "stream"
+    # a large k reads the rows alone, from the larger row count
     assert rt.resolve_method("auto", rows, rt.BIG_K, 256) == "stream"
     assert rt.resolve_method("auto", rows_big_k - 1, rt.BIG_K, 256) == "stream"
     assert rt.resolve_method("auto", rows_big_k, rt.BIG_K, 256) == "tournament"
-    assert rt.resolve_method("auto", rows_big_k, 10, 1) == "tournament"
+    assert rt.resolve_method("auto", rows_big_k, 562, 1) == "tournament"
     assert rt.resolve_method("auto", 2 * GROUP - 1, 10 ** 6, 256) == "stream"
     assert rt.resolve_method("stream", 10 ** 9, 10, 256) == "stream"
     with pytest.raises(ValueError, match="method"):
         rt.resolve_method("heap", 10, 1, 1)
+
+
+@pytest.mark.parametrize("rows,k,batch,want", [
+    (100_000, 10, 256, "tournament"), (100_000, 10, 64, "tournament"),
+    (100_000, 562, 256, "stream"), (1_000_000, 562, 1, "tournament"),
+    (10_000_000, 10, 8, "stream"), (10_000_000, 10, 1, "stream"),
+    (10_000_000, 562, 256, "tournament"), (19_157, 562, 256, "stream")])
+def test_auto_at_the_measured_crossover(rows, k, batch, want):
+    """The H100 sweep's winners (PERF.md, crossover) at the cells "auto"
+    routes: the 100k and 10M serving slices, the bench, small batches."""
+    assert rt.resolve_method("auto", rows, k, batch) == want
 
 
 # --------------------------------------------------------------------------
