@@ -13,8 +13,8 @@ the same function: CPU tensors take the plain version, CUDA tensors launch
 the kernel or raise.
 """
 
-from carca_tpu_torch.config import ModelConfig, TrainConfig, preset
+from carca_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig, preset
 
 __version__ = "0.1.0"
 
-__all__ = ["ModelConfig", "TrainConfig", "preset", "__version__"]
+__all__ = ["Config", "DataConfig", "ModelConfig", "TrainConfig", "preset", "__version__"]

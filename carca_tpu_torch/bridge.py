@@ -9,6 +9,11 @@ lane-packed item table (``pack_tables=True``, or "auto" at ≥1M rows, in
 the JAX package) is unpacked by a reshape to [-1, width] and trimmed to
 ``n_items`` rows (``carca_tpu/ops/packed_table.py::unpack_rows``).
 
+``model_config_from_jax``, ``data_config_from_jax``,
+``train_config_from_jax`` and ``config_from_jax`` map the JAX package's
+config dataclasses (or their ``dataclasses.asdict`` dicts) onto this
+package's.
+
 This module reads numpy arrays only; it never imports JAX.
 """
 
@@ -21,8 +26,9 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from carca_tpu_torch.config import ModelConfig, TrainConfig
+from carca_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
 from carca_tpu_torch.models.embeddings import item_table_width
+from carca_tpu_torch.train import sparse_adam
 
 # JAX ModelConfig fields with no counterpart here: TPU-only knobs
 _DROPPED = ("remat", "pack_tables")
@@ -59,10 +65,15 @@ def load_into(module: torch.nn.Module, np_tree: Mapping) -> torch.nn.Module:
     return module
 
 
+def _as_dict(cfg: Any) -> Dict[str, Any]:
+    return dict(dataclasses.asdict(cfg) if dataclasses.is_dataclass(cfg) else cfg)
+
+
 def model_config_from_jax(cfg: Any) -> ModelConfig:
-    """A ``carca_tpu`` ModelConfig (or its ``dataclasses.asdict`` dict) →
-    this package's ``ModelConfig``; ``use_pallas`` maps to ``use_kernel``."""
-    d = dict(dataclasses.asdict(cfg) if dataclasses.is_dataclass(cfg) else cfg)
+    """A ``carca_tpu`` ModelConfig (or its dict) → this package's
+    ``ModelConfig``; ``use_pallas`` maps to ``use_kernel``, the TPU-only
+    ``pack_tables`` and ``remat`` are dropped."""
+    d = _as_dict(cfg)
     if "use_pallas" in d:
         d["use_kernel"] = d.pop("use_pallas")
     for name in _DROPPED:
@@ -74,19 +85,36 @@ def model_config_from_jax(cfg: Any) -> ModelConfig:
     return ModelConfig(**d)
 
 
+def data_config_from_jax(cfg: Any) -> DataConfig:
+    """A ``carca_tpu`` DataConfig (or its dict) → this package's."""
+    return DataConfig(**_as_dict(cfg))
+
+
 def train_config_from_jax(cfg: Any) -> TrainConfig:
-    """A ``carca_tpu`` TrainConfig (or its ``dataclasses.asdict`` dict) →
-    this package's ``TrainConfig``: the fields the train step reads. The
-    others configure what is not ported yet (the fit loop, eval,
-    checkpoints, EMA) and are dropped, except two that would change the
-    step itself and so raise: a multi-device mesh and the row-sparse
-    item-table Adam forced on."""
-    d = dict(dataclasses.asdict(cfg) if dataclasses.is_dataclass(cfg) else cfg)
+    """A ``carca_tpu`` TrainConfig (or its dict), or a whole ``carca_tpu``
+    Config, → this package's ``TrainConfig``, every field kept. Raises on
+    what would change the step and is not ported: a multi-device mesh
+    (ValueError) and the row-sparse item-table Adam (NotImplementedError,
+    ROADMAP slice 6) — forced on, or "auto" where a whole Config resolves it
+    on as the JAX package would."""
+    whole = hasattr(cfg, "train") and hasattr(cfg, "model")
+    d = _as_dict(cfg.train if whole else cfg)
     if int(np.prod(d.get("mesh_shape") or ())) > 1:
         raise ValueError(f"mesh_shape={d['mesh_shape']}: the port trains on one device "
                          "(ROADMAP slice 7)")
-    if d.get("sparse_items_adam") is True:
-        raise ValueError("sparse_items_adam=True: the row-sparse item-table Adam is not "
-                         "ported yet (ROADMAP slice 6)")
-    names = {f.name for f in dataclasses.fields(TrainConfig)}
-    return TrainConfig(**{k: v for k, v in d.items() if k in names})
+    for key in ("mesh_shape", "mesh_axes"):
+        if isinstance(d.get(key), list):
+            d[key] = tuple(d[key])
+    tc = TrainConfig(**d)
+    if whole:
+        sparse_adam.refuse_sparse(Config(model_config_from_jax(cfg.model),
+                                         data_config_from_jax(cfg.data), tc))
+    elif tc.sparse_items_adam is True:
+        raise NotImplementedError(f"sparse_items_adam=True: {sparse_adam.SLICE_6}")
+    return tc
+
+
+def config_from_jax(cfg: Any) -> Config:
+    """A whole ``carca_tpu`` Config → this package's ``Config``."""
+    return Config(model=model_config_from_jax(cfg.model), data=data_config_from_jax(cfg.data),
+                  train=train_config_from_jax(cfg))

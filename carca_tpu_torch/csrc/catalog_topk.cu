@@ -59,6 +59,10 @@
 // read once per QB queries; the query blocks of one split run side by
 // side and meet in L2), and at small R the threshold's warm-up (the first
 // k rows of every split all enter the list).
+// Rows wider than 128 columns (kWide) are scored in 128-column chunks: a
+// tile's chunks are staged one after another into the first buffer and the
+// scores accumulate across them (scoring.cuh, score_acc) before the keys
+// are offered; this path keeps no copy in flight.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -209,7 +213,7 @@ struct SelectArgs {
   int B, R, d, k, QB, slack, splits, rows_per_split, lim0, mask_row0, vec;
 };
 
-template <typename T, int kD>
+template <typename T, int kD, bool kWide>
 __global__ void __launch_bounds__(kThreads) select_kernel(const SelectArgs a) {
   constexpr int KS = kD / carca::kStep<T>;
   constexpr int stride = carca::row_stride_bytes<T>(kD);
@@ -235,10 +239,13 @@ __global__ void __launch_bounds__(kThreads) select_kernel(const SelectArgs a) {
     cnt[threadIdx.x] = 0;
     thr[threadIdx.x] = kFloor;
   }
-  QFrag<T> bq[KS];  // column g: query b0 + g (a padding query past nq)
+  // column g: query b0 + g (a padding query past nq)
+  const float* my_q = g < nq ? a.q + (size_t)(b0 + g) * a.d : nullptr;
+  QFrag<T> bq[KS];
+  if constexpr (!kWide) {
 #pragma unroll
-  for (int s = 0; s < KS; ++s)
-    bq[s] = carca::query_frag<T>(g < nq ? a.q + (size_t)(b0 + g) * a.d : nullptr, a.d, s, t);
+    for (int s = 0; s < KS; ++s) bq[s] = carca::query_frag<T>(my_q, a.d, s, t);
+  }
 
   constexpr int NR = kRing;
   constexpr int TB = tile_bytes<T, kD>();
@@ -248,6 +255,22 @@ __global__ void __launch_bounds__(kThreads) select_kernel(const SelectArgs a) {
     carca::stage_rows<T>(buf, e, row0, kTileRows, a.R, a.d, kD, stride, a.vec);
     carca::stage_scales(reinterpret_cast<float*>(buf + kTileRows * stride), a.scales, row0,
                         kTileRows, a.R);
+  };
+  // offer tile i's scores c (this warp's rows, scl their int8 scales) to the lists
+  auto offer = [&](int i, const float (&c)[4], const float* scl) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long row = r_begin + (long long)i * kTileRows + 16 * warp + g + 8 * h;
+      const bool live = row < r_end && carca::row_valid((int)row, a.lim0, a.mask_row0);
+      const float sc = a.scales != nullptr ? scl[16 * warp + g + 8 * h] : 1.f;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int qi = 2 * t + u;
+        if (!live || qi >= nq) continue;
+        const u64 key = make_key(carca::finish<T>(c[2 * h + u], sc, true), row);
+        if (key > thr[qi]) lists[(size_t)qi * cap + atomicAdd(cnt + qi, 1)] = key;
+      }
+    }
   };
   auto select_own = [&](int keep_above) {  // the warp of query `warp` trims its list
     if (warp < nq && cnt[warp] > keep_above) {
@@ -259,6 +282,31 @@ __global__ void __launch_bounds__(kThreads) select_kernel(const SelectArgs a) {
     }
   };
 
+  if constexpr (kWide) {
+    const int nch = carca::score_chunks(a.d);
+    const float* scl = reinterpret_cast<const float*>(ring + kTileRows * stride);
+    for (int i = 0; i < n_tiles; ++i) {
+      const long long row0 = r_begin + (long long)i * kTileRows;
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int ch = 0; ch < nch; ++ch) {
+        carca::stage_rows<T>(ring, e, row0, kTileRows, a.R, a.d, kD, stride, a.vec, ch * kD);
+        if (ch == 0)
+          carca::stage_scales(reinterpret_cast<float*>(ring + kTileRows * stride), a.scales,
+                              row0, kTileRows, a.R);
+        carca::cp_async_commit();
+        carca::cp_async_wait<0>();
+        __syncthreads();  // the chunk is in
+        carca::chunk_query_frags<T, KS>(bq, my_q, a.d, ch, t);
+        AFrag<T> af[KS];
+        carca::load_a<T, KS>(af, ring + (16 * warp + g) * stride, stride, t);
+        carca::score_acc<T, KS>(c, af, bq);
+        __syncthreads();  // the buffer is free for the next chunk
+      }
+      offer(i, c, scl);
+      __syncthreads();  // every key of tile i is in; the scales are free
+      select_own(cap - kTileRows);
+    }
+  } else {
 #pragma unroll
   for (int i = 0; i < NR - 1; ++i) {
     if (i < n_tiles) stage(i);
@@ -275,21 +323,10 @@ __global__ void __launch_bounds__(kThreads) select_kernel(const SelectArgs a) {
     carca::load_a<T, KS>(af, buf + (16 * warp + g) * stride, stride, t);
     float c[4];
     carca::score_tile<T, KS>(c, af, bq);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long row = r_begin + (long long)i * kTileRows + 16 * warp + g + 8 * h;
-      const bool live = row < r_end && carca::row_valid((int)row, a.lim0, a.mask_row0);
-      const float sc = a.scales != nullptr ? scl[16 * warp + g + 8 * h] : 1.f;
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int qi = 2 * t + u;
-        if (!live || qi >= nq) continue;
-        const u64 key = make_key(carca::finish<T>(c[2 * h + u], sc, true), row);
-        if (key > thr[qi]) lists[(size_t)qi * cap + atomicAdd(cnt + qi, 1)] = key;
-      }
-    }
+    offer(i, c, scl);
     __syncthreads();              // every key of tile i is in; its buffer is free
     select_own(cap - kTileRows);  // the next tile must fit
+  }
   }
   __syncthreads();
   select_own(a.k);
@@ -386,7 +423,7 @@ int set_smem(const void* kernel, size_t smem) {
 struct SelectSmem {
   int k, QB, slack;
   size_t* out;
-  template <typename T, int kD>
+  template <typename T, int kD, bool kWide>
   int operator()() const {
     *out = ring_bytes<T, kD>() + lists_bytes(k, QB, slack);
     return 0;
@@ -399,20 +436,20 @@ struct Launch {
   long long* ids;
   long long id_offset;
   cudaStream_t st;
-  template <typename T, int kD>
+  template <typename T, int kD, bool kWide>
   int operator()() const {
     const size_t smem = ring_bytes<T, kD>() + lists_bytes(a.k, a.QB, a.slack);
     int kpad = 1;
     while (kpad < a.k) kpad <<= 1;
     const size_t fsmem = final_bytes(kpad);
-    int err = set_smem((const void*)select_kernel<T, kD>, smem);
+    int err = set_smem((const void*)select_kernel<T, kD, kWide>, smem);
     if (err == 0) err = set_smem((const void*)final_kernel, fsmem);
     if (err != 0) return err;
     SelectArgs args = a;
     args.vec = carca::vec_rows<T>(a.e, a.d);
     if (!std::is_same<T, int8_t>::value) args.scales = nullptr;
     const long long qblocks = (a.B + a.QB - 1) / a.QB;
-    select_kernel<T, kD><<<(unsigned)(qblocks * a.splits), kThreads, smem, st>>>(args);
+    select_kernel<T, kD, kWide><<<(unsigned)(qblocks * a.splits), kThreads, smem, st>>>(args);
     err = (int)cudaGetLastError();
     if (err != 0) return err;
     final_kernel<<<(unsigned)a.B, kThreads, fsmem, st>>>(a.scratch, vals, ids, a.k, a.splits,
@@ -433,8 +470,8 @@ size_t carca_catalog_topk_smem_bytes(int k, int QB, int slack, int d, int dtype)
   return out;
 }
 
-// q [B, d] f32; e: [R, d] of the type dtype names (carca::IndexType), d <=
-// 128; scales: [R] f32 for an int8 index, else null. scratch: [B, splits,
+// q [B, d] f32; e: [R, d] of the type dtype names (carca::IndexType), any
+// d >= 1; scales: [R] f32 for an int8 index, else null. scratch: [B, splits,
 // k] u64, splits = ceil(R / rows_per_split), rows_per_split a multiple of
 // 128; 1 <= QB <= 8; slack >= 256 list slots beyond k. vals [B, k] f32, ids [B, k] int64.
 int carca_catalog_topk(const void* q, const void* e, const void* scales, void* vals,

@@ -50,6 +50,14 @@
 // the same routine, the query in every column of the n8 tile. It is bound
 // by the winner rows' bytes (B kg 128 d bytes at int8). Plain version:
 // ops/retrieval_topk.py::tournament_rerank_plain.
+//
+// Rows wider than 128 columns are scored in 128-column chunks (scoring.cuh,
+// score_acc: the k-steps stay ascending across the chunks, so the three
+// kernels still agree bit for bit). K4 then runs groupmax_wide_kernel: one
+// 128-row group per step, its chunks staged one after another, and the
+// queries in chunks of kWideQC whose partial sums stay in registers; every
+// query chunk restages the group. The rerank stages a winner group's chunks
+// one after another. These wide paths keep no copy in flight.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -70,6 +78,7 @@ constexpr int kGroup = 128;
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRerankSlots = 8;  // winner groups per rerank block
+constexpr int kWideQC = 32;      // queries per step of groupmax_wide_kernel
 
 template <typename T>
 constexpr int kMT = sizeof(T) == 1 ? 2 : 1;  // 16-row tiles per warp and stage
@@ -97,6 +106,11 @@ __host__ __device__ constexpr size_t groupmax_smem() {
 template <typename T, int kD>
 __host__ __device__ constexpr size_t rerank_smem() {
   return 2 * (size_t)stage_bytes<T, kD>(kGroup);
+}
+
+template <typename T>
+__host__ __device__ constexpr size_t groupmax_wide_smem() {
+  return (size_t)stage_bytes<T, carca::kChunk>(kGroup) + sizeof(float) * kWarps * kWideQC;
 }
 
 template <typename T, int kD>
@@ -259,6 +273,78 @@ groupmax_kernel(const GroupmaxArgs a) {
   }
 }
 
+// K4 over rows of more than 128 columns (the file's header).
+template <typename T>
+__global__ void __launch_bounds__(kThreads) groupmax_wide_kernel(const GroupmaxArgs a) {
+  constexpr int kD = carca::kChunk;
+  constexpr int KS = kD / carca::kStep<T>;
+  constexpr int NT = kWideQC / 8;
+  constexpr int stride = carca::row_stride_bytes<T>(kD);
+  extern __shared__ float4 smem4[];
+  char* buf = reinterpret_cast<char*>(smem4);                      // kGroup rows, their scales
+  float* scl = reinterpret_cast<float*>(buf + kGroup * stride);
+  float* part = reinterpret_cast<float*>(buf + stage_bytes<T, kD>(kGroup));  // [kWarps][kWideQC]
+  const T* e = static_cast<const T*>(a.e);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int nch = carca::score_chunks(a.d);
+  const int n_qc = (a.B + kWideQC - 1) / kWideQC;
+  for (long long grp = blockIdx.x; grp < a.n_groups; grp += gridDim.x) {
+    const long long r = grp * kGroup + 16 * warp + g;
+    const bool v = carca::row_valid((int)min(r, (long long)a.R), a.lim0, a.mask_row0);
+    const bool v8 = carca::row_valid((int)min(r + 8, (long long)a.R), a.lim0, a.mask_row0);
+    for (int qc = 0; qc < n_qc; ++qc) {
+      float acc[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+      for (int ch = 0; ch < nch; ++ch) {
+        carca::stage_rows<T>(buf, e, grp * kGroup, kGroup, a.R, a.d, kD, stride, a.vec, ch * kD);
+        if (qc == 0 && ch == 0) carca::stage_scales(scl, a.scales, grp * kGroup, kGroup, a.R);
+        carca::cp_async_commit();
+        carca::cp_async_wait<0>();
+        __syncthreads();  // the chunk is in
+        AFrag<T> af[KS];
+        carca::load_a<T, KS>(af, buf + (16 * warp + g) * stride, stride, t);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int b = qc * kWideQC + 8 * j + g;
+          QFrag<T> bq[KS];
+          carca::chunk_query_frags<T, KS>(bq, b < a.B ? a.q + (size_t)b * a.d : nullptr, a.d, ch,
+                                          t);
+          carca::score_acc<T, KS>(acc[j], af, bq);
+        }
+        __syncthreads();  // the buffer is free for the next chunk
+      }
+      const float sc = a.scales != nullptr ? scl[16 * warp + g] : 1.f;
+      const float sc8 = a.scales != nullptr ? scl[16 * warp + g + 8] : 1.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        float m0 = fmaxf(carca::finish<T>(acc[j][0], sc, v), carca::finish<T>(acc[j][2], sc8, v8));
+        float m1 = fmaxf(carca::finish<T>(acc[j][1], sc, v), carca::finish<T>(acc[j][3], sc8, v8));
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+          m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+        }
+        if (g == 0) {
+          part[warp * kWideQC + 8 * j + 2 * t] = m0;
+          part[warp * kWideQC + 8 * j + 2 * t + 1] = m1;
+        }
+      }
+      __syncthreads();
+      const int qn = min(kWideQC, a.B - qc * kWideQC);
+      for (int bq = threadIdx.x; bq < qn; bq += kThreads) {
+        float m = -INFINITY;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) m = fmaxf(m, part[w * kWideQC + bq]);
+        const int b = qc * kWideQC + bq;
+        if (a.layout == 0) a.out[grp * a.B + b] = m;
+        else a.out[(size_t)b * a.n_groups + grp] = m;
+      }
+      __syncthreads();  // part and the scales are free again
+    }
+  }
+}
+
 struct RerankArgs {
   const float* q;
   const void* e;
@@ -268,7 +354,7 @@ struct RerankArgs {
   int B, R, d, kg, lim0, mask_row0, vec;
 };
 
-template <typename T, int kD>
+template <typename T, int kD, bool kWide>
 __global__ void __launch_bounds__(kThreads) rerank_kernel(const RerankArgs a) {
   constexpr int KS = kD / carca::kStep<T>;
   constexpr int stride = carca::row_stride_bytes<T>(kD);
@@ -284,9 +370,50 @@ __global__ void __launch_bounds__(kThreads) rerank_kernel(const RerankArgs a) {
   const long long* gi = a.gi + (size_t)b * a.kg + c0;
 
   // the query in every column of the n8 tile
+  const float* my_q = a.q + (size_t)b * a.d;
   QFrag<T> bq[KS];
+  if constexpr (!kWide) {
 #pragma unroll
-  for (int s = 0; s < KS; ++s) bq[s] = carca::query_frag<T>(a.q + (size_t)b * a.d, a.d, s, t);
+    for (int s = 0; s < KS; ++s) bq[s] = carca::query_frag<T>(my_q, a.d, s, t);
+  }
+  // winner group i's scores c (this warp's rows, scl their int8 scales) out
+  auto write = [&](int i, const float (&c)[4], const float* scl) {
+    if (t == 0) {
+      const long long r = gi[i] * kGroup + 16 * warp + g;
+      float* o = a.out + ((size_t)b * a.kg + c0 + i) * kGroup + 16 * warp + g;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long row = r + 8 * h;
+        const float sc = a.scales != nullptr ? scl[16 * warp + g + 8 * h] : 1.f;
+        o[8 * h] = carca::finish<T>(c[2 * h], sc,
+                                    carca::row_valid((int)min(row, (long long)a.R), a.lim0,
+                                                     a.mask_row0));
+      }
+    }
+  };
+  if constexpr (kWide) {
+    const int nch = carca::score_chunks(a.d);
+    float* scl = reinterpret_cast<float*>(ring + kGroup * stride);
+    for (int i = 0; i < n; ++i) {
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int ch = 0; ch < nch; ++ch) {
+        carca::stage_rows<T>(ring, e, gi[i] * kGroup, kGroup, a.R, a.d, kD, stride, a.vec,
+                             ch * kD);
+        if (ch == 0) carca::stage_scales(scl, a.scales, gi[i] * kGroup, kGroup, a.R);
+        carca::cp_async_commit();
+        carca::cp_async_wait<0>();
+        __syncthreads();  // the chunk is in
+        carca::chunk_query_frags<T, KS>(bq, my_q, a.d, ch, t);
+        AFrag<T> af[KS];
+        carca::load_a<T, KS>(af, ring + (16 * warp + g) * stride, stride, t);
+        carca::score_acc<T, KS>(c, af, bq);
+        __syncthreads();  // the buffer is free for the next chunk
+      }
+      write(i, c, scl);
+      __syncthreads();  // the scales are free for the next group
+    }
+    return;
+  }
 
   auto stage = [&](int i) {
     carca::stage_rows<T>(ring + (i & 1) * SB, e, gi[i] * kGroup, kGroup, a.R, a.d, kD, stride,
@@ -307,18 +434,7 @@ __global__ void __launch_bounds__(kThreads) rerank_kernel(const RerankArgs a) {
     carca::load_a<T, KS>(af, buf + (16 * warp + g) * stride, stride, t);
     float c[4];
     carca::score_tile<T, KS>(c, af, bq);
-    if (t == 0) {
-      const long long r = gi[i] * kGroup + 16 * warp + g;
-      float* o = a.out + ((size_t)b * a.kg + c0 + i) * kGroup + 16 * warp + g;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const long long row = r + 8 * h;
-        const float sc = a.scales != nullptr ? scl[16 * warp + g + 8 * h] : 1.f;
-        o[8 * h] = carca::finish<T>(c[2 * h], sc,
-                                    carca::row_valid((int)min(row, (long long)a.R), a.lim0,
-                                                     a.mask_row0));
-      }
-    }
+    write(i, c, scl);
     __syncthreads();  // this buffer is free for stage i + 2
   }
 }
@@ -342,9 +458,9 @@ int resident_blocks(K kernel, size_t smem) {
 struct SmemBytes {
   size_t* out;
   bool rerank;
-  template <typename T, int kD>
+  template <typename T, int kD, bool kWide>
   int operator()() const {
-    *out = rerank ? rerank_smem<T, kD>() : groupmax_smem<T, kD>();
+    *out = rerank ? rerank_smem<T, kD>() : kWide ? groupmax_wide_smem<T>() : groupmax_smem<T, kD>();
     return 0;
   }
 };
@@ -352,8 +468,20 @@ struct SmemBytes {
 struct GroupmaxLaunch {
   GroupmaxArgs a;
   cudaStream_t st;
-  template <typename T, int kD>
+  template <typename T, int kD, bool kWide>
   int operator()() const {
+    if constexpr (kWide) {
+      constexpr size_t smem = groupmax_wide_smem<T>();
+      const int err = set_smem(groupmax_wide_kernel<T>, smem);
+      if (err != 0) return err;
+      GroupmaxArgs args = a;
+      args.vec = carca::vec_rows<T>(a.e, a.d);
+      if (!std::is_same<T, int8_t>::value) args.scales = nullptr;
+      const long long grid =
+          std::min((long long)a.n_groups, (long long)resident_blocks(groupmax_wide_kernel<T>, smem));
+      groupmax_wide_kernel<T><<<(unsigned)grid, kThreads, smem, st>>>(args);
+      return (int)cudaGetLastError();
+    }
     constexpr size_t smem = groupmax_smem<T, kD>();
     const int err = set_smem(groupmax_kernel<T, kD>, smem);
     if (err != 0) return err;
@@ -372,16 +500,16 @@ struct GroupmaxLaunch {
 struct RerankLaunch {
   RerankArgs a;
   cudaStream_t st;
-  template <typename T, int kD>
+  template <typename T, int kD, bool kWide>
   int operator()() const {
     constexpr size_t smem = rerank_smem<T, kD>();
-    const int err = set_smem(rerank_kernel<T, kD>, smem);
+    const int err = set_smem(rerank_kernel<T, kD, kWide>, smem);
     if (err != 0) return err;
     RerankArgs args = a;
     args.vec = carca::vec_rows<T>(a.e, a.d);
     if (!std::is_same<T, int8_t>::value) args.scales = nullptr;
     const long long grid = (long long)a.B * ((a.kg + kRerankSlots - 1) / kRerankSlots);
-    rerank_kernel<T, kD><<<(unsigned)grid, kThreads, smem, st>>>(args);
+    rerank_kernel<T, kD, kWide><<<(unsigned)grid, kThreads, smem, st>>>(args);
     return (int)cudaGetLastError();
   }
 };
@@ -396,8 +524,8 @@ size_t carca_groupmax_smem_bytes(int d, int dtype) {
   return out;
 }
 
-// q [B, d] f32; e [R, d] of the type dtype names (carca::IndexType), d <=
-// 128; scales [R] f32 for an int8 index, else null; out [n_groups, B]
+// q [B, d] f32; e [R, d] of the type dtype names (carca::IndexType), any
+// d >= 1; scales [R] f32 for an int8 index, else null; out [n_groups, B]
 // (layout 0) or [B, n_groups] (layout 1) f32, n_groups >= ceil(R / 128).
 int carca_groupmax(const void* q, const void* e, const void* scales, void* out, int B, int R,
                    int d, int lim0, int mask_row0, int n_groups, int layout, int dtype,

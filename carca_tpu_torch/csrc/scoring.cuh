@@ -11,10 +11,14 @@
 //   f32 index            mma.sync m16n8k8 3xTF32 (mma.cuh: the hi/lo split
 //                        and the order lo*hi, hi*lo, hi*hi of K1/K2).
 // The k-steps run in ascending order from a zero accumulator over the row
-// width zero-padded to kD (64 or 128, score_width); inside a k-step the
-// physical columns map to mma's k slots by one fixed permutation (below),
-// the same for the rows and the query. An int8 row's scale multiplies the
-// finished sum once (__fmul_rn), and the mask (-inf) comes after that.
+// width zero-padded to kD (64 or 128, score_width); a row wider than 128
+// is walked in 128-column chunks (score_chunks), its k-steps still
+// ascending from zero across all chunks (score_acc carries the accumulator
+// from one chunk to the next), so every kernel scores it with the same
+// instruction sequence as one long walk. Inside a k-step the physical
+// columns map to mma's k slots by one fixed permutation (below), the same
+// for the rows and the query. An int8 row's scale multiplies the finished
+// sum once (__fmul_rn), and the mask (-inf) comes after that.
 //
 // Why one routine: a score then depends only on (q, row) and this
 // instruction sequence, not on the tile position, the other rows and
@@ -67,10 +71,14 @@ namespace carca {
 // index dtype codes of the C entry points (ops/retrieval_topk.py::_DTYPE_CODE)
 enum IndexType { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
-constexpr int kMaxScoreWidth = 128;  // widest row the kernels are built for
+constexpr int kChunk = 128;  // columns of a row chunk past 128 columns
 
-// The row width the kernels score at: d zero-padded to 64 or 128 (0: too wide).
-inline int score_width(int d) { return d <= 64 ? 64 : d <= kMaxScoreWidth ? 128 : 0; }
+// The row width the kernels score at: d zero-padded to 64 or 128; a wider
+// row is scored in 128-column chunks.
+inline int score_width(int d) { return d <= 64 ? 64 : kChunk; }
+
+// 128-column chunks of a row of d > 128 columns (the last zero-padded)
+__host__ __device__ inline int score_chunks(int d) { return (d + kChunk - 1) / kChunk; }
 
 // Shared-memory row stride: int8 rows take 32-bit loads (stride = 4 words
 // mod 8), bf16/f32 rows 64-bit loads (stride = 8 words mod 16).
@@ -153,10 +161,10 @@ __device__ __forceinline__ QFrag<T> query_frag(const float* __restrict__ q, int 
 // c = the scores of the tile's 16 rows against the 8 queries: lane (g, t)
 // gets rows g (c[0], c[1]) and g + 8 (c[2], c[3]) against queries 2t
 // (c[0], c[2]) and 2t + 1 (c[1], c[3]). The one scoring routine.
+// score_acc adds the products of KS more k-steps to c: a chunk of a wide row.
 template <typename T, int KS>
-__device__ __forceinline__ void score_tile(float (&c)[4], const AFrag<T> (&a)[KS],
-                                           const QFrag<T> (&b)[KS]) {
-  c[0] = c[1] = c[2] = c[3] = 0.f;
+__device__ __forceinline__ void score_acc(float (&c)[4], const AFrag<T> (&a)[KS],
+                                          const QFrag<T> (&b)[KS]) {
 #pragma unroll
   for (int s = 0; s < KS; ++s) {
     if constexpr (kIsF32<T>) {
@@ -165,6 +173,23 @@ __device__ __forceinline__ void score_tile(float (&c)[4], const AFrag<T> (&a)[KS
       mma_bf16(c, a[s].x, b[s].x, b[s].y);
     }
   }
+}
+
+template <typename T, int KS>
+__device__ __forceinline__ void score_tile(float (&c)[4], const AFrag<T> (&a)[KS],
+                                           const QFrag<T> (&b)[KS]) {
+  c[0] = c[1] = c[2] = c[3] = 0.f;
+  score_acc<T, KS>(c, a, b);
+}
+
+// Query q [d]'s fragments for the k-steps of the 128-column chunk ch of a
+// wide row (a null q: a padding query).
+template <typename T, int KS>
+__device__ __forceinline__ void chunk_query_frags(QFrag<T> (&b)[KS], const float* __restrict__ q,
+                                                  int d, int ch, int t) {
+#pragma unroll
+  for (int s = 0; s < KS; ++s)
+    b[s] = query_frag<T>(q != nullptr ? q + ch * kChunk : nullptr, d - ch * kChunk, s, t);
 }
 
 // The finished score: the int8 scale after the sum, then the mask.
@@ -200,23 +225,24 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Rows [row0, row0 + n) of e [R, d] into dst (row stride `stride` bytes,
-// kD columns), zeros past R and past d, by every thread of the block. With
-// `vec` (e 16-byte aligned, d * sizeof(T) a multiple of 16) the copy is
-// cp.async in 16-byte chunks, to be waited on with cp_async_wait; otherwise
-// plain loads and stores.
+// Columns [col0, col0 + kD) of rows [row0, row0 + n) of e [R, d] into dst
+// (row stride `stride` bytes), zeros past R and past d, by every thread of
+// the block. With `vec` (e 16-byte aligned, d * sizeof(T) a multiple of 16;
+// col0 is 0 or a multiple of 128) the copy is cp.async in 16-byte chunks,
+// to be waited on with cp_async_wait; otherwise plain loads and stores.
 template <typename T>
 __device__ __forceinline__ void stage_rows(char* dst, const T* __restrict__ e, long long row0,
                                            int n, long long R, int d, int kD, int stride,
-                                           bool vec) {
+                                           bool vec, int col0 = 0) {
   if (vec) {
     const int chunks = kD * (int)sizeof(T) / 16;
-    const int live = d * (int)sizeof(T) / 16;
+    const int live = (d - col0) * (int)sizeof(T) / 16;
     for (int idx = threadIdx.x; idx < n * chunks; idx += blockDim.x) {
       const int r = idx / chunks, c = idx - r * chunks;
       const long long row = row0 + r;
       const bool in = row < R && c < live;
-      const char* src = reinterpret_cast<const char*>(e) + (in ? row * d * sizeof(T) + 16 * c : 0);
+      const char* src = reinterpret_cast<const char*>(e) +
+                        (in ? (row * d + col0) * sizeof(T) + 16 * c : 0);
       cp_async16(dst + r * stride + 16 * c, src, in ? 16 : 0);
     }
   } else {
@@ -227,7 +253,8 @@ __device__ __forceinline__ void stage_rows(char* dst, const T* __restrict__ e, l
     for (int idx = threadIdx.x; idx < n * kD; idx += blockDim.x) {
       const int r = idx / kD, j = idx - r * kD;
       const long long row = row0 + r;
-      reinterpret_cast<Raw*>(dst + r * stride)[j] = (row < R && j < d) ? src[row * d + j] : Raw(0);
+      reinterpret_cast<Raw*>(dst + r * stride)[j] =
+          (row < R && j < d - col0) ? src[row * d + col0 + j] : Raw(0);
     }
   }
 }
@@ -257,20 +284,25 @@ inline bool vec_rows(const void* e, int d) {
   return (reinterpret_cast<uintptr_t>(e) & 15) == 0 && (d * sizeof(T)) % 16 == 0;
 }
 
-// fn.template operator()<T, kD>() for the index type and row width.
+template <typename T, typename Fn>
+int dispatch_width(int d, Fn&& fn) {
+  if (d <= 64) return fn.template operator()<T, 64, false>();
+  if (d <= kChunk) return fn.template operator()<T, kChunk, false>();
+  return fn.template operator()<T, kChunk, true>();  // 128-column chunks
+}
+
+// fn.template operator()<T, kD, kWide>() for the index type and row width:
+// kD = 64 or 128 columns, kWide for rows of more than 128 (in chunks).
 template <typename Fn>
 int dispatch_index(int dtype, int d, Fn&& fn) {
-  const int kD = score_width(d);
-  if (kD == 0) return (int)cudaErrorInvalidValue;
+  if (d < 1) return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case kF32:
-      return kD == 64 ? fn.template operator()<float, 64>() : fn.template operator()<float, 128>();
+      return dispatch_width<float>(d, fn);
     case kBF16:
-      return kD == 64 ? fn.template operator()<__nv_bfloat16, 64>()
-                      : fn.template operator()<__nv_bfloat16, 128>();
+      return dispatch_width<__nv_bfloat16>(d, fn);
     case kI8:
-      return kD == 64 ? fn.template operator()<int8_t, 64>()
-                      : fn.template operator()<int8_t, 128>();
+      return dispatch_width<int8_t>(d, fn);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -11,9 +11,13 @@ valid positive slots. Negatives come from ``parallel.sampling`` on the
 card, rejected against the visible window (``reject_width = 0``) or the
 user's full history (``reject_width > 0``, the reference's protocol).
 
+``assemble_eval`` builds the eval batch the same way: the held-out
+positive and T negatives, rejected against the visible window and the
+positive, or the user's full history with ``reject_width > 0``.
+
 Items and contexts are two gathers; the JAX package's fused
 ``evt_packed`` gather exists only for the TPU's per-row gather cost and is
-not ported. ``assemble_eval`` waits for the eval slice.
+not ported.
 """
 
 from __future__ import annotations
@@ -78,6 +82,10 @@ def _window_slots(arrays, mode: str, user_rows: torch.Tensor, L: int, n_slots: i
     return p_evt, valid, alive, e, off
 
 
+def _profile_slots(arrays, mode: str, user_rows: torch.Tensor, L: int):
+    return _window_slots(arrays, mode, user_rows, L, L)
+
+
 def _history_rows(arrays, user_rows: torch.Tensor, H: int) -> torch.Tensor:
     """[B, H] of each user's full history item ids, 0-padded (H = the
     dataset's longest history)."""
@@ -121,5 +129,33 @@ def assemble_train(arrays, L: int, n_items: int, user_rows: torch.Tensor,
     o_c = torch.cat([o_pos_c] * (1 + n_neg), dim=1)  # src/data.py:130
     y = torch.cat([valid.to(torch.float32),
                    torch.zeros(valid.shape[0], n_neg * L, device=valid.device)], dim=1)
+    return {"p_x": p_x, "p_c": p_c, "o_x": o_x, "o_c": o_c, "y_true": y,
+            "n_valid": alive.sum()}
+
+
+def assemble_eval(arrays, L: int, T: int, n_items: int, mode: str, user_rows: torch.Tensor,
+                  generator: torch.Generator, reject_width: int = 0) -> Dict[str, torch.Tensor]:
+    """[B] user rows (−1 = padding) → eval batch on ``user_rows``' device:
+    p_x [B, L], p_c [B, L, C], o_x [B, T+1] = [held-out positive ‖ T
+    negatives], o_c (the positive's context on every live slot), y_true
+    (1 at slot 0 of a live row) and n_valid. Negatives are distinct, never
+    the positive, and miss the visible window, or with ``reject_width`` =
+    the dataset's longest history, the user's whole history."""
+    ctx, items = arrays["ctx"], arrays["items"]
+    p_evt, valid, alive, e, off = _profile_slots(arrays, mode, user_rows, L)
+    one_out = torch.where(alive, off + e - 1, 0)
+    p_x = torch.where(valid, items[p_evt], 0)
+    p_c = ctx[p_evt] * valid[..., None]
+    pos = torch.where(alive, items[one_out], 0)
+    pos_c = ctx[one_out] * alive[:, None]
+    visible = (_history_rows(arrays, user_rows, reject_width) if reject_width > 0
+               else torch.cat([p_x, pos[:, None]], dim=1))
+    negs = device_sample_negatives(generator, visible, n_items, T,
+                                   retries_for(visible.shape[1], n_items))
+    negs = torch.where(alive[:, None], negs, 0)
+    o_x = torch.cat([pos[:, None], negs], dim=1)
+    o_c = pos_c[:, None, :].expand(pos.shape[0], T + 1, ctx.shape[1]) * (o_x > 0)[..., None]
+    y = torch.zeros(pos.shape[0], T + 1, device=pos.device)
+    y[:, 0] = alive.to(torch.float32)
     return {"p_x": p_x, "p_c": p_c, "o_x": o_x, "o_c": o_c, "y_true": y,
             "n_valid": alive.sum()}

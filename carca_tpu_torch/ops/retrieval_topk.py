@@ -60,8 +60,8 @@ from carca_tpu_torch.ops import _build
 
 NEG_INF = float("-inf")
 MAX_K = 16_384  # the largest k whose running list and final sort fit K3's shared memory
-MAX_D = 128  # the widest rows the retrieval kernels are built for (csrc/scoring.cuh)
 GROUP = 128  # rows per tournament group
+CHUNK = 128  # the kernels score rows wider than this in chunks of it (csrc/scoring.cuh)
 # The kernels against the plain versions: two summation orders of the same
 # d products, |kernel - plain| <= SCORE_ORDER_TOL * sum_j |q_j e_rj| (x the
 # int8 scale); see csrc/scoring.cuh.
@@ -331,8 +331,6 @@ def _cuda_operands(q: torch.Tensor, e: torch.Tensor, scales: Optional[torch.Tens
     if not (q.is_contiguous() and e.is_contiguous()
             and (scales is None or scales.is_contiguous())):
         raise ValueError(f"{what} takes contiguous queries and index")
-    if q.shape[1] > MAX_D:
-        raise ValueError(f"{what}: rows of d={q.shape[1]}; the kernels are built for d <= {MAX_D}")
 
 
 def _launch(what: str, device: torch.device, smem: int, fn, *args) -> None:
@@ -489,7 +487,7 @@ class StreamPlan(NamedTuple):
 def _k3_select_smem(k: int, qb: int, slack: int, d: int, itemsize: int) -> int:
     """Shared memory of K3's select block (csrc/catalog_topk.cu: the row
     ring, the running lists and thresholds, counts, a histogram per warp)."""
-    kd = 64 if d <= 64 else MAX_D
+    kd = 64 if d <= 64 else CHUNK
     ring = 2 * _K3_TILE * (kd * itemsize + (16 if itemsize == 1 else 32) + 4)
     return ring + 8 * (qb * (k + slack) + qb) + 4 * _K3_MAX_QB + 4 * 256 * 8
 

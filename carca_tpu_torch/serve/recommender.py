@@ -17,18 +17,22 @@
   sizes, as in the JAX package (where each bucket is one compiled
   executable); padded rows are all-pad histories, whose outputs are cut.
 
-Not ported yet: the index mesh (row-sharded index) and
-``load_recommender`` (reading an orbax checkpoint) — both wait for later
-slices (ROADMAP).
+``load_recommender`` restores a trained run directory (``args.json`` and
+``ckpt/``, written by ``train/loop.fit``). Not ported yet: the index mesh
+(a row-sharded index, ROADMAP item 14).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from carca_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
 from carca_tpu_torch.models.carca import CARCA, encode_profile, score_targets
 from carca_tpu_torch.ops.retrieval_topk import quantize_index
 from carca_tpu_torch.parallel.retrieval import (catalog_in_decoder_space,
@@ -230,3 +234,49 @@ class Recommender:
         and warms the allocator)."""
         for bb in self.batch_buckets:
             self.recommend([[1]] * bb, k=k)
+
+
+# fields of a JAX run's args.json with no counterpart here: TPU-only knobs
+_JAX_ONLY = ("pack_tables", "remat")
+
+
+def config_from_run_dir(run_dir: str) -> Config:
+    """Rebuild the training Config from a run directory's flat
+    ``args.json``: this package's, or the JAX package's (whose
+    ``use_pallas`` maps to ``use_kernel``; ``pack_tables`` and ``remat``
+    are dropped)."""
+    with open(os.path.join(run_dir, "args.json")) as fh:
+        flat = json.load(fh)
+    if "use_pallas" in flat:
+        flat.setdefault("use_kernel", flat.pop("use_pallas"))
+    for name in _JAX_ONLY:
+        flat.pop(name, None)
+
+    def pick(cls):
+        kw = {f.name: flat[f.name] for f in dataclasses.fields(cls) if f.name in flat}
+        # tuples come back from JSON as lists
+        return cls(**{k: tuple(v) if isinstance(v, list) else v for k, v in kw.items()})
+
+    return Config(model=pick(ModelConfig), data=pick(DataConfig), train=pick(TrainConfig))
+
+
+def load_recommender(run_dir: str, attrs_table: np.ndarray, *, which: str = "best",
+                     device: torch.device | str = "cuda", **kwargs) -> Recommender:
+    """A Recommender over a trained run's weights (``{run_dir}/ckpt/best``
+    or ``latest``) on ``device`` (the card unless the caller asks for the
+    CPU). ``attrs_table`` is the item catalog the run trained against:
+    checkpoints hold parameters, not data."""
+    from carca_tpu_torch.train.checkpoint import CheckpointKeeper
+
+    if which not in ("best", "latest"):
+        raise ValueError(f"which is 'best' or 'latest', got {which!r}")
+    cfg = config_from_run_dir(run_dir)
+    model = CARCA(cfg.model, device=device)
+    keeper = CheckpointKeeper(os.path.join(run_dir, "ckpt"))
+    if which == "best":
+        found = keeper.restore_best(model)
+    else:
+        found = keeper.restore_latest_model(model)
+    if found is None:
+        raise FileNotFoundError(f"no {which!r} checkpoint under {run_dir}/ckpt")
+    return Recommender(model, attrs_table, **kwargs)

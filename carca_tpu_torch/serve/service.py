@@ -1,22 +1,35 @@
-"""JSON-lines request loop and latency bench (counterpart of
-``carca_tpu/serve/service.py``), as functions over a ``Recommender`` and a
-host-side CSR copy of the catalog.
+"""JSON-lines serving loop and latency bench (counterpart of
+``carca_tpu/serve/service.py``): serves a trained run directory.
+
+    python -m carca_tpu_torch.serve.service --run_dir RUN --data_dir DATA \
+        --profile_file profiles.txt --attr_file attrs.pkl --ctx_file ctx.pkl
+    python -m carca_tpu_torch.serve.service --run_dir RUN ... --bench --iters 30
+
+Requests arrive one JSON object per stdin line, responses leave one per
+stdout line:
 
 Request:  {"history": [item_id, ...], "k": 10, "ctx": [[...], ...],
            "request_ctx": [...], "id": any}
       or  {"user": <row>, ...}        (history looked up in the catalog)
 Response: {"items": [...], "scores": [...], "id": any}
 A malformed request answers {"error": "..."} and the loop goes on.
+``--bench`` skips stdin and prints one JSON line of latency per batch
+bucket (p50/p95/p99 over ``--iters`` timed calls after a warm one).
 
-The ``carca-serve`` command line (``--run_dir``) comes with the checkpoint
-slice: this package cannot read orbax checkpoints yet.
+The server runs on the card (``--device cpu`` asks for the CPU). Without
+``--data_dir`` the run's synthetic catalog is regenerated from its
+``args.json``. ``--index_shards`` above 1 (a row-sharded index) is not
+ported yet (ROADMAP item 14); ``--compilation_cache`` is a TPU knob and is
+ignored.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import sys
 import time
-from typing import Dict, Iterable, Iterator, List
+from typing import Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -113,3 +126,86 @@ def run_bench(rec, host: HostCSR, k: int, iters: int, seed: int = 0) -> List[Dic
                      "p99_ms": pct(0.99),
                      "throughput_users_per_sec": bb * iters / window})
     return rows
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="python -m carca_tpu_torch.serve.service",
+                                description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--run_dir", required=True, help="training output dir (args.json + ckpt/)")
+    p.add_argument("--which", choices=("best", "latest"), default="best")
+    p.add_argument("--data_dir", default="", help="catalog location (reference file formats); "
+                   "default: the synthetic catalog regenerated from the run's data config")
+    p.add_argument("--profile_file", default="")
+    p.add_argument("--attr_file", default="")
+    p.add_argument("--ctx_file", default="")
+    p.add_argument("--shortlist", type=int, default=512)
+    p.add_argument("--k", type=int, default=10)
+    p.add_argument("--no_exclude_history", action="store_true",
+                   help="allow already-seen items in results")
+    p.add_argument("--index", choices=("seen", "full"), default="seen",
+                   help="stage-1 index: seen = items with >=1 catalog event; full = every id")
+    p.add_argument("--quantize_index", type=str, default="auto",
+                   choices=("true", "false", "auto"),
+                   help="int8 stage-1 index; auto = indexes of >= 1M rows")
+    p.add_argument("--index_shards", type=int, default=1,
+                   help="row-shard the index over devices: not ported yet (ROADMAP item 14)")
+    p.add_argument("--compilation_cache", type=str, default="", help="TPU only; ignored")
+    p.add_argument("--max_k", type=int, default=100, help="cap on per-request k")
+    p.add_argument("--warmup", action="store_true", help="run every batch bucket before serving")
+    p.add_argument("--bench", action="store_true", help="measure latency instead of serving stdin")
+    p.add_argument("--iters", type=int, default=50)
+    p.add_argument("--device", default="", help="the torch device; default (empty) the card")
+    return p
+
+
+def load_catalog_for_run(args, cfg):
+    """The catalog to serve: the reference files under ``--data_dir``, or the
+    run's synthetic catalog regenerated from its data config."""
+    if args.data_dir:
+        from carca_tpu_torch.data.loaders import load_dataset
+        return load_dataset(args.data_dir, args.profile_file, args.attr_file, args.ctx_file)
+    from carca_tpu_torch.data.synthetic import synthetic_generator
+    d = cfg.data
+    # a device-pipeline run generates its synthetic catalog on the device,
+    # which the port cannot reproduce: synthetic_generator refuses it
+    gen = synthetic_generator(d.synthetic_process, device=d.device_pipeline)
+    return gen(n_users=d.synthetic_users, n_real_items=d.synthetic_items, seed=d.synthetic_seed)
+
+
+def main(argv: Optional[list] = None, device: Optional[str] = None, stdin=None,
+         stdout=None) -> None:
+    """Serve stdin (or ``--bench``) from a run directory on ``device``, else
+    ``--device``, else the card."""
+    from carca_tpu_torch.serve.recommender import config_from_run_dir, load_recommender
+
+    args = build_parser().parse_args(argv)
+    stdin = sys.stdin if stdin is None else stdin
+    stdout = sys.stdout if stdout is None else stdout
+    if args.index_shards > 1:
+        raise NotImplementedError("--index_shards > 1: the row-sharded index is not ported yet "
+                                  "(ROADMAP item 14)")
+    if args.compilation_cache:
+        print("note: --compilation_cache is a TPU knob; ignored", file=sys.stderr)
+    cfg = config_from_run_dir(args.run_dir)
+    cat = load_catalog_for_run(args, cfg)
+    host = HostCSR(cat)
+    rec = load_recommender(
+        args.run_dir, cat.attrs, which=args.which, device=device or args.device or "cuda",
+        shortlist=args.shortlist, exclude_history=not args.no_exclude_history,
+        index_ids=np.unique(host.items) if args.index == "seen" else None,
+        quantize={"true": True, "false": False, "auto": "auto"}[args.quantize_index])
+    if args.warmup or args.bench:
+        rec.warmup(k=args.k)
+    if args.bench:
+        for row in run_bench(rec, host, args.k, args.iters):
+            stdout.write(json.dumps(row) + "\n")
+        stdout.flush()
+        return
+    for out in serve_lines(rec, host, stdin, k=args.k, max_k=args.max_k):
+        stdout.write(json.dumps(out) + "\n")
+        stdout.flush()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,30 +1,57 @@
-"""The train step (counterpart of ``carca_tpu/train/loop.py``, its step
-functions only; ``fit`` and the eval steps wait for the eval slice).
+"""The train and eval steps and the fit loop (counterpart of
+``carca_tpu/train/loop.py``).
 
-Per step, as in the JAX package: assemble the batch on the device from a
-[B] vector of user rows (``data/device_pipeline.assemble_train``), split the
-target block into its groups, run the model in train mode with targets
-[positives, negatives], take masked BCE over the whole candidate block
-(``src/train.py:86-93``) or the sampled softmax, and apply one Adam update.
+The protocol is the reference's (``src/train.py:56-152``): per epoch the
+shuffled train batches, each split into its positive and negative target
+groups, a forward in train mode, masked BCE over the whole candidate block
+(or the sampled softmax) and one Adam update; then the val split (1
+held-out positive + ``target_len`` sampled negatives per user, HR@k and
+NDCG@k); the best-val-NDCG parameters kept, early stop after
+``early_stop`` epochs without improvement, the best reloaded and the test
+split run. Progress goes to stdout, to the CSV ``time;epoch;split;loss;HR;
+NDCG`` and to ``metrics.jsonl``; the config to ``args.json``.
 
-PyTorch runs eagerly, so there is no jit: a step function updates the
-``TrainState`` in place and returns it with the loss, a device tensor that
-is never read on the host inside the step. The JAX package's ``lax.scan``
-over K steps per dispatch is a Python loop of K steps per call here.
+Batches come from the host (``BatchBuilder`` on a prefetch thread, copied
+to the device per step) or, with ``device_pipeline``, are assembled on the
+device from a [B] vector of user rows. PyTorch runs eagerly: a step
+function updates the ``TrainState`` in place and returns it with the loss,
+a device tensor that is read on the host once per epoch. The JAX package's
+``lax.scan`` over K steps per dispatch is a Python loop of K steps per call.
+
+Not ported yet, and refused where a config asks for them: the full-catalog
+retrieval evaluator and ``select_by=retrieval_*`` (ROADMAP item 8), the
+row-sparse item Adam (slice 6), meshes and on-device sampling for them
+(slice 7).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import contextlib
+import copy
+import json
+import os
+import shutil
+import time
+from datetime import datetime
+from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
-from carca_tpu_torch.config import ModelConfig, TrainConfig
-from carca_tpu_torch.data.device_pipeline import assemble_train
+from carca_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
+from carca_tpu_torch.data.dataset import BatchBuilder, epoch_batches
+from carca_tpu_torch.data.device_pipeline import DeviceDataset, assemble_eval, assemble_train
+from carca_tpu_torch.data.loaders import Catalog
+from carca_tpu_torch.data.prefetch import prefetch
 from carca_tpu_torch.models.carca import CARCA, carca_apply
 from carca_tpu_torch.models.losses import masked_bce, sampled_softmax
-from carca_tpu_torch.train.state import TrainState
+from carca_tpu_torch.train import sparse_adam
+from carca_tpu_torch.train.checkpoint import CheckpointKeeper
+from carca_tpu_torch.train.metrics import hr_ndcg_sums
+from carca_tpu_torch.train.state import TrainState, create_train_state
 from carca_tpu_torch.utils.masking import get_mask
+
+TEST_SALT = 999_983  # the test eval's seed next to the run seed (the JAX package's)
 
 
 def train_loss(model: CARCA, batch, attrs_table: torch.Tensor, *,
@@ -65,16 +92,13 @@ def apply_gradients(state: TrainState, loss_fn: Callable[[], torch.Tensor]) -> t
 
 def make_device_train_step(mc: ModelConfig, tc: Optional[TrainConfig] = None,
                            reject_width: int = 0, neg_pop: bool = False,
-                           sparse_items: bool = False,
                            logq: Optional[torch.Tensor] = None) -> Callable:
     """Train step with on-device batch assembly: (state, attrs_table,
     catalog arrays, user_rows [B]) → (state, loss). The state is updated in
-    place."""
-    if sparse_items:
-        raise NotImplementedError(
-            "the row-sparse item-table Adam is not ported yet (ROADMAP slice 6, "
-            "10M-item training)")
+    place. Raises where ``sparse_adam.resolve`` turns the row-sparse Adam
+    on for (mc, tc) on the device pipeline, ``"auto"`` included."""
     tc = tc or TrainConfig()
+    sparse_adam.refuse_sparse(Config(mc, DataConfig(device_pipeline=True), tc))
     n_neg = tc.n_train_negatives
     lq = logq if tc.loss == "softmax" else None
 
@@ -93,14 +117,15 @@ def make_device_train_step(mc: ModelConfig, tc: Optional[TrainConfig] = None,
 def make_scanned_device_train_step(mc: ModelConfig, inner_steps: int,
                                    tc: Optional[TrainConfig] = None,
                                    reject_width: int = 0, neg_pop: bool = False,
-                                   sparse_items: bool = False,
-                                   logq: Optional[torch.Tensor] = None) -> Callable:
+                                   logq: Optional[torch.Tensor] = None,
+                                   on_step: Optional[Callable[[TrainState], None]] = None
+                                   ) -> Callable:
     """``inner_steps`` train steps per call: (state, attrs_table, catalog
     arrays, user_rows [K, B]) → (state, losses [K], a device tensor). Each
     step is exactly ``make_device_train_step``'s, drawing from the same
     generators in the same order, so K steps in one call equal K single
-    steps."""
-    step = make_device_train_step(mc, tc, reject_width, neg_pop, sparse_items, logq)
+    steps; ``on_step(state)`` runs after each (the fit loop's EMA)."""
+    step = make_device_train_step(mc, tc, reject_width, neg_pop, logq)
 
     def scanned_step(state: TrainState, attrs_table, arrays, user_rows):
         if user_rows.shape[0] != inner_steps:
@@ -109,7 +134,447 @@ def make_scanned_device_train_step(mc: ModelConfig, inner_steps: int,
         losses = []
         for rows in user_rows:
             state, loss = step(state, attrs_table, arrays, rows)
+            if on_step is not None:
+                on_step(state)
             losses.append(loss)
         return state, torch.stack(losses)
 
     return scanned_step
+
+
+def make_train_step(mc: ModelConfig, tc: Optional[TrainConfig] = None) -> Callable:
+    """Train step over a host-assembled batch already on the device:
+    (state, attrs_table, batch) → (state, loss). The state is updated in
+    place."""
+    tc = tc or TrainConfig()
+
+    def train_step(state: TrainState, attrs_table, batch):
+        state.model.train()
+        loss = apply_gradients(state, lambda: train_loss(
+            state.model, batch, attrs_table, generator=state.generator,
+            seed_generator=state.seed_generator, loss_kind=tc.loss))
+        return state, loss
+
+    return train_step
+
+
+def eval_metrics(model: CARCA, top_k: int, batch, attrs_table: torch.Tensor):
+    """The eval computation every eval step shares: the forward on the [B,
+    T+1] candidate block in the model's current mode, masked BCE, and the
+    HR/NDCG sums over live rows (``src/train.py:35-53``). Returns (hr,
+    ndcg, loss), 0-d device tensors."""
+    y_pred = carca_apply(model, (batch["p_x"], None, batch["p_c"]),
+                         [(batch["o_x"], None, batch["o_c"])], attrs_table=attrs_table)
+    loss = masked_bce(y_pred, batch["y_true"], get_mask(batch["o_x"]))
+    row_mask = get_mask(batch["o_x"][:, 0])  # batch-padding rows
+    hr, ndcg = hr_ndcg_sums(y_pred, batch["y_true"], top_k, row_mask)
+    return hr, ndcg, loss
+
+
+@torch.no_grad()
+def ema_update(ema: torch.nn.Module, model: torch.nn.Module, decay: float) -> None:
+    """One EMA step in place: shadow = d·shadow + (1−d)·params, parameter by
+    parameter, with d and 1 − d rounded to float32 as the JAX package's
+    ``ema_update`` has them."""
+    d = np.float32(decay)
+    shadow = list(ema.parameters())
+    torch._foreach_mul_(shadow, float(d))
+    torch._foreach_add_(shadow, torch._foreach_mul(list(model.parameters()),
+                                                   float(np.float32(1.0) - d)))
+
+
+def make_eval_step(mc: ModelConfig, top_k: int) -> Callable:
+    """(model, attrs_table, batch) → (hr_sum, ndcg_sum, loss), in eval mode."""
+
+    def eval_step(model: CARCA, attrs_table, batch):
+        model.eval()
+        with torch.inference_mode():
+            return eval_metrics(model, top_k, batch, attrs_table)
+
+    return eval_step
+
+
+def make_device_eval_step(mc: ModelConfig, top_k: int, mode: str,
+                          reject_width: int = 0) -> Callable:
+    """(model, attrs_table, catalog arrays, user_rows [B], generator) →
+    (hr_sum, ndcg_sum, loss, n_valid), the batch assembled on the device."""
+
+    def eval_step(model: CARCA, attrs_table, arrays, user_rows, generator):
+        model.eval()
+        with torch.inference_mode():
+            batch = assemble_eval(arrays, mc.seq_len, mc.target_len, mc.n_items, mode,
+                                  user_rows, generator, reject_width)
+            hr, ndcg, loss = eval_metrics(model, top_k, batch, attrs_table)
+        return hr, ndcg, loss, batch["n_valid"]
+
+    return eval_step
+
+
+def make_scanned_device_eval_step(mc: ModelConfig, top_k: int, mode: str, inner_steps: int,
+                                  reject_width: int = 0) -> Callable:
+    """``inner_steps`` eval batches per call: (model, attrs_table, arrays,
+    user_rows [K, B], generator) → per-batch (hr, ndcg, loss, n_valid)
+    tensors of length K, the generator drawn in the single steps' order."""
+    step = make_device_eval_step(mc, top_k, mode, reject_width)
+
+    def scanned_eval(model, attrs_table, arrays, user_rows, generator):
+        if user_rows.shape[0] != inner_steps:
+            raise ValueError(f"user_rows holds {user_rows.shape[0]} batches, "
+                             f"the step takes {inner_steps}")
+        outs = [step(model, attrs_table, arrays, rows, generator) for rows in user_rows]
+        return tuple(torch.stack(x) for x in zip(*outs))
+
+    return scanned_eval
+
+
+def _totals(results) -> Tuple[float, float, float]:
+    """(HR/total, NDCG/total, mean batch loss) of per-batch (hr, ndcg, loss,
+    n_valid) tensors, read from the device once."""
+    if not results:
+        return 0.0, 0.0, 0.0
+    cols = [torch.cat([r[i].reshape(-1).double() for r in results]) for i in range(4)]
+    hr, ndcg, loss, n_valid = (c.cpu().numpy() for c in cols)
+    total = int(n_valid.sum())
+    if total == 0:
+        return 0.0, 0.0, 0.0
+    return float(hr.sum()) / total, float(ndcg.sum()) / total, float(loss.sum()) / len(loss)
+
+
+def to_device(batch, device) -> Dict[str, torch.Tensor]:
+    """A host batch's numpy arrays as tensors on ``device``."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
+
+
+def evaluate(eval_step: Callable, model: CARCA, attrs_table: torch.Tensor,
+             builder: BatchBuilder, users: np.ndarray, batch_size: int,
+             rng: np.random.Generator, mode: str) -> Tuple[float, float, float]:
+    """Host-pipeline evaluator: (HR/total, NDCG/total, mean batch loss)
+    (``src/train.py:35-53``); batches are built on a prefetch thread from
+    ``rng`` and copied to ``attrs_table``'s device."""
+    def produce():
+        for rows in epoch_batches(users, batch_size, shuffle=False):
+            b = builder.eval_batch(rows, rng, mode)
+            yield b.pop("n_valid"), b
+
+    results = []
+    for n_valid, batch in prefetch(produce()):
+        hr, ndcg, loss = eval_step(model, attrs_table, to_device(batch, attrs_table.device))
+        results.append((hr, ndcg, loss, torch.tensor(int(n_valid))))
+    return _totals(results)
+
+
+def evaluate_device(eval_step: Callable, model: CARCA, attrs_table: torch.Tensor, arrays,
+                    users: np.ndarray, batch_size: int, generator: torch.Generator,
+                    scanned_step: Optional[Callable] = None,
+                    inner_steps: int = 1) -> Tuple[float, float, float]:
+    """Device-pipeline evaluator, the same protocol as ``evaluate``; with
+    ``scanned_step``, whole [inner_steps, B] blocks go through one call (the
+    generator is drawn in the same order either way)."""
+    dev = arrays["items"].device
+    batches = list(epoch_batches(users, batch_size, shuffle=False))
+    results = []
+    i = 0
+    if scanned_step is not None and inner_steps > 1:
+        while i + inner_steps <= len(batches):
+            block = torch.as_tensor(np.stack(batches[i:i + inner_steps]), dtype=torch.int64,
+                                    device=dev)
+            results.append(scanned_step(model, attrs_table, arrays, block, generator))
+            i += inner_steps
+    for rows in batches[i:]:
+        results.append(eval_step(model, attrs_table, arrays,
+                                 torch.as_tensor(rows, dtype=torch.int64, device=dev),
+                                 generator))
+    return _totals(results)
+
+
+def eval_generator(seed: int, salt: int, device) -> torch.Generator:
+    """The device pipeline's eval negatives for (run seed, epoch or test
+    salt): a generator on ``device`` seeded from both."""
+    s = int(np.random.SeedSequence([seed, salt]).generate_state(1, np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(s)
+
+
+def refuse_unported(cfg: Config) -> None:
+    """Raise NotImplementedError, naming its ROADMAP item, for what a config
+    asks of the fit loop that the port does not have yet."""
+    tc, dc = cfg.train, cfg.data
+    if tc.mesh_shape and int(np.prod(tc.mesh_shape)) > 1:
+        raise NotImplementedError(f"mesh_shape={tc.mesh_shape}: the port trains on one "
+                                  "device (ROADMAP item 14, slice 7)")
+    if dc.device_sampling:
+        raise NotImplementedError("device_sampling=true belongs to the mesh host pipeline, "
+                                  "not ported yet (ROADMAP item 14, slice 7)")
+    if tc.eval_retrieval_every > 0 or tc.select_by != "ndcg":
+        raise NotImplementedError(
+            f"eval_retrieval_every={tc.eval_retrieval_every}, select_by={tc.select_by!r}: "
+            "the full-catalog retrieval evaluator is not ported yet (ROADMAP item 8)")
+    sparse_adam.refuse_sparse(cfg)
+
+
+def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
+        log: bool = True, device: torch.device | str = "cuda"
+        ) -> Tuple[TrainState, Dict[str, float]]:
+    """Train per the reference protocol on ``device`` (the card unless the
+    caller asks for the CPU), from ``state`` or fresh weights, and return
+    the final state, holding the best (or under EMA the evaluated) weights,
+    and the final metrics ``{val_*, test_*, epochs_run}``. Writes
+    ``args.json`` and ``ckpt/`` under ``cfg.train.out_dir``, and with
+    ``log`` the CSV, ``metrics.jsonl`` and stdout lines."""
+    mc, tc, dc = cfg.model, cfg.train, cfg.data
+    device = torch.device(device)
+    refuse_unported(cfg)
+    if tc.ema_decay and not 0.0 < tc.ema_decay < 1.0:
+        raise ValueError(f"TrainConfig.ema_decay must be 0 (off) or in (0, 1), "
+                         f"got {tc.ema_decay}")
+    neg_pop = dc.neg_distribution == "popularity"
+    if neg_pop and not dc.device_pipeline:
+        raise ValueError("neg_distribution='popularity' draws from the event array on the "
+                         "device: it requires device_pipeline=true")
+    if tc.n_train_negatives > 1 and not dc.device_pipeline:
+        raise ValueError("n_train_negatives > 1 draws negatives on the device: it requires "
+                         "device_pipeline=true")
+    os.makedirs(tc.out_dir, exist_ok=True)
+    cfg.dump_args_json(os.path.join(tc.out_dir, "args.json"))
+    if tc.debug_nans:
+        torch.autograd.set_detect_anomaly(True)
+
+    dd = None
+    if dc.device_pipeline:
+        dd = DeviceDataset(catalog, mc.seq_len, mc.target_len, test=tc.test, device=device)
+        builder = dd  # the users() source
+    else:
+        builder = BatchBuilder(catalog, mc.seq_len, mc.target_len, test=tc.test)
+    train_users = builder.users("train")
+    host_root = np.random.default_rng(tc.seed)
+    # val/test subsample, fixed once per run (scripts/training.py:154-157)
+    val_users, test_users = builder.users("val"), builder.users("test")
+    if len(val_users) > dc.eval_subsample:
+        val_users = host_root.choice(val_users, dc.eval_subsample, replace=False)
+    if len(test_users) > dc.eval_subsample:
+        test_users = host_root.choice(test_users, dc.eval_subsample, replace=False)
+
+    if state is None:
+        state = create_train_state(mc, tc, device)
+    attrs_table = torch.as_tensor(catalog.attrs, dtype=torch.float32).to(device)
+
+    start_epoch = 1
+    keeper = None
+    if tc.checkpoint:
+        ckpt_dir = os.path.join(tc.out_dir, "ckpt")
+        if not tc.checkpoint_resume and os.path.isdir(ckpt_dir):
+            # a fresh run: a stale best/ would be compared against and reloaded
+            shutil.rmtree(ckpt_dir)
+        keeper = CheckpointKeeper(ckpt_dir)
+    if tc.checkpoint_resume and keeper is not None:
+        restored = keeper.restore_latest(state)
+        if restored is not None:
+            start_epoch = restored + 1
+    # the EMA shadow, seeded from the live weights after a restore; a resumed
+    # run restores the shadow saved with latest/ (at latest/'s step)
+    ema = None
+    if tc.ema_decay:
+        ema = copy.deepcopy(state.model).eval()
+        for p in ema.parameters():
+            p.requires_grad_(False)
+        if keeper is not None and start_epoch > 1:
+            keeper.restore_latest_ema(ema, state.step)
+
+    def rows_on(rows) -> torch.Tensor:
+        return torch.as_tensor(rows, dtype=torch.int64, device=device)
+
+    def ema_after(st: TrainState) -> None:
+        if ema is not None:
+            ema_update(ema, st.model, tc.ema_decay)
+
+    # device-pipeline negative rejection: the user's full history (the
+    # reference's protocol) unless histories are long enough that the
+    # all-pairs compare would dominate the step
+    rw = 0
+    logq = None
+    if dd is not None:
+        er = dc.exact_rejection
+        if er is True or (er == "auto" and dd.hist_max <= 4 * mc.seq_len):
+            rw = dd.hist_max
+        elif tc.verbose and log:
+            print(f"note: negative rejection uses the visible window only "
+                  f"(hist_max={dd.hist_max} > 4x seq_len={mc.seq_len}, exact_rejection={er!r}); "
+                  f"set exact_rejection=true for the reference's full-history protocol")
+        if tc.loss == "softmax" and neg_pop:
+            ev = dd.arrays["items"].long()
+            counts = torch.bincount(ev, minlength=mc.n_items).to(torch.float32)
+            logq = torch.log(counts.clamp_min(1.0)) - float(np.log(ev.shape[0]))
+        train_step = make_device_train_step(mc, tc, rw, neg_pop, logq=logq)
+        scanned_step = (make_scanned_device_train_step(mc, tc.inner_steps, tc, rw, neg_pop,
+                                                       logq=logq, on_step=ema_after)
+                        if tc.inner_steps > 1 else None)
+        eval_steps = {m: make_device_eval_step(mc, tc.top_k, m, rw) for m in ("val", "test")}
+        scanned_evals = {m: (make_scanned_device_eval_step(mc, tc.top_k, m, tc.inner_steps, rw)
+                             if tc.inner_steps > 1 else None) for m in ("val", "test")}
+    else:
+        train_step = make_train_step(mc, tc)
+        eval_step = make_eval_step(mc, tc.top_k)
+
+    start = datetime.now()
+    logpath = os.path.join(tc.out_dir, f"{start.year}-{start.month}-{start.day}T{start.hour}-"
+                                       f"{start.minute}-{start.second}.csv")
+    with contextlib.ExitStack() as files:
+        logfile = files.enter_context(open(logpath, "a")) if log else None
+        metrics_file = (files.enter_context(open(os.path.join(tc.out_dir, "metrics.jsonl"), "a"))
+                        if log else None)
+
+        def emit(line: str) -> None:
+            if tc.verbose and log:
+                print(line, flush=True)
+
+        best_m = keeper.best_metrics() if keeper is not None else None
+        best = best_m["ndcg"] if best_m else 0.0
+        no_improve = 0
+        best_in_memory = -1  # the epoch whose improving save still matches the live state
+        final: Dict[str, float] = {}
+        epoch = start_epoch - 1
+
+        for epoch in range(start_epoch, tc.epochs + 1):
+            ep_rng = np.random.default_rng([tc.seed, epoch])
+            t0 = time.perf_counter()
+            n_batches, n_examples = 0, 0
+            losses = []  # device tensors; read once after the epoch
+            vb = [0, 0.0]  # verbose=2: the reference's running mean per batch
+
+            def note_batches(vals, _e=epoch) -> None:
+                if tc.verbose < 2 or not log:
+                    return
+                for v in np.ravel(vals.detach().cpu().numpy()):
+                    vb[0] += 1
+                    vb[1] += float(v)
+                    print(f"Epoch {_e:03d} Batch {vb[0]:04d}: Train Loss = {vb[1] / vb[0]:.4f}")
+
+            profiler = None
+            if tc.profile and epoch == start_epoch + 1:  # the second epoch: builds are done
+                from torch.profiler import ProfilerActivity, profile
+                acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                                 if device.type == "cuda" else [])
+                profiler = profile(activities=acts)
+                profiler.__enter__()
+            if dd is not None:
+                pending = []  # [K, B] blocks for the K-step call
+                for rows in epoch_batches(train_users, tc.batch_size, ep_rng, shuffle=True):
+                    n_batches += 1
+                    n_examples += int((rows >= 0).sum())
+                    if scanned_step is None:
+                        state, loss = train_step(state, attrs_table, dd.arrays, rows_on(rows))
+                        ema_after(state)
+                        losses.append(loss.reshape(1))
+                        note_batches(loss)
+                        continue
+                    pending.append(rows)
+                    if len(pending) == tc.inner_steps:
+                        state, k_losses = scanned_step(
+                            state, attrs_table, dd.arrays, rows_on(np.stack(pending)))
+                        losses.append(k_losses)
+                        note_batches(k_losses)
+                        pending = []
+                for rows in pending:  # the remainder, one step per call
+                    state, loss = train_step(state, attrs_table, dd.arrays, rows_on(rows))
+                    ema_after(state)
+                    losses.append(loss.reshape(1))
+                    note_batches(loss)
+            else:
+                def produce():
+                    for rows in epoch_batches(train_users, tc.batch_size, ep_rng, shuffle=True):
+                        b = builder.train_batch(rows, ep_rng)
+                        yield int(b.pop("n_valid")), b
+
+                for n_valid, batch in prefetch(produce()):
+                    state, loss = train_step(state, attrs_table, to_device(batch, device))
+                    ema_after(state)
+                    losses.append(loss.reshape(1))
+                    note_batches(loss)
+                    n_batches += 1
+                    n_examples += n_valid
+            sum_loss = float(torch.cat(losses).sum()) if losses else 0.0  # the device sync
+            if profiler is not None:
+                profiler.__exit__(None, None, None)
+                os.makedirs(os.path.join(tc.out_dir, "profile"), exist_ok=True)
+                profiler.export_chrome_trace(os.path.join(tc.out_dir, "profile",
+                                                          f"epoch{epoch:03d}.trace.json"))
+            dt = time.perf_counter() - t0
+
+            now = datetime.now().strftime("%H:%M:%S")
+            train_loss_ = sum_loss / max(n_batches, 1)
+            emit(f"{now} - Epoch {epoch:03d}: Train Loss = {train_loss_:.4f} "
+                 f"({n_examples / max(dt, 1e-9):.0f} ex/s)")
+            if logfile:
+                logfile.write(f"{now};{epoch};train;{train_loss_};;\n")
+
+            t1 = time.perf_counter()
+            # under EMA every evaluation, retention and the test run on the shadow
+            emodel = state.model if ema is None else ema
+            if dd is not None:
+                hr, ndcg, val_loss = evaluate_device(
+                    eval_steps["val"], emodel, attrs_table, dd.arrays, val_users, tc.batch_size,
+                    eval_generator(tc.seed, epoch, device), scanned_step=scanned_evals["val"],
+                    inner_steps=tc.inner_steps)
+            else:
+                hr, ndcg, val_loss = evaluate(eval_step, emodel, attrs_table, builder, val_users,
+                                              tc.batch_size, ep_rng, "val")
+            dt_eval = time.perf_counter() - t1
+
+            now = datetime.now().strftime("%H:%M:%S")
+            emit(f"{now} - Epoch {epoch:03d}: Val Loss = {val_loss:.4f} "
+                 f"HR = {hr:.4f}, NDCG = {ndcg:.4f}")
+            if logfile:
+                logfile.write(f"{now};{epoch};val;{val_loss};{hr};{ndcg}\n")
+                logfile.flush()
+            if metrics_file:
+                metrics_file.write(json.dumps({
+                    "epoch": epoch, "train_loss": train_loss_, "val_loss": val_loss,
+                    "val_hr": hr, "val_ndcg": ndcg,
+                    "examples_per_sec": n_examples / max(dt, 1e-9),
+                    "candidates_per_sec": len(val_users) * (mc.target_len + 1) / max(dt_eval, 1e-9),
+                    "epoch_seconds": dt}) + "\n")
+                metrics_file.flush()
+            final = {"val_hr": hr, "val_ndcg": ndcg, "val_loss": val_loss, "epochs_run": epoch}
+
+            if ndcg > best:
+                best, no_improve = ndcg, 0
+                best_in_memory = epoch
+                if keeper is not None:
+                    m = {"ndcg": ndcg, "hr": hr, "epoch": epoch}
+                    if ema is not None:
+                        m["ema_decay"] = tc.ema_decay
+                    keeper.save(epoch, emodel, m)  # best/ holds the evaluated weights
+            else:
+                no_improve += 1
+            # the resume point, on its cadence and at a run's first epoch
+            if keeper is not None and (epoch % max(tc.checkpoint_interval, 1) == 0
+                                       or epoch == start_epoch):
+                keeper.save_latest(epoch, state, ema=ema)
+            if no_improve >= tc.early_stop:
+                emit(f"No improvement in {no_improve} epochs, early stopping...")
+                break
+
+        # the best weights for the test split (src/train.py:141-149); when the
+        # last epoch improved, the live state already holds them
+        if keeper is not None and best_in_memory != epoch:
+            if keeper.restore_best(state.model) is None and ema is not None:
+                state.model.load_state_dict(ema.state_dict())
+        elif ema is not None:
+            state.model.load_state_dict(ema.state_dict())
+        if len(test_users) and tc.test:
+            if dd is not None:
+                hr, ndcg, test_loss = evaluate_device(
+                    eval_steps["test"], state.model, attrs_table, dd.arrays, test_users,
+                    tc.batch_size, eval_generator(tc.seed, TEST_SALT, device),
+                    scanned_step=scanned_evals["test"], inner_steps=tc.inner_steps)
+            else:
+                hr, ndcg, test_loss = evaluate(eval_step, state.model, attrs_table, builder,
+                                               test_users, tc.batch_size,
+                                               np.random.default_rng([tc.seed, TEST_SALT]), "test")
+            now = datetime.now().strftime("%H:%M:%S")
+            emit(f"{now} - Epoch {epoch:03d}: Test Loss = {test_loss:.4f} "
+                 f"HR = {hr:.4f}, NDCG = {ndcg:.4f}")
+            if logfile:
+                logfile.write(f"{now};{epoch};test;{test_loss};{hr};{ndcg}\n")
+            final.update({"test_hr": hr, "test_ndcg": ndcg, "test_loss": test_loss})
+
+    return state, final

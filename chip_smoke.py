@@ -42,6 +42,11 @@ raises and exits non-zero:
              tournament_rerank_plain; the tournament (K4 + rerank, flat and
              recursive) bit-equal to the stream, ids and values, up to 1M
              rows at B = 256, k = 562.
+4w. d=256  — rows wider than 128 columns (128-column chunks): K3 at
+             f32/bf16/int8, K4 in both layouts and the rerank at [256,256] x
+             100,000 rows, k = 562, within the tolerance of their plain
+             versions, K4's maxima bit-equal to the rerank's, the tournament
+             bit-equal to the stream; each timed beside its plain version.
 5. slice   — the beauty preset at full width (d=64, g=256, 2 blocks, 2
              heads, L=50, ca decoder) with random weights from seed 0,
              serving synthetic_catalog(4096 users, 99,999 items): JSON-lines
@@ -89,6 +94,26 @@ raises and exits non-zero:
              losses stay finite and the mean of the last 8 falls below the
              mean of the first 8; then train_examples_per_sec_flagship with
              the kernels and with the plain path, and peak device memory.
+9. fit     — the port's entry points end to end: synthetic_catalog(4096
+             users, 2,000 items, seed 0) written in the reference's file
+             formats, then `python -m carca_tpu_torch.cli --preset beauty`
+             over those files (epochs 100, early stop 20) as subprocesses:
+             the device pipeline at seeds 0 and 1 and the host pipeline at
+             seed 0. Each must reach test HR@10 >= 0.695 and NDCG@10 >=
+             0.540, launch K1 and K2, and leave args.json, the CSV,
+             metrics.jsonl, ckpt/best and ckpt/latest. Then `python -m
+             carca_tpu_torch.serve.service --run_dir` over the seed-0 run
+             answers JSON-lines requests on stdin (one malformed) and runs
+             --bench; its answers must equal an in-process Recommender from
+             load_recommender(run, which="best"), whose K1 and K3 launches
+             are counted, and the CPU plain path's load_recommender (ids
+             equal except near-ties, scores within 1e-4). At the shapes this
+             path gives them: K3 f32 over the run's 1,998-row seen index, k =
+             562, against its plain version at each bucket; one val batch of
+             the best checkpoint through make_eval_step with the kernels
+             (K1 at the eval's [256,101] x [256,50] cross-attention) and
+             with the plain path on the card: HR and NDCG sums equal, loss
+             within 1e-5.
 
 Tolerance of the retrieval kernels against their plain versions: K3, K4
 and the rerank score on the tensor cores (csrc/scoring.cuh), the plain
@@ -99,8 +124,10 @@ equal except near-ties within that bound
 are bit-equal.
 
 The main paths are the 100k slice (phase 5), the 10M slice (5c), the
-retrieval bench (5d) and the train step (8): each runs with every launch
-counter set to 0 just before it and read just after. The line before the
+retrieval bench (5d), the train step (8) and the fit and serve entry points
+(9): each runs with every launch counter set to 0 just before it and read
+just after (the fits run as subprocesses, which start at 0 and print their
+counts at the end). The line before the
 last is a JSON object listing the kernels, each with its launches on the
 path that runs it, its error against its plain version, its time, the plain
 version's, its bound (bytes over 3.35 TB/s against operations over the
@@ -112,11 +139,17 @@ the last line is {"ok": true, "device": {...}}.
 """
 
 import argparse
+import ast
 import copy
+import dataclasses
+import glob
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -125,8 +158,10 @@ import torch.nn.functional as F
 
 from carca_tpu_torch import bench, bench_retrieval
 from carca_tpu_torch.config import preset
+from carca_tpu_torch.data.dataset import BatchBuilder
 from carca_tpu_torch.data.device_pipeline import assemble_train
-from carca_tpu_torch.data.synthetic import synthetic_catalog
+from carca_tpu_torch.data.loaders import load_dataset
+from carca_tpu_torch.data.synthetic import synthetic_catalog, write_reference_format
 from carca_tpu_torch.models.attention import NEG_MASK, masked_attention, pair_mask
 from carca_tpu_torch.models.carca import CARCA, encode_profile
 from carca_tpu_torch.ops import _build
@@ -141,9 +176,11 @@ from carca_tpu_torch.ops.retrieval_topk import (GROUP, SCORE_ORDER_TOL, Quantize
                                                 groupmax_plain, quantize_index, stream_plan,
                                                 tournament_rerank, tournament_rerank_plain)
 from carca_tpu_torch.parallel.retrieval import query_from_encoded
-from carca_tpu_torch.serve.recommender import Recommender
+from carca_tpu_torch.serve.recommender import (Recommender, config_from_run_dir,
+                                               load_recommender)
 from carca_tpu_torch.serve.service import HostCSR, history, run_bench, serve_lines
-from carca_tpu_torch.train.loop import train_loss
+from carca_tpu_torch.train.checkpoint import CheckpointKeeper
+from carca_tpu_torch.train.loop import make_eval_step, to_device, train_loss
 
 SEED = 0
 N_USERS, N_REAL_ITEMS = 4096, 99_999
@@ -194,6 +231,19 @@ TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, GRAD_NORM_FLOOR = 1e-5, 1e-3, 1e-3
 # 1e-4 holds there (measured 2.4e-7)
 TRAIN_GRAD_TOL_SAME_DEVICE = 1e-4
 TRAIN_CALLS = 8  # 8 calls x K=8 = the first 64 steps
+D_WIDE, R_WIDE = 256, 100_000  # phase 4w: rows of 256 columns (two 128-column chunks)
+# phase 9: results/convergence_flagship.json's dataset and protocol; the
+# floors lie ~2.5 sigma (sigma ~0.007 at 4,096 test users) below the
+# reference's test HR@10 / NDCG@10 of 0.7144 / 0.5563
+FIT_USERS, FIT_ITEMS = 4096, 2000
+FIT_TARGETS = 100  # the beauty preset's eval negatives (target_len)
+FIT_EPOCHS, FIT_EARLY_STOP = 100, 20
+FIT_HR_FLOOR, FIT_NDCG_FLOOR = 0.695, 0.540
+FIT_RUNS = (("run_s0", 0, True), ("run_s1", 1, True), ("run_host", 0, False))
+FIT_TIMEOUT_S = 600
+SERVE_SCORE_TOL = 1e-5  # the service against the in-process Recommender
+SERVE_BENCH_ITERS = 30
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def check(cond: bool, what: str) -> None:
@@ -340,6 +390,8 @@ K1_CASES = [  # (name, Lq, Lk, causal, compute dtype)
     ("train-time decoder [256,50,64] causal -1", L, L, -1, "float32"),
     ("encoder [256,50,64] causal 0 bf16", L, L, 0, "bfloat16"),
     ("men [256,200,64] causal 0", L_MEN, L_MEN, 0, "float32"),
+    # the fit's eval decoder: T + 1 = 101 candidates against the profile
+    ("eval q [256,101,64] kv [256,50,64]", FIT_TARGETS + 1, L, None, "float32"),
 ]
 
 
@@ -680,6 +732,71 @@ def phase_k4() -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 4w: rows wider than 128 columns
+# --------------------------------------------------------------------------
+
+def phase_k_wide(card) -> None:
+    """K3 at f32/bf16/int8, K4 in both layouts and the rerank over rows of
+    D_WIDE columns (128-column chunks) against their plain versions, K4's
+    maxima bit-equal to the rerank's, the tournament bit-equal to the
+    stream; each timed beside its plain version and its bound."""
+    gen = torch.Generator().manual_seed(23)
+    q = torch.randn(B, D_WIDE, generator=gen).to(DEVICE)
+    e = torch.randn(R_WIDE, D_WIDE, generator=gen).to(DEVICE)
+    e[1000:1400] = e[7]  # exact ties
+    errs, times = {}, {}
+    n_g = 64  # the rerank over the first 64 groups
+    gi = torch.arange(n_g, device=DEVICE).expand(B, n_g).contiguous()
+    with torch.no_grad():
+        for kind in INDEX_KINDS:
+            idx = as_index(e, kind)
+            rows, scales = (idx.qvals, idx.scales) if kind == "int8" else (idx, None)
+            errs["K3", kind] = k3_case(f"{kind} d={D_WIDE} {R_WIDE} rows k={KK}", q, idx, KK)[0]
+            times["K3", kind] = kernel_vs_plain(lambda: catalog_topk(q, idx, KK, method="stream"),
+                                                lambda: catalog_topk_plain(q, idx, KK),
+                                                reps=10, plain_reps=2)
+            for layout in (0, 1):
+                got, errs[f"K4 layout {layout}", kind] = check_groupmax(
+                    f"{kind} d={D_WIDE} layout {layout}", q, rows, scales, R_WIDE, True, layout)
+                times[f"K4 layout {layout}", kind] = kernel_vs_plain(
+                    lambda: groupmax(q, rows, scales, R_WIDE, True, layout),
+                    lambda: groupmax_plain(q, rows, scales, R_WIDE, True, layout),
+                    reps=10, plain_reps=2)
+            errs["rerank", kind] = check_rerank(f"{kind} d={D_WIDE}", q, rows, scales, gi, R_WIDE,
+                                                True, got[:, :n_g])
+            times["rerank", kind] = kernel_vs_plain(
+                lambda: tournament_rerank(q, rows, scales, gi, R_WIDE, True),
+                lambda: tournament_rerank_plain(q, rows, scales, gi, R_WIDE, True),
+                reps=10, plain_reps=2)
+            tv, ti = catalog_topk(q, idx, KK, method="tournament")
+            sv, si = catalog_topk(q, idx, KK, method="stream")
+            torch.cuda.synchronize()
+            check(torch.equal(ti, si) and torch.equal(tv, sv),
+                  f"tournament {kind} d={D_WIDE}: differs from the stream")
+            # bounds: the index's rows (and int8 scales) read once, the
+            # queries, the outputs written; the rerank reads its n_g groups'
+            # rows once (every query reranks the same groups)
+            row_bytes = D_WIDE * rows.element_size() + (4 if kind == "int8" else 0)
+            operand = "3xtf32" if kind == "f32" else "bfloat16"
+            q_bytes, n_rr = B * D_WIDE * 4, n_g * GROUP
+            work = {"K3": (R_WIDE * row_bytes + q_bytes + B * KK * 12, 2 * B * R_WIDE * D_WIDE),
+                    "rerank": (n_rr * row_bytes + q_bytes + B * n_g * 8 + B * n_rr * 4,
+                               2 * B * n_rr * D_WIDE)}
+            for layout in (0, 1):
+                work[f"K4 layout {layout}"] = (R_WIDE * row_bytes + q_bytes
+                                               + -(-R_WIDE // GROUP) * B * 4,
+                                               2 * B * R_WIDE * D_WIDE)
+            log("K4w", card=card, case=f"{kind} [{B},{D_WIDE}] x {R_WIDE} rows k={KK}",
+                tournament_equals_stream=True, rerank_group_maxima_bit_equal=True,
+                rerank_groups=n_g,
+                kernels={name: dict(zip(("ms", "plain_ms"), times[name, kind]),
+                                    max_abs_err=errs[name, kind],
+                                    **dict(zip(("bound_ms", "bound_by"),
+                                               bound(*work[name], operand))))
+                         for name in work})
+
+
+# --------------------------------------------------------------------------
 # phase 5: the serving slice
 # --------------------------------------------------------------------------
 
@@ -721,14 +838,13 @@ def check_response(resp, want_k, in_index, hist):
     check(not set(items) & set(hist[-L:]), "a visible-history item was recommended")
 
 
-def compare(tag, ids_g, sc_g, ids_c, sc_c) -> int:
+def compare(tag, ids_g, sc_g, ids_c, sc_c, score_tol=SLICE_SCORE_TOL) -> int:
     """GPU vs CPU plain results: ids equal, except near-ties whose two
-    scores lie within SLICE_TIE_TOL; scores within SLICE_SCORE_TOL."""
+    scores lie within SLICE_TIE_TOL; scores within ``score_tol``."""
     ids_g, ids_c = np.asarray(ids_g), np.asarray(ids_c)
     sc_g, sc_c = np.asarray(sc_g, np.float64), np.asarray(sc_c, np.float64)
     check(ids_g.shape == ids_c.shape, f"{tag}: shapes {ids_g.shape} vs {ids_c.shape}")
-    np.testing.assert_allclose(sc_g, sc_c, rtol=SLICE_SCORE_TOL, atol=SLICE_SCORE_TOL,
-                               err_msg=tag)
+    np.testing.assert_allclose(sc_g, sc_c, rtol=score_tol, atol=score_tol, err_msg=tag)
     diff = ids_g != ids_c
     if diff.any():
         gap = np.abs(sc_g[diff] - sc_c[diff]).max()
@@ -741,7 +857,7 @@ def phase_slice():
     t0 = time.perf_counter()
     cat = synthetic_catalog(n_users=N_USERS, n_real_items=N_REAL_ITEMS, seed=SEED)
     host = HostCSR(cat)
-    cfg = preset("beauty", n_items=cat.n_items, n_attrs=cat.n_attrs, n_ctx=cat.n_ctx)
+    cfg = preset("beauty", n_items=cat.n_items, n_attrs=cat.n_attrs, n_ctx=cat.n_ctx).model
     model = CARCA(cfg, generator=torch.Generator().manual_seed(SEED), device=DEVICE)
     seen_ids = np.unique(cat.items)
     rec = Recommender(model, cat.attrs, shortlist=SHORTLIST, batch_buckets=BUCKETS,
@@ -833,7 +949,7 @@ def phase_slice_10m():
     t0 = time.perf_counter()
     cat = synthetic_catalog(n_users=N_USERS, n_real_items=N_REAL_ITEMS_10M, seed=SEED)
     host = HostCSR(cat)
-    cfg = preset("beauty", n_items=cat.n_items, n_attrs=cat.n_attrs, n_ctx=cat.n_ctx)
+    cfg = preset("beauty", n_items=cat.n_items, n_attrs=cat.n_attrs, n_ctx=cat.n_ctx).model
     model = CARCA(cfg, generator=torch.Generator().manual_seed(SEED), device=DEVICE)
     torch.cuda.reset_peak_memory_stats()
     rec = Recommender(model, cat.attrs, shortlist=SHORTLIST, batch_buckets=BUCKETS,
@@ -1159,6 +1275,195 @@ def phase_train(card, profile_run=False):
 
 
 # --------------------------------------------------------------------------
+# phase 9: fit and serve through the entry points
+# --------------------------------------------------------------------------
+
+def run_module(module, args, timeout, stdin_text=None):
+    """``python -m module args`` from the repository root; its stdout.
+    Fails on a non-zero exit."""
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT, input=stdin_text,
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
+    check(proc.returncode == 0, f"python -m {module} {' '.join(args[:6])} ... exited "
+                                f"{proc.returncode}")
+    return proc.stdout
+
+
+def fit_run(card, data_dir, out_dir, seed, device_pipeline) -> dict:
+    """One `python -m carca_tpu_torch.cli` run of the beauty preset over the
+    reference files in data_dir; its checks and numbers."""
+    t0 = time.perf_counter()
+    out = run_module("carca_tpu_torch.cli", [
+        "--preset", "beauty", "--data_dir", data_dir, "--profile_file", "profiles.txt",
+        "--attr_file", "attrs.pkl", "--ctx_file", "ctx.pkl",
+        "--device_pipeline", str(device_pipeline).lower(), "--epochs", str(FIT_EPOCHS),
+        "--early_stop", str(FIT_EARLY_STOP), "--resume", "false", "--out_dir", out_dir,
+        "--seed", str(seed)], FIT_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    lines = out.splitlines()
+    final = ast.literal_eval(next(ln for ln in lines if ln.startswith("final: "))[7:])
+    launches = json.loads(next(ln for ln in lines if ln.startswith("launches: "))[10:])
+    with open(os.path.join(out_dir, "metrics.jsonl")) as fh:
+        rows = [json.loads(ln) for ln in fh]
+    for name in ("args.json", "metrics.jsonl", "ckpt/best/params.pt", "ckpt/best/metrics.json",
+                 "ckpt/latest/state.pt"):
+        check(os.path.exists(os.path.join(out_dir, name)), f"{out_dir}: no {name}")
+    check(len(glob.glob(os.path.join(out_dir, "*.csv"))) == 1, f"{out_dir}: no CSV log")
+    check(launches["attention_fwd"] > 0 and launches["attention_bwd"] > 0,
+          f"{out_dir}: the fit did not run K1 and K2 ({launches})")
+    summary = {"seed": seed, "device_pipeline": device_pipeline,
+               "epochs_run": final["epochs_run"], "best_epoch": max(rows, key=lambda r: r[
+                   "val_ndcg"])["epoch"],
+               "test_hr10": final["test_hr"], "test_ndcg10": final["test_ndcg"],
+               "val_hr10": final["val_hr"], "val_ndcg10": final["val_ndcg"],
+               "median_examples_per_sec": statistics.median(r["examples_per_sec"] for r in rows),
+               "median_epoch_seconds": statistics.median(r["epoch_seconds"] for r in rows),
+               "median_val_candidates_per_sec": statistics.median(r["candidates_per_sec"]
+                                                                  for r in rows),
+               "wall_s": wall, "launches": launches}
+    log("fit", card=card, run=os.path.basename(out_dir), **summary)
+    check(final["test_hr"] >= FIT_HR_FLOOR and final["test_ndcg"] >= FIT_NDCG_FLOOR,
+          f"{out_dir}: test HR@10 {final['test_hr']} / NDCG@10 {final['test_ndcg']} below "
+          f"{FIT_HR_FLOOR} / {FIT_NDCG_FLOOR}")
+    return summary
+
+
+def serve_requests(host):
+    """~20 request lines: catalog users, explicit histories (with and
+    without their contexts), a request context, a k override, id echoes, a
+    user out of range and a malformed line."""
+    rng = np.random.default_rng(SEED + 9)
+    lines = [json.dumps({"user": int(u), "id": f"user {u}"})
+             for u in rng.integers(0, host.n_users, size=8)]
+    for u in rng.integers(0, host.n_users, size=4):
+        hist, ctx = history(host, int(u))
+        lines.append(json.dumps({"history": hist, "id": f"history {u}"}))
+        lines.append(json.dumps({"history": hist, "ctx": ctx.tolist(), "k": 5}))
+    lines += [json.dumps({"user": 11, "k": 25, "id": "k-override"}),
+              json.dumps({"history": [3, 1, 2], "request_ctx": rng.standard_normal(
+                  host.ctx_vals.shape[1]).tolist(), "id": "request_ctx"}),
+              json.dumps({"user": host.n_users, "id": "out of range"}),
+              "{not json"]
+    return lines
+
+
+def serve_vs_cpu_plain(run_dir, cat, host, lines, served) -> None:
+    """The service's answers against the CPU plain path's (K1 and K3 off):
+    load_recommender on the CPU, the same requests."""
+    rec_cpu = load_recommender(run_dir, cat.attrs, which="best", device="cpu",
+                               index_ids=np.unique(host.items))
+    near_ties = 0
+    for got, want in zip(served, serve_lines(rec_cpu, host, lines, k=K)):
+        check(("error" in got) == ("error" in want), f"CPU plain path: {got} vs {want}")
+        if "error" not in want:
+            near_ties += compare(f"service {got.get('id')} vs the CPU plain path", got["items"],
+                                 got["scores"], want["items"], want["scores"])
+    log("fit_serve", cpu_plain_agreement="ok", near_tie_slots=near_ties,
+        score_tol=SLICE_SCORE_TOL)
+
+
+def eval_kernel_vs_plain(run_dir, cat) -> None:
+    """One val batch of the run's best checkpoint through make_eval_step,
+    with the kernels and with the plain path on the card: HR and NDCG sums
+    equal, loss within TRAIN_LOSS_TOL; K1 launched at the eval decoder's
+    shape by the first only."""
+    cfg = config_from_run_dir(run_dir)
+    mc = cfg.model
+    check(mc.use_kernel is not False, f"{run_dir} trained without the kernels")
+    builder = BatchBuilder(cat, mc.seq_len, mc.target_len, test=cfg.train.test)
+    batch = builder.eval_batch(builder.users("val")[:B], np.random.default_rng(SEED), "val")
+    n_valid = int(batch.pop("n_valid"))
+    batch = to_device(batch, DEVICE)
+    attrs = torch.as_tensor(cat.attrs, dtype=torch.float32, device=DEVICE)
+    step = make_eval_step(mc, cfg.train.top_k)
+    eval_key = (mc.target_len + 1, mc.seq_len, None)
+    out = {}
+    for use_kernel in (mc.use_kernel, False):
+        model = CARCA(dataclasses.replace(mc, use_kernel=use_kernel), device=DEVICE)
+        CheckpointKeeper(os.path.join(run_dir, "ckpt")).restore_best(model)
+        before = fused_attention.launches_by_shape.get(eval_key, 0), fused_attention.launches
+        out[use_kernel] = [float(x) for x in step(model, attrs, batch)]
+        after = fused_attention.launches_by_shape.get(eval_key, 0), fused_attention.launches
+        if use_kernel is False:
+            check(after == before, f"the plain eval launched K1: {before} -> {after}")
+        else:
+            check(after[0] > before[0], f"the eval did not launch K1 at {eval_key}")
+    (hr, ndcg, loss), (hr_p, ndcg_p, loss_p) = out[mc.use_kernel], out[False]
+    loss_err = abs(loss - loss_p) / abs(loss_p)
+    log("fit_serve", eval_batch=n_valid, hr_sum=hr, ndcg_sum=ndcg, loss=loss,
+        plain_hr_sum=hr_p, plain_ndcg_sum=ndcg_p, plain_loss=loss_p, loss_rel_err=loss_err,
+        tol=TRAIN_LOSS_TOL)
+    check(hr == hr_p and ndcg == ndcg_p, f"eval with the kernels HR/NDCG {hr}/{ndcg}, plain "
+                                         f"{hr_p}/{ndcg_p}")
+    check(loss_err <= TRAIN_LOSS_TOL, f"eval loss {loss} vs plain {loss_p}")
+
+
+def phase_fit_serve(card):
+    """Phase 9. Returns the runs' summaries, the in-process serving check's
+    launches and K3's worst error at the serving shapes."""
+    tmp = tempfile.mkdtemp(prefix="carca_fit_")
+    try:
+        data_dir = os.path.join(tmp, "data")
+        cat = synthetic_catalog(n_users=FIT_USERS, n_real_items=FIT_ITEMS, seed=SEED)
+        write_reference_format(cat, data_dir)
+        runs = {name: fit_run(card, data_dir, os.path.join(tmp, name), seed, dp)
+                for name, seed, dp in FIT_RUNS}
+        run_s0 = os.path.join(tmp, "run_s0")
+        files = ["--data_dir", data_dir, "--profile_file", "profiles.txt", "--attr_file",
+                 "attrs.pkl", "--ctx_file", "ctx.pkl"]
+        cat = load_dataset(data_dir, "profiles.txt", "attrs.pkl", "ctx.pkl")
+        host = HostCSR(cat)
+        lines = serve_requests(host)
+        t0 = time.perf_counter()
+        out = run_module("carca_tpu_torch.serve.service",
+                         ["--run_dir", run_s0, *files, "--k", str(K)], 300,
+                         stdin_text="\n".join(lines) + "\n")
+        served = [json.loads(ln) for ln in out.splitlines() if ln.strip()]
+        serve_s = time.perf_counter() - t0
+        bench = [json.loads(ln) for ln in run_module(
+            "carca_tpu_torch.serve.service",
+            ["--run_dir", run_s0, *files, "--k", str(K), "--bench", "--iters",
+             str(SERVE_BENCH_ITERS)], 300).splitlines() if ln.startswith("{")]
+        for row in bench:
+            log("fit_serve", card=card, bench=row)
+        check([row["batch"] for row in bench] == list(BUCKETS), f"bench rows {bench}")
+
+        reset_counts()
+        rec = load_recommender(run_s0, cat.attrs, which="best", index_ids=np.unique(host.items))
+        mine = list(serve_lines(rec, host, lines, k=K))
+        torch.cuda.synchronize()
+        launches = counts()
+        check(launches["attention_fwd"] > 0 and launches["catalog_topk_f32"] > 0,
+              f"the in-process Recommender did not run K1 and K3: {launches}")
+        check(len(served) == len(lines), f"{len(served)} responses to {len(lines)} requests")
+        near_ties = 0
+        for line, got, want in zip(lines, served, mine):
+            check(got.get("id") == want.get("id"), f"response ids differ: {got} vs {want}")
+            if "error" in want:
+                check("error" in got, f"the service answered {line!r}: {got}")
+                continue
+            check("error" not in got and len(got["items"]) > 0, f"{line!r}: {got}")
+            near_ties += compare(f"service {got.get('id')}", got["items"], got["scores"],
+                                 want["items"], want["scores"], score_tol=SERVE_SCORE_TOL)
+        errors = sum("error" in r for r in served)
+        check(errors == 2, f"{errors} error answers; want the out-of-range user and the "
+                           "malformed line")
+        log("fit_serve", card=card, requests=len(lines), errors=errors, near_tie_slots=near_ties,
+            serve_wall_s=serve_s, equal_to_in_process=True, launches=launches,
+            example=served[0])
+        serve_vs_cpu_plain(run_s0, cat, host, lines, served)
+        k3_err = max(k3_case(f"f32 fit run's seen index ({rec.catalog_emb.shape[0]:,} rows) "
+                             f"bucket {bb} k={KK}", stage1_queries(rec, *reqs), rec.catalog_emb,
+                             KK, n_items=rec.catalog_emb.shape[0])[0]
+                     for bb, reqs in bucket_requests(host, SEED + 10).items())
+        eval_kernel_vs_plain(run_s0, cat)
+        return runs, launches, k3_err
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --------------------------------------------------------------------------
 # phase 7 (--profile): where the time of a recommend call goes
 # --------------------------------------------------------------------------
 
@@ -1414,6 +1719,8 @@ def main() -> None:
     k2_err, k2_times = timed("3b K2", phase_k2, card)
     k3_err = timed("4 K3", phase_k3)
     k4_err = timed("4c K4", phase_k4)
+    timed("4w d=256", phase_k_wide, card)
+    torch.cuda.empty_cache()
     rec, rec_full, host, serve_launches = timed("5 slice 100k", phase_slice)
     timings = timed("6 timing 100k", phase_timing, card, rec, rec_full, host)
     if profile_run:
@@ -1437,8 +1744,11 @@ def main() -> None:
     if profile_run:
         timed("7 profile attention", profile_attention, card)
     train_launches, _ = timed("8 train", phase_train, card, profile_run)
+    torch.cuda.empty_cache()
+    _, fit_launches, k3_fit_err = timed("9 fit + serve", phase_fit_serve, card)
+    k3_err["f32"] = max(k3_err["f32"], k3_fit_err)
     launches = {"slice": serve_launches, "slice_10m": launches_10m, "bench": bench_launches,
-                "train": train_launches}
+                "train": train_launches, "fit_serve": fit_launches}
     log("launches", **launches)
     log("phase_seconds", total=sum(seconds.values()), **seconds)
     print(json.dumps({"kernels": kernel_entries(k1_err, k2_err, k3_err, k4_err, timings,

@@ -488,3 +488,48 @@ def test_topk_kernel_raises_on_what_it_lacks(dev):
             catalog_topk(q, e.cpu(), 5, method=method)
         with pytest.raises(TypeError, match="float32 queries"):
             catalog_topk(q.double(), e, 5, method=method)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("d", [130, 256, 300])
+def test_retrieval_kernels_score_rows_wider_than_128(dev, monkeypatch, kind, d):
+    """Rows of more than 128 columns run in 128-column chunks: K3 and K4 in
+    both layouts within the summation-order tolerance of their plain
+    versions, K4's maxima bit-equal to the rerank's group maxima, and the
+    tournament (flat and recursive) bit-equal to the stream."""
+    import carca_tpu_torch.ops.retrieval_topk as rt
+
+    b, r, k, lim0 = 40, 3_000, 50, 2_900
+    g = torch.Generator(device="cpu").manual_seed(d)
+    q = torch.randn(b, d, generator=g)
+    e = torch.randn(r, d, generator=g)
+    e[120:140] = e[3]  # exact ties across a group boundary
+    q[1] = 0.0
+    q, e = q.to(dev), e.to(dev)
+    index = as_index(e, kind)
+    rows, scales = rows_of(index)
+    before = (catalog_topk.launches[kind], dict(groupmax.launches), tournament_rerank.launches)
+    v, i = catalog_topk(q, index, k, method="stream", n_items=lim0)
+    pv, pi = catalog_topk_plain(q, index, k, n_items=lim0)
+    torch.cuda.synchronize()
+    compare_within_order_tol(v, i, pv, pi, q, index)
+    n_g = -(-r // GROUP)
+    gi = torch.arange(n_g, device=dev).expand(b, n_g).contiguous()
+    s = tournament_rerank(q, rows, scales, gi, lim0, True)
+    for layout in (0, 1):
+        got = groupmax(q, rows, scales, lim0, True, layout)
+        want = groupmax_plain(q, rows, scales, lim0, True, layout)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(want)
+        assert torch.equal(torch.isfinite(got), fin)
+        bound = SCORE_ORDER_TOL * group_magnitudes(q, rows, scales, layout)
+        assert bool(((got - want).abs()[fin] <= bound[fin]).all())
+        assert torch.equal(s.view(b, n_g, GROUP).amax(dim=2),
+                           got.t() if layout == 0 else got[:, :n_g])
+    for recursive in (False, True):
+        monkeypatch.setattr(rt, "_RECURSIVE_MIN_GROUPS", 1 if recursive else 1 << 62)
+        tv, ti = catalog_topk(q, index, k, method="tournament", n_items=lim0)
+        assert torch.equal(ti, i) and torch.equal(tv, v)
+    assert catalog_topk.launches[kind] == before[0] + 1
+    assert groupmax.launches[0] == before[1][0] + 2 and groupmax.launches[1] == before[1][1] + 2
+    assert tournament_rerank.launches == before[2] + 3

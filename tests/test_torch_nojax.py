@@ -14,7 +14,7 @@ FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "flax", "carca_tpu")
 
 
 def test_serving_and_ops_import_without_jax():
-    """The serving, training and ops modules import without jax."""
+    """The serving, training, entry-point and ops modules import without jax."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     probe = subprocess.run([sys.executable, "-c", "import sys; print('jax' in sys.modules)"],
                            capture_output=True, text=True, env=env, cwd=ROOT, timeout=120)
@@ -28,6 +28,10 @@ def test_serving_and_ops_import_without_jax():
         "import carca_tpu_torch.data.device_pipeline, carca_tpu_torch.data.dataset\n"
         "import carca_tpu_torch.parallel.sampling, carca_tpu_torch.models.losses\n"
         "import carca_tpu_torch.bench, carca_tpu_torch.bench_retrieval\n"
+        "import carca_tpu_torch.cli, carca_tpu_torch.train.checkpoint\n"
+        "import carca_tpu_torch.train.metrics, carca_tpu_torch.train.sparse_adam\n"
+        "import carca_tpu_torch.data.loaders, carca_tpu_torch.data.sampler\n"
+        "import carca_tpu_torch.data.prefetch, carca_tpu_torch.data.synthetic\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
     )

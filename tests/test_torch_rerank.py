@@ -109,8 +109,8 @@ def test_rerank_on_cpu_is_the_plain_version_and_equals_ordered_scores():
 
 
 @pytest.mark.parametrize("case", ["ids int32", "ids on another shape", "ids not contiguous",
-                                  "queries float64", "index not contiguous", "rows too wide",
-                                  "int8 without scales"])
+                                  "queries float64", "index not contiguous",
+                                  "query and index widths differ", "int8 without scales"])
 def test_rerank_wrapper_raises_on_what_it_does_not_take(case):
     """The checks the wrapper makes before launching the kernel (run here on
     CPU tensors, as on the card)."""
@@ -128,14 +128,28 @@ def test_rerank_wrapper_raises_on_what_it_does_not_take(case):
         q = q.double()
     elif case == "index not contiguous":
         e = torch.zeros(8, 300).t()
-    elif case == "rows too wide":
-        q, e = torch.zeros(3, 200), torch.zeros(300, 200)
+    elif case == "query and index widths differ":
+        q = torch.zeros(3, 200)
     else:
         e = e.to(torch.int8)
     with pytest.raises((TypeError, ValueError)):
         if case == "int8 without scales":
             rt._unpack(e)
         rt._rerank_operands(q, e, scales, gi)
+
+
+@pytest.mark.parametrize("d", [130, 256, 300])
+def test_rerank_wrapper_takes_rows_wider_than_128(d):
+    """Rows of any width pass the checks (the kernels walk 128-column
+    chunks); the wrapper's plain version scores them in index order."""
+    q, e = (torch.from_numpy(a) for a in data(d, 3, 400, d))
+    gi = torch.tensor([[0, 2], [1, 3], [0, 1]])
+    rt._rerank_operands(q, e, None, gi)
+    got = tournament_rerank(q, e, None, gi, 400, True)
+    want = torch.cat([ordered_scores(q, e), q.new_full((3, 112), float("-inf"))], dim=1)
+    want[:, 0] = float("-inf")
+    rows = (gi[:, :, None] * GROUP + torch.arange(GROUP)).reshape(3, -1)
+    assert torch.equal(got, torch.gather(want, 1, rows))
 
 
 def test_rerank_wrapper_refuses_other_devices():

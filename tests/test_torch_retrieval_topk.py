@@ -154,3 +154,15 @@ def test_kernel_build_needs_nvcc():
         with pytest.raises(RuntimeError, match="nvcc not found"):
             _build.find_nvcc()
     assert len(_build.source_hash()) == 16
+
+
+@pytest.mark.parametrize("d", [130, 256, 300])
+@pytest.mark.parametrize("method", ["stream", "tournament"])
+def test_rows_wider_than_128_match_jax(d, method):
+    """Any row width, as the JAX package's catalog_topk takes (the card's
+    kernels walk 128-column chunks); both methods agree exactly here."""
+    q, e = data(d, b=3, r=400, d=d)
+    v, i = catalog_topk(torch.from_numpy(q), torch.from_numpy(e), 9, method=method)
+    want_v, want_i = jax_catalog_topk(q, e, 9, method="stream")
+    np.testing.assert_array_equal(i.numpy(), np.asarray(want_i))
+    np.testing.assert_allclose(v.numpy(), np.asarray(want_v), rtol=TOL, atol=TOL)

@@ -198,3 +198,133 @@ def test_synthetic_catalog_bit_identical_to_jax(seed):
         assert x.dtype == y.dtype and x.shape == y.shape, f
         assert x.tobytes() == y.tobytes(), f
     assert (a.n_items, a.n_attrs, a.n_ctx, a.n_users) == (201, 12, 4, 50)
+
+
+# ---------------------------------------------------------------------------
+# serving a run directory (train/loop.fit's args.json + ckpt/)
+# ---------------------------------------------------------------------------
+
+RUN_USERS, RUN_ITEMS = 200, 100
+REC_KW = dict(shortlist=16, batch_buckets=(1, 8))
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """A port run and a JAX run of the smoke preset (2 epochs, CPU, host
+    pipeline) over the same synthetic catalog; (root, catalog)."""
+    from carca_tpu.config import DataConfig as JaxDataConfig
+    from carca_tpu.config import preset as jax_preset
+    from carca_tpu.train.loop import fit as jax_fit
+    from carca_tpu_torch import cli
+
+    root = tmp_path_factory.mktemp("runs")
+    cli.main(["--synthetic", "true", "--preset", "smoke", "--epochs", "2", "--resume", "false",
+              "--synthetic_users", str(RUN_USERS), "--synthetic_items", str(RUN_ITEMS),
+              "--out_dir", str(root / "ours")], device="cpu")
+    cat = synthetic_catalog(n_users=RUN_USERS, n_real_items=RUN_ITEMS, seed=0)
+    jc = jax_preset("smoke", cat.n_items, cat.n_attrs, cat.n_ctx)
+    jax_fit(dataclasses.replace(
+        jc, data=JaxDataConfig(synthetic=True, synthetic_users=RUN_USERS,
+                               synthetic_items=RUN_ITEMS, use_native=False),
+        train=dataclasses.replace(jc.train, epochs=2, out_dir=str(root / "jax"))), cat,
+        log=False)
+    return root, cat
+
+
+def request_lines(cat):
+    return [json.dumps({"user": 3, "id": "u3"}), json.dumps({"user": 150, "k": 5}),
+            json.dumps({"history": histories_of(cat, [7])[0], "id": 7}),
+            json.dumps({"history": [4, 9, 2], "ctx": [[0.1] * cat.n_ctx] * 3, "k": 2}),
+            "{not json", json.dumps({"user": RUN_USERS, "id": "out of range"})]
+
+
+def test_load_recommender_serves_the_run_weights(runs):
+    from carca_tpu_torch.serve.recommender import config_from_run_dir, load_recommender
+
+    root, cat = runs
+    run = str(root / "ours")
+    cfg = config_from_run_dir(run)
+    assert cfg.model.d == 16 and cfg.data.synthetic_users == RUN_USERS and cfg.train.epochs == 2
+    model = CARCA(cfg.model, device="cpu")
+    model.load_state_dict(torch.load(root / "ours" / "ckpt" / "best" / "params.pt"))
+    want = Recommender(model, cat.attrs, **REC_KW)
+    hists = histories_of(cat, range(6))
+    for which in ("best", "latest"):
+        rec = load_recommender(run, cat.attrs, which=which, device="cpu", **REC_KW)
+        assert rec.device.type == "cpu"
+        if which == "best":
+            for got, exp in zip(rec.recommend(hists, k=4), want.recommend(hists, k=4)):
+                np.testing.assert_array_equal(got, exp)
+    with pytest.raises(FileNotFoundError):
+        load_recommender(str(root), cat.attrs, device="cpu")  # no args.json there
+    with pytest.raises(ValueError, match="which"):
+        load_recommender(run, cat.attrs, which="ema", device="cpu")
+
+
+def test_service_main_answers_stdin_and_benches(runs):
+    import io
+
+    from carca_tpu_torch.serve import service
+    from carca_tpu_torch.serve.recommender import load_recommender
+
+    root, cat = runs
+    run = str(root / "ours")
+    lines = request_lines(cat)
+    out = io.StringIO()
+    service.main(["--run_dir", run, "--k", "4", "--shortlist", "16"], device="cpu",
+                 stdin=io.StringIO("\n".join(lines) + "\n\n"), stdout=out)
+    got = [json.loads(line) for line in out.getvalue().splitlines()]
+    rec = load_recommender(run, cat.attrs, device="cpu", shortlist=16,
+                           index_ids=np.unique(cat.items))
+    want = list(serve_lines(rec, HostCSR(cat), lines, k=4))
+    assert got == want and len(got) == 6
+    assert got[0]["id"] == "u3" and len(got[0]["items"]) == 4 and len(got[1]["items"]) == 5
+    assert got[2]["id"] == 7 and len(got[3]["items"]) == 2
+    assert "error" in got[4] and "error" in got[5] and got[5]["id"] == "out of range"
+    out = io.StringIO()
+    service.main(["--run_dir", run, "--bench", "--iters", "2", "--device", "cpu"], stdout=out)
+    assert [json.loads(line)["batch"] for line in out.getvalue().splitlines()] == [1, 8, 64, 256]
+    with pytest.raises(NotImplementedError, match="item 14"):
+        service.main(["--run_dir", run, "--index_shards", "2"], device="cpu")
+
+
+def test_a_jax_run_served_by_the_port(runs, tmp_path):
+    """A JAX fit's best/ (restored with orbax here) written into a port run
+    directory through the bridge: the port's load_recommender returns the
+    JAX package's ids (scores within 1e-5) for the same requests."""
+    import shutil
+
+    import jax
+
+    from carca_tpu.serve.recommender import config_from_run_dir as jax_config_from_run_dir
+    from carca_tpu.serve.recommender import load_recommender as jax_load_recommender
+    from carca_tpu.train.checkpoint import CheckpointKeeper as JaxKeeper
+    from carca_tpu.train.state import create_train_state as jax_create_train_state
+    from carca_tpu.train.state import make_optimizer as jax_make_optimizer
+    from carca_tpu_torch.serve.recommender import config_from_run_dir, load_recommender
+    from carca_tpu_torch.train.checkpoint import CheckpointKeeper
+
+    root, cat = runs
+    jrun = str(root / "jax")
+    jcfg = jax_config_from_run_dir(jrun)
+    template = jax_create_train_state(jax.random.PRNGKey(0), jcfg.model, jcfg.train,
+                                      jax_make_optimizer(jcfg.train))
+    keeper = JaxKeeper(f"{jrun}/ckpt")
+    try:
+        epoch, state = keeper.restore_best(template)
+        metrics = keeper.best_metrics()
+    finally:
+        keeper.close()
+    shutil.copy(f"{jrun}/args.json", tmp_path / "args.json")
+    cfg = config_from_run_dir(str(tmp_path))
+    assert cfg.model == model_config_from_jax(dataclasses.asdict(jcfg.model))
+    model = load_into(CARCA(cfg.model, device="cpu"), jax.tree.map(np.asarray, state.params))
+    CheckpointKeeper(str(tmp_path / "ckpt")).save(epoch, model, metrics)
+    ours = load_recommender(str(tmp_path), cat.attrs, device="cpu", **REC_KW)
+    theirs = jax_load_recommender(jrun, cat.attrs, **REC_KW)
+    hists, ctxs = histories_of(cat, range(9)), ctxs_of(cat, range(9))
+    for kw in (dict(k=5), dict(k=3, ctxs=ctxs)):
+        got_ids, got_s = ours.recommend(hists, **kw)
+        want_ids, want_s = theirs.recommend(hists, **kw)
+        np.testing.assert_array_equal(got_ids, want_ids)
+        np.testing.assert_allclose(got_s, want_s, rtol=1e-5, atol=1e-5)
