@@ -4,14 +4,18 @@ repository's ``bench.py``).
     python -m carca_tpu_torch.bench                      # flagship, kernels
     python -m carca_tpu_torch.bench --use_kernel false   # the plain path
     python -m carca_tpu_torch.bench --config men         # L = 200
+    python -m carca_tpu_torch.bench --config 10m         # 10M items, row-sparse Adam
 
 ``build_setup`` builds what ``bench.py::build_setup`` builds — the flagship
 model (d=64, g=256, 2 blocks, 2 heads, L=50, target_len 100, dropout 0.5,
 ``embedding=all``, ``encoding=identity``, ``decoder=ca``, f32) over
 ``synthetic_catalog(n_users=4096, n_real_items=2000, seed=0)``, or the
-``men`` shape (L=200 over a 2,048-user catalog of longer histories), with
-``TrainConfig`` defaults at batch 256, the catalog on the device and K =
-``inner_steps`` steps per call of the scanned step. ``measure`` times it as
+``men`` shape (L=200 over a 2,048-user catalog of longer histories), or
+``10m`` (BASELINE configs[4]: ``synthetic_catalog_device(100,000 users,
+10,000,000 items)`` generated on the card, ``decoder=dot``, bf16 compute,
+bf16 attrs and the lazy row-sparse item Adam), with ``TrainConfig``
+defaults at batch 256, the catalog on the device and K = ``inner_steps``
+steps per call of the scanned step. ``measure`` times it as
 ``bench.py`` does: 2 warm calls, then the median of 5 windows of
 ``max(1, 100 // K)`` calls, each window ended by a device synchronize, in
 examples per second. Prints one JSON line. Needs a CUDA card.
@@ -28,14 +32,15 @@ import time
 import numpy as np
 import torch
 
-from carca_tpu_torch.config import ModelConfig, TrainConfig
+from carca_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
 from carca_tpu_torch.data.dataset import epoch_batches
 from carca_tpu_torch.data.device_pipeline import DeviceDataset
-from carca_tpu_torch.data.synthetic import synthetic_catalog
-from carca_tpu_torch.train.loop import make_scanned_device_train_step
+from carca_tpu_torch.data.synthetic import synthetic_catalog, synthetic_catalog_device
+from carca_tpu_torch.train import sparse_adam
+from carca_tpu_torch.train.loop import attrs_dtype, make_scanned_device_train_step
 from carca_tpu_torch.train.state import create_train_state
 
-CONFIGS = ("flagship", "men")
+CONFIGS = ("flagship", "men", "10m")
 N_WINDOWS = 5
 
 
@@ -56,11 +61,13 @@ def build_setup(config: str = "flagship", batch: int = 256, device="cuda",
     """The model, state and scanned device-pipeline step of one headline
     config (``bench.py::build_setup``); ``model_overrides`` replace
     ModelConfig fields (e.g. ``dropout=0.0`` for a deterministic step)."""
-    if config == "10m":
-        raise NotImplementedError(
-            "the 10m config needs the device-generated catalog and the row-sparse "
-            "item-table Adam (ROADMAP slice 6, 10M-item training)")
-    if config == "men":
+    device = torch.device(device)
+    at_scale = config == "10m"
+    if at_scale:
+        cat = synthetic_catalog_device(n_users=100_000, n_real_items=10_000_000, seed=0,
+                                       device=device)
+        seq_len = 50
+    elif config == "men":
         cat = synthetic_catalog(n_users=2048, n_real_items=2000, n_attrs=12,
                                 n_ctx=4, min_len=40, max_len=250, seed=0)
         seq_len = 200
@@ -68,17 +75,18 @@ def build_setup(config: str = "flagship", batch: int = 256, device="cuda",
         cat = synthetic_catalog(n_users=4096, n_real_items=2000, seed=0)
         seq_len = 50
     else:
-        raise ValueError(f"unknown config {config!r}; want one of {CONFIGS} (or 10m)")
-    device = torch.device(device)
+        raise ValueError(f"unknown config {config!r}; want one of {CONFIGS}")
     fields = dict(n_items=cat.n_items, n_attrs=cat.n_attrs, n_ctx=cat.n_ctx,
                   d=64, g=256, seq_len=seq_len, target_len=100, n_blocks=2, n_heads=2,
-                  dropout=0.5, embedding="all", encoding="identity", decoder="ca",
-                  compute_dtype="float32", use_kernel=use_kernel)
+                  dropout=0.5, embedding="all", encoding="identity",
+                  decoder="dot" if at_scale else "ca",
+                  compute_dtype="bfloat16" if at_scale else "float32", use_kernel=use_kernel)
     fields.update(model_overrides)
     mc = ModelConfig(**fields)
     tc = TrainConfig(batch_size=batch, seed=0)
-    state = create_train_state(mc, tc, device)
-    attrs = torch.as_tensor(cat.attrs, dtype=torch.float32).to(device)
+    state = create_train_state(mc, tc, device, sparse_items=sparse_adam.resolve(
+        Config(mc, DataConfig(device_pipeline=True), tc)))
+    attrs = torch.as_tensor(cat.attrs, dtype=attrs_dtype(mc), device=device)
     dd = DeviceDataset(cat, mc.seq_len, mc.target_len, test=True, device=device)
     rng = np.random.default_rng(0)
     inner = tc.inner_steps
@@ -117,7 +125,7 @@ def measure(s: Setup):
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--config", choices=CONFIGS + ("10m",), default="flagship")
+    ap.add_argument("--config", choices=CONFIGS, default="flagship")
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--use_kernel", choices=("auto", "false"), default="auto",
                     help="auto = the attention kernels K1/K2; false = the plain path")

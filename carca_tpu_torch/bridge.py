@@ -28,7 +28,6 @@ import torch
 
 from carca_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
 from carca_tpu_torch.models.embeddings import item_table_width
-from carca_tpu_torch.train import sparse_adam
 
 # JAX ModelConfig fields with no counterpart here: TPU-only knobs
 _DROPPED = ("remat", "pack_tables")
@@ -92,11 +91,10 @@ def data_config_from_jax(cfg: Any) -> DataConfig:
 
 def train_config_from_jax(cfg: Any) -> TrainConfig:
     """A ``carca_tpu`` TrainConfig (or its dict), or a whole ``carca_tpu``
-    Config, → this package's ``TrainConfig``, every field kept. Raises on
-    what would change the step and is not ported: a multi-device mesh
-    (ValueError) and the row-sparse item-table Adam (NotImplementedError,
-    ROADMAP slice 6) — forced on, or "auto" where a whole Config resolves it
-    on as the JAX package would."""
+    Config, → this package's ``TrainConfig``, every field kept
+    (``sparse_items_adam`` included: the port's ``sparse_adam.resolve``
+    takes the JAX package's decision). Raises ValueError on a multi-device
+    mesh, which the port does not train on yet."""
     whole = hasattr(cfg, "train") and hasattr(cfg, "model")
     d = _as_dict(cfg.train if whole else cfg)
     if int(np.prod(d.get("mesh_shape") or ())) > 1:
@@ -105,13 +103,7 @@ def train_config_from_jax(cfg: Any) -> TrainConfig:
     for key in ("mesh_shape", "mesh_axes"):
         if isinstance(d.get(key), list):
             d[key] = tuple(d[key])
-    tc = TrainConfig(**d)
-    if whole:
-        sparse_adam.refuse_sparse(Config(model_config_from_jax(cfg.model),
-                                         data_config_from_jax(cfg.data), tc))
-    elif tc.sparse_items_adam is True:
-        raise NotImplementedError(f"sparse_items_adam=True: {sparse_adam.SLICE_6}")
-    return tc
+    return TrainConfig(**d)
 
 
 def config_from_jax(cfg: Any) -> Config:

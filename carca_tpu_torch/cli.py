@@ -15,12 +15,14 @@ asks for the CPU, and nothing falls back to it.
 * The TPU-only ``--pack_tables``, ``--remat`` and ``--compilation_cache``
   are accepted and ignored with a note; ``--use_native`` is kept in
   ``args.json``, and host batches are assembled with numpy.
-* Not ported yet, so they raise naming their ROADMAP item: ``--mesh`` over
-  more than one device and ``--device_sampling true`` (item 14), ``--model
-  knn``, ``--eval_retrieval``, ``--eval_retrieval_every`` and ``--select_by
-  retrieval_*`` (item 8), ``--synthetic_process markov`` and ``--synthetic
-  true`` with ``--device_pipeline true`` (item 12), the row-sparse item
-  Adam that ``--sparse_items_adam`` resolves on (slice 6).
+* A synthetic catalog with ``--device_pipeline true`` (the ``synthetic10m``
+  preset: 100,000 users, 10M items) is generated on the run's device.
+* ``--model knn`` evaluates the KNN content baseline instead of training;
+  ``--eval_retrieval K`` ranks each test user's held-out item against the
+  whole catalog after training (``--retrieval_index seen|full``), once the
+  train state's optimizer is dropped.
+* ``--mesh`` over more than one device raises (ROADMAP item 14);
+  ``--device_sampling`` is read only under a mesh, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ import dataclasses
 import json
 import math
 from typing import Optional
+
+import torch
 
 from carca_tpu_torch.config import (Config, DataConfig, ModelConfig, TrainConfig, parse_bool,
                                     parse_kernel_flag, preset)
@@ -81,7 +85,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--embedding", type=str, default="all")
     p.add_argument("--decoder", type=str, default="dot")
     p.add_argument("--model", type=str, default="carca",
-                   help="carca (knn is not ported yet: ROADMAP item 8)")
+                   help="carca | knn (the content baseline, evaluated without training)")
 
     p.add_argument("--preset", type=str, default="",
                    help="named config: beauty|games|fashion|men|synthetic10m|smoke")
@@ -96,7 +100,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic_users", type=int, default=2000)
     p.add_argument("--synthetic_items", type=int, default=1000)
     p.add_argument("--synthetic_process", default="zipf", choices=("zipf", "markov"),
-                   help="zipf = iid Zipf(1) items (markov is not ported yet: ROADMAP item 12)")
+                   help="zipf = iid Zipf(1) items; markov = cluster-Markov sequences")
     p.add_argument("--resume", type=parse_bool, default=True)
     p.add_argument("--use_native", type=parse_bool, default=True,
                    help="kept for args.json; the port assembles host batches with numpy")
@@ -109,7 +113,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "ported yet (ROADMAP item 14)")
     p.add_argument("--shard_embeddings", type=parse_bool, default=False)
     p.add_argument("--device_sampling", type=parse_bool, default=False,
-                   help="not ported yet (ROADMAP item 14)")
+                   help="read under a mesh only (ROADMAP item 14); no effect on one device")
     p.add_argument("--neg_distribution", type=str, default="uniform",
                    choices=("uniform", "popularity"),
                    help="train negatives (device pipeline): uniform | popularity")
@@ -117,8 +121,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="device-pipeline negative rejection against the full history: "
                         "true | false (visible window) | auto (history <= 4x seq_len)")
     p.add_argument("--sparse_items_adam", type=parse_kernel_flag, default="auto",
-                   help="row-sparse item-table Adam: true | false | auto (not ported yet: "
-                        "ROADMAP slice 6; raises where it resolves on)")
+                   help="lazy row-sparse Adam for the item table (device pipeline, one "
+                        "device): true | false | auto (>=1M-item catalogs)")
     p.add_argument("--checkpoint", type=parse_bool, default=True,
                    help="false disables all checkpoint IO")
     p.add_argument("--checkpoint_interval", type=int, default=1,
@@ -127,15 +131,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n_train_negatives", type=int, default=1,
                    help="negatives per positive train position (>1 needs --device_pipeline)")
     p.add_argument("--eval_retrieval", type=int, default=0,
-                   help="not ported yet (ROADMAP item 8)")
+                   help="after training, full-catalog leave-one-out retrieval eval at this "
+                        "top-k (dot/wdot decoders)")
     p.add_argument("--eval_retrieval_every", type=int, default=0,
-                   help="not ported yet (ROADMAP item 8)")
+                   help="the retrieval eval on the val split every N-th epoch, logged to "
+                        "metrics.jsonl (0 = off; dot/wdot decoders)")
     p.add_argument("--select_by", type=str, default="ndcg",
                    choices=("ndcg", "retrieval_hr", "retrieval_ndcg"),
-                   help="retention metric; retrieval_* is not ported yet (ROADMAP item 8)")
+                   help="best-checkpoint metric: ndcg (sampled val NDCG) or the monitored "
+                        "retrieval_* (needs --eval_retrieval_every)")
     p.add_argument("--ema_decay", type=float, default=0.0,
                    help="EMA weight averaging: 0 = off; d in (0, 1)")
-    p.add_argument("--retrieval_index", type=str, default="seen", choices=("seen", "full"))
+    p.add_argument("--retrieval_index", type=str, default="seen", choices=("seen", "full"),
+                   help="retrieval index: seen = items with >=1 training event; full = every id")
     return p
 
 
@@ -245,15 +253,16 @@ def config_from_args(args, n_items: int, n_attrs: int, n_ctx: int) -> Config:
     return Config(model=mc, data=dc, train=tc)
 
 
-def load_catalog(args, dc: Optional[DataConfig] = None):
+def load_catalog(args, dc: Optional[DataConfig] = None, device: str = "cuda"):
     """The catalog the resolved DataConfig describes: the reference files
     under ``data_dir``, or the synthetic catalog (regenerable from
-    args.json alone)."""
+    args.json alone), generated on ``device`` with the device pipeline."""
     if dc is None:
         dc = config_from_args(args, 0, 0, 0).data
     if dc.synthetic or not dc.data_dir:
         from carca_tpu_torch.data.synthetic import synthetic_generator
-        gen = synthetic_generator(dc.synthetic_process, device=dc.device_pipeline)
+        gen = synthetic_generator(dc.synthetic_process, device=dc.device_pipeline,
+                                  torch_device=device)
         return gen(n_users=dc.synthetic_users, n_real_items=dc.synthetic_items,
                    seed=dc.synthetic_seed)
     from carca_tpu_torch.data.loaders import load_dataset
@@ -265,38 +274,63 @@ def refuse_unported_flags(args) -> None:
     if math.prod(parse_mesh(args.mesh)[0]) > 1:
         raise NotImplementedError(f"--mesh {args.mesh}: the port trains on one device "
                                   "(ROADMAP item 14, slice 7)")
-    if args.model.lower() != "carca":
-        raise NotImplementedError(f"--model {args.model}: the KNN baseline and evaluate_knn "
-                                  "are not ported yet (ROADMAP item 8)")
-    if args.eval_retrieval > 0:
-        raise NotImplementedError("--eval_retrieval: the full-catalog retrieval evaluator is "
-                                  "not ported yet (ROADMAP item 8)")
+    if args.model.lower() not in ("carca", "knn"):
+        raise ValueError(f"--model {args.model}: want carca or knn")
 
 
 _TPU_ONLY = ("pack_tables", "remat", "compilation_cache")
 
 
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count in this process."""
+    from carca_tpu_torch.ops.flash_attention import attention_bwd, fused_attention
+    from carca_tpu_torch.ops.retrieval_topk import catalog_topk, groupmax, tournament_rerank
+
+    return {"attention_fwd": fused_attention.launches,
+            "attention_bwd": attention_bwd.launches,
+            **{f"catalog_topk_{kind}": n for kind, n in catalog_topk.launches.items()},
+            **{f"groupmax_layout{lay}": n for lay, n in groupmax.launches.items()},
+            "tournament_rerank": tournament_rerank.launches}
+
+
 def main(argv: Optional[list] = None, device: Optional[str] = None) -> dict:
-    """Train and print ``final: {...}``; returns the final metrics. The run
-    goes on ``device``, else ``--device``, else the card."""
+    """Train (or with ``--model knn`` evaluate the baseline) and print
+    ``final: {...}``; returns the final metrics. The run goes on
+    ``device``, else ``--device``, else the card."""
     args = build_parser().parse_args(argv)
     refuse_unported_flags(args)
+    device = device or args.device or "cuda"
     defaults = vars(build_parser().parse_args([]))
     for name in _TPU_ONLY:
         if getattr(args, name) != defaults[name]:
             print(f"note: --{name} is a TPU knob; ignored")
     dc = config_from_args(args, 0, 0, 0).data
-    catalog = load_catalog(args, dc)
+    catalog = load_catalog(args, dc, device)
     cfg = config_from_args(args, catalog.n_items, catalog.n_attrs, catalog.n_ctx)
     if cfg.data.use_native and not cfg.data.device_pipeline:
         print("note: --use_native: the port assembles host batches with numpy")
-    from carca_tpu_torch.ops.flash_attention import attention_bwd, fused_attention
-    from carca_tpu_torch.train.loop import fit
+    from carca_tpu_torch.train import loop
 
-    _, metrics = fit(cfg, catalog, device=device or args.device or "cuda")
+    if args.model.lower() == "knn":
+        metrics = loop.evaluate_knn(cfg, catalog, device=device)
+    else:
+        state, metrics = loop.fit(cfg, catalog, device=device)
+        if args.eval_retrieval and cfg.model.decoder == "ca":
+            print("note: --eval_retrieval applies to the dot/wdot decoders (the cross-attention "
+                  "decoder is a ranking model, not a retrieval tower); skipping retrieval eval")
+        if args.eval_retrieval and cfg.model.decoder != "ca":
+            model = state.model
+            # drop the optimizer's moments (5 GB at 10M items) before the
+            # catalog pass; training is over
+            del state
+            metrics.update(loop.evaluate_retrieval(
+                cfg, catalog, model, k=args.eval_retrieval,
+                seen_only=args.retrieval_index == "seen"))
     print("final:", metrics)
-    print("launches:", json.dumps({"attention_fwd": fused_attention.launches,
-                                   "attention_bwd": attention_bwd.launches}), flush=True)
+    print("launches:", json.dumps(launch_counts()), flush=True)
+    if torch.device(device).type == "cuda" and torch.cuda.is_initialized():
+        print("memory:", json.dumps({"peak_device_mib": torch.cuda.max_memory_allocated() / 2**20}),
+              flush=True)
     return metrics
 
 

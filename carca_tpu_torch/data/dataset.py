@@ -22,7 +22,7 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 
-from carca_tpu_torch.data.loaders import Catalog
+from carca_tpu_torch.data.loaders import Catalog, host_catalog
 from carca_tpu_torch.data.sampler import sample_negatives_batch
 from carca_tpu_torch.data.windowing import valid_users, window_bounds
 
@@ -35,6 +35,7 @@ class BatchBuilder:
 
     def __init__(self, catalog: Catalog, seq_len: int, target_len: int = 100,
                  test: bool = True):
+        catalog = host_catalog(catalog)  # a device catalog is copied to the host once
         self.cat = catalog
         self.L = int(seq_len)
         self.T = int(target_len)

@@ -34,7 +34,8 @@ from carca_tpu_torch.parallel.sampling import device_sample_negatives, retries_f
 
 class DeviceDataset:
     """The catalog and per-split window bounds as tensors on ``device``
-    (the card unless the caller asks for the CPU)."""
+    (the card unless the caller asks for the CPU). A catalog generated on
+    the device is taken as it is."""
 
     def __init__(self, catalog: Catalog, seq_len: int, target_len: int,
                  test: bool = True, device: torch.device | str = "cuda"):
@@ -47,8 +48,8 @@ class DeviceDataset:
                        for m in ("train", "val", "test")}
         self.hist_max = int(lengths.max()) if len(lengths) else 0
 
-        def put(a, dtype):
-            return torch.as_tensor(np.asarray(a), dtype=dtype).to(device)
+        def put(a, dtype):  # a device catalog's tensors move without a host copy
+            return torch.as_tensor(a, dtype=dtype, device=device)
 
         self.arrays: Dict[str, torch.Tensor] = {
             "items": put(catalog.items, torch.int32),

@@ -18,6 +18,7 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 
 @dataclass
@@ -25,7 +26,9 @@ class Catalog:
     """Packed dataset: item catalog + CSR user histories.
 
     ``attrs`` includes the pad row (row 0 = zeros) so ``attrs.shape[0]`` is
-    the model's ``n_items`` (``src/data.py:28-35``).
+    the model's ``n_items`` (``src/data.py:28-35``). A catalog generated on
+    a device (``data/synthetic.py``) holds ``attrs``, ``items`` and
+    ``ctx_vals`` as torch tensors there; ``host_catalog`` copies it.
     """
 
     attrs: np.ndarray  # [n_items, n_attrs] float32, row 0 = pad
@@ -55,6 +58,16 @@ class Catalog:
         user's full history, ``src/data.py:77-87``)."""
         return [frozenset(self.items[self.offsets[u]: self.offsets[u + 1]].tolist())
                 for u in range(self.n_users)]
+
+
+def host_catalog(cat: Catalog) -> Catalog:
+    """``cat`` with every array on the host as numpy (itself when it
+    already is): an explicit copy for the consumers that read a catalog
+    on the host."""
+    fields = (cat.attrs, cat.user_ids, cat.items, cat.offsets, cat.ctx_vals)
+    if not any(isinstance(a, torch.Tensor) for a in fields):
+        return cat
+    return Catalog(*(a.cpu().numpy() if isinstance(a, torch.Tensor) else a for a in fields))
 
 
 def load_attrs(path: str) -> np.ndarray:

@@ -23,7 +23,7 @@ train step on an H100 (PERF.md §5).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +32,17 @@ from torch import nn
 from carca_tpu_torch.config import ModelConfig
 from carca_tpu_torch.models import encodings, layers
 from carca_tpu_torch.utils.initializers import embedding_init
+
+
+class ItemRows(NamedTuple):
+    """An explicit route for the item lookup: id x reads row
+    ``posmap[x]`` of ``table`` instead of row x of ``Embedding.items``.
+    The row-sparse Adam (``train/sparse_adam.py``) passes the gathered
+    sub-table of a batch's unique ids and each id's slot in it, so the
+    gradient lands on the sub-table alone."""
+
+    table: torch.Tensor  # [cap, W]
+    posmap: torch.Tensor  # [n_items] slot of each id of the batch
 
 
 def item_table_width(cfg: ModelConfig) -> int:
@@ -69,9 +80,11 @@ class Embedding(nn.Module):
         *,
         target: bool,
         attrs_table: Optional[torch.Tensor] = None,
+        item_rows: Optional[ItemRows] = None,
     ) -> torch.Tensor:
         """x [B, T] ids; a [B, T, n_attrs] or None (→ ``attrs_table[x]``);
-        c [B, T, n_ctx] (all/attrctx only); mask [B, T] → [B, T, d]."""
+        c [B, T, n_ctx] (all/attrctx only); mask [B, T] → [B, T, d]. With
+        ``item_rows`` the id embeddings come from its table."""
         cfg = self.cfg
         kind = cfg.embedding
         cd = cfg.compute_dtype
@@ -85,18 +98,23 @@ class Embedding(nn.Module):
                 raise ValueError("need either explicit attrs `a` or an `attrs_table` catalog")
             return attrs_table[x]
 
+        def ids() -> torch.Tensor:
+            if item_rows is None:
+                return F.embedding(x, self.items)
+            return F.embedding(item_rows.posmap[x], item_rows.table)
+
         if kind == "all":  # src/carca.py:85-95
             q = self.feats(torch.cat([attrs(), c], dim=-1), cd)
-            z = F.embedding(x, self.items) * scale
+            z = ids() * scale
             e = self.joint(torch.cat([z, q], dim=-1), cd)
         elif kind == "attrctx":  # src/carca.py:114-122
             e = self.joint(self.feats(torch.cat([attrs(), c], dim=-1), cd), cd)
         elif kind == "attr":  # src/carca.py:141-149
             e = self.joint(self.feats(attrs(), cd), cd)
         elif kind == "id":  # src/carca.py:163-171
-            e = F.embedding(x, self.items) * scale
+            e = ids() * scale
         else:  # mlpid, src/carca.py:189-198 — √d scale (not √g) on the g-dim table
-            e = self.feats(F.embedding(x, self.items) * scale, cd)
+            e = self.feats(ids() * scale, cd)
 
         if not target:
             e = self.enc(e)

@@ -7,7 +7,8 @@ embeddings), and queries are the dot decoder's eval query — the last
 profile state (``src/carca.py:362``). ``topk_given_queries`` ranks an f32,
 bf16 or int8 (``QuantizedIndex``) index through
 ``ops.retrieval_topk.catalog_topk`` (kernels K3 and K4 on CUDA tensors),
-over-retrieving ``k + E`` when E history items are excluded. The
+over-retrieving ``k + E`` when E history items are excluded;
+``retrieval_hr_ndcg`` scores a held-out positive's rank in it. The
 row-sharded paths wait for the multi-GPU slice (ROADMAP slice 7).
 """
 
@@ -19,7 +20,8 @@ import torch
 
 from carca_tpu_torch.config import ModelConfig
 from carca_tpu_torch.models.carca import encode_profile
-from carca_tpu_torch.ops.retrieval_topk import Index, QuantizedIndex, catalog_topk
+from carca_tpu_torch.ops.retrieval_topk import (Index, QuantizedIndex, catalog_topk,
+                                                catalog_topk_plain)
 
 NEG_INF = float("-inf")
 
@@ -114,6 +116,7 @@ def topk_given_queries(
     in_decoder_space: bool = False,
     row_ids: Optional[torch.Tensor] = None,
     method: str = "auto",
+    use_kernel: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k of queries [B, d] against an index [R, d] (f32, bf16 or a
     ``QuantizedIndex``): (scores [B, k], item ids [B, k]). ``exclude``
@@ -121,7 +124,8 @@ def topk_given_queries(
     whose row r holds item ``row_ids[r]`` (row 0 is the pad, id 0); returned
     ids are global. A ``QuantizedIndex`` is built from decoder-space rows
     (its scales bake the row geometry in), so it needs
-    ``in_decoder_space=True``."""
+    ``in_decoder_space=True``. ``use_kernel=False`` takes the plain version
+    (``catalog_topk_plain``) on any device."""
     quantized = isinstance(e, QuantizedIndex)
     rows = e.rows if quantized else e.shape[0]
     if k > rows:
@@ -133,7 +137,10 @@ def topk_given_queries(
         e = catalog_in_decoder_space(e, cfg)
     n_local = rows if row_ids is not None else cfg.n_items
     kk = min(k + (exclude.shape[1] if exclude is not None else 0), rows)
-    v, rid = catalog_topk(q.contiguous(), e, kk, n_items=n_local, method=method)
+    if use_kernel:
+        v, rid = catalog_topk(q.contiguous(), e, kk, n_items=n_local, method=method)
+    else:
+        v, rid = catalog_topk_plain(q, e, kk, n_items=n_local)
     if row_ids is not None:
         rid = row_ids[rid]
     if exclude is None:  # then kk == k — nothing to re-rank
@@ -163,3 +170,16 @@ def full_catalog_topk(
         global_ids=torch.arange(attrs_table.shape[0], device=attrs_table.device))
     return topk_given_queries(q, e, model.cfg, k, exclude=exclude, method=method,
                               in_decoder_space=isinstance(e, QuantizedIndex))
+
+
+def retrieval_hr_ndcg(topk_ids: torch.Tensor, positives: torch.Tensor,
+                      k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batch sums of HR@k and NDCG@k of each held-out positive's rank in
+    its full-catalog top-k (the sampled evaluator's arithmetic,
+    ``src/train.py:15-32``): 0-d float32 tensors."""
+    hit = topk_ids[:, :k] == positives[:, None]  # [B, k]
+    any_hit = hit.any(dim=1)
+    hr = any_hit.to(torch.float32).sum()
+    ranks = torch.argmax(hit.to(torch.int32), dim=1)  # the first (only) hit
+    gain = 1.0 / torch.log2(ranks.to(torch.float32) + 2.0)
+    return hr, torch.where(any_hit, gain, 0.0).sum()

@@ -83,7 +83,7 @@ class Recommender:
 
     ``model``: a ``CARCA`` module (its weights and device are used as they
     are; it is put in eval mode). ``attrs_table``: [n_items, n_attrs] item
-    attributes (row 0 = pad). ``shortlist``: stage-1 candidates fed to the
+    attributes (row 0 = pad), numpy or a tensor on any device. ``shortlist``: stage-1 candidates fed to the
     reranker (``ca`` only). ``index_ids``: optional global ids to index
     (e.g. items with ≥1 event — the seen-items posture); stage 1 then
     embeds and streams only those rows. ``quantize``: ``True | False |
@@ -114,8 +114,7 @@ class Recommender:
         self.device = next(model.parameters()).device
         self.exclude_history = exclude_history
         self.batch_buckets = tuple(sorted(batch_buckets))
-        self.attrs = torch.as_tensor(np.asarray(attrs_table, np.float32),
-                                     device=self.device)
+        self.attrs = torch.as_tensor(attrs_table, dtype=torch.float32, device=self.device)
         self.default_ctx = (np.zeros((cfg.n_ctx,), np.float32) if default_ctx is None
                             else np.asarray(default_ctx, np.float32))
         self.row_ids = None

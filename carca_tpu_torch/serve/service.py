@@ -18,7 +18,8 @@ bucket (p50/p95/p99 over ``--iters`` timed calls after a warm one).
 
 The server runs on the card (``--device cpu`` asks for the CPU). Without
 ``--data_dir`` the run's synthetic catalog is regenerated from its
-``args.json``. ``--index_shards`` above 1 (a row-sharded index) is not
+``args.json``, on the server's device for a device-pipeline run (as the
+run generated it). ``--index_shards`` above 1 (a row-sharded index) is not
 ported yet (ROADMAP item 14); ``--compilation_cache`` is a TPU knob and is
 ignored.
 """
@@ -34,12 +35,15 @@ from typing import Dict, Iterable, Iterator, List, Optional
 import numpy as np
 import torch
 
+from carca_tpu_torch.data.loaders import host_catalog
+
 
 class HostCSR:
     """Host copies of the catalog's CSR arrays, so a history lookup never
     touches the device."""
 
     def __init__(self, cat):
+        cat = host_catalog(cat)
         self.items = np.asarray(cat.items)
         self.ctx_vals = np.asarray(cat.ctx_vals)
         self.offsets = np.asarray(cat.offsets)
@@ -159,17 +163,17 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def load_catalog_for_run(args, cfg):
+def load_catalog_for_run(args, cfg, device: str = "cuda"):
     """The catalog to serve: the reference files under ``--data_dir``, or the
-    run's synthetic catalog regenerated from its data config."""
+    run's synthetic catalog regenerated from its data config: a
+    device-pipeline run's on ``device``, with the generator and seed the
+    run drew it with (the same catalog on the same kind of card)."""
     if args.data_dir:
         from carca_tpu_torch.data.loaders import load_dataset
         return load_dataset(args.data_dir, args.profile_file, args.attr_file, args.ctx_file)
     from carca_tpu_torch.data.synthetic import synthetic_generator
     d = cfg.data
-    # a device-pipeline run generates its synthetic catalog on the device,
-    # which the port cannot reproduce: synthetic_generator refuses it
-    gen = synthetic_generator(d.synthetic_process, device=d.device_pipeline)
+    gen = synthetic_generator(d.synthetic_process, device=d.device_pipeline, torch_device=device)
     return gen(n_users=d.synthetic_users, n_real_items=d.synthetic_items, seed=d.synthetic_seed)
 
 
@@ -187,11 +191,12 @@ def main(argv: Optional[list] = None, device: Optional[str] = None, stdin=None,
                                   "(ROADMAP item 14)")
     if args.compilation_cache:
         print("note: --compilation_cache is a TPU knob; ignored", file=sys.stderr)
+    device = device or args.device or "cuda"
     cfg = config_from_run_dir(args.run_dir)
-    cat = load_catalog_for_run(args, cfg)
+    cat = load_catalog_for_run(args, cfg, device)
     host = HostCSR(cat)
     rec = load_recommender(
-        args.run_dir, cat.attrs, which=args.which, device=device or args.device or "cuda",
+        args.run_dir, cat.attrs, which=args.which, device=device,
         shortlist=args.shortlist, exclude_history=not args.no_exclude_history,
         index_ids=np.unique(host.items) if args.index == "seen" else None,
         quantize={"true": True, "false": False, "auto": "auto"}[args.quantize_index])

@@ -4,10 +4,13 @@ directory is read without orbax. Under ``ckpt/``, one of each:
 
 * ``best/params.pt`` — the best epoch's parameters (the model's
   ``state_dict``) and ``best/metrics.json`` beside them (the metrics ``fit``
-  selected on, and the epoch);
+  selected on, and the epoch; under ``select_by=retrieval_*`` also
+  ``select_by`` and the ``select`` value compared);
 * ``latest/state.pt`` — the full resume state: the model's and Adam's
-  ``state_dict``, the states of both generators (``TrainState.generator``
-  and ``seed_generator``), the step and the epoch;
+  ``state_dict``, the row-sparse Adam's row state of the item table (None
+  under the dense Adam), the states of both generators
+  (``TrainState.generator`` and ``seed_generator``), the step and the
+  epoch;
 * ``ema/ema.pt`` — the EMA shadow's ``state_dict`` and its step, refreshed
   with ``latest/``; a resume refuses a shadow whose step is not
   ``latest/``'s.
@@ -46,10 +49,26 @@ def _load(path: str) -> Any:
     return torch.load(path, map_location="cpu", weights_only=False)
 
 
-class CheckpointKeeper:
-    """``best/``, ``latest/`` and ``ema/`` under ``directory``."""
+def _selection_metric(metrics: Dict[str, Any], select_by: str = "ndcg") -> float:
+    """The value ``fit`` compared when it decided to save
+    (``carca_tpu/train/checkpoint.py:31-47``): under ``select_by="ndcg"``
+    the sampled NDCG; under ``select_by="retrieval_*"`` the saved
+    ``select`` entry, but only from a checkpoint saved under the same
+    ``select_by`` (another regime's scores 0.0, so the first save under
+    this one outranks it)."""
+    if select_by == "ndcg":
+        return metrics["ndcg"]
+    if metrics.get("select_by") == select_by:
+        return metrics["select"]
+    return 0.0
 
-    def __init__(self, directory: str):
+
+class CheckpointKeeper:
+    """``best/``, ``latest/`` and ``ema/`` under ``directory``; best/ is
+    retained by ``_selection_metric`` under ``select_by``."""
+
+    def __init__(self, directory: str, select_by: str = "ndcg"):
+        self.select_by = select_by
         self.dir = os.path.abspath(directory)
         os.makedirs(self.dir, exist_ok=True)
         self.best_params = os.path.join(self.dir, "best", "params.pt")
@@ -58,10 +77,11 @@ class CheckpointKeeper:
         self.ema = os.path.join(self.dir, "ema", "ema.pt")
 
     def save(self, epoch: int, model: torch.nn.Module, metrics: Dict[str, Any]) -> None:
-        """Retain ``model``'s parameters as best/ unless the kept best has a
-        higher sampled NDCG."""
+        """Retain ``model``'s parameters as best/ unless the kept best
+        selects higher."""
         prev = self.best_metrics()
-        if prev is not None and metrics["ndcg"] < prev["ndcg"]:
+        if prev is not None and (_selection_metric(metrics, self.select_by)
+                                 < _selection_metric(prev, self.select_by)):
             return
         _save(model.state_dict(), self.best_params)
 
@@ -74,6 +94,7 @@ class CheckpointKeeper:
     def save_latest(self, epoch: int, state, ema: Optional[torch.nn.Module] = None) -> None:
         """The resume checkpoint; with ``ema``, the shadow at the same step."""
         _save({"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
+               "items_state": state.items_state,
                "generator": state.generator.get_state(),
                "seed_generator": state.seed_generator.get_state(),
                "step": state.step, "epoch": epoch}, self.latest)
@@ -81,12 +102,21 @@ class CheckpointKeeper:
             _save({"params": ema.state_dict(), "step": state.step, "epoch": epoch}, self.ema)
 
     def restore_latest(self, state) -> Optional[int]:
-        """Load latest/ into ``state`` in place; its epoch, or None without one."""
+        """Load latest/ into ``state`` in place; its epoch, or None without one.
+        Raises ValueError, before changing anything, when latest/ was saved
+        with the other item-table optimizer (row-sparse or dense)."""
         if not os.path.exists(self.latest):
             return None
         ck = _load(self.latest)
+        saved = ck.get("items_state")
+        if (saved is None) != (state.items_state is None):
+            raise ValueError(f"{self.latest} holds the {'dense' if saved is None else 'sparse'} "
+                             "item-table Adam's state; the state to restore uses the other")
         state.model.load_state_dict(ck["model"])
         state.optimizer.load_state_dict(ck["optimizer"])
+        if saved is not None:
+            state.items_state["munu"].copy_(saved["munu"])
+            state.items_state["count"] = int(saved["count"])
         state.generator.set_state(ck["generator"])
         state.seed_generator.set_state(ck["seed_generator"])
         state.step = int(ck["step"])

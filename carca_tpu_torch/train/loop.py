@@ -18,10 +18,16 @@ function updates the ``TrainState`` in place and returns it with the loss,
 a device tensor that is read on the host once per epoch. The JAX package's
 ``lax.scan`` over K steps per dispatch is a Python loop of K steps per call.
 
-Not ported yet, and refused where a config asks for them: the full-catalog
-retrieval evaluator and ``select_by=retrieval_*`` (ROADMAP item 8), the
-row-sparse item Adam (slice 6), meshes and on-device sampling for them
-(slice 7).
+Where ``sparse_adam.resolve`` says so (a device-pipeline run with an item
+table of at least 1M rows), the device step updates the item table with
+the lazy row-sparse Adam (``_sparse_device_update``). With
+``eval_retrieval_every`` the fit ranks each val user's held-out item
+against the whole catalog (``RetrievalEvaluator``) and logs
+``retrieval_val_*``; ``select_by=retrieval_*`` retains the checkpoint on
+that metric. ``evaluate_knn`` runs the KNN content baseline through the
+sampled eval. A mesh (more than one device) is refused (ROADMAP item 14);
+``device_sampling``, which the JAX package reads only under a mesh, is
+accepted and has no effect on one device.
 """
 
 from __future__ import annotations
@@ -41,12 +47,18 @@ import torch
 from carca_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
 from carca_tpu_torch.data.dataset import BatchBuilder, epoch_batches
 from carca_tpu_torch.data.device_pipeline import DeviceDataset, assemble_eval, assemble_train
+from carca_tpu_torch.data.device_pipeline import _profile_slots
 from carca_tpu_torch.data.loaders import Catalog
 from carca_tpu_torch.data.prefetch import prefetch
 from carca_tpu_torch.models.carca import CARCA, carca_apply
+from carca_tpu_torch.models.embeddings import ItemRows
+from carca_tpu_torch.models.knn import knn_apply
 from carca_tpu_torch.models.losses import masked_bce, sampled_softmax
+from carca_tpu_torch.ops.retrieval_topk import quantize_index
+from carca_tpu_torch.parallel.retrieval import (catalog_in_decoder_space, embed_catalog,
+                                                queries, retrieval_hr_ndcg, topk_given_queries)
 from carca_tpu_torch.train import sparse_adam
-from carca_tpu_torch.train.checkpoint import CheckpointKeeper
+from carca_tpu_torch.train.checkpoint import CheckpointKeeper, _selection_metric
 from carca_tpu_torch.train.metrics import hr_ndcg_sums
 from carca_tpu_torch.train.state import TrainState, create_train_state
 from carca_tpu_torch.utils.masking import get_mask
@@ -54,13 +66,23 @@ from carca_tpu_torch.utils.masking import get_mask
 TEST_SALT = 999_983  # the test eval's seed next to the run seed (the JAX package's)
 
 
+def attrs_dtype(mc: ModelConfig) -> torch.dtype:
+    """The device dtype of the attrs catalog: bf16 under bf16 compute, where
+    the first layer rounds attr values to bf16 anyway (a bf16 table is
+    value-identical and half the memory: 240 MB at 10M items), else f32."""
+    return torch.bfloat16 if mc.compute_dtype == "bfloat16" else torch.float32
+
+
 def train_loss(model: CARCA, batch, attrs_table: torch.Tensor, *,
                generator: Optional[torch.Generator] = None,
                seed_generator: Optional[torch.Generator] = None,
-               loss_kind: str = "bce", logq: Optional[torch.Tensor] = None) -> torch.Tensor:
+               loss_kind: str = "bce", logq: Optional[torch.Tensor] = None,
+               item_rows: Optional[ItemRows] = None) -> torch.Tensor:
     """The train-time loss, shared by every step variant: the target-group
     split (group count from the batch width), the forward in the model's
-    current mode, then the objective (``carca_tpu/train/loop.py:62-90``)."""
+    current mode, then the objective (``carca_tpu/train/loop.py:62-90``).
+    ``item_rows`` routes the item lookups (the row-sparse Adam's
+    sub-table)."""
     L = model.cfg.seq_len
     o_x, o_c = batch["o_x"], batch["o_c"]
     n_groups = o_x.shape[1] // L
@@ -69,7 +91,7 @@ def train_loss(model: CARCA, batch, attrs_table: torch.Tensor, *,
     y_pred = carca_apply(model, (batch["p_x"], None, batch["p_c"]), targets,
                          attrs_table=attrs_table, generator=generator,
                          seed_generator=seed_generator,
-                         return_logits=loss_kind == "softmax")
+                         return_logits=loss_kind == "softmax", item_rows=item_rows)
     if loss_kind == "softmax":
         return sampled_softmax(y_pred, o_x, n_groups, logq=logq)
     return masked_bce(y_pred, batch["y_true"], get_mask(o_x))
@@ -90,22 +112,52 @@ def apply_gradients(state: TrainState, loss_fn: Callable[[], torch.Tensor]) -> t
     return loss.detach()
 
 
+def _sparse_device_update(tc: TrainConfig, state: TrainState, batch,
+                          attrs_table: torch.Tensor,
+                          logq: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One train update of a sparse-items state on ``batch``, in place
+    (``carca_tpu/train/loop.py:166-205``): the loss is differentiated with
+    respect to the gathered sub-table of the batch's unique ids, the dense
+    Adam updates every other parameter, and the row-sparse Adam the touched
+    rows of the item table. Returns the detached loss."""
+    items = state.model.embed.items
+    uphys, valid, posmap = sparse_adam.touched_rows(batch, items.shape[0])
+    sub = items.detach()[uphys].requires_grad_(True)  # the [cap, W] leaf the gradient reaches
+    loss = apply_gradients(state, lambda: train_loss(
+        state.model, batch, attrs_table, generator=state.generator,
+        seed_generator=state.seed_generator, loss_kind=tc.loss, logq=logq,
+        item_rows=ItemRows(sub, posmap)))
+    rows = state.items_state
+    sparse_adam.apply_rows_update(items, rows, uphys, valid, sub.grad, sub.detach(),
+                                  lr=sparse_adam.lr_at(tc, rows["count"]), b1=tc.beta1,
+                                  b2=tc.beta2, weight_decay=tc.l2_reg)
+    return loss
+
+
 def make_device_train_step(mc: ModelConfig, tc: Optional[TrainConfig] = None,
                            reject_width: int = 0, neg_pop: bool = False,
-                           logq: Optional[torch.Tensor] = None) -> Callable:
+                           logq: Optional[torch.Tensor] = None,
+                           sparse_items: Optional[bool] = None) -> Callable:
     """Train step with on-device batch assembly: (state, attrs_table,
     catalog arrays, user_rows [B]) → (state, loss). The state is updated in
-    place. Raises where ``sparse_adam.resolve`` turns the row-sparse Adam
-    on for (mc, tc) on the device pipeline, ``"auto"`` included."""
+    place. The item table takes the row-sparse Adam where ``sparse_items``
+    says so, by default where ``sparse_adam.resolve`` turns it on for (mc,
+    tc) on the device pipeline; the state must be built the same way."""
     tc = tc or TrainConfig()
-    sparse_adam.refuse_sparse(Config(mc, DataConfig(device_pipeline=True), tc))
+    if sparse_items is None:
+        sparse_items = sparse_adam.resolve(Config(mc, DataConfig(device_pipeline=True), tc))
     n_neg = tc.n_train_negatives
     lq = logq if tc.loss == "softmax" else None
 
     def train_step(state: TrainState, attrs_table, arrays, user_rows):
+        if (state.items_state is not None) != sparse_items:
+            raise ValueError(f"the step uses the {'sparse' if sparse_items else 'dense'} item-"
+                             "table Adam, the state the other (create_train_state(sparse_items=))")
         state.model.train()
         batch = assemble_train(arrays, mc.seq_len, mc.n_items, user_rows, state.generator,
                                reject_width, neg_pop, n_neg=n_neg)
+        if sparse_items:
+            return state, _sparse_device_update(tc, state, batch, attrs_table, lq)
         loss = apply_gradients(state, lambda: train_loss(
             state.model, batch, attrs_table, generator=state.generator,
             seed_generator=state.seed_generator, loss_kind=tc.loss, logq=lq))
@@ -118,14 +170,14 @@ def make_scanned_device_train_step(mc: ModelConfig, inner_steps: int,
                                    tc: Optional[TrainConfig] = None,
                                    reject_width: int = 0, neg_pop: bool = False,
                                    logq: Optional[torch.Tensor] = None,
-                                   on_step: Optional[Callable[[TrainState], None]] = None
-                                   ) -> Callable:
+                                   on_step: Optional[Callable[[TrainState], None]] = None,
+                                   sparse_items: Optional[bool] = None) -> Callable:
     """``inner_steps`` train steps per call: (state, attrs_table, catalog
     arrays, user_rows [K, B]) → (state, losses [K], a device tensor). Each
     step is exactly ``make_device_train_step``'s, drawing from the same
     generators in the same order, so K steps in one call equal K single
     steps; ``on_step(state)`` runs after each (the fit loop's EMA)."""
-    step = make_device_train_step(mc, tc, reject_width, neg_pop, logq)
+    step = make_device_train_step(mc, tc, reject_width, neg_pop, logq, sparse_items)
 
     def scanned_step(state: TrainState, attrs_table, arrays, user_rows):
         if user_rows.shape[0] != inner_steps:
@@ -145,10 +197,13 @@ def make_scanned_device_train_step(mc: ModelConfig, inner_steps: int,
 def make_train_step(mc: ModelConfig, tc: Optional[TrainConfig] = None) -> Callable:
     """Train step over a host-assembled batch already on the device:
     (state, attrs_table, batch) → (state, loss). The state is updated in
-    place."""
+    place. It takes the dense Adam only: a row-sparse state raises."""
     tc = tc or TrainConfig()
 
     def train_step(state: TrainState, attrs_table, batch):
+        if state.items_state is not None:
+            raise ValueError("the host-pipeline step uses the dense item-table Adam; the "
+                             "row-sparse Adam needs device_pipeline=true")
         state.model.train()
         loss = apply_gradients(state, lambda: train_loss(
             state.model, batch, attrs_table, generator=state.generator,
@@ -294,21 +349,190 @@ def eval_generator(seed: int, salt: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(s)
 
 
+class RetrievalEvaluator:
+    """Full-catalog leave-one-out retrieval on one device
+    (``carca_tpu/train/loop.py:354-479``): ``evaluator(model)`` →
+    ``{retrieval_{mode}_hr, retrieval_{mode}_ndcg}``. Everything that does
+    not depend on the weights (the seen index's rows, the user batches) is
+    built once, so per-epoch monitoring rebuilds only the index.
+
+    ``seen_only`` indexes the items with at least one training event,
+    counted over the actual train windows of the users the train split
+    iterates (a held-out positive alone does not make an item seen; id 0
+    is never indexed); else every id. The index is bf16 at 4M items and
+    more unless ``quantized`` (which embeds in f32 and quantizes to int8),
+    in decoder space once per build. A user's visible window is excluded
+    from its top-k; dead rows never match. ``eval_subsample`` users are
+    drawn from ``default_rng(seed)``. ``dd`` reuses a DeviceDataset already
+    on ``device``. ``batch(..., use_kernel=False)`` scores one batch with
+    the plain top-k on any device."""
+
+    def __init__(self, cfg: Config, catalog: Catalog, mode: str = "test",
+                 k: Optional[int] = None, log: bool = True, seen_only: bool = True,
+                 quantized: bool = False, device: torch.device | str = "cuda",
+                 dd: Optional[DeviceDataset] = None):
+        mc, tc = cfg.model, cfg.train
+        if mc.decoder == "ca":
+            raise ValueError("full-catalog retrieval applies to the dot/wdot decoders; the "
+                             "cross-attention decoder is a ranking model (see retrieval.py)")
+        self.cfg, self.mode, self.log = cfg, mode, log
+        self.k = k or tc.top_k
+        self.quantized = quantized
+        device = torch.device(device)
+        if dd is None:
+            dd = DeviceDataset(catalog, mc.seq_len, mc.target_len, test=tc.test, device=device)
+        self.arrays = dd.arrays
+        self.attrs = torch.as_tensor(catalog.attrs, dtype=torch.float32, device=device)
+        # bf16 rows at multi-million-item scale halve the index (2.56 GB f32
+        # at 10M, d=64); the int8 measurement embeds in f32, as serving does
+        self.emb_dtype = (torch.bfloat16 if mc.n_items >= 4_000_000 and not quantized
+                          else torch.float32)
+        self.row_ids = None
+        self.note = f"{mc.n_items} ids"
+        if seen_only:
+            self.row_ids = self._seen_rows(dd, mc.n_items)
+            self.note = f"{len(self.row_ids) - 1}/{mc.n_items - 1} seen items"
+        if quantized:
+            self.note += ", int8"
+        users = dd.users(mode)
+        if len(users) > cfg.data.eval_subsample:
+            users = np.random.default_rng(tc.seed).choice(users, cfg.data.eval_subsample,
+                                                          replace=False)
+        self.row_batches = [torch.as_tensor(rows, dtype=torch.int64, device=device)
+                            for rows in epoch_batches(users, tc.batch_size, shuffle=False)]
+
+    @staticmethod
+    def _seen_rows(dd: DeviceDataset, n_items: int) -> torch.Tensor:
+        """[0] ‖ the ids with a training event, ascending."""
+        arrays = dd.arrays
+        dev = arrays["items"].device
+        lengths = arrays["hist_len"]
+        n_users = lengths.shape[0]
+        user_of = torch.repeat_interleave(torch.arange(n_users, device=dev), lengths)
+        pos_in_user = (torch.arange(user_of.shape[0], device=dev)
+                       - torch.repeat_interleave(arrays["offsets"], lengths))
+        trains = torch.zeros(n_users, dtype=torch.bool, device=dev)
+        trains[torch.as_tensor(dd.users("train"), device=dev)] = True
+        sel = (trains[user_of] & (pos_in_user >= arrays["start_train"][user_of])
+               & (pos_in_user < arrays["end_train"][user_of]))
+        counts = torch.bincount(arrays["items"].long()[sel], minlength=n_items)
+        seen = torch.nonzero(counts[1:]).reshape(-1) + 1  # never the pad id
+        return torch.cat([seen.new_zeros(1), seen])
+
+    def index(self, model: CARCA):
+        """The index of ``model``'s item tower: decoder-space rows (int8 when
+        ``quantized``), over the seen rows or every id."""
+        model.eval()
+        with torch.inference_mode():
+            attrs = self.attrs if self.row_ids is None else self.attrs[self.row_ids]
+            emb = catalog_in_decoder_space(
+                embed_catalog(model, attrs, global_ids=self.row_ids, out_dtype=self.emb_dtype),
+                model.cfg)
+            return quantize_index(emb) if self.quantized else emb.contiguous()
+
+    def batch(self, model: CARCA, emb, rows: torch.Tensor, use_kernel: bool = True):
+        """One batch of user rows: (queries [B, d], top-k ids [B, k] (−1 on
+        dead rows), held-out positives [B], alive [B])."""
+        mc = model.cfg
+        arrays = self.arrays
+        model.eval()
+        with torch.inference_mode():
+            p_evt, valid, alive, e, off = _profile_slots(arrays, self.mode, rows, mc.seq_len)
+            p_x = torch.where(valid, arrays["items"][p_evt], 0)
+            p_c = arrays["ctx"][p_evt] * valid[..., None]
+            pos = torch.where(alive, arrays["items"][torch.where(alive, off + e - 1, 0)], 0)
+            q = queries(model, (p_x, None, p_c), self.attrs)
+            _, ids = topk_given_queries(q, emb, mc, self.k, exclude=p_x, row_ids=self.row_ids,
+                                        in_decoder_space=True, use_kernel=use_kernel)
+            ids = torch.where(alive[:, None], ids, -1)  # dead rows never match
+        return q, ids, pos.long(), alive
+
+    def __call__(self, model: CARCA) -> Dict[str, float]:
+        emb = self.index(model)
+        hr = ndcg = 0.0
+        total = 0
+        sums = []
+        for rows in self.row_batches:
+            _, ids, pos, alive = self.batch(model, emb, rows)
+            sums.append(torch.stack([*retrieval_hr_ndcg(ids, pos, self.k),
+                                     alive.sum().to(torch.float32)]))
+        for h, n, t in torch.stack(sums).cpu().tolist() if sums else []:
+            hr, ndcg, total = hr + h, ndcg + n, total + int(t)
+        m = self.mode
+        out = {f"retrieval_{m}_hr": hr / max(total, 1), f"retrieval_{m}_ndcg": ndcg / max(total, 1)}
+        if self.cfg.train.verbose and self.log:
+            print(f"Retrieval@{self.k} ({m}, index: {self.note}): "
+                  f"HR = {out[f'retrieval_{m}_hr']:.4f}, NDCG = {out[f'retrieval_{m}_ndcg']:.4f}")
+        return out
+
+
+def evaluate_retrieval(cfg: Config, catalog: Catalog, model: CARCA, mode: str = "test",
+                       k: Optional[int] = None, log: bool = True, seen_only: bool = True,
+                       quantized: bool = False) -> Dict[str, float]:
+    """Leave-one-out evaluation against the full catalog (BASELINE
+    configs[4]; the reference's eval samples 100 negatives instead,
+    ``src/data.py:140-192``), on ``model``'s device: each user's held-out
+    item ranked among all items (the visible window excluded), HR@k and
+    NDCG@k of its rank averaged. ``seen_only`` indexes the items with a
+    training event (the serving posture; unseen items carry random
+    embeddings), ``quantized`` scores the int8 serving index
+    (``RetrievalEvaluator``)."""
+    device = next(model.parameters()).device
+    return RetrievalEvaluator(cfg, catalog, mode=mode, k=k, log=log, seen_only=seen_only,
+                              quantized=quantized, device=device)(model)
+
+
+def make_knn_eval_step(top_k: int) -> Callable:
+    """Eval step of the KNN content baseline (``src/knn.py``), pluggable into
+    ``evaluate`` as (model, attrs_table, batch) → (hr, ndcg, loss); the
+    model is unused. The BCE loss takes the scores clipped into (0, 1) (the
+    reference feeds raw dot products to BCE, ``src/train.py:45``, which is
+    NaN on negative dots); the ranking metrics use the raw scores."""
+
+    def eval_step(model, attrs_table, batch):
+        with torch.inference_mode():
+            y_pred = knn_apply((batch["p_x"], None, None), [(batch["o_x"], None, None)],
+                               attrs_table=attrs_table)
+            loss = masked_bce(y_pred.clamp(1e-7, 1.0 - 1e-7), batch["y_true"],
+                              get_mask(batch["o_x"]))
+            hr, ndcg = hr_ndcg_sums(y_pred, batch["y_true"], top_k,
+                                    get_mask(batch["o_x"][:, 0]))
+        return hr, ndcg, loss
+
+    return eval_step
+
+
+def evaluate_knn(cfg: Config, catalog: Catalog, log: bool = True,
+                 device: torch.device | str = "cuda") -> Dict[str, float]:
+    """The KNN baseline through the shared eval harness (the reference pairs
+    ``KNN()`` with the same ``evaluate``) on ``device``: val and test HR,
+    NDCG and loss over host batches."""
+    mc, tc = cfg.model, cfg.train
+    builder = BatchBuilder(catalog, mc.seq_len, mc.target_len, test=tc.test)
+    attrs_table = torch.as_tensor(builder.cat.attrs, dtype=torch.float32, device=device)
+    step = make_knn_eval_step(tc.top_k)
+    rng = np.random.default_rng(tc.seed)
+    host_root = np.random.default_rng(tc.seed)
+    out: Dict[str, float] = {}
+    for mode in ("val", "test"):
+        users = builder.users(mode)
+        if len(users) > cfg.data.eval_subsample:
+            users = host_root.choice(users, cfg.data.eval_subsample, replace=False)
+        hr, ndcg, loss = evaluate(step, None, attrs_table, builder, users, tc.batch_size, rng,
+                                  mode)
+        out.update({f"{mode}_hr": hr, f"{mode}_ndcg": ndcg, f"{mode}_loss": loss})
+        if tc.verbose and log:
+            print(f"KNN {mode}: HR = {hr:.4f}, NDCG = {ndcg:.4f}")
+    return out
+
+
 def refuse_unported(cfg: Config) -> None:
     """Raise NotImplementedError, naming its ROADMAP item, for what a config
-    asks of the fit loop that the port does not have yet."""
-    tc, dc = cfg.train, cfg.data
+    asks of the fit loop that the port does not have yet: a mesh."""
+    tc = cfg.train
     if tc.mesh_shape and int(np.prod(tc.mesh_shape)) > 1:
         raise NotImplementedError(f"mesh_shape={tc.mesh_shape}: the port trains on one "
                                   "device (ROADMAP item 14, slice 7)")
-    if dc.device_sampling:
-        raise NotImplementedError("device_sampling=true belongs to the mesh host pipeline, "
-                                  "not ported yet (ROADMAP item 14, slice 7)")
-    if tc.eval_retrieval_every > 0 or tc.select_by != "ndcg":
-        raise NotImplementedError(
-            f"eval_retrieval_every={tc.eval_retrieval_every}, select_by={tc.select_by!r}: "
-            "the full-catalog retrieval evaluator is not ported yet (ROADMAP item 8)")
-    sparse_adam.refuse_sparse(cfg)
 
 
 def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
@@ -353,9 +577,15 @@ def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
     if len(test_users) > dc.eval_subsample:
         test_users = host_root.choice(test_users, dc.eval_subsample, replace=False)
 
+    # the row-sparse item Adam: one decision, which a resumed checkpoint of
+    # the other structure overrides below
+    sparse_items = sparse_adam.resolve(cfg)
     if state is None:
-        state = create_train_state(mc, tc, device)
-    attrs_table = torch.as_tensor(catalog.attrs, dtype=torch.float32).to(device)
+        state = create_train_state(mc, tc, device, sparse_items=sparse_items)
+    elif (state.items_state is not None) != sparse_items:
+        raise ValueError(f"the config resolves sparse_items_adam to {sparse_items}, the given "
+                         "state was built the other way")
+    attrs_table = torch.as_tensor(catalog.attrs, dtype=attrs_dtype(mc), device=device)
 
     start_epoch = 1
     keeper = None
@@ -364,9 +594,24 @@ def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
         if not tc.checkpoint_resume and os.path.isdir(ckpt_dir):
             # a fresh run: a stale best/ would be compared against and reloaded
             shutil.rmtree(ckpt_dir)
-        keeper = CheckpointKeeper(ckpt_dir)
+        keeper = CheckpointKeeper(ckpt_dir, select_by=tc.select_by)
     if tc.checkpoint_resume and keeper is not None:
-        restored = keeper.restore_latest(state)
+        try:
+            restored = keeper.restore_latest(state)
+        except ValueError:
+            # latest/ holds the other item-table optimizer ("auto" depends on
+            # the batch size and the catalog, which may have changed): adopt
+            # it, where the run's step can take it. The host step has no
+            # row-sparse Adam, so a host run refuses a sparse latest/.
+            if not dc.device_pipeline:
+                raise
+            state = create_train_state(mc, tc, device, model=state.model,
+                                       sparse_items=not sparse_items)
+            restored = keeper.restore_latest(state)
+            sparse_items = not sparse_items
+            if tc.verbose and log:
+                print(f"note: resumed checkpoint uses {'sparse' if sparse_items else 'dense'} "
+                      f"item-table Adam; adopting it over the configured setting")
         if restored is not None:
             start_epoch = restored + 1
     # the EMA shadow, seeded from the live weights after a restore; a resumed
@@ -403,9 +648,11 @@ def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
             ev = dd.arrays["items"].long()
             counts = torch.bincount(ev, minlength=mc.n_items).to(torch.float32)
             logq = torch.log(counts.clamp_min(1.0)) - float(np.log(ev.shape[0]))
-        train_step = make_device_train_step(mc, tc, rw, neg_pop, logq=logq)
+        train_step = make_device_train_step(mc, tc, rw, neg_pop, logq=logq,
+                                            sparse_items=sparse_items)
         scanned_step = (make_scanned_device_train_step(mc, tc.inner_steps, tc, rw, neg_pop,
-                                                       logq=logq, on_step=ema_after)
+                                                       logq=logq, on_step=ema_after,
+                                                       sparse_items=sparse_items)
                         if tc.inner_steps > 1 else None)
         eval_steps = {m: make_device_eval_step(mc, tc.top_k, m, rw) for m in ("val", "test")}
         scanned_evals = {m: (make_scanned_device_eval_step(mc, tc.top_k, m, tc.inner_steps, rw)
@@ -426,8 +673,24 @@ def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
             if tc.verbose and log:
                 print(line, flush=True)
 
+        # per-epoch full-catalog retrieval on the val split, built once
+        retrieval_eval = None
+        if tc.eval_retrieval_every:
+            if mc.decoder == "ca":
+                if tc.select_by != "ndcg":
+                    raise ValueError("select_by=retrieval_* needs a dot-family decoder (the ca "
+                                     "decoder has no retrieval index)")
+                emit("note: eval_retrieval_every applies to the dot/wdot decoders; skipping "
+                     "retrieval monitoring")
+            else:
+                retrieval_eval = RetrievalEvaluator(cfg, catalog, mode="val", log=False,
+                                                    device=device, dd=dd)
+        if tc.select_by != "ndcg" and retrieval_eval is None:
+            raise ValueError(f"select_by={tc.select_by!r} selects on the monitored full-catalog "
+                             "metric: set eval_retrieval_every >= 1")
+
         best_m = keeper.best_metrics() if keeper is not None else None
-        best = best_m["ndcg"] if best_m else 0.0
+        best = _selection_metric(best_m, tc.select_by) if best_m else 0.0
         no_improve = 0
         best_in_memory = -1  # the epoch whose improving save still matches the live state
         final: Dict[str, float] = {}
@@ -534,17 +797,40 @@ def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
                     "epoch_seconds": dt}) + "\n")
                 metrics_file.flush()
             final = {"val_hr": hr, "val_ndcg": ndcg, "val_loss": val_loss, "epochs_run": epoch}
+            rmetrics = None
+            if retrieval_eval is not None and epoch % tc.eval_retrieval_every == 0:
+                t2 = time.perf_counter()
+                rmetrics = retrieval_eval(emodel)
+                now = datetime.now().strftime("%H:%M:%S")
+                emit(f"{now} - Epoch {epoch:03d}: Retrieval@{tc.top_k} (val) "
+                     f"HR = {rmetrics['retrieval_val_hr']:.4f}, "
+                     f"NDCG = {rmetrics['retrieval_val_ndcg']:.4f} "
+                     f"({time.perf_counter() - t2:.1f}s)")
+                if metrics_file:
+                    metrics_file.write(json.dumps({"epoch": epoch, **rmetrics}) + "\n")
+                    metrics_file.flush()
+                final.update(rmetrics)
 
-            if ndcg > best:
-                best, no_improve = ndcg, 0
-                best_in_memory = epoch
-                if keeper is not None:
-                    m = {"ndcg": ndcg, "hr": hr, "epoch": epoch}
-                    if ema is not None:
-                        m["ema_decay"] = tc.ema_decay
-                    keeper.save(epoch, emodel, m)  # best/ holds the evaluated weights
+            # retention on sampled NDCG, or with select_by=retrieval_* on the
+            # monitored metric, decided on monitored epochs only
+            if tc.select_by == "ndcg":
+                candidate = ndcg
             else:
-                no_improve += 1
+                candidate = (rmetrics[f"retrieval_val{tc.select_by[9:]}"]
+                             if rmetrics is not None else None)
+            if candidate is not None:
+                if candidate > best:
+                    best, no_improve = candidate, 0
+                    best_in_memory = epoch
+                    if keeper is not None:
+                        m = {"ndcg": ndcg, "hr": hr, "epoch": epoch}
+                        if tc.select_by != "ndcg":
+                            m.update(select=candidate, select_by=tc.select_by, **rmetrics)
+                        if ema is not None:
+                            m["ema_decay"] = tc.ema_decay
+                        keeper.save(epoch, emodel, m)  # best/ holds the evaluated weights
+                else:
+                    no_improve += 1
             # the resume point, on its cadence and at a run's first epoch
             if keeper is not None and (epoch % max(tc.checkpoint_interval, 1) == 0
                                        or epoch == start_epoch):

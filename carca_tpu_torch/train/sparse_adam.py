@@ -1,13 +1,41 @@
-"""The row-sparse item-table Adam's on/off decision (counterpart of
-``carca_tpu/train/sparse_adam.py::resolve``). The lazy Adam itself is not
-ported yet (ROADMAP slice 6): every caller raises where this says True."""
+"""Lazy (row-sparse) Adam for the item table (counterpart of
+``carca_tpu/train/sparse_adam.py``).
+
+A train step touches at most 3·B·L item rows (38,400 at B = 256, L = 50)
+of a table that may hold 10M, while a dense Adam reads and writes the whole
+table and both moment tables every step. Here:
+
+* the loss is differentiated with respect to a gathered ``[cap, W]``
+  sub-table of the batch's unique ids (``cap = |p_x| + |o_x|``), which the
+  model reads through each id's slot (``models/embeddings.ItemRows``), so
+  no dense ``[R, W]`` gradient exists;
+* the moments stay whole on the device as one interleaved ``[R, 2W]``
+  tensor (mu ‖ nu); only the touched rows are gathered, updated and written
+  back.
+
+Semantics, as the JAX package's: for a row with zero moments (its first
+touch) the update is Adam's; a row touched at steps t₁ and t₂ skips the
+moment decay of the gap (the standard "lazy Adam"); bias correction uses
+the row state's own count; classic L2 applies to touched rows only;
+untouched rows and their moments stay bit-for-bit unchanged. The table is
+never lane-packed here (pack = 1).
+
+The unique ids come from a sort, a first-of-run mask and a cumsum, at the
+static size ``cap`` (``torch.unique`` would sync with the host every step).
+Slots past the unique count are fill slots: they point at the pad row 0,
+gather zeros there and write back exactly what they read, so they change
+nothing (the JAX package writes them out of range and drops them; torch's
+index writes raise on an out-of-range index instead). The pad row's own
+gradient is zero (its embedding is masked), so its update is exactly 0 and
+row 0 stays zero.
+"""
 
 from __future__ import annotations
 
-import numpy as np
+from typing import Dict, Tuple
 
-SLICE_6 = ("the row-sparse item-table Adam is not ported yet (ROADMAP slice 6, "
-           "10M-item training)")
+import numpy as np
+import torch
 
 
 def resolve(cfg) -> bool:
@@ -33,7 +61,79 @@ def resolve(cfg) -> bool:
             and tc.batch_size <= 1024)
 
 
-def refuse_sparse(cfg) -> None:
-    """Raise NotImplementedError when ``resolve`` turns the sparse Adam on."""
-    if resolve(cfg):
-        raise NotImplementedError(SLICE_6)
+def touched_rows(batch: Dict[str, torch.Tensor], n_rows: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(unique rows [cap], valid [cap], position map [n_rows]) of a train
+    batch's profile and target ids, ``cap = |p_x| + |o_x|``. The unique
+    rows ascend in slots ``0 .. U-1``; the fill slots ``U .. cap-1`` hold
+    row 0 and ``valid`` is False there. ``posmap[id]`` is the slot of every
+    id in the batch (0 elsewhere). No host sync."""
+    ids = torch.cat([batch["p_x"].reshape(-1), batch["o_x"].reshape(-1)]).long()
+    srt = torch.sort(ids).values
+    first = torch.ones_like(srt, dtype=torch.bool)
+    first[1:] = srt[1:] != srt[:-1]
+    slot = torch.cumsum(first, 0) - 1  # the slot of each sorted id
+    cap = ids.shape[0]
+    # every id of a run writes its own value into its slot: no write races
+    uphys = torch.zeros(cap, dtype=torch.int64, device=ids.device).scatter_(0, slot, srt)
+    valid = torch.arange(cap, device=ids.device) <= slot[-1]
+    posmap = torch.zeros(n_rows, dtype=torch.int64, device=ids.device).scatter_(0, srt, slot)
+    return uphys, valid, posmap
+
+
+def init_state(table: torch.Tensor) -> Dict[str, object]:
+    """The row state: moments interleaved in one ``[R, 2W]`` tensor (mu ‖
+    nu per row, one gather and one write per step) and the update count, a
+    host int like ``TrainState.step``."""
+    r, w = table.shape
+    return {"munu": torch.zeros((r, 2 * w), dtype=table.dtype, device=table.device),
+            "count": 0}
+
+
+@torch.no_grad()
+def apply_rows_update(
+    table: torch.Tensor,
+    sstate: Dict[str, object],
+    uphys: torch.Tensor,
+    valid: torch.Tensor,
+    g_rows: torch.Tensor,
+    sub_rows: torch.Tensor,
+    *,
+    lr: float,
+    b1: float,
+    b2: float,
+    eps: float = 1e-8,
+    weight_decay: float = 0.0,
+) -> None:
+    """One Adam step restricted to rows ``uphys`` (fill slots, ``valid``
+    False, change nothing), in place on ``table`` and ``sstate``: the
+    elementwise arithmetic of optax's ``add_decayed_weights →
+    scale_by_adam → scale(−lr)`` chain, bias-corrected by the row state's
+    count."""
+    count = int(sstate["count"]) + 1
+    munu_all = sstate["munu"]
+    if weight_decay:
+        g_rows = g_rows + weight_decay * sub_rows
+    w = g_rows.shape[-1]
+    munu = munu_all[uphys]
+    mu = b1 * munu[:, :w] + (1.0 - b1) * g_rows
+    nu = b2 * munu[:, w:] + (1.0 - b2) * torch.square(g_rows)
+    c = np.float32(count)  # the corrections in float32, as the JAX package's
+    mu_hat = mu / float(np.float32(1.0) - np.power(np.float32(b1), c))
+    nu_hat = nu / float(np.float32(1.0) - np.power(np.float32(b2), c))
+    delta = (-lr) * mu_hat / (torch.sqrt(nu_hat) + eps)
+    keep = valid[:, None]
+    # a fill slot adds +0 to row 0 and writes back the moments it read
+    table.index_add_(0, uphys, torch.where(keep, delta, 0.0).to(table.dtype))
+    munu_all.index_copy_(0, uphys, torch.where(keep, torch.cat([mu, nu], dim=-1), munu))
+    sstate["count"] = count
+
+
+def lr_at(tc, count: int) -> float:
+    """The step's learning rate under TrainConfig's schedule (the same
+    ``make_schedule`` the dense Adam uses), at the row state's count
+    before its increment."""
+    from carca_tpu_torch.train.state import make_schedule  # state.py imports this module
+
+    sched = make_schedule(tc)
+    return float(tc.lr) if sched is None else float(sched(count))

@@ -7,18 +7,24 @@ L2 (``weight_decay`` adds l2·p to the gradient before the moments), which
 is what the JAX package builds as ``add_decayed_weights`` ahead of
 ``scale_by_adam``. The sinusoidal ``pe`` table is a buffer here, not a
 parameter, so it needs no decay mask.
+
+With ``sparse_items`` (``train/sparse_adam.py``) the Adam covers every
+parameter but ``embed.items``, and the item table's row state (``munu``,
+``count``) sits beside it in ``TrainState.items_state``: the JAX package's
+``opt_state = {"dense", "items"}``.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
 from carca_tpu_torch.config import ModelConfig, TrainConfig
 from carca_tpu_torch.models.carca import CARCA
+from carca_tpu_torch.train import sparse_adam
 
 
 @dataclass
@@ -26,7 +32,9 @@ class TrainState:
     """``generator`` lives on the model's device and draws the plain
     dropouts and the negatives; ``seed_generator`` lives on the CPU and
     draws each attention kernel's Philox seed, so no draw waits for the
-    device. ``step`` counts optimizer updates on the host."""
+    device. ``step`` counts optimizer updates on the host. ``items_state``
+    is the row-sparse Adam's state of the item table, None when the dense
+    Adam holds the table."""
 
     model: CARCA
     optimizer: torch.optim.Optimizer
@@ -34,6 +42,7 @@ class TrainState:
     seed_generator: torch.Generator
     schedule: Optional[Callable[[int], float]] = None
     step: int = 0
+    items_state: Optional[Dict[str, object]] = None
 
 
 def make_schedule(tc: TrainConfig) -> Optional[Callable[[int], float]]:
@@ -61,19 +70,23 @@ def make_optimizer(tc: TrainConfig, params) -> torch.optim.Adam:
 
 def create_train_state(mc: ModelConfig, tc: TrainConfig,
                        device: torch.device | str | None = None,
-                       model: Optional[CARCA] = None) -> TrainState:
+                       model: Optional[CARCA] = None,
+                       sparse_items: bool = False) -> TrainState:
     """Fresh weights from ``tc.seed`` (drawn on the CPU, then moved), unless
-    ``model`` is given; fresh Adam moments; generators seeded from
+    ``model`` is given; fresh Adam moments (with ``sparse_items``, the item
+    table's in a fresh row state instead); generators seeded from
     ``tc.seed``. ``device`` defaults to ``model``'s device, else the card."""
     if device is None:
         device = next(model.parameters()).device if model is not None else "cuda"
     device = torch.device(device)
     if model is None:
         model = CARCA(mc, generator=torch.Generator().manual_seed(tc.seed), device=device)
+    params = [p for n, p in model.named_parameters() if not (sparse_items and n == "embed.items")]
     return TrainState(
         model=model,
-        optimizer=make_optimizer(tc, model.parameters()),
+        optimizer=make_optimizer(tc, params),
         generator=torch.Generator(device=device).manual_seed(tc.seed + 1),
         seed_generator=torch.Generator().manual_seed(tc.seed + 2),
         schedule=make_schedule(tc),
+        items_state=sparse_adam.init_state(model.embed.items.detach()) if sparse_items else None,
     )

@@ -98,8 +98,9 @@ raises and exits non-zero:
              users, 2,000 items, seed 0) written in the reference's file
              formats, then `python -m carca_tpu_torch.cli --preset beauty`
              over those files (epochs 100, early stop 20) as subprocesses:
-             the device pipeline at seeds 0 and 1 and the host pipeline at
-             seed 0. Each must reach test HR@10 >= 0.695 and NDCG@10 >=
+             the device pipeline and the host pipeline at seed 0 (a
+             seed-1 fit went for phase 10's time; PERF.md keeps its
+             numbers). Each must reach test HR@10 >= 0.695 and NDCG@10 >=
              0.540, launch K1 and K2, and leave args.json, the CSV,
              metrics.jsonl, ckpt/best and ckpt/latest. Then `python -m
              carca_tpu_torch.serve.service --run_dir` over the seed-0 run
@@ -114,6 +115,30 @@ raises and exits non-zero:
              (K1 at the eval's [256,101] x [256,50] cross-attention) and
              with the plain path on the card: HR and NDCG sums equal, loss
              within 1e-5.
+10. fit 10M — the synthetic10m preset (BASELINE configs[4]) at its full
+             size: synthetic_catalog_device(100,000 users, 10,000,000
+             items, seed 0) generated on the card twice, bit-equal; one
+             train step at dropout 0 from the same weights with the
+             row-sparse and with the dense item Adam (losses equal,
+             first-touch rows within 1e-6, untouched rows and moments
+             bit-equal, the pad row 0) and each step's time; then `python -m
+             carca_tpu_torch.cli --preset synthetic10m --epochs 2
+             --eval_retrieval_every 1 --select_by retrieval_hr
+             --eval_retrieval 10`: retrieval val HR@10 after epoch 1 >= 0.05,
+             the retained epoch the first argmax of the retrieval curve,
+             sampled test HR@10 >= 0.70, K1, K2 and K3 bf16 launched; ex/s,
+             epoch seconds and peak memory. best/ on the test split through
+             evaluate_retrieval's evaluator, (seen, bf16 -> K3), (full, bf16
+             -> K4 + rerank), (seen, int8 -> K3 int8): with the kernels (the
+             main path, launches counted), then per batch against the plain
+             top-k (ids equal but for near-ties, HR sums apart by at most the
+             users with a near-tie), each kernel timed beside its plain
+             version at the eval's [256, 64] x k + L = 60; the service over
+             the run (its catalog regenerated on the card) against an
+             in-process load_recommender; `python -m carca_tpu_torch.bench
+             --config 10m`; K1/K2 under bf16 compute at the fit's encoder
+             against their plain versions, timed beside them and SDPA.
+             With --profile, one 10M K-step train call under the profiler.
 
 Tolerance of the retrieval kernels against their plain versions: K3, K4
 and the rerank score on the tensor cores (csrc/scoring.cuh), the plain
@@ -124,10 +149,10 @@ equal except near-ties within that bound
 are bit-equal.
 
 The main paths are the 100k slice (phase 5), the 10M slice (5c), the
-retrieval bench (5d), the train step (8) and the fit and serve entry points
-(9): each runs with every launch counter set to 0 just before it and read
-just after (the fits run as subprocesses, which start at 0 and print their
-counts at the end). The line before the
+retrieval bench (5d), the train step (8), the fit and serve entry points
+(9) and the 10M fit and its retrieval evaluation (10): each runs with every
+launch counter set to 0 just before it and read just after (the fits run
+as subprocesses, which start at 0 and print their counts at the end). The line before the
 last is a JSON object listing the kernels, each with its launches on the
 path that runs it, its error against its plain version, its time, the plain
 version's, its bound (bytes over 3.35 TB/s against operations over the
@@ -157,11 +182,12 @@ import torch
 import torch.nn.functional as F
 
 from carca_tpu_torch import bench, bench_retrieval
-from carca_tpu_torch.config import preset
+from carca_tpu_torch.config import Config, preset
 from carca_tpu_torch.data.dataset import BatchBuilder
-from carca_tpu_torch.data.device_pipeline import assemble_train
+from carca_tpu_torch.data.device_pipeline import DeviceDataset, assemble_train
 from carca_tpu_torch.data.loaders import load_dataset
-from carca_tpu_torch.data.synthetic import synthetic_catalog, write_reference_format
+from carca_tpu_torch.data.synthetic import (synthetic_catalog, synthetic_catalog_device,
+                                            write_reference_format)
 from carca_tpu_torch.models.attention import NEG_MASK, masked_attention, pair_mask
 from carca_tpu_torch.models.carca import CARCA, encode_profile
 from carca_tpu_torch.ops import _build
@@ -175,12 +201,16 @@ from carca_tpu_torch.ops.retrieval_topk import (GROUP, SCORE_ORDER_TOL, Quantize
                                                 compare_within_order_tol, groupmax,
                                                 groupmax_plain, quantize_index, stream_plan,
                                                 tournament_rerank, tournament_rerank_plain)
-from carca_tpu_torch.parallel.retrieval import query_from_encoded
+from carca_tpu_torch.parallel.retrieval import query_from_encoded, retrieval_hr_ndcg
 from carca_tpu_torch.serve.recommender import (Recommender, config_from_run_dir,
                                                load_recommender)
 from carca_tpu_torch.serve.service import HostCSR, history, run_bench, serve_lines
+from carca_tpu_torch.train import sparse_adam
 from carca_tpu_torch.train.checkpoint import CheckpointKeeper
-from carca_tpu_torch.train.loop import make_eval_step, to_device, train_loss
+from carca_tpu_torch.train.loop import (RetrievalEvaluator, _sparse_device_update,
+                                        apply_gradients, attrs_dtype, make_eval_step, to_device,
+                                        train_loss)
+from carca_tpu_torch.train.state import create_train_state
 
 SEED = 0
 N_USERS, N_REAL_ITEMS = 4096, 99_999
@@ -239,10 +269,30 @@ FIT_USERS, FIT_ITEMS = 4096, 2000
 FIT_TARGETS = 100  # the beauty preset's eval negatives (target_len)
 FIT_EPOCHS, FIT_EARLY_STOP = 100, 20
 FIT_HR_FLOOR, FIT_NDCG_FLOOR = 0.695, 0.540
-FIT_RUNS = (("run_s0", 0, True), ("run_s1", 1, True), ("run_host", 0, False))
+FIT_RUNS = (("run_s0", 0, True), ("run_host", 0, False))
 FIT_TIMEOUT_S = 600
 SERVE_SCORE_TOL = 1e-5  # the service against the in-process Recommender
 SERVE_BENCH_ITERS = 30
+# phase 10: the synthetic10m preset (BASELINE configs[4]) at its full size.
+# Its floors: retrieval val HR@10 after epoch 1 (the JAX package on a TPU,
+# the same process with another draw: 0.0954) and sampled test HR@10 (the
+# JAX package: ~0.77)
+FIT10M_USERS, FIT10M_ITEMS = 100_000, 10_000_000
+FIT10M_EPOCHS = 2
+FIT10M_RETRIEVAL_FLOOR, FIT10M_SAMPLED_FLOOR = 0.05, 0.70
+FIT10M_TIMEOUT_S = 900
+# first-touch rows, row-sparse against dense Adam: the same gradient rows,
+# the bias corrections folded into the step (torch) or dividing the moments
+# (the row update), so updates of ~lr = 1e-3 differ in their last bits
+SPARSE_DENSE_TOL = 1e-6
+# their first moments, (1 - b1)·g of the two paths' item gradients, as the
+# card test of the sparse step holds them: 1e-2 relative or 1e-9 absolute
+SPARSE_DENSE_MOMENT_RTOL, SPARSE_DENSE_MOMENT_ATOL = 1e-2, 1e-9
+EVAL10M_CASES = (("seen bf16", True, False), ("full bf16", False, False),
+                 ("seen int8", True, True))
+# kernel against plain on (test users, batch): the plain top-k over the
+# 10M index holds a [B, 10M] score matrix, so it takes batches of 32
+EVAL10M_CMP = {"seen bf16": (2048, B), "full bf16": (512, 32), "seen int8": (2048, B)}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1464,6 +1514,358 @@ def phase_fit_serve(card):
 
 
 # --------------------------------------------------------------------------
+# phase 10: the synthetic10m preset on the card
+# --------------------------------------------------------------------------
+
+def sparse_vs_dense_step(card, cat) -> dict:
+    """One train step of the 10M preset at dropout 0 from the same weights
+    and batch, with the row-sparse item Adam and with the dense Adam: equal
+    losses, first-touch rows within SPARSE_DENSE_TOL and their first moments
+    within SPARSE_DENSE_MOMENT_RTOL/ATOL, untouched rows (and
+    the sparse step's untouched moments) bit-equal to the start, the pad
+    row zero; then each step's time on that batch."""
+    cfg = preset("synthetic10m", cat.n_items, cat.n_attrs, cat.n_ctx)
+    mc, tc = dataclasses.replace(cfg.model, dropout=0.0), cfg.train
+    check(sparse_adam.resolve(Config(mc, cfg.data, tc)),
+          "the synthetic10m preset must resolve the row-sparse Adam on")
+    dd = DeviceDataset(cat, mc.seq_len, mc.target_len, device=DEVICE)
+    attrs = torch.as_tensor(cat.attrs, dtype=attrs_dtype(mc), device=DEVICE)
+    sparse = create_train_state(mc, tc, DEVICE, sparse_items=True)
+    dense = create_train_state(mc, tc, DEVICE, model=copy.deepcopy(sparse.model))
+    table0 = sparse.model.embed.items.detach().clone()
+    rows = torch.as_tensor(dd.users("train")[:tc.batch_size], device=DEVICE)
+    batch = assemble_train(dd.arrays, mc.seq_len, mc.n_items, rows,
+                           torch.Generator(device=DEVICE).manual_seed(SEED))
+
+    def dense_step():
+        return apply_gradients(dense, lambda: train_loss(
+            dense.model, batch, attrs, generator=dense.generator,
+            seed_generator=dense.seed_generator))
+
+    def sparse_step():
+        return _sparse_device_update(tc, sparse, batch, attrs)
+
+    for st in (sparse, dense):
+        st.model.train()
+    loss_s, loss_d = sparse_step().item(), dense_step().item()
+    ids = torch.unique(torch.cat([batch["p_x"].reshape(-1), batch["o_x"].reshape(-1)]).long())
+    untouched = torch.ones(mc.n_items, dtype=torch.bool, device=DEVICE)
+    untouched[ids] = False
+    s_items, d_items = sparse.model.embed.items.detach(), dense.model.embed.items.detach()
+    err = (s_items[ids] - d_items[ids]).abs().max().item()
+    moments = dense.optimizer.state[dense.model.embed.items]
+    mu_s, mu_d = sparse.items_state["munu"][ids, :D], moments["exp_avg"][ids]
+    mu_err = (mu_s - mu_d).abs().max().item()
+    check(abs(loss_s - loss_d) <= TRAIN_LOSS_TOL * abs(loss_d),
+          f"10M step: sparse loss {loss_s} vs dense {loss_d}")
+    check(err <= SPARSE_DENSE_TOL, f"10M step: first-touch rows differ by {err} > "
+                                   f"{SPARSE_DENSE_TOL} between the sparse and the dense Adam")
+    check(bool(((mu_s - mu_d).abs() <= SPARSE_DENSE_MOMENT_ATOL
+                + SPARSE_DENSE_MOMENT_RTOL * mu_d.abs()).all()),
+          f"10M step: first moments differ by {mu_err} between the sparse and the dense Adam "
+          f"(tol {SPARSE_DENSE_MOMENT_RTOL} relative or {SPARSE_DENSE_MOMENT_ATOL})")
+    check(torch.equal(s_items[untouched], table0[untouched])
+          and torch.equal(d_items[untouched], table0[untouched]), "10M step: untouched rows moved")
+    check(not bool(sparse.items_state["munu"][untouched].any()),
+          "10M step: the moments of untouched rows changed")
+    check(not bool(s_items[0].any()), "10M step: the pad row moved")
+
+    def step_ms(step, n=10) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    times = {"dense_ms": step_ms(dense_step), "sparse_ms": step_ms(sparse_step),
+             "dense_ms_again": step_ms(dense_step), "sparse_ms_again": step_ms(sparse_step)}
+    out = {"loss_sparse": loss_s, "loss_dense": loss_d, "touched_rows": int(ids.numel()),
+           "first_touch_max_abs_err": err, "first_moment_max_abs_err": mu_err,
+           "tol": SPARSE_DENSE_TOL, "moment_rtol": SPARSE_DENSE_MOMENT_RTOL,
+           "moment_atol": SPARSE_DENSE_MOMENT_ATOL, "untouched_bit_equal": True,
+           "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20, **times}
+    log("fit_10m", card=card, case="one step at dropout 0, sparse vs dense item Adam", **out)
+    return out
+
+
+def fit_10m_run(card, run) -> dict:
+    """`python -m carca_tpu_torch.cli --preset synthetic10m` with per-epoch
+    retrieval monitoring, retention on retrieval HR and the retrieval eval
+    at the end; its gates and numbers."""
+    t0 = time.perf_counter()
+    out = run_module("carca_tpu_torch.cli", [
+        "--preset", "synthetic10m", "--epochs", str(FIT10M_EPOCHS), "--eval_retrieval_every",
+        "1", "--select_by", "retrieval_hr", "--eval_retrieval", str(K), "--resume", "false",
+        "--out_dir", run], FIT10M_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    lines = out.splitlines()
+    final = ast.literal_eval(next(ln for ln in lines if ln.startswith("final: "))[7:])
+    launches = json.loads(next(ln for ln in lines if ln.startswith("launches: "))[10:])
+    memory = json.loads(next(ln for ln in lines if ln.startswith("memory: "))[8:])
+    with open(os.path.join(run, "metrics.jsonl")) as fh:
+        rows = [json.loads(ln) for ln in fh]
+    for name in ("args.json", "ckpt/best/params.pt", "ckpt/best/metrics.json",
+                 "ckpt/latest/state.pt"):
+        check(os.path.exists(os.path.join(run, name)), f"{run}: no {name}")
+    epochs = [r for r in rows if "train_loss" in r]
+    curve = {r["epoch"]: r["retrieval_val_hr"] for r in rows if "retrieval_val_hr" in r}
+    check(sorted(curve) == list(range(1, FIT10M_EPOCHS + 1)), f"retrieval curve {curve}")
+    first_argmax = max(sorted(curve), key=lambda e: (curve[e], -e))
+    with open(os.path.join(run, "ckpt", "best", "metrics.json")) as fh:
+        best = json.load(fh)
+    summary = {
+        "epochs_run": final["epochs_run"], "retrieval_val_hr10": curve,
+        "retrieval_val_ndcg10": {r["epoch"]: r["retrieval_val_ndcg"] for r in rows
+                                 if "retrieval_val_ndcg" in r},
+        "best_epoch": best["epoch"], "first_argmax_epoch": first_argmax,
+        "test_hr10": final["test_hr"], "test_ndcg10": final["test_ndcg"],
+        "val_hr10": [r["val_hr"] for r in epochs], "val_ndcg10": [r["val_ndcg"] for r in epochs],
+        "retrieval_test_hr10": final["retrieval_test_hr"],
+        "retrieval_test_ndcg10": final["retrieval_test_ndcg"],
+        "examples_per_sec": [r["examples_per_sec"] for r in epochs],
+        "epoch_seconds": [r["epoch_seconds"] for r in epochs],
+        "train_loss": [r["train_loss"] for r in epochs],
+        "peak_device_mib": memory["peak_device_mib"], "wall_s": wall, "launches": launches}
+    log("fit_10m", card=card, run="cli --preset synthetic10m", **summary)
+    check(curve[1] >= FIT10M_RETRIEVAL_FLOOR, f"retrieval val HR@10 after epoch 1 {curve[1]} "
+                                              f"below {FIT10M_RETRIEVAL_FLOOR}")
+    check(best["select_by"] == "retrieval_hr" and best["epoch"] == first_argmax,
+          f"retained epoch {best['epoch']} is not the first argmax {first_argmax} of {curve}")
+    check(final["test_hr"] >= FIT10M_SAMPLED_FLOOR,
+          f"sampled test HR@10 {final['test_hr']} below {FIT10M_SAMPLED_FLOOR}")
+    for name in ("attention_fwd", "attention_bwd", "catalog_topk_bf16"):
+        check(launches[name] > 0, f"the 10M fit never launched {name}: {launches}")
+    return summary
+
+
+def eval_10m(card, run, cat):
+    """best/ on the test split through evaluate_retrieval's evaluator, with
+    the kernels (the eval's batch, every test user, launches counted) and
+    then, on a subset, each batch with the kernels and with the plain top-k:
+    the raw k + L lists within the summation-order tolerance
+    (compare_within_order_tol), and HR sums that differ by at most the
+    users with a differing id. Then each kernel timed beside its plain
+    version at the eval's shapes. Returns (launches, errors, timings)."""
+    cfg = config_from_run_dir(run)
+    mc = cfg.model
+    model = CARCA(mc, device=DEVICE)
+    check(CheckpointKeeper(os.path.join(run, "ckpt")).restore_best(model) is not None,
+          f"{run}: no best/")
+    dd = DeviceDataset(cat, mc.seq_len, mc.target_len, test=cfg.train.test, device=DEVICE)
+    launches, errs, timings = {}, {}, {}
+    for case, seen_only, quantized in EVAL10M_CASES:
+        ev = RetrievalEvaluator(cfg, cat, mode="test", k=K, log=False, seen_only=seen_only,
+                                quantized=quantized, device=DEVICE, dd=dd)
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = ev(model)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        launches[case] = counts()
+        emb = ev.index(model)
+        n_local = emb.rows if quantized else emb.shape[0]
+        kk = min(K + mc.seq_len, n_local)
+        cmp_cfg = dataclasses.replace(
+            cfg, data=dataclasses.replace(cfg.data, eval_subsample=EVAL10M_CMP[case][0]),
+            train=dataclasses.replace(cfg.train, batch_size=EVAL10M_CMP[case][1]))
+        evc = RetrievalEvaluator(cmp_cfg, cat, mode="test", k=K, log=False, seen_only=seen_only,
+                                 quantized=quantized, device=DEVICE, dd=dd)
+        worst, near, tie_users, hr_k, hr_p, users = 0.0, 0, 0, 0.0, 0.0, 0
+        for rows in evc.row_batches:
+            q, ids_k, pos, alive = evc.batch(model, emb, rows, use_kernel=True)
+            q = q.contiguous()
+            ids_p = evc.batch(model, emb, rows, use_kernel=False)[1]
+            with torch.no_grad():
+                v, i = catalog_topk(q, emb, kk, n_items=n_local)
+                pv, pi = catalog_topk_plain(q, emb, kk, n_items=n_local)
+            err, swapped = compare_within_order_tol(v, i, pv, pi, q, emb)
+            worst, near = max(worst, err), near + swapped
+            ties = int(((i != pi).any(dim=1) & alive).sum())
+            hk, hp = (retrieval_hr_ndcg(x, pos, K)[0].item() for x in (ids_k, ids_p))
+            check(abs(hk - hp) <= ties, f"10M eval {case}: HR sums {hk} vs plain {hp} with "
+                                        f"{ties} near-tie users")
+            tie_users, hr_k, hr_p = tie_users + ties, hr_k + hk, hr_p + hp
+            users += int(alive.sum())
+        errs[case] = worst
+        log("fit_10m", card=card, case=f"best/ test retrieval, {case}", index_rows=n_local,
+            kk=kk, **metrics, main_path_s=main_s, launches=launches[case],
+            compared_users=users, compared_batch=EVAL10M_CMP[case][1], max_abs_err=worst,
+            tol=f"{SCORE_ORDER_TOL} * sum|q e|", near_tie_slots=near, near_tie_users=tie_users,
+            hr_sum_kernels=hr_k, hr_sum_plain=hr_p)
+        q = ev.batch(model, emb, ev.row_batches[0])[0].contiguous()  # the eval's [B, d] queries
+        with torch.no_grad():
+            if case == "full bf16":
+                timings.update(time_tournament_10m(card, q, emb, kk, errs))
+            else:
+                timings[case] = kernel_vs_plain(
+                    lambda: catalog_topk(q, emb, kk, n_items=n_local, method="stream"),
+                    lambda: catalog_topk_plain(q, emb, kk, n_items=n_local), reps=20,
+                    plain_reps=3)
+                log("timing", card=card, kernel=f"K3 catalog_topk {case}",
+                    shape=f"[{q.shape[0]},{D}] x {n_local} rows k={kk}", ms=timings[case][0],
+                    plain_ms=timings[case][1])
+        timings["rows", case] = n_local
+        del emb
+    return launches, errs, timings
+
+
+def time_tournament_10m(card, q, e, kk, errs) -> dict:
+    """K4 (layout 0) and the rerank at the eval's [B, d] queries over the
+    10M bf16 index: within the tolerance of their plain versions, the
+    rerank's group maxima bit-equal to K4's, each timed beside its plain
+    version."""
+    n = e.shape[0]
+    got, errs["K4 full bf16"] = check_groupmax(f"layout 0 at [{q.shape[0]},{D}] x {n} bf16 rows",
+                                               q, e, None, n, True, 0)
+    kg = kk + 8
+    gi = torch.sort(got.t(), dim=1, descending=True, stable=True).indices[:, :kg]
+    gi = gi.sort(dim=1).values.contiguous()
+    errs["rerank full bf16"] = check_rerank(f"[{q.shape[0]},{D}] x {kg} groups of {n} bf16 rows",
+                                            q, e, None, gi, n, True, torch.gather(got.t(), 1, gi))
+    del got
+    out = {"K4 full bf16": kernel_vs_plain(lambda: groupmax(q, e, None, n, True, 0),
+                                           lambda: groupmax_plain(q, e, None, n, True, 0),
+                                           reps=20, plain_reps=2),
+           "rerank full bf16": kernel_vs_plain(
+               lambda: tournament_rerank(q, e, None, gi, n, True),
+               lambda: tournament_rerank_plain(q, e, None, gi, n, True), reps=20, plain_reps=2),
+           "kg": kg, "unique_groups": int(torch.unique(gi).numel())}
+    for name in ("K4 full bf16", "rerank full bf16"):
+        log("timing", card=card, kernel=name, shape=f"[{q.shape[0]},{D}] x {n} bf16 rows, "
+            f"{kg} groups", max_abs_err=errs[name], ms=out[name][0], plain_ms=out[name][1])
+    return out
+
+
+def attention_bf16(card) -> dict:
+    """K1 and K2 at the 10M fit's encoder call under bf16 compute ([256,50,64]
+    causal 0, weight dropout 0.5): K1 against the plain version fed its keep
+    mask, K2 against autograd over it, each timed beside its plain version
+    and F.scaled_dot_product_attention on bf16 tensors."""
+    inputs = k1_inputs(L, L, 80)
+    q, k, v, qm, km = inputs
+    kw = dict(causal=0, scale=(D / H) ** 0.5, n_heads=H, compute_dtype="bfloat16",
+              dropout_rate=P_DROP)
+    keep = attention_keep_mask(
+        int(torch.randint(SEED_LIMIT, (), generator=torch.Generator().manual_seed(3))),
+        (B, H, L, L), P_DROP, DEVICE)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(81)).to(DEVICE)
+    with torch.no_grad():
+        got = fused_attention(q, k, v, qm, km, seed_generator=torch.Generator().manual_seed(3),
+                              **kw)
+        want = masked_attention(q, k, v, qm, km, keep_mask=keep, **kw)
+    k1_err = (got - want).abs().max().item()
+    check(k1_err <= K1_TOL_BF16, f"K1 bf16 at the 10M encoder: {k1_err} > {K1_TOL_BF16}")
+    _, *grads = kernel_grads(inputs, g, 3, **kw)
+    plain = attention_grads_plain(q, k, v, qm, km, g, keep_mask=keep, **kw)
+    rel = {n: rel_err(a, w) for n, a, w in zip(("dq", "dk", "dv"), grads, plain)}
+    check(max(rel.values()) <= K2_TOL_BF16, f"K2 bf16 at the 10M encoder: {rel}")
+    k2_err = max((a - w).abs().max().item() for a, w in zip(grads, plain))
+    seeds, gen = torch.Generator().manual_seed(0), torch.Generator(device=DEVICE).manual_seed(0)
+    with torch.no_grad():
+        k1_ms = kernel_vs_plain(
+            lambda: fused_attention(q, k, v, qm, km, seed_generator=seeds, **kw),
+            lambda: masked_attention(q, k, v, qm, km, train=True, generator=gen, **kw))
+    k2_times = time_k2(card, "encoder [256,50,64] causal 0 bf16", inputs, g, 3, **kw)
+    scale = (D / H) ** 0.5
+    add = (torch.where(pair_mask(qm, km, 0) > 0, 0.0, NEG_MASK)[:, None] / scale).to(torch.bfloat16)
+
+    def heads(x):
+        return (x.to(torch.bfloat16).view(B, L, H, D // H).transpose(1, 2).contiguous()
+                .requires_grad_())
+
+    qh, kh, vh = heads(q), heads(k), heads(v)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=add, dropout_p=P_DROP,
+                                              scale=1.0 / scale)
+
+    with torch.no_grad():
+        lib_fwd = cuda_ms(sdpa, 20)
+    out = sdpa()
+    gh = torch.randn_like(out)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), gh, retain_graph=True), 20)
+    res = {"k1_err": k1_err, "k2_err": k2_err, "k2_rel_err": rel, "K1": k1_ms,
+           "K2": k2_times["bwd"], "lib_fwd": lib_fwd, "lib_bwd": lib_bwd}
+    log("timing", card=card, kernel="K1/K2 bf16", shape="10M fit encoder [256,50,64] causal 0 "
+        f"dropout {P_DROP}", **res)
+    return res
+
+
+def phase_fit_10m(card, profile_run=False) -> dict:
+    """Phase 10. Returns what the kernels line needs: the fit's launches and
+    the in-process evaluation's, errors and timings."""
+    tmp = tempfile.mkdtemp(prefix="carca_fit10m_")
+    try:
+        t0 = time.perf_counter()
+        cat = synthetic_catalog_device(FIT10M_USERS, FIT10M_ITEMS, seed=SEED, device=DEVICE)
+        again = synthetic_catalog_device(FIT10M_USERS, FIT10M_ITEMS, seed=SEED, device=DEVICE)
+        torch.cuda.synchronize()
+        for name in ("attrs", "items", "ctx_vals"):
+            check(torch.equal(getattr(cat, name), getattr(again, name)),
+                  f"the 10M catalog's {name} differ when regenerated")
+        check(np.array_equal(cat.offsets, again.offsets), "the 10M catalog's offsets differ")
+        del again
+        log("fit_10m", card=card, catalog=f"synthetic_catalog_device({FIT10M_USERS}, "
+            f"{FIT10M_ITEMS}, seed {SEED})", n_items=cat.n_items, events=int(cat.offsets[-1]),
+            regenerated_bit_equal=True, both_generations_s=time.perf_counter() - t0)
+        step = sparse_vs_dense_step(card, cat)
+        torch.cuda.empty_cache()
+        run = os.path.join(tmp, "run")
+        fit = fit_10m_run(card, run)
+        eval_launches, errs, timings = eval_10m(card, run, cat)
+        torch.cuda.empty_cache()
+        serve_10m(card, run, cat)
+        torch.cuda.empty_cache()
+        bench10 = json.loads(run_module("carca_tpu_torch.bench", ["--config", "10m"],
+                                        600).strip().splitlines()[-1])
+        log("fit_10m", card=card, **bench10)
+        if profile_run:
+            setup = bench.build_setup("10m", B, DEVICE)
+            profile_train(card, setup, "auto")
+            del setup
+        attn = attention_bf16(card)
+        return {"fit": fit, "eval_launches": eval_launches, "errs": errs, "timings": timings,
+                "attn": attn, "step": step, "bench": bench10}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def serve_10m(card, run, cat) -> None:
+    """The service over the 10M run (its catalog regenerated on the card
+    from args.json) on ~20 requests, against an in-process
+    load_recommender over the catalog this process generated."""
+    host = HostCSR(cat)
+    lines = serve_requests(host)
+    t0 = time.perf_counter()
+    out = run_module("carca_tpu_torch.serve.service", ["--run_dir", run, "--k", str(K)], 600,
+                     stdin_text="\n".join(lines) + "\n")
+    serve_s = time.perf_counter() - t0
+    served = [json.loads(ln) for ln in out.splitlines() if ln.strip()]
+    rec = load_recommender(run, cat.attrs, which="best", device=DEVICE,
+                           index_ids=np.unique(host.items))
+    mine = list(serve_lines(rec, host, lines, k=K))
+    check(len(served) == len(lines), f"{len(served)} responses to {len(lines)} requests")
+    near_ties = 0
+    for line, got, want in zip(lines, served, mine):
+        check(got.get("id") == want.get("id"), f"response ids differ: {got} vs {want}")
+        if "error" in want:
+            check("error" in got, f"the service answered {line!r}: {got}")
+            continue
+        check("error" not in got and len(got["items"]) > 0, f"{line!r}: {got}")
+        near_ties += compare(f"10M service {got.get('id')}", got["items"], got["scores"],
+                             want["items"], want["scores"], score_tol=SERVE_SCORE_TOL)
+    errors = sum("error" in r for r in served)
+    check(errors == 2, f"{errors} error answers; want the out-of-range user and the malformed "
+                       "line")
+    index = rec.catalog_emb
+    log("fit_10m", card=card, case="service over the 10M run", requests=len(lines),
+        errors=errors, near_tie_slots=near_ties, equal_to_in_process=True, serve_wall_s=serve_s,
+        index_rows=index.rows if isinstance(index, QuantizedIndex) else index.shape[0],
+        index_int8=isinstance(index, QuantizedIndex), example=served[0])
+
+
+# --------------------------------------------------------------------------
 # phase 7 (--profile): where the time of a recommend call goes
 # --------------------------------------------------------------------------
 
@@ -1700,6 +2102,58 @@ def kernel_entries(k1_err, k2_err, k3_err, k4_err, timings, k2_times, library, l
     return entries
 
 
+def fit10m_entries(f, launches):
+    """The kernels line's entries for the synthetic10m path (phase 10): K1/K2
+    under bf16 compute at the fit's encoder (launches: the fit), K3 bf16 and
+    int8 over the seen index at the eval's [256, 64] queries and k + L = 60
+    (launches: the fit's monitoring and final eval, and the in-process int8
+    eval), K4 layout 0 and the rerank over the 10M bf16 index (launches: the
+    in-process full-index eval)."""
+    f32, bf16, n10 = 4, 2, FIT10M_ITEMS + 1
+    t, errs, attn = f["timings"], f["errs"], f["attn"]
+    kk = K + L
+    entries = []
+
+    def add(name, source, replaces, n, err, ms_plain, bytes_moved, ops, operand, lib=None):
+        b_ms, b_by = bound(bytes_moved, ops, operand)
+        entries.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": n, "max_abs_err": err, "ms": ms_plain[0],
+                        "plain_ms": ms_plain[1], "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": lib, "shape": "synthetic10m"})
+
+    masks = B * 2 * L * f32
+    add("attention_fwd_bf16", "carca_tpu_torch/csrc/attention_fwd.cu",
+        "carca_tpu/ops/flash_attention.py:113", launches["fit_10m"]["attention_fwd"],
+        attn["k1_err"], attn["K1"], 4 * B * L * D * f32 + masks, 4 * B * L * L * D, "bfloat16",
+        attn["lib_fwd"])
+    add("attention_bwd_bf16", "carca_tpu_torch/csrc/attention_bwd.cu",
+        "carca_tpu/ops/flash_attention.py:130", launches["fit_10m"]["attention_bwd"],
+        attn["k2_err"], attn["K2"], 7 * B * L * D * f32 + masks, 10 * B * L * L * D,
+        "bfloat16", attn["lib_bwd"])
+    for case, row_bytes, n in (
+            ("seen bf16", D * bf16, launches["fit_10m"]["catalog_topk_bf16"]),
+            ("seen int8", D + f32, launches["eval_10m seen int8"]["catalog_topk_int8"])):
+        r = t["rows", case]
+        add(f"catalog_topk_{case.split()[1]}_seen_10m", "carca_tpu_torch/csrc/catalog_topk.cu",
+            "carca_tpu/ops/retrieval_topk.py:526", n, errs[case], t[case],
+            r * row_bytes + B * D * f32 + B * kk * 12, 2 * B * r * D, "bfloat16")
+    groups = -(-n10 // GROUP)
+    full = launches["eval_10m full bf16"]
+    add("groupmax_10m_bf16", "carca_tpu_torch/csrc/groupmax.cu",
+        "carca_tpu/ops/retrieval_topk.py:183", full["groupmax_layout0"],
+        max(errs["full bf16"], errs["K4 full bf16"]), t["K4 full bf16"],
+        n10 * D * bf16 + B * D * f32 + groups * B * f32, 2 * B * n10 * D, "bfloat16")
+    # the rows of the winner groups read once (the trained queries share
+    # most of their groups), each query's kg groups scored
+    kg = t["kg"]
+    add("tournament_rerank_10m_bf16", "carca_tpu_torch/csrc/groupmax.cu",
+        "carca_tpu/ops/retrieval_topk.py:497", full["tournament_rerank"],
+        errs["rerank full bf16"], t["rerank full bf16"],
+        t["unique_groups"] * GROUP * D * bf16 + B * kg * 8 + B * D * f32 + B * kg * GROUP * f32,
+        2 * B * kg * GROUP * D, "bfloat16")
+    return entries
+
+
 def main() -> None:
     profile_run = "--profile" in sys.argv[1:]
     if set(sys.argv[1:]) - {"--profile"}:
@@ -1747,12 +2201,17 @@ def main() -> None:
     torch.cuda.empty_cache()
     _, fit_launches, k3_fit_err = timed("9 fit + serve", phase_fit_serve, card)
     k3_err["f32"] = max(k3_err["f32"], k3_fit_err)
+    torch.cuda.empty_cache()
+    fit10m = timed("10 fit 10M", phase_fit_10m, card, profile_run)
     launches = {"slice": serve_launches, "slice_10m": launches_10m, "bench": bench_launches,
-                "train": train_launches, "fit_serve": fit_launches}
+                "train": train_launches, "fit_serve": fit_launches,
+                "fit_10m": fit10m["fit"]["launches"], **{
+                    f"eval_10m {case}": n for case, n in fit10m["eval_launches"].items()}}
     log("launches", **launches)
     log("phase_seconds", total=sum(seconds.values()), **seconds)
-    print(json.dumps({"kernels": kernel_entries(k1_err, k2_err, k3_err, k4_err, timings,
-                                                k2_times, library, launches)}), flush=True)
+    entries = kernel_entries(k1_err, k2_err, k3_err, k4_err, timings, k2_times, library,
+                             launches) + fit10m_entries(fit10m, launches)
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,6 +4,7 @@ preset overlay, the flags the port cannot honour yet, a CPU run end to end
 (when the caller asks for the CPU), and the presets."""
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -77,16 +78,68 @@ def test_flag_parsers_are_strict():
 
 @pytest.mark.parametrize("extra,item", [
     (["--mesh", "2"], "item 14"), (["--mesh", "4x2"], "item 14"),
-    (["--device_sampling", "true"], "item 14"), (["--model", "knn"], "item 8"),
-    (["--eval_retrieval", "10"], "item 8"), (["--eval_retrieval_every", "1"], "item 8"),
-    (["--select_by", "retrieval_hr"], "item 8"), (["--select_by", "retrieval_ndcg"], "item 8"),
-    (["--synthetic_process", "markov"], "item 12"), (["--device_pipeline", "true"], "item 12"),
+    (["--device_sampling", "true", "--mesh", "2"], "item 14"), (["--model", "svd"], "knn"),
+    (["--select_by", "retrieval_hr"], "eval_retrieval_every"),
+    (["--select_by", "retrieval_ndcg"], "eval_retrieval_every"),
+    (["--eval_retrieval_every", "1", "--select_by", "retrieval_hr"], "dot-family"),
+    (["--ema_decay", "1.0"], "ema_decay"), (["--n_train_negatives", "2"], "device_pipeline"),
+    (["--neg_distribution", "popularity"], "device_pipeline"),
     (["--sparse_items_adam", "true", "--device_pipeline", "false"], "device_pipeline"),
 ])
 def test_flags_not_ported_yet_raise(tmp_path, extra, item):
+    """What the port refuses: a mesh (ROADMAP item 14), and the flag
+    combinations the JAX package refuses too (smoke's decoder is ca)."""
     argv = SMOKE + ["--out_dir", str(tmp_path)] + extra
     with pytest.raises((NotImplementedError, ValueError), match=item):
         cli.main(argv, device="cpu")
+
+
+TINY_10M = ["--preset", "synthetic10m", "--synthetic_users", "120", "--synthetic_items", "150",
+            "--epochs", "2", "--batch_size", "32", "--inner_steps", "2", "--resume", "false"]
+
+
+@pytest.mark.parametrize("extra", [
+    ["--synthetic_process", "markov", "--eval_retrieval_every", "1", "--select_by",
+     "retrieval_hr", "--eval_retrieval", "10"],
+    ["--eval_retrieval", "10", "--retrieval_index", "full", "--sparse_items_adam", "true"],
+])
+def test_synthetic10m_preset_trains_and_evaluates_retrieval(tmp_path, capsys, extra):
+    """The synthetic10m preset at a tiny catalog, on the CPU: the catalog
+    generated on the run's device, device_sampling accepted on one device,
+    per-epoch retrieval monitoring retained on retrieval HR, and the
+    retrieval eval at the end."""
+    metrics = cli.main(TINY_10M + ["--out_dir", str(tmp_path)] + extra, device="cpu")
+    out = capsys.readouterr().out
+    assert metrics["epochs_run"] == 2 and 0.0 <= metrics["retrieval_test_hr"] <= 1.0
+    assert "Retrieval@10 (test" in out and "launches: " in out
+    cfg = json.loads((tmp_path / "args.json").read_text())
+    assert (cfg["decoder"], cfg["compute_dtype"], cfg["device_pipeline"],
+            cfg["device_sampling"]) == ("dot", "bfloat16", True, True)
+    if "--select_by" in extra:
+        rows = [json.loads(ln) for ln in (tmp_path / "metrics.jsonl").read_text().splitlines()]
+        curve = [r["retrieval_val_hr"] for r in rows if "retrieval_val_hr" in r]
+        assert len(curve) == 2
+        best = json.loads((tmp_path / "ckpt" / "best" / "metrics.json").read_text())
+        assert best["select_by"] == "retrieval_hr"
+        assert best["epoch"] == 1 + int(np.argmax(curve))
+
+
+def test_model_knn_evaluates_the_baseline(capsys):
+    """--model knn evaluates the content baseline through the sampled eval
+    and trains nothing, with the JAX package's numbers (the same numpy
+    catalog and sampler)."""
+    from carca_tpu.train.loop import evaluate_knn as jax_evaluate_knn
+
+    argv = ["--synthetic", "true", "--preset", "smoke", "--model", "knn"]
+    metrics = cli.main(argv, device="cpu")
+    assert "KNN val" in capsys.readouterr().out
+    jargs = jax_cli.build_parser().parse_args(argv)
+    jcat = jax_cli.load_catalog(jargs)
+    want = jax_evaluate_knn(jax_cli.config_from_args(jargs, jcat.n_items, jcat.n_attrs,
+                                                     jcat.n_ctx), jcat, log=False)
+    assert set(metrics) == set(want)
+    for key in ("val_hr", "test_hr", "val_ndcg", "test_ndcg"):
+        assert abs(metrics[key] - want[key]) <= 1e-6, key
 
 
 def test_main_trains_on_the_cpu_when_asked(tmp_path, capsys):

@@ -299,14 +299,37 @@ def jax_config_at(n_real_items, device_pipeline, **train):
                      train=dataclasses.replace(jc.train, **train))
 
 
+@pytest.fixture(scope="module")
+def big_cat():
+    """A catalog of 1,000,000 item ids (999,999 real) and 40 users: the
+    size where "auto" turns the row-sparse Adam on."""
+    return synthetic_catalog(n_users=40, n_real_items=999_999, seed=1)
+
+
+def one_device_step(cfg, cat, sparse):
+    """One device-pipeline train step of a fresh state built as ``sparse``
+    says; the weights must move and the loss be finite."""
+    mc = cfg.model
+    state = create_train_state(mc, cfg.train, "cpu", sparse_items=sparse)
+    dd = DeviceDataset(cat, mc.seq_len, mc.target_len, device="cpu")
+    before = state.model.embed.items.detach().clone()
+    step = make_device_train_step(mc, cfg.train)
+    state, loss = step(state, torch.as_tensor(cat.attrs), dd.arrays,
+                       torch.as_tensor(dd.users("train")[:cfg.train.batch_size]))
+    assert torch.isfinite(loss) and not torch.equal(before, state.model.embed.items)
+    assert (state.items_state is not None) == sparse
+    return state
+
+
 @pytest.mark.parametrize("n_real,dp,train", [
     (999_999, True, {}), (2_000, True, {}), (999_999, False, {}),
     (999_999, True, {"batch_size": 2048}), (999_999, True, {"mesh_shape": (2,)}),
     (2_000, True, {"sparse_items_adam": True}), (2_000, True, {"sparse_items_adam": False}),
     (999_999, True, {"sparse_items_adam": False})])
-def test_sparse_items_adam_resolves_as_jax(n_real, dp, train):
-    """The port's resolve takes the JAX package's decision, and the bridge
-    raises exactly where it is on."""
+def test_sparse_items_adam_resolves_as_jax(n_real, dp, train, big_cat, cat):
+    """The port's resolve takes the JAX package's decision; the bridge keeps
+    the field, and where the decision is on, the device step builds and
+    runs the row-sparse Adam."""
     from carca_tpu.train.sparse_adam import resolve as jax_resolve
 
     jcfg = jax_config_at(n_real, dp, **train)
@@ -316,31 +339,51 @@ def test_sparse_items_adam_resolves_as_jax(n_real, dp, train):
     assert sparse_adam.resolve(cfg) == want
     if "mesh_shape" in train:
         return  # the bridge refuses a mesh first
+    assert config_from_jax(jcfg).train == cfg.train
     if want:
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            config_from_jax(jcfg)
-    else:
-        assert config_from_jax(jcfg).train == cfg.train
+        data = big_cat if n_real == 999_999 else synthetic_catalog(
+            n_users=40, n_real_items=n_real, seed=1)
+        one_device_step(cfg, data, sparse=True)
 
 
-def test_sparse_auto_at_1m_items_raises_in_fit_and_bridge():
-    """C2: "auto" resolving on (1M items, device pipeline, one device)
-    raises in fit, in make_device_train_step (a bare TrainConfig, whose
-    default is "auto") and in the bridge; at 2,000 items it does not."""
+def test_sparse_auto_at_1m_items_raises_in_fit_and_bridge(tmp_path, big_cat):
+    """C2: "auto" resolving on (1M items, device pipeline, one device) now
+    runs the row-sparse Adam in fit, in make_device_train_step (a bare
+    TrainConfig, whose default is "auto") and through the bridge; at 2,000
+    items the dense Adam. Nothing raises."""
     big = jax_config_at(999_999, True)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        train_config_from_jax(big)
-    cfg = config_from_jax(dataclasses.replace(big, train=dataclasses.replace(
-        big.train, sparse_items_adam=False)))
-    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, sparse_items_adam="auto"))
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        fit(cfg, None, device="cpu")
+    assert train_config_from_jax(big).sparse_items_adam == "auto"
+    cfg = config_from_jax(big)
+    assert sparse_adam.resolve(cfg) is True
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, epochs=1, out_dir=str(tmp_path), checkpoint=False, batch_size=16))
+    state, final = fit(cfg, big_cat, device="cpu", log=False)
+    assert state.items_state is not None and state.items_state["count"] == state.step == 3
+    assert final["epochs_run"] == 1 and np.isfinite(final["test_loss"])
     for tc in (cfg.train, TrainConfig(), None):
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            make_device_train_step(cfg.model, tc)
+        one_device_step(dataclasses.replace(cfg, train=tc or TrainConfig()), big_cat, True)
     small = jax_config_at(2_000, True)
     assert train_config_from_jax(small).sparse_items_adam == "auto"
     assert sparse_adam.resolve(config_from_jax(small)) is False
     small_cfg = config_from_jax(small)
+    small_cat = synthetic_catalog(n_users=40, n_real_items=2_000, seed=1)
     for tc in (small_cfg.train, TrainConfig(), None):
-        make_device_train_step(small_cfg.model, tc)
+        one_device_step(dataclasses.replace(small_cfg, train=tc or TrainConfig()), small_cat,
+                        False)
+
+
+def test_refuse_unported_accepts_the_10m_preset_on_one_device():
+    """The synthetic10m preset sets device_sampling=True, which the JAX
+    package reads only under a mesh: one device accepts it; a mesh is still
+    refused (ROADMAP item 14)."""
+    from carca_tpu_torch.train.loop import refuse_unported
+
+    cfg = preset("synthetic10m", 10_000_001, 12, 4)
+    assert cfg.data.device_sampling and cfg.data.device_pipeline
+    refuse_unported(cfg)
+    refuse_unported(dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, device_pipeline=False)))
+    with pytest.raises(NotImplementedError, match="item 14"):
+        refuse_unported(dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, mesh_shape=(2, 2))))
+    assert sparse_adam.resolve(cfg) is True

@@ -533,3 +533,71 @@ def test_retrieval_kernels_score_rows_wider_than_128(dev, monkeypatch, kind, d):
     assert catalog_topk.launches[kind] == before[0] + 1
     assert groupmax.launches[0] == before[1][0] + 2 and groupmax.launches[1] == before[1][1] + 2
     assert tournament_rerank.launches == before[2] + 3
+
+
+@pytest.mark.parametrize("process", ["zipf", "markov"])
+def test_device_generators_rerun_bit_equal_on_the_card(dev, process):
+    """The card's synthetic catalog is the same for the same seed (what a
+    served or resumed run regenerates), on the card; its offsets are the
+    host generator's."""
+    from carca_tpu_torch.data.synthetic import synthetic_generator
+
+    gen = synthetic_generator(process, device=True, torch_device=dev)
+    kw = dict(n_users=3_000, n_real_items=50_000, seed=3)
+    a, b = gen(**kw), gen(**kw)
+    for name in ("attrs", "items", "ctx_vals"):
+        x, y = getattr(a, name), getattr(b, name)
+        assert x.device.type == "cuda" and torch.equal(x, y), name
+    np.testing.assert_array_equal(a.offsets, b.offsets)
+    assert int(a.items.min()) >= 1 and int(a.items.max()) <= 50_000
+    assert not bool(a.attrs[0].any())
+    assert not torch.equal(a.items, gen(**dict(kw, seed=4)).items)
+
+
+def test_sparse_step_on_the_card_matches_the_cpu_plain_sparse_step(dev):
+    """One row-sparse train step (dropout 0, K1/K2 on the card) against the
+    same step on the CPU plain path from the same weights and batch: loss
+    within 1e-5 relative; touched item rows within 1e-5 absolute where the
+    row's gradient |g| > 1e-6, and within 2·lr elsewhere (a first Adam step
+    moves an element by lr·g/(|g| + eps): where |g| nears eps = 1e-8, the
+    float32 summation order of g moves it by a share of lr; measured 1.5e-5
+    once); first moments (0.1·g) within 1e-2 relative or 1e-9; untouched
+    rows, their moments and the pad row bit-equal / exactly 0."""
+    from carca_tpu_torch.config import ModelConfig, TrainConfig
+    from carca_tpu_torch.data.dataset import BatchBuilder
+    from carca_tpu_torch.data.synthetic import synthetic_catalog
+    from carca_tpu_torch.train.loop import _sparse_device_update
+    from carca_tpu_torch.train.state import create_train_state
+
+    cat = synthetic_catalog(n_users=300, n_real_items=5_000, seed=2)
+    mc = ModelConfig(n_items=cat.n_items, n_attrs=cat.n_attrs, n_ctx=cat.n_ctx, d=64, g=256,
+                     seq_len=50, target_len=100, n_blocks=2, n_heads=2, dropout=0.0,
+                     decoder="dot")
+    tc = TrainConfig(batch_size=64, l2_reg=1e-4)
+    builder = BatchBuilder(cat, mc.seq_len, mc.target_len)
+    batch = builder.train_batch(builder.users("train")[:64], np.random.default_rng(0))
+    batch.pop("n_valid")
+    states = {}
+    for where in ("cpu", dev):
+        st = create_train_state(mc, tc, where, sparse_items=True)
+        st.model.train()
+        b = {k: torch.from_numpy(v.copy()).to(where) for k, v in batch.items()}
+        launches = fused_attention.launches
+        loss = _sparse_device_update(tc, st, b, torch.as_tensor(cat.attrs, device=where))
+        assert (fused_attention.launches > launches) == (where != "cpu")
+        states[str(where)] = (st, loss.item())
+    (cpu, loss_c), (gpu, loss_g) = states["cpu"], states[str(dev)]
+    assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
+    table0 = create_train_state(mc, tc, "cpu").model.embed.items.detach()
+    ids = np.unique(np.concatenate([batch["p_x"].ravel(), batch["o_x"].ravel()]))
+    rest = np.setdiff1d(np.arange(mc.n_items), ids)
+    items_g, items_c = gpu.model.embed.items.detach().cpu(), cpu.model.embed.items.detach()
+    munu_g, munu_c = gpu.items_state["munu"].cpu(), cpu.items_state["munu"]
+    d = mc.d
+    g_cpu = munu_c[ids, :d] / (1.0 - tc.beta1)
+    tol = torch.where(g_cpu.abs() > 1e-6, 1e-5, 2 * tc.lr)
+    assert bool(((items_g[ids] - items_c[ids]).abs() <= tol).all())
+    assert torch.equal(items_g[rest], table0[rest]) and torch.equal(items_c[rest], table0[rest])
+    torch.testing.assert_close(munu_g[ids, :d], munu_c[ids, :d], rtol=1e-2, atol=1e-9)
+    assert not bool(munu_g[rest].any()) and not bool(items_g[0].any())
+    assert gpu.items_state["count"] == cpu.items_state["count"] == 1

@@ -328,3 +328,38 @@ def test_a_jax_run_served_by_the_port(runs, tmp_path):
         want_ids, want_s = theirs.recommend(hists, **kw)
         np.testing.assert_array_equal(got_ids, want_ids)
         np.testing.assert_allclose(got_s, want_s, rtol=1e-5, atol=1e-5)
+
+
+def test_service_regenerates_a_device_pipeline_run_catalog(tmp_path):
+    """A synthetic10m-preset run at a tiny catalog (generated on the run's
+    device, markov process): the service regenerates the same catalog from
+    args.json and answers as an in-process Recommender over it."""
+    import io
+
+    from carca_tpu_torch import cli
+    from carca_tpu_torch.data.loaders import host_catalog
+    from carca_tpu_torch.serve import service
+    from carca_tpu_torch.serve.recommender import config_from_run_dir, load_recommender
+
+    run = str(tmp_path / "run")
+    argv = ["--preset", "synthetic10m", "--synthetic_users", "120", "--synthetic_items", "150",
+            "--synthetic_process", "markov", "--epochs", "1", "--batch_size", "32",
+            "--resume", "false", "--out_dir", run]
+    cli.main(argv, device="cpu")
+    args = cli.build_parser().parse_args(argv)
+    trained = cli.load_catalog(args, cli.config_from_args(args, 0, 0, 0).data, "cpu")
+    served = service.load_catalog_for_run(service.build_parser().parse_args(["--run_dir", run]),
+                                          config_from_run_dir(run), "cpu")
+    assert isinstance(served.items, torch.Tensor)
+    a, b = host_catalog(trained), host_catalog(served)
+    for f in dataclasses.fields(a):
+        np.testing.assert_array_equal(getattr(a, f.name), getattr(b, f.name), err_msg=f.name)
+    lines = [json.dumps({"user": 3, "id": "u3"}), json.dumps({"user": 40, "k": 5}),
+             json.dumps({"history": b.items[:4].tolist()})]
+    out = io.StringIO()
+    service.main(["--run_dir", run, "--k", "4"], device="cpu",
+                 stdin=io.StringIO("\n".join(lines) + "\n"), stdout=out)
+    got = [json.loads(line) for line in out.getvalue().splitlines()]
+    rec = load_recommender(run, served.attrs, device="cpu", index_ids=np.unique(b.items))
+    assert got == list(serve_lines(rec, HostCSR(served), lines, k=4))
+    assert len(got) == 3 and len(got[1]["items"]) == 5 and "error" not in got[2]

@@ -267,15 +267,21 @@ def test_train_step_moves_the_weights_and_uses_the_kernel_switch_on_cpu():
 
 
 def test_unported_options_raise():
-    mc, tc, *_ = small_setup()
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        make_device_train_step(mc, dataclasses.replace(tc, sparse_items_adam=True))
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        bench.build_setup("10m", device="cpu")
+    """A mesh is still refused; the row-sparse Adam (ported) builds, and a
+    step refuses a state built for the other item-table optimizer."""
+    mc, tc, dd, attrs, rows = small_setup()
+    sparse_tc = dataclasses.replace(tc, sparse_items_adam=True)
+    step = make_device_train_step(mc, sparse_tc)
+    with pytest.raises(ValueError, match="item-table Adam"):
+        step(create_train_state(mc, sparse_tc, device="cpu"), attrs, dd.arrays, rows[0])
+    state, loss = step(create_train_state(mc, sparse_tc, device="cpu", sparse_items=True),
+                       attrs, dd.arrays, rows[0])
+    assert torch.isfinite(loss) and state.items_state["count"] == 1
+    with pytest.raises(ValueError, match="unknown config"):
+        bench.build_setup("100m", device="cpu")
     with pytest.raises(ValueError, match="one device"):
         train_config_from_jax(JaxTrainConfig(mesh_shape=(8,)))
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        train_config_from_jax(JaxTrainConfig(sparse_items_adam=True))
+    assert train_config_from_jax(JaxTrainConfig(sparse_items_adam=True)).sparse_items_adam is True
     with pytest.raises(ValueError, match="loss"):
         TrainConfig(loss="hinge")
 
