@@ -93,13 +93,10 @@ def train_config_from_jax(cfg: Any) -> TrainConfig:
     """A ``carca_tpu`` TrainConfig (or its dict), or a whole ``carca_tpu``
     Config, → this package's ``TrainConfig``, every field kept
     (``sparse_items_adam`` included: the port's ``sparse_adam.resolve``
-    takes the JAX package's decision). Raises ValueError on a multi-device
-    mesh, which the port does not train on yet."""
+    takes the JAX package's decision; ``mesh_shape`` and ``mesh_axes`` as
+    tuples)."""
     whole = hasattr(cfg, "train") and hasattr(cfg, "model")
     d = _as_dict(cfg.train if whole else cfg)
-    if int(np.prod(d.get("mesh_shape") or ())) > 1:
-        raise ValueError(f"mesh_shape={d['mesh_shape']}: the port trains on one device "
-                         "(ROADMAP slice 7)")
     for key in ("mesh_shape", "mesh_axes"):
         if isinstance(d.get(key), list):
             d[key] = tuple(d[key])

@@ -21,7 +21,18 @@ asks for the CPU, and nothing falls back to it.
   ``--eval_retrieval K`` ranks each test user's held-out item against the
   whole catalog after training (``--retrieval_index seen|full``), once the
   train state's optimizer is dropped.
-* ``--mesh`` over more than one device raises (ROADMAP item 14);
+* ``--mesh N`` (data parallel) or ``NxM`` (data × model, with
+  ``--shard_embeddings true`` the item and attrs tables row-sharded over
+  the model axis) trains over N·M ranks of ``torch.distributed``, one
+  process each, launched by torchrun:
+
+      python -m torch.distributed.run --standalone --nproc_per_node 2 \
+          -m carca_tpu_torch.cli --preset beauty --mesh 2 ...
+
+  Each rank takes ``cuda:{LOCAL_RANK % device_count}`` (``--device cpu``:
+  the CPU, on gloo); ranks that share a card talk over gloo, which checks
+  correctness and measures no scaling. The world size must equal the
+  mesh's product. Rank 0 writes the run directory and prints ``final:``.
   ``--device_sampling`` is read only under a mesh, as in the JAX package.
 """
 
@@ -109,11 +120,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--inner_steps", type=int, default=8,
                    help="device-pipeline train/eval steps per call")
     p.add_argument("--mesh", type=str, default="",
-                   help="multi-device mesh shape ('8', '4x2'); more than one device is not "
-                        "ported yet (ROADMAP item 14)")
-    p.add_argument("--shard_embeddings", type=parse_bool, default=False)
+                   help="mesh shape over torchrun's ranks: '8' (data parallel) or '4x2' "
+                        "(data x model; row-sharded tables with --shard_embeddings true)")
+    p.add_argument("--shard_embeddings", type=parse_bool, default=False,
+                   help="row-shard the item and attrs tables over the mesh's model axis")
     p.add_argument("--device_sampling", type=parse_bool, default=False,
-                   help="read under a mesh only (ROADMAP item 14); no effect on one device")
+                   help="sample train negatives on the device (the host pipeline under a "
+                        "mesh); no effect on one device")
     p.add_argument("--neg_distribution", type=str, default="uniform",
                    choices=("uniform", "popularity"),
                    help="train negatives (device pipeline): uniform | popularity")
@@ -269,11 +282,7 @@ def load_catalog(args, dc: Optional[DataConfig] = None, device: str = "cuda"):
     return load_dataset(dc.data_dir, dc.profile_file, dc.attr_file, dc.ctx_file)
 
 
-def refuse_unported_flags(args) -> None:
-    """The flags the port cannot honour yet, each naming its ROADMAP item."""
-    if math.prod(parse_mesh(args.mesh)[0]) > 1:
-        raise NotImplementedError(f"--mesh {args.mesh}: the port trains on one device "
-                                  "(ROADMAP item 14, slice 7)")
+def check_flags(args) -> None:
     if args.model.lower() not in ("carca", "knn"):
         raise ValueError(f"--model {args.model}: want carca or knn")
 
@@ -293,13 +302,40 @@ def launch_counts() -> dict:
             "tournament_rerank": tournament_rerank.launches}
 
 
+def join_mesh(args, device: str):
+    """Under ``--mesh`` of more than one device: join torchrun's process
+    group (before any catalog is drawn on the device) and check that the
+    world is the mesh; returns (this rank's device, the mesh or None)."""
+    n = math.prod(parse_mesh(args.mesh)[0])
+    if n <= 1:
+        return device, None
+    from carca_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+
+    device = str(initialize_distributed(device))
+    return device, make_mesh(*parse_mesh(args.mesh))  # raises unless the world is n
+
+
+def _by_rank(values: dict, device) -> list:
+    """Every rank's numbers ``values`` (the same keys on each), in rank
+    order: one all-gather over the world (just ``[values]`` without one)."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        return [values]
+    t = torch.tensor([float(values[k]) for k in values], dtype=torch.float64, device=device)
+    out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(out, t)
+    return [dict(zip(values, r.tolist())) for r in out]
+
+
 def main(argv: Optional[list] = None, device: Optional[str] = None) -> dict:
     """Train (or with ``--model knn`` evaluate the baseline) and print
     ``final: {...}``; returns the final metrics. The run goes on
-    ``device``, else ``--device``, else the card."""
+    ``device``, else ``--device``, else the card; under ``--mesh`` on this
+    rank's device of that kind."""
     args = build_parser().parse_args(argv)
-    refuse_unported_flags(args)
-    device = device or args.device or "cuda"
+    check_flags(args)
+    device, mesh = join_mesh(args, device or args.device or "cuda")
     defaults = vars(build_parser().parse_args([]))
     for name in _TPU_ONLY:
         if getattr(args, name) != defaults[name]:
@@ -323,14 +359,25 @@ def main(argv: Optional[list] = None, device: Optional[str] = None) -> dict:
             # drop the optimizer's moments (5 GB at 10M items) before the
             # catalog pass; training is over
             del state
-            metrics.update(loop.evaluate_retrieval(
-                cfg, catalog, model, k=args.eval_retrieval,
-                seen_only=args.retrieval_index == "seen"))
-    print("final:", metrics)
-    print("launches:", json.dumps(launch_counts()), flush=True)
+            if mesh is not None:  # rank 0 evaluates the gathered tables
+                model = loop.gather_model(model, mesh, cfg.train.shard_embeddings
+                                          and mesh.n_model > 1)
+            if model is not None:
+                metrics.update(loop.evaluate_retrieval(
+                    cfg, catalog, model, k=args.eval_retrieval,
+                    seen_only=args.retrieval_index == "seen"))
+    rank0 = mesh is None or mesh.rank == 0
+    launches = _by_rank(launch_counts(), device)
+    if rank0:
+        print("final:", metrics)
+        print("launches:", json.dumps(launch_counts()), flush=True)
+        if mesh is not None:
+            print("launches_by_rank:", json.dumps(launches), flush=True)
     if torch.device(device).type == "cuda" and torch.cuda.is_initialized():
-        print("memory:", json.dumps({"peak_device_mib": torch.cuda.max_memory_allocated() / 2**20}),
-              flush=True)
+        peaks = _by_rank({"peak_device_mib": torch.cuda.max_memory_allocated() / 2**20}, device)
+        if rank0:
+            print("memory:", json.dumps(dict(peaks[0], by_rank=[p["peak_device_mib"]
+                                                                for p in peaks])), flush=True)
     return metrics
 
 

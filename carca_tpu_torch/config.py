@@ -138,7 +138,7 @@ class TrainConfig:
     verbose: int = 1
     test: bool = True  # leave-one-out mode flag (src/data.py:59-72)
     out_dir: str = "results/run"
-    mesh_shape: Tuple[int, ...] = ()  # () = one device (the port's only case)
+    mesh_shape: Tuple[int, ...] = ()  # () = one device; else (n_data[, n_model]) ranks
     mesh_axes: Tuple[str, ...] = ("data",)
     shard_embeddings: bool = False
     inner_steps: int = 8  # train steps per call of the device pipeline's step

@@ -63,13 +63,14 @@ def encode_profile(
     generator: Optional[torch.Generator] = None,
     seed_generator: Optional[torch.Generator] = None,
     item_rows: Optional[embeddings.ItemRows] = None,
+    lookup: Optional[embeddings.Lookup] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The profile tower: (encoded profile [B, L, d], p_mask [B, L])."""
     cfg = model.cfg
     p_x, p_a, p_c = profile
     p_mask = get_mask(p_x)
     p_e = model.embed(p_x, p_a, p_c, p_mask, target=False, attrs_table=attrs_table,
-                      item_rows=item_rows)
+                      item_rows=item_rows, lookup=lookup)
     p_e = layers.dropout(p_e, cfg.dropout, model.training, generator)  # src/carca.py:416
     for block in model.blocks:
         p_e = block(p_e, p_mask, generator, seed_generator)
@@ -87,6 +88,7 @@ def score_targets(
     seed_generator: Optional[torch.Generator] = None,
     return_logits: bool = False,
     item_rows: Optional[embeddings.ItemRows] = None,
+    lookup: Optional[embeddings.Lookup] = None,
 ) -> torch.Tensor:
     """Embed + decode each target group; concat scores
     (``src/carca.py:424-431``). Same-shaped groups (the train-time [pos,
@@ -107,7 +109,7 @@ def score_targets(
         o_x, o_a, o_c = cat(0), cat(1), cat(2)
         o_mask = get_mask(o_x)
         o_e = model.embed(o_x, o_a, o_c, o_mask, target=True, attrs_table=attrs_table,
-                          item_rows=item_rows)
+                          item_rows=item_rows, lookup=lookup)
         y = model.decoder(o_e, o_mask, torch.cat([p_e] * g, 0),
                           torch.cat([p_mask] * g, 0), generator=generator,
                           seed_generator=seed_generator, return_logits=return_logits)
@@ -118,7 +120,7 @@ def score_targets(
     for o_x, o_a, o_c in targets:
         o_mask = get_mask(o_x)
         o_e = model.embed(o_x, o_a, o_c, o_mask, target=True, attrs_table=attrs_table,
-                          item_rows=item_rows)
+                          item_rows=item_rows, lookup=lookup)
         ys.append(model.decoder(o_e, o_mask, p_e, p_mask, generator=generator,
                                 seed_generator=seed_generator,
                                 return_logits=return_logits))
@@ -135,13 +137,15 @@ def carca_apply(
     seed_generator: Optional[torch.Generator] = None,
     return_logits: bool = False,
     item_rows: Optional[embeddings.ItemRows] = None,
+    lookup: Optional[embeddings.Lookup] = None,
 ) -> torch.Tensor:
     """Full forward: profile + target groups → concatenated scores
     (train [B, 2L] for [pos, neg]; eval [B, T+1] for one group).
-    ``item_rows`` routes every item lookup (``embeddings.ItemRows``)."""
+    ``item_rows`` routes every item lookup (``embeddings.ItemRows``),
+    ``lookup`` every item and attrs lookup (``embeddings.Embedding``)."""
     p_e, p_mask = encode_profile(model, profile, attrs_table=attrs_table,
                                  generator=generator, seed_generator=seed_generator,
-                                 item_rows=item_rows)
+                                 item_rows=item_rows, lookup=lookup)
     return score_targets(model, p_e, p_mask, targets, attrs_table=attrs_table,
                          generator=generator, seed_generator=seed_generator,
-                         return_logits=return_logits, item_rows=item_rows)
+                         return_logits=return_logits, item_rows=item_rows, lookup=lookup)

@@ -17,13 +17,15 @@ same values as ``items[x]``, but a backward that sorts the ids and sums each
 id's rows as one segment. The backward of ``items[x]`` (an accumulating
 index_put) walks repeated ids one by one on the card, and popular items
 repeat thousands of times per batch: it took 12.5 ms of a 15.4 ms flagship
-train step on an H100 (PERF.md §5).
+train step on an H100 (PERF.md §5). A ``lookup(table, ids)`` routes the
+item and attrs gathers through another function (``parallel.embedding``'s
+row-sharded lookup), as the JAX package's ``lookup`` parameter does.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +45,9 @@ class ItemRows(NamedTuple):
 
     table: torch.Tensor  # [cap, W]
     posmap: torch.Tensor  # [n_items] slot of each id of the batch
+
+
+Lookup = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]  # (table, ids) -> rows
 
 
 def item_table_width(cfg: ModelConfig) -> int:
@@ -81,10 +86,12 @@ class Embedding(nn.Module):
         target: bool,
         attrs_table: Optional[torch.Tensor] = None,
         item_rows: Optional[ItemRows] = None,
+        lookup: Optional[Lookup] = None,
     ) -> torch.Tensor:
         """x [B, T] ids; a [B, T, n_attrs] or None (→ ``attrs_table[x]``);
         c [B, T, n_ctx] (all/attrctx only); mask [B, T] → [B, T, d]. With
-        ``item_rows`` the id embeddings come from its table."""
+        ``item_rows`` the id embeddings come from its table; with ``lookup``
+        both the id embeddings and the attrs rows are ``lookup(table, x)``."""
         cfg = self.cfg
         kind = cfg.embedding
         cd = cfg.compute_dtype
@@ -96,12 +103,12 @@ class Embedding(nn.Module):
                 return a
             if attrs_table is None:
                 raise ValueError("need either explicit attrs `a` or an `attrs_table` catalog")
-            return attrs_table[x]
+            return attrs_table[x] if lookup is None else lookup(attrs_table, x)
 
         def ids() -> torch.Tensor:
-            if item_rows is None:
-                return F.embedding(x, self.items)
-            return F.embedding(item_rows.posmap[x], item_rows.table)
+            if item_rows is not None:
+                return F.embedding(item_rows.posmap[x], item_rows.table)
+            return F.embedding(x, self.items) if lookup is None else lookup(self.items, x)
 
         if kind == "all":  # src/carca.py:85-95
             q = self.feats(torch.cat([attrs(), c], dim=-1), cd)

@@ -18,8 +18,17 @@
   executable); padded rows are all-pad histories, whose outputs are cut.
 
 ``load_recommender`` restores a trained run directory (``args.json`` and
-``ckpt/``, written by ``train/loop.fit``). Not ported yet: the index mesh
-(a row-sharded index, ROADMAP item 14).
+``ckpt/``, written by ``train/loop.fit``).
+
+With a ``mesh`` (``parallel/mesh.py``, a ``model`` axis over N ranks,
+each its own process) the stage-1 index is row-sharded: each rank embeds
+and quantizes only its block of the padded rows, so the whole index never
+exists on one rank (an index beyond one card's memory serves this way),
+and stage 1 merges the ranks' top-k lists
+(``parallel.retrieval.topk_given_queries_sharded``). The parameters and
+the attrs table stay whole on every rank. Every rank must call
+``recommend`` with the same requests, in lockstep
+(``serve/service.py --index_shards``).
 """
 
 from __future__ import annotations
@@ -35,10 +44,12 @@ import torch
 from carca_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
 from carca_tpu_torch.models.carca import CARCA, encode_profile, score_targets
 from carca_tpu_torch.ops.retrieval_topk import quantize_index
+from carca_tpu_torch.parallel.mesh import local_rows
 from carca_tpu_torch.parallel.retrieval import (catalog_in_decoder_space,
                                                 embed_catalog,
                                                 query_from_encoded, stable_topk,
-                                                topk_given_queries)
+                                                topk_given_queries,
+                                                topk_given_queries_sharded)
 
 NEG_INF = float("-inf")
 # quantize="auto" stores an index of this many rows or more as int8. It is
@@ -91,6 +102,8 @@ class Recommender:
     (``quantize_index``), a quarter of the f32 scan; stage-1 scores become
     approximate and the ``ca`` reranker rescores the shortlist exactly.
     "auto" quantizes an index of ≥ ``QUANTIZE_AUTO_MIN_ROWS`` rows.
+    ``mesh``: a ``parallel.mesh.Mesh`` whose model axis row-shards the
+    stage-1 index (module docstring).
     """
 
     def __init__(
@@ -104,6 +117,7 @@ class Recommender:
         default_ctx: Optional[np.ndarray] = None,
         index_ids: Optional[np.ndarray] = None,
         quantize=False,
+        mesh=None,
     ):
         # identity checks: `1 in (True, False, "auto")` holds because 1 == True
         if not (quantize is True or quantize is False or quantize == "auto"):
@@ -130,10 +144,17 @@ class Recommender:
                                         and index_size >= QUANTIZE_AUTO_MIN_ROWS)
         # real candidates only: the pad row can never be a recommendation
         self._index_rows = index_size if index_ids is not None else cfg.n_items - 1
+        self.mesh = mesh if mesh is not None and mesh.n_model > 1 else None
+        ids = self.row_ids
+        if self.mesh is not None:
+            # this rank's block of the rows, padded with id 0 (which embeds
+            # to zero and lies past the true row count the top-k masks by)
+            if ids is None:
+                ids = torch.arange(cfg.n_items, device=self.device)
+            ids = local_rows(ids, self.mesh)
         with torch.inference_mode():
-            rows = self.attrs if self.row_ids is None else self.attrs[self.row_ids]
-            e = catalog_in_decoder_space(
-                embed_catalog(self.model, rows, global_ids=self.row_ids), cfg)
+            rows = self.attrs if ids is None else self.attrs[ids]
+            e = catalog_in_decoder_space(embed_catalog(self.model, rows, global_ids=ids), cfg)
             self.catalog_emb = quantize_index(e) if do_quant else e.contiguous()
             del e
         self._rerank = cfg.decoder == "ca"
@@ -177,14 +198,22 @@ class Recommender:
         ``ctxs``: per-event context rows aligned with each history;
         ``request_ctx``: [n_ctx] or [B, n_ctx] context the candidates are
         scored under (default ``default_ctx``)."""
-        b = len(histories)
+        self.check_k(k)
+        p_x, p_c, rc = self._inputs(histories, ctxs, request_ctx)
+        return self.recommend_padded(p_x, p_c, rc, len(histories), int(k))
+
+    def check_k(self, k: int) -> None:
         if self._rerank and k > self.shortlist:
             raise ValueError(f"k={k} exceeds shortlist={self.shortlist}")
         if k > self._index_rows:
             raise ValueError(f"k={k} exceeds the stage-1 index ({self._index_rows})")
-        p_x, p_c, rc = self._inputs(histories, ctxs, request_ctx)
+
+    def recommend_padded(self, p_x: torch.Tensor, p_c: torch.Tensor, rc: torch.Tensor, b: int,
+                         k: int) -> Tuple[np.ndarray, np.ndarray]:
+        """``recommend`` of a request already padded to its bucket and on
+        the device (``_inputs``): the first ``b`` rows' (ids, scores)."""
         with torch.inference_mode():
-            v, ids = self._recommend(p_x, p_c, rc, int(k))
+            v, ids = self._recommend(p_x, p_c, rc, k)
         return ids[:b].cpu().numpy(), v[:b].cpu().numpy()
 
     def _recommend(self, p_x, p_c, req_ctx, k: int):
@@ -193,10 +222,13 @@ class Recommender:
                                      attrs_table=self.attrs)
         q = query_from_encoded(p_e, cfg).contiguous()
         n1 = self.shortlist if self._rerank else k
-        sv, sids = topk_given_queries(
-            q, self.catalog_emb, cfg, n1,
-            exclude=p_x if self.exclude_history else None,
-            in_decoder_space=True, row_ids=self.row_ids)
+        exclude = p_x if self.exclude_history else None
+        if self.mesh is not None:
+            sv, sids = topk_given_queries_sharded(q, self.catalog_emb, cfg, n1, self.mesh,
+                                                  exclude=exclude, row_ids=self.row_ids)
+        else:
+            sv, sids = topk_given_queries(q, self.catalog_emb, cfg, n1, exclude=exclude,
+                                          in_decoder_space=True, row_ids=self.row_ids)
         if not self._rerank:
             # pad/exhausted slots stay -inf (sigmoid would fold them to 0.0)
             return torch.where(torch.isfinite(sv), _map_scores(sv, cfg),

@@ -19,9 +19,19 @@ bucket (p50/p95/p99 over ``--iters`` timed calls after a warm one).
 The server runs on the card (``--device cpu`` asks for the CPU). Without
 ``--data_dir`` the run's synthetic catalog is regenerated from its
 ``args.json``, on the server's device for a device-pipeline run (as the
-run generated it). ``--index_shards`` above 1 (a row-sharded index) is not
-ported yet (ROADMAP item 14); ``--compilation_cache`` is a TPU knob and is
-ignored.
+run generated it). ``--compilation_cache`` is a TPU knob and is ignored.
+
+``--index_shards N`` row-shards the stage-1 index over N ranks of
+``torch.distributed`` (a ``model`` axis; each rank embeds and holds one
+block), launched by torchrun with N processes:
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m carca_tpu_torch.serve.service --run_dir RUN --index_shards N ...
+
+N must be the world size. Rank 0 alone reads stdin and writes stdout;
+each request it accepts is broadcast to the other ranks (the padded
+history and contexts as tensors, behind a header with a stop flag), and
+every rank runs ``recommend`` on it in lockstep (``Lockstep``).
 """
 
 from __future__ import annotations
@@ -153,7 +163,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=("true", "false", "auto"),
                    help="int8 stage-1 index; auto = indexes of >= 1M rows")
     p.add_argument("--index_shards", type=int, default=1,
-                   help="row-shard the index over devices: not ported yet (ROADMAP item 14)")
+                   help="row-shard the stage-1 index over this many ranks (torchrun "
+                        "--nproc_per_node N); rank 0 reads stdin and writes stdout")
     p.add_argument("--compilation_cache", type=str, default="", help="TPU only; ignored")
     p.add_argument("--max_k", type=int, default=100, help="cap on per-request k")
     p.add_argument("--warmup", action="store_true", help="run every batch bucket before serving")
@@ -161,6 +172,58 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--iters", type=int, default=50)
     p.add_argument("--device", default="", help="the torch device; default (empty) the card")
     return p
+
+
+class Lockstep:
+    """A Recommender over a row-sharded index driven from rank 0: rank 0
+    calls ``recommend`` (as ``answer`` and ``run_bench`` do), which
+    broadcasts the padded request to every rank and runs it on all of
+    them; the other ranks sit in ``follow`` until rank 0 calls ``stop``.
+    A request that fails its checks fails on rank 0 before any broadcast."""
+
+    def __init__(self, rec):
+        self.rec = rec
+        self.batch_buckets = rec.batch_buckets
+        self.device = rec.device
+
+    @staticmethod
+    def _broadcast(*tensors: torch.Tensor) -> None:
+        import torch.distributed as dist
+
+        for t in tensors:
+            dist.broadcast(t, src=0)
+
+    def recommend(self, histories, *, k: int = 10, ctxs=None, request_ctx=None):
+        rec = self.rec
+        rec.check_k(k)
+        p_x, p_c, rc = rec._inputs(histories, ctxs, request_ctx)
+        b = len(histories)
+        rc = rc.contiguous()
+        self._broadcast(torch.tensor([1, b, p_x.shape[0], k], device=self.device), p_x, p_c, rc)
+        return rec.recommend_padded(p_x, p_c, rc, b, int(k))
+
+    def warmup(self, k: int = 10) -> None:
+        for bb in self.batch_buckets:
+            self.recommend([[1]] * bb, k=k)
+
+    def stop(self) -> None:
+        self._broadcast(torch.zeros(4, dtype=torch.int64, device=self.device))
+
+    def follow(self) -> None:
+        """The other ranks' loop: receive each request and run it, until
+        the stop flag."""
+        rec, cfg = self.rec, self.rec.cfg
+        while True:
+            header = torch.zeros(4, dtype=torch.int64, device=self.device)
+            self._broadcast(header)
+            go, b, bb, k = header.tolist()
+            if not go:
+                return
+            p_x = torch.zeros((bb, cfg.seq_len), dtype=torch.int32, device=self.device)
+            p_c = torch.zeros((bb, cfg.seq_len, cfg.n_ctx), device=self.device)
+            rc = torch.zeros((bb, cfg.n_ctx), device=self.device)
+            self._broadcast(p_x, p_c, rc)
+            rec.recommend_padded(p_x, p_c, rc, b, k)
 
 
 def load_catalog_for_run(args, cfg, device: str = "cuda"):
@@ -186,12 +249,15 @@ def main(argv: Optional[list] = None, device: Optional[str] = None, stdin=None,
     args = build_parser().parse_args(argv)
     stdin = sys.stdin if stdin is None else stdin
     stdout = sys.stdout if stdout is None else stdout
-    if args.index_shards > 1:
-        raise NotImplementedError("--index_shards > 1: the row-sharded index is not ported yet "
-                                  "(ROADMAP item 14)")
     if args.compilation_cache:
         print("note: --compilation_cache is a TPU knob; ignored", file=sys.stderr)
     device = device or args.device or "cuda"
+    mesh = None
+    if args.index_shards > 1:
+        from carca_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+
+        device = str(initialize_distributed(device))
+        mesh = make_mesh((args.index_shards,), ("model",))  # raises unless the world is N
     cfg = config_from_run_dir(args.run_dir)
     cat = load_catalog_for_run(args, cfg, device)
     host = HostCSR(cat)
@@ -199,7 +265,23 @@ def main(argv: Optional[list] = None, device: Optional[str] = None, stdin=None,
         args.run_dir, cat.attrs, which=args.which, device=device,
         shortlist=args.shortlist, exclude_history=not args.no_exclude_history,
         index_ids=np.unique(host.items) if args.index == "seen" else None,
-        quantize={"true": True, "false": False, "auto": "auto"}[args.quantize_index])
+        quantize={"true": True, "false": False, "auto": "auto"}[args.quantize_index],
+        mesh=mesh)
+    if mesh is not None:
+        rec = Lockstep(rec)
+        if mesh.rank != 0:
+            rec.follow()
+            return
+        try:
+            _serve(args, rec, host, stdin, stdout)
+        finally:
+            rec.stop()
+        return
+    _serve(args, rec, host, stdin, stdout)
+
+
+def _serve(args, rec, host: HostCSR, stdin, stdout) -> None:
+    """``--bench``, or the stdin loop, over ``rec``."""
     if args.warmup or args.bench:
         rec.warmup(k=args.k)
     if args.bench:

@@ -18,6 +18,15 @@ directory is read without orbax. Under ``ckpt/``, one of each:
 Every file is written to a temporary name in its directory and then
 ``os.replace``d, so a crash never leaves a torn checkpoint. Saves are
 synchronous.
+
+Over a mesh (``parallel/mesh.py``) every rank calls every method; rank 0
+alone writes, and each save ends in a barrier. With the item table
+row-sharded (``table_rows``, its true row count), a save assembles the
+table and its Adam moments on rank 0 in host memory, block by block
+(``gather_rows_on_rank0``: no other rank ever holds the whole table), and
+cuts the pad rows, so a mesh run writes the same files a one-device run
+writes; a restore re-pads and takes the rank's block, so either kind of
+run resumes or serves the other's checkpoints.
 """
 
 from __future__ import annotations
@@ -27,6 +36,8 @@ import os
 from typing import Any, Dict, Optional
 
 import torch
+
+from carca_tpu_torch.parallel.mesh import Mesh, barrier, gather_rows_on_rank0, local_rows
 
 
 def _replace_atomically(path: str, write) -> None:
@@ -63,18 +74,64 @@ def _selection_metric(metrics: Dict[str, Any], select_by: str = "ndcg") -> float
     return 0.0
 
 
+ITEMS = "embed.items"  # the row-sharded table's state_dict key
+
+
 class CheckpointKeeper:
     """``best/``, ``latest/`` and ``ema/`` under ``directory``; best/ is
-    retained by ``_selection_metric`` under ``select_by``."""
+    retained by ``_selection_metric`` under ``select_by``. ``mesh`` and
+    ``table_rows``: the ranks of a mesh run, and the item table's true row
+    count when it is row-sharded over ``model``."""
 
-    def __init__(self, directory: str, select_by: str = "ndcg"):
+    def __init__(self, directory: str, select_by: str = "ndcg", mesh: Optional[Mesh] = None,
+                 table_rows: Optional[int] = None):
         self.select_by = select_by
+        self.mesh = mesh
+        self.table_rows = table_rows
+        self.writer = mesh is None or mesh.rank == 0
         self.dir = os.path.abspath(directory)
         os.makedirs(self.dir, exist_ok=True)
         self.best_params = os.path.join(self.dir, "best", "params.pt")
         self.best_sidecar = os.path.join(self.dir, "best", "metrics.json")
         self.latest = os.path.join(self.dir, "latest", "state.pt")
         self.ema = os.path.join(self.dir, "ema", "ema.pt")
+
+    def _whole(self, sd: Dict[str, Any]) -> Dict[str, Any]:
+        """A state_dict with the item table whole on rank 0 (in host memory),
+        None in its place on the other ranks."""
+        if self.table_rows is None or ITEMS not in sd:
+            return sd
+        return dict(sd, **{ITEMS: self._gather(sd[ITEMS])})
+
+    def _gather(self, block: torch.Tensor) -> Optional[torch.Tensor]:
+        return gather_rows_on_rank0(block, self.mesh, self.table_rows)
+
+    def _block(self, sd: Dict[str, Any]) -> Dict[str, Any]:
+        """A whole state_dict with the item table cut to this rank's block."""
+        if self.table_rows is None or ITEMS not in sd:
+            return sd
+        return dict(sd, **{ITEMS: local_rows(sd[ITEMS], self.mesh)})
+
+    def _moments(self, state, sd: Dict[str, Any], convert) -> Dict[str, Any]:
+        """An optimizer state_dict of ``state``'s Adam with the item table's
+        moments passed through ``convert`` (the state_dict keys a parameter
+        by its place in the param groups, the same in both layouts)."""
+        if self.table_rows is None or not hasattr(state.model.embed, "items"):
+            return sd
+        ids = [id(p) for g in state.optimizer.param_groups for p in g["params"]]
+        slot = ids.index(id(state.model.embed.items))
+        if slot not in sd["state"]:
+            return sd
+        moments = {k: convert(v) if k in ("exp_avg", "exp_avg_sq") else v
+                   for k, v in sd["state"][slot].items()}
+        return dict(sd, state={**sd["state"], slot: moments})
+
+    def _write(self, write) -> None:
+        """``write()`` on rank 0 alone, then every rank waits for it."""
+        if self.writer:
+            write()
+        if self.mesh is not None:
+            barrier()
 
     def save(self, epoch: int, model: torch.nn.Module, metrics: Dict[str, Any]) -> None:
         """Retain ``model``'s parameters as best/ unless the kept best
@@ -83,23 +140,36 @@ class CheckpointKeeper:
         if prev is not None and (_selection_metric(metrics, self.select_by)
                                  < _selection_metric(prev, self.select_by)):
             return
-        _save(model.state_dict(), self.best_params)
+        params = self._whole(model.state_dict())
 
         def write_sidecar(tmp: str) -> None:
             with open(tmp, "w") as fh:
                 json.dump(dict(metrics, epoch=epoch), fh)
 
-        _replace_atomically(self.best_sidecar, write_sidecar)
+        def write() -> None:
+            _save(params, self.best_params)
+            _replace_atomically(self.best_sidecar, write_sidecar)
+
+        self._write(write)
 
     def save_latest(self, epoch: int, state, ema: Optional[torch.nn.Module] = None) -> None:
         """The resume checkpoint; with ``ema``, the shadow at the same step."""
-        _save({"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
-               "items_state": state.items_state,
-               "generator": state.generator.get_state(),
-               "seed_generator": state.seed_generator.get_state(),
-               "step": state.step, "epoch": epoch}, self.latest)
-        if ema is not None:
-            _save({"params": ema.state_dict(), "step": state.step, "epoch": epoch}, self.ema)
+        ck = {"model": self._whole(state.model.state_dict()),
+              "optimizer": self._moments(state, state.optimizer.state_dict(),
+                                         self._gather),
+              "items_state": state.items_state,
+              "generator": state.generator.get_state(),
+              "seed_generator": state.seed_generator.get_state(),
+              "step": state.step, "epoch": epoch}
+        shadow = None if ema is None else {"params": self._whole(ema.state_dict()),
+                                           "step": state.step, "epoch": epoch}
+
+        def write() -> None:
+            _save(ck, self.latest)
+            if shadow is not None:
+                _save(shadow, self.ema)
+
+        self._write(write)
 
     def restore_latest(self, state) -> Optional[int]:
         """Load latest/ into ``state`` in place; its epoch, or None without one.
@@ -112,8 +182,9 @@ class CheckpointKeeper:
         if (saved is None) != (state.items_state is None):
             raise ValueError(f"{self.latest} holds the {'dense' if saved is None else 'sparse'} "
                              "item-table Adam's state; the state to restore uses the other")
-        state.model.load_state_dict(ck["model"])
-        state.optimizer.load_state_dict(ck["optimizer"])
+        state.model.load_state_dict(self._block(ck["model"]))
+        state.optimizer.load_state_dict(self._moments(
+            state, ck["optimizer"], lambda t: local_rows(t, self.mesh)))
         if saved is not None:
             state.items_state["munu"].copy_(saved["munu"])
             state.items_state["count"] = int(saved["count"])
@@ -127,7 +198,7 @@ class CheckpointKeeper:
         if not os.path.exists(self.latest):
             return None
         ck = _load(self.latest)
-        model.load_state_dict(ck["model"])
+        model.load_state_dict(self._block(ck["model"]))
         return int(ck["epoch"])
 
     def restore_latest_ema(self, ema: torch.nn.Module, step: int) -> bool:
@@ -139,14 +210,14 @@ class CheckpointKeeper:
         if int(ck["step"]) != int(step):
             raise ValueError(f"{self.ema} holds the EMA shadow of step {ck['step']}, but "
                              f"latest/ is at step {step}: refusing a mismatched resume")
-        ema.load_state_dict(ck["params"])
+        ema.load_state_dict(self._block(ck["params"]))
         return True
 
     def restore_best(self, model: torch.nn.Module) -> Optional[int]:
         """Load best/ into ``model`` in place; its epoch, or None without one."""
         if not os.path.exists(self.best_params):
             return None
-        model.load_state_dict(_load(self.best_params))
+        model.load_state_dict(self._block(_load(self.best_params)))
         return int(self.best_metrics()["epoch"])
 
     def best_metrics(self) -> Optional[Dict[str, Any]]:

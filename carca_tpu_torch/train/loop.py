@@ -25,9 +25,13 @@ the lazy row-sparse Adam (``_sparse_device_update``). With
 against the whole catalog (``RetrievalEvaluator``) and logs
 ``retrieval_val_*``; ``select_by=retrieval_*`` retains the checkpoint on
 that metric. ``evaluate_knn`` runs the KNN content baseline through the
-sampled eval. A mesh (more than one device) is refused (ROADMAP item 14);
-``device_sampling``, which the JAX package reads only under a mesh, is
-accepted and has no effect on one device.
+sampled eval. With ``mesh_shape`` the fit runs on every rank of a
+``torch.distributed`` group: the step builders' ``mesh`` form (named as
+the JAX package's in ``parallel/step.py``) puts the batch over ``data``
+and the tables, row-sharded, over ``model``; the row-sparse item Adam
+under a mesh is refused (ROADMAP item 17). ``device_sampling`` is read
+under a mesh only (the host pipeline's negatives drawn on the device), as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -51,10 +55,13 @@ from carca_tpu_torch.data.device_pipeline import _profile_slots
 from carca_tpu_torch.data.loaders import Catalog
 from carca_tpu_torch.data.prefetch import prefetch
 from carca_tpu_torch.models.carca import CARCA, carca_apply
-from carca_tpu_torch.models.embeddings import ItemRows
+from carca_tpu_torch.models.embeddings import ItemRows, Lookup
 from carca_tpu_torch.models.knn import knn_apply
-from carca_tpu_torch.models.losses import masked_bce, sampled_softmax
+from carca_tpu_torch.models.losses import (Terms, masked_bce, masked_bce_terms, masked_mean,
+                                           sampled_softmax_terms)
 from carca_tpu_torch.ops.retrieval_topk import quantize_index
+from carca_tpu_torch.parallel.mesh import (Mesh, all_reduce_sum, rank_generators,
+                                           shard_batch, sum_gradients)
 from carca_tpu_torch.parallel.retrieval import (catalog_in_decoder_space, embed_catalog,
                                                 queries, retrieval_hr_ndcg, topk_given_queries)
 from carca_tpu_torch.train import sparse_adam
@@ -64,6 +71,8 @@ from carca_tpu_torch.train.state import TrainState, create_train_state
 from carca_tpu_torch.utils.masking import get_mask
 
 TEST_SALT = 999_983  # the test eval's seed next to the run seed (the JAX package's)
+SPARSE_UNDER_MESH = ("the row-sparse item Adam under a mesh is not ported (ROADMAP item 17); "
+                     "use sparse_items_adam=false")
 
 
 def attrs_dtype(mc: ModelConfig) -> torch.dtype:
@@ -83,6 +92,20 @@ def train_loss(model: CARCA, batch, attrs_table: torch.Tensor, *,
     current mode, then the objective (``carca_tpu/train/loop.py:62-90``).
     ``item_rows`` routes the item lookups (the row-sparse Adam's
     sub-table)."""
+    return masked_mean(train_loss_terms(model, batch, attrs_table, generator=generator,
+                                        seed_generator=seed_generator, loss_kind=loss_kind,
+                                        logq=logq, item_rows=item_rows))
+
+
+def train_loss_terms(model: CARCA, batch, attrs_table: torch.Tensor, *,
+                     generator: Optional[torch.Generator] = None,
+                     seed_generator: Optional[torch.Generator] = None,
+                     loss_kind: str = "bce", logq: Optional[torch.Tensor] = None,
+                     item_rows: Optional[ItemRows] = None,
+                     lookup: Optional[Lookup] = None) -> Terms:
+    """``train_loss`` as (numerator, denominator, floor), the form a step
+    over several data ranks normalises by the global denominator;
+    ``lookup`` routes the item and attrs lookups (the row-sharded tables)."""
     L = model.cfg.seq_len
     o_x, o_c = batch["o_x"], batch["o_c"]
     n_groups = o_x.shape[1] // L
@@ -91,25 +114,57 @@ def train_loss(model: CARCA, batch, attrs_table: torch.Tensor, *,
     y_pred = carca_apply(model, (batch["p_x"], None, batch["p_c"]), targets,
                          attrs_table=attrs_table, generator=generator,
                          seed_generator=seed_generator,
-                         return_logits=loss_kind == "softmax", item_rows=item_rows)
+                         return_logits=loss_kind == "softmax", item_rows=item_rows,
+                         lookup=lookup)
     if loss_kind == "softmax":
-        return sampled_softmax(y_pred, o_x, n_groups, logq=logq)
-    return masked_bce(y_pred, batch["y_true"], get_mask(o_x))
+        return sampled_softmax_terms(y_pred, o_x, n_groups, logq=logq)
+    return masked_bce_terms(y_pred, batch["y_true"], get_mask(o_x))
 
 
-def apply_gradients(state: TrainState, loss_fn: Callable[[], torch.Tensor]) -> torch.Tensor:
-    """Backward + one Adam update at the schedule's learning rate + the step
-    count, shared by every step variant. Returns the detached loss."""
+def apply_gradients(state: TrainState, terms_fn: Callable[[], Terms],
+                    mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Backward of the loss ``terms_fn()`` gives as (numerator, denominator,
+    floor) + one Adam update at the schedule's learning rate + the step
+    count, shared by every step variant. Returns the detached loss.
+
+    Over a ``mesh`` the terms are this rank's data slice's, and the loss is
+    the global batch's, as the JAX package's SPMD step has it: the
+    denominator (no gradient) is all-reduced over ``data`` before the
+    division and the gradients are summed over ``data`` (averaging
+    per-rank means would be wrong whenever the data ranks hold different
+    numbers of valid targets). Replicated parameters and table blocks
+    alike: the model ranks of one data index see the same batch and agree.
+    The returned loss is the same on every rank."""
+    group = None if mesh is None else mesh.data_group
     state.optimizer.zero_grad(set_to_none=True)
-    loss = loss_fn()
+    num, den, floor = terms_fn()
+    if group is not None:
+        den = all_reduce_sum(den.detach().clone(), group)
+    loss = num / torch.clamp_min(den, floor)
     loss.backward()
+    sum_gradients(state.model, group)
     if state.schedule is not None:
         lr = state.schedule(state.step)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
+        for g in state.optimizer.param_groups:
+            g["lr"] = lr
     state.optimizer.step()
     state.step += 1
-    return loss.detach()
+    return all_reduce_sum(loss.detach().clone(), group)
+
+
+def _dense_update(state: TrainState, tc: TrainConfig, batch, attrs_table: torch.Tensor,
+                  logq: Optional[torch.Tensor] = None, mesh: Optional[Mesh] = None,
+                  lookup: Optional[Lookup] = None) -> torch.Tensor:
+    """One dense-Adam update on ``batch`` (over a ``mesh``, the global batch,
+    of which this rank trains on its data slice), in place; ``lookup``
+    routes the item and attrs lookups of row-sharded tables. Returns the
+    detached loss."""
+    if mesh is not None:
+        batch = shard_batch(batch, mesh)
+    gen, sgen = rank_generators(state, mesh, state.model.cfg.dropout)
+    return apply_gradients(state, lambda: train_loss_terms(
+        state.model, batch, attrs_table, generator=gen, seed_generator=sgen,
+        loss_kind=tc.loss, logq=logq, lookup=lookup), mesh)
 
 
 def _sparse_device_update(tc: TrainConfig, state: TrainState, batch,
@@ -123,7 +178,7 @@ def _sparse_device_update(tc: TrainConfig, state: TrainState, batch,
     items = state.model.embed.items
     uphys, valid, posmap = sparse_adam.touched_rows(batch, items.shape[0])
     sub = items.detach()[uphys].requires_grad_(True)  # the [cap, W] leaf the gradient reaches
-    loss = apply_gradients(state, lambda: train_loss(
+    loss = apply_gradients(state, lambda: train_loss_terms(
         state.model, batch, attrs_table, generator=state.generator,
         seed_generator=state.seed_generator, loss_kind=tc.loss, logq=logq,
         item_rows=ItemRows(sub, posmap)))
@@ -137,19 +192,32 @@ def _sparse_device_update(tc: TrainConfig, state: TrainState, batch,
 def make_device_train_step(mc: ModelConfig, tc: Optional[TrainConfig] = None,
                            reject_width: int = 0, neg_pop: bool = False,
                            logq: Optional[torch.Tensor] = None,
-                           sparse_items: Optional[bool] = None) -> Callable:
+                           sparse_items: Optional[bool] = None, *,
+                           mesh: Optional[Mesh] = None,
+                           lookup: Optional[Lookup] = None) -> Callable:
     """Train step with on-device batch assembly: (state, attrs_table,
     catalog arrays, user_rows [B]) → (state, loss). The state is updated in
     place. The item table takes the row-sparse Adam where ``sparse_items``
     says so, by default where ``sparse_adam.resolve`` turns it on for (mc,
-    tc) on the device pipeline; the state must be built the same way."""
+    tc) on the device pipeline; the state must be built the same way.
+
+    Over a ``mesh`` every rank assembles the global batch from the shared
+    generator (so the generators stay in step and the data slices together
+    are the one-device batch, bit for bit) and trains on its slice
+    (``apply_gradients``); ``lookup`` routes the lookups of row-sharded
+    tables. The row-sparse Adam is not ported there."""
     tc = tc or TrainConfig()
+    if mesh is not None and sparse_items:
+        raise NotImplementedError(SPARSE_UNDER_MESH)
     if sparse_items is None:
-        sparse_items = sparse_adam.resolve(Config(mc, DataConfig(device_pipeline=True), tc))
+        sparse_items = mesh is None and sparse_adam.resolve(
+            Config(mc, DataConfig(device_pipeline=True), tc))
     n_neg = tc.n_train_negatives
     lq = logq if tc.loss == "softmax" else None
 
     def train_step(state: TrainState, attrs_table, arrays, user_rows):
+        if mesh is not None and state.items_state is not None:
+            raise NotImplementedError(SPARSE_UNDER_MESH)
         if (state.items_state is not None) != sparse_items:
             raise ValueError(f"the step uses the {'sparse' if sparse_items else 'dense'} item-"
                              "table Adam, the state the other (create_train_state(sparse_items=))")
@@ -158,10 +226,7 @@ def make_device_train_step(mc: ModelConfig, tc: Optional[TrainConfig] = None,
                                reject_width, neg_pop, n_neg=n_neg)
         if sparse_items:
             return state, _sparse_device_update(tc, state, batch, attrs_table, lq)
-        loss = apply_gradients(state, lambda: train_loss(
-            state.model, batch, attrs_table, generator=state.generator,
-            seed_generator=state.seed_generator, loss_kind=tc.loss, logq=lq))
-        return state, loss
+        return state, _dense_update(state, tc, batch, attrs_table, lq, mesh, lookup)
 
     return train_step
 
@@ -171,13 +236,17 @@ def make_scanned_device_train_step(mc: ModelConfig, inner_steps: int,
                                    reject_width: int = 0, neg_pop: bool = False,
                                    logq: Optional[torch.Tensor] = None,
                                    on_step: Optional[Callable[[TrainState], None]] = None,
-                                   sparse_items: Optional[bool] = None) -> Callable:
+                                   sparse_items: Optional[bool] = None, *,
+                                   mesh: Optional[Mesh] = None,
+                                   lookup: Optional[Lookup] = None) -> Callable:
     """``inner_steps`` train steps per call: (state, attrs_table, catalog
     arrays, user_rows [K, B]) → (state, losses [K], a device tensor). Each
-    step is exactly ``make_device_train_step``'s, drawing from the same
-    generators in the same order, so K steps in one call equal K single
-    steps; ``on_step(state)`` runs after each (the fit loop's EMA)."""
-    step = make_device_train_step(mc, tc, reject_width, neg_pop, logq, sparse_items)
+    step is exactly ``make_device_train_step``'s (``mesh`` and ``lookup``
+    as there), drawing from the same generators in the same order, so K
+    steps in one call equal K single steps; ``on_step(state)`` runs after
+    each (the fit loop's EMA)."""
+    step = make_device_train_step(mc, tc, reject_width, neg_pop, logq, sparse_items,
+                                  mesh=mesh, lookup=lookup)
 
     def scanned_step(state: TrainState, attrs_table, arrays, user_rows):
         if user_rows.shape[0] != inner_steps:
@@ -194,36 +263,58 @@ def make_scanned_device_train_step(mc: ModelConfig, inner_steps: int,
     return scanned_step
 
 
-def make_train_step(mc: ModelConfig, tc: Optional[TrainConfig] = None) -> Callable:
+def make_train_step(mc: ModelConfig, tc: Optional[TrainConfig] = None,
+                    logq: Optional[torch.Tensor] = None, *, mesh: Optional[Mesh] = None,
+                    lookup: Optional[Lookup] = None) -> Callable:
     """Train step over a host-assembled batch already on the device:
     (state, attrs_table, batch) → (state, loss). The state is updated in
-    place. It takes the dense Adam only: a row-sparse state raises."""
+    place. It takes the dense Adam only: a row-sparse state raises. Over a
+    ``mesh`` every rank passes the same global batch and trains on its data
+    slice (``make_device_train_step``'s mesh form)."""
     tc = tc or TrainConfig()
+    lq = logq if tc.loss == "softmax" else None
 
     def train_step(state: TrainState, attrs_table, batch):
         if state.items_state is not None:
             raise ValueError("the host-pipeline step uses the dense item-table Adam; the "
                              "row-sparse Adam needs device_pipeline=true")
         state.model.train()
-        loss = apply_gradients(state, lambda: train_loss(
-            state.model, batch, attrs_table, generator=state.generator,
-            seed_generator=state.seed_generator, loss_kind=tc.loss))
-        return state, loss
+        return state, _dense_update(state, tc, batch, attrs_table, lq, mesh, lookup)
 
     return train_step
 
 
-def eval_metrics(model: CARCA, top_k: int, batch, attrs_table: torch.Tensor):
+def eval_metrics(model: CARCA, top_k: int, batch, attrs_table: torch.Tensor, *,
+                 mesh: Optional[Mesh] = None, lookup: Optional[Lookup] = None):
     """The eval computation every eval step shares: the forward on the [B,
     T+1] candidate block in the model's current mode, masked BCE, and the
     HR/NDCG sums over live rows (``src/train.py:35-53``). Returns (hr,
-    ndcg, loss), 0-d device tensors."""
+    ndcg, loss), 0-d device tensors. Over a ``mesh`` ``batch`` is the
+    global batch: the rank evaluates its data slice, and the sums (HR,
+    NDCG, the loss's numerator and denominator) are all-reduced over
+    ``data``, so every rank returns the global batch's (the model ranks of
+    one data index hold the same sums)."""
+    if mesh is not None:
+        batch = shard_batch(batch, mesh)
+    hr, ndcg, terms = eval_terms(model, top_k, batch, attrs_table, lookup)
+    if mesh is None:
+        return hr, ndcg, masked_mean(terms)
+    num, den, floor = terms
+    sums = all_reduce_sum(torch.stack([hr, ndcg, num, den]).to(torch.float32), mesh.data_group)
+    return sums[0], sums[1], sums[2] / torch.clamp_min(sums[3], floor)
+
+
+def eval_terms(model: CARCA, top_k: int, batch, attrs_table: torch.Tensor,
+               lookup: Optional[Lookup] = None):
+    """``eval_metrics`` with the loss as (numerator, denominator, floor):
+    (hr, ndcg, terms). ``lookup`` routes the item and attrs lookups."""
     y_pred = carca_apply(model, (batch["p_x"], None, batch["p_c"]),
-                         [(batch["o_x"], None, batch["o_c"])], attrs_table=attrs_table)
-    loss = masked_bce(y_pred, batch["y_true"], get_mask(batch["o_x"]))
+                         [(batch["o_x"], None, batch["o_c"])], attrs_table=attrs_table,
+                         lookup=lookup)
+    terms = masked_bce_terms(y_pred, batch["y_true"], get_mask(batch["o_x"]))
     row_mask = get_mask(batch["o_x"][:, 0])  # batch-padding rows
     hr, ndcg = hr_ndcg_sums(y_pred, batch["y_true"], top_k, row_mask)
-    return hr, ndcg, loss
+    return hr, ndcg, terms
 
 
 @torch.no_grad()
@@ -238,39 +329,46 @@ def ema_update(ema: torch.nn.Module, model: torch.nn.Module, decay: float) -> No
                                                    float(np.float32(1.0) - d)))
 
 
-def make_eval_step(mc: ModelConfig, top_k: int) -> Callable:
-    """(model, attrs_table, batch) → (hr_sum, ndcg_sum, loss), in eval mode."""
+def make_eval_step(mc: ModelConfig, top_k: int, *, mesh: Optional[Mesh] = None,
+                   lookup: Optional[Lookup] = None) -> Callable:
+    """(model, attrs_table, batch) → (hr_sum, ndcg_sum, loss), in eval mode
+    (``mesh`` and ``lookup`` as ``eval_metrics`` takes them)."""
 
     def eval_step(model: CARCA, attrs_table, batch):
         model.eval()
         with torch.inference_mode():
-            return eval_metrics(model, top_k, batch, attrs_table)
+            return eval_metrics(model, top_k, batch, attrs_table, mesh=mesh, lookup=lookup)
 
     return eval_step
 
 
-def make_device_eval_step(mc: ModelConfig, top_k: int, mode: str,
-                          reject_width: int = 0) -> Callable:
+def make_device_eval_step(mc: ModelConfig, top_k: int, mode: str, reject_width: int = 0, *,
+                          mesh: Optional[Mesh] = None,
+                          lookup: Optional[Lookup] = None) -> Callable:
     """(model, attrs_table, catalog arrays, user_rows [B], generator) →
-    (hr_sum, ndcg_sum, loss, n_valid), the batch assembled on the device."""
+    (hr_sum, ndcg_sum, loss, n_valid), the batch assembled on the device
+    (over a ``mesh``, the global batch on every rank, of which each
+    evaluates its slice: ``eval_metrics``)."""
 
     def eval_step(model: CARCA, attrs_table, arrays, user_rows, generator):
         model.eval()
         with torch.inference_mode():
             batch = assemble_eval(arrays, mc.seq_len, mc.target_len, mc.n_items, mode,
                                   user_rows, generator, reject_width)
-            hr, ndcg, loss = eval_metrics(model, top_k, batch, attrs_table)
+            hr, ndcg, loss = eval_metrics(model, top_k, batch, attrs_table, mesh=mesh,
+                                          lookup=lookup)
         return hr, ndcg, loss, batch["n_valid"]
 
     return eval_step
 
 
 def make_scanned_device_eval_step(mc: ModelConfig, top_k: int, mode: str, inner_steps: int,
-                                  reject_width: int = 0) -> Callable:
+                                  reject_width: int = 0, *, mesh: Optional[Mesh] = None,
+                                  lookup: Optional[Lookup] = None) -> Callable:
     """``inner_steps`` eval batches per call: (model, attrs_table, arrays,
     user_rows [K, B], generator) → per-batch (hr, ndcg, loss, n_valid)
     tensors of length K, the generator drawn in the single steps' order."""
-    step = make_device_eval_step(mc, top_k, mode, reject_width)
+    step = make_device_eval_step(mc, top_k, mode, reject_width, mesh=mesh, lookup=lookup)
 
     def scanned_eval(model, attrs_table, arrays, user_rows, generator):
         if user_rows.shape[0] != inner_steps:
@@ -528,11 +626,35 @@ def evaluate_knn(cfg: Config, catalog: Catalog, log: bool = True,
 
 def refuse_unported(cfg: Config) -> None:
     """Raise NotImplementedError, naming its ROADMAP item, for what a config
-    asks of the fit loop that the port does not have yet: a mesh."""
+    asks of the fit loop that the port does not have yet: the row-sparse
+    item Adam under a mesh (``sparse_adam.resolve`` gives "auto" the dense
+    Adam there)."""
     tc = cfg.train
-    if tc.mesh_shape and int(np.prod(tc.mesh_shape)) > 1:
-        raise NotImplementedError(f"mesh_shape={tc.mesh_shape}: the port trains on one "
-                                  "device (ROADMAP item 14, slice 7)")
+    if uses_mesh(cfg) and tc.sparse_items_adam is True:
+        raise NotImplementedError(f"sparse_items_adam=True under mesh_shape={tc.mesh_shape}: "
+                                  "the row-sparse item Adam over a mesh is not ported "
+                                  "(ROADMAP item 17)")
+
+
+def uses_mesh(cfg: Config) -> bool:
+    return bool(cfg.train.mesh_shape) and int(np.prod(cfg.train.mesh_shape)) > 1
+
+
+def gather_model(model: CARCA, mesh, sharded: bool) -> Optional[CARCA]:
+    """The whole model on rank 0 (None elsewhere): with ``sharded`` the
+    item table's blocks are gathered on rank 0 (the ranks of data index 0
+    take part) into a copy with the whole table, else rank 0's own model."""
+    if not sharded:
+        return model if mesh.rank == 0 else None
+    from carca_tpu_torch.parallel.mesh import gather_rows_on_rank0
+
+    block = model.embed.items.detach()
+    items = gather_rows_on_rank0(block, mesh, model.cfg.n_items, block.device)
+    if mesh.rank != 0:
+        return None
+    whole = CARCA(model.cfg, device=items.device)
+    whole.load_state_dict(dict(model.state_dict(), **{"embed.items": items}))
+    return whole.eval()
 
 
 def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
@@ -543,10 +665,33 @@ def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
     the final state, holding the best (or under EMA the evaluated) weights,
     and the final metrics ``{val_*, test_*, epochs_run}``. Writes
     ``args.json`` and ``ckpt/`` under ``cfg.train.out_dir``, and with
-    ``log`` the CSV, ``metrics.jsonl`` and stdout lines."""
+    ``log`` the CSV, ``metrics.jsonl`` and stdout lines.
+
+    With ``mesh_shape`` of more than one device, every rank of the process
+    group (``parallel.mesh.initialize_distributed``) calls ``fit`` with the
+    same arguments and its own ``device``: the batch is split over
+    ``data`` and, with ``shard_embeddings``, the item and attrs tables are
+    row-sharded over ``model`` (``parallel/step.py``). Rank 0 alone writes
+    the logs, ``args.json`` and the checkpoints; every decision comes from
+    metrics all-reduced over the ranks, so all ranks take the same
+    branches. The retrieval monitor runs on rank 0 over the gathered
+    tables, as the JAX package runs it on one device, and its two numbers
+    are broadcast. The returned state holds this rank's blocks."""
     mc, tc, dc = cfg.model, cfg.train, cfg.data
     device = torch.device(device)
     refuse_unported(cfg)
+    mesh = None
+    shard_emb = False
+    if uses_mesh(cfg):
+        from carca_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(tc.mesh_shape, tc.mesh_axes)
+        if tc.batch_size % mesh.n_data:
+            raise ValueError(f"batch_size {tc.batch_size} not divisible by the data-axis "
+                             f"size {mesh.n_data}")
+        shard_emb = tc.shard_embeddings and mesh.n_model > 1
+        # the logs, args.json and the checkpoints are rank 0's
+        log = log and mesh.rank == 0
     if tc.ema_decay and not 0.0 < tc.ema_decay < 1.0:
         raise ValueError(f"TrainConfig.ema_decay must be 0 (off) or in (0, 1), "
                          f"got {tc.ema_decay}")
@@ -558,7 +703,8 @@ def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
         raise ValueError("n_train_negatives > 1 draws negatives on the device: it requires "
                          "device_pipeline=true")
     os.makedirs(tc.out_dir, exist_ok=True)
-    cfg.dump_args_json(os.path.join(tc.out_dir, "args.json"))
+    if mesh is None or mesh.rank == 0:
+        cfg.dump_args_json(os.path.join(tc.out_dir, "args.json"))
     if tc.debug_nans:
         torch.autograd.set_detect_anomaly(True)
 
@@ -586,15 +732,26 @@ def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
         raise ValueError(f"the config resolves sparse_items_adam to {sparse_items}, the given "
                          "state was built the other way")
     attrs_table = torch.as_tensor(catalog.attrs, dtype=attrs_dtype(mc), device=device)
+    if mesh is not None:
+        from carca_tpu_torch.parallel.mesh import barrier, local_rows, prepare_state_for_mesh
+
+        # before a restore, which then loads this rank's blocks
+        state = prepare_state_for_mesh(state, mesh, shard_emb)
+        if shard_emb:
+            attrs_table = local_rows(attrs_table, mesh).contiguous()
 
     start_epoch = 1
     keeper = None
     if tc.checkpoint:
         ckpt_dir = os.path.join(tc.out_dir, "ckpt")
-        if not tc.checkpoint_resume and os.path.isdir(ckpt_dir):
+        if not tc.checkpoint_resume and os.path.isdir(ckpt_dir) and (mesh is None
+                                                                     or mesh.rank == 0):
             # a fresh run: a stale best/ would be compared against and reloaded
             shutil.rmtree(ckpt_dir)
-        keeper = CheckpointKeeper(ckpt_dir, select_by=tc.select_by)
+        if mesh is not None:
+            barrier()
+        keeper = CheckpointKeeper(ckpt_dir, select_by=tc.select_by, mesh=mesh,
+                                  table_rows=mc.n_items if shard_emb else None)
     if tc.checkpoint_resume and keeper is not None:
         try:
             restored = keeper.restore_latest(state)
@@ -602,8 +759,9 @@ def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
             # latest/ holds the other item-table optimizer ("auto" depends on
             # the batch size and the catalog, which may have changed): adopt
             # it, where the run's step can take it. The host step has no
-            # row-sparse Adam, so a host run refuses a sparse latest/.
-            if not dc.device_pipeline:
+            # row-sparse Adam, so a host run refuses a sparse latest/, and
+            # so does a mesh run (ROADMAP item 17).
+            if not dc.device_pipeline or mesh is not None:
                 raise
             state = create_train_state(mc, tc, device, model=state.model,
                                        sparse_items=not sparse_items)
@@ -648,18 +806,34 @@ def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
             ev = dd.arrays["items"].long()
             counts = torch.bincount(ev, minlength=mc.n_items).to(torch.float32)
             logq = torch.log(counts.clamp_min(1.0)) - float(np.log(ev.shape[0]))
+    on_mesh = {"mesh": mesh, "lookup": None}
+    if shard_emb:
+        from carca_tpu_torch.parallel.embedding import make_sharded_lookup
+
+        on_mesh["lookup"] = make_sharded_lookup(mesh)
+    if dd is not None:
+        # over a mesh the catalog is replicated, every rank assembling the
+        # global batch and training on its slice
         train_step = make_device_train_step(mc, tc, rw, neg_pop, logq=logq,
-                                            sparse_items=sparse_items)
+                                            sparse_items=sparse_items, **on_mesh)
         scanned_step = (make_scanned_device_train_step(mc, tc.inner_steps, tc, rw, neg_pop,
                                                        logq=logq, on_step=ema_after,
-                                                       sparse_items=sparse_items)
+                                                       sparse_items=sparse_items, **on_mesh)
                         if tc.inner_steps > 1 else None)
-        eval_steps = {m: make_device_eval_step(mc, tc.top_k, m, rw) for m in ("val", "test")}
-        scanned_evals = {m: (make_scanned_device_eval_step(mc, tc.top_k, m, tc.inner_steps, rw)
+        eval_steps = {m: make_device_eval_step(mc, tc.top_k, m, rw, **on_mesh)
+                      for m in ("val", "test")}
+        scanned_evals = {m: (make_scanned_device_eval_step(mc, tc.top_k, m, tc.inner_steps, rw,
+                                                           **on_mesh)
                              if tc.inner_steps > 1 else None) for m in ("val", "test")}
     else:
-        train_step = make_train_step(mc, tc)
-        eval_step = make_eval_step(mc, tc.top_k)
+        if mesh is not None:
+            from carca_tpu_torch.parallel.step import make_sharded_train_step
+
+            train_step = make_sharded_train_step(mc, tc, mesh, shard_embeddings=shard_emb,
+                                                 device_negatives=dc.device_sampling)
+        else:
+            train_step = make_train_step(mc, tc)
+        eval_step = make_eval_step(mc, tc.top_k, **on_mesh)
 
     start = datetime.now()
     logpath = os.path.join(tc.out_dir, f"{start.year}-{start.month}-{start.day}T{start.hour}-"
@@ -682,10 +856,27 @@ def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
                                      "decoder has no retrieval index)")
                 emit("note: eval_retrieval_every applies to the dot/wdot decoders; skipping "
                      "retrieval monitoring")
-            else:
+            elif mesh is None or mesh.rank == 0:
                 retrieval_eval = RetrievalEvaluator(cfg, catalog, mode="val", log=False,
                                                     device=device, dd=dd)
-        if tc.select_by != "ndcg" and retrieval_eval is None:
+        monitoring = tc.eval_retrieval_every and mc.decoder != "ca"
+
+        def monitor(model) -> Dict[str, float]:
+            """The retrieval monitor: on rank 0 over the gathered tables
+            under a mesh, its two numbers broadcast to every rank."""
+            if mesh is None:
+                return retrieval_eval(model)
+            import torch.distributed as dist
+
+            whole = gather_model(model, mesh, shard_emb)
+            vals = torch.zeros(2, dtype=torch.float64, device=device)
+            if whole is not None:
+                m = retrieval_eval(whole)
+                vals = torch.tensor([m["retrieval_val_hr"], m["retrieval_val_ndcg"]],
+                                    dtype=torch.float64, device=device)
+            dist.broadcast(vals, src=0)
+            return {"retrieval_val_hr": float(vals[0]), "retrieval_val_ndcg": float(vals[1])}
+        if tc.select_by != "ndcg" and not monitoring:
             raise ValueError(f"select_by={tc.select_by!r} selects on the monitored full-catalog "
                              "metric: set eval_retrieval_every >= 1")
 
@@ -712,7 +903,8 @@ def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
                     print(f"Epoch {_e:03d} Batch {vb[0]:04d}: Train Loss = {vb[1] / vb[0]:.4f}")
 
             profiler = None
-            if tc.profile and epoch == start_epoch + 1:  # the second epoch: builds are done
+            if (tc.profile and epoch == start_epoch + 1  # the second epoch: builds are done
+                    and (mesh is None or mesh.rank == 0)):
                 from torch.profiler import ProfilerActivity, profile
                 acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                                  if device.type == "cuda" else [])
@@ -798,9 +990,9 @@ def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
                 metrics_file.flush()
             final = {"val_hr": hr, "val_ndcg": ndcg, "val_loss": val_loss, "epochs_run": epoch}
             rmetrics = None
-            if retrieval_eval is not None and epoch % tc.eval_retrieval_every == 0:
+            if monitoring and epoch % tc.eval_retrieval_every == 0:
                 t2 = time.perf_counter()
-                rmetrics = retrieval_eval(emodel)
+                rmetrics = monitor(emodel)
                 now = datetime.now().strftime("%H:%M:%S")
                 emit(f"{now} - Epoch {epoch:03d}: Retrieval@{tc.top_k} (val) "
                      f"HR = {rmetrics['retrieval_val_hr']:.4f}, "

@@ -138,6 +138,35 @@ raises and exits non-zero:
              in-process load_recommender; `python -m carca_tpu_torch.bench
              --config 10m`; K1/K2 under bf16 compute at the fit's encoder
              against their plain versions, timed beside them and SDPA.
+11. mesh   — two ranks of torch.distributed, each a subprocess of `python
+             -m torch.distributed.run --standalone --nproc_per_node 2`
+             (this script re-entered with --rank_task, or the entry points),
+             sharing cuda:0 over gloo (nccl where every rank has a card).
+             11a, data parallel at the flagship width: one dropout-0 step
+             of make_sharded_device_train_step on phase 9's data against
+             the one-device kernel step (loss within 1e-5; parameters
+             within 1e-5 where the one-device |g| > 1e-6, 2·lr elsewhere),
+             its time and the gradient all-reduce's; K1 and K2 at the
+             rank-local [128,50,64] against their plain versions (phase
+             3's tolerances); `cli --preset beauty
+             --mesh 2` over phase 9's files to phase 9's gates, K1 and K2
+             on both ranks, rank 0 alone logging; its run served on one
+             device equal to an in-process Recommender. 11b, row-sharded:
+             `cli --preset synthetic10m --mesh 1x2 --shard_embeddings true
+             --sparse_items_adam false --epochs 1` (finite metrics, K1/K2
+             on both ranks); on its run, in each rank: the sharded lookup
+             of the item (f32) and attrs (bf16) tables equal to the plain
+             gather; service.main with --index_shards 2 over the full 10M
+             int8 index, with and without history exclusion (K4 + the
+             rerank, then K3, on both ranks); the index its ranks built
+             block by block against the one-device build (scales within
+             1e-4 relative, values within one int8 step); the service's
+             answers equal to a one-shard recommender over the gathered
+             index (ids but for near-ties); the blocks' K3 and tournament
+             results merged over the ranks bit-equal to one device; the
+             lookup all-reduce and the top-k all-gather timed; K3, K4 and
+             the rerank over one 5M-row block against their plain
+             versions (the summation-order bound) and timed beside them.
              With --profile, one 10M K-step train call under the profiler.
 
 Tolerance of the retrieval kernels against their plain versions: K3, K4
@@ -150,7 +179,8 @@ are bit-equal.
 
 The main paths are the 100k slice (phase 5), the 10M slice (5c), the
 retrieval bench (5d), the train step (8), the fit and serve entry points
-(9) and the 10M fit and its retrieval evaluation (10): each runs with every
+(9), the 10M fit and its retrieval evaluation (10), and the mesh fits and
+the sharded service (11, counted in each rank): each runs with every
 launch counter set to 0 just before it and read just after (the fits run
 as subprocesses, which start at 0 and print their counts at the end). The line before the
 last is a JSON object listing the kernels, each with its launches on the
@@ -209,7 +239,7 @@ from carca_tpu_torch.train import sparse_adam
 from carca_tpu_torch.train.checkpoint import CheckpointKeeper
 from carca_tpu_torch.train.loop import (RetrievalEvaluator, _sparse_device_update,
                                         apply_gradients, attrs_dtype, make_eval_step, to_device,
-                                        train_loss)
+                                        train_loss, train_loss_terms)
 from carca_tpu_torch.train.state import create_train_state
 
 SEED = 0
@@ -1538,7 +1568,7 @@ def sparse_vs_dense_step(card, cat) -> dict:
                            torch.Generator(device=DEVICE).manual_seed(SEED))
 
     def dense_step():
-        return apply_gradients(dense, lambda: train_loss(
+        return apply_gradients(dense, lambda: train_loss_terms(
             dense.model, batch, attrs, generator=dense.generator,
             seed_generator=dense.seed_generator))
 
@@ -1993,43 +2023,577 @@ def phase_profile(card, rec, host, index: str = "seen", calls: int = 10) -> None
             busy_share=busy_ms / wall_ms, device_ops_per_call=ops, top_ms_per_call=top)
 
 
-def library_attention(card) -> dict:
+def sdpa_ms(b, lq, lk, causal, rate) -> dict:
     """F.scaled_dot_product_attention beside K1 and K2, timed only (the port
-    never calls it), forward and (where the shape trains) backward at each
-    of ATTN_SHAPES, 2 heads, with the shape's causal offset and weight
-    dropout. It takes the same additive mask; unlike the kernels it does not
-    re-mask after the softmax, so a fully masked query row gets uniform
-    weights instead of zeros, and it draws its own dropout bits. Returns
-    {shape: {"fwd": ms, "bwd": ms or None}}."""
+    never calls it), forward and (with weight dropout, where the shape
+    trains) backward, 2 heads, with the shape's causal offset. It takes the
+    same additive mask; unlike the kernels it does not re-mask after the
+    softmax, so a fully masked query row gets uniform weights instead of
+    zeros, and it draws its own dropout bits. Returns {"fwd": ms, "bwd": ms
+    or None}."""
+    q, k, v, qm, km = k1_inputs(lq, lk, 33, b=b)
+    scale = (D / H) ** 0.5
+    add = torch.where(pair_mask(qm, km, causal) > 0, 0.0, NEG_MASK)[:, None] / scale
+
+    def heads(x):
+        return (x.view(x.shape[0], x.shape[1], H, D // H).transpose(1, 2).contiguous()
+                .requires_grad_())
+
+    qh, kh, vh = heads(q), heads(k), heads(v)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=add, dropout_p=rate,
+                                              scale=1.0 / scale)
+
+    with torch.no_grad():
+        fwd = cuda_ms(sdpa, 20)
+    bwd = None
+    if rate > 0:  # the shapes the train step differentiates
+        out = sdpa()
+        g = torch.randn_like(out)
+        bwd = cuda_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), g, retain_graph=True), 20)
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def library_attention(card) -> dict:
+    """``sdpa_ms`` at each of ATTN_SHAPES: {shape: {"fwd": ms, "bwd": ms or
+    None}}."""
     out_ms = {}
     for name, (b, lq, lk, causal, rate) in ATTN_SHAPES.items():
-        q, k, v, qm, km = k1_inputs(lq, lk, 33, b=b)
-        scale = (D / H) ** 0.5
-        add = torch.where(pair_mask(qm, km, causal) > 0, 0.0, NEG_MASK)[:, None] / scale
-
-        def heads(x):
-            return (x.view(x.shape[0], x.shape[1], H, D // H).transpose(1, 2).contiguous()
-                    .requires_grad_())
-
-        qh, kh, vh = heads(q), heads(k), heads(v)
-
-        def sdpa():
-            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=add, dropout_p=rate,
-                                                  scale=1.0 / scale)
-
-        with torch.no_grad():
-            fwd = cuda_ms(sdpa, 20)
-        bwd = None
-        if rate > 0:  # the shapes the train step differentiates
-            out = sdpa()
-            g = torch.randn_like(out)
-            bwd = cuda_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), g, retain_graph=True),
-                          20)
-        out_ms[name] = {"fwd": fwd, "bwd": bwd}
+        out_ms[name] = sdpa_ms(b, lq, lk, causal, rate)
         log("timing", card=card, library="F.scaled_dot_product_attention",
             shape=f"{name} [{b},{lq},{D}] x [{b},{lk},{D}] causal {causal} dropout {rate}",
-            fwd_ms=fwd, bwd_ms=bwd)
+            fwd_ms=out_ms[name]["fwd"], bwd_ms=out_ms[name]["bwd"])
     return out_ms
+
+
+# --------------------------------------------------------------------------
+# phase 11: more than one device (two ranks of torch.distributed on the card)
+# --------------------------------------------------------------------------
+
+MESH_RANKS = 2  # torchrun --nproc_per_node; ranks share cuda:0 over gloo on a one-card machine
+MESH_TIMEOUT_S = 900
+MESH_STEP_TOL, MESH_TINY_GRAD = 1e-5, 1e-6  # 11a: the first Adam step, as PR 7 found it
+MESH_STEP_REPS = 10
+SHARD_ROWS = (FIT10M_ITEMS + 1) // MESH_RANKS  # 11b: rows of one index block
+LOOKUP_IDS = (B, 3 * L)  # 11b: a train step's profile and [pos, neg] ids
+# 11b: the int8 scales of a row embedded on its rank against one device: the
+# same item tower, its GEMMs over chunks of other sizes, so f32 sums of up to
+# g = 256 terms in another order, which may differ by 256 * 2^-24 = 1.5e-5 of
+# the sum of |terms|; 1e-4 of the row's max allows that sum up to 6.5 times
+# the max (measured on an H100 at 10M items: 8.0e-6, one row a step off)
+BLOCK_SCALE_RTOL = 1e-4
+
+
+def run_ranks(args, timeout, stdin_text=None) -> str:
+    """``python -m torch.distributed.run --standalone --nproc_per_node 2 args``
+    from the repository root, in a session of its own, so that a timeout
+    ends every rank with it; its stdout. A failed rank fails it."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(MESH_RANKS), *args]
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(stdin_text, timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        raise RuntimeError(f"check failed: torchrun {' '.join(args[:4])} ... timed out")
+    if proc.returncode != 0:
+        sys.stderr.write(out[-4000:] + err[-6000:])
+    check(proc.returncode == 0, f"torchrun {' '.join(args[:4])} ... exited {proc.returncode}")
+    return out
+
+
+def rank_task(task: str, out_dir: str, *args) -> list:
+    """This script's ``--rank_task`` under torchrun; each rank's JSON result."""
+    run_ranks([os.path.abspath(__file__), "--rank_task", task, out_dir, *args], MESH_TIMEOUT_S)
+    results = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(out_dir, f"{task}.rank{r}.json")) as fh:
+            results.append(json.load(fh))
+    return results
+
+
+def transport() -> str:
+    n = torch.cuda.device_count()
+    return (f"nccl ({MESH_RANKS} ranks on {n} cards)" if n >= MESH_RANKS
+            else f"gloo ({MESH_RANKS} ranks share {n} card)")
+
+
+def launches_line(out: str, key: str):
+    return json.loads(next(ln for ln in out.splitlines() if ln.startswith(key + ": "))
+                      [len(key) + 2:])
+
+
+def sum_ranks(by_rank) -> dict:
+    return {k: sum(int(r[k]) for r in by_rank) for k, v in by_rank[0].items()
+            if not isinstance(v, dict)}
+
+
+def mesh_fit_run(card, data_dir, run) -> dict:
+    """11a: `torchrun ... -m carca_tpu_torch.cli --preset beauty --mesh 2`
+    over phase 9's files, held to phase 9's gates, K1/K2 on both ranks."""
+    t0 = time.perf_counter()
+    out = run_ranks(["-m", "carca_tpu_torch.cli", "--preset", "beauty", "--data_dir", data_dir,
+                     "--profile_file", "profiles.txt", "--attr_file", "attrs.pkl",
+                     "--ctx_file", "ctx.pkl", "--device_pipeline", "true", "--epochs",
+                     str(FIT_EPOCHS), "--early_stop", str(FIT_EARLY_STOP), "--resume", "false",
+                     "--out_dir", run, "--seed", str(SEED), "--mesh", str(MESH_RANKS)],
+                    MESH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    final = ast.literal_eval(next(ln for ln in out.splitlines() if ln.startswith("final: "))[7:])
+    by_rank = launches_line(out, "launches_by_rank")
+    memory = launches_line(out, "memory")
+    with open(os.path.join(run, "metrics.jsonl")) as fh:
+        rows = [json.loads(ln) for ln in fh]
+    check(len(glob.glob(os.path.join(run, "*.csv"))) == 1, f"{run}: not one CSV log")
+    check(len(rows) == final["epochs_run"], f"{run}: {len(rows)} metrics lines for "
+                                            f"{final['epochs_run']} epochs")
+    summary = {"mesh": f"{MESH_RANKS} (data)", "transport": transport(),
+               "epochs_run": final["epochs_run"], "test_hr10": final["test_hr"],
+               "test_ndcg10": final["test_ndcg"],
+               "median_examples_per_sec": statistics.median(r["examples_per_sec"] for r in rows),
+               "median_epoch_seconds": statistics.median(r["epoch_seconds"] for r in rows),
+               "wall_s": wall, "peak_device_mib_by_rank": memory["by_rank"],
+               "launches_by_rank": by_rank}
+    log("mesh_fit", card=card, run="torchrun cli --preset beauty --mesh 2", **summary)
+    check(final["test_hr"] >= FIT_HR_FLOOR and final["test_ndcg"] >= FIT_NDCG_FLOOR,
+          f"--mesh 2: test HR@10 {final['test_hr']} / NDCG@10 {final['test_ndcg']} below "
+          f"{FIT_HR_FLOOR} / {FIT_NDCG_FLOOR}")
+    for r, n in enumerate(by_rank):
+        check(n["attention_fwd"] > 0 and n["attention_bwd"] > 0,
+              f"--mesh 2: rank {r} did not run K1 and K2 ({n})")
+    return summary
+
+
+def mesh_run_served(card, run, data_dir) -> None:
+    """11a: the --mesh 2 run directory served on one device (the service,
+    a subprocess) equals the in-process Recommender over it."""
+    cat = load_dataset(data_dir, "profiles.txt", "attrs.pkl", "ctx.pkl")
+    host = HostCSR(cat)
+    lines = serve_requests(host)
+    out = run_module("carca_tpu_torch.serve.service",
+                     ["--run_dir", run, "--data_dir", data_dir, "--profile_file", "profiles.txt",
+                      "--attr_file", "attrs.pkl", "--ctx_file", "ctx.pkl", "--k", str(K)], 300,
+                     stdin_text="\n".join(lines) + "\n")
+    served = [json.loads(ln) for ln in out.splitlines() if ln.strip()]
+    rec = load_recommender(run, cat.attrs, which="best", index_ids=np.unique(host.items))
+    near_ties = 0
+    check(len(served) == len(lines), f"{len(served)} responses to {len(lines)} requests")
+    for got, want in zip(served, serve_lines(rec, host, lines, k=K)):
+        check(("error" in got) == ("error" in want), f"{got} vs {want}")
+        if "error" not in want:
+            near_ties += compare(f"mesh run served {got.get('id')}", got["items"],
+                                 got["scores"], want["items"], want["scores"],
+                                 score_tol=SERVE_SCORE_TOL)
+    log("mesh_fit", card=card, case="the --mesh 2 run served on one device",
+        requests=len(lines), near_tie_slots=near_ties, equal_to_in_process=True)
+
+
+def attention_at(card, b, lq, lk, causal) -> dict:
+    """K1 and K2 at one rank-local shape (weight dropout P_DROP), beside
+    their plain versions and SDPA: times, and errors at dropout 0, held to
+    phase 3's K1_TOL (elementwise) and K2_TOL (relative, per gradient)."""
+    inputs = k1_inputs(lq, lk, 81, b=b)
+    q, k, v, qm, km = inputs
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(82)).to(DEVICE)
+    kw = dict(causal=causal, scale=(D / H) ** 0.5, n_heads=H)
+    out, *grads = kernel_grads(inputs, g, 83, **kw)
+    want = attention_grads_plain(q, k, v, qm, km, g, **kw)
+    with torch.no_grad():
+        plain = masked_attention(q, k, v, qm, km, **kw)
+    shape = f"rank-local [{b},{lq},{D}] x [{b},{lk},{D}] causal {causal}"
+    torch.testing.assert_close(out, plain, rtol=K1_TOL, atol=K1_TOL,
+                               msg=lambda m: f"K1 {shape}: {m}")
+    k1_err = (out - plain).abs().max().item()
+    rel = {n: rel_err(a, w) for n, a, w in zip(("dq", "dk", "dv"), grads, want)}
+    check(max(rel.values()) <= K2_TOL, f"K2 {shape}: relative errors {rel} > {K2_TOL}")
+    k2_err = max((a - w).abs().max().item() for a, w in zip(grads, want))
+    seeds, gen = torch.Generator().manual_seed(0), torch.Generator(device=DEVICE).manual_seed(0)
+    with torch.no_grad():
+        k1 = kernel_vs_plain(
+            lambda: fused_attention(q, k, v, qm, km, seed_generator=seeds, dropout_rate=P_DROP,
+                                    **kw),
+            lambda: masked_attention(q, k, v, qm, km, train=True, generator=gen,
+                                     dropout_rate=P_DROP, **kw))
+    k2 = time_k2(card, f"rank-local [{b},{lq},{D}] causal {causal}", inputs, g, 84,
+                 compute_dtype="float32", dropout_rate=P_DROP, **kw)["bwd"]
+    lib = sdpa_ms(b, lq, lk, causal, P_DROP)
+    return {"k1": k1, "k2": k2, "k1_err": k1_err, "k2_err": k2_err, "lib": lib}
+
+
+def phase_mesh(card) -> dict:
+    """Phase 11: the port over two ranks of torch.distributed on the card.
+    11a, data parallel at the flagship width: one dropout-0 step of
+    make_sharded_device_train_step against the one-device step, the beauty
+    fit at --mesh 2 to phase 9's gates, its run served on one device. 11b,
+    the synthetic10m preset at --mesh 1x2 with row-sharded tables (dense
+    item Adam, one epoch), then on its run: the sharded lookup, the
+    --index_shards 2 service over the full 10M int8 index against a
+    one-shard recommender, and the shard-local K3/K4 results merged
+    bit-equal to one device."""
+    tmp = tempfile.mkdtemp(prefix="carca_mesh_")
+    try:
+        log("mesh", card=card, ranks=MESH_RANKS, transport=transport())
+        t0 = time.perf_counter()
+        step = rank_task("dp_step", tmp)
+        log("mesh_step", card=card, transport=transport(), wall_s=time.perf_counter() - t0,
+            **{k: v for k, v in step[0].items() if k not in ("launches", "collective_ms")},
+            collective_ms_by_rank=[r["collective_ms"] for r in step],
+            launches_by_rank=[r["launches"] for r in step],
+            step_ms_by_rank=[r["step_ms"] for r in step])
+        s0 = step[0]
+        check(s0["ok"], f"--mesh 2 step against one device: loss relative error "
+                        f"{s0['loss_rel_err']} (tol {MESH_STEP_TOL}), parameters "
+                        f"{s0['param_err_where_grad_big']} where |g| > {MESH_TINY_GRAD} (tol "
+                        f"{MESH_STEP_TOL}), {s0['param_err_max']} anywhere (tol 2 lr = "
+                        f"{2 * s0['lr']})")
+        data_dir = os.path.join(tmp, "data")
+        write_reference_format(synthetic_catalog(n_users=FIT_USERS, n_real_items=FIT_ITEMS,
+                                                 seed=SEED), data_dir)
+        run = os.path.join(tmp, "run_mesh2")
+        fit = mesh_fit_run(card, data_dir, run)
+        mesh_run_served(card, run, data_dir)
+        attn = attention_at(card, B // MESH_RANKS, L, L, 0)
+        torch.cuda.empty_cache()
+
+        run10 = os.path.join(tmp, "run10m_mesh1x2")
+        t0 = time.perf_counter()
+        out = run_ranks(["-m", "carca_tpu_torch.cli", "--preset", "synthetic10m", "--mesh",
+                         f"1x{MESH_RANKS}", "--shard_embeddings", "true", "--sparse_items_adam",
+                         "false", "--epochs", "1", "--resume", "false", "--out_dir", run10],
+                        MESH_TIMEOUT_S)
+        final = ast.literal_eval(next(ln for ln in out.splitlines()
+                                      if ln.startswith("final: "))[7:])
+        fit10 = {"mesh": f"1x{MESH_RANKS} (model)", "transport": transport(),
+                 "wall_s": time.perf_counter() - t0, "test_hr10": final["test_hr"],
+                 "test_ndcg10": final["test_ndcg"], "val_hr10": final["val_hr"],
+                 "peak_device_mib_by_rank": launches_line(out, "memory")["by_rank"],
+                 "launches_by_rank": launches_line(out, "launches_by_rank")}
+        with open(os.path.join(run10, "metrics.jsonl")) as fh:
+            fit10["examples_per_sec"] = [json.loads(ln)["examples_per_sec"] for ln in fh]
+        log("mesh_fit_10m", card=card, run="torchrun cli --preset synthetic10m --mesh 1x2 "
+            "--shard_embeddings true --sparse_items_adam false --epochs 1", **fit10)
+        check(all(np.isfinite([final["test_hr"], final["test_ndcg"], final["test_loss"]])),
+              f"--mesh 1x2: non-finite metrics {final}")
+        for r, n in enumerate(fit10["launches_by_rank"]):
+            check(n["attention_fwd"] > 0 and n["attention_bwd"] > 0,
+                  f"--mesh 1x2: rank {r} did not run K1 and K2 ({n})")
+        t0 = time.perf_counter()
+        shard = rank_task("shard_10m", tmp, run10)
+        log("mesh_shard_10m", card=card, transport=transport(), wall_s=time.perf_counter() - t0,
+            **{k: v for k, v in shard[0].items()
+               if k not in ("launches", "timings", "collective_ms")},
+            collective_ms_by_rank=[r["collective_ms"] for r in shard],
+            launches_by_rank=[r["launches"] for r in shard])
+        for r, res in enumerate(shard):
+            n = res["launches"]
+            check(n["catalog_topk_int8"] > 0 and n["groupmax_layout0"] > 0
+                  and n["tournament_rerank"] > 0,
+                  f"--index_shards 2: rank {r} did not run K3, K4 and the rerank ({n})")
+        return {"step": step, "fit": fit, "attn": attn, "fit10": fit10, "shard": shard}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _rank_setup():
+    from carca_tpu_torch.parallel.mesh import initialize_distributed
+
+    dev = initialize_distributed("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return dev
+
+
+def collective_ms(fn, reps: int = 20) -> float:
+    """Host-clock ms of one call of a collective ``fn``, every rank
+    starting together, the device synchronised before and after."""
+    import torch.distributed as dist
+
+    fn()
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _rank_write(task, out_dir, result) -> None:
+    import torch.distributed as dist
+
+    with open(os.path.join(out_dir, f"{task}.rank{dist.get_rank()}.json"), "w") as fh:
+        json.dump(result, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def rank_dp_step(out_dir) -> None:
+    """11a on each rank: one dropout-0 step of make_sharded_device_train_step
+    at --mesh 2 on phase 9's data; rank 0 then runs the one-device kernel
+    step from the same seed and rows and holds the two; then the sharded
+    step's time, MESH_STEP_REPS steps on the host clock."""
+    import torch.distributed as dist
+
+    from carca_tpu_torch.parallel.mesh import all_reduce_sum, make_mesh
+    from carca_tpu_torch.parallel.step import make_sharded_device_train_step
+    from carca_tpu_torch.train.loop import make_device_train_step
+
+    dev = _rank_setup()
+    mesh = make_mesh((MESH_RANKS,), ("data",))
+    cat = synthetic_catalog(n_users=FIT_USERS, n_real_items=FIT_ITEMS, seed=SEED)
+    cfg = preset("beauty", cat.n_items, cat.n_attrs, cat.n_ctx)
+    mc = dataclasses.replace(cfg.model, dropout=0.0)
+    tc = dataclasses.replace(cfg.train, batch_size=B, inner_steps=1)
+    dd = DeviceDataset(cat, mc.seq_len, mc.target_len, device=dev)
+    attrs = torch.as_tensor(cat.attrs, dtype=attrs_dtype(mc), device=dev)
+    users = dd.users("train")
+    rows = torch.as_tensor(users[:B], device=dev)
+    state = create_train_state(mc, tc, dev)
+    step = make_sharded_device_train_step(mc, tc, mesh)
+    reset_counts()
+    state, loss = step(state, attrs, dd.arrays, rows)
+    torch.cuda.synchronize()
+    res = {"loss": float(loss), "launches": counts(), "rank": mesh.rank}
+    if mesh.rank == 0:
+        one = create_train_state(mc, tc, dev)
+        one, loss1 = make_device_train_step(mc, tc)(one, attrs, dd.arrays, rows)
+        worst, worst_tiny = 0.0, 0.0
+        for (name, p), q in zip(state.model.named_parameters(), one.model.parameters()):
+            err = (p.detach() - q.detach()).abs()
+            big = q.grad.abs() > MESH_TINY_GRAD
+            worst = max(worst, err[big].max().item() if big.any() else 0.0)
+            worst_tiny = max(worst_tiny, err.max().item())
+        res.update(one_device_loss=float(loss1),
+                   loss_rel_err=abs(float(loss) - float(loss1)) / abs(float(loss1)),
+                   param_err_where_grad_big=worst, param_err_max=worst_tiny,
+                   tol=MESH_STEP_TOL, lr=tc.lr)
+        res["ok"] = (res["loss_rel_err"] <= MESH_STEP_TOL and worst <= MESH_STEP_TOL
+                     and worst_tiny <= 2 * tc.lr)
+        del one
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(MESH_STEP_REPS):
+        r = torch.as_tensor(users[(i + 1) * B:(i + 2) * B], device=dev)
+        if r.shape[0] == B:
+            state, loss = step(state, attrs, dd.arrays, r)
+    torch.cuda.synchronize()
+    res["step_ms"] = (time.perf_counter() - t0) * 1e3 / MESH_STEP_REPS
+    res["peak_device_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    flat = torch.zeros(sum(p.numel() for p in state.model.parameters()), device=dev)
+    res["collective_ms"] = {f"gradient all_reduce, {flat.numel()} f32": collective_ms(
+        lambda: all_reduce_sum(flat, mesh.data_group))}
+    _rank_write("dp_step", out_dir, res)
+
+
+def rank_shard_10m(out_dir, run) -> None:
+    """11b on each rank, over the --mesh 1x2 run: the sharded lookup of the
+    run's item table (f32) and attrs (bf16) against the plain gather; the
+    --index_shards 2 service (service.main in this rank) over the full 10M
+    int8 index with and without history exclusion (K4 + rerank, then K3),
+    its launches counted; rank 0 holds its answers to a one-shard
+    recommender; then the same index's blocks through the shard-local
+    top-k, merged over the ranks, against one device, bit for bit; then
+    rank 0 times K3/K4/the rerank over its 5M-row block."""
+    import io
+
+    import torch.distributed as dist
+
+    from carca_tpu_torch.parallel.embedding import make_sharded_lookup
+    from carca_tpu_torch.parallel.mesh import (all_gather, all_reduce_sum, gather_rows,
+                                               local_rows, make_mesh)
+    from carca_tpu_torch.parallel.retrieval import _shard_topk, merge_shard_topk
+    from carca_tpu_torch.serve import service
+
+    dev = _rank_setup()
+    mesh = make_mesh((1, MESH_RANKS), ("data", "model"))
+    res = {"rank": mesh.rank}
+    cfg = config_from_run_dir(run)
+    cat = service.load_catalog_for_run(argparse.Namespace(data_dir=""), cfg, str(dev))
+    params = torch.load(os.path.join(run, "ckpt", "best", "params.pt"), map_location=dev)
+    lookup = make_sharded_lookup(mesh)
+    ids = torch.randint(0, cfg.model.n_items, LOOKUP_IDS,
+                        generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    exact = {}
+    for name, table in (("items f32", params["embed.items"]),
+                        ("attrs bf16", torch.as_tensor(cat.attrs, device=dev).to(torch.bfloat16))):
+        got = lookup(local_rows(table, mesh).contiguous(), ids)
+        exact[name] = bool(torch.equal(got, table[ids]))
+    res["lookup_equal_plain_gather"] = exact
+    del params
+
+    host = HostCSR(cat)
+    lines = serve_requests(host)
+    stdin = "\n".join(lines) + "\n"
+    answers = {}
+    reset_counts()
+    for name, extra in (("exclude history", []), ("no exclusion", ["--no_exclude_history"])):
+        buf = io.StringIO()
+        service.main(["--run_dir", run, "--index", "full", "--quantize_index", "true", "--k",
+                      str(K), "--index_shards", str(MESH_RANKS), *extra],
+                     stdin=io.StringIO(stdin), stdout=buf)
+        answers[name] = [json.loads(ln) for ln in buf.getvalue().splitlines() if ln.strip()]
+    torch.cuda.synchronize()
+    res["launches"] = counts()
+    # the service's blocks, rebuilt as it built them, and the whole index
+    # they make: the one-shard recommender answers over that same index
+    block = load_recommender(run, cat.attrs, device=dev, quantize=True, mesh=mesh).catalog_emb
+    n_rows = cfg.model.n_items
+    index = QuantizedIndex(gather_rows(block.qvals, mesh, n_rows),
+                           gather_rows(block.scales.T.contiguous(), mesh, n_rows).T.contiguous())
+    rec = load_recommender(run, cat.attrs, device=dev, quantize=True)
+    res["index"] = dict(rows=index.rows, int8=isinstance(rec.catalog_emb, QuantizedIndex),
+                        block_rows=block.rows, **blocks_against_one_device(index, rec.catalog_emb))
+    rec.catalog_emb = index
+    if mesh.rank == 0:
+        near = {}
+        for name, served in answers.items():
+            rec.exclude_history = name == "exclude history"
+            want = list(serve_lines(rec, host, lines, k=K))
+            check(len(served) == len(want), f"{name}: {len(served)} answers, {len(want)} wanted")
+            near[name] = 0
+            for got, w in zip(served, want):
+                check(("error" in got) == ("error" in w), f"{name}: {got} vs {w}")
+                if "error" not in w:
+                    near[name] += compare(f"--index_shards 2 {name} {got.get('id')}",
+                                          got["items"], got["scores"], w["items"], w["scores"],
+                                          score_tol=SERVE_SCORE_TOL)
+        res["served_equal_one_shard"] = {"requests": len(lines), "near_tie_slots": near}
+
+    # the shard-local kernels merged over the ranks = one device, bit for bit
+    lo = mesh.m_idx * block.rows
+    merged = {}
+    for bq in (1, 64):
+        q = torch.randn(bq, cfg.model.d, generator=torch.Generator(device=dev).manual_seed(bq),
+                        device=dev)
+        for method, kk in (("stream", K), ("tournament", K + L)):
+            v, i = _shard_topk(q, block, kk, n_rows, lo, mesh, True, method)
+            if mesh.rank == 0:
+                wv, wi = catalog_topk(q, index, kk, n_items=n_rows, method=method)
+                merged[f"{method} B={bq} k={kk}"] = bool(torch.equal(v, wv) and torch.equal(i, wi))
+    rows = torch.zeros(*LOOKUP_IDS, cfg.model.d, device=dev)
+    v = torch.zeros(1, K + L, device=dev)
+    res["collective_ms"] = {
+        f"lookup all_reduce {list(rows.shape)} f32": collective_ms(
+            lambda: all_reduce_sum(rows, mesh.model_group)),
+        f"top-k all_gather [1, {K + L}] values and ids": collective_ms(
+            lambda: merge_shard_topk(all_gather(v, mesh.model_group, MESH_RANKS),
+                                     all_gather(v.long(), mesh.model_group, MESH_RANKS),
+                                     K + L))}
+    dist.barrier()
+    if mesh.rank == 0:
+        res["merged_bit_equal_one_device"] = merged
+        check(all(merged.values()), f"shard-local top-k merged != one device: {merged}")
+        check(all(exact.values()), f"sharded lookup != plain gather: {exact}")
+        res["timings"] = time_shard(block, cfg.model.d)
+    _rank_write("shard_10m", out_dir, res)
+
+
+def blocks_against_one_device(index, one) -> dict:
+    """The int8 index gathered from the ranks' blocks (each embedded and
+    quantized on its rank) against the one-device build: the same rows with
+    a scale of 0, scales within BLOCK_SCALE_RTOL, values within one step.
+    The two builds embed the rows in chunks of different sizes, so cuBLAS
+    may sum in another order."""
+    check(index.rows == one.rows, f"gathered blocks hold {index.rows} rows, one device "
+                                  f"{one.rows}")
+    zero = one.scales == 0
+    check(torch.equal(zero, index.scales == 0), "gathered blocks: rows of scale 0 differ")
+    rel = ((index.scales - one.scales).abs() / one.scales.where(~zero, 1.0)).max().item()
+    step = (index.qvals.to(torch.int16) - one.qvals.to(torch.int16)).abs()
+    out = {"bit_equal_one_device_build": bool(torch.equal(index.qvals, one.qvals)
+                                               and torch.equal(index.scales, one.scales)),
+           "scale_rel_err": rel, "scale_rtol": BLOCK_SCALE_RTOL,
+           "max_value_steps": int(step.max()),
+           "rows_off_by_a_step": int((step.amax(dim=1) > 0).sum())}
+    check(rel <= BLOCK_SCALE_RTOL and out["max_value_steps"] <= 1,
+          f"gathered blocks against the one-device index: {out}")
+    return out
+
+
+def time_shard(block, d) -> dict:
+    """K3 int8, K4 layout 0 and the rerank over one 5M-row block at the
+    --index_shards 2 service's shapes (bucket 1: k = 10 without exclusion
+    for K3, k + L = 60 for the tournament), beside their plain versions;
+    their errors against the plain versions, held to the summation-order
+    bound of phases 4-6 (K3 ids equal but for near-ties, K4 and the rerank
+    within SCORE_ORDER_TOL of sum|q e|, the rerank's group maxima
+    bit-equal to K4's)."""
+    q = torch.randn(1, d, generator=torch.Generator().manual_seed(91)).to(DEVICE)
+    rows = block.rows
+    out = {"rows": rows}
+    v, i = catalog_topk(q, block, K, method="stream")
+    pv, pi = catalog_topk_plain(q, block, K)
+    out["k3_err"], _ = compare_within_order_tol(v, i, pv, pi, q, block)
+    out["K3"] = kernel_vs_plain(lambda: catalog_topk(q, block, K, method="stream"),
+                                lambda: catalog_topk_plain(q, block, K), reps=10, plain_reps=5)
+    e, scales = block.qvals, block.scales
+    g, out["k4_err"] = check_groupmax(f"shard of {rows} rows layout 0", q, e, scales, rows,
+                                      True, 0)
+    out["K4"] = kernel_vs_plain(lambda: groupmax(q, e, scales, rows, True, 0),
+                                lambda: groupmax_plain(q, e, scales, rows, True, 0), reps=10,
+                                plain_reps=5)
+    kg = K + L + 8
+    gi = rt._stable_desc(g.t(), kg).sort(dim=1).values.contiguous()
+    out["rerank_err"] = check_rerank(f"shard of {rows} rows, {kg} groups", q, e, scales, gi,
+                                     rows, True, g.t().gather(1, gi))
+    out["rerank"] = kernel_vs_plain(lambda: tournament_rerank(q, e, scales, gi, rows, True),
+                                    lambda: tournament_rerank_plain(q, e, scales, gi, rows, True),
+                                    reps=10)
+    out["kg"] = kg
+    return out
+
+
+RANK_TASKS = {"dp_step": rank_dp_step, "shard_10m": rank_shard_10m}
+
+
+def mesh_entries(m) -> list:
+    """The kernels line's entries for phase 11: K1/K2 at the --mesh 2 fit's
+    rank-local encoder (launches: every K1/K2 launch of that fit, both
+    ranks), K3 int8, K4 layout 0 and the rerank over one 5M-row block of
+    the 10M int8 index at the --index_shards 2 service's bucket 1
+    (launches: both ranks' service runs)."""
+    f32, b = 4, B // MESH_RANKS
+    attn, fit, t = m["attn"], sum_ranks(m["fit"]["launches_by_rank"]), m["shard"][0]["timings"]
+    serve = sum_ranks([r["launches"] for r in m["shard"]])
+    rows = t["rows"]
+    entries = []
+
+    def add(name, source, replaces, n, err, ms_plain, bytes_moved, ops, operand, lib, shape):
+        b_ms, b_by = bound(bytes_moved, ops, operand)
+        entries.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": n, "max_abs_err": err, "ms": ms_plain[0],
+                        "plain_ms": ms_plain[1], "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": lib, "shape": shape})
+
+    masks = b * 2 * L * f32
+    local = f"mesh 2 rank-local encoder [{b},{L},{D}] causal 0 dropout {P_DROP}"
+    add("attention_fwd_mesh2", "carca_tpu_torch/csrc/attention_fwd.cu",
+        "carca_tpu/ops/flash_attention.py:113", fit["attention_fwd"], attn["k1_err"],
+        attn["k1"], 4 * b * L * D * f32 + masks, 4 * b * L * L * D, "3xtf32",
+        attn["lib"]["fwd"], local)
+    add("attention_bwd_mesh2", "carca_tpu_torch/csrc/attention_bwd.cu",
+        "carca_tpu/ops/flash_attention.py:130", fit["attention_bwd"], attn["k2_err"],
+        attn["k2"], 7 * b * L * D * f32 + masks, 10 * b * L * L * D, "3xtf32",
+        attn["lib"]["bwd"], local)
+    shard = f"index_shards 2: one {rows}-row int8 block, bucket 1"
+    add("catalog_topk_int8_shard", "carca_tpu_torch/csrc/catalog_topk.cu",
+        "carca_tpu/ops/retrieval_topk.py:526", serve["catalog_topk_int8"], t["k3_err"],
+        t["K3"], rows * (D + f32) + D * f32 + K * 12, 2 * rows * D, "bfloat16", None,
+        f"{shard}, k={K}")
+    groups = -(-rows // GROUP)
+    add("groupmax_shard", "carca_tpu_torch/csrc/groupmax.cu",
+        "carca_tpu/ops/retrieval_topk.py:183", serve["groupmax_layout0"], t["k4_err"], t["K4"],
+        rows * (D + f32) + D * f32 + groups * f32, 2 * rows * D, "bfloat16", None, shard)
+    kg = t["kg"]
+    add("tournament_rerank_shard", "carca_tpu_torch/csrc/groupmax.cu",
+        "carca_tpu/ops/retrieval_topk.py:497", serve["tournament_rerank"], t["rerank_err"],
+        t["rerank"], kg * GROUP * (D + f32) + kg * 8 + D * f32 + kg * GROUP * f32,
+        2 * kg * GROUP * D, "bfloat16", None, f"{shard}, k={K + L}, {kg} groups")
+    return entries
 
 
 def kernel_entries(k1_err, k2_err, k3_err, k4_err, timings, k2_times, library, launches):
@@ -2155,6 +2719,9 @@ def fit10m_entries(f, launches):
 
 
 def main() -> None:
+    if sys.argv[1:2] == ["--rank_task"]:  # one rank of phase 11, under torchrun
+        RANK_TASKS[sys.argv[2]](*sys.argv[3:])
+        return
     profile_run = "--profile" in sys.argv[1:]
     if set(sys.argv[1:]) - {"--profile"}:
         raise SystemExit(f"usage: {sys.argv[0]} [--profile]")
@@ -2203,14 +2770,16 @@ def main() -> None:
     k3_err["f32"] = max(k3_err["f32"], k3_fit_err)
     torch.cuda.empty_cache()
     fit10m = timed("10 fit 10M", phase_fit_10m, card, profile_run)
+    torch.cuda.empty_cache()
+    mesh = timed("11 mesh", phase_mesh, card)
     launches = {"slice": serve_launches, "slice_10m": launches_10m, "bench": bench_launches,
                 "train": train_launches, "fit_serve": fit_launches,
                 "fit_10m": fit10m["fit"]["launches"], **{
                     f"eval_10m {case}": n for case, n in fit10m["eval_launches"].items()}}
     log("launches", **launches)
     log("phase_seconds", total=sum(seconds.values()), **seconds)
-    entries = kernel_entries(k1_err, k2_err, k3_err, k4_err, timings, k2_times, library,
-                             launches) + fit10m_entries(fit10m, launches)
+    entries = (kernel_entries(k1_err, k2_err, k3_err, k4_err, timings, k2_times, library,
+                              launches) + fit10m_entries(fit10m, launches) + mesh_entries(mesh))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

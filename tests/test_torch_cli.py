@@ -77,8 +77,9 @@ def test_flag_parsers_are_strict():
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--mesh", "2"], "item 14"), (["--mesh", "4x2"], "item 14"),
-    (["--device_sampling", "true", "--mesh", "2"], "item 14"), (["--model", "svd"], "knn"),
+    (["--mesh", "2"], "world size of 2"), (["--mesh", "4x2"], "world size of 8"),
+    (["--device_sampling", "true", "--mesh", "2"], "world size of 2"),
+    (["--model", "svd"], "knn"),
     (["--select_by", "retrieval_hr"], "eval_retrieval_every"),
     (["--select_by", "retrieval_ndcg"], "eval_retrieval_every"),
     (["--eval_retrieval_every", "1", "--select_by", "retrieval_hr"], "dot-family"),
@@ -87,7 +88,8 @@ def test_flag_parsers_are_strict():
     (["--sparse_items_adam", "true", "--device_pipeline", "false"], "device_pipeline"),
 ])
 def test_flags_not_ported_yet_raise(tmp_path, extra, item):
-    """What the port refuses: a mesh (ROADMAP item 14), and the flag
+    """What the port refuses: a mesh whose product is not the world size
+    (here one process, not launched by torchrun), and the flag
     combinations the JAX package refuses too (smoke's decoder is ca)."""
     argv = SMOKE + ["--out_dir", str(tmp_path)] + extra
     with pytest.raises((NotImplementedError, ValueError), match=item):

@@ -337,8 +337,6 @@ def test_sparse_items_adam_resolves_as_jax(n_real, dp, train, big_cat, cat):
                  TrainConfig(**dataclasses.asdict(jcfg.train)))
     want = jax_resolve(jcfg)
     assert sparse_adam.resolve(cfg) == want
-    if "mesh_shape" in train:
-        return  # the bridge refuses a mesh first
     assert config_from_jax(jcfg).train == cfg.train
     if want:
         data = big_cat if n_real == 999_999 else synthetic_catalog(
@@ -374,8 +372,9 @@ def test_sparse_auto_at_1m_items_raises_in_fit_and_bridge(tmp_path, big_cat):
 
 def test_refuse_unported_accepts_the_10m_preset_on_one_device():
     """The synthetic10m preset sets device_sampling=True, which the JAX
-    package reads only under a mesh: one device accepts it; a mesh is still
-    refused (ROADMAP item 14)."""
+    package reads only under a mesh: one device accepts it, and so does a
+    mesh (the dense item Adam there); the row-sparse Adam forced on under a
+    mesh is refused (ROADMAP item 17)."""
     from carca_tpu_torch.train.loop import refuse_unported
 
     cfg = preset("synthetic10m", 10_000_001, 12, 4)
@@ -383,7 +382,10 @@ def test_refuse_unported_accepts_the_10m_preset_on_one_device():
     refuse_unported(cfg)
     refuse_unported(dataclasses.replace(cfg, data=dataclasses.replace(
         cfg.data, device_pipeline=False)))
-    with pytest.raises(NotImplementedError, match="item 14"):
+    meshed = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, mesh_shape=(1, 2)))
+    refuse_unported(meshed)
+    assert sparse_adam.resolve(meshed) is False
+    with pytest.raises(NotImplementedError, match="item 17"):
         refuse_unported(dataclasses.replace(cfg, train=dataclasses.replace(
-            cfg.train, mesh_shape=(2, 2))))
+            cfg.train, mesh_shape=(2, 2), sparse_items_adam=True)))
     assert sparse_adam.resolve(cfg) is True

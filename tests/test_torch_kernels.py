@@ -601,3 +601,42 @@ def test_sparse_step_on_the_card_matches_the_cpu_plain_sparse_step(dev):
     torch.testing.assert_close(munu_g[ids, :d], munu_c[ids, :d], rtol=1e-2, atol=1e-9)
     assert not bool(munu_g[rest].any()) and not bool(items_g[0].any())
     assert gpu.items_state["count"] == cpu.items_state["count"] == 1
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("method", ["stream", "tournament"])
+@pytest.mark.parametrize("n_shards,b,r,k", [(2, 8, 40_001, 60), (4, 64, 100_003, 10),
+                                            (2, 1, 1_000_001, 60)])
+def test_sharded_topk_merges_bit_equal_to_one_shard(dev, kind, method, n_shards, b, r, k):
+    """An index split into row blocks (``mesh.local_rows``: padded to the
+    shard count), each block ranked by the kernels with its ``id_offset``
+    and the true row count, the blocks' lists merged in shard order
+    (``parallel.retrieval.merge_shard_topk``, what the model ranks do after
+    their all-gather): the one-device kernel result, ids and values bit for
+    bit, since a score depends only on its query and its row."""
+    from carca_tpu_torch.parallel.mesh import Mesh, local_rows
+    from carca_tpu_torch.parallel.retrieval import merge_shard_topk
+
+    g = torch.Generator(device="cpu").manual_seed(r + b)
+    q = torch.randn(b, 64, generator=g).to(dev)
+    e = torch.randn(r, 64, generator=g).to(dev)
+    index = quantize_index(e) if kind == "int8" else (e.to(torch.bfloat16) if kind == "bf16"
+                                                      else e)
+    want_v, want_i = catalog_topk(q, index, k, n_items=r, method=method)
+    vals, ids = [], []
+    for m in range(n_shards):
+        mesh = Mesh(n_data=1, n_model=n_shards, rank=m)
+        if kind == "int8":
+            block = QuantizedIndex(local_rows(index.qvals, mesh).contiguous(),
+                                   local_rows(index.scales.T, mesh).T.contiguous())
+            rows = block.rows
+        else:
+            block = local_rows(index, mesh).contiguous()
+            rows = block.shape[0]
+        v, i = catalog_topk(q, block, min(k, rows), n_items=r, id_offset=m * rows,
+                            method=method)
+        vals.append(v)
+        ids.append(i)
+    got_v, got_i = merge_shard_topk(vals, ids, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got_i, want_i) and torch.equal(got_v, want_v)

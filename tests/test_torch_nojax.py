@@ -14,7 +14,8 @@ FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "flax", "carca_tpu")
 
 
 def test_serving_and_ops_import_without_jax():
-    """The serving, training, entry-point and ops modules import without jax."""
+    """The serving, training, entry-point, multi-device and ops modules
+    import without jax."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     probe = subprocess.run([sys.executable, "-c", "import sys; print('jax' in sys.modules)"],
                            capture_output=True, text=True, env=env, cwd=ROOT, timeout=120)
@@ -32,6 +33,9 @@ def test_serving_and_ops_import_without_jax():
         "import carca_tpu_torch.train.metrics, carca_tpu_torch.train.sparse_adam\n"
         "import carca_tpu_torch.data.loaders, carca_tpu_torch.data.sampler\n"
         "import carca_tpu_torch.data.prefetch, carca_tpu_torch.data.synthetic\n"
+        "import carca_tpu_torch.parallel, carca_tpu_torch.parallel.mesh\n"
+        "import carca_tpu_torch.parallel.embedding, carca_tpu_torch.parallel.step\n"
+        "import carca_tpu_torch.parallel.retrieval\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
     )

@@ -284,7 +284,7 @@ def test_service_main_answers_stdin_and_benches(runs):
     out = io.StringIO()
     service.main(["--run_dir", run, "--bench", "--iters", "2", "--device", "cpu"], stdout=out)
     assert [json.loads(line)["batch"] for line in out.getvalue().splitlines()] == [1, 8, 64, 256]
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="world size of 2"):  # one process, two shards
         service.main(["--run_dir", run, "--index_shards", "2"], device="cpu")
 
 

@@ -45,7 +45,7 @@ from carca_tpu_torch.models.carca import CARCA
 from carca_tpu_torch.train import sparse_adam
 from carca_tpu_torch.train.checkpoint import CheckpointKeeper
 from carca_tpu_torch.train.loop import (_sparse_device_update, apply_gradients, fit,
-                                       make_train_step, train_loss)
+                                       make_train_step, train_loss, train_loss_terms)
 from carca_tpu_torch.train.state import create_train_state
 
 torch.set_num_threads(1)
@@ -191,7 +191,7 @@ def test_first_touch_rows_equal_the_dense_adam(cat):
     for st in (sparse, dense):
         st.model.train()
     _sparse_device_update(tc, sparse, b, attrs)
-    apply_gradients(dense, lambda: train_loss(dense.model, b, attrs))
+    apply_gradients(dense, lambda: train_loss_terms(dense.model, b, attrs))
     ids = batch_ids({k: v.numpy() for k, v in b.items()})
     np.testing.assert_allclose(sparse.model.embed.items[ids].detach().numpy(),
                                dense.model.embed.items[ids].detach().numpy(), rtol=0,
