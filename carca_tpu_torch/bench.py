@@ -19,6 +19,17 @@ steps per call of the scanned step. ``measure`` times it as
 ``bench.py`` does: 2 warm calls, then the median of 5 windows of
 ``max(1, 100 // K)`` calls, each window ended by a device synchronize, in
 examples per second. Prints one JSON line. Needs a CUDA card.
+
+Beside the rate, the line holds ``bench.py``'s utilisation keys, under its
+names and formulas (``utils/flops.py``): ``mfu``, the step's analytic
+matmul FLOPs at the median rate over the card's dense bf16 peak;
+``hbm_gbps``, the step's modelled HBM bytes at that rate (the row-sparse
+Adam's touched rows where ``build_setup`` resolved it on); and
+``hbm_bw_util``, that over the card's HBM peak. ``mfu`` and
+``hbm_bw_util`` are left out on a card the peak tables do not know.
+``bench.py``'s ``hbm_gbps_xla`` has no counterpart: it is XLA's
+``cost_analysis`` of the compiled step, and an eager PyTorch step has no
+compiled whole to ask.
 """
 
 from __future__ import annotations
@@ -39,6 +50,7 @@ from carca_tpu_torch.data.synthetic import synthetic_catalog, synthetic_catalog_
 from carca_tpu_torch.train import sparse_adam
 from carca_tpu_torch.train.loop import attrs_dtype, make_scanned_device_train_step
 from carca_tpu_torch.train.state import create_train_state
+from carca_tpu_torch.utils.flops import utilisation
 
 CONFIGS = ("flagship", "men", "10m")
 N_WINDOWS = 5
@@ -54,6 +66,7 @@ class Setup:
     inner: int
     tc: TrainConfig
     mc: ModelConfig
+    sparse_items: bool  # the item table's Adam: row-sparse (True) or dense
 
 
 def build_setup(config: str = "flagship", batch: int = 256, device="cuda",
@@ -84,8 +97,8 @@ def build_setup(config: str = "flagship", batch: int = 256, device="cuda",
     fields.update(model_overrides)
     mc = ModelConfig(**fields)
     tc = TrainConfig(batch_size=batch, seed=0)
-    state = create_train_state(mc, tc, device, sparse_items=sparse_adam.resolve(
-        Config(mc, DataConfig(device_pipeline=True), tc)))
+    sparse_items = sparse_adam.resolve(Config(mc, DataConfig(device_pipeline=True), tc))
+    state = create_train_state(mc, tc, device, sparse_items=sparse_items)
     attrs = torch.as_tensor(cat.attrs, dtype=attrs_dtype(mc), device=device)
     dd = DeviceDataset(cat, mc.seq_len, mc.target_len, test=True, device=device)
     rng = np.random.default_rng(0)
@@ -99,8 +112,8 @@ def build_setup(config: str = "flagship", batch: int = 256, device="cuda",
     chunks = [torch.as_tensor(np.stack([rows[(j * inner + i) % len(rows)]
                                         for i in range(inner)]), dtype=torch.int64).to(device)
               for j in range(4)]
-    step = make_scanned_device_train_step(mc, inner, tc)
-    return Setup(step, state, attrs, dd, chunks, inner, tc, mc)
+    step = make_scanned_device_train_step(mc, inner, tc, sparse_items=sparse_items)
+    return Setup(step, state, attrs, dd, chunks, inner, tc, mc, sparse_items)
 
 
 def measure(s: Setup):
@@ -138,11 +151,13 @@ def main() -> None:
                     use_kernel="auto" if args.use_kernel == "auto" else False)
     torch.cuda.reset_peak_memory_stats()
     rates = measure(s)
+    rate = statistics.median(rates)
     print(json.dumps({
         "metric": f"train_examples_per_sec_{args.config}",
-        "value": statistics.median(rates), "unit": "examples/sec/chip",
-        "rates": {"min": min(rates), "median": statistics.median(rates), "max": max(rates)},
-        "use_kernel": args.use_kernel, "batch": args.batch,
+        "value": rate, "unit": "examples/sec/chip",
+        "rates": {"min": min(rates), "median": rate, "max": max(rates)},
+        **utilisation(s.mc, s.tc.batch_size, rate, s.sparse_items, s.state.generator.device),
+        "sparse_items": s.sparse_items, "use_kernel": args.use_kernel, "batch": args.batch,
         "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20,
         "device": torch.cuda.get_device_name(0)}))
 

@@ -33,6 +33,9 @@ asks for the CPU, and nothing falls back to it.
   the CPU, on gloo); ranks that share a card talk over gloo, which checks
   correctness and measures no scaling. The world size must equal the
   mesh's product. Rank 0 writes the run directory and prints ``final:``.
+  ``--sparse_items_adam true`` trains the item table with the row-sparse
+  Adam there too (each model rank updating its block's rows); "auto"
+  stays dense under a mesh, as in the JAX package.
   ``--device_sampling`` is read only under a mesh, as in the JAX package.
 """
 
@@ -134,8 +137,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="device-pipeline negative rejection against the full history: "
                         "true | false (visible window) | auto (history <= 4x seq_len)")
     p.add_argument("--sparse_items_adam", type=parse_kernel_flag, default="auto",
-                   help="lazy row-sparse Adam for the item table (device pipeline, one "
-                        "device): true | false | auto (>=1M-item catalogs)")
+                   help="lazy row-sparse Adam for the item table (device pipeline): true | "
+                        "false | auto (>=1M-item catalogs on one device; dense under --mesh)")
     p.add_argument("--checkpoint", type=parse_bool, default=True,
                    help="false disables all checkpoint IO")
     p.add_argument("--checkpoint_interval", type=int, default=1,

@@ -157,14 +157,16 @@ def all_gather(t: torch.Tensor, group, size: int) -> List[torch.Tensor]:
     return out
 
 
-def sum_gradients(model: nn.Module, group) -> None:
-    """Every parameter's gradient summed over ``group`` (no-op for None):
-    one flat buffer per dtype, one all-reduce each. A missing gradient
-    counts as zeros and stays missing."""
+def sum_gradients(params: Sequence[torch.Tensor], group) -> None:
+    """The gradients of ``params`` (the dense optimizer's parameters)
+    summed over ``group`` (no-op for None): one flat buffer per dtype, one
+    all-reduce each. A missing gradient counts as zeros and stays missing.
+    Under the row-sparse item Adam the item table is not among them: its
+    gradient reaches the gathered sub-table, which is summed on its own."""
     if group is None:
         return
     by_dtype: Dict[torch.dtype, list] = {}
-    for p in model.parameters():
+    for p in params:
         by_dtype.setdefault(p.dtype, []).append(p)
     for params in by_dtype.values():
         flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
@@ -260,20 +262,34 @@ def shard_batch(batch: Dict, mesh: Mesh, dim: int = 0) -> Dict:
     return out
 
 
-def prepare_state_for_mesh(state, mesh: Mesh, shard_embeddings: bool):
+def prepare_state_for_mesh(state, mesh: Mesh, shard_embeddings: bool,
+                           sparse_items: Optional[bool] = None):
     """Row-shard the item table over ``model`` (when ``shard_embeddings``
     and the model axis has more than one rank): the model keeps its padded
-    block as ``embed.items``, and Adam is rebuilt over the local
-    parameters. Call once before training, before a restore (which then
-    loads blocks). A row-sparse item Adam is refused before this."""
-    if not (shard_embeddings and mesh.n_model > 1):
-        return state
+    block as ``embed.items``. With ``sparse_items`` (by default: whether
+    the state holds a row state) the item table takes the row-sparse Adam:
+    the row state is built for the rank's block (or the whole table) and
+    the dense Adam over every other parameter, the JAX package's split
+    ``{"dense", "items"}`` state. Adam is rebuilt over the local parameters
+    wherever something changed. Call once before training, before a
+    restore (which then loads blocks)."""
+    from carca_tpu_torch.train import sparse_adam
+
+    sparse = state.items_state is not None if sparse_items is None else bool(sparse_items)
     embed = state.model.embed
-    if not hasattr(embed, "items"):
-        return state  # attr/attrctx embeddings hold no id table
-    with torch.no_grad():
-        block = local_rows(embed.items.detach(), mesh).clone()
-    embed.items = nn.Parameter(block)
+    has_table = hasattr(embed, "items")
+    sharded = shard_embeddings and mesh.n_model > 1 and has_table
+    if sharded:
+        with torch.no_grad():
+            block = local_rows(embed.items.detach(), mesh).clone()
+        embed.items = nn.Parameter(block)
+    elif sparse == (state.items_state is not None):
+        return state
+    if sparse and not has_table:
+        raise ValueError("the row-sparse item Adam needs an item table")
     opt = state.optimizer
-    state.optimizer = type(opt)(list(state.model.parameters()), **opt.defaults)
+    params = [p for n, p in state.model.named_parameters()
+              if not (sparse and n == "embed.items")]
+    state.optimizer = type(opt)(params, **opt.defaults)
+    state.items_state = sparse_adam.init_state(embed.items.detach()) if sparse else None
     return state

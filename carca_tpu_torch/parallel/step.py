@@ -23,7 +23,11 @@ shared CPU generator and folds the data index into it
 numerator and denominator) are all-reduced over ``data``
 (``loop.eval_metrics``).
 
-The row-sparse item Adam under a mesh is not ported (ROADMAP item 17).
+With ``sparse_items`` the device step trains the item table with the
+row-sparse Adam (``loop._sparse_device_update``'s mesh form): the unique
+rows and the sub-table are the global batch's, the sub-table's gradient is
+summed over ``data`` and each model rank updates its block's rows; the
+state is built by ``prepare_state_for_mesh(..., sparse_items=True)``.
 """
 
 from __future__ import annotations
@@ -81,22 +85,23 @@ def make_sharded_device_train_step(mc: ModelConfig, tc: Optional[TrainConfig], m
                                    shard_embeddings: bool = False, inner_steps: int = 1,
                                    reject_width: int = 0, neg_pop: bool = False,
                                    logq: Optional[torch.Tensor] = None,
-                                   on_step: Optional[Callable[[TrainState], None]] = None
-                                   ) -> Callable:
+                                   on_step: Optional[Callable[[TrainState], None]] = None,
+                                   sparse_items: bool = False) -> Callable:
     """The device-pipeline step over the mesh: (state, attrs_table, catalog
     arrays, global user rows) → (state, loss). The catalog is replicated;
     every rank assembles the global batch from the shared generator (as
     ``make_device_train_step`` does) and trains on its slice. With
     ``inner_steps`` > 1 the rows are [K, B], the step returns the K
     losses and ``on_step(state)`` runs after each of them (the fit loop's
-    EMA)."""
+    EMA). ``sparse_items`` takes the row-sparse item Adam (the state must
+    hold its row state)."""
     on = _on(mesh, shard_embeddings)
     if inner_steps > 1:
         return make_scanned_device_train_step(mc, inner_steps, tc, reject_width, neg_pop, logq,
-                                              on_step, False, **on)
+                                              on_step, sparse_items, **on)
     if on_step is not None:
         raise ValueError("on_step runs inside a K-step call: it needs inner_steps > 1")
-    return make_device_train_step(mc, tc, reject_width, neg_pop, logq, False, **on)
+    return make_device_train_step(mc, tc, reject_width, neg_pop, logq, sparse_items, **on)
 
 
 def make_sharded_eval_step(mc: ModelConfig, top_k: int, mesh: Mesh, *,

@@ -26,7 +26,9 @@ table and its Adam moments on rank 0 in host memory, block by block
 (``gather_rows_on_rank0``: no other rank ever holds the whole table), and
 cuts the pad rows, so a mesh run writes the same files a one-device run
 writes; a restore re-pads and takes the rank's block, so either kind of
-run resumes or serves the other's checkpoints.
+run resumes or serves the other's checkpoints. The row-sparse Adam's row
+state of a row-sharded table (``munu``, one block per rank) travels the
+same way: whole on disk, a block in each rank.
 """
 
 from __future__ import annotations
@@ -119,6 +121,8 @@ class CheckpointKeeper:
         if self.table_rows is None or not hasattr(state.model.embed, "items"):
             return sd
         ids = [id(p) for g in state.optimizer.param_groups for p in g["params"]]
+        if id(state.model.embed.items) not in ids:
+            return sd  # the row-sparse Adam holds the table's moments
         slot = ids.index(id(state.model.embed.items))
         if slot not in sd["state"]:
             return sd
@@ -154,10 +158,13 @@ class CheckpointKeeper:
 
     def save_latest(self, epoch: int, state, ema: Optional[torch.nn.Module] = None) -> None:
         """The resume checkpoint; with ``ema``, the shadow at the same step."""
+        rows = state.items_state
+        if rows is not None and self.table_rows is not None:
+            rows = dict(rows, munu=self._gather(rows["munu"]))
         ck = {"model": self._whole(state.model.state_dict()),
               "optimizer": self._moments(state, state.optimizer.state_dict(),
                                          self._gather),
-              "items_state": state.items_state,
+              "items_state": rows,
               "generator": state.generator.get_state(),
               "seed_generator": state.seed_generator.get_state(),
               "step": state.step, "epoch": epoch}
@@ -186,7 +193,9 @@ class CheckpointKeeper:
         state.optimizer.load_state_dict(self._moments(
             state, ck["optimizer"], lambda t: local_rows(t, self.mesh)))
         if saved is not None:
-            state.items_state["munu"].copy_(saved["munu"])
+            munu = saved["munu"]
+            state.items_state["munu"].copy_(munu if self.table_rows is None
+                                            else local_rows(munu, self.mesh))
             state.items_state["count"] = int(saved["count"])
         state.generator.set_state(ck["generator"])
         state.seed_generator.set_state(ck["seed_generator"])

@@ -28,10 +28,9 @@ that metric. ``evaluate_knn`` runs the KNN content baseline through the
 sampled eval. With ``mesh_shape`` the fit runs on every rank of a
 ``torch.distributed`` group: the step builders' ``mesh`` form (named as
 the JAX package's in ``parallel/step.py``) puts the batch over ``data``
-and the tables, row-sharded, over ``model``; the row-sparse item Adam
-under a mesh is refused (ROADMAP item 17). ``device_sampling`` is read
-under a mesh only (the host pipeline's negatives drawn on the device), as
-in the JAX package.
+and the tables, row-sharded, over ``model``, with either item-table Adam.
+``device_sampling`` is read under a mesh only (the host pipeline's
+negatives drawn on the device), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -71,8 +70,6 @@ from carca_tpu_torch.train.state import TrainState, create_train_state
 from carca_tpu_torch.utils.masking import get_mask
 
 TEST_SALT = 999_983  # the test eval's seed next to the run seed (the JAX package's)
-SPARSE_UNDER_MESH = ("the row-sparse item Adam under a mesh is not ported (ROADMAP item 17); "
-                     "use sparse_items_adam=false")
 
 
 def attrs_dtype(mc: ModelConfig) -> torch.dtype:
@@ -142,7 +139,7 @@ def apply_gradients(state: TrainState, terms_fn: Callable[[], Terms],
         den = all_reduce_sum(den.detach().clone(), group)
     loss = num / torch.clamp_min(den, floor)
     loss.backward()
-    sum_gradients(state.model, group)
+    sum_gradients([p for g in state.optimizer.param_groups for p in g["params"]], group)
     if state.schedule is not None:
         lr = state.schedule(state.step)
         for g in state.optimizer.param_groups:
@@ -169,23 +166,40 @@ def _dense_update(state: TrainState, tc: TrainConfig, batch, attrs_table: torch.
 
 def _sparse_device_update(tc: TrainConfig, state: TrainState, batch,
                           attrs_table: torch.Tensor,
-                          logq: Optional[torch.Tensor] = None) -> torch.Tensor:
+                          logq: Optional[torch.Tensor] = None, mesh: Optional[Mesh] = None,
+                          lookup: Optional[Lookup] = None) -> torch.Tensor:
     """One train update of a sparse-items state on ``batch``, in place
     (``carca_tpu/train/loop.py:166-205``): the loss is differentiated with
     respect to the gathered sub-table of the batch's unique ids, the dense
     Adam updates every other parameter, and the row-sparse Adam the touched
-    rows of the item table. Returns the detached loss."""
+    rows of the item table. Returns the detached loss.
+
+    Over a ``mesh`` ``batch`` is the global batch: its unique rows and the
+    sub-table are the global batch's on every rank (a rank's slice alone
+    would give each data rank other slots), gathered from the row-sharded
+    block by ``lookup`` when it is given (the attrs lookups keep it); the
+    rank's loss terms are its slice's, the sub-table's gradient is summed
+    over ``data``, and each model rank updates the rows of its block."""
     items = state.model.embed.items
-    uphys, valid, posmap = sparse_adam.touched_rows(batch, items.shape[0])
-    sub = items.detach()[uphys].requires_grad_(True)  # the [cap, W] leaf the gradient reaches
+    uphys, valid, posmap = sparse_adam.touched_rows(batch, state.model.cfg.n_items)
+    if lookup is None:
+        sub, lo = items.detach()[uphys], 0
+    else:  # the block's rows, all-reduced over model; no autograd (a detached block)
+        sub, lo = lookup(items.detach(), uphys), mesh.m_idx * items.shape[0]
+    sub.requires_grad_(True)  # the [cap, W] leaf the gradient reaches
+    if mesh is not None:
+        batch = shard_batch(batch, mesh)
+    gen, sgen = rank_generators(state, mesh, state.model.cfg.dropout)
     loss = apply_gradients(state, lambda: train_loss_terms(
-        state.model, batch, attrs_table, generator=state.generator,
-        seed_generator=state.seed_generator, loss_kind=tc.loss, logq=logq,
-        item_rows=ItemRows(sub, posmap)))
+        state.model, batch, attrs_table, generator=gen, seed_generator=sgen, loss_kind=tc.loss,
+        logq=logq, item_rows=ItemRows(sub, posmap), lookup=lookup), mesh)
+    g_rows = sub.grad
+    if mesh is not None:
+        all_reduce_sum(g_rows, mesh.data_group)
     rows = state.items_state
-    sparse_adam.apply_rows_update(items, rows, uphys, valid, sub.grad, sub.detach(),
+    sparse_adam.apply_rows_update(items, rows, uphys, valid, g_rows, sub.detach(),
                                   lr=sparse_adam.lr_at(tc, rows["count"]), b1=tc.beta1,
-                                  b2=tc.beta2, weight_decay=tc.l2_reg)
+                                  b2=tc.beta2, weight_decay=tc.l2_reg, lo=lo)
     return loss
 
 
@@ -204,11 +218,11 @@ def make_device_train_step(mc: ModelConfig, tc: Optional[TrainConfig] = None,
     Over a ``mesh`` every rank assembles the global batch from the shared
     generator (so the generators stay in step and the data slices together
     are the one-device batch, bit for bit) and trains on its slice
-    (``apply_gradients``); ``lookup`` routes the lookups of row-sharded
-    tables. The row-sparse Adam is not ported there."""
+    (``apply_gradients``, or ``_sparse_device_update``'s mesh form);
+    ``lookup`` routes the lookups of row-sharded tables. There
+    ``sparse_items`` defaults to the dense Adam, as ``sparse_adam.resolve``
+    decides "auto" under a mesh."""
     tc = tc or TrainConfig()
-    if mesh is not None and sparse_items:
-        raise NotImplementedError(SPARSE_UNDER_MESH)
     if sparse_items is None:
         sparse_items = mesh is None and sparse_adam.resolve(
             Config(mc, DataConfig(device_pipeline=True), tc))
@@ -216,8 +230,6 @@ def make_device_train_step(mc: ModelConfig, tc: Optional[TrainConfig] = None,
     lq = logq if tc.loss == "softmax" else None
 
     def train_step(state: TrainState, attrs_table, arrays, user_rows):
-        if mesh is not None and state.items_state is not None:
-            raise NotImplementedError(SPARSE_UNDER_MESH)
         if (state.items_state is not None) != sparse_items:
             raise ValueError(f"the step uses the {'sparse' if sparse_items else 'dense'} item-"
                              "table Adam, the state the other (create_train_state(sparse_items=))")
@@ -225,7 +237,7 @@ def make_device_train_step(mc: ModelConfig, tc: Optional[TrainConfig] = None,
         batch = assemble_train(arrays, mc.seq_len, mc.n_items, user_rows, state.generator,
                                reject_width, neg_pop, n_neg=n_neg)
         if sparse_items:
-            return state, _sparse_device_update(tc, state, batch, attrs_table, lq)
+            return state, _sparse_device_update(tc, state, batch, attrs_table, lq, mesh, lookup)
         return state, _dense_update(state, tc, batch, attrs_table, lq, mesh, lookup)
 
     return train_step
@@ -624,18 +636,6 @@ def evaluate_knn(cfg: Config, catalog: Catalog, log: bool = True,
     return out
 
 
-def refuse_unported(cfg: Config) -> None:
-    """Raise NotImplementedError, naming its ROADMAP item, for what a config
-    asks of the fit loop that the port does not have yet: the row-sparse
-    item Adam under a mesh (``sparse_adam.resolve`` gives "auto" the dense
-    Adam there)."""
-    tc = cfg.train
-    if uses_mesh(cfg) and tc.sparse_items_adam is True:
-        raise NotImplementedError(f"sparse_items_adam=True under mesh_shape={tc.mesh_shape}: "
-                                  "the row-sparse item Adam over a mesh is not ported "
-                                  "(ROADMAP item 17)")
-
-
 def uses_mesh(cfg: Config) -> bool:
     return bool(cfg.train.mesh_shape) and int(np.prod(cfg.train.mesh_shape)) > 1
 
@@ -679,7 +679,6 @@ def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
     are broadcast. The returned state holds this rank's blocks."""
     mc, tc, dc = cfg.model, cfg.train, cfg.data
     device = torch.device(device)
-    refuse_unported(cfg)
     mesh = None
     shard_emb = False
     if uses_mesh(cfg):
@@ -727,7 +726,10 @@ def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
     # the other structure overrides below
     sparse_items = sparse_adam.resolve(cfg)
     if state is None:
-        state = create_train_state(mc, tc, device, sparse_items=sparse_items)
+        # a row-sharded table's row state is built for the block alone
+        # (prepare_state_for_mesh), never for the whole table
+        state = create_train_state(mc, tc, device,
+                                   sparse_items=sparse_items and not shard_emb)
     elif (state.items_state is not None) != sparse_items:
         raise ValueError(f"the config resolves sparse_items_adam to {sparse_items}, the given "
                          "state was built the other way")
@@ -736,7 +738,7 @@ def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
         from carca_tpu_torch.parallel.mesh import barrier, local_rows, prepare_state_for_mesh
 
         # before a restore, which then loads this rank's blocks
-        state = prepare_state_for_mesh(state, mesh, shard_emb)
+        state = prepare_state_for_mesh(state, mesh, shard_emb, sparse_items=sparse_items)
         if shard_emb:
             attrs_table = local_rows(attrs_table, mesh).contiguous()
 
@@ -759,9 +761,8 @@ def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
             # latest/ holds the other item-table optimizer ("auto" depends on
             # the batch size and the catalog, which may have changed): adopt
             # it, where the run's step can take it. The host step has no
-            # row-sparse Adam, so a host run refuses a sparse latest/, and
-            # so does a mesh run (ROADMAP item 17).
-            if not dc.device_pipeline or mesh is not None:
+            # row-sparse Adam, so a host run refuses a sparse latest/.
+            if not dc.device_pipeline:
                 raise
             state = create_train_state(mc, tc, device, model=state.model,
                                        sparse_items=not sparse_items)

@@ -22,12 +22,20 @@ never lane-packed here (pack = 1).
 
 The unique ids come from a sort, a first-of-run mask and a cumsum, at the
 static size ``cap`` (``torch.unique`` would sync with the host every step).
-Slots past the unique count are fill slots: they point at the pad row 0,
-gather zeros there and write back exactly what they read, so they change
-nothing (the JAX package writes them out of range and drops them; torch's
-index writes raise on an out-of-range index instead). The pad row's own
-gradient is zero (its embedding is masked), so its update is exactly 0 and
-row 0 stays zero.
+Slots past the unique count are fill slots (row 0, ``valid`` False). The
+JAX package writes them out of range and drops them; torch's index writes
+raise on an out-of-range index instead, so ``apply_rows_update`` points
+every slot that writes nothing (a fill slot, or under a mesh a row of
+another rank's block) at the row of the first slot that does write, with
+that slot's value: duplicate indices then write identical bytes, in any
+order. (Writing back what a fill slot read at row 0 races with row 0's own
+write: harmless for the pad row, whose gradient is zero, but on the block
+of model rank m > 0 local row 0 is a real item.)
+
+Over a mesh (``parallel/mesh.py``) the rows are the global batch's, the
+sub-table's gradient is summed over ``data``, and each model rank updates
+the rows of its own block ``[lo, lo + n)`` with the block's moments
+(``apply_rows_update(..., lo=)``).
 """
 
 from __future__ import annotations
@@ -82,9 +90,10 @@ def touched_rows(batch: Dict[str, torch.Tensor], n_rows: int
 
 
 def init_state(table: torch.Tensor) -> Dict[str, object]:
-    """The row state: moments interleaved in one ``[R, 2W]`` tensor (mu ‖
-    nu per row, one gather and one write per step) and the update count, a
-    host int like ``TrainState.step``."""
+    """The row state of ``table`` (the whole table, or a model rank's block
+    of it): moments interleaved in one ``[n, 2W]`` tensor (mu ‖ nu per row,
+    one gather and one write per step) and the update count, a host int
+    like ``TrainState.step``."""
     r, w = table.shape
     return {"munu": torch.zeros((r, 2 * w), dtype=table.dtype, device=table.device),
             "count": 0}
@@ -104,28 +113,43 @@ def apply_rows_update(
     b2: float,
     eps: float = 1e-8,
     weight_decay: float = 0.0,
+    lo: int = 0,
 ) -> None:
-    """One Adam step restricted to rows ``uphys`` (fill slots, ``valid``
-    False, change nothing), in place on ``table`` and ``sstate``: the
-    elementwise arithmetic of optax's ``add_decayed_weights →
-    scale_by_adam → scale(−lr)`` chain, bias-corrected by the row state's
-    count."""
+    """One Adam step restricted to rows ``uphys`` (global row ids; fill
+    slots, ``valid`` False, change nothing), in place on ``table`` and
+    ``sstate``: the elementwise arithmetic of optax's
+    ``add_decayed_weights → scale_by_adam → scale(−lr)`` chain,
+    bias-corrected by the row state's count.
+
+    ``table`` and ``sstate`` may be one block of the table, rows ``[lo, lo
+    + n)`` with their ``[n, 2W]`` moments: only the slots whose row falls
+    in the block update; every other slot changes nothing."""
     count = int(sstate["count"]) + 1
     munu_all = sstate["munu"]
+    n = table.shape[0]
     if weight_decay:
         g_rows = g_rows + weight_decay * sub_rows
     w = g_rows.shape[-1]
-    munu = munu_all[uphys]
-    mu = b1 * munu[:, :w] + (1.0 - b1) * g_rows
-    nu = b2 * munu[:, w:] + (1.0 - b2) * torch.square(g_rows)
+    loc = uphys - lo
+    keep = valid & (loc >= 0) & (loc < n)
+    # a slot that writes nothing takes the first writing slot's row and
+    # value (row 0 and what it holds when no slot writes), so no duplicate
+    # index carries another value
+    first = torch.argmax(keep.to(torch.int32))
+    slot = torch.where(keep, torch.arange(keep.shape[0], device=keep.device), first)
+    loc = torch.where(keep[first], loc[slot], 0)
+    munu = munu_all[loc]
+    mu = b1 * munu[:, :w] + (1.0 - b1) * g_rows[slot]
+    nu = b2 * munu[:, w:] + (1.0 - b2) * torch.square(g_rows[slot])
     c = np.float32(count)  # the corrections in float32, as the JAX package's
     mu_hat = mu / float(np.float32(1.0) - np.power(np.float32(b1), c))
     nu_hat = nu / float(np.float32(1.0) - np.power(np.float32(b2), c))
     delta = (-lr) * mu_hat / (torch.sqrt(nu_hat) + eps)
-    keep = valid[:, None]
-    # a fill slot adds +0 to row 0 and writes back the moments it read
-    table.index_add_(0, uphys, torch.where(keep, delta, 0.0).to(table.dtype))
-    munu_all.index_copy_(0, uphys, torch.where(keep, torch.cat([mu, nu], dim=-1), munu))
+    write = keep[slot][:, None]
+    # a non-writing slot adds +0 to its row; the moments it writes are the
+    # first writing slot's new ones (or row 0's own when none writes)
+    table.index_add_(0, loc, torch.where(keep[:, None], delta, 0.0).to(table.dtype))
+    munu_all.index_copy_(0, loc, torch.where(write, torch.cat([mu, nu], dim=-1), munu))
     sstate["count"] = count
 
 

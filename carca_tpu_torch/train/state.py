@@ -11,7 +11,10 @@ parameter, so it needs no decay mask.
 With ``sparse_items`` (``train/sparse_adam.py``) the Adam covers every
 parameter but ``embed.items``, and the item table's row state (``munu``,
 ``count``) sits beside it in ``TrainState.items_state``: the JAX package's
-``opt_state = {"dense", "items"}``.
+``opt_state = {"dense", "items"}``. Over a mesh,
+``parallel.mesh.prepare_state_for_mesh`` then rebuilds both for the
+rank's block of a row-sharded table (``fit`` creates such a state dense
+and lets that call build the block's row state).
 """
 
 from __future__ import annotations

@@ -372,20 +372,25 @@ def test_sparse_auto_at_1m_items_raises_in_fit_and_bridge(tmp_path, big_cat):
 
 def test_refuse_unported_accepts_the_10m_preset_on_one_device():
     """The synthetic10m preset sets device_sampling=True, which the JAX
-    package reads only under a mesh: one device accepts it, and so does a
-    mesh (the dense item Adam there); the row-sparse Adam forced on under a
-    mesh is refused (ROADMAP item 17)."""
-    from carca_tpu_torch.train.loop import refuse_unported
+    package reads only under a mesh: one device resolves the row-sparse
+    Adam, a mesh resolves "auto" to the dense Adam, and the row-sparse Adam
+    forced on under a mesh is accepted now (ROADMAP item 17 is ported):
+    the config resolves it, and the mesh step builders take it."""
+    from carca_tpu_torch.parallel.mesh import Mesh
+    from carca_tpu_torch.parallel.step import make_sharded_device_train_step
+    from carca_tpu_torch.train import loop
 
     cfg = preset("synthetic10m", 10_000_001, 12, 4)
     assert cfg.data.device_sampling and cfg.data.device_pipeline
-    refuse_unported(cfg)
-    refuse_unported(dataclasses.replace(cfg, data=dataclasses.replace(
-        cfg.data, device_pipeline=False)))
-    meshed = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, mesh_shape=(1, 2)))
-    refuse_unported(meshed)
-    assert sparse_adam.resolve(meshed) is False
-    with pytest.raises(NotImplementedError, match="item 17"):
-        refuse_unported(dataclasses.replace(cfg, train=dataclasses.replace(
-            cfg.train, mesh_shape=(2, 2), sparse_items_adam=True)))
     assert sparse_adam.resolve(cfg) is True
+    meshed = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, mesh_shape=(1, 2)))
+    assert sparse_adam.resolve(meshed) is False
+    forced = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, mesh_shape=(2, 2), sparse_items_adam=True))
+    assert sparse_adam.resolve(forced) is True
+    assert not hasattr(loop, "refuse_unported") and not hasattr(loop, "SPARSE_UNDER_MESH")
+    mesh = Mesh(2, 2, rank=0)
+    for inner in (1, 2):
+        assert callable(make_sharded_device_train_step(
+            forced.model, forced.train, mesh, shard_embeddings=True, inner_steps=inner,
+            sparse_items=True))

@@ -35,7 +35,8 @@ def test_serving_and_ops_import_without_jax():
         "import carca_tpu_torch.data.prefetch, carca_tpu_torch.data.synthetic\n"
         "import carca_tpu_torch.parallel, carca_tpu_torch.parallel.mesh\n"
         "import carca_tpu_torch.parallel.embedding, carca_tpu_torch.parallel.step\n"
-        "import carca_tpu_torch.parallel.retrieval\n"
+        "import carca_tpu_torch.parallel.retrieval, carca_tpu_torch.utils.flops\n"
+        "import carca_tpu_torch.profile_step\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
     )

@@ -16,11 +16,19 @@ JAX references run here. Tolerances, each named where it is held:
   gradient's norm), parameters 1e-5 where |g| > 1e-6 and 2·lr elsewhere
   (Adam's first step is g/(|g| + 1e-8)·lr: a gradient at rounding-noise
   size moves its parameter by anything up to lr on either side);
+* (c') three row-sparse updates at 2x2 against the JAX package's
+  ``_sparse_device_update`` over its sharded lookup: losses as in (c),
+  parameters as in (c) with |g| taken over the steps that touch a row,
+  the moments ``MOMENT_TOL`` absolute (as ``test_torch_sparse_adam.py``
+  holds one device), untouched rows bit-equal, the counts equal;
 * (d) K = 2 device steps at mesh 4 and 2x2 against the port's single
-  device: batches bit-equal, losses 1e-6 relative, parameters as in (c)
-  with |g| taken over both steps.
+  device, with the dense and with the row-sparse item Adam: batches
+  bit-equal, losses 1e-6 relative, parameters as in (c) with |g| taken
+  over both steps (for the item table, over the steps touching the row),
+  the row-sparse moments as in (c').
 """
 
+import copy
 import dataclasses
 
 import jax
@@ -40,8 +48,11 @@ from carca_tpu.parallel import make_mesh as jax_make_mesh
 from carca_tpu.parallel import make_sharded_train_step as jax_make_sharded_train_step
 from carca_tpu.parallel import shard_batch as jax_shard_batch
 from carca_tpu.parallel import topk_given_queries_sharded as jax_topk_sharded
+from carca_tpu.parallel.embedding import make_sharded_lookup as jax_make_sharded_lookup
 from carca_tpu.parallel.mesh import pad_table_rows as jax_pad_table_rows
 from carca_tpu.parallel.mesh import prepare_state_for_mesh as jax_prepare_state_for_mesh
+from carca_tpu.parallel.step import _jit_sharded as jax_jit_sharded
+from carca_tpu.train.loop import _sparse_device_update as jax_sparse_update
 from carca_tpu.train.loop import train_loss as jax_train_loss
 from carca_tpu.train.state import create_train_state as jax_create_train_state
 from carca_tpu.train.state import make_optimizer as jax_make_optimizer
@@ -50,8 +61,9 @@ from carca_tpu_torch.config import ModelConfig, TrainConfig
 from carca_tpu_torch.data.device_pipeline import DeviceDataset, assemble_train
 from carca_tpu_torch.data.synthetic import synthetic_catalog
 from carca_tpu_torch.ops.retrieval_topk import SCORE_ORDER_TOL
+from carca_tpu_torch.models.losses import masked_mean
 from carca_tpu_torch.parallel.mesh import make_mesh
-from carca_tpu_torch.train.loop import make_device_train_step
+from carca_tpu_torch.train.loop import make_device_train_step, train_loss_terms
 from carca_tpu_torch.train.state import create_train_state
 from tests.conftest import skip_unless_devices
 from tests.torch_ranks import launch
@@ -60,6 +72,8 @@ torch.set_num_threads(1)
 
 L, B, LR = 8, 8, 1e-3
 GRAD_TOL, LOSS_TOL, PARAM_TOL, TINY_GRAD = 1e-4, 1e-6, 1e-5, 1e-6
+MOMENT_TOL = 1e-6
+LO = 51  # 2x2: the first row of model rank 1's block (101 ids padded to 102)
 K, E = 6, 3  # top-k and excluded ids per query
 
 
@@ -84,6 +98,28 @@ def host_batch(cat, jcfg):
     halves = batch["y_true"].reshape(2, B // 2, -1).sum(axis=(1, 2))
     assert halves[0] != halves[1], halves
     return {k: np.asarray(v) for k, v in batch.items()}
+
+
+def sparse_batches(cat, jcfg, n=3):
+    """n host train batches of B distinct users each; the first and the
+    last touch row LO, the first row of model rank 1's block at 2x2, and
+    the middle one does not, so LO's moments take a lazy gap."""
+    builder = JaxBatchBuilder(cat, jcfg.seq_len, jcfg.target_len, test=True)
+    users = builder.users("train")
+    rng = np.random.default_rng(1)
+    out = []
+    for i in range(n):
+        want = i != 1
+        for _ in range(200):
+            pick = rng.choice(users, B, replace=False)
+            b = builder.train_batch(pick, rng)
+            b.pop("n_valid")
+            if (LO in b["p_x"] or LO in b["o_x"]) == want:
+                break
+        else:
+            raise AssertionError("no batch of the wanted kind")
+        out.append({k: np.asarray(v) for k, v in b.items()})
+    return out
 
 
 def index_payload(rng, rows, d, n_shards):
@@ -131,6 +167,8 @@ def world():
     batch = host_batch(cat, jcfg)
     step = {"mc": mc, "tc": tc, "params": np_params, "attrs": np.asarray(cat.attrs),
             "batch": batch}
+    sparse_step = dict(step, batches=sparse_batches(cat, jcfg))
+    del sparse_step["batch"]
 
     dcat = dict(n_users=60, n_real_items=100, seed=3)
     dmc = ModelConfig(n_items=101, n_attrs=cat.n_attrs, n_ctx=cat.n_ctx, d=16, g=32,
@@ -145,7 +183,7 @@ def world():
     import tempfile
     with tempfile.TemporaryDirectory() as out_dir:
         payload = {"lookup": lookup, "topk": topk, "full_catalog": fc, "step": step,
-                   "device_step": device_step, "out_dir": out_dir}
+                   "sparse_step": sparse_step, "device_step": device_step, "out_dir": out_dir}
         ranks = launch(4, "parallel", payload)
     return {"payload": payload, "ranks": ranks, "jcfg": jcfg, "jtc": jtc, "params": params,
             "cat": cat}
@@ -297,41 +335,126 @@ def test_sharded_train_step_matches_jax_at_2x2(world):
         hold_params(s["params"], want_params, {k: np.abs(g) for k, g in grads.items()}, LR)
 
 
-def single_device_steps(dv):
+def test_sparse_update_at_2x2_matches_jax(world):
+    """(c') Three updates of the row-sparse item Adam at mesh (2, 2) with
+    row-sharded tables, on global host batches, from the same (bridged)
+    parameters as the JAX package's ``_sparse_device_update`` over its
+    sharded lookup on a (2, 2) mesh, its state built by
+    ``prepare_state_for_mesh(sparse_items=True)``. Row LO, the first row of
+    model rank 1's block, is touched in steps 1 and 3 and not in step 2 (a
+    lazy gap); every batch leaves fill slots."""
+    skip_unless_devices(4)
+    jcfg, jtc, cat = world["jcfg"], world["jtc"], world["cat"]
+    params = carca_init(jax.random.PRNGKey(7), jcfg)  # the world's (test (c) donates those)
+    sp = world["payload"]["sparse_step"]
+    mc = sp["mc"]
+    mesh = jax_make_mesh((2, 2), ("data", "model"), devices=jax.devices()[:4])
+    tx = jax_make_optimizer(jtc)
+    state = jax_create_train_state(jax.random.PRNGKey(1), jcfg, jtc, tx, sparse_items=True)
+    state = jax_prepare_state_for_mesh(state.replace(params=params), mesh, tx, sparse_items=True)
+    lookup = jax_make_sharded_lookup(mesh)
+    attrs = np.asarray(cat.attrs, np.float32)
+
+    def body(st, attrs_table, batch):
+        rng, step_rng = jax.random.split(st.rng)
+        return jax_sparse_update(jcfg, jtc, tx, st, batch, step_rng, rng, attrs_table,
+                                 base_lookup=lookup)
+
+    step = jax_jit_sharded(body, jcfg, mesh, True, donate=False)
+    mag = {}
+    table0 = np.asarray(state.params["embed"]["items"])[:mc.n_items]
+    touched = np.zeros(mc.n_items, bool)
+    for i, b in enumerate(sp["batches"]):
+        jb = {k: jnp.asarray(v) for k, v in b.items()}
+        g = jax.grad(lambda p: jax_train_loss(jcfg, p, jb, jax.random.PRNGKey(0),
+                                              jnp.asarray(attrs)))(state.params)
+        g = {k: np.abs(v.numpy()) for k, v in params_from_jax(jax.tree.map(np.asarray, g),
+                                                             mc).items()}
+        ids = np.unique(np.concatenate([b["p_x"].ravel(), b["o_x"].ravel()]))
+        rows = np.full(mc.n_items, np.inf, np.float32)
+        rows[ids] = 0.0
+        g["embed.items"] = np.maximum(g["embed.items"][:mc.n_items], rows[:, None])
+        mag = {k: np.minimum(mag[k], v) if k in mag else v for k, v in g.items()}
+        touched[ids] = True
+        state, jloss = step(state, jnp.asarray(jax_pad_table_rows(attrs, mesh)),
+                            jax_shard_batch(jb, mesh))
+        want_munu = np.asarray(state.opt_state["items"]["munu"])[:mc.n_items]
+        for r, got in enumerate(world["ranks"]):
+            s = got["sparse_step"]
+            np.testing.assert_allclose(s["losses"][i], float(jloss), rtol=LOSS_TOL)
+            munu, count = s["row_states"][i]
+            assert count == int(state.opt_state["items"]["count"]) == i + 1
+            np.testing.assert_allclose(munu, want_munu, rtol=0, atol=MOMENT_TOL,
+                                       err_msg=f"rank {r} step {i}")
+            assert not munu[~touched].any()
+    assert LO in sp["batches"][0]["o_x"] or LO in sp["batches"][0]["p_x"]
+    want = {k: v.numpy() for k, v in params_from_jax(jax.tree.map(np.asarray, state.params),
+                                                     mc).items()}
+    want["embed.items"] = want["embed.items"][:mc.n_items]
+    for got in world["ranks"]:
+        s = got["sparse_step"]
+        assert s["block_rows"] == 51
+        hold_params(s["params"], want, mag, LR, steps=len(sp["batches"]))
+        np.testing.assert_array_equal(s["params"]["embed.items"][~touched], table0[~touched])
+
+
+def items_grad(state, batch, attrs):
+    """|d loss / d items| of ``state``'s model on ``batch`` (a copy of the
+    model, dropout 0), with rows the batch does not touch set to inf: the
+    lazy Adam leaves them alone in that step, so they take no part in the
+    least |g| of a row."""
+    model = copy.deepcopy(state.model)
+    model.zero_grad(set_to_none=True)
+    masked_mean(train_loss_terms(model, batch, attrs)).backward()
+    g = model.embed.items.grad.abs().numpy()
+    ids = torch.unique(torch.cat([batch["p_x"].reshape(-1), batch["o_x"].reshape(-1)])).numpy()
+    rows = np.full(g.shape[0], np.inf, np.float32)
+    rows[ids] = 0.0
+    return np.maximum(g, rows[:, None])
+
+
+def single_device_steps(dv, sparse=False):
     """The port's single-device device step, twice from a fresh state:
-    (the batches, the losses, the parameters, the least |g| per element)."""
+    (the batches, the losses, the parameters, the least |g| per element,
+    the row state or None)."""
     mc, tc = dv["mc"], dv["tc"]
     cat = synthetic_catalog(**dv["catalog"])
     dd = DeviceDataset(cat, mc.seq_len, mc.target_len, device="cpu")
-    state = create_train_state(mc, tc, device="cpu")
+    state = create_train_state(mc, tc, device="cpu", sparse_items=sparse)
     probe = torch.Generator().set_state(state.generator.get_state())
     rows = torch.as_tensor(dv["rows"])
     batches = [assemble_train(dd.arrays, mc.seq_len, mc.n_items, r, probe) for r in rows]
-    step = make_device_train_step(mc, tc)
+    step = make_device_train_step(mc, tc, sparse_items=sparse)
+    attrs = torch.as_tensor(cat.attrs)
     losses, mag = [], {}
-    for r in rows:
-        state, loss = step(state, torch.as_tensor(cat.attrs), dd.arrays, r)
+    for r, b in zip(rows, batches):
+        g_items = items_grad(state, b, attrs) if sparse else None
+        state, loss = step(state, attrs, dd.arrays, r)
         losses.append(float(loss))
         for n, p in state.model.named_parameters():
-            g = np.abs(p.grad.numpy())
+            g = g_items if (sparse and n == "embed.items") else np.abs(p.grad.numpy())
             mag[n] = np.minimum(mag[n], g) if n in mag else g
     params = {n: p.detach().numpy().copy() for n, p in state.model.named_parameters()}
-    return batches, np.asarray(losses), params, mag
+    rows_state = ((state.items_state["munu"].numpy().copy(), state.items_state["count"])
+                  if sparse else None)
+    return batches, np.asarray(losses), params, mag, rows_state
 
 
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
 @pytest.mark.parametrize("mesh", ["4", "2x2"])
-def test_sharded_device_train_step_equals_one_device(world, mesh):
+def test_sharded_device_train_step_equals_one_device(world, mesh, sparse):
     """(d) K = 2 device-pipeline steps in one call at mesh 4 (data
     parallel) and 2x2 (row-sharded tables) against two single-device
-    steps from the same seed: every data rank's slices of the batches
-    concatenate to the single-device batches bit for bit; losses and
-    parameters as the module says."""
+    steps from the same seed, with the dense and with the row-sparse item
+    Adam: every data rank's slices of the batches concatenate to the
+    single-device batches bit for bit; losses, parameters and moments as
+    the module says."""
     dv = world["payload"]["device_step"]
-    batches, losses, params, mag = single_device_steps(dv)
+    batches, losses, params, mag, rows_state = single_device_steps(dv, sparse)
     n_data = 4 if mesh == "4" else 2
     per = B // n_data
     for r, got in enumerate(world["ranks"]):
-        res = got["device_step"][mesh]
+        res = got["device_step"][mesh, sparse]
         d = res["d_idx"]
         np.testing.assert_array_equal(res["rows"], dv["rows"][:, d * per:(d + 1) * per])
         for mine, whole in zip(res["batches"], batches):
@@ -340,6 +463,12 @@ def test_sharded_device_train_step_equals_one_device(world, mesh):
                 np.testing.assert_array_equal(mine[k], want, err_msg=f"rank {r} {k}")
         np.testing.assert_allclose(res["losses"], losses, rtol=LOSS_TOL)
         hold_params(res["params"], params, mag, dv["tc"].lr, steps=2)
+        if sparse:
+            munu, count = res["row_state"]
+            assert count == rows_state[1] == 2
+            np.testing.assert_allclose(munu, rows_state[0], rtol=0, atol=MOMENT_TOL)
+        else:
+            assert res["row_state"] is None
 
 
 def test_bad_meshes_are_refused(world):

@@ -310,3 +310,44 @@ def test_bf16_attrs_give_the_f32_attrs_loss(cat):
         out.append((loss.detach(), [p.grad.clone() for p in model.parameters()]))
     assert torch.equal(out[0][0], out[1][0])
     assert all(torch.equal(g, h) for g, h in zip(out[0][1], out[1][1]))
+
+
+@pytest.mark.parametrize("n_blocks", [2, 3])
+def test_block_updates_equal_the_whole_table_update(n_blocks):
+    """The row update of each model rank's block (``lo=``) equals the
+    whole-table update on its rows, bit for bit, for a batch that touches
+    the first row of block 1 (global row ``lo``, a real item whose moments
+    are not zero: a lazy gap), with fill slots and, for block 1, slots of
+    other blocks; with three blocks the last one is untouched and stays
+    so. Fill and out-of-block slots must not write stale moments over
+    block 1's local row 0."""
+    rng = np.random.default_rng(n_blocks)
+    n, W, cap = 17, 8, 40
+    R = n * n_blocks
+    table = rng.standard_normal((R, W)).astype(np.float32)
+    table[0] = 0.0
+    munu = np.concatenate([rng.standard_normal((R, W)), rng.random((R, W))], 1).astype(np.float32)
+    munu[0] = 0.0
+    touched = np.unique(np.concatenate([[n, n + 3], rng.choice(np.arange(1, 2 * n), 9)]))
+    rows = np.zeros(cap, np.int64)
+    rows[:len(touched)] = touched
+    valid = np.arange(cap) < len(touched)
+    g = np.where(valid[:, None], rng.standard_normal((cap, W)), 0.0).astype(np.float32)
+    kw = dict(lr=LR, b1=0.9, b2=0.98, weight_decay=1e-3)
+    uphys, ok, g_rows = torch.from_numpy(rows), torch.from_numpy(valid), torch.from_numpy(g)
+    whole = torch.from_numpy(table.copy())
+    wstate = {"munu": torch.from_numpy(munu.copy()), "count": 4}
+    sub = whole[uphys].clone()
+    sparse_adam.apply_rows_update(whole, wstate, uphys, ok, g_rows, sub, **kw)
+    for m in range(n_blocks):
+        blk = slice(m * n, (m + 1) * n)
+        block = torch.from_numpy(table[blk].copy())
+        bstate = {"munu": torch.from_numpy(munu[blk].copy()), "count": 4}
+        sparse_adam.apply_rows_update(block, bstate, uphys, ok, g_rows, sub, lo=m * n, **kw)
+        assert bstate["count"] == wstate["count"] == 5
+        assert torch.equal(block, whole[blk]), m
+        assert torch.equal(bstate["munu"], wstate["munu"][blk]), m
+    assert not torch.equal(wstate["munu"][n], torch.from_numpy(munu[n]))  # row lo moved
+    rest = np.setdiff1d(np.arange(R), touched)
+    np.testing.assert_array_equal(wstate["munu"].numpy()[rest], munu[rest])
+    np.testing.assert_array_equal(whole.numpy()[rest], table[rest])

@@ -97,14 +97,28 @@ def _whole_params(state, mesh, sharded: bool):
              for n, p in state.model.named_parameters()}
     if sharded:
         n_items = state.model.cfg.n_items
-        out["embed.items"] = _np(gather_rows(state.model.embed.items.detach(), mesh, n_items))
-        grads["embed.items"] = _np(gather_rows(state.model.embed.items.grad, mesh, n_items))
+        items = state.model.embed.items
+        out["embed.items"] = _np(gather_rows(items.detach(), mesh, n_items))
+        grads["embed.items"] = (None if items.grad is None
+                                else _np(gather_rows(items.grad, mesh, n_items)))
     return out, grads
+
+
+def _row_state(state, mesh, sharded: bool):
+    """The row-sparse Adam's (munu, count), munu whole (pad rows cut)."""
+    from carca_tpu_torch.parallel.mesh import gather_rows
+
+    rows = state.items_state
+    munu = rows["munu"]
+    if sharded:
+        munu = gather_rows(munu, mesh, state.model.cfg.n_items)
+    return _np(munu), int(rows["count"])
 
 
 def suite_parallel(p):
     """Cases (a)-(d) and (g) of tests/test_torch_parallel.py."""
     import dataclasses
+    import itertools
 
     import numpy as np
     import torch
@@ -119,7 +133,7 @@ def suite_parallel(p):
     from carca_tpu_torch.parallel.retrieval import full_catalog_topk, topk_given_queries_sharded
     from carca_tpu_torch.parallel.step import (make_sharded_device_train_step,
                                                make_sharded_train_step)
-    from carca_tpu_torch.train.loop import attrs_dtype, fit
+    from carca_tpu_torch.train.loop import _sparse_device_update, attrs_dtype, fit
     from carca_tpu_torch.train.state import create_train_state
 
     out = {}
@@ -207,8 +221,27 @@ def suite_parallel(p):
     out["step_device_negatives"] = {"loss": float(loss), "params": _whole_params(
         state, m22, True)[0]}
 
+    # (c') two row-sparse updates at 2x2 with row-sharded tables, on the
+    # global host batches, from the JAX package's parameters (dropout 0)
+    sp = p["sparse_step"]
+    mc, tc = sp["mc"], sp["tc"]
+    state = create_train_state(mc, tc, device="cpu", model=_model(mc, sp["params"]))
+    prepare_state_for_mesh(state, m22, True, sparse_items=True)
+    state.model.train()
+    attrs = local_rows(torch.as_tensor(sp["attrs"]), m22).contiguous()
+    lookup = make_sharded_lookup(m22)
+    losses, munus = [], []
+    for b in sp["batches"]:
+        loss = _sparse_device_update(tc, state, {k: torch.as_tensor(v) for k, v in b.items()},
+                                     attrs, mesh=m22, lookup=lookup)
+        losses.append(float(loss))
+        munus.append(_row_state(state, m22, True))
+    out["sparse_step"] = {"losses": losses, "params": _whole_params(state, m22, True)[0],
+                          "row_states": munus, "block_rows": state.model.embed.items.shape[0]}
+
     # (d) the K-step device train step (K = 2) at mesh 4 and 2x2 against the
-    # port's single-device step (run by the test), from the same state
+    # port's single-device step (run by the test), from the same state, with
+    # the dense and with the row-sparse item Adam
     dv = p["device_step"]
     mc, tc = dv["mc"], dv["tc"]
     cat = synthetic_catalog(**dv["catalog"])
@@ -216,22 +249,24 @@ def suite_parallel(p):
     rows = torch.as_tensor(dv["rows"])
     attrs_whole = torch.as_tensor(cat.attrs, dtype=attrs_dtype(mc))
     dres = {}
-    for mesh, tag, shard in ((m4, "4", False), (m22, "2x2", True)):
+    for (mesh, tag, shard), sparse in itertools.product(
+            ((m4, "4", False), (m22, "2x2", True)), (False, True)):
         state = create_train_state(mc, tc, device="cpu")
         batches = []
         probe = torch.Generator().set_state(state.generator.get_state())
         for r in rows:  # the batches the step draws, from a copy of its generator
             b = assemble_train(dd.arrays, mc.seq_len, mc.n_items, r, probe)
             batches.append({k: _np(v) for k, v in shard_batch(b, mesh).items()})
-        prepare_state_for_mesh(state, mesh, shard)
+        prepare_state_for_mesh(state, mesh, shard, sparse_items=sparse)
         attrs = local_rows(attrs_whole, mesh).contiguous() if shard else attrs_whole
         step = make_sharded_device_train_step(mc, tc, mesh, shard_embeddings=shard,
-                                              inner_steps=rows.shape[0])
+                                              inner_steps=rows.shape[0], sparse_items=sparse)
         state, losses = step(state, attrs, dd.arrays, rows)
         params, _ = _whole_params(state, mesh, shard and mesh.n_model > 1)
-        dres[tag] = {"losses": _np(losses), "params": params, "batches": batches,
-                     "rows": _np(shard_batch({"rows": rows}, mesh, dim=1)["rows"]),
-                     "d_idx": mesh.d_idx}
+        dres[tag, sparse] = {"losses": _np(losses), "params": params, "batches": batches,
+                             "rows": _np(shard_batch({"rows": rows}, mesh, dim=1)["rows"]),
+                             "d_idx": mesh.d_idx,
+                             "row_state": _row_state(state, mesh, shard) if sparse else None}
     out["device_step"] = dres
 
     # dropout under a mesh: per data rank, shared by the model ranks of one
@@ -272,15 +307,22 @@ def suite_parallel(p):
 
 
 def suite_mesh_fit(p):
-    """Case (e) of tests/test_torch_mesh_fit.py: fits over a 2x2 mesh."""
+    """Case (e) of tests/test_torch_mesh_fit.py: fits over a 2x2 mesh; for
+    the row-sparse ones also the final row state, whole."""
     from carca_tpu_torch.data.synthetic import synthetic_catalog
+    from carca_tpu_torch.parallel.mesh import make_mesh
     from carca_tpu_torch.train.loop import fit
 
     cat = synthetic_catalog(**p["catalog"])
     out = {}
     for name, cfg in p["configs"].items():
-        _, final = fit(cfg, cat, device="cpu")
+        state, final = fit(cfg, cat, device="cpu")
         out[name] = final
+        if state.items_state is not None:
+            tc = cfg.train
+            mesh = make_mesh(tc.mesh_shape, tc.mesh_axes)
+            out[name, "row_state"] = _row_state(state, mesh, tc.shard_embeddings
+                                                and mesh.n_model > 1)
     return out
 
 
