@@ -10,7 +10,8 @@ the JAX package: ``carca_tpu/models/encoder.py`` has its counterpart at
 Kernels live in ``csrc/`` and are compiled with ``nvcc`` on first use
 (``ops/_build.py``). Every kernel wrapper keeps a plain PyTorch version of
 the same function: CPU tensors take the plain version, CUDA tensors launch
-the kernel or raise.
+the kernel or raise. The host pipeline's batch assembler is C++
+(``native/assembler.cpp``), compiled with ``g++`` on first use.
 """
 
 from carca_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig, preset

@@ -13,8 +13,10 @@ asks for the CPU, and nothing falls back to it.
 * ``--use_pallas`` sets ``use_kernel`` (the CUDA kernels: ``auto``/``true``
   launch them on the card, ``false`` runs the plain PyTorch path).
 * The TPU-only ``--pack_tables``, ``--remat`` and ``--compilation_cache``
-  are accepted and ignored with a note; ``--use_native`` is kept in
-  ``args.json``, and host batches are assembled with numpy.
+  are accepted and ignored with a note. The host pipeline assembles
+  batches with the native C++ assembler (``carca_tpu_torch/native``, built
+  with g++ at first use; a failed build raises) unless ``--use_native
+  false`` asks for numpy; the run prints ``assembler: native|numpy``.
 * A synthetic catalog with ``--device_pipeline true`` (the ``synthetic10m``
   preset: 100,000 users, 10M items) is generated on the run's device.
 * ``--model knn`` evaluates the KNN content baseline instead of training;
@@ -117,7 +119,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="zipf = iid Zipf(1) items; markov = cluster-Markov sequences")
     p.add_argument("--resume", type=parse_bool, default=True)
     p.add_argument("--use_native", type=parse_bool, default=True,
-                   help="kept for args.json; the port assembles host batches with numpy")
+                   help="host pipeline: the native C++ batch assembler (false: numpy)")
     p.add_argument("--device_pipeline", type=parse_bool, default=False,
                    help="catalog on the device and batches assembled there")
     p.add_argument("--inner_steps", type=int, default=8,
@@ -346,8 +348,6 @@ def main(argv: Optional[list] = None, device: Optional[str] = None) -> dict:
     dc = config_from_args(args, 0, 0, 0).data
     catalog = load_catalog(args, dc, device)
     cfg = config_from_args(args, catalog.n_items, catalog.n_attrs, catalog.n_ctx)
-    if cfg.data.use_native and not cfg.data.device_pipeline:
-        print("note: --use_native: the port assembles host batches with numpy")
     from carca_tpu_torch.train import loop
 
     if args.model.lower() == "knn":

@@ -88,10 +88,11 @@ class ModelConfig:
 class DataConfig:
     """Dataset location and input-pipeline knobs
     (``carca_tpu.config.DataConfig``). File formats follow the reference
-    loaders (``data/loaders.py``). ``use_native`` is kept for ``args.json``:
-    the port assembles host batches with numpy. ``device_pipeline``: the
-    catalog on the device and batches assembled there; else host batches
-    from ``BatchBuilder``. ``exact_rejection``: the device pipeline rejects
+    loaders (``data/loaders.py``). ``device_pipeline``: the catalog on the
+    device and batches assembled there; else host batches from
+    ``BatchBuilder``, assembled by the native C++ assembler
+    (``carca_tpu_torch/native``) with ``use_native``, else by numpy.
+    ``exact_rejection``: the device pipeline rejects
     negatives against the user's full history (True), the visible window
     (False), or the full history when the longest history is at most 4 x
     seq_len ("auto")."""

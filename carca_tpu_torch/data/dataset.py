@@ -1,6 +1,8 @@
 """Host batch assembly and user-row batching (counterpart of
-``carca_tpu/data/dataset.py``, its numpy path; the JAX package's C++
-assembler is a host speed path and is not ported).
+``carca_tpu/data/dataset.py``): the numpy path, or the native C++ assembler
+(``carca_tpu_torch/native``) in the ``native`` slot, which gives the same
+batches but for the negatives, drawn from its own streams under the same
+sampler contract.
 
 * Train examples (``src/data.py:90-137``): a right-aligned length-L window;
   ``p_x[t] = item_t``, positives ``o_x[t] = item_{t+1}``, negatives at
@@ -18,6 +20,7 @@ them to the device.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Iterator, Optional
 
 import numpy as np
@@ -31,22 +34,28 @@ Batch = Dict[str, np.ndarray]
 
 class BatchBuilder:
     """Fixed-shape train and eval batches from a packed Catalog, drawing
-    negatives from the ``np.random.Generator`` each call is given."""
+    negatives from the ``np.random.Generator`` each call is given; with
+    ``native`` (a ``NativeAssembler``) the batches are assembled by it."""
 
     def __init__(self, catalog: Catalog, seq_len: int, target_len: int = 100,
-                 test: bool = True):
+                 test: bool = True, native: Optional[object] = None):
         catalog = host_catalog(catalog)  # a device catalog is copied to the host once
         self.cat = catalog
         self.L = int(seq_len)
         self.T = int(target_len)
         self.test = bool(test)
+        self.native = native
         lengths = np.diff(catalog.offsets)
         self._windows = {m: window_bounds(lengths, self.L, m, self.test)
                          for m in ("train", "val", "test")}
         self._valid = {m: valid_users(lengths, self.L, m, self.test)
                        for m in ("train", "val", "test")}
-        off, items = catalog.offsets, catalog.items
-        self._sets = [items[off[u]: off[u + 1]] for u in range(catalog.n_users)]
+
+    @functools.cached_property
+    def _sets(self) -> list:
+        """Each user's history, for the numpy sampler alone."""
+        off, items = self.cat.offsets, self.cat.items
+        return [items[off[u]: off[u + 1]] for u in range(self.cat.n_users)]
 
     def users(self, mode: str) -> np.ndarray:
         """Users with non-empty windows for the split (``src/data.py:247``)."""
@@ -67,6 +76,8 @@ class BatchBuilder:
         return p_evt, valid, alive, e, off
 
     def train_batch(self, user_rows: np.ndarray, rng: np.random.Generator) -> Batch:
+        if self.native is not None:
+            return self.native.train_batch(self, user_rows, rng)
         cat, L = self.cat, self.L
         p_evt, valid, alive, _, _ = self._profile_slots(user_rows, "train")
         p_x = np.where(valid, cat.items[p_evt], 0).astype(np.int32)
@@ -87,6 +98,8 @@ class BatchBuilder:
                 "y_true": y, "n_valid": np.int32(alive.sum())}
 
     def eval_batch(self, user_rows: np.ndarray, rng: np.random.Generator, mode: str) -> Batch:
+        if self.native is not None:
+            return self.native.eval_batch(self, user_rows, rng, mode)
         cat, L, T = self.cat, self.L, self.T
         p_evt, valid, alive, end, off = self._profile_slots(user_rows, mode)
         p_x = np.where(valid, cat.items[p_evt], 0).astype(np.int32)

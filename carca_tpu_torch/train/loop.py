@@ -11,8 +11,9 @@ NDCG@k); the best-val-NDCG parameters kept, early stop after
 split run. Progress goes to stdout, to the CSV ``time;epoch;split;loss;HR;
 NDCG`` and to ``metrics.jsonl``; the config to ``args.json``.
 
-Batches come from the host (``BatchBuilder`` on a prefetch thread, copied
-to the device per step) or, with ``device_pipeline``, are assembled on the
+Batches come from the host (``BatchBuilder`` on a prefetch thread, with
+the native C++ assembler unless ``use_native`` is off, copied to the device
+per step) or, with ``device_pipeline``, are assembled on the
 device from a [B] vector of user rows. PyTorch runs eagerly: a step
 function updates the ``TrainState`` in place and returns it with the loss,
 a device tensor that is read on the host once per epoch. The JAX package's
@@ -712,7 +713,14 @@ def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
         dd = DeviceDataset(catalog, mc.seq_len, mc.target_len, test=tc.test, device=device)
         builder = dd  # the users() source
     else:
-        builder = BatchBuilder(catalog, mc.seq_len, mc.target_len, test=tc.test)
+        # the native assembler raises when it cannot be built: no fallback
+        native = None
+        if dc.use_native:
+            from carca_tpu_torch.native import get_assembler
+            native = get_assembler()
+        builder = BatchBuilder(catalog, mc.seq_len, mc.target_len, test=tc.test, native=native)
+        if tc.verbose and log:
+            print(f"assembler: {'numpy' if native is None else 'native'}", flush=True)
     train_users = builder.users("train")
     host_root = np.random.default_rng(tc.seed)
     # val/test subsample, fixed once per run (scripts/training.py:154-157)

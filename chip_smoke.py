@@ -102,12 +102,11 @@ raises and exits non-zero:
 9. fit     — the port's entry points end to end: synthetic_catalog(4096
              users, 2,000 items, seed 0) written in the reference's file
              formats, then `python -m carca_tpu_torch.cli --preset beauty`
-             over those files (epochs 100, the host pipeline 40; early stop
-             20) as subprocesses:
-             the device pipeline and the host pipeline at seed 0 (a
-             seed-1 fit went for phase 10's time; PERF.md keeps its
-             numbers). Each must reach test HR@10 >= 0.695 and NDCG@10 >=
-             0.540, launch K1 and K2, and leave args.json, the CSV,
+             over those files (epochs 100, early stop 20) as a subprocess,
+             on the device pipeline at seed 0 (phase 12's family fits run
+             the host pipeline; PERF.md keeps the earlier host and seed-1
+             fits' numbers). It must reach test HR@10 >= 0.695 and NDCG@10
+             >= 0.540, launch K1 and K2, and leave args.json, the CSV,
              metrics.jsonl, ckpt/best and ckpt/latest. Then `python -m
              carca_tpu_torch.serve.service --run_dir` over the seed-0 run
              answers JSON-lines requests on stdin (one malformed) and runs
@@ -145,6 +144,13 @@ raises and exits non-zero:
              --config 10m` (mfu and hbm_bw_util as in phase 8); K1/K2 under
              bf16 compute at the fit's encoder
              against their plain versions, timed beside them and SDPA.
+             12d, after the fit's evaluation: `python -m
+             carca_tpu_torch.eval_retrieval_offline RUN --which best` equal
+             to the fit's own test retrieval HR@10 / NDCG@10 (the same
+             parameters, seen index and users; K3 bf16 launched), and with
+             --full_index --quantized (K4 and the rerank over the 10M int8
+             rows) in [0, 1] and within one of the 10,000 test users of the
+             unquantized full index's HR@10.
 11. mesh   — two ranks of torch.distributed, each a subprocess of `python
              -m torch.distributed.run --standalone --nproc_per_node 2`
              (this script re-entered with --rank_task, or the entry points),
@@ -188,6 +194,29 @@ raises and exits non-zero:
              the rerank over one 5M-row block against their plain
              versions (the summation-order bound) and timed beside them.
              With --profile, one 10M K-step train call under the profiler.
+12. families — the BASELINE families (games: d=128, 8 context features;
+             fashion: attrctx, 128 dense attributes, g=512; men: L=200) on
+             the host pipeline with the native C++ assembler. 12a: the
+             assembler built from carca_tpu_torch/native/assembler.cpp; at
+             the games family's catalog its train/val/test batches equal
+             the numpy path's in the deterministic keys, its negatives
+             keep the sampler contract, 1 and 8 threads give bit-equal
+             batches; one epoch's assembly timed against numpy's. 12b:
+             `python -m carca_tpu_torch.validate_presets all --epochs 25
+             --early_stop 8` (a subprocess): each family's run directory
+             complete, `assembler: native` in the log, K1 and K2 launched,
+             test HR@10 / NDCG@10 at its gate (FAMILY_GATES: the
+             reference's less ~2.5 sigma); then the games fit's train ex/s
+             with the native assembler against numpy (2 epochs each, in
+             turns). 12c: K1/K2 at the families' encoder and `ca` decoder
+             shapes (d=128 at L=50, the decoder at L=200) against their
+             plain versions (phase 3's tolerances), timed beside them and
+             SDPA; one val batch of the games run's best/ through
+             make_eval_step with the kernels and without (HR/NDCG sums
+             equal, loss within 1e-5); the fashion run through `python -m
+             carca_tpu_torch.serve.service --run_dir` against an
+             in-process Recommender and the CPU plain path, and K3 f32 at
+             d=128 over its seen index against its plain version, timed.
 
 Tolerance of the retrieval kernels against their plain versions: K3, K4
 and the rerank score on the tensor cores (csrc/scoring.cuh), the plain
@@ -199,8 +228,9 @@ are bit-equal.
 
 The main paths are the 100k slice (phase 5), the 10M slice (5c), the
 retrieval bench (5d), the train step (8), the fit and serve entry points
-(9), the 10M fit and its retrieval evaluation (10), and the mesh fits and
-the sharded service (11, counted in each rank): each runs with every
+(9), the 10M fit, its retrieval evaluation and the offline evaluation
+(10, 12d), the mesh fits and the sharded service (11, counted in each
+rank), and the family fits and the fashion service (12): each runs with every
 launch counter set to 0 just before it and read just after (the fits run
 as subprocesses, which start at 0 and print their counts at the end). The line before the
 last is a JSON object listing the kernels, each with its launches on the
@@ -215,9 +245,11 @@ the last line is {"ok": true, "device": {...}}.
 
 import argparse
 import ast
+import contextlib
 import copy
 import dataclasses
 import glob
+import io
 import json
 import os
 import re
@@ -234,13 +266,14 @@ import torch.nn.functional as F
 
 from carca_tpu_torch import bench, bench_retrieval
 from carca_tpu_torch.config import Config, preset
-from carca_tpu_torch.data.dataset import BatchBuilder
+from carca_tpu_torch.data.dataset import BatchBuilder, epoch_batches
 from carca_tpu_torch.data.device_pipeline import DeviceDataset, assemble_train
 from carca_tpu_torch.data.loaders import load_dataset
 from carca_tpu_torch.data.synthetic import (synthetic_catalog, synthetic_catalog_device,
                                             write_reference_format)
 from carca_tpu_torch.models.attention import NEG_MASK, masked_attention, pair_mask
 from carca_tpu_torch.models.carca import CARCA, encode_profile
+from carca_tpu_torch.native import get_assembler
 from carca_tpu_torch.ops import _build
 from carca_tpu_torch.ops import retrieval_topk as rt
 from carca_tpu_torch.ops.flash_attention import (SEED_LIMIT, attention_bwd,
@@ -262,7 +295,10 @@ from carca_tpu_torch.train.checkpoint import CheckpointKeeper
 from carca_tpu_torch.train.loop import (RetrievalEvaluator, _sparse_device_update,
                                         apply_gradients, attrs_dtype, make_eval_step, to_device,
                                         train_loss, train_loss_terms)
+from carca_tpu_torch.train.loop import fit as fit_loop
 from carca_tpu_torch.train.state import create_train_state
+from carca_tpu_torch.validate_presets import FAMILIES, family_catalog, family_config
+from carca_tpu_torch.validate_presets import kernel_launches as counts
 
 SEED = 0
 N_USERS, N_REAL_ITEMS = 4096, 99_999
@@ -320,12 +356,7 @@ D_WIDE, R_WIDE = 256, 100_000  # phase 4w: rows of 256 columns (two 128-column c
 FIT_USERS, FIT_ITEMS = 4096, 2000
 FIT_TARGETS = 100  # the beauty preset's eval negatives (target_len)
 FIT_EPOCHS, FIT_EARLY_STOP = 100, 20
-# the host-pipeline fit, the slowest run of the script (~3 s an epoch): its
-# best val NDCG on this data and seed comes at epoch 33 and early stop would
-# run it to 53; 40 epochs keep that best and the time inside the limit
-FIT_HOST_EPOCHS = 40
 FIT_HR_FLOOR, FIT_NDCG_FLOOR = 0.695, 0.540
-FIT_RUNS = (("run_s0", 0, True), ("run_host", 0, False))
 FIT_TIMEOUT_S = 600
 SERVE_SCORE_TOL = 1e-5  # the service against the in-process Recommender
 SERVE_BENCH_ITERS = 30
@@ -337,6 +368,10 @@ FIT10M_USERS, FIT10M_ITEMS = 100_000, 10_000_000
 FIT10M_EPOCHS = 2
 FIT10M_RETRIEVAL_FLOOR, FIT10M_SAMPLED_FLOOR = 0.05, 0.70
 FIT10M_TIMEOUT_S = 900
+# 12d: the offline full-index int8 eval against the unquantized full index:
+# at most one of the fit's 10,000 test users (eval_subsample) may rank its
+# item otherwise
+OFFLINE_INT8_HR_TOL = 1 / 10_000
 # first-touch rows, row-sparse against dense Adam: the same gradient rows,
 # the bias corrections folded into the step (torch) or dividing the moments
 # (the row update), so updates of ~lr = 1e-3 differ in their last bits
@@ -411,18 +446,9 @@ def reset_counts() -> None:
 
 
 def shape_key(lq, lk, causal) -> str:
+    """K1/K2's by-shape launch keys, as ``counts()`` and the entry points
+    name them."""
     return f"{lq}x{lk} causal {causal}"
-
-
-def counts() -> dict:
-    return {"attention_fwd": fused_attention.launches,
-            "attention_bwd": attention_bwd.launches,
-            **{f"attention_{kind}_by_shape": {shape_key(*key): n for key, n in by.items()}
-               for kind, by in (("fwd", fused_attention.launches_by_shape),
-                                ("bwd", attention_bwd.launches_by_shape))},
-            **{f"catalog_topk_{kind}": n for kind, n in catalog_topk.launches.items()},
-            **{f"groupmax_layout{lay}": n for lay, n in groupmax.launches.items()},
-            "tournament_rerank": tournament_rerank.launches}
 
 
 def as_index(e, kind: str):
@@ -1417,29 +1443,28 @@ def bench_utilisation(card) -> None:
 # phase 9: fit and serve through the entry points
 # --------------------------------------------------------------------------
 
-def run_module(module, args, timeout, stdin_text=None):
-    """``python -m module args`` from the repository root; its stdout.
-    Fails on a non-zero exit."""
+def run_module(module, args, timeout, stdin_text=None, with_stderr=False):
+    """``python -m module args`` from the repository root; its stdout (and
+    its stderr, ``with_stderr``). Fails on a non-zero exit."""
     proc = subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT, input=stdin_text,
                           capture_output=True, text=True, timeout=timeout)
     if proc.returncode != 0:
         sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
     check(proc.returncode == 0, f"python -m {module} {' '.join(args[:6])} ... exited "
                                 f"{proc.returncode}")
-    return proc.stdout
+    return (proc.stdout, proc.stderr) if with_stderr else proc.stdout
 
 
-def fit_run(card, data_dir, out_dir, seed, device_pipeline) -> dict:
+def fit_run(card, data_dir, out_dir, seed) -> dict:
     """One `python -m carca_tpu_torch.cli` run of the beauty preset over the
-    reference files in data_dir; its checks and numbers."""
+    reference files in data_dir, on the device pipeline; its checks and
+    numbers."""
     t0 = time.perf_counter()
     out = run_module("carca_tpu_torch.cli", [
         "--preset", "beauty", "--data_dir", data_dir, "--profile_file", "profiles.txt",
-        "--attr_file", "attrs.pkl", "--ctx_file", "ctx.pkl",
-        "--device_pipeline", str(device_pipeline).lower(), "--epochs",
-        str(FIT_EPOCHS if device_pipeline else FIT_HOST_EPOCHS),
-        "--early_stop", str(FIT_EARLY_STOP), "--resume", "false", "--out_dir", out_dir,
-        "--seed", str(seed)], FIT_TIMEOUT_S)
+        "--attr_file", "attrs.pkl", "--ctx_file", "ctx.pkl", "--device_pipeline", "true",
+        "--epochs", str(FIT_EPOCHS), "--early_stop", str(FIT_EARLY_STOP), "--resume", "false",
+        "--out_dir", out_dir, "--seed", str(seed)], FIT_TIMEOUT_S)
     wall = time.perf_counter() - t0
     lines = out.splitlines()
     final = ast.literal_eval(next(ln for ln in lines if ln.startswith("final: "))[7:])
@@ -1452,7 +1477,7 @@ def fit_run(card, data_dir, out_dir, seed, device_pipeline) -> dict:
     check(len(glob.glob(os.path.join(out_dir, "*.csv"))) == 1, f"{out_dir}: no CSV log")
     check(launches["attention_fwd"] > 0 and launches["attention_bwd"] > 0,
           f"{out_dir}: the fit did not run K1 and K2 ({launches})")
-    summary = {"seed": seed, "device_pipeline": device_pipeline,
+    summary = {"seed": seed, "device_pipeline": True,
                "epochs_run": final["epochs_run"], "best_epoch": max(rows, key=lambda r: r[
                    "val_ndcg"])["epoch"],
                "test_hr10": final["test_hr"], "test_ndcg10": final["test_ndcg"],
@@ -1488,7 +1513,29 @@ def serve_requests(host):
     return lines
 
 
-def serve_vs_cpu_plain(run_dir, cat, host, lines, served) -> None:
+def served_equal(tag, lines, served, mine) -> int:
+    """The service's answers (``served``) against an in-process
+    recommender's (``mine``) to the same request ``lines``: the same ids
+    (but for near-ties), scores within SERVE_SCORE_TOL, and exactly the
+    out-of-range user and the malformed line answered with an error.
+    Returns the near-tie slots."""
+    check(len(served) == len(lines), f"{tag}: {len(served)} responses to {len(lines)} requests")
+    near_ties = 0
+    for line, got, want in zip(lines, served, mine):
+        check(got.get("id") == want.get("id"), f"{tag}: response ids differ: {got} vs {want}")
+        if "error" in want:
+            check("error" in got, f"{tag}: the service answered {line!r}: {got}")
+            continue
+        check("error" not in got and len(got["items"]) > 0, f"{tag}: {line!r}: {got}")
+        near_ties += compare(f"{tag} {got.get('id')}", got["items"], got["scores"],
+                             want["items"], want["scores"], score_tol=SERVE_SCORE_TOL)
+    errors = sum("error" in r for r in served)
+    check(errors == 2, f"{tag}: {errors} error answers; want the out-of-range user and the "
+                       "malformed line")
+    return near_ties
+
+
+def serve_vs_cpu_plain(run_dir, cat, host, lines, served, tag="fit_serve") -> None:
     """The service's answers against the CPU plain path's (K1 and K3 off):
     load_recommender on the CPU, the same requests."""
     rec_cpu = load_recommender(run_dir, cat.attrs, which="best", device="cpu",
@@ -1499,11 +1546,10 @@ def serve_vs_cpu_plain(run_dir, cat, host, lines, served) -> None:
         if "error" not in want:
             near_ties += compare(f"service {got.get('id')} vs the CPU plain path", got["items"],
                                  got["scores"], want["items"], want["scores"])
-    log("fit_serve", cpu_plain_agreement="ok", near_tie_slots=near_ties,
-        score_tol=SLICE_SCORE_TOL)
+    log(tag, cpu_plain_agreement="ok", near_tie_slots=near_ties, score_tol=SLICE_SCORE_TOL)
 
 
-def eval_kernel_vs_plain(run_dir, cat) -> None:
+def eval_kernel_vs_plain(run_dir, cat, tag="fit_serve") -> None:
     """One val batch of the run's best checkpoint through make_eval_step,
     with the kernels and with the plain path on the card: HR and NDCG sums
     equal, loss within TRAIN_LOSS_TOL; K1 launched at the eval decoder's
@@ -1531,7 +1577,7 @@ def eval_kernel_vs_plain(run_dir, cat) -> None:
             check(after[0] > before[0], f"the eval did not launch K1 at {eval_key}")
     (hr, ndcg, loss), (hr_p, ndcg_p, loss_p) = out[mc.use_kernel], out[False]
     loss_err = abs(loss - loss_p) / abs(loss_p)
-    log("fit_serve", eval_batch=n_valid, hr_sum=hr, ndcg_sum=ndcg, loss=loss,
+    log(tag, eval_batch=n_valid, hr_sum=hr, ndcg_sum=ndcg, loss=loss,
         plain_hr_sum=hr_p, plain_ndcg_sum=ndcg_p, plain_loss=loss_p, loss_rel_err=loss_err,
         tol=TRAIN_LOSS_TOL)
     check(hr == hr_p and ndcg == ndcg_p, f"eval with the kernels HR/NDCG {hr}/{ndcg}, plain "
@@ -1547,9 +1593,8 @@ def phase_fit_serve(card):
         data_dir = os.path.join(tmp, "data")
         cat = synthetic_catalog(n_users=FIT_USERS, n_real_items=FIT_ITEMS, seed=SEED)
         write_reference_format(cat, data_dir)
-        runs = {name: fit_run(card, data_dir, os.path.join(tmp, name), seed, dp)
-                for name, seed, dp in FIT_RUNS}
         run_s0 = os.path.join(tmp, "run_s0")
+        runs = {"run_s0": fit_run(card, data_dir, run_s0, SEED)}
         files = ["--data_dir", data_dir, "--profile_file", "profiles.txt", "--attr_file",
                  "attrs.pkl", "--ctx_file", "ctx.pkl"]
         cat = load_dataset(data_dir, "profiles.txt", "attrs.pkl", "ctx.pkl")
@@ -1576,20 +1621,8 @@ def phase_fit_serve(card):
         launches = counts()
         check(launches["attention_fwd"] > 0 and launches["catalog_topk_f32"] > 0,
               f"the in-process Recommender did not run K1 and K3: {launches}")
-        check(len(served) == len(lines), f"{len(served)} responses to {len(lines)} requests")
-        near_ties = 0
-        for line, got, want in zip(lines, served, mine):
-            check(got.get("id") == want.get("id"), f"response ids differ: {got} vs {want}")
-            if "error" in want:
-                check("error" in got, f"the service answered {line!r}: {got}")
-                continue
-            check("error" not in got and len(got["items"]) > 0, f"{line!r}: {got}")
-            near_ties += compare(f"service {got.get('id')}", got["items"], got["scores"],
-                                 want["items"], want["scores"], score_tol=SERVE_SCORE_TOL)
-        errors = sum("error" in r for r in served)
-        check(errors == 2, f"{errors} error answers; want the out-of-range user and the "
-                           "malformed line")
-        log("fit_serve", card=card, requests=len(lines), errors=errors, near_tie_slots=near_ties,
+        near_ties = served_equal("service", lines, served, mine)
+        log("fit_serve", card=card, requests=len(lines), errors=2, near_tie_slots=near_ties,
             serve_wall_s=serve_s, equal_to_in_process=True, launches=launches,
             example=served[0])
         serve_vs_cpu_plain(run_s0, cat, host, lines, served)
@@ -1736,14 +1769,15 @@ def eval_10m(card, run, cat):
     the raw k + L lists within the summation-order tolerance
     (compare_within_order_tol), and HR sums that differ by at most the
     users with a differing id. Then each kernel timed beside its plain
-    version at the eval's shapes. Returns (launches, errors, timings)."""
+    version at the eval's shapes. Returns (launches, errors, timings,
+    metrics by case)."""
     cfg = config_from_run_dir(run)
     mc = cfg.model
     model = CARCA(mc, device=DEVICE)
     check(CheckpointKeeper(os.path.join(run, "ckpt")).restore_best(model) is not None,
           f"{run}: no best/")
     dd = DeviceDataset(cat, mc.seq_len, mc.target_len, test=cfg.train.test, device=DEVICE)
-    launches, errs, timings = {}, {}, {}
+    launches, errs, timings, results = {}, {}, {}, {}
     for case, seen_only, quantized in EVAL10M_CASES:
         ev = RetrievalEvaluator(cfg, cat, mode="test", k=K, log=False, seen_only=seen_only,
                                 quantized=quantized, device=DEVICE, dd=dd)
@@ -1752,7 +1786,7 @@ def eval_10m(card, run, cat):
         metrics = ev(model)
         torch.cuda.synchronize()
         main_s = time.perf_counter() - t0
-        launches[case] = counts()
+        launches[case], results[case] = counts(), metrics
         emb = ev.index(model)
         n_local = emb.rows if quantized else emb.shape[0]
         kk = min(K + mc.seq_len, n_local)
@@ -1797,7 +1831,41 @@ def eval_10m(card, run, cat):
                     plain_ms=timings[case][1])
         timings["rows", case] = n_local
         del emb
-    return launches, errs, timings
+    return launches, errs, timings, results
+
+
+def offline_eval_10m(card, run, fit, full_hr) -> dict:
+    """12d: `python -m carca_tpu_torch.eval_retrieval_offline` over the 10M
+    run. ``--which best`` must equal the fit's own test retrieval (the same
+    parameters, seen index and users: K3 over bf16 rows); ``--full_index
+    --quantized`` (K4 and the rerank over the 10M int8 rows) must lie in
+    [0, 1] and within one user of the 10,000 of the unquantized full-index
+    value ``full_hr``. Returns each run's line, launches and seconds."""
+    out = {}
+    for case, flags in (("best", []), ("best full int8", ["--full_index", "--quantized"])):
+        t0 = time.perf_counter()
+        stdout, stderr = run_module("carca_tpu_torch.eval_retrieval_offline",
+                                    [run, "--which", "best", *flags], 600, with_stderr=True)
+        line = json.loads(stdout.strip().splitlines()[-1])
+        launches = json.loads(next(ln for ln in stderr.splitlines()
+                                   if ln.startswith("launches: "))[10:])
+        out[case] = {"line": line, "launches": launches, "wall_s": time.perf_counter() - t0}
+        log("offline_eval_10m", card=card, case=case, flags=flags, **out[case])
+    best, full = out["best"], out["best full int8"]
+    check(best["line"]["epoch"] == fit["best_epoch"], f"offline eval epoch {best['line']}")
+    check((best["line"]["retrieval_test_hr"], best["line"]["retrieval_test_ndcg"]) ==
+          (fit["retrieval_test_hr10"], fit["retrieval_test_ndcg10"]),
+          f"offline eval of best/ {best['line']} differs from the fit's test retrieval "
+          f"{fit['retrieval_test_hr10']} / {fit['retrieval_test_ndcg10']}")
+    check(best["launches"]["catalog_topk_bf16"] > 0,
+          f"the offline eval of the seen index did not launch K3 bf16: {best['launches']}")
+    hr = full["line"]["retrieval_test_hr"]
+    check(0.0 <= hr <= 1.0 and abs(hr - full_hr) <= OFFLINE_INT8_HR_TOL,
+          f"offline full int8 HR@10 {hr} vs the unquantized full index's {full_hr}")
+    n = full["launches"]
+    check(n["groupmax_layout0"] + n["groupmax_layout1"] > 0 and n["tournament_rerank"] > 0,
+          f"the offline full int8 eval did not launch K4 and the rerank: {n}")
+    return out
 
 
 def time_tournament_10m(card, q, e, kk, errs) -> dict:
@@ -1903,8 +1971,9 @@ def phase_fit_10m(card, profile_run=False) -> dict:
         torch.cuda.empty_cache()
         run = os.path.join(tmp, "run")
         fit = fit_10m_run(card, run)
-        eval_launches, errs, timings = eval_10m(card, run, cat)
+        eval_launches, errs, timings, results = eval_10m(card, run, cat)
         torch.cuda.empty_cache()
+        offline = offline_eval_10m(card, run, fit, results["full bf16"]["retrieval_test_hr"])
         serve_10m(card, run, cat)
         torch.cuda.empty_cache()
         bench10 = json.loads(run_module("carca_tpu_torch.bench", ["--config", "10m"],
@@ -1917,7 +1986,7 @@ def phase_fit_10m(card, profile_run=False) -> dict:
             del setup
         attn = attention_bf16(card)
         return {"fit": fit, "eval_launches": eval_launches, "errs": errs, "timings": timings,
-                "attn": attn, "step": step, "bench": bench10}
+                "attn": attn, "step": step, "bench": bench10, "offline": offline}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1936,22 +2005,10 @@ def serve_10m(card, run, cat) -> None:
     rec = load_recommender(run, cat.attrs, which="best", device=DEVICE,
                            index_ids=np.unique(host.items))
     mine = list(serve_lines(rec, host, lines, k=K))
-    check(len(served) == len(lines), f"{len(served)} responses to {len(lines)} requests")
-    near_ties = 0
-    for line, got, want in zip(lines, served, mine):
-        check(got.get("id") == want.get("id"), f"response ids differ: {got} vs {want}")
-        if "error" in want:
-            check("error" in got, f"the service answered {line!r}: {got}")
-            continue
-        check("error" not in got and len(got["items"]) > 0, f"{line!r}: {got}")
-        near_ties += compare(f"10M service {got.get('id')}", got["items"], got["scores"],
-                             want["items"], want["scores"], score_tol=SERVE_SCORE_TOL)
-    errors = sum("error" in r for r in served)
-    check(errors == 2, f"{errors} error answers; want the out-of-range user and the malformed "
-                       "line")
+    near_ties = served_equal("10M service", lines, served, mine)
     index = rec.catalog_emb
     log("fit_10m", card=card, case="service over the 10M run", requests=len(lines),
-        errors=errors, near_tie_slots=near_ties, equal_to_in_process=True, serve_wall_s=serve_s,
+        errors=2, near_tie_slots=near_ties, equal_to_in_process=True, serve_wall_s=serve_s,
         index_rows=index.rows if isinstance(index, QuantizedIndex) else index.shape[0],
         index_int8=isinstance(index, QuantizedIndex), example=served[0])
 
@@ -2054,7 +2111,7 @@ def phase_profile(card, rec, host, index: str = "seen", calls: int = 10) -> None
             device_ops_per_call=t["device_ops_per_step"], top_ms_per_call=top_ms(t))
 
 
-def sdpa_ms(b, lq, lk, causal, rate) -> dict:
+def sdpa_ms(b, lq, lk, causal, rate, d=D) -> dict:
     """F.scaled_dot_product_attention beside K1 and K2, timed only (the port
     never calls it), forward and (with weight dropout, where the shape
     trains) backward, 2 heads, with the shape's causal offset. It takes the
@@ -2062,12 +2119,12 @@ def sdpa_ms(b, lq, lk, causal, rate) -> dict:
     softmax, so a fully masked query row gets uniform weights instead of
     zeros, and it draws its own dropout bits. Returns {"fwd": ms, "bwd": ms
     or None}."""
-    q, k, v, qm, km = k1_inputs(lq, lk, 33, b=b)
-    scale = (D / H) ** 0.5
+    q, k, v, qm, km = k1_inputs(lq, lk, 33, b=b, d=d)
+    scale = (d / H) ** 0.5
     add = torch.where(pair_mask(qm, km, causal) > 0, 0.0, NEG_MASK)[:, None] / scale
 
     def heads(x):
-        return (x.view(x.shape[0], x.shape[1], H, D // H).transpose(1, 2).contiguous()
+        return (x.view(x.shape[0], x.shape[1], H, d // H).transpose(1, 2).contiguous()
                 .requires_grad_())
 
     qh, kh, vh = heads(q), heads(k), heads(v)
@@ -2216,48 +2273,47 @@ def mesh_run_served(card, run, data_dir) -> None:
                      stdin_text="\n".join(lines) + "\n")
     served = [json.loads(ln) for ln in out.splitlines() if ln.strip()]
     rec = load_recommender(run, cat.attrs, which="best", index_ids=np.unique(host.items))
-    near_ties = 0
-    check(len(served) == len(lines), f"{len(served)} responses to {len(lines)} requests")
-    for got, want in zip(served, serve_lines(rec, host, lines, k=K)):
-        check(("error" in got) == ("error" in want), f"{got} vs {want}")
-        if "error" not in want:
-            near_ties += compare(f"mesh run served {got.get('id')}", got["items"],
-                                 got["scores"], want["items"], want["scores"],
-                                 score_tol=SERVE_SCORE_TOL)
+    near_ties = served_equal("mesh run served", lines, served,
+                             list(serve_lines(rec, host, lines, k=K)))
     log("mesh_fit", card=card, case="the --mesh 2 run served on one device",
         requests=len(lines), near_tie_slots=near_ties, equal_to_in_process=True)
 
 
-def attention_at(card, b, lq, lk, causal) -> dict:
-    """K1 and K2 at one rank-local shape (weight dropout P_DROP), beside
-    their plain versions and SDPA: times, and errors at dropout 0, held to
-    phase 3's K1_TOL (elementwise) and K2_TOL (relative, per gradient)."""
-    inputs = k1_inputs(lq, lk, 81, b=b)
+def attention_at(card, b, lq, lk, causal, d=D, train=True, where="rank-local") -> dict:
+    """K1 and K2 at one shape of a path (weight dropout P_DROP where the
+    path trains; an eval shape, ``train=False``, runs K1 alone without
+    dropout), beside their plain versions and SDPA: times, and errors at
+    dropout 0, held to phase 3's K1_TOL (elementwise) and K2_TOL
+    (relative, per gradient)."""
+    inputs = k1_inputs(lq, lk, 81, b=b, d=d)
     q, k, v, qm, km = inputs
     g = torch.randn(q.shape, generator=torch.Generator().manual_seed(82)).to(DEVICE)
-    kw = dict(causal=causal, scale=(D / H) ** 0.5, n_heads=H)
-    out, *grads = kernel_grads(inputs, g, 83, **kw)
-    want = attention_grads_plain(q, k, v, qm, km, g, **kw)
+    kw = dict(causal=causal, scale=(d / H) ** 0.5, n_heads=H)
+    shape = f"{where} [{b},{lq},{d}] x [{b},{lk},{d}] causal {causal}"
     with torch.no_grad():
+        out = fused_attention(q, k, v, qm, km, **kw)
         plain = masked_attention(q, k, v, qm, km, **kw)
-    shape = f"rank-local [{b},{lq},{D}] x [{b},{lk},{D}] causal {causal}"
     torch.testing.assert_close(out, plain, rtol=K1_TOL, atol=K1_TOL,
                                msg=lambda m: f"K1 {shape}: {m}")
     k1_err = (out - plain).abs().max().item()
-    rel = {n: rel_err(a, w) for n, a, w in zip(("dq", "dk", "dv"), grads, want)}
-    check(max(rel.values()) <= K2_TOL, f"K2 {shape}: relative errors {rel} > {K2_TOL}")
-    k2_err = max((a - w).abs().max().item() for a, w in zip(grads, want))
+    rate = P_DROP if train else 0.0
     seeds, gen = torch.Generator().manual_seed(0), torch.Generator(device=DEVICE).manual_seed(0)
     with torch.no_grad():
         k1 = kernel_vs_plain(
-            lambda: fused_attention(q, k, v, qm, km, seed_generator=seeds, dropout_rate=P_DROP,
+            lambda: fused_attention(q, k, v, qm, km, seed_generator=seeds, dropout_rate=rate,
                                     **kw),
-            lambda: masked_attention(q, k, v, qm, km, train=True, generator=gen,
-                                     dropout_rate=P_DROP, **kw))
-    k2 = time_k2(card, f"rank-local [{b},{lq},{D}] causal {causal}", inputs, g, 84,
-                 compute_dtype="float32", dropout_rate=P_DROP, **kw)["bwd"]
-    lib = sdpa_ms(b, lq, lk, causal, P_DROP)
-    return {"k1": k1, "k2": k2, "k1_err": k1_err, "k2_err": k2_err, "lib": lib}
+            lambda: masked_attention(q, k, v, qm, km, train=train, generator=gen,
+                                     dropout_rate=rate, **kw))
+    res = {"k1": k1, "k1_err": k1_err, "lib": sdpa_ms(b, lq, lk, causal, rate, d=d)}
+    if train:
+        _, *grads = kernel_grads(inputs, g, 83, **kw)
+        want = attention_grads_plain(q, k, v, qm, km, g, **kw)
+        rel = {n: rel_err(a, w) for n, a, w in zip(("dq", "dk", "dv"), grads, want)}
+        check(max(rel.values()) <= K2_TOL, f"K2 {shape}: relative errors {rel} > {K2_TOL}")
+        res["k2_err"] = max((a - w).abs().max().item() for a, w in zip(grads, want))
+        res["k2"] = time_k2(card, shape, inputs, g, 84, compute_dtype="float32",
+                            dropout_rate=P_DROP, **kw)["bwd"]
+    return res
 
 
 def phase_mesh(card) -> dict:
@@ -2786,6 +2842,280 @@ def time_shard(block, d) -> dict:
 RANK_TASKS = {"dp_step": rank_dp_step, "shard_10m": rank_shard_10m}
 
 
+# --------------------------------------------------------------------------
+# phase 12: the BASELINE families on the card
+# --------------------------------------------------------------------------
+
+# 12b's gates: the reference's test HR@10 / NDCG@10 (VALIDATION_<family>
+# _ref.json, the PyTorch reference on a CPU) less ~2.5 sigma, phase 9's
+# rule. sigma is the binomial sigma of HR@10 over the run's test users,
+# sqrt(p (1 - p) / n) with n = 4,096 (games, fashion) or 2,048 (men);
+# NDCG's margin is phase 9's 0.0163 scaled by sqrt(4096 / n):
+#   games   HR 0.7048 - 2.5 x 0.00713 = 0.687   NDCG 0.5546 - 0.0163 = 0.538
+#   fashion HR 0.4749 - 2.5 x 0.00780 = 0.455   NDCG 0.3613 - 0.0163 = 0.345
+#   men     HR 0.7432 - 2.5 x 0.00965 = 0.719   NDCG 0.6241 - 0.0231 = 0.601
+FAMILY_GATES = {"games": (0.687, 0.538), "fashion": (0.455, 0.345), "men": (0.719, 0.601)}
+FAMILY_EPOCHS, FAMILY_EARLY_STOP = 25, 8  # scripts/validate_presets.py's defaults
+FAMILY_TIMEOUT_S = 700
+AB_EPOCHS = 2  # each of the four games fits of the native-against-numpy comparison
+# 12c: K1/K2 at the families' shapes: (batch, Lq, Lk, causal, d, trained,
+# the families whose fits run it). games and fashion share d = 128 (2
+# heads of 64) at L = 50; men is d = 64 at L = 200 (its encoder is
+# ATTN_SHAPES' "men")
+FAMILY_ATTN = {
+    "games_encoder": (B, L, L, 0, 2 * D, True, ("games", "fashion")),
+    "games_decoder": (2 * B, L, L, -1, 2 * D, True, ("games", "fashion")),
+    "games_decoder_eval": (B, FIT_TARGETS + 1, L, None, 2 * D, False, ("games", "fashion")),
+    "men_decoder": (2 * B, L_MEN, L_MEN, -1, D, True, ("men",)),
+    "men_decoder_eval": (B, FIT_TARGETS + 1, L_MEN, None, D, False, ("men",)),
+}
+FAMILY_RUN_FILES = ("args.json", "metrics.jsonl", "ckpt/best/params.pt", "ckpt/best/metrics.json",
+                    "ckpt/latest/state.pt")
+
+
+def assembled(builder, mode, rows, seed):
+    rng = np.random.default_rng(seed)
+    if mode == "train":
+        return builder.train_batch(rows, rng)
+    return builder.eval_batch(rows, rng, mode)
+
+
+def native_checks(card, cat) -> dict:
+    """12a: the native assembler, built here, against the numpy path at the
+    games family's catalog: the deterministic keys bit-equal, the negatives
+    under the sampler contract (in [1, n_items - 1], distinct, outside the
+    user's history, 0 on dead slots), 1 and 8 threads bit-equal; then one
+    epoch of train batches assembled by each, timed on the host."""
+    t0 = time.perf_counter()
+    one, eight = get_assembler(1), get_assembler(8)
+    build_s = time.perf_counter() - t0
+    builders = {"numpy": BatchBuilder(cat, L, FIT_TARGETS),
+                "native 1": BatchBuilder(cat, L, FIT_TARGETS, native=one),
+                "native 8": BatchBuilder(cat, L, FIT_TARGETS, native=eight)}
+    for mode in ("train", "val", "test"):
+        rows = np.concatenate([builders["numpy"].users(mode)[:B - 2], [-1, -1]])
+        ref, got, got8 = (assembled(b, mode, rows, SEED + 12) for b in builders.values())
+        for key in got:
+            check(np.array_equal(got[key], got8[key]), f"12a {mode}: 1 and 8 threads differ "
+                                                       f"in {key}")
+        for key in ("p_x", "p_c", "y_true", "o_c", "n_valid"):
+            check(np.array_equal(got[key], ref[key]), f"12a {mode}: native {key} differs from "
+                                                      "numpy")
+        pos = L if mode == "train" else 1  # the positives' slots
+        check(np.array_equal(got["o_x"][:, :pos], ref["o_x"][:, :pos]),
+              f"12a {mode}: native positives differ from numpy")
+        for b, u in enumerate(rows):
+            negs = got["o_x"][b, pos:]
+            live = got["p_x"][b] > 0 if mode == "train" else np.full(FIT_TARGETS, u >= 0)
+            check(not negs[~live].any(), f"12a {mode}: row {b} has negatives in dead slots")
+            n = negs[live]
+            hist = set(cat.items[cat.offsets[u]:cat.offsets[u + 1]].tolist()) if u >= 0 else set()
+            check(n.size == 0 or (n.min() >= 1 and n.max() < cat.n_items
+                                  and len(set(n.tolist())) == n.size
+                                  and not set(n.tolist()) & hist),
+                  f"12a {mode}: row {b} breaks the sampler contract")
+    rates = {}
+    for name in ("numpy", "native 8"):
+        rng = np.random.default_rng(SEED)
+        t0, n = time.perf_counter(), 0
+        for rows in epoch_batches(builders[name].users("train"), B, rng, shuffle=True):
+            n += int(builders[name].train_batch(rows, rng)["n_valid"])
+        rates[name] = n / (time.perf_counter() - t0)
+    out = {"build_s": build_s, "host_assembly_examples_per_sec": rates,
+           "assembly_speedup": rates["native 8"] / rates["numpy"]}
+    log("family_native", card=card, catalog="games family (4,096 users, 2,000 items, 8 ctx)",
+        checks="train/val/test: deterministic keys = numpy, sampler contract, 1 = 8 threads",
+        **out)
+    return out
+
+
+def family_fits(card, out) -> dict:
+    """12b: `python -m carca_tpu_torch.validate_presets all` on the card:
+    each family's run directory complete, the native assembler named in
+    the log, K1 and K2 launched, and its test HR@10 / NDCG@10 at its gates."""
+    t0 = time.perf_counter()
+    stdout = run_module("carca_tpu_torch.validate_presets", [
+        "all", "--epochs", str(FAMILY_EPOCHS), "--early_stop", str(FAMILY_EARLY_STOP),
+        "--out", out], FAMILY_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(stdout.count("assembler: native") == len(FAMILIES) and "assembler: numpy" not in stdout,
+          "the family fits did not all assemble with the native library")
+    fits, below = {}, []
+    for name in FAMILIES:
+        with open(os.path.join(out, f"VALIDATION_{name}.json")) as fh:
+            res = json.load(fh)
+        run = os.path.join(out, f"run_{name}")
+        for f in FAMILY_RUN_FILES:
+            check(os.path.exists(os.path.join(run, f)), f"{run}: no {f}")
+        check(len(glob.glob(os.path.join(run, "*.csv"))) == 1, f"{run}: not one CSV log")
+        with open(os.path.join(run, "metrics.jsonl")) as fh:
+            rows = [json.loads(ln) for ln in fh]
+        with open(os.path.join(run, "ckpt", "best", "metrics.json")) as fh:
+            best = json.load(fh)
+        ours, ref, n = res["carca_tpu_torch"], res["reference"], res["launches"]
+        fits[name] = {
+            "epochs_run": ours["epochs_run"], "best_epoch": best["epoch"],
+            "test_hr10": ours["test_hr"], "test_ndcg10": ours["test_ndcg"],
+            "val_hr10": ours["val_hr"], "val_ndcg10": ours["val_ndcg"],
+            "reference_test_hr10": ref["test_hr10"], "reference_test_ndcg10": ref["test_ndcg10"],
+            "gates": FAMILY_GATES[name],
+            "median_examples_per_sec": statistics.median(r["examples_per_sec"] for r in rows),
+            "median_epoch_seconds": statistics.median(r["epoch_seconds"] for r in rows),
+            "wall_s": res["wall_seconds"], "device": res["device"], "launches": n}
+        log("family_fit", card=card, family=name, **fits[name])
+        check(res["device"] == torch.cuda.get_device_name(0), f"{name} ran on {res['device']}")
+        check(n["attention_fwd"] > 0 and n["attention_bwd"] > 0,
+              f"the {name} fit did not run K1 and K2: {n}")
+        hr_gate, ndcg_gate = FAMILY_GATES[name]
+        if ours["test_hr"] < hr_gate or ours["test_ndcg"] < ndcg_gate:
+            below.append(f"{name}: test HR@10 {ours['test_hr']} / NDCG@10 {ours['test_ndcg']} "
+                         f"below {hr_gate} / {ndcg_gate}")
+    log("family_fit", card=card, all_families_wall_s=wall)
+    check(not below, "; ".join(below))
+    return fits
+
+
+def native_vs_numpy_fit(card, cat, tmp) -> dict:
+    """The games family fit's train examples/s with the native assembler
+    and with numpy (AB_EPOCHS each, checkpoints off), in turns numpy,
+    native, native, numpy; the median of each's epochs."""
+    rates = {"numpy": [], "native": []}
+    for i, kind in enumerate(("numpy", "native", "native", "numpy")):
+        cfg = family_config(FAMILIES["games"], AB_EPOCHS, AB_EPOCHS, os.path.join(tmp, f"ab{i}"))
+        cfg = dataclasses.replace(
+            cfg, data=dataclasses.replace(cfg.data, use_native=kind == "native"),
+            train=dataclasses.replace(cfg.train, checkpoint=False))
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            fit_loop(cfg, cat, device=DEVICE)
+        check(f"assembler: {kind}" in printed.getvalue(), f"the {kind} fit used another assembler")
+        with open(os.path.join(cfg.train.out_dir, "metrics.jsonl")) as fh:
+            rates[kind] += [json.loads(ln)["examples_per_sec"] for ln in fh]
+    out = {f"{kind}_examples_per_sec": statistics.median(v) for kind, v in rates.items()}
+    out["by_epoch"] = rates
+    out["speedup"] = out["native_examples_per_sec"] / out["numpy_examples_per_sec"]
+    log("family_native", card=card, case=f"games fit, {AB_EPOCHS} epochs x 2 each, in turns",
+        **out)
+    return out
+
+
+def family_kernels(card) -> dict:
+    """12c: K1 and K2 at each of FAMILY_ATTN's shapes against their plain
+    versions (phase 3's tolerances), timed beside them and SDPA."""
+    out = {}
+    for name, (b, lq, lk, causal, d, trained, _) in FAMILY_ATTN.items():
+        out[name] = attention_at(card, b, lq, lk, causal, d=d, train=trained, where=name)
+        log("timing", card=card, kernel="K1/K2 at a family's shape", shape=name,
+            dropout=P_DROP if trained else 0.0, **out[name])
+    return out
+
+
+def fashion_service(card, run, tmp) -> dict:
+    """12c: the fashion run (attrctx, d = 128) through `python -m
+    carca_tpu_torch.serve.service --run_dir` over its catalog in the
+    reference's files: equal to an in-process Recommender (whose K1 and K3
+    launches are counted) and to the CPU plain path; K3 f32 at d = 128
+    over the run's seen index, k = KK, against its plain version at each
+    bucket and timed at bucket 256."""
+    data_dir = os.path.join(tmp, "fashion_data")
+    write_reference_format(family_catalog(FAMILIES["fashion"]), data_dir)
+    files = ["--data_dir", data_dir, "--profile_file", "profiles.txt", "--attr_file",
+             "attrs.pkl", "--ctx_file", "ctx.pkl"]
+    cat = load_dataset(data_dir, "profiles.txt", "attrs.pkl", "ctx.pkl")
+    host = HostCSR(cat)
+    lines = serve_requests(host)
+    out = run_module("carca_tpu_torch.serve.service", ["--run_dir", run, *files, "--k", str(K)],
+                     300, stdin_text="\n".join(lines) + "\n")
+    served = [json.loads(ln) for ln in out.splitlines() if ln.strip()]
+    reset_counts()
+    rec = load_recommender(run, cat.attrs, which="best", index_ids=np.unique(host.items))
+    mine = list(serve_lines(rec, host, lines, k=K))
+    torch.cuda.synchronize()
+    launches = counts()
+    check(launches["attention_fwd"] > 0 and launches["catalog_topk_f32"] > 0,
+          f"the fashion Recommender did not run K1 and K3: {launches}")
+    near_ties = served_equal("fashion service", lines, served, mine)
+    serve_vs_cpu_plain(run, cat, host, lines, served, tag="family_serve")
+    e = rec.catalog_emb
+    r = e.shape[0]
+    queries = {bb: stage1_queries(rec, *reqs)
+               for bb, reqs in bucket_requests(host, SEED + 10).items()}
+    err = max(k3_case(f"f32 fashion seen index ({r:,} rows, d={e.shape[1]}) bucket {bb} k={KK}",
+                      q, e, KK, n_items=r)[0] for bb, q in queries.items())
+    q = queries[B]
+    with torch.no_grad():
+        ms = kernel_vs_plain(lambda: catalog_topk(q, e, KK, n_items=r, method="stream"),
+                             lambda: catalog_topk_plain(q, e, KK, n_items=r))
+    res = {"launches": launches, "k3_err": err, "k3": ms, "rows": r, "d": e.shape[1]}
+    log("family_serve", card=card, run="fashion", requests=len(lines),
+        near_tie_slots=near_ties, equal_to_in_process=True, example=served[0], **res)
+    return res
+
+
+def phase_families(card) -> dict:
+    """Phase 12. Returns what the kernels line needs: the fits (their
+    launches), the kernels at the families' shapes and the fashion
+    service's K3."""
+    tmp = tempfile.mkdtemp(prefix="carca_families_")
+    try:
+        games = family_catalog(FAMILIES["games"])
+        native = native_checks(card, games)
+        out = os.path.join(tmp, "validate")
+        fits = family_fits(card, out)
+        ab = native_vs_numpy_fit(card, games, tmp)
+        torch.cuda.empty_cache()
+        attn = family_kernels(card)
+        eval_kernel_vs_plain(os.path.join(out, "run_games"), games, tag="family_eval")
+        serve = fashion_service(card, os.path.join(out, "run_fashion"), tmp)
+        return {"native": native, "fits": fits, "ab": ab, "attn": attn, "serve": serve}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def kernel_entry(name, source, replaces, n, err, ms_plain, bytes_moved, ops, operand, lib=None,
+                 shape=None) -> dict:
+    """One kernel of the kernels line."""
+    b_ms, b_by = bound(bytes_moved, ops, operand)
+    out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+           "launches": n, "max_abs_err": err, "ms": ms_plain[0], "plain_ms": ms_plain[1],
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+    if shape is not None:
+        out["shape"] = shape
+    return out
+
+
+def family_entries(f) -> list:
+    """The kernels line's entries for phase 12: K1/K2 at each FAMILY_ATTN
+    shape (launches: the family fits that run it, by (Lq, Lk, causal)), K3
+    f32 at d = 128 over the fashion run's seen index (launches: the
+    in-process fashion Recommender)."""
+    f32 = 4
+    entries = []
+    for name, (b, lq, lk, causal, d, trained, fams) in FAMILY_ATTN.items():
+        key = shape_key(lq, lk, causal)
+        n = {kind: sum(f["fits"][fam]["launches"][f"attention_{kind}_by_shape"].get(key, 0)
+                       for fam in fams) for kind in ("fwd", "bwd")}
+        res, masks = f["attn"][name], b * (lq + lk) * f32
+        shape = f"{name} [{b},{lq},{d}] x [{b},{lk},{d}] causal {causal}"
+        entries.append(kernel_entry(f"attention_fwd_{name}", "carca_tpu_torch/csrc/attention_fwd.cu",
+                             "carca_tpu/ops/flash_attention.py:113", n["fwd"], res["k1_err"],
+                             res["k1"], 2 * b * (lq + lk) * d * f32 + masks, 4 * b * lq * lk * d,
+                             "3xtf32", res["lib"]["fwd"], shape))
+        if trained:
+            entries.append(kernel_entry(
+                f"attention_bwd_{name}", "carca_tpu_torch/csrc/attention_bwd.cu",
+                "carca_tpu/ops/flash_attention.py:130", n["bwd"], res["k2_err"], res["k2"],
+                (3 * lq + 4 * lk) * b * d * f32 + masks, 10 * b * lq * lk * d, "3xtf32",
+                res["lib"]["bwd"], shape))
+    s = f["serve"]
+    r, d = s["rows"], s["d"]
+    entries.append(kernel_entry("catalog_topk_fashion", "carca_tpu_torch/csrc/catalog_topk.cu",
+                         "carca_tpu/ops/retrieval_topk.py:526", s["launches"]["catalog_topk_f32"],
+                         s["k3_err"], s["k3"], r * d * f32 + B * d * f32 + B * KK * 12,
+                         2 * B * r * d, "3xtf32", None,
+                         f"fashion seen index {r} rows x d={d}, bucket {B}, k={KK}"))
+    return entries
+
+
 def mesh_entries(m) -> list:
     """The kernels line's entries for phase 11: K1/K2 at the --mesh 2 fit's
     rank-local encoder (launches: every K1/K2 launch of that fit, both
@@ -2798,12 +3128,8 @@ def mesh_entries(m) -> list:
     rows = t["rows"]
     entries = []
 
-    def add(name, source, replaces, n, err, ms_plain, bytes_moved, ops, operand, lib, shape):
-        b_ms, b_by = bound(bytes_moved, ops, operand)
-        entries.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": n, "max_abs_err": err, "ms": ms_plain[0],
-                        "plain_ms": ms_plain[1], "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": lib, "shape": shape})
+    def add(*args):
+        entries.append(kernel_entry(*args))
 
     masks = b * 2 * L * f32
     local = f"mesh 2 rank-local encoder [{b},{L},{D}] causal 0 dropout {P_DROP}"
@@ -2841,37 +3167,30 @@ def kernel_entries(k1_err, k2_err, k3_err, k4_err, timings, k2_times, library, l
     r_seen = 19_157  # rows of the 100k slice's seen index, K3's timed shape
     entries = []
 
-    def add(name, source, replaces, n, err, ms_plain, bytes_moved, ops, operand, lib=None):
-        b_ms, b_by = bound(bytes_moved, ops, operand)
-        entries.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": n, "max_abs_err": err, "ms": ms_plain[0],
-                        "plain_ms": ms_plain[1], "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": lib})
+    def add(*args, **kw):
+        entries.append(kernel_entry(*args, **kw))
 
     # K1 and K2 at each timed shape: bytes of q/out (K2: q, dO, dq) at Lq and
     # k/v (K2: k, v, dk, dv) at Lk plus the masks; 2 (K2: 5) products of
     # Lq Lk d multiply-adds, counted whole (causal masking skips none), at
     # the 3xTF32 rate. Launches at the shape on the path that runs it (the
-    # train step runs encoder and decoder; men runs in phases 3, 3b and 6
-    # alone, so its count is 0)
+    # train step runs encoder and decoder, phase 12's men fit men's encoder)
     for shape, (b, lq, lk, causal, rate) in ATTN_SHAPES.items():
         suffix = "" if shape == "encoder" else f"_{shape}"
-        path = "slice" if shape == "rerank" else "train"
+        path = {"rerank": "slice", "men": "family men"}.get(shape, "train")
         key = shape_key(lq, lk, causal)
         masks = b * (lq + lk) * f32
         add(f"attention_fwd{suffix}", "carca_tpu_torch/csrc/attention_fwd.cu",
             "carca_tpu/ops/flash_attention.py:113",
             launches[path]["attention_fwd_by_shape"].get(key, 0), k1_err,
             timings["K1", shape], 2 * b * (lq + lk) * D * f32 + masks, 4 * b * lq * lk * D,
-            "3xtf32", library[shape]["fwd"])
-        entries[-1]["shape"] = shape
+            "3xtf32", library[shape]["fwd"], shape)
         if shape in K2_TIMED:
             add(f"attention_bwd{suffix}", "carca_tpu_torch/csrc/attention_bwd.cu",
                 "carca_tpu/ops/flash_attention.py:130",
-                launches["train"]["attention_bwd_by_shape"].get(key, 0),
+                launches[path]["attention_bwd_by_shape"].get(key, 0),
                 k2_err, k2_times[K2_TIMED[shape]]["bwd"], (3 * lq + 4 * lk) * b * D * f32 + masks,
-                10 * b * lq * lk * D, "3xtf32", library[shape]["bwd"])
-            entries[-1]["shape"] = shape
+                10 * b * lq * lk * D, "3xtf32", library[shape]["bwd"], shape)
     add("catalog_topk", "carca_tpu_torch/csrc/catalog_topk.cu",
         "carca_tpu/ops/retrieval_topk.py:526", launches["slice"]["catalog_topk_f32"],
         k3_err["f32"], timings["K3", "seen"], r_seen * D * f32 + B * D * f32 + B * KK * 12,
@@ -2914,12 +3233,8 @@ def fit10m_entries(f, launches):
     kk = K + L
     entries = []
 
-    def add(name, source, replaces, n, err, ms_plain, bytes_moved, ops, operand, lib=None):
-        b_ms, b_by = bound(bytes_moved, ops, operand)
-        entries.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": n, "max_abs_err": err, "ms": ms_plain[0],
-                        "plain_ms": ms_plain[1], "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": lib, "shape": "synthetic10m"})
+    def add(*args):
+        entries.append(kernel_entry(*args, shape="synthetic10m"))
 
     masks = B * 2 * L * f32
     add("attention_fwd_bf16", "carca_tpu_torch/csrc/attention_fwd.cu",
@@ -3008,14 +3323,21 @@ def main() -> None:
     fit10m = timed("10 fit 10M", phase_fit_10m, card, profile_run)
     torch.cuda.empty_cache()
     mesh = timed("11 mesh", phase_mesh, card)
+    torch.cuda.empty_cache()
+    families = timed("12 families", phase_families, card)
     launches = {"slice": serve_launches, "slice_10m": launches_10m, "bench": bench_launches,
                 "train": train_launches, "fit_serve": fit_launches,
                 "fit_10m": fit10m["fit"]["launches"], **{
-                    f"eval_10m {case}": n for case, n in fit10m["eval_launches"].items()}}
+                    f"eval_10m {case}": n for case, n in fit10m["eval_launches"].items()},
+                **{f"offline_eval_10m {case}": r["launches"]
+                   for case, r in fit10m["offline"].items()},
+                **{f"family {name}": r["launches"] for name, r in families["fits"].items()},
+                "family_serve": families["serve"]["launches"]}
     log("launches", **launches)
     log("phase_seconds", total=sum(seconds.values()), **seconds)
     entries = (kernel_entries(k1_err, k2_err, k3_err, k4_err, timings, k2_times, library,
-                              launches) + fit10m_entries(fit10m, launches) + mesh_entries(mesh))
+                              launches) + fit10m_entries(fit10m, launches) + mesh_entries(mesh)
+               + family_entries(families))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

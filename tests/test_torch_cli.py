@@ -149,7 +149,7 @@ def test_main_trains_on_the_cpu_when_asked(tmp_path, capsys):
                        device="cpu")
     out = capsys.readouterr().out
     assert "note: --pack_tables is a TPU knob; ignored" in out
-    assert "note: --use_native" in out
+    assert "assembler: native" in out and "note: --use_native" not in out
     final = next(line for line in out.splitlines() if line.startswith("final: "))
     assert metrics["epochs_run"] == 2 and str(metrics["test_hr"]) in final
     assert (tmp_path / "args.json").exists() and (tmp_path / "ckpt" / "best").is_dir()

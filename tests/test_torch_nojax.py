@@ -14,8 +14,8 @@ FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "flax", "carca_tpu")
 
 
 def test_serving_and_ops_import_without_jax():
-    """The serving, training, entry-point, multi-device and ops modules
-    import without jax."""
+    """The serving, training, entry-point, multi-device, native-assembler
+    and ops modules import without jax."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     probe = subprocess.run([sys.executable, "-c", "import sys; print('jax' in sys.modules)"],
                            capture_output=True, text=True, env=env, cwd=ROOT, timeout=120)
@@ -36,7 +36,8 @@ def test_serving_and_ops_import_without_jax():
         "import carca_tpu_torch.parallel, carca_tpu_torch.parallel.mesh\n"
         "import carca_tpu_torch.parallel.embedding, carca_tpu_torch.parallel.step\n"
         "import carca_tpu_torch.parallel.retrieval, carca_tpu_torch.utils.flops\n"
-        "import carca_tpu_torch.profile_step\n"
+        "import carca_tpu_torch.profile_step, carca_tpu_torch.native\n"
+        "import carca_tpu_torch.validate_presets, carca_tpu_torch.eval_retrieval_offline\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
     )
