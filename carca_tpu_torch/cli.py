@@ -34,7 +34,8 @@ asks for the CPU, and nothing falls back to it.
   Each rank takes ``cuda:{LOCAL_RANK % device_count}`` (``--device cpu``:
   the CPU, on gloo); ranks that share a card talk over gloo, which checks
   correctness and measures no scaling. The world size must equal the
-  mesh's product. Rank 0 writes the run directory and prints ``final:``.
+  mesh's product. Rank 0 writes the run directory and prints ``final:``,
+  and every rank's fit metrics as ``final_by_rank:``.
   ``--sparse_items_adam true`` trains the item table with the row-sparse
   Adam there too (each model rank updating its block's rows); "auto"
   stays dense under a mesh, as in the JAX package.
@@ -295,16 +296,22 @@ def check_flags(args) -> None:
 _TPU_ONLY = ("pack_tables", "remat", "compilation_cache")
 
 
-def launch_counts() -> dict:
-    """Every kernel wrapper's launch count in this process."""
+def launch_counts(by_shape: bool = False) -> dict:
+    """Every kernel wrapper's launch count in this process; ``by_shape``
+    adds K1's and K2's by (Lq x Lk causal) shape."""
     from carca_tpu_torch.ops.flash_attention import attention_bwd, fused_attention
     from carca_tpu_torch.ops.retrieval_topk import catalog_topk, groupmax, tournament_rerank
 
-    return {"attention_fwd": fused_attention.launches,
-            "attention_bwd": attention_bwd.launches,
-            **{f"catalog_topk_{kind}": n for kind, n in catalog_topk.launches.items()},
-            **{f"groupmax_layout{lay}": n for lay, n in groupmax.launches.items()},
-            "tournament_rerank": tournament_rerank.launches}
+    out = {"attention_fwd": fused_attention.launches,
+           "attention_bwd": attention_bwd.launches,
+           **{f"catalog_topk_{kind}": n for kind, n in catalog_topk.launches.items()},
+           **{f"groupmax_layout{lay}": n for lay, n in groupmax.launches.items()},
+           "tournament_rerank": tournament_rerank.launches}
+    if by_shape:
+        for name, fn in (("attention_fwd", fused_attention), ("attention_bwd", attention_bwd)):
+            out[f"{name}_by_shape"] = {f"{lq}x{lk} causal {causal}": n
+                                       for (lq, lk, causal), n in fn.launches_by_shape.items()}
+    return out
 
 
 def join_mesh(args, device: str):
@@ -320,17 +327,15 @@ def join_mesh(args, device: str):
     return device, make_mesh(*parse_mesh(args.mesh))  # raises unless the world is n
 
 
-def _by_rank(values: dict, device) -> list:
-    """Every rank's numbers ``values`` (the same keys on each), in rank
-    order: one all-gather over the world (just ``[values]`` without one)."""
+def _objects_by_rank(obj) -> list:
+    """Every rank's ``obj`` (any picklable value), in rank order."""
     import torch.distributed as dist
 
     if not dist.is_initialized():
-        return [values]
-    t = torch.tensor([float(values[k]) for k in values], dtype=torch.float64, device=device)
-    out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
-    dist.all_gather(out, t)
-    return [dict(zip(values, r.tolist())) for r in out]
+        return [obj]
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
 
 
 def main(argv: Optional[list] = None, device: Optional[str] = None) -> dict:
@@ -350,10 +355,13 @@ def main(argv: Optional[list] = None, device: Optional[str] = None) -> dict:
     cfg = config_from_args(args, catalog.n_items, catalog.n_attrs, catalog.n_ctx)
     from carca_tpu_torch.train import loop
 
+    finals = None
     if args.model.lower() == "knn":
         metrics = loop.evaluate_knn(cfg, catalog, device=device)
     else:
         state, metrics = loop.fit(cfg, catalog, device=device)
+        if mesh is not None:  # every rank's metrics, before rank 0 adds its own
+            finals = _objects_by_rank(dict(metrics))
         if args.eval_retrieval and cfg.model.decoder == "ca":
             print("note: --eval_retrieval applies to the dot/wdot decoders (the cross-attention "
                   "decoder is a ranking model, not a retrieval tower); skipping retrieval eval")
@@ -370,14 +378,16 @@ def main(argv: Optional[list] = None, device: Optional[str] = None) -> dict:
                     cfg, catalog, model, k=args.eval_retrieval,
                     seen_only=args.retrieval_index == "seen"))
     rank0 = mesh is None or mesh.rank == 0
-    launches = _by_rank(launch_counts(), device)
+    launches = _objects_by_rank(launch_counts(by_shape=True))
     if rank0:
         print("final:", metrics)
         print("launches:", json.dumps(launch_counts()), flush=True)
         if mesh is not None:
             print("launches_by_rank:", json.dumps(launches), flush=True)
+            if finals is not None:
+                print("final_by_rank:", json.dumps(finals), flush=True)
     if torch.device(device).type == "cuda" and torch.cuda.is_initialized():
-        peaks = _by_rank({"peak_device_mib": torch.cuda.max_memory_allocated() / 2**20}, device)
+        peaks = _objects_by_rank({"peak_device_mib": torch.cuda.max_memory_allocated() / 2**20})
         if rank0:
             print("memory:", json.dumps(dict(peaks[0], by_rank=[p["peak_device_mib"]
                                                                 for p in peaks])), flush=True)

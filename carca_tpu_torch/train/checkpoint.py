@@ -9,15 +9,22 @@ directory is read without orbax. Under ``ckpt/``, one of each:
 * ``latest/state.pt`` — the full resume state: the model's and Adam's
   ``state_dict``, the row-sparse Adam's row state of the item table (None
   under the dense Adam), the states of both generators
-  (``TrainState.generator`` and ``seed_generator``), the step and the
-  epoch;
-* ``ema/ema.pt`` — the EMA shadow's ``state_dict`` and its step, refreshed
-  with ``latest/``; a resume refuses a shadow whose step is not
-  ``latest/``'s.
+  (``TrainState.generator`` and ``seed_generator``), the step, the epoch,
+  the EMA shadow at that step (``ema``: its ``state_dict`` and step, None
+  for a run without EMA) and ``fit``'s retention state (``progress``: the
+  best selection value so far and the epochs since it improved), so that a
+  resumed run retains and stops where an uninterrupted one would.
 
-Every file is written to a temporary name in its directory and then
-``os.replace``d, so a crash never leaves a torn checkpoint. Saves are
-synchronous.
+The resume state and its shadow are one file, so one ``os.replace``
+commits both: no crash can leave them at different steps. A run
+directory written before they were one file keeps the shadow in
+``ema/ema.pt``; it still resumes, and a shadow there whose step is not
+``latest/``'s is refused.
+
+Every file is written to a temporary name in its directory
+(``<name>.tmp<pid>``) and then ``os.replace``d, so a crash never leaves a
+torn checkpoint; a temporary file a killed process left behind is never
+read. Saves are synchronous.
 
 Over a mesh (``parallel/mesh.py``) every rank calls every method; rank 0
 alone writes, and each save ends in a barrier. With the item table
@@ -96,7 +103,8 @@ class CheckpointKeeper:
         self.best_params = os.path.join(self.dir, "best", "params.pt")
         self.best_sidecar = os.path.join(self.dir, "best", "metrics.json")
         self.latest = os.path.join(self.dir, "latest", "state.pt")
-        self.ema = os.path.join(self.dir, "ema", "ema.pt")
+        self.legacy_ema = os.path.join(self.dir, "ema", "ema.pt")  # before the shadow joined latest/
+        self._resumed: Optional[Dict[str, Any]] = None  # what restore_latest read beside the state
 
     def _whole(self, sd: Dict[str, Any]) -> Dict[str, Any]:
         """A state_dict with the item table whole on rank 0 (in host memory),
@@ -156,8 +164,10 @@ class CheckpointKeeper:
 
         self._write(write)
 
-    def save_latest(self, epoch: int, state, ema: Optional[torch.nn.Module] = None) -> None:
-        """The resume checkpoint; with ``ema``, the shadow at the same step."""
+    def save_latest(self, epoch: int, state, ema: Optional[torch.nn.Module] = None,
+                    progress: Optional[Dict[str, Any]] = None) -> None:
+        """The resume checkpoint: with ``ema``, the shadow at the same step,
+        and ``progress``, ``fit``'s retention state, in the same file."""
         rows = state.items_state
         if rows is not None and self.table_rows is not None:
             rows = dict(rows, munu=self._gather(rows["munu"]))
@@ -167,21 +177,20 @@ class CheckpointKeeper:
               "items_state": rows,
               "generator": state.generator.get_state(),
               "seed_generator": state.seed_generator.get_state(),
-              "step": state.step, "epoch": epoch}
-        shadow = None if ema is None else {"params": self._whole(ema.state_dict()),
-                                           "step": state.step, "epoch": epoch}
+              "step": state.step, "epoch": epoch,
+              "ema": None if ema is None else {"params": self._whole(ema.state_dict()),
+                                               "step": state.step},
+              "progress": progress}
 
-        def write() -> None:
-            _save(ck, self.latest)
-            if shadow is not None:
-                _save(shadow, self.ema)
-
-        self._write(write)
+        self._write(lambda: _save(ck, self.latest))
 
     def restore_latest(self, state) -> Optional[int]:
         """Load latest/ into ``state`` in place; its epoch, or None without one.
         Raises ValueError, before changing anything, when latest/ was saved
-        with the other item-table optimizer (row-sparse or dense)."""
+        with the other item-table optimizer (row-sparse or dense). The
+        shadow and the retention state saved with it wait for
+        ``restore_latest_ema`` and ``latest_progress``."""
+        self._resumed = None
         if not os.path.exists(self.latest):
             return None
         ck = _load(self.latest)
@@ -200,7 +209,13 @@ class CheckpointKeeper:
         state.generator.set_state(ck["generator"])
         state.seed_generator.set_state(ck["seed_generator"])
         state.step = int(ck["step"])
+        self._resumed = {k: ck[k] for k in ("ema", "progress") if k in ck}
         return int(ck["epoch"])
+
+    def latest_progress(self) -> Optional[Dict[str, Any]]:
+        """``fit``'s retention state saved with the restored latest/; None
+        before a restore or for a latest/ saved without one."""
+        return (self._resumed or {}).get("progress")
 
     def restore_latest_model(self, model: torch.nn.Module) -> Optional[int]:
         """Load latest/'s parameters alone into ``model``; its epoch, or None."""
@@ -211,13 +226,21 @@ class CheckpointKeeper:
         return int(ck["epoch"])
 
     def restore_latest_ema(self, ema: torch.nn.Module, step: int) -> bool:
-        """Load the shadow saved with latest/ into ``ema``; False when the run
-        saved none. Raises when its step is not ``step`` (latest/'s)."""
-        if not os.path.exists(self.ema):
+        """Load the shadow saved with the restored latest/ into ``ema``; False
+        when the run saved none. Raises when its step is not ``step``
+        (latest/'s): a shadow in latest/ always has it, a directory of the
+        older layout (``ema/ema.pt``) may not."""
+        resumed = self._resumed or {}
+        if "ema" in resumed:
+            ck, where = resumed.pop("ema"), self.latest
+        elif os.path.exists(self.legacy_ema):
+            ck, where = _load(self.legacy_ema), self.legacy_ema
+        else:
             return False
-        ck = _load(self.ema)
+        if ck is None:
+            return False
         if int(ck["step"]) != int(step):
-            raise ValueError(f"{self.ema} holds the EMA shadow of step {ck['step']}, but "
+            raise ValueError(f"{where} holds the EMA shadow of step {ck['step']}, but "
                              f"latest/ is at step {step}: refusing a mismatched resume")
         ema.load_state_dict(self._block(ck["params"]))
         return True

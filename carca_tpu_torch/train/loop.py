@@ -889,14 +889,26 @@ def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
             raise ValueError(f"select_by={tc.select_by!r} selects on the monitored full-catalog "
                              "metric: set eval_retrieval_every >= 1")
 
-        best_m = keeper.best_metrics() if keeper is not None else None
-        best = _selection_metric(best_m, tc.select_by) if best_m else 0.0
-        no_improve = 0
+        # retention resumes where latest/ left it (best/ may already hold a
+        # later epoch of a killed run); else from best/, counting afresh
+        progress = keeper.latest_progress() if keeper is not None else None
+        resumed = progress is not None and progress["select_by"] == tc.select_by
+        if resumed:
+            best, no_improve = progress["best"], progress["no_improve"]
+        else:
+            best_m = keeper.best_metrics() if keeper is not None else None
+            best = _selection_metric(best_m, tc.select_by) if best_m else 0.0
+            no_improve = 0
         best_in_memory = -1  # the epoch whose improving save still matches the live state
         final: Dict[str, float] = {}
         epoch = start_epoch - 1
+        # a resumed run whose latest/ was saved at its early stop stays stopped
+        stopped = resumed and no_improve >= tc.early_stop
+        if stopped:
+            emit(f"No improvement in {no_improve} epochs, early stopping...")
+        epochs = () if stopped else range(start_epoch, tc.epochs + 1)
 
-        for epoch in range(start_epoch, tc.epochs + 1):
+        for epoch in epochs:
             ep_rng = np.random.default_rng([tc.seed, epoch])
             t0 = time.perf_counter()
             n_batches, n_examples = 0, 0
@@ -1035,7 +1047,8 @@ def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
             # the resume point, on its cadence and at a run's first epoch
             if keeper is not None and (epoch % max(tc.checkpoint_interval, 1) == 0
                                        or epoch == start_epoch):
-                keeper.save_latest(epoch, state, ema=ema)
+                keeper.save_latest(epoch, state, ema=ema, progress={
+                    "best": best, "no_improve": no_improve, "select_by": tc.select_by})
             if no_improve >= tc.early_stop:
                 emit(f"No improvement in {no_improve} epochs, early stopping...")
                 break

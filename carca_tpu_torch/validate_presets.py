@@ -29,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from carca_tpu_torch.cli import launch_counts
 from carca_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -75,19 +76,6 @@ def family_config(fam: dict, epochs: int, early_stop: int, out_dir: str) -> Conf
                                     seed=0, out_dir=out_dir, checkpoint_resume=True))
 
 
-def kernel_launches() -> dict:
-    """Every kernel wrapper's launch count in this process, with K1's and
-    K2's by (Lq x Lk causal) shape."""
-    from carca_tpu_torch.cli import launch_counts
-    from carca_tpu_torch.ops.flash_attention import attention_bwd, fused_attention
-
-    out = launch_counts()
-    for name, fn in (("attention_fwd", fused_attention), ("attention_bwd", attention_bwd)):
-        out[f"{name}_by_shape"] = {f"{lq}x{lk} causal {causal}": n
-                                   for (lq, lk, causal), n in fn.launches_by_shape.items()}
-    return out
-
-
 def _since(before: dict, after: dict) -> dict:
     out = {}
     for key, n in after.items():
@@ -108,14 +96,14 @@ def run_family(name: str, epochs: int, early_stop: int, out: str, device: str) -
         reference = json.load(fh)
     cat = family_catalog(fam)
     cfg = family_config(fam, epochs, early_stop, os.path.join(out, f"run_{name}"))
-    before = kernel_launches()
+    before = launch_counts(by_shape=True)
     t0 = time.perf_counter()
     _, metrics = fit(cfg, cat, device=device)
     wall = time.perf_counter() - t0
     dev = torch.device(device)
     result = {"family": name, "config": fam, "carca_tpu_torch": metrics,
               "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else str(dev),
-              "wall_seconds": wall, "launches": _since(before, kernel_launches()),
+              "wall_seconds": wall, "launches": _since(before, launch_counts(by_shape=True)),
               "reference": reference}
     with open(os.path.join(out, f"VALIDATION_{name}.json"), "w") as fh:
         json.dump(result, fh, indent=2)

@@ -217,6 +217,28 @@ raises and exits non-zero:
              carca_tpu_torch.serve.service --run_dir` against an
              in-process Recommender and the CPU plain path, and K3 f32 at
              d=128 over its seen index against its plain version, timed.
+13. scaling + failover — 13a: `python -m carca_tpu_torch.bench_scaling
+             --sizes 1,2` and `--sizes 2 --shard_embeddings` (subprocesses,
+             one group of rank processes per size, sharing the card over
+             gloo): one line per size with finite rates, logged as
+             mechanics, not scaling; every rank ran K1 and K2 on the card;
+             each group's transport in its stderr held to the rule (nccl
+             only when every rank has a card); K1/K2 at the flagship
+             encoder and decoder at a rank's batch of 256 (the harness) and
+             128 (the failover's rank-local batch) against their plain
+             versions (phase 3's tolerances), timed beside them and SDPA.
+             13b, the failure path on phase 9's data: run a, `torchrun
+             --nproc_per_node 2 -m carca_tpu_torch.cli --preset beauty
+             --mesh 2 --epochs 99 --checkpoint_interval 1`, its rank 1
+             SIGKILLed once ckpt/latest/state.pt exists (torchrun must exit
+             non-zero); run b, the same directory with `--resume true
+             --epochs 3`, must train exactly the epochs after latest/'s and
+             end at epoch 3 with both ranks' final metrics equal and K1/K2
+             launched; a control of `--epochs 3` in its own directory. The
+             card's attention gradients and scatter-adds are not
+             bit-deterministic, so the resumed per-epoch train loss is held
+             within 1e-3 relative of the control's same epochs and the final
+             val and test NDCG@10 within 0.01 (the CPU test holds equality).
 
 Tolerance of the retrieval kernels against their plain versions: K3, K4
 and the rerank score on the tensor cores (csrc/scoring.cuh), the plain
@@ -230,7 +252,9 @@ The main paths are the 100k slice (phase 5), the 10M slice (5c), the
 retrieval bench (5d), the train step (8), the fit and serve entry points
 (9), the 10M fit, its retrieval evaluation and the offline evaluation
 (10, 12d), the mesh fits and the sharded service (11, counted in each
-rank), and the family fits and the fashion service (12): each runs with every
+rank), the family fits and the fashion service (12), and the scaling
+harness's ranks and the failover's resumed and control runs (13, counted
+in each rank): each runs with every
 launch counter set to 0 just before it and read just after (the fits run
 as subprocesses, which start at 0 and print their counts at the end). The line before the
 last is a JSON object listing the kernels, each with its launches on the
@@ -265,6 +289,7 @@ import torch
 import torch.nn.functional as F
 
 from carca_tpu_torch import bench, bench_retrieval
+from carca_tpu_torch.cli import launch_counts
 from carca_tpu_torch.config import Config, preset
 from carca_tpu_torch.data.dataset import BatchBuilder, epoch_batches
 from carca_tpu_torch.data.device_pipeline import DeviceDataset, assemble_train
@@ -298,7 +323,6 @@ from carca_tpu_torch.train.loop import (RetrievalEvaluator, _sparse_device_updat
 from carca_tpu_torch.train.loop import fit as fit_loop
 from carca_tpu_torch.train.state import create_train_state
 from carca_tpu_torch.validate_presets import FAMILIES, family_catalog, family_config
-from carca_tpu_torch.validate_presets import kernel_launches as counts
 
 SEED = 0
 N_USERS, N_REAL_ITEMS = 4096, 99_999
@@ -443,6 +467,11 @@ def reset_counts() -> None:
     catalog_topk.launches.update({kind: 0 for kind in INDEX_KINDS})
     groupmax.launches.update({0: 0, 1: 0})
     tournament_rerank.launches = 0
+
+
+def counts() -> dict:
+    """Every kernel's launch count in this process, K1's and K2's also by shape."""
+    return launch_counts(by_shape=True)
 
 
 def shape_key(lq, lk, causal) -> str:
@@ -3071,6 +3100,262 @@ def phase_families(card) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------
+# phase 13: the weak-scaling harness and the mesh run's failure path
+# --------------------------------------------------------------------------
+
+# 13a: `python -m carca_tpu_torch.bench_scaling` runs (--sizes, --shard_embeddings)
+SCALING_RUNS = (("1,2", False), ("2", True))
+SCALING_TIMEOUT_S = 600
+# 13b: run a is killed once latest/ is committed; run b and the control end
+# at FAILOVER_EPOCHS. The card's attention gradients and the embedding's
+# scatter-add are not bit-deterministic, so the resumed run equals the
+# control within these (exact equality is the CPU test's job,
+# tests/test_torch_mesh_failover.py)
+FAILOVER_EPOCHS = 3
+FAILOVER_SNAPSHOT_S = 300  # run a's first latest/ must be committed within
+FAILOVER_GRACE_S = 60  # the survivor's time to end after the kill (the JAX test's)
+FAILOVER_LOSS_RTOL = 1e-3  # per-epoch train loss after the resume point, relative
+FAILOVER_NDCG_TOL = 0.01  # final val and test NDCG@10, absolute
+
+
+def scaling_run(card, sizes: str, shard: bool) -> dict:
+    """13a: one `python -m carca_tpu_torch.bench_scaling` run (a subprocess
+    that starts a group of rank processes per size): its lines, each
+    rank's K1/K2 launches, and the transport each group logged, held to
+    the rule (nccl when every rank has a card, else gloo)."""
+    args = ["--sizes", sizes] + (["--shard_embeddings"] if shard else [])
+    t0 = time.perf_counter()
+    out, err = run_module("carca_tpu_torch.bench_scaling", args, SCALING_TIMEOUT_S,
+                          with_stderr=True)
+    wall = time.perf_counter() - t0
+    lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    ranks = [json.loads(ln[len("launches: "):]) for ln in err.splitlines()
+             if ln.startswith("launches: ")]
+    backends = [ln for ln in err.splitlines() if ln.startswith("initialize_distributed: ")]
+    n_sizes = [int(n) for n in sizes.split(",")]
+    check([r["devices"] for r in lines] == n_sizes, f"bench_scaling {args}: lines {lines}")
+    base = n_sizes[0]
+    for r in lines:
+        check(np.isfinite(r["examples_per_sec"]) and r["examples_per_sec"] > 0
+              and f"efficiency_vs_{base}dev" in r and "per_chip" in r,
+              f"bench_scaling {args}: line {r}")
+    for n in n_sizes:
+        group = [r for r in ranks if r["size"] == n]
+        check(sorted(r["rank"] for r in group) == list(range(n)),
+              f"bench_scaling {args}: size {n} printed launches for ranks "
+              f"{[r['rank'] for r in group]}")
+        for r in group:
+            check(r["device"].startswith("cuda") and r["attention_fwd"] > 0
+                  and r["attention_bwd"] > 0,
+                  f"bench_scaling {args}: size {n} rank {r['rank']} did not run K1 and K2 "
+                  f"on the card ({r})")
+        if n > 1:
+            want = "nccl" if torch.cuda.device_count() >= n else "gloo"
+            said = [ln for ln in backends if f"/{n} on " in ln]
+            check(len(said) == n and all(f"backend {want} " in ln for ln in said),
+                  f"bench_scaling {args}: size {n} logged {said}, want backend {want}")
+    mechanics = ("ranks share one card over gloo" if torch.cuda.device_count() < max(n_sizes)
+                 else "one card per rank over nccl")
+    log("scaling", card=card, run="python -m carca_tpu_torch.bench_scaling " + " ".join(args),
+        mechanics=mechanics, lines=lines, backends=backends, wall_s=wall,
+        launches_by_rank=[{k: r[k] for k in ("size", "rank", "attention_fwd", "attention_bwd")}
+                          for r in ranks])
+    return {"args": args, "lines": lines, "ranks": ranks}
+
+
+def descendants(pid: int) -> list:
+    """The processes under ``pid``, from /proc."""
+    kids = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as fh:
+                ppid = int(fh.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, IndexError, ValueError):
+            continue
+        kids.setdefault(ppid, []).append(int(entry))
+    out, todo = [], [pid]
+    while todo:
+        for c in kids.get(todo.pop(), []):
+            out.append(c)
+            todo.append(c)
+    return out
+
+
+def rank_pid(pid: int, rank: int) -> int:
+    """The pid of torchrun ``pid``'s worker of ``rank`` (by its environment;
+    the workers are torchrun's children, listed before their own)."""
+    for c in descendants(pid):
+        try:
+            with open(f"/proc/{c}/environ", "rb") as fh:
+                env = fh.read().split(b"\0")
+        except OSError:
+            continue
+        if f"RANK={rank}".encode() in env:
+            return c
+    raise RuntimeError(f"check failed: no worker of rank {rank} under torchrun {pid}")
+
+
+def killed_run(args, latest: str, log_dir: str) -> dict:
+    """13b's run a: ``torchrun --nproc_per_node 2 args`` in a session of its
+    own; once ``latest`` exists, rank 1's worker is SIGKILLed; torchrun
+    (and the survivor) get FAILOVER_GRACE_S to end, then the session is
+    killed. Every process it started is gone when this returns."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(MESH_RANKS), *args]
+    with open(os.path.join(log_dir, "run_a.out"), "w") as out, \
+            open(os.path.join(log_dir, "run_a.err"), "w") as err:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=err, start_new_session=True)
+    t0 = time.perf_counter()
+    try:
+        while not os.path.exists(latest):
+            check(proc.poll() is None, f"run a ended (exit {proc.returncode}) before {latest}")
+            check(time.perf_counter() - t0 < FAILOVER_SNAPSHOT_S,
+                  f"run a: no {latest} within {FAILOVER_SNAPSHOT_S} s")
+            time.sleep(0.02)
+        snapshot_s = time.perf_counter() - t0
+        victim = rank_pid(proc.pid, 1)
+        os.kill(victim, 9)
+        try:
+            rc = proc.wait(timeout=FAILOVER_GRACE_S)
+            ended = "by itself"
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            rc, ended = proc.wait(), f"killed after {FAILOVER_GRACE_S} s"
+    finally:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, 9)
+        proc.wait()
+    return {"seconds_to_first_snapshot": snapshot_s, "killed_rank": 1, "torchrun_exit": rc,
+            "torchrun_ended": ended}
+
+
+def epochs_trained(out: str) -> list:
+    """The epochs whose train loss a run printed."""
+    return [int(m.group(1)) for m in re.finditer(r"Epoch (\d+): Train Loss", out)]
+
+
+def mesh_run_numbers(out: str, t0: float) -> dict:
+    """A `cli --mesh 2` run's numbers from its stdout (rank 0's lines)."""
+    return {"wall_s": time.perf_counter() - t0,
+            "final": ast.literal_eval(next(ln for ln in out.splitlines()
+                                           if ln.startswith("final: "))[7:]),
+            "final_by_rank": launches_line(out, "final_by_rank"),
+            "launches_by_rank": launches_line(out, "launches_by_rank"),
+            "epochs": epochs_trained(out)}
+
+
+def failover(card, base: list, tmp: str) -> dict:
+    """13b: a `cli --mesh 2` run killed once its first latest/ is committed
+    (run a, `--epochs 99`), restarted on its directory with `--resume true
+    --epochs 3` (run b), against an uninterrupted `--epochs 3` run (the
+    control, started beside run a: process start-up is most of each run).
+    ``base``: the cli's arguments without --epochs, --resume and --out_dir.
+    Checks the resume; returns the runs' numbers."""
+    run, control = os.path.join(tmp, "run_failover"), os.path.join(tmp, "run_control")
+    latest = os.path.join(run, "ckpt", "latest", "state.pt")
+
+    def args(epochs, resume, out_dir):
+        return base + ["--epochs", str(epochs), "--resume", str(resume).lower(),
+                       "--checkpoint_interval", "1", "--out_dir", out_dir]
+
+    t0 = time.perf_counter()
+    with open(os.path.join(tmp, "control.out"), "w+") as control_out:
+        control_proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+             str(MESH_RANKS), *args(FAILOVER_EPOCHS, False, control)],
+            cwd=ROOT, stdout=control_out, stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            a = killed_run(args(99, False, run), latest, tmp)
+            a["wall_s"] = time.perf_counter() - t0
+            check(a["torchrun_exit"] != 0,
+                  f"run a: expected an unclean death, torchrun exited 0 ({a})")
+            resumed_from = int(torch.load(latest, map_location="cpu",
+                                          weights_only=False)["epoch"])
+            check(1 <= resumed_from < FAILOVER_EPOCHS,
+                  f"run a's latest/ is at epoch {resumed_from}: nothing left to resume to "
+                  f"{FAILOVER_EPOCHS}")
+            for d, name in (("latest", "state.pt"), ("best", "params.pt")):  # torn leftovers
+                with open(os.path.join(run, "ckpt", d, f"{name}.tmp99999"), "wb") as fh:
+                    fh.write(b"torn")
+            t1 = time.perf_counter()
+            b = mesh_run_numbers(run_ranks(args(FAILOVER_EPOCHS, True, run), MESH_TIMEOUT_S), t1)
+            control_rc = control_proc.wait(timeout=MESH_TIMEOUT_S)
+        finally:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(control_proc.pid, 9)
+            control_proc.wait()
+        control_out.seek(0)
+        out = control_out.read()
+    if control_rc != 0:
+        sys.stderr.write(out[-6000:])
+    check(control_rc == 0, f"the control run exited {control_rc}")
+    c = mesh_run_numbers(out, t0)
+
+    want_epochs = list(range(resumed_from + 1, FAILOVER_EPOCHS + 1))
+    check(b["epochs"] == want_epochs, f"run b trained epochs {b['epochs']}, want {want_epochs} "
+                                      f"(latest/ at epoch {resumed_from})")
+    check(c["epochs"] == list(range(1, FAILOVER_EPOCHS + 1)), f"control epochs {c['epochs']}")
+    for tag, r in (("b", b), ("control", c)):
+        check(r["final"]["epochs_run"] == FAILOVER_EPOCHS, f"run {tag}: {r['final']}")
+        check(all(f == r["final_by_rank"][0] for f in r["final_by_rank"]),
+              f"run {tag}: the ranks disagree: {r['final_by_rank']}")
+    check(int(torch.load(latest, map_location="cpu", weights_only=False)["epoch"])
+          == FAILOVER_EPOCHS, "run b did not refresh latest/ to its last epoch")
+    with open(os.path.join(run, "metrics.jsonl")) as fh:
+        resumed_rows = [json.loads(ln) for ln in fh][-len(want_epochs):]
+    with open(os.path.join(control, "metrics.jsonl")) as fh:
+        control_rows = [json.loads(ln) for ln in fh][resumed_from:]
+    check([r["epoch"] for r in resumed_rows] == [r["epoch"] for r in control_rows] == want_epochs,
+          "the resumed and the control runs' metrics.jsonl do not line up")
+    loss_rel = [abs(x["train_loss"] - y["train_loss"]) / abs(y["train_loss"])
+                for x, y in zip(resumed_rows, control_rows)]
+    ndcg_diff = {k: abs(b["final"][k] - c["final"][k]) for k in ("val_ndcg", "test_ndcg")}
+    result = {"run_a": a, "resumed_from_epoch": resumed_from, "epochs_after_resume": want_epochs,
+              "train_loss_rel_diff": loss_rel, "ndcg10_abs_diff": ndcg_diff,
+              **{f"run_{tag}": {k: r[k] for k in ("wall_s", "final", "launches_by_rank")}
+                 for tag, r in (("b", b), ("control", c))}}
+    log("failover", card=card, transport=transport(), run="torchrun cli " + " ".join(base),
+        **result)
+    check(max(loss_rel) <= FAILOVER_LOSS_RTOL,
+          f"resumed train loss differs from the control's by {loss_rel} (tol {FAILOVER_LOSS_RTOL})")
+    check(max(ndcg_diff.values()) <= FAILOVER_NDCG_TOL,
+          f"resumed NDCG@10 differs from the control's by {ndcg_diff} (tol {FAILOVER_NDCG_TOL})")
+    return result
+
+
+def phase_scaling_failover(card) -> dict:
+    """Phase 13. 13a: the weak-scaling harness at --sizes 1,2 and at --sizes
+    2 --shard_embeddings, K1/K2 on every rank; K1/K2 at the harness's
+    shapes (the flagship encoder and decoder at a rank's batch of 256 and
+    128) against their plain versions. 13b: the failure path of a
+    `cli --preset beauty --mesh 2` run on phase 9's data."""
+    tmp = tempfile.mkdtemp(prefix="carca_scaling_")
+    try:
+        scaling = [scaling_run(card, sizes, shard) for sizes, shard in SCALING_RUNS]
+        attn = {(b, causal): attention_at(card, b * (2 if causal == -1 else 1), L, L, causal,
+                                          where="bench_scaling")
+                for b in (B, B // MESH_RANKS) for causal in (0, -1)}
+        torch.cuda.empty_cache()
+        data_dir = os.path.join(tmp, "data")
+        write_reference_format(synthetic_catalog(n_users=FIT_USERS, n_real_items=FIT_ITEMS,
+                                                 seed=SEED), data_dir)
+        base = ["-m", "carca_tpu_torch.cli", "--preset", "beauty", "--data_dir", data_dir,
+                "--profile_file", "profiles.txt", "--attr_file", "attrs.pkl", "--ctx_file",
+                "ctx.pkl", "--device_pipeline", "true", "--seed", str(SEED), "--mesh",
+                str(MESH_RANKS)]
+        fo = failover(card, base, tmp)
+        for tag in ("run_b", "run_control"):
+            for r, n in enumerate(fo[tag]["launches_by_rank"]):
+                check(n["attention_fwd"] > 0 and n["attention_bwd"] > 0,
+                      f"failover {tag}: rank {r} did not run K1 and K2 ({n})")
+        return {"scaling": scaling, "attn": attn, "failover": fo}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def kernel_entry(name, source, replaces, n, err, ms_plain, bytes_moved, ops, operand, lib=None,
                  shape=None) -> dict:
     """One kernel of the kernels line."""
@@ -3155,6 +3440,37 @@ def mesh_entries(m) -> list:
         "carca_tpu/ops/retrieval_topk.py:497", serve["tournament_rerank"], t["rerank_err"],
         t["rerank"], kg * GROUP * (D + f32) + kg * 8 + D * f32 + kg * GROUP * f32,
         2 * kg * GROUP * D, "bfloat16", None, f"{shard}, k={K + L}, {kg} groups")
+    return entries
+
+
+def scaling_entries(p) -> list:
+    """The kernels line's entries for phase 13: K1/K2 at the flagship encoder
+    and decoder at a rank's batch of 256 (launches: every rank of both
+    bench_scaling runs) and of 128 (the --mesh 2 failover's rank-local
+    batch; launches: both ranks of run b and of the control), by shape."""
+    f32 = 4
+    harness = [r for run in p["scaling"] for r in run["ranks"]]
+    failover = [n for tag in ("run_b", "run_control")
+                for n in p["failover"][tag]["launches_by_rank"]]
+    entries = []
+    for (b, causal), res in p["attn"].items():
+        ranks, path = ((harness, "scaling") if b == B else (failover, "failover"))
+        part = "encoder" if causal == 0 else "decoder"
+        bb = b * (2 if causal == -1 else 1)
+        key, masks = shape_key(L, L, causal), bb * 2 * L * f32
+        n = {kind: sum(r[f"attention_{kind}_by_shape"].get(key, 0) for r in ranks)
+             for kind in ("fwd", "bwd")}
+        shape = (f"{'bench_scaling ranks' if b == B else 'cli --mesh 2 failover, rank-local'} "
+                 f"{part} [{bb},{L},{D}] x [{bb},{L},{D}] causal {causal} dropout {P_DROP}")
+        entries.append(kernel_entry(
+            f"attention_fwd_{path}_{part}", "carca_tpu_torch/csrc/attention_fwd.cu",
+            "carca_tpu/ops/flash_attention.py:113", n["fwd"], res["k1_err"], res["k1"],
+            4 * bb * L * D * f32 + masks, 4 * bb * L * L * D, "3xtf32", res["lib"]["fwd"], shape))
+        entries.append(kernel_entry(
+            f"attention_bwd_{path}_{part}", "carca_tpu_torch/csrc/attention_bwd.cu",
+            "carca_tpu/ops/flash_attention.py:130", n["bwd"], res["k2_err"], res["k2"],
+            7 * bb * L * D * f32 + masks, 10 * bb * L * L * D, "3xtf32", res["lib"]["bwd"],
+            shape))
     return entries
 
 
@@ -3325,6 +3641,8 @@ def main() -> None:
     mesh = timed("11 mesh", phase_mesh, card)
     torch.cuda.empty_cache()
     families = timed("12 families", phase_families, card)
+    torch.cuda.empty_cache()
+    scaling = timed("13 scaling + failover", phase_scaling_failover, card)
     launches = {"slice": serve_launches, "slice_10m": launches_10m, "bench": bench_launches,
                 "train": train_launches, "fit_serve": fit_launches,
                 "fit_10m": fit10m["fit"]["launches"], **{
@@ -3332,12 +3650,16 @@ def main() -> None:
                 **{f"offline_eval_10m {case}": r["launches"]
                    for case, r in fit10m["offline"].items()},
                 **{f"family {name}": r["launches"] for name, r in families["fits"].items()},
-                "family_serve": families["serve"]["launches"]}
+                "family_serve": families["serve"]["launches"],
+                **{"scaling " + " ".join(run["args"]): run["ranks"]
+                   for run in scaling["scaling"]},
+                **{f"failover {tag}": scaling["failover"][tag]["launches_by_rank"]
+                   for tag in ("run_b", "run_control")}}
     log("launches", **launches)
     log("phase_seconds", total=sum(seconds.values()), **seconds)
     entries = (kernel_entries(k1_err, k2_err, k3_err, k4_err, timings, k2_times, library,
                               launches) + fit10m_entries(fit10m, launches) + mesh_entries(mesh)
-               + family_entries(families))
+               + family_entries(families) + scaling_entries(scaling))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,12 @@ the ``smoke`` preset's size.
 * A run of 2 epochs resumed for 2 more gives the same losses, metrics and
   weights as one run of 4 (dropout on: the generators' states are saved),
   on both pipelines and under EMA.
-* The faults of the JAX package's checkpoints are not copied: an ``ema/``
-  whose step is not ``latest/``'s is refused; ``ema_decay`` 1.0 is
+* The faults of the JAX package's checkpoints are not copied: the EMA
+  shadow is saved in ``latest/`` with the state, in one atomic write, so a
+  save cut after its first write still resumes; a shadow whose step is
+  not ``latest/``'s (in ``latest/`` or in the older layout's ``ema/``) is
+  refused; a resumed run keeps early stop's counter and stops where the
+  uninterrupted run stops; ``ema_decay`` 1.0 is
   refused; the EMA rolls after every optimizer step, so with K-step calls
   the shadow is the one-step updates' (at ``inner_steps=1`` the JAX
   package's ``ema_update`` sequence, to float32 rounding).
@@ -46,8 +50,8 @@ def smoke(cat, out_dir, *, device_pipeline=False, **train):
     cfg = preset("smoke", cat.n_items, cat.n_attrs, cat.n_ctx)
     return dataclasses.replace(
         cfg, data=dataclasses.replace(cfg.data, device_pipeline=device_pipeline),
-        train=dataclasses.replace(cfg.train, out_dir=str(out_dir), early_stop=50,
-                                  inner_steps=2, **train))
+        train=dataclasses.replace(cfg.train, out_dir=str(out_dir),
+                                  **{"early_stop": 50, "inner_steps": 2, **train}))
 
 
 def metrics_rows(run):
@@ -75,8 +79,7 @@ def test_resume_equals_an_uninterrupted_run(tmp_path, cat, device_pipeline, ema_
     for name, t in wa["model"].items():
         assert torch.equal(t, wb["model"][name]), name
     if ema_decay:
-        ea, eb = (torch.load(os.path.join(r, "ckpt", "ema", "ema.pt"), weights_only=False)
-                  for r in (tmp_path / "whole", tmp_path / "split"))
+        ea, eb = wa["ema"], wb["ema"]  # the shadow saved in latest/ with the state
         assert ea["step"] == eb["step"] == wa["step"]
         assert all(torch.equal(t, eb["params"][n]) for n, t in ea["params"].items())
 
@@ -84,13 +87,126 @@ def test_resume_equals_an_uninterrupted_run(tmp_path, cat, device_pipeline, ema_
 def test_resume_refuses_an_ema_of_another_step(tmp_path, cat):
     cfg = smoke(cat, tmp_path, epochs=2, ema_decay=0.5)
     fit(cfg, cat, device="cpu")
-    path = tmp_path / "ckpt" / "ema" / "ema.pt"
+    path = tmp_path / "ckpt" / "latest" / "state.pt"
     ck = torch.load(path, weights_only=False)
-    ck["step"] -= 1
+    ck["ema"]["step"] -= 1
     torch.save(ck, path)
     with pytest.raises(ValueError, match="mismatched resume"):
         fit(dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, epochs=3)), cat,
             device="cpu")
+
+
+def to_legacy_layout(ckpt) -> dict:
+    """Rewrite a run's latest/ in the layout of a directory written before
+    the shadow joined it: the shadow in ema/ema.pt, none in state.pt.
+    Returns the shadow."""
+    path = ckpt / "latest" / "state.pt"
+    ck = torch.load(path, weights_only=False)
+    shadow = dict(ck.pop("ema"), epoch=ck["epoch"])
+    ck.pop("progress")
+    torch.save(ck, path)
+    os.makedirs(ckpt / "ema", exist_ok=True)
+    torch.save(shadow, ckpt / "ema" / "ema.pt")
+    return shadow
+
+
+def test_a_directory_of_the_older_layout_resumes_and_refuses_a_mismatch(tmp_path, cat):
+    """latest/ with its shadow in ema/ema.pt resumes to the run the same
+    directory in the current layout gives; a shadow there of another step
+    is refused."""
+    kw = dict(epochs=2, ema_decay=0.5)
+    for name in ("now", "older", "mismatched"):
+        fit(smoke(cat, tmp_path / name, **kw), cat, device="cpu")
+    to_legacy_layout(tmp_path / "older" / "ckpt")
+    shadow = to_legacy_layout(tmp_path / "mismatched" / "ckpt")
+    torch.save(dict(shadow, step=shadow["step"] - 1),
+               tmp_path / "mismatched" / "ckpt" / "ema" / "ema.pt")
+    kw["epochs"] = 3
+    want = fit(smoke(cat, tmp_path / "now", **kw), cat, device="cpu")[1]
+    got = fit(smoke(cat, tmp_path / "older", **kw), cat, device="cpu")[1]
+    assert got == want and want["epochs_run"] == 3
+    assert latest_weights(tmp_path / "older")["ema"]["step"] == latest_weights(
+        tmp_path / "now")["ema"]["step"]
+    with pytest.raises(ValueError, match="mismatched resume"):
+        fit(smoke(cat, tmp_path / "mismatched", **kw), cat, device="cpu")
+
+
+class Killed(BaseException):
+    """The process dies here."""
+
+
+def test_a_save_latest_cut_after_its_first_write_still_resumes(tmp_path, cat, monkeypatch):
+    """A save_latest that dies right after its first file write (the
+    resume state's, where the shadow once followed in a file of its own)
+    leaves a directory that resumes to the state and shadow of one step;
+    the temporary files a killed writer leaves are not read."""
+    from carca_tpu_torch.train import checkpoint
+
+    cfg = smoke(cat, tmp_path, epochs=2, ema_decay=0.5)
+    fit(cfg, cat, device="cpu")
+    mc, tc = cfg.model, cfg.train
+    keeper = CheckpointKeeper(str(tmp_path / "ckpt"))
+    state = create_train_state(mc, tc, device="cpu")
+    assert keeper.restore_latest(state) == 2
+    ema = create_train_state(mc, tc, device="cpu").model
+    assert keeper.restore_latest_ema(ema, state.step)
+    with torch.no_grad():  # one step on, the live weights and the shadow apart
+        for p, e in zip(state.model.parameters(), ema.parameters()):
+            p.add_(0.25)
+            e.sub_(0.5)
+    state.step += 1
+    real, written = checkpoint._save, []
+
+    def dies_after_the_first_write(obj, path):
+        real(obj, path)
+        written.append(path)
+        raise Killed
+
+    monkeypatch.setattr(checkpoint, "_save", dies_after_the_first_write)
+    with pytest.raises(Killed):
+        keeper.save_latest(3, state, ema=ema)
+    monkeypatch.undo()
+    assert written == [keeper.latest]
+    for d in ("latest", "ema"):  # what a SIGKILL mid-write leaves
+        os.makedirs(tmp_path / "ckpt" / d, exist_ok=True)
+        (tmp_path / "ckpt" / d / f"{'state' if d == 'latest' else 'ema'}.pt.tmp99999"
+         ).write_bytes(b"torn")
+
+    back = create_train_state(mc, tc, device="cpu")
+    again = CheckpointKeeper(str(tmp_path / "ckpt"))
+    assert again.restore_latest(back) == 3 and back.step == state.step
+    shadow = create_train_state(mc, tc, device="cpu").model
+    assert again.restore_latest_ema(shadow, back.step)
+    for got, want in ((back.model, state.model), (shadow, ema)):
+        for (n, a), b in zip(got.state_dict().items(), want.state_dict().values()):
+            assert torch.equal(a, b), n
+    final = fit(dataclasses.replace(cfg, train=dataclasses.replace(tc, epochs=4)), cat,
+                device="cpu")[1]
+    assert final["epochs_run"] == 4 and np.isfinite(final["test_ndcg"])
+
+
+def test_a_resumed_run_stops_where_the_uninterrupted_run_stops(tmp_path, cat):
+    """Early stop's counter and the best value travel with latest/: a run
+    split where the counter stands above 0 stops at the same epoch, with
+    the same metrics, as the run never split; a run resumed after its
+    early stop trains no further epoch."""
+    kw = dict(epochs=40, early_stop=2)
+    whole = fit(smoke(cat, tmp_path / "whole", **kw), cat, device="cpu")[1]
+    rows = metrics_rows(tmp_path / "whole")
+    assert whole["epochs_run"] < kw["epochs"], "the run never stopped early"
+    best, counts = 0.0, []
+    for r in rows:  # the counter after each epoch, as fit keeps it
+        counts.append(0 if r["val_ndcg"] > best else counts[-1] + 1)
+        best = max(best, r["val_ndcg"])
+    split_at = counts.index(1) + 1
+    fit(smoke(cat, tmp_path / "split", **dict(kw, epochs=split_at)), cat, device="cpu")
+    resumed = fit(smoke(cat, tmp_path / "split", **kw), cat, device="cpu")[1]
+    assert resumed == whole
+    keys = ("epoch", "train_loss", "val_loss", "val_hr", "val_ndcg")
+    assert ([[r[k] for k in keys] for r in metrics_rows(tmp_path / "split")]
+            == [[r[k] for k in keys] for r in rows])
+    again = fit(smoke(cat, tmp_path / "split", **kw), cat, device="cpu")[1]
+    assert "val_hr" not in again and again["test_ndcg"] == whole["test_ndcg"]
 
 
 @pytest.mark.parametrize("decay", [1.0, -0.5, 1.5])

@@ -7,6 +7,9 @@ with the environment torchrun gives its ranks (``RANK``, ``WORLD_SIZE``,
 runs ``SUITES[suite](payload)`` and pickles what it returns. ``launch``
 returns the ranks' results in rank order, and raises with the ranks'
 stderr if one fails or the group outlives ``timeout``.
+``launch_and_kill(world, suite, payload, watch)`` starts them the same way
+and SIGKILLs one rank once the path ``watch`` exists (the failure path of
+a mesh run); it returns the ranks' exit codes.
 
 The ranks import torch, numpy and the port only, never jax: the test
 modules hold the JAX references and pass plain arrays in the payload.
@@ -23,6 +26,7 @@ import socket
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -34,21 +38,41 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _start(world: int, suite: str, payload, tmp: str) -> list:
+    """The ranks' processes, each with its stderr (and stdout) in
+    ``tmp/rank{r}.err``: [(Popen, file), ...]."""
+    with open(os.path.join(tmp, "payload.pkl"), "wb") as fh:
+        pickle.dump(payload, fh)
+    port = _free_port()
+    procs = []
+    for r in range(world):
+        env = {k: v for k, v in os.environ.items() if k not in ("PYTHONSTARTUP",)}
+        env.update(RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(world),
+                   LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port), PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+        err = open(os.path.join(tmp, f"rank{r}.err"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, __file__, suite, os.path.join(tmp, "payload.pkl"), tmp],
+            env=env, cwd=str(ROOT), stdout=err, stderr=subprocess.STDOUT), err))
+    return procs
+
+
+def _logs(tmp: str, world: int) -> str:
+    return "".join(f"--- rank {r} ---\n" + Path(tmp, f"rank{r}.err").read_text()[-3000:]
+                   for r in range(world))
+
+
+def _reap(procs) -> None:
+    for p, err in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+        err.close()
+
+
 def launch(world: int, suite: str, payload, timeout: float = 240.0) -> list:
     with tempfile.TemporaryDirectory(prefix="carca_ranks_") as tmp:
-        with open(os.path.join(tmp, "payload.pkl"), "wb") as fh:
-            pickle.dump(payload, fh)
-        port = _free_port()
-        procs = []
-        for r in range(world):
-            env = {k: v for k, v in os.environ.items() if k not in ("PYTHONSTARTUP",)}
-            env.update(RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(world),
-                       LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
-                       MASTER_PORT=str(port), PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
-            err = open(os.path.join(tmp, f"rank{r}.err"), "w")
-            procs.append((subprocess.Popen(
-                [sys.executable, __file__, suite, os.path.join(tmp, "payload.pkl"), tmp],
-                env=env, cwd=str(ROOT), stdout=err, stderr=subprocess.STDOUT), err))
+        procs = _start(world, suite, payload, tmp)
         failed = []
         for r, (p, err) in enumerate(procs):
             try:
@@ -61,14 +85,42 @@ def launch(world: int, suite: str, payload, timeout: float = 240.0) -> list:
             if rc != 0:
                 failed.append((r, rc))
         if failed:
-            logs = "".join(f"--- rank {r} ---\n" + Path(tmp, f"rank{r}.err").read_text()[-3000:]
-                           for r in range(world))
-            raise RuntimeError(f"ranks {failed} failed\n{logs}")
+            raise RuntimeError(f"ranks {failed} failed\n{_logs(tmp, world)}")
         out = []
         for r in range(world):
             with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as fh:
                 out.append(pickle.load(fh))
         return out
+
+
+def launch_and_kill(world: int, suite: str, payload, watch: str, victim: int = 1,
+                    grace: float = 60.0, timeout: float = 300.0) -> list:
+    """Start the ranks as ``launch`` does; once the path ``watch`` exists,
+    SIGKILL rank ``victim``. A survivor that outlives the kill by ``grace``
+    seconds is killed too (the supervisor's part). Returns the ranks'
+    return codes; raises if ``watch`` never appears within ``timeout`` or
+    the ranks all end before it does."""
+    with tempfile.TemporaryDirectory(prefix="carca_ranks_") as tmp:
+        procs = _start(world, suite, payload, tmp)
+        try:
+            end = time.monotonic() + timeout
+            while not os.path.exists(watch):
+                if all(p.poll() is not None for p, _ in procs):
+                    raise RuntimeError(f"the ranks ended before {watch} appeared\n"
+                                       f"{_logs(tmp, world)}")
+                if time.monotonic() > end:
+                    raise RuntimeError(f"no {watch} within {timeout} s\n{_logs(tmp, world)}")
+                time.sleep(0.01)
+            procs[victim][0].kill()
+            end = time.monotonic() + grace
+            for p, _ in procs:
+                try:
+                    p.wait(timeout=max(0.0, end - time.monotonic()))
+                except subprocess.TimeoutExpired:
+                    p.kill()
+        finally:
+            _reap(procs)
+        return [p.returncode for p, _ in procs]
 
 
 # --------------------------------------------------------------------------
@@ -339,7 +391,17 @@ def suite_serve(p):
     return out
 
 
-SUITES = {"parallel": suite_parallel, "mesh_fit": suite_mesh_fit, "serve": suite_serve}
+def suite_failover(p):
+    """tests/test_torch_mesh_failover.py: one fit over the mesh (run a is
+    killed mid-fit and never returns); the final metrics."""
+    from carca_tpu_torch.data.synthetic import synthetic_catalog
+    from carca_tpu_torch.train.loop import fit
+
+    return fit(p["config"], synthetic_catalog(**p["catalog"]), device="cpu")[1]
+
+
+SUITES = {"parallel": suite_parallel, "mesh_fit": suite_mesh_fit, "serve": suite_serve,
+          "failover": suite_failover}
 
 
 def main() -> None:
