@@ -58,7 +58,7 @@ struct Forward {
   cudaError_t operator()() const {
     const cudaError_t err = carca::attn::launch_keep_bits(a, stream);
     if (err != cudaSuccess) return err;
-    return carca::attn::launch_rows<kDh, kBf16, false>(a, stream);
+    return carca::attn::launch_rows<kDh, kBf16>(a, stream);
   }
 };
 
@@ -80,7 +80,7 @@ int carca_attention_fwd(const void* q, const void* k, const void* v, const void*
                         void* stream) {
   const Args a{static_cast<const float*>(q), static_cast<const float*>(k),
                static_cast<const float*>(v), static_cast<const float*>(qm),
-               static_cast<const float*>(km), nullptr, static_cast<float*>(out), nullptr,
+               static_cast<const float*>(km), nullptr, static_cast<float*>(out),
                static_cast<uint32_t*>(bits), B, H, Lq, Lk, dh, has_causal, causal, 1.f / scale, dropout, seed, threshold,
                1.f / keep};
   return (int)carca::attn::dispatch(dh, bf16, Forward{a, static_cast<cudaStream_t>(stream)});

@@ -1,17 +1,17 @@
 // Shared pieces of the attention kernels K1 (attention_fwd.cu) and K2
 // (attention_bwd.cu): warp-level tensor-core products on 16-row tiles, the
-// staging of [64, dh] row tiles into shared memory, the pair mask, and the
-// query-major kernel that both K1 and K2's dQ pass run.
+// staging of [64, dh] row tiles into shared memory, the pair mask and the
+// masked-softmax arithmetic, and K1's query-major kernel.
 //
-// Tiles. A block has four warps and covers 64 rows (queries, or keys in
-// K2's dK/dV pass); each warp owns 16 of them. Keys (or queries) are
-// walked in tiles of 64 as well, so shared memory holds a fixed number of
+// Tiles. A block has four warps and covers 64 rows (queries; K2's second
+// half, keys); each warp owns 16 of them. Keys (or queries) are walked in
+// tiles of 64 as well, so shared memory holds a fixed number of
 // [64, kDh + 4] float tiles whatever Lq and Lk are; kDh is the head width
 // rounded up to 32, 64 or 128 (zero-padded columns). A head wider than 128
 // dims runs at kDh = 128 in column chunks: the score products sum over the
-// chunks, and each chunk of the output (dQ, dK, dV) takes its own walk over
-// the other dimension, so shared memory stays fixed there too. The row
-// stride kDh + 4 makes every fragment load below free of bank conflicts.
+// chunks, and each chunk of the output takes its own product, so shared
+// memory stays fixed there too. The row stride kDh + 4 makes every fragment
+// load below free of bank conflicts.
 //
 // Products (mma.cuh: mma.sync, m16n8, fp32 accumulators):
 // * float32 compute: m16n8k8 TF32 with the 3xTF32 split (mma.cuh).
@@ -70,7 +70,6 @@ struct Args {
   const float* km;    // [B, Lk]
   const float* dout;  // [B, Lq, H * dh], backward only
   float* out;         // forward: the output; backward: dq
-  float* stats;       // backward: [3, B * H * Lq] row max, row sum, sum_j dW_j w_j
   uint32_t* bits;     // dropout: keep bit of weight idx = bit idx % 32 of word idx / 32
   int B, H, Lq, Lk, dh, has_causal, causal;
   float inv_scale;  // 1 / scale, rounded once on the host
@@ -80,8 +79,9 @@ struct Args {
   float inv_keep;  // 1 / (1 - p)
 };
 
-// Blocks per SM the compiler must fit (registers): four 4-warp blocks at
-// head tiles up to 32, so the flagship's 512 (b, h) blocks fill one wave.
+// Blocks per SM the compiler must fit K1 into (registers): four 4-warp
+// blocks at head tiles up to 32, so the flagship's 512 (b, h) blocks fill one
+// wave. K2 has its own rule (attention_bwd.cu).
 template <int kDh>
 constexpr int min_blocks() {
   return kDh <= 32 ? 4 : 1;
@@ -91,16 +91,28 @@ constexpr int min_blocks() {
 // tensor-core products
 // ---------------------------------------------------------------------------
 
+// K2's products (kFast) split float32 operands by split_fast and keep the k
+// loop of a score product rolled at head tiles of 64 and more (fewer
+// registers); K1's split by split and unroll it whole.
+template <bool kFast>
+__device__ __forceinline__ Split split_as(float x) {
+  if constexpr (kFast) {
+    return split_fast(x);
+  } else {
+    return split(x);
+  }
+}
+
 // acc[n] += A B^T over kDh: A is the warp's 16 rows in shared memory, rows
 // a0 (fragment row g) and a1 (fragment row g + 8) of this lane; B a
 // [kTile, kDh + 4] tile whose rows are the columns of acc.
-template <int kDh, bool kBf16, int kN>
+template <int kDh, bool kBf16, int kN, bool kFast = false>
 __device__ __forceinline__ void mma_rows_bt(float (&acc)[kN][4], const float* a0,
                                             const float* a1, const float* bt, int g, int t) {
   constexpr int LD = kDh + 4;
-  if constexpr (kBf16) {
-#pragma unroll
-    for (int kk = 0; kk < kDh; kk += 16) {
+  // one k step: 16 (bf16) or 8 (TF32) columns of A and B
+  auto step = [&](int kk) {
+    if constexpr (kBf16) {
       const float2 x0 = *reinterpret_cast<const float2*>(a0 + kk + 2 * t);
       const float2 x1 = *reinterpret_cast<const float2*>(a1 + kk + 2 * t);
       const float2 x2 = *reinterpret_cast<const float2*>(a0 + kk + 2 * t + 8);
@@ -114,25 +126,31 @@ __device__ __forceinline__ void mma_rows_bt(float (&acc)[kN][4], const float* a0
         const float2 y1 = *reinterpret_cast<const float2*>(br + 8);
         mma_bf16(acc[n], a, pack_bf16(y0.x, y0.y), pack_bf16(y1.x, y1.y));
       }
-    }
-  } else {
-#pragma unroll
-    for (int kk = 0; kk < kDh; kk += 8) {
-      const Split a[4] = {split(a0[kk + t]), split(a1[kk + t]), split(a0[kk + t + 4]),
-                          split(a1[kk + t + 4])};
+    } else {
+      const Split a[4] = {split_as<kFast>(a0[kk + t]), split_as<kFast>(a1[kk + t]),
+                          split_as<kFast>(a0[kk + t + 4]), split_as<kFast>(a1[kk + t + 4])};
 #pragma unroll
       for (int n = 0; n < kN; ++n) {
         const float* br = bt + (8 * n + g) * LD + kk + t;
-        mma_3xtf32(acc[n], a, split(br[0]), split(br[4]));
+        mma_3xtf32(acc[n], a, split_as<kFast>(br[0]), split_as<kFast>(br[4]));
       }
     }
+  };
+  constexpr int kStep = kBf16 ? 16 : 8;
+  if constexpr (kFast && kDh >= 64) {
+#pragma unroll 1
+    for (int kk = 0; kk < kDh; kk += kStep) step(kk);
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < kDh; kk += kStep) step(kk);
   }
 }
 
-// out[n] += P B: P is a [16, 8 kN] tile in registers (accumulator layout),
-// B a [8 kN, kDh + 4] tile whose rows are P's columns.
-template <int kDh, bool kBf16, int kN>
-__device__ __forceinline__ void mma_regs_b(float (&out)[kDh / 8][4], const float (&p)[kN][4],
+// out[n] += P B over kCols n8 blocks of columns: P is a [16, 8 kN] tile in
+// registers (accumulator layout), B a [8 kN, *] tile of row stride kDh + 4
+// whose rows are P's columns (b: its first column).
+template <int kDh, bool kBf16, int kN, int kCols = kDh / 8, bool kFast = false>
+__device__ __forceinline__ void mma_regs_b(float (&out)[kCols][4], const float (&p)[kN][4],
                                            const float* b, int g, int t) {
   constexpr int LD = kDh + 4;
   if constexpr (kBf16) {
@@ -144,19 +162,28 @@ __device__ __forceinline__ void mma_regs_b(float (&out)[kDh / 8][4], const float
                              pack_bf16(p[2 * k2 + 1][2], p[2 * k2 + 1][3])};
       const float* br = b + (16 * k2 + 2 * t) * LD + g;  // rows 2t, 2t + 1, 2t + 8, 2t + 9
 #pragma unroll
-      for (int n = 0; n < kDh / 8; ++n)
+      for (int n = 0; n < kCols; ++n)
         mma_bf16(out[n], a, pack_bf16(br[8 * n], br[LD + 8 * n]),
                  pack_bf16(br[8 * LD + 8 * n], br[9 * LD + 8 * n]));
+    }
+    if constexpr (kN % 2 == 1) {  // an odd last block of P: one k = 8 step
+      constexpr int kt = kN - 1;
+      const uint32_t a0 = pack_bf16(p[kt][0], p[kt][1]), a1 = pack_bf16(p[kt][2], p[kt][3]);
+      const float* br = b + (8 * kt + 2 * t) * LD + g;
+#pragma unroll
+      for (int n = 0; n < kCols; ++n)
+        mma_bf16_k8(out[n], a0, a1, pack_bf16(br[8 * n], br[LD + 8 * n]));
     }
   } else {
 #pragma unroll
     for (int kt = 0; kt < kN; ++kt) {
       // k = t <-> column 2t, k = t + 4 <-> column 2t + 1 of block kt
-      const Split a[4] = {split(p[kt][0]), split(p[kt][2]), split(p[kt][1]), split(p[kt][3])};
+      const Split a[4] = {split_as<kFast>(p[kt][0]), split_as<kFast>(p[kt][2]),
+                          split_as<kFast>(p[kt][1]), split_as<kFast>(p[kt][3])};
       const float* br = b + (8 * kt + 2 * t) * LD + g;
 #pragma unroll
-      for (int n = 0; n < kDh / 8; ++n)
-        mma_3xtf32(out[n], a, split(br[8 * n]), split(br[LD + 8 * n]));
+      for (int n = 0; n < kCols; ++n)
+        mma_3xtf32(out[n], a, split_as<kFast>(br[8 * n]), split_as<kFast>(br[LD + 8 * n]));
     }
   }
 }
@@ -320,41 +347,32 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-template <int kDh, bool kBwd>
+template <int kDh>
 constexpr size_t rows_smem_bytes() {
-  return sizeof(float) * ((kBwd ? 4 : 3) * kTile * (kDh + 4) + 2 * kTile);
+  return sizeof(float) * (3 * kTile * (kDh + 4) + 2 * kTile);
 }
 
 // ---------------------------------------------------------------------------
-// the query-major kernel: K1's forward (kBwd = false), K2's dQ pass (true)
+// K1's query-major kernel
 // ---------------------------------------------------------------------------
 //
-// Block (q-tile, h, b): 64 query rows, warp w owns rows 16w..16w+15.
-// Forward: pass 1 walks the key tiles: S = Q K^T into registers, the
-// logits, and the online row max m and sum l; pass 2 walks them again with
-// the final m and l: w = exp(z - m) / l exactly as the plain softmax, and
+// Block (q-tile, h, b): 64 query rows, warp w owns rows 16w..16w+15. Pass 1
+// walks the key tiles: S = Q K^T into registers, the logits, and the online
+// row max m and sum l; pass 2 walks them again with the final m and l:
+// w = exp(z - m) / l exactly as the plain softmax, and
 // O += (keep ? w m / (1 - p) : 0) V. With one key tile (Lk <= 64: every
 // serving and training shape but men) pass 2 reuses pass 1's registers: K
 // and V are staged once, S is computed once and exp runs once per weight.
-// Backward (dQ pass): the same two passes, pass 1 also computing dW =
-// dO V^T through dropout and re-mask and D = sum_j dW_j w_j, pass 2
-// dS = w (dW - D) / scale and dQ += dS K; m, l and D go to a.stats for the
-// dK/dV pass. D is summed from the very dW values that dS uses (not taken
-// as dO . O from the forward's output, FlashAttention-2's shortcut, which
-// would save pass 1 past one key tile): where the softmax backward cancels
-// exactly -- a row with one live key, as row 0 under causal 0 -- dS then
-// comes out exactly 0, as in the plain version. A head wider than 128 dims
-// (kDh = 128, nch > 1 chunks): S and dW sum over the chunks, staged with
-// the rows, and pass 2 runs once per chunk of the output.
-template <int kDh, bool kBf16, bool kBwd>
+// A head wider than 128 dims (kDh = 128, nch > 1 chunks): S sums over the
+// chunks, staged with the rows, and pass 2 runs once per chunk of the output.
+template <int kDh, bool kBf16>
 __global__ void __launch_bounds__(kThreads, min_blocks<kDh>()) rows_kernel(const Args a) {
   constexpr int LD = kDh + 4;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // [kTile][LD] q rows, then the output
-  float* ks = qs + kTile * LD;                   // [kTile][LD] key tile (backward: O first)
+  float* ks = qs + kTile * LD;                   // [kTile][LD] key tile
   float* vs = ks + kTile * LD;                   // [kTile][LD] value tile
-  float* dos = vs + kTile * LD;                  // [kTile][LD] dO rows (backward)
-  float* qms = dos + (kBwd ? kTile * LD : 0);    // [kTile]
+  float* qms = vs + kTile * LD;                  // [kTile]
   float* kms = qms + kTile;                      // [kTile]
 
   const int row0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
@@ -364,12 +382,10 @@ __global__ void __launch_bounds__(kThreads, min_blocks<kDh>()) rows_kernel(const
   const bool vec_dims = a.dh % 4 == 0 && d % 4 == 0;
   const size_t qoff = ((size_t)b * a.Lq + row0) * d + (size_t)h * a.dh;
   const int nch = n_chunks<kDh>(a.dh);
-  const bool vec_q = vec_dims && aligned16(a.q), vec_do = vec_dims && aligned16(a.dout);
-  // the Q (and dO) columns of chunk c
+  const bool vec_q = vec_dims && aligned16(a.q);
+  // the Q columns of chunk c
   auto stage_rows = [&](int c) {
-    const int w = chunk_width<kDh>(a.dh, c);
-    load_tile<kDh>(qs, a.q + qoff + c * kDh, rows, d, w, vec_q);
-    if constexpr (kBwd) load_tile<kDh>(dos, a.dout + qoff + c * kDh, rows, d, w, vec_do);
+    load_tile<kDh>(qs, a.q + qoff + c * kDh, rows, d, chunk_width<kDh>(a.dh, c), vec_q);
   };
   if (nch == 1) stage_rows(0);
   const int nkt = (a.Lk + kTile - 1) / kTile;
@@ -378,23 +394,18 @@ __global__ void __launch_bounds__(kThreads, min_blocks<kDh>()) rows_kernel(const
   const int r0 = 16 * warp + g;  // this lane's tile rows r0 and r0 + 8
   const int i0 = row0 + r0;      // ... and absolute query rows
   const float* a_r0 = qs + r0 * LD;
-  const float* d_r0 = dos + r0 * LD;
   const uint64_t bh = (uint64_t)b * a.H + h;
-  const size_t n_rows = (size_t)a.B * a.H * a.Lq;
   const bool vec_k = vec_dims && aligned16(a.k), vec_v = vec_dims && aligned16(a.v);
 
-  float s[kNT][4];               // logits, then weights (forward) or w (backward)
-  float dw[kBwd ? kNT : 1][4];   // dW through dropout and re-mask, then dS
-  float mx[2] = {-INFINITY, -INFINITY}, inv_l[2], dd[2] = {0.f, 0.f};
+  float s[kNT][4];  // logits, then weights
+  float mx[2] = {-INFINITY, -INFINITY}, inv_l[2];
 
-  // Stage key tile kt (K, and V when `with_v`), compute S (and dW) for it,
-  // summed over the head's column chunks (staged with Q and dO when nch > 1).
+  // Stage key tile kt (K, and V when `with_v`) and compute S for it, summed
+  // over the head's column chunks (staged with Q when nch > 1).
   auto scores = [&](int kt, bool with_v) {
     const int key0 = kt * kTile, keys = min(kTile, a.Lk - key0);
     const size_t koff = ((size_t)b * a.Lk + key0) * d + (size_t)h * a.dh;
-    uint2 kw[kBwd ? 2 : 1];  // keep bits of the tile's keys in rows i0, i0 + 8
     zero(s);
-    if constexpr (kBwd) zero(dw);
     for (int c = 0; c < nch; ++c) {
       const int w = chunk_width<kDh>(a.dh, c);
       __syncthreads();  // the previous tile is consumed
@@ -403,18 +414,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks<kDh>()) rows_kernel(const
       if (with_v) load_tile<kDh>(vs, a.v + koff + c * kDh, keys, d, w, vec_v);
       if (c == 0) load_mask(kms, a.km + (size_t)b * a.Lk + key0, keys);
       __syncthreads();
-      if constexpr (kBwd) {  // loaded ahead of the products, which hide their latency
-        if (c == 0) {
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int i = i0 + 8 * r;
-            kw[r] = a.dropout && i < a.Lq ? keep_window(a.bits, (bh * a.Lq + i) * a.Lk + key0)
-                                          : make_uint2(0u, 0u);
-          }
-        }
-      }
       mma_rows_bt<kDh, kBf16, kNT>(s, a_r0, a_r0 + 8 * LD, ks, g, t);
-      if constexpr (kBwd) mma_rows_bt<kDh, kBf16, kNT>(dw, d_r0, d_r0 + 8 * LD, vs, g, t);
     }
 #pragma unroll
     for (int n = 0; n < kNT; ++n) {
@@ -423,29 +423,18 @@ __global__ void __launch_bounds__(kThreads, min_blocks<kDh>()) rows_kernel(const
       for (int r = 0; r < 2; ++r) {
         const int i = i0 + 8 * r;
         const float qmi = qms[r0 + 8 * r];
-        const float m0 = pair_mask(a, qmi, kms[jl], i, j);
-        const float m1 = pair_mask(a, qmi, kms[jl + 1], i, j + 1);
-        s[n][2 * r] = logit(a, s[n][2 * r], m0, j);
-        s[n][2 * r + 1] = logit(a, s[n][2 * r + 1], m1, j + 1);
-        if constexpr (kBwd) {
-          float d0 = dw[n][2 * r], d1 = dw[n][2 * r + 1];
-          if (a.dropout) {
-            const uint32_t kb = (n < 4 ? kw[r].x : kw[r].y) >> (jl % 32);
-            d0 = kb & 1u ? d0 * a.inv_keep : 0.f;
-            d1 = kb & 2u ? d1 * a.inv_keep : 0.f;
-          }
-          dw[n][2 * r] = d0 * m0;  // through the re-mask
-          dw[n][2 * r + 1] = d1 * m1;
-        }
+        s[n][2 * r] = logit(a, s[n][2 * r], pair_mask(a, qmi, kms[jl], i, j), j);
+        s[n][2 * r + 1] =
+            logit(a, s[n][2 * r + 1], pair_mask(a, qmi, kms[jl + 1], i, j + 1), j + 1);
       }
     }
   };
 
   {
     // pass 1: the row statistics
-    float l[2] = {0.f, 0.f}, dsum[2] = {0.f, 0.f};
+    float l[2] = {0.f, 0.f};
     for (int kt = 0; kt < nkt; ++kt) {
-      scores(kt, kBwd || (nkt == 1 && nch == 1));
+      scores(kt, nkt == 1 && nch == 1);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         float tmax = -INFINITY;
@@ -453,46 +442,35 @@ __global__ void __launch_bounds__(kThreads, min_blocks<kDh>()) rows_kernel(const
         for (int n = 0; n < kNT; ++n) tmax = fmaxf(tmax, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
         const float mnew = fmaxf(mx[r], quad_max(tmax));
         const float rescale = exp_shifted(mx[r] - mnew);  // 0 on the first tile
-        float lt = 0.f, dt = 0.f;
+        float lt = 0.f;
 #pragma unroll
         for (int n = 0; n < kNT; ++n) {
 #pragma unroll
           for (int c = 2 * r; c < 2 * r + 2; ++c) {
             const float p = exp_shifted(s[n][c] - mnew);
             lt += p;
-            if constexpr (kBwd) dt = fmaf(dw[n][c], p, dt);
             if (nkt == 1) s[n][c] = p;  // pass 2 reuses it
           }
         }
         l[r] = fmaf(l[r], rescale, lt);
-        if constexpr (kBwd) dsum[r] = fmaf(dsum[r], rescale, dt);
         mx[r] = mnew;
       }
     }
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] = quad_sum(l[r]);
-      inv_l[r] = 1.f / l[r];
-      if constexpr (kBwd) dd[r] = quad_sum(dsum[r]) * inv_l[r];
-      const int i = i0 + 8 * r;
-      if (kBwd && t == 0 && i < a.Lq) {  // for the dK/dV pass
-        a.stats[bh * a.Lq + i] = mx[r];
-        a.stats[n_rows + bh * a.Lq + i] = l[r];
-      }
-    }
+    for (int r = 0; r < 2; ++r) inv_l[r] = 1.f / quad_sum(l[r]);
   }
 
   // pass 2, once per column chunk of the output: weights, and the product
-  // with V (forward) or K (backward)
+  // with V
   for (int ch = 0; ch < nch; ++ch) {
     float acc[kDh / 8][4];
     zero(acc);
     for (int kt = 0; kt < nkt; ++kt) {
-      if (nkt > 1) scores(kt, kBwd || nch == 1);
+      if (nkt > 1) scores(kt, nch == 1);
       const int key0 = kt * kTile;
       if (nkt > 1 || ch == 0) {  // else this tile's weights are still in registers
-        uint2 kw[2] = {make_uint2(0u, 0u), make_uint2(0u, 0u)};  // the forward's keep bits
-        if (!kBwd && a.dropout) {
+        uint2 kw[2] = {make_uint2(0u, 0u), make_uint2(0u, 0u)};  // the keep bits
+        if (a.dropout) {
 #pragma unroll
           for (int r = 0; r < 2; ++r)
             if (i0 + 8 * r < a.Lq)
@@ -510,37 +488,27 @@ __global__ void __launch_bounds__(kThreads, min_blocks<kDh>()) rows_kernel(const
               const float z = s[n][2 * r + c];
               w[c] = (nkt == 1 ? z : exp_shifted(z - mx[r])) * inv_l[r];  // the softmax, w_raw
             }
-            if constexpr (kBwd) {
-#pragma unroll
-              for (int c = 0; c < 2; ++c)
-                dw[n][2 * r + c] = w[c] * (dw[n][2 * r + c] - dd[r]) * a.inv_scale;
-            } else {
-              const float qmi = qms[r0 + 8 * r];
-              w[0] *= pair_mask(a, qmi, kms[jl], i, j);  // the post-softmax re-mask
-              w[1] *= pair_mask(a, qmi, kms[jl + 1], i, j + 1);
-              if (a.dropout) {
-                const uint32_t kb = (n < 4 ? kw[r].x : kw[r].y) >> (jl % 32);
-                w[0] = kb & 1u ? w[0] * a.inv_keep : 0.f;
-                w[1] = kb & 2u ? w[1] * a.inv_keep : 0.f;
-              }
-              s[n][2 * r] = w[0];
-              s[n][2 * r + 1] = w[1];
+            const float qmi = qms[r0 + 8 * r];
+            w[0] *= pair_mask(a, qmi, kms[jl], i, j);  // the post-softmax re-mask
+            w[1] *= pair_mask(a, qmi, kms[jl + 1], i, j + 1);
+            if (a.dropout) {
+              const uint32_t kb = (n < 4 ? kw[r].x : kw[r].y) >> (jl % 32);
+              w[0] = kb & 1u ? w[0] * a.inv_keep : 0.f;
+              w[1] = kb & 2u ? w[1] * a.inv_keep : 0.f;
             }
+            s[n][2 * r] = w[0];
+            s[n][2 * r + 1] = w[1];
           }
         }
       }
-      if (nch > 1) {  // chunk ch's columns of K (backward) or V (forward)
+      if (nch > 1) {  // chunk ch's columns of V
         const size_t koff = ((size_t)b * a.Lk + key0) * d + (size_t)h * a.dh + ch * kDh;
         __syncthreads();
-        load_tile<kDh>(kBwd ? ks : vs, (kBwd ? a.k : a.v) + koff, min(kTile, a.Lk - key0), d,
-                       chunk_width<kDh>(a.dh, ch), kBwd ? vec_k : vec_v);
+        load_tile<kDh>(vs, a.v + koff, min(kTile, a.Lk - key0), d, chunk_width<kDh>(a.dh, ch),
+                       vec_v);
         __syncthreads();
       }
-      if constexpr (kBwd) {
-        mma_regs_b<kDh, kBf16, kNT>(acc, dw, ks, g, t);
-      } else {
-        mma_regs_b<kDh, kBf16, kNT>(acc, s, vs, g, t);
-      }
+      mma_regs_b<kDh, kBf16, kNT>(acc, s, vs, g, t);
     }
 
     // a warp reads and writes only its own rows of qs
@@ -549,24 +517,19 @@ __global__ void __launch_bounds__(kThreads, min_blocks<kDh>()) rows_kernel(const
     store_tile<kDh>(a.out + qoff + ch * kDh, qs, rows, d, chunk_width<kDh>(a.dh, ch),
                     vec_dims && aligned16(a.out));
   }
-  if constexpr (kBwd) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      if (t == 0 && i0 + 8 * r < a.Lq) a.stats[2 * n_rows + bh * a.Lq + i0 + 8 * r] = dd[r];
-  }
 }
 
-// Launch the query-major kernel at head tile kDh.
-template <int kDh, bool kBf16, bool kBwd>
+// Launch K1's query-major kernel at head tile kDh.
+template <int kDh, bool kBf16>
 cudaError_t launch_rows(const Args& a, cudaStream_t stream) {
-  constexpr size_t smem = rows_smem_bytes<kDh, kBwd>();
+  constexpr size_t smem = rows_smem_bytes<kDh>();
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        rows_kernel<kDh, kBf16, kBwd>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        rows_kernel<kDh, kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((a.Lq + kTile - 1) / kTile, a.H, a.B);
-  rows_kernel<kDh, kBf16, kBwd><<<grid, kThreads, smem, stream>>>(a);
+  rows_kernel<kDh, kBf16><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 

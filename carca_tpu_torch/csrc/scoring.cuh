@@ -209,22 +209,6 @@ __device__ __forceinline__ bool row_valid(int r, int lim0, int mask_row0) {
 // staging rows into shared memory
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Columns [col0, col0 + kD) of rows [row0, row0 + n) of e [R, d] into dst
 // (row stride `stride` bytes), zeros past R and past d, by every thread of
 // the block. With `vec` (e 16-byte aligned, d * sizeof(T) a multiple of 16;

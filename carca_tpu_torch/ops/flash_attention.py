@@ -17,9 +17,9 @@ Both kernels run their products on the tensor cores (``mma.sync``: 3xTF32
 for float32 compute, bf16 operands for bfloat16) over 64-row tiles, so
 shared memory does not grow with the key length; a head is built for 32,
 64 or 128 dims, and a wider one runs in 128-column chunks, so any key
-length and head width runs. K2 runs as two launches, dQ with the row
-statistics, then dK/dV, through a ``[3, B·H·Lq]`` float32 scratch
-(``bwd_stats_shape``).
+length and head width runs. K2 is one block per (batch row, head) that
+holds all of that head's keys in turn and writes its dq, dk and dv whole,
+so it needs no scratch beyond the dropout bits.
 
 Weight dropout on the card draws no tensor: both kernels derive the keep
 bit of weight (b, h, i, j) from a stateless Philox4x32-10 keyed by a 64-bit
@@ -160,12 +160,6 @@ def _keep_bits(dropout_rate: float, n_weights: int, device) -> Optional[torch.Te
     return torch.empty(keep_bits_words(n_weights), dtype=torch.int32, device=device)
 
 
-def bwd_stats_shape(b: int, n_heads: int, lq: int) -> Tuple[int, int]:
-    """K2's scratch: row max, row sum and sum_j dW_j·w_j of every query row
-    [3, B·H·Lq] (float32), written by its dQ pass, read by its dK/dV pass."""
-    return 3, b * n_heads * lq
-
-
 def _dropout_args(dropout_rate: float, seed: int):
     if dropout_rate <= 0.0:
         return 0, 0, 0, 1.0
@@ -223,14 +217,13 @@ def attention_bwd(q, k, v, q_mask, k_mask, grad_out, *, causal: Optional[int], s
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if b == 0 or lk == 0:
         return dq, dk, dv
-    stats = torch.empty(bwd_stats_shape(b, n_heads, lq), dtype=torch.float32, device=q.device)
     bits = _keep_bits(dropout_rate, b * n_heads * lq * lk, q.device)
     lib = _build.library()
     with torch.cuda.device(q.device):
         err = lib.carca_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_mask.data_ptr(), k_mask.data_ptr(),
             grad_out.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            stats.data_ptr(), None if bits is None else bits.data_ptr(), b, n_heads,
+            None if bits is None else bits.data_ptr(), b, n_heads,
             lq, lk, dh, int(causal is not None), int(causal or 0), float(scale),
             int(compute_dtype == "bfloat16"), *_dropout_args(dropout_rate, seed),
             torch.cuda.current_stream(q.device).cuda_stream)

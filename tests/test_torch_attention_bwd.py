@@ -23,8 +23,8 @@ from carca_tpu.ops.flash_attention import fused_attention as jax_fused_attention
 from carca_tpu_torch.models.attention import masked_attention
 from carca_tpu_torch.ops import flash_attention as fa
 from carca_tpu_torch.ops.flash_attention import (attention_bwd, attention_grads_plain,
-                                                 attention_keep_mask, bwd_stats_shape,
-                                                 fused_attention, keep_bits_words,
+                                                 attention_keep_mask, fused_attention,
+                                                 keep_bits_words,
                                                  keep_threshold, philox4x32_10, philox_bits)
 
 torch.set_num_threads(1)
@@ -51,11 +51,19 @@ def jax_grads(q, k, v, qm, km, g, **kw):
     return [np.asarray(x) for x in vjp(g)]
 
 
-@pytest.mark.parametrize("causal", [None, 0, -1])
-@pytest.mark.parametrize("lq,lk", [(8, 8), (12, 5)])
-def test_attention_bwd_matches_jax(causal, lq, lk):
-    q, k, v, qm, km, g = make(0, 3, lq, lk)
-    kw = dict(causal=causal, scale=(D / H) ** 0.5, n_heads=H)
+# (batch, Lq, Lk, d, causal): small shapes, then the families' head widths
+# (games and fashion: d = 128 in 2 heads of 64 at L = 50; men: 2 heads of 32
+# at L = 70, past one 64-key tile)
+BWD_CASES = [(3, lq, lk, D, causal) for causal in (None, 0, -1) for lq, lk in ((8, 8), (12, 5))]
+BWD_IDS = [f"{lq}-{lk}-{causal}" for _, lq, lk, _, causal in BWD_CASES]
+BWD_CASES += [(2, 50, 50, 128, 0), (2, 50, 50, 128, -1), (2, 70, 70, 64, -1)]
+BWD_IDS += ["dh64-L50-0", "dh64-L50--1", "dh32-L70--1"]
+
+
+@pytest.mark.parametrize("b,lq,lk,d,causal", BWD_CASES, ids=BWD_IDS)
+def test_attention_bwd_matches_jax(b, lq, lk, d, causal):
+    q, k, v, qm, km, g = make(0, b, lq, lk, d=d)
+    kw = dict(causal=causal, scale=(d / H) ** 0.5, n_heads=H)
     t = torch.from_numpy
     got = [x.numpy() for x in attention_bwd(t(q), t(k), t(v), t(qm), t(km), t(g), **kw)]
     want = jax_grads(q, k, v, qm, km, g, **kw)
@@ -238,8 +246,3 @@ def test_keep_bits_words_cover_every_window(n):
     if n:
         assert ((n - 1) >> 5) + 2 < words
 
-
-def test_bwd_stats_shape():
-    """K2's scratch: row max, row sum and sum_j dW_j·w_j per query row and head."""
-    assert bwd_stats_shape(256, 2, 50) == (3, 25_600)
-    assert bwd_stats_shape(1, 1, 1) == (3, 1)

@@ -99,15 +99,29 @@ def rel(a, b):
     return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
 
 
-@pytest.mark.parametrize("causal,lq,lk,b", [(0, 50, 50, 8), (-1, 50, 50, 16),
-                                            (0, 200, 200, 4), (None, 33, 70, 3),
-                                            (0, 1, 1, 1)])
+# (causal, Lq, Lk, batch, d) with 2 heads: 32-dim heads (d = 64) as the
+# flagship, 64-dim heads (d = 128) as games and fashion at L = 50, men's
+# decoder at L = 200; then K2's edges: Lk = 64 and 65 (one key tile and a
+# second one), Lk = 1, Lq != Lk (several query tiles over one key tile; a
+# causal query tile that reaches only the first of three key tiles, so the
+# others' dK/dV are written as zeros), and B·H = 4 and 1,200 (far below and
+# above one wave of blocks)
+BWD_CASES = [(0, 50, 50, 8, 64), (-1, 50, 50, 16, 64), (0, 200, 200, 4, 64),
+             (None, 33, 70, 3, 64), (0, 1, 1, 1, 64),
+             (0, 50, 50, 8, 128), (-1, 50, 50, 16, 128), (-1, 200, 200, 4, 64),
+             (0, 64, 64, 4, 128), (-1, 65, 65, 4, 64), (None, 30, 65, 3, 128),
+             (None, 40, 1, 3, 128), (0, 130, 50, 3, 128), (-1, 20, 150, 3, 64),
+             (0, 50, 50, 2, 128), (-1, 50, 50, 600, 128)]
+
+
+@pytest.mark.parametrize("causal,lq,lk,b,d", BWD_CASES)
 @pytest.mark.parametrize("rate", [0.0, 0.5])
 @pytest.mark.parametrize("cd,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
-def test_attention_bwd_kernel_matches_plain_autograd(dev, causal, lq, lk, b, rate, cd, tol):
-    q, k, v, qm, km = attn_inputs(dev, b, lq, lk, 64)
+def test_attention_bwd_kernel_matches_plain_autograd(dev, causal, lq, lk, b, d, rate, cd, tol):
+    q, k, v, qm, km = attn_inputs(dev, b, lq, lk, d)
     g = torch.randn(q.shape, generator=torch.Generator().manual_seed(9)).to(dev)
-    kw = dict(causal=causal, scale=32 ** 0.5, n_heads=2, compute_dtype=cd, dropout_rate=rate)
+    kw = dict(causal=causal, scale=(d / 2) ** 0.5, n_heads=2, compute_dtype=cd,
+              dropout_rate=rate)
     qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
     before = attention_bwd.launches
     at_shape = (fused_attention.launches_by_shape[lq, lk, causal],
@@ -128,17 +142,23 @@ def test_attention_bwd_kernel_matches_plain_autograd(dev, causal, lq, lk, b, rat
     assert torch.count_nonzero(kk.grad[0]) == 0 and torch.count_nonzero(vv.grad[0]) == 0
 
 
-@pytest.mark.parametrize("lq,lk", [(50, 50), (200, 320)])
-def test_attention_bwd_kernel_is_deterministic(dev, lq, lk):
+@pytest.mark.parametrize("lq,lk,d,batch", [(50, 50, 64, 32), (200, 320, 64, 32),
+                                           (50, 50, 128, 32), (200, 200, 64, 32),
+                                           (64, 64, 128, 4), (65, 65, 64, 4), (8, 1, 128, 8),
+                                           (130, 50, 128, 3), (20, 150, 64, 3),
+                                           (50, 50, 128, 2), (50, 50, 128, 600)])
+def test_attention_bwd_kernel_is_deterministic(dev, lq, lk, d, batch):
     """No atomics: two runs of K2 (and of K1) are bit-equal, with one key
-    tile and with several; another seed changes the result."""
-    q, k, v, qm, km = attn_inputs(dev, 32, lq, lk, 64)
+    tile and with several, 32- and 64-dim heads, at K2's edges (as in
+    test_attention_bwd_kernel_matches_plain_autograd); another seed changes
+    the result."""
+    q, k, v, qm, km = attn_inputs(dev, batch, lq, lk, d)
     g = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)).to(dev)
-    kw = dict(causal=-1, scale=32 ** 0.5, n_heads=2, dropout_rate=0.5, seed=123)
+    kw = dict(causal=-1, scale=(d / 2) ** 0.5, n_heads=2, dropout_rate=0.5, seed=123)
     a = attention_bwd(q, k, v, qm, km, g, **kw)
     b = attention_bwd(q, k, v, qm, km, g, **kw)
     c = attention_bwd(q, k, v, qm, km, g, **dict(kw, seed=124))
-    fkw = dict(causal=-1, scale=32 ** 0.5, n_heads=2, dropout_rate=0.5)
+    fkw = dict(causal=-1, scale=(d / 2) ** 0.5, n_heads=2, dropout_rate=0.5)
     f1, f2 = (fused_attention(q, k, v, qm, km, seed_generator=torch.Generator().manual_seed(7),
                               **fkw) for _ in range(2))
     torch.cuda.synchronize()
