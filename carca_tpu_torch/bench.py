@@ -15,10 +15,12 @@ model (d=64, g=256, 2 blocks, 2 heads, L=50, target_len 100, dropout 0.5,
 10,000,000 items)`` generated on the card, ``decoder=dot``, bf16 compute,
 bf16 attrs and the lazy row-sparse item Adam), with ``TrainConfig``
 defaults at batch 256, the catalog on the device and K = ``inner_steps``
-steps per call of the scanned step. ``measure`` times it as
-``bench.py`` does: 2 warm calls, then the median of 5 windows of
-``max(1, 100 // K)`` calls, each window ended by a device synchronize, in
-examples per second. Prints one JSON line. Needs a CUDA card.
+steps per call of the scanned step, which on the card is one CUDA graph
+(``train/graph.py``; ``graph=False`` the eager loop). ``measure`` times it
+as ``bench.py`` does: 2 warm calls (for the graph, its eager warm-up and its
+capture), then the median of 5 windows of ``max(1, 100 // K)`` calls, each
+window ended by a device synchronize, in examples per second. Prints
+``step: graph`` (or ``step: eager``), then one JSON line. Needs a CUDA card.
 
 Beside the rate, the line holds ``bench.py``'s utilisation keys, under its
 names and formulas (``utils/flops.py``): ``mfu``, the step's analytic
@@ -70,9 +72,10 @@ class Setup:
 
 
 def build_setup(config: str = "flagship", batch: int = 256, device="cuda",
-                use_kernel="auto", **model_overrides) -> Setup:
+                use_kernel="auto", graph=None, **model_overrides) -> Setup:
     """The model, state and scanned device-pipeline step of one headline
-    config (``bench.py::build_setup``); ``model_overrides`` replace
+    config (``bench.py::build_setup``); ``graph`` as
+    ``make_scanned_device_train_step`` takes it; ``model_overrides`` replace
     ModelConfig fields (e.g. ``dropout=0.0`` for a deterministic step)."""
     device = torch.device(device)
     at_scale = config == "10m"
@@ -112,7 +115,7 @@ def build_setup(config: str = "flagship", batch: int = 256, device="cuda",
     chunks = [torch.as_tensor(np.stack([rows[(j * inner + i) % len(rows)]
                                         for i in range(inner)]), dtype=torch.int64).to(device)
               for j in range(4)]
-    step = make_scanned_device_train_step(mc, inner, tc, sparse_items=sparse_items)
+    step = make_scanned_device_train_step(mc, inner, tc, sparse_items=sparse_items, graph=graph)
     return Setup(step, state, attrs, dd, chunks, inner, tc, mc, sparse_items)
 
 
@@ -152,12 +155,14 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     rates = measure(s)
     rate = statistics.median(rates)
+    print(f"step: {s.step.mode}")
     print(json.dumps({
         "metric": f"train_examples_per_sec_{args.config}",
         "value": rate, "unit": "examples/sec/chip",
         "rates": {"min": min(rates), "median": rate, "max": max(rates)},
         **utilisation(s.mc, s.tc.batch_size, rate, s.sparse_items, s.state.generator.device),
         "sparse_items": s.sparse_items, "use_kernel": args.use_kernel, "batch": args.batch,
+        "step": s.step.mode,
         "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20,
         "device": torch.cuda.get_device_name(0)}))
 

@@ -451,7 +451,8 @@ struct Backward {
 
 extern "C" {
 
-// dropout = 0: seed, threshold, keep and bits are ignored. dq/dk/dv are
+// dropout = 0: seed, seed_ptr, threshold, keep and bits are ignored; a
+// non-null seed_ptr (one uint64 in device memory) overrides seed. dq/dk/dv are
 // written whole (every row, every head), so they need no zeroing; bits is
 // scratch of ceil(B * H * Lq * Lk / 32) + 2 words. Any head width: heads
 // wider than 128 dims run in 128-column chunks.
@@ -459,12 +460,13 @@ int carca_attention_bwd(const void* q, const void* k, const void* v, const void*
                         const void* km, const void* dout, void* dq, void* dk, void* dv,
                         void* bits, int B, int H, int Lq, int Lk, int dh, int has_causal,
                         int causal, float scale, int bf16, int dropout, uint64_t seed,
-                        uint32_t threshold, float keep, void* stream) {
+                        const void* seed_ptr, uint32_t threshold, float keep, void* stream) {
   const Args a{static_cast<const float*>(q), static_cast<const float*>(k),
                static_cast<const float*>(v), static_cast<const float*>(qm),
                static_cast<const float*>(km), static_cast<const float*>(dout),
                static_cast<float*>(dq), static_cast<uint32_t*>(bits), B, H, Lq, Lk, dh,
-               has_causal, causal, 1.f / scale, dropout, seed, threshold, 1.f / keep};
+               has_causal, causal, 1.f / scale, dropout, seed,
+               static_cast<const uint64_t*>(seed_ptr), threshold, 1.f / keep};
   return (int)carca::attn::dispatch(
       dh, bf16, Backward{a, static_cast<float*>(dk), static_cast<float*>(dv),
                          static_cast<cudaStream_t>(stream)});

@@ -70,27 +70,29 @@ const char* carca_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// dropout = 0: seed, threshold, keep and bits are ignored; bits is scratch
-// of ceil(B * H * Lq * Lk / 32) + 2 words. Any head width: heads wider
-// than 128 dims run in 128-column chunks.
+// dropout = 0: seed, seed_ptr, threshold, keep and bits are ignored; bits
+// is scratch of ceil(B * H * Lq * Lk / 32) + 2 words; a non-null seed_ptr
+// (one uint64 in device memory) overrides seed. Any head width: heads
+// wider than 128 dims run in 128-column chunks.
 int carca_attention_fwd(const void* q, const void* k, const void* v, const void* qm,
                         const void* km, void* out, void* bits, int B, int H, int Lq, int Lk,
                         int dh, int has_causal, int causal, float scale, int bf16,
-                        int dropout, uint64_t seed, uint32_t threshold, float keep,
-                        void* stream) {
+                        int dropout, uint64_t seed, const void* seed_ptr, uint32_t threshold,
+                        float keep, void* stream) {
   const Args a{static_cast<const float*>(q), static_cast<const float*>(k),
                static_cast<const float*>(v), static_cast<const float*>(qm),
                static_cast<const float*>(km), nullptr, static_cast<float*>(out),
-               static_cast<uint32_t*>(bits), B, H, Lq, Lk, dh, has_causal, causal, 1.f / scale, dropout, seed, threshold,
-               1.f / keep};
+               static_cast<uint32_t*>(bits), B, H, Lq, Lk, dh, has_causal, causal, 1.f / scale, dropout, seed,
+               static_cast<const uint64_t*>(seed_ptr), threshold, 1.f / keep};
   return (int)carca::attn::dispatch(dh, bf16, Forward{a, static_cast<cudaStream_t>(stream)});
 }
 
 // The packed keep bits K1 and K2 run on, for n = B * H * Lq * Lk weights:
-// bits holds ceil(n / 32) words.
-int carca_attention_keep_bits(void* bits, uint64_t n, uint64_t seed, uint32_t threshold,
-                              void* stream) {
-  return (int)carca::attn::launch_keep_bits(static_cast<uint32_t*>(bits), n, seed, threshold,
+// bits holds ceil(n / 32) words; seed_ptr as carca_attention_fwd's.
+int carca_attention_keep_bits(void* bits, uint64_t n, uint64_t seed, const void* seed_ptr,
+                              uint32_t threshold, void* stream) {
+  return (int)carca::attn::launch_keep_bits(static_cast<uint32_t*>(bits), n, seed,
+                                            static_cast<const uint64_t*>(seed_ptr), threshold,
                                             static_cast<cudaStream_t>(stream));
 }
 

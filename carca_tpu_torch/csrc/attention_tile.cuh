@@ -75,6 +75,7 @@ struct Args {
   float inv_scale;  // 1 / scale, rounded once on the host
   int dropout;
   uint64_t seed;
+  const uint64_t* seed_ptr;  // non-null: the seed is read here, on the device
   uint32_t threshold;
   float inv_keep;  // 1 / (1 - p)
 };
@@ -197,8 +198,13 @@ __device__ __forceinline__ void mma_regs_b(float (&out)[kCols][4], const float (
 // c = 8 w + l % 8 (weights 4c..4c+3); eight lanes OR their nibbles into one
 // word. Whole warps run every step (the shuffles need all 32 lanes), so
 // the loop runs to a multiple of 32 counters and only stores below n_words.
+// The seed is `seed`, or *seed_ptr where that is non-null: a CUDA graph
+// captures the pointer, and each replay reads the seed its caller wrote
+// there, where a captured value would repeat every dropout mask.
 static __global__ void keep_bits_kernel(uint32_t* __restrict__ bits, uint64_t n_words,
-                                        uint64_t seed, uint32_t threshold) {
+                                        uint64_t seed, const uint64_t* __restrict__ seed_ptr,
+                                        uint32_t threshold) {
+  if (seed_ptr != nullptr) seed = *seed_ptr;
   const uint64_t end = (8 * n_words + 31) / 32 * 32;
   for (uint64_t c = (uint64_t)blockIdx.x * blockDim.x + threadIdx.x; c < end;
        c += (uint64_t)gridDim.x * blockDim.x) {
@@ -215,20 +221,21 @@ static __global__ void keep_bits_kernel(uint32_t* __restrict__ bits, uint64_t n_
 
 // Fill bits for n weights.
 inline cudaError_t launch_keep_bits(uint32_t* bits, uint64_t n, uint64_t seed,
-                                   uint32_t threshold, cudaStream_t stream) {
+                                   const uint64_t* seed_ptr, uint32_t threshold,
+                                   cudaStream_t stream) {
   const uint64_t n_words = (n + 31) / 32;
   if (n_words == 0) return cudaSuccess;
   const uint64_t blocks = (8 * n_words + 255) / 256;
   keep_bits_kernel<<<(unsigned)(blocks < 8192 ? blocks : 8192), 256, 0, stream>>>(
-      bits, n_words, seed, threshold);
+      bits, n_words, seed, seed_ptr, threshold);
   return cudaGetLastError();
 }
 
 // Fill a.bits for the call's B * H * Lq * Lk weights (a no-op without dropout).
 inline cudaError_t launch_keep_bits(const Args& a, cudaStream_t stream) {
   if (!a.dropout) return cudaSuccess;
-  return launch_keep_bits(a.bits, (uint64_t)a.B * a.H * a.Lq * a.Lk, a.seed, a.threshold,
-                          stream);
+  return launch_keep_bits(a.bits, (uint64_t)a.B * a.H * a.Lq * a.Lk, a.seed, a.seed_ptr,
+                          a.threshold, stream);
 }
 
 // The keep bits of weights idx .. idx + 63 (bit e of the pair), from three

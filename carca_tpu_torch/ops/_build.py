@@ -45,10 +45,10 @@ _I64 = ctypes.c_int64
 SIGNATURES = {
     "carca_error_string": (ctypes.c_char_p, [_I]),
     "carca_attention_fwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                 _I, _I, _F, _I, _I, _U64, _U32, _F, _P]),
-    "carca_attention_keep_bits": (_I, [_P, _U64, _U64, _U32, _P]),
+                                 _I, _I, _F, _I, _I, _U64, _P, _U32, _F, _P]),
+    "carca_attention_keep_bits": (_I, [_P, _U64, _U64, _P, _U32, _P]),
     "carca_attention_bwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                 _I, _I, _I, _F, _I, _I, _U64, _U32, _F, _P]),
+                                 _I, _I, _I, _F, _I, _I, _U64, _P, _U32, _F, _P]),
     "carca_catalog_topk_smem_bytes": (ctypes.c_size_t, [_I, _I, _I, _I, _I]),
     "carca_catalog_topk": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _I64, _I, _P]),

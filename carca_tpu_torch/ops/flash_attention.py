@@ -26,9 +26,14 @@ bit of weight (b, h, i, j) from a stateless Philox4x32-10 keyed by a 64-bit
 seed (``csrc/philox.cuh``): word idx % 4 of the block at counter idx / 4,
 idx = ((b·H + h)·Lq + i)·Lk + j. ``fused_attention`` draws the seed per
 call from a CPU ``torch.Generator`` (``seed_generator``), so no seed costs a
-device sync. ``philox_bits`` is the same generator in numpy;
-``attention_keep_mask`` returns the bits as a mask, so checks can feed them
-to the plain version.
+device sync. While a CUDA graph captures (``train/graph.py``) a drawn value
+would be frozen into the graph and repeat every mask on every replay, so
+there ``kernel_seed`` hands out the next slot of a device buffer the
+capturing call installed (``seed_slots``), the keep-bits pre-pass reads the
+seed from it, and the graph's caller writes fresh seeds there before each
+replay; K2 reads the slot K1 read. ``philox_bits`` is the same generator in
+numpy; ``attention_keep_mask`` returns the bits as a mask, so checks can
+feed them to the plain version.
 
 ``fused_attention`` is the one place that picks kernel or plain, by device
 alone. On CPU tensors it runs the plain version (weight dropout drawn from
@@ -40,8 +45,9 @@ do not take raises: a non-float32 or non-contiguous input.
 
 from __future__ import annotations
 
+import contextlib
 from collections import Counter
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -53,6 +59,7 @@ _M0, _M1 = 0xD2511F53, 0xCD9E8D57  # Philox4x32 multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85  # Philox4x32 key bumps
 _M32 = 0xFFFFFFFF
 SEED_LIMIT = 2**63 - 1  # seeds are drawn in [0, SEED_LIMIT)
+Seed = Union[int, torch.Tensor]  # a value, or a 0-dim int64 slot in device memory
 
 
 def philox4x32_10(counter: Sequence[np.ndarray], key: Tuple[int, int]) -> Tuple[np.ndarray, ...]:
@@ -88,24 +95,27 @@ def keep_threshold(dropout_rate: float) -> int:
     return min(int((1.0 - dropout_rate) * 2.0**32), 2**32 - 1)
 
 
-def attention_keep_mask(seed: int, shape: Tuple[int, int, int, int], dropout_rate: float,
+def attention_keep_mask(seed: Seed, shape: Tuple[int, int, int, int], dropout_rate: float,
                         device: torch.device | str = "cpu") -> torch.Tensor:
-    """The kernels' keep mask [B, H, Lq, Lk] (bool) for ``seed``: on a CUDA
-    device the packed bits of the pre-pass K1 and K2 run, unpacked; on the
-    CPU the numpy ``philox_bits``."""
+    """The kernels' keep mask [B, H, Lq, Lk] (bool) for ``seed`` (a value,
+    or a slot: a 0-dim int64 tensor on ``device``): on a CUDA device the
+    packed bits of the pre-pass K1 and K2 run, unpacked; on the CPU the
+    numpy ``philox_bits``."""
     device = torch.device(device)
     threshold = keep_threshold(dropout_rate)
     n = int(np.prod(shape))
     if device.type == "cpu":
-        bits = philox_bits(seed, np.arange(n, dtype=np.uint64))
+        bits = philox_bits(int(seed), np.arange(n, dtype=np.uint64))
         return torch.from_numpy(bits < np.uint32(threshold)).reshape(shape)
     if device.type != "cuda":
         raise ValueError(f"attention_keep_mask runs on cpu or cuda, got {device}")
     words = torch.empty(keep_bits_words(n), dtype=torch.int32, device=device)
     lib = _build.library()
+    value, ptr = _seed_args(seed, device)
     with torch.cuda.device(device):
         err = lib.carca_attention_keep_bits(
-            words.data_ptr(), n, seed, threshold, torch.cuda.current_stream(device).cuda_stream)
+            words.data_ptr(), n, value, ptr, threshold,
+            torch.cuda.current_stream(device).cuda_stream)
     _build.check(err, "attention_keep_mask")
     shifts = torch.arange(32, dtype=torch.int32, device=device)
     bits = (words[:-(-n // 32), None] >> shifts) & 1  # bit e of word w: weight 32 w + e
@@ -160,12 +170,71 @@ def _keep_bits(dropout_rate: float, n_weights: int, device) -> Optional[torch.Te
     return torch.empty(keep_bits_words(n_weights), dtype=torch.int32, device=device)
 
 
-def _dropout_args(dropout_rate: float, seed: int):
+def _seed_args(seed: Seed, device) -> Tuple[int, Optional[int]]:
+    """(value, pointer) of a kernel's seed: a slot passes its address, which
+    the keep-bits pre-pass reads on the device."""
+    if not torch.is_tensor(seed):
+        return int(seed), None
+    if seed.device != torch.device(device) or seed.dtype != torch.int64 or seed.numel() != 1:
+        raise ValueError(f"a seed slot is one int64 on {device}, got {seed.dtype} "
+                         f"{tuple(seed.shape)} on {seed.device}")
+    return 0, seed.data_ptr()
+
+
+def _dropout_args(dropout_rate: float, seed: Seed, device):
     if dropout_rate <= 0.0:
-        return 0, 0, 0, 1.0
+        return 0, 0, None, 0, 1.0
     if not 0.0 < dropout_rate < 1.0:
         raise ValueError(f"dropout_rate must lie in [0, 1), got {dropout_rate}")
-    return 1, seed, keep_threshold(dropout_rate), 1.0 - dropout_rate
+    return (1, *_seed_args(seed, device), keep_threshold(dropout_rate), 1.0 - dropout_rate)
+
+
+class _SeedSlots:
+    """The seed buffer a capturing call installed, and the slots taken."""
+    buffer: Optional[torch.Tensor] = None
+    taken = 0
+
+
+@contextlib.contextmanager
+def seed_slots(buffer: torch.Tensor):
+    """Install ``buffer`` (int64 [n] on the card) for one CUDA graph capture:
+    ``kernel_seed`` hands out its slots in call order. Yields a function
+    that returns the number of slots taken so far."""
+    if _SeedSlots.buffer is not None:
+        raise RuntimeError("a seed buffer is already installed")
+    _SeedSlots.buffer, _SeedSlots.taken = buffer, 0
+    try:
+        yield lambda: _SeedSlots.taken
+    finally:
+        _SeedSlots.buffer, _SeedSlots.taken = None, 0
+
+
+def kernel_seed(seed_generator: Optional[torch.Generator]) -> Seed:
+    """The Philox seed of one K1 call with dropout (K2 takes the same):
+    drawn from the CPU ``seed_generator``, or, while the current stream
+    captures a CUDA graph, the next slot of the installed seed buffer
+    (``seed_slots``), whose value the graph's caller writes before each
+    replay. Under capture with no buffer installed, or with its slots used
+    up, it raises: a captured value would repeat every mask."""
+    if torch.cuda.is_current_stream_capturing():
+        buf = _SeedSlots.buffer
+        if buf is None:
+            raise RuntimeError("weight dropout under CUDA graph capture needs a seed buffer "
+                               "(flash_attention.seed_slots): a captured seed would repeat "
+                               "every dropout mask on every replay")
+        if _SeedSlots.taken >= buf.numel():
+            raise RuntimeError(f"the capture takes more than the {buf.numel()} seed slots "
+                               "installed")
+        _SeedSlots.taken += 1
+        return buf[_SeedSlots.taken - 1]
+    if seed_generator is None or seed_generator.device.type != "cpu":
+        raise ValueError("weight dropout on the card needs a CPU seed_generator "
+                         "to draw the kernels' Philox seed")
+    kernel_seed.drawn += 1
+    return int(torch.randint(SEED_LIMIT, (), generator=seed_generator))
+
+
+kernel_seed.drawn = 0  # seeds drawn from seed generators, for a capture's count
 
 
 def _launch_fwd(q, k, v, q_mask, k_mask, *, causal, scale, n_heads, compute_dtype,
@@ -184,7 +253,7 @@ def _launch_fwd(q, k, v, q_mask, k_mask, *, causal, scale, n_heads, compute_dtyp
             k_mask.data_ptr(), out.data_ptr(), None if bits is None else bits.data_ptr(),
             b, n_heads, lq, lk, dh,
             int(causal is not None), int(causal or 0), float(scale),
-            int(compute_dtype == "bfloat16"), *_dropout_args(dropout_rate, seed),
+            int(compute_dtype == "bfloat16"), *_dropout_args(dropout_rate, seed, q.device),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "attention_fwd")
     fused_attention.launches += 1
@@ -194,12 +263,12 @@ def _launch_fwd(q, k, v, q_mask, k_mask, *, causal, scale, n_heads, compute_dtyp
 
 def attention_bwd(q, k, v, q_mask, k_mask, grad_out, *, causal: Optional[int], scale: float,
                   n_heads: int = 1, compute_dtype: str = "float32",
-                  dropout_rate: float = 0.0, seed: int = 0):
+                  dropout_rate: float = 0.0, seed: Seed = 0):
     """Gradients (dq, dk, dv) of fused attention's output [B, Lq, d] with
     respect to q, k, v, given ``grad_out``. The forward must have run with
-    the same ``dropout_rate`` and ``seed``. On CUDA tensors: kernel K2; on
-    CPU tensors: ``attention_grads_plain`` with the Philox keep mask of
-    ``seed``."""
+    the same ``dropout_rate`` and ``seed`` (a value or a slot). On CUDA
+    tensors: kernel K2; on CPU tensors: ``attention_grads_plain`` with the
+    Philox keep mask of ``seed``."""
     b, lq, d = q.shape
     lk = k.shape[1]
     if q.device.type == "cpu":
@@ -225,7 +294,7 @@ def attention_bwd(q, k, v, q_mask, k_mask, grad_out, *, causal: Optional[int], s
             grad_out.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             None if bits is None else bits.data_ptr(), b, n_heads,
             lq, lk, dh, int(causal is not None), int(causal or 0), float(scale),
-            int(compute_dtype == "bfloat16"), *_dropout_args(dropout_rate, seed),
+            int(compute_dtype == "bfloat16"), *_dropout_args(dropout_rate, seed, q.device),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "attention_bwd")
     attention_bwd.launches += 1
@@ -238,19 +307,25 @@ attention_bwd.launches_by_shape = Counter()  # the same by (Lq, Lk, causal)
 
 
 class _KernelAttention(torch.autograd.Function):
-    """K1 forward, K2 backward. Saves q, k, v, the masks and the seed —
-    never the weights, which K2 recomputes."""
+    """K1 forward, K2 backward. Saves q, k, v, the masks and the seed — a
+    slot as a saved tensor, so K2 reads the slot K1 read — never the
+    weights, which K2 recomputes."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_mask, k_mask, opts):
-        ctx.save_for_backward(q, k, v, q_mask, k_mask)
-        ctx.opts = opts
+        seed = opts["seed"]
+        slot = seed if torch.is_tensor(seed) else None
+        ctx.save_for_backward(q, k, v, q_mask, k_mask, slot)
+        ctx.seed = seed if slot is None else None
+        ctx.opts = {n: o for n, o in opts.items() if n != "seed"}
         return _launch_fwd(q, k, v, q_mask, k_mask, **opts)
 
     @staticmethod
     def backward(ctx, grad_out):
-        q, k, v, q_mask, k_mask = ctx.saved_tensors
-        dq, dk, dv = attention_bwd(q, k, v, q_mask, k_mask, grad_out.contiguous(), **ctx.opts)
+        q, k, v, q_mask, k_mask, slot = ctx.saved_tensors
+        seed = ctx.seed if slot is None else slot
+        dq, dk, dv = attention_bwd(q, k, v, q_mask, k_mask, grad_out.contiguous(), seed=seed,
+                                   **ctx.opts)
         return dq, dk, dv, None, None, None
 
 
@@ -273,7 +348,7 @@ def fused_attention(
     masks [B, Lq]/[B, Lk] (float 0/1) → merged-head context [B, Lq, d]
     float32, with weight dropout at ``dropout_rate``. ``generator`` draws
     the dropout of the CPU path; ``seed_generator`` (a CPU generator) draws
-    the kernels' Philox seed on the card."""
+    the kernels' Philox seed on the card (``kernel_seed``)."""
     if compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype!r}")
     if q.device.type == "cpu":
@@ -284,12 +359,7 @@ def fused_attention(
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention runs on cpu or cuda tensors, got {q.device}")
     _check_cuda_inputs((q, k, v, q_mask, k_mask), n_heads)
-    seed = 0
-    if dropout_rate > 0.0:
-        if seed_generator is None or seed_generator.device.type != "cpu":
-            raise ValueError("weight dropout on the card needs a CPU seed_generator "
-                             "to draw the kernels' Philox seed")
-        seed = int(torch.randint(SEED_LIMIT, (), generator=seed_generator))
+    seed = kernel_seed(seed_generator) if dropout_rate > 0.0 else 0
     opts = dict(causal=causal, scale=scale, n_heads=n_heads, compute_dtype=compute_dtype,
                 dropout_rate=dropout_rate, seed=seed)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

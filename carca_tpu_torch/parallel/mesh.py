@@ -291,5 +291,7 @@ def prepare_state_for_mesh(state, mesh: Mesh, shard_embeddings: bool,
     params = [p for n, p in state.model.named_parameters()
               if not (sparse and n == "embed.items")]
     state.optimizer = type(opt)(params, **opt.defaults)
+    # a capturable Adam (the card's) runs eagerly over a mesh: quiet, as make_optimizer's
+    state.optimizer._warned_capturable_if_run_uncaptured = True
     state.items_state = sparse_adam.init_state(embed.items.detach()) if sparse else None
     return state

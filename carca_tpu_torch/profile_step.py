@@ -1,7 +1,9 @@
 """Where the train step's device time goes (counterpart of
 ``scripts/profile_step.py``): the step ``bench.build_setup`` builds, traced
-under ``torch.profiler`` (CPU and CUDA activities) after two warm calls,
-its device operations summed by name.
+under ``torch.profiler`` (CPU and CUDA activities) after its warm calls,
+its device operations summed by name. The step is one CUDA graph on the
+card (its first call the eager warm-up, its second the capture, both before
+any timed call); the first line says ``# step: graph`` (or ``eager``).
 
     python -m carca_tpu_torch.profile_step [--config flagship|men|10m]
                                            [--batch N] [--top 25] [--calls 4]
@@ -11,8 +13,10 @@ Prints ``scripts/profile_step.py``'s table, one row per device operation
 time, launches per traced call, name; then the wall ms per step (host
 clock around an unprofiled call that ends in a synchronize), the device
 busy ms per step (the union of the operations' intervals, so overlapping
-operations count once) and the busy share, busy over wall. Needs a CUDA
-card. ``device_trace`` is the aggregation ``chip_smoke.py`` uses too.
+operations count once) and the busy share, busy over wall: the share of
+the step's wall time in which the card runs something, 1 when the host
+keeps it fed. Needs a CUDA card. ``device_trace`` is the aggregation
+``chip_smoke.py`` uses too.
 """
 
 from __future__ import annotations
@@ -95,6 +99,8 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     s = build_setup(args.config, args.batch)
+    for _ in range(2):  # the graph's warm-up and capture, outside device_trace's calls
+        s.state, _ = s.step(s.state, s.attrs, s.dd.arrays, s.chunks[0])
 
     def run() -> float:
         torch.cuda.synchronize()
@@ -105,6 +111,7 @@ def main() -> None:
 
     t = device_trace(run, s.inner, args.calls)
     n = args.calls * s.inner
+    print(f"# step: {s.step.mode}")
     print(f"# {torch.cuda.get_device_name(0)}: {args.config}, batch {s.tc.batch_size}, "
           f"{n} train steps in {args.calls} calls, device total "
           f"{sum(r[1] for r in t['table']) * n / 1e3:.2f} ms")

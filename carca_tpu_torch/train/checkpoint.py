@@ -15,6 +15,14 @@ directory is read without orbax. Under ``ckpt/``, one of each:
   best selection value so far and the epochs since it improved), so that a
   resumed run retains and stops where an uninterrupted one would.
 
+Adam's state is written in one layout whatever device trained it: every
+``step`` a CPU float32 tensor and the lr a float, as the CPU's Adam keeps
+them. The card's Adam (``capturable``, ``train/state.py``) holds its steps
+and lr on the device; a restore loads into the live optimizer's own form
+and keeps its lr tensor, so a checkpoint moves between the card and the CPU
+either way, and a ``latest/`` written before the card's Adam held device
+steps still resumes.
+
 The resume state and its shadow are one file, so one ``os.replace``
 commits both: no crash can leave them at different steps. A run
 directory written before they were one file keeps the shadow in
@@ -67,6 +75,34 @@ def _save(obj: Any, path: str) -> None:
 
 def _load(path: str) -> Any:
     return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def _portable_optimizer(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """An optimizer state_dict with every ``step`` a CPU float32 tensor and
+    each group's lr a float (the CPU Adam's layout)."""
+    state = {i: {k: v.detach().to("cpu", torch.float32) if k == "step" else v
+                 for k, v in st.items()} for i, st in sd["state"].items()}
+    groups = [dict(g, lr=float(g["lr"])) if torch.is_tensor(g["lr"]) else g
+              for g in sd["param_groups"]]
+    return dict(sd, state=state, param_groups=groups)
+
+
+def _load_optimizer(optimizer: torch.optim.Optimizer, sd: Dict[str, Any]) -> None:
+    """Load ``sd`` (either layout) into ``optimizer`` in its own form: a
+    tensor lr stays the same tensor, holding the saved value, the
+    ``capturable`` flags stay, and the steps go where the optimizer keeps
+    them (its parameters' device when capturable, else the CPU)."""
+    live = [(g["lr"], g.get("capturable", False)) for g in optimizer.param_groups]
+    optimizer.load_state_dict(sd)
+    for g, (lr, capturable) in zip(optimizer.param_groups, live):
+        if torch.is_tensor(lr):
+            lr.fill_(float(g["lr"]))
+            g["lr"] = lr
+        g["capturable"] = capturable
+        for p in g["params"]:
+            st = optimizer.state.get(p, {})
+            if "step" in st:
+                st["step"] = st["step"].to(p.device if capturable else "cpu", torch.float32)
 
 
 def _selection_metric(metrics: Dict[str, Any], select_by: str = "ndcg") -> float:
@@ -172,8 +208,8 @@ class CheckpointKeeper:
         if rows is not None and self.table_rows is not None:
             rows = dict(rows, munu=self._gather(rows["munu"]))
         ck = {"model": self._whole(state.model.state_dict()),
-              "optimizer": self._moments(state, state.optimizer.state_dict(),
-                                         self._gather),
+              "optimizer": self._moments(state, _portable_optimizer(
+                  state.optimizer.state_dict()), self._gather),
               "items_state": rows,
               "generator": state.generator.get_state(),
               "seed_generator": state.seed_generator.get_state(),
@@ -199,7 +235,7 @@ class CheckpointKeeper:
             raise ValueError(f"{self.latest} holds the {'dense' if saved is None else 'sparse'} "
                              "item-table Adam's state; the state to restore uses the other")
         state.model.load_state_dict(self._block(ck["model"]))
-        state.optimizer.load_state_dict(self._moments(
+        _load_optimizer(state.optimizer, self._moments(
             state, ck["optimizer"], lambda t: local_rows(t, self.mesh)))
         if saved is not None:
             munu = saved["munu"]

@@ -17,7 +17,9 @@ per step) or, with ``device_pipeline``, are assembled on the
 device from a [B] vector of user rows. PyTorch runs eagerly: a step
 function updates the ``TrainState`` in place and returns it with the loss,
 a device tensor that is read on the host once per epoch. The JAX package's
-``lax.scan`` over K steps per dispatch is a Python loop of K steps per call.
+``lax.scan`` over K steps per dispatch is a Python loop of K steps per
+call, which on the card runs as one CUDA graph replay from its second call
+on (``train/graph.py``).
 
 Where ``sparse_adam.resolve`` says so (a device-pipeline run with an item
 table of at least 1M rows), the device step updates the item table with
@@ -64,6 +66,7 @@ from carca_tpu_torch.parallel.mesh import (Mesh, all_reduce_sum, rank_generators
                                            shard_batch, sum_gradients)
 from carca_tpu_torch.parallel.retrieval import (catalog_in_decoder_space, embed_catalog,
                                                 queries, retrieval_hr_ndcg, topk_given_queries)
+from carca_tpu_torch.train import graph as step_graph
 from carca_tpu_torch.train import sparse_adam
 from carca_tpu_torch.train.checkpoint import CheckpointKeeper, _selection_metric
 from carca_tpu_torch.train.metrics import hr_ndcg_sums
@@ -141,13 +144,32 @@ def apply_gradients(state: TrainState, terms_fn: Callable[[], Terms],
     loss = num / torch.clamp_min(den, floor)
     loss.backward()
     sum_gradients([p for g in state.optimizer.param_groups for p in g["params"]], group)
-    if state.schedule is not None:
-        lr = state.schedule(state.step)
-        for g in state.optimizer.param_groups:
-            g["lr"] = lr
+    _set_lr(state)
     state.optimizer.step()
     state.step += 1
     return all_reduce_sum(loss.detach().clone(), group)
+
+
+def _set_lr(state: TrainState) -> None:
+    """The schedule's learning rate of this update into Adam: a float on
+    the CPU; on the card written into Adam's lr tensor (``fill_``), or under
+    a ``train/graph.py`` capture copied from the call's lr slot, which each
+    replay rewrites."""
+    if state.schedule is None:
+        return  # Adam keeps tc.lr
+    groups = state.optimizer.param_groups
+    cap = step_graph.capture_in_progress(groups[0]["params"][0].device)
+    if cap is not None:
+        slot = cap.lr()
+        for g in groups:
+            g["lr"].copy_(slot)
+        return
+    lr = state.schedule(state.step)
+    for g in groups:
+        if torch.is_tensor(g["lr"]):
+            g["lr"].fill_(lr)
+        else:
+            g["lr"] = lr
 
 
 def _dense_update(state: TrainState, tc: TrainConfig, batch, attrs_table: torch.Tensor,
@@ -198,9 +220,15 @@ def _sparse_device_update(tc: TrainConfig, state: TrainState, batch,
     if mesh is not None:
         all_reduce_sum(g_rows, mesh.data_group)
     rows = state.items_state
-    sparse_adam.apply_rows_update(items, rows, uphys, valid, g_rows, sub.detach(),
-                                  lr=sparse_adam.lr_at(tc, rows["count"]), b1=tc.beta1,
-                                  b2=tc.beta2, weight_decay=tc.l2_reg, lo=lo)
+    cap = step_graph.capture_in_progress(items.device)
+    if cap is not None:  # the call's slots, which each replay rewrites
+        lr, c1, c2 = cap.row_scalars()
+    else:  # host float32 values as device tensors (a fill each: no host sync)
+        lr, c1, c2 = (torch.full((), float(v), dtype=torch.float32, device=items.device)
+                      for v in sparse_adam.step_scalars(tc, rows["count"]))
+    sparse_adam.apply_rows_update(items, rows, uphys, valid, g_rows, sub.detach(), lr=lr,
+                                  b1=tc.beta1, b2=tc.beta2, weight_decay=tc.l2_reg, lo=lo,
+                                  corrections=(c1, c2))
     return loss
 
 
@@ -251,13 +279,30 @@ def make_scanned_device_train_step(mc: ModelConfig, inner_steps: int,
                                    on_step: Optional[Callable[[TrainState], None]] = None,
                                    sparse_items: Optional[bool] = None, *,
                                    mesh: Optional[Mesh] = None,
-                                   lookup: Optional[Lookup] = None) -> Callable:
+                                   lookup: Optional[Lookup] = None,
+                                   graph: Optional[bool] = None,
+                                   watch: Optional[Callable[[], list]] = None) -> Callable:
     """``inner_steps`` train steps per call: (state, attrs_table, catalog
-    arrays, user_rows [K, B]) → (state, losses [K], a device tensor). Each
-    step is exactly ``make_device_train_step``'s (``mesh`` and ``lookup``
-    as there), drawing from the same generators in the same order, so K
-    steps in one call equal K single steps; ``on_step(state)`` runs after
-    each (the fit loop's EMA)."""
+    arrays, user_rows [K, B] on the host or the device) → (state, losses
+    [K], a device tensor). Each step is exactly ``make_device_train_step``'s
+    (``mesh`` and ``lookup`` as there), drawing from the same generators in
+    the same order, so K steps in one call equal K single steps;
+    ``on_step(state)`` runs after each (the fit loop's EMA), and ``watch()``
+    lists the tensors it updates in place.
+
+    ``graph`` None makes the call one CUDA graph on a CUDA state with no
+    ``mesh`` (``train/graph.py``: the first call runs eagerly, the second
+    captures, each later one is a replay equal to the eager call), the
+    counterpart of the JAX package's jitted scan; on a CPU state it runs
+    eagerly. ``False`` is the eager loop on any device. ``True`` raises with
+    a mesh, and on a CPU state at its call. Under a ``mesh`` the call is the
+    eager loop by construction: gloo's collectives run on the host, outside
+    any graph, and capturing NCCL's waits for a machine with a card per
+    rank (ROADMAP A4)."""
+    if graph and mesh is not None:
+        raise ValueError("graph=True: a step over a mesh stays the eager loop (gloo's "
+                         "collectives run on the host; NCCL's are not captured)")
+    tc = tc or TrainConfig()
     step = make_device_train_step(mc, tc, reject_width, neg_pop, logq, sparse_items,
                                   mesh=mesh, lookup=lookup)
 
@@ -265,6 +310,7 @@ def make_scanned_device_train_step(mc: ModelConfig, inner_steps: int,
         if user_rows.shape[0] != inner_steps:
             raise ValueError(f"user_rows holds {user_rows.shape[0]} batches, "
                              f"the step takes {inner_steps}")
+        user_rows = user_rows.to(arrays["items"].device)
         losses = []
         for rows in user_rows:
             state, loss = step(state, attrs_table, arrays, rows)
@@ -273,7 +319,11 @@ def make_scanned_device_train_step(mc: ModelConfig, inner_steps: int,
             losses.append(loss)
         return state, torch.stack(losses)
 
-    return scanned_step
+    if graph is False or mesh is not None:
+        scanned_step.mode = "eager"
+        return scanned_step
+    return step_graph.GraphedStep(scanned_step, inner_steps, tc, required=bool(graph),
+                                  watch=watch)
 
 
 def make_train_step(mc: ModelConfig, tc: Optional[TrainConfig] = None,
@@ -825,10 +875,12 @@ def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
         # global batch and training on its slice
         train_step = make_device_train_step(mc, tc, rw, neg_pop, logq=logq,
                                             sparse_items=sparse_items, **on_mesh)
-        scanned_step = (make_scanned_device_train_step(mc, tc.inner_steps, tc, rw, neg_pop,
-                                                       logq=logq, on_step=ema_after,
-                                                       sparse_items=sparse_items, **on_mesh)
-                        if tc.inner_steps > 1 else None)
+        # anomaly mode (debug_nans) reads every gradient on the host: no graph
+        scanned_step = (make_scanned_device_train_step(
+            mc, tc.inner_steps, tc, rw, neg_pop, logq=logq, on_step=ema_after,
+            sparse_items=sparse_items, graph=False if tc.debug_nans else None,
+            watch=lambda: [] if ema is None else list(ema.parameters()), **on_mesh)
+            if tc.inner_steps > 1 else None)
         eval_steps = {m: make_device_eval_step(mc, tc.top_k, m, rw, **on_mesh)
                       for m in ("val", "test")}
         scanned_evals = {m: (make_scanned_device_eval_step(mc, tc.top_k, m, tc.inner_steps, rw,
@@ -943,9 +995,10 @@ def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
                         note_batches(loss)
                         continue
                     pending.append(rows)
-                    if len(pending) == tc.inner_steps:
+                    if len(pending) == tc.inner_steps:  # rows on the host: the call stages them
                         state, k_losses = scanned_step(
-                            state, attrs_table, dd.arrays, rows_on(np.stack(pending)))
+                            state, attrs_table, dd.arrays,
+                            torch.as_tensor(np.stack(pending), dtype=torch.int64))
                         losses.append(k_losses)
                         note_batches(k_losses)
                         pending = []

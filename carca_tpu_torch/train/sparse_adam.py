@@ -40,7 +40,7 @@ the rows of its own block ``[lo, lo + n)`` with the block's moments
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -99,6 +99,18 @@ def init_state(table: torch.Tensor) -> Dict[str, object]:
             "count": 0}
 
 
+Scalar = Union[float, torch.Tensor]  # a host float, or a 0-dim float32 tensor on the table's device
+
+
+def bias_corrections(b1: float, b2: float, count: int) -> Tuple[float, float]:
+    """(1 − b1^count, 1 − b2^count) in float32, as the JAX package's
+    ``scale_by_adam`` has them, for the update that brings the row state's
+    count to ``count``."""
+    c = np.float32(count)
+    return (float(np.float32(1.0) - np.power(np.float32(b1), c)),
+            float(np.float32(1.0) - np.power(np.float32(b2), c)))
+
+
 @torch.no_grad()
 def apply_rows_update(
     table: torch.Tensor,
@@ -108,23 +120,33 @@ def apply_rows_update(
     g_rows: torch.Tensor,
     sub_rows: torch.Tensor,
     *,
-    lr: float,
+    lr: Scalar,
     b1: float,
     b2: float,
     eps: float = 1e-8,
     weight_decay: float = 0.0,
     lo: int = 0,
+    corrections: Optional[Tuple[Scalar, Scalar]] = None,
 ) -> None:
     """One Adam step restricted to rows ``uphys`` (global row ids; fill
     slots, ``valid`` False, change nothing), in place on ``table`` and
     ``sstate``: the elementwise arithmetic of optax's
     ``add_decayed_weights → scale_by_adam → scale(−lr)`` chain,
-    bias-corrected by the row state's count.
+    bias-corrected by the row state's count (``corrections``, by default
+    ``bias_corrections`` of the count after this update).
+
+    ``lr`` and ``corrections`` may be 0-dim float32 tensors on the table's
+    device, as the device step passes them (``loop._sparse_device_update``)
+    so that a CUDA graph reads each replay's values from device memory. On
+    the CPU they give the host floats' result bit for bit; on the card a
+    host float divisor becomes a multiplication by its reciprocal, so the
+    card's eager steps take the tensors too.
 
     ``table`` and ``sstate`` may be one block of the table, rows ``[lo, lo
     + n)`` with their ``[n, 2W]`` moments: only the slots whose row falls
     in the block update; every other slot changes nothing."""
     count = int(sstate["count"]) + 1
+    c1, c2 = bias_corrections(b1, b2, count) if corrections is None else corrections
     munu_all = sstate["munu"]
     n = table.shape[0]
     if weight_decay:
@@ -137,13 +159,12 @@ def apply_rows_update(
     # index carries another value
     first = torch.argmax(keep.to(torch.int32))
     slot = torch.where(keep, torch.arange(keep.shape[0], device=keep.device), first)
-    loc = torch.where(keep[first], loc[slot], 0)
+    loc = torch.where(keep.any(), loc[slot], 0)  # keep[first], read with no host sync
     munu = munu_all[loc]
     mu = b1 * munu[:, :w] + (1.0 - b1) * g_rows[slot]
     nu = b2 * munu[:, w:] + (1.0 - b2) * torch.square(g_rows[slot])
-    c = np.float32(count)  # the corrections in float32, as the JAX package's
-    mu_hat = mu / float(np.float32(1.0) - np.power(np.float32(b1), c))
-    nu_hat = nu / float(np.float32(1.0) - np.power(np.float32(b2), c))
+    mu_hat = mu / c1
+    nu_hat = nu / c2
     delta = (-lr) * mu_hat / (torch.sqrt(nu_hat) + eps)
     write = keep[slot][:, None]
     # a non-writing slot adds +0 to its row; the moments it writes are the
@@ -161,3 +182,12 @@ def lr_at(tc, count: int) -> float:
 
     sched = make_schedule(tc)
     return float(tc.lr) if sched is None else float(sched(count))
+
+
+def step_scalars(tc, count: int) -> np.ndarray:
+    """(lr, 1 − b1^(count+1), 1 − b2^(count+1)) as float32: the host values
+    of the update that takes the row state from ``count`` to ``count`` + 1
+    (``lr_at`` and ``bias_corrections``), which the device step passes as
+    device tensors."""
+    return np.array([lr_at(tc, count), *bias_corrections(tc.beta1, tc.beta2, count + 1)],
+                    dtype=np.float32)

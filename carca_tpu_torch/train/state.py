@@ -6,7 +6,11 @@ its optimizer, the run's generators and the step count, in one object.
 L2 (``weight_decay`` adds l2·p to the gradient before the moments), which
 is what the JAX package builds as ``add_decayed_weights`` ahead of
 ``scale_by_adam``. The sinusoidal ``pe`` table is a buffer here, not a
-parameter, so it needs no decay mask.
+parameter, so it needs no decay mask. On the card it is built
+``capturable``, its lr a 0-dim float32 tensor on the device and its step
+counts device tensors, so that the K-step call can be one CUDA graph
+(``train/graph.py``); the card's eager steps run the same arithmetic. The
+CPU keeps the plain Adam (``capturable`` is CUDA-only).
 
 With ``sparse_items`` (``train/sparse_adam.py``) the Adam covers every
 parameter but ``embed.items``, and the item table's row state (``munu``,
@@ -67,8 +71,17 @@ def make_schedule(tc: TrainConfig) -> Optional[Callable[[int], float]]:
 
 
 def make_optimizer(tc: TrainConfig, params) -> torch.optim.Adam:
-    return torch.optim.Adam(params, lr=tc.lr, betas=(tc.beta1, tc.beta2), eps=1e-8,
-                            weight_decay=tc.l2_reg)
+    params = list(params)
+    device = params[0].device if params else torch.device("cpu")
+    if device.type != "cuda":
+        return torch.optim.Adam(params, lr=tc.lr, betas=(tc.beta1, tc.beta2), eps=1e-8,
+                                weight_decay=tc.l2_reg)
+    lr = torch.tensor(tc.lr, dtype=torch.float32, device=device)
+    opt = torch.optim.Adam(params, lr=lr, betas=(tc.beta1, tc.beta2), eps=1e-8,
+                           weight_decay=tc.l2_reg, capturable=True)
+    # its eager steps are meant (the graph's warm-up and the eager A/B): no warning
+    opt._warned_capturable_if_run_uncaptured = True
+    return opt
 
 
 def create_train_state(mc: ModelConfig, tc: TrainConfig,

@@ -89,16 +89,24 @@ raises and exits non-zero:
              One step with dropout 0 against the CPU plain path from the
              same parameters and batch (loss within 1e-5 relative, every
              parameter's gradient within 1e-3 relative norm, and within
-             1e-4 of the card's own plain path); then 64
-             steps at dropout 0.5, in which K1 and K2 must both launch, the
-             losses stay finite and the mean of the last 8 falls below the
-             mean of the first 8; then train_examples_per_sec_flagship with
-             the kernels and with the plain path, and peak device memory;
-             then `python -m carca_tpu_torch.bench` (its mfu and
-             hbm_bw_util must lie in (0, 1.05]) and `python -m
-             carca_tpu_torch.profile_step --config flagship`, whose table
-             must name K1's and K2's device kernels (phase 7 and this
-             script's traces use its aggregation).
+             1e-4 of the card's own plain path); then the K-step call as a
+             CUDA graph (train/graph.py) against the eager loop at dropout
+             0.5: 4 calls from fresh states seeded alike, the eager calls
+             twice (their own spread), the graph's warm-up, capture and
+             three replays; losses, parameters, Adam's state and the device
+             generator equal the eager run's within that spread (bit-equal
+             where it is 0), K1/K2 launches equal; each one's ex/s, peak
+             memory and device busy share; then 64 steps at dropout 0.5
+             through the graph (one capture, seven replays), in which K1
+             and K2 must both launch, the losses stay finite and the mean
+             of the last 8 falls below the mean of the first 8; then
+             train_examples_per_sec_flagship with the plain path, and peak
+             device memory; then `python -m carca_tpu_torch.bench` (`step:
+             graph`; its mfu and hbm_bw_util must lie in (0, 1.05]) and
+             `python -m carca_tpu_torch.profile_step --config flagship`
+             (`# step: graph`, its busy share logged), whose table must
+             name K1's and K2's device kernels (phase 7 and this script's
+             traces use its aggregation).
 9. fit     — the port's entry points end to end: synthetic_catalog(4096
              users, 2,000 items, seed 0) written in the reference's file
              formats, then `python -m carca_tpu_torch.cli --preset beauty`
@@ -126,7 +134,9 @@ raises and exits non-zero:
              train step at dropout 0 from the same weights with the
              row-sparse and with the dense item Adam (losses equal,
              first-touch rows within 1e-6, untouched rows and moments
-             bit-equal, the pad row 0) and each step's time; then `python -m
+             bit-equal, the pad row 0) and each step's time; the graph
+             against the eager loop on bench.build_setup("10m"), row-sparse,
+             at full size, as phase 8 checks it (not timed); then `python -m
              carca_tpu_torch.cli --preset synthetic10m --epochs 2
              --eval_retrieval_every 1 --select_by retrieval_hr
              --eval_retrieval 10`: retrieval val HR@10 after epoch 1 >= 0.05,
@@ -141,7 +151,8 @@ raises and exits non-zero:
              version at the eval's [256, 64] x k + L = 60; the service over
              the run (its catalog regenerated on the card) against an
              in-process load_recommender; `python -m carca_tpu_torch.bench
-             --config 10m` (mfu and hbm_bw_util as in phase 8); K1/K2 under
+             --config 10m` (`step: graph`; mfu and hbm_bw_util as in phase
+             8); K1/K2 under
              bf16 compute at the fit's encoder
              against their plain versions, timed beside them and SDPA.
              12d, after the fit's evaluation: `python -m
@@ -318,7 +329,8 @@ from carca_tpu_torch.serve.service import HostCSR, history, run_bench, serve_lin
 from carca_tpu_torch.train import sparse_adam
 from carca_tpu_torch.train.checkpoint import CheckpointKeeper
 from carca_tpu_torch.train.loop import (RetrievalEvaluator, _sparse_device_update,
-                                        apply_gradients, attrs_dtype, make_eval_step, to_device,
+                                        apply_gradients, attrs_dtype, make_eval_step,
+                                        make_scanned_device_train_step, to_device,
                                         train_loss, train_loss_terms)
 from carca_tpu_torch.train.loop import fit as fit_loop
 from carca_tpu_torch.train.state import create_train_state
@@ -373,6 +385,7 @@ TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, GRAD_NORM_FLOOR = 1e-5, 1e-3, 1e-3
 # 1e-4 holds there (measured 2.4e-7)
 TRAIN_GRAD_TOL_SAME_DEVICE = 1e-4
 TRAIN_CALLS = 8  # 8 calls x K=8 = the first 64 steps
+GRAPH_CALLS = 4  # the graph's warm-up, its capture and first replay, then two replays
 D_WIDE, R_WIDE = 256, 100_000  # phase 4w: rows of 256 columns (two 128-column chunks)
 # phase 9: results/convergence_flagship.json's dataset and protocol; the
 # floors lie ~2.5 sigma (sigma ~0.007 at 4,096 test users) below the
@@ -1402,8 +1415,12 @@ def phase_train(card, profile_run=False):
         n_valid=int(batch["n_valid"]), setup_s=time.perf_counter() - t0)
     del det, det_plain, cpu_model
 
-    # the main path: the flagship at dropout 0.5, K = 8 steps per call
+    graph_vs_eager(card, "train", "flagship")
+
+    # the main path: the flagship at dropout 0.5, K = 8 steps per call, one
+    # CUDA graph replay per call from the second call on
     s = bench.build_setup("flagship", 256, DEVICE)
+    check(s.step.mode == "graph", f"the flagship's K-step call is {s.step.mode}, not a graph")
     reset_counts()
     losses = []
     for i in range(TRAIN_CALLS):
@@ -1413,7 +1430,10 @@ def phase_train(card, profile_run=False):
     launches = counts()
     losses = torch.cat(losses).cpu()
     log("train", case="flagship dropout 0.5", steps=len(losses), launches=launches,
+        step=s.step.mode, captures=s.step.captures, replays=s.step.replays,
         first_8=losses[:8].tolist(), last_8=losses[-8:].tolist())
+    check(s.step.captures == 1 and s.step.replays == TRAIN_CALLS - 1,
+          f"{TRAIN_CALLS} calls made {s.step.captures} captures and {s.step.replays} replays")
     check(launches["attention_fwd"] > 0, "the train step never launched K1")
     check(launches["attention_bwd"] > 0, "the train step never launched K2")
     check(bool(torch.isfinite(losses).all()), "a non-finite training loss")
@@ -1436,6 +1456,118 @@ def phase_train(card, profile_run=False):
     del plain
     bench_utilisation(card)
     return launches
+
+
+def state_tensors(state) -> dict:
+    """Every tensor a K-step call updates: parameters, Adam's state, the
+    row-sparse moments, and the device generator's state."""
+    out = {f"param {n}": p.detach() for n, p in state.model.named_parameters()}
+    for i, st in enumerate(state.optimizer.state.values()):
+        out.update({f"adam {i} {k}": v for k, v in st.items()})
+    if state.items_state is not None:
+        out["munu"] = state.items_state["munu"]
+    out["generator"] = state.generator.get_state()
+    return out
+
+
+def max_abs_diffs(a: dict, b: dict) -> dict:
+    return {n: (a[n].double() - b[n].double()).abs().max().item() if a[n].numel() else 0.0
+            for n in a}
+
+
+def graph_vs_eager(card, phase: str, config: str, calls: int = GRAPH_CALLS,
+                   rates: bool = True) -> dict:
+    """The K-step call as a CUDA graph against the eager loop on
+    ``bench.build_setup(config)`` at its dropout (0.5): from fresh states
+    seeded alike (copies of the setup's untrained model), ``calls`` eager
+    calls twice (the eager call's own spread) and ``calls`` graph calls (the
+    warm-up, the capture and its replay, then replays). Losses, parameters,
+    Adam's state, the sparse moments and the device generator must equal
+    the first eager run's within the spread of the second (bit-equal where
+    the eager call repeats itself), and the K1/K2 launches must be equal.
+    With ``rates``, then train examples/s, peak memory and the device busy
+    share of each."""
+    t0 = time.perf_counter()
+    s = bench.build_setup(config, B, DEVICE, graph=False)
+    base, s.state = s.state.model, None
+
+    def fresh():
+        return create_train_state(s.mc, s.tc, DEVICE, model=copy.deepcopy(base),
+                                  sparse_items=s.sparse_items)
+
+    runs = {}
+    for name, graph in (("eager", False), ("eager again", False), ("graph", None)):
+        torch.cuda.empty_cache()
+        state = fresh()
+        step = make_scanned_device_train_step(s.mc, s.inner, s.tc, sparse_items=s.sparse_items,
+                                              graph=graph)
+        torch.cuda.synchronize()
+        reset_counts()
+        losses = []
+        for i in range(calls):
+            state, k_losses = step(state, s.attrs, s.dd.arrays, s.chunks[i % len(s.chunks)])
+            losses.append(k_losses)
+        torch.cuda.synchronize()
+        runs[name] = {"losses": torch.cat(losses), "tensors": state_tensors(state),
+                      "launches": counts(), "step": step, "host": state.step}
+        del state
+    eager, again, graph = runs["eager"], runs["eager again"], runs["graph"]
+    spread = max_abs_diffs(eager["tensors"], again["tensors"])
+    diff = max_abs_diffs(graph["tensors"], eager["tensors"])
+    loss_spread = (eager["losses"] - again["losses"]).abs().max().item()
+    loss_diff = (graph["losses"] - eager["losses"]).abs().max().item()
+    over = {n: (diff[n], spread[n]) for n in diff if diff[n] > spread[n]}
+    out = {"calls": calls, "steps": calls * s.inner, "sparse_items": s.sparse_items,
+           "eager_repeats_itself": not any(spread.values()) and loss_spread == 0.0,
+           "graph_bit_equal": not any(diff.values()) and loss_diff == 0.0,
+           "max_eager_spread": max(spread.values()), "max_graph_diff": max(diff.values()),
+           "loss_eager_spread": loss_spread, "loss_graph_diff": loss_diff,
+           "launches_graph": graph["launches"], "launches_eager": eager["launches"],
+           "captures": graph["step"].captures, "replays": graph["step"].replays,
+           "seconds": time.perf_counter() - t0}
+    log(phase, card=card, case=f"{config}: the K-step call as a CUDA graph against the eager "
+        "loop", **out)
+    check(not over and loss_diff <= loss_spread,
+          f"{config}: the graph's call differs from the eager call beyond the eager call's own "
+          f"spread: {over or (loss_diff, loss_spread)}")
+    check(graph["launches"] == eager["launches"] and eager["launches"]["attention_fwd"] > 0,
+          f"{config}: launches graph {graph['launches']} eager {eager['launches']}")
+    check(graph["host"] == eager["host"] == calls * s.inner,
+          f"{config}: steps counted graph {graph['host']} eager {eager['host']}")
+    check((out["captures"], out["replays"]) == (1, calls - 1),
+          f"{config}: {out['captures']} captures, {out['replays']} replays in {calls} calls")
+    del runs, eager, again, graph
+    if not rates:
+        return out
+    # examples/s, peak memory and busy share, eager then graph
+    rates = {}
+    for name, graph in (("eager", False), ("graph", None)):
+        s.state = None
+        torch.cuda.empty_cache()
+        s.state = fresh()
+        s.step = make_scanned_device_train_step(s.mc, s.inner, s.tc,
+                                                sparse_items=s.sparse_items, graph=graph)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        r = bench.measure(s)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.state, _ = s.step(s.state, s.attrs, s.dd.arrays, s.chunks[0])
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        t = device_trace(run, s.inner, 2)
+        rates[name] = {"median": statistics.median(r), "windows": r, "peak_device_mib": peak,
+                       **{k: v for k, v in t.items() if k != "table"}}
+        log(phase, card=card, metric=f"train_examples_per_sec_{config}", step=name,
+            **rates[name], top_ms_per_step=top_ms(t))
+    s.state = None
+    del s, base
+    torch.cuda.empty_cache()
+    return dict(out, rates=rates)
 
 
 def check_utilisation(line: dict, what: str) -> None:
@@ -1461,13 +1593,17 @@ def bench_utilisation(card) -> None:
                                  600).strip().splitlines()[-1])
     log("train", card=card, case="python -m carca_tpu_torch.bench", **line)
     check_utilisation(line, "bench flagship")
+    check(line["step"] == "graph", f"bench timed the {line['step']} step")
     out = run_module("carca_tpu_torch.profile_step", ["--config", "flagship", "--top", "60"], 600)
     rows = [ln for ln in out.splitlines() if ln and not ln.startswith("#")][1:]
     found = {k: [ln.split(None, 3)[3] for ln in rows if pat.search(ln)]
              for k, pat in K1_K2_KERNELS.items()}
+    summary = [ln for ln in out.splitlines() if ln.startswith("# wall")]
+    share = re.search(r"busy share ([0-9.]+)", summary[0] if summary else "")
     log("profile_step", card=card, config="flagship", head=out.splitlines()[:12],
-        summary=[ln for ln in out.splitlines() if ln.startswith("# wall")], kernels=found)
+        summary=summary, busy_share=float(share.group(1)) if share else None, kernels=found)
     check(all(found.values()), f"profile_step's table does not name K1's and K2's kernels: {found}")
+    check("# step: graph" in out.splitlines(), "profile_step did not trace the graph")
 
 
 # --------------------------------------------------------------------------
@@ -2000,6 +2136,9 @@ def phase_fit_10m(card, profile_run=False) -> dict:
             regenerated_bit_equal=True, both_generations_s=time.perf_counter() - t0)
         step = sparse_vs_dense_step(card, cat)
         torch.cuda.empty_cache()
+        # equality only: `bench --config 10m` below times the graph's step
+        step["graph"] = graph_vs_eager(card, "fit_10m", "10m", rates=False)
+        torch.cuda.empty_cache()  # its states' and graph's blocks: the fit's process follows
         run = os.path.join(tmp, "run")
         fit = fit_10m_run(card, run)
         eval_launches, errs, timings, results = eval_10m(card, run, cat)
@@ -2011,6 +2150,7 @@ def phase_fit_10m(card, profile_run=False) -> dict:
                                         600).strip().splitlines()[-1])
         log("fit_10m", card=card, **bench10)
         check_utilisation(bench10, "bench 10m")
+        check(bench10["step"] == "graph", f"bench --config 10m timed the {bench10['step']} step")
         if profile_run:
             setup = bench.build_setup("10m", B, DEVICE)
             profile_train(card, setup, "auto")

@@ -32,7 +32,8 @@ from carca_tpu_torch.config import preset
 from carca_tpu_torch.data.dataset import BatchBuilder, epoch_batches
 from carca_tpu_torch.data.device_pipeline import DeviceDataset
 from carca_tpu_torch.data.synthetic import synthetic_catalog
-from carca_tpu_torch.train.checkpoint import CheckpointKeeper
+from carca_tpu_torch.train.checkpoint import (CheckpointKeeper, _load_optimizer,
+                                              _portable_optimizer)
 from carca_tpu_torch.train.loop import (ema_update, fit, make_device_train_step,
                                         make_scanned_device_train_step, make_train_step,
                                         to_device)
@@ -82,6 +83,58 @@ def test_resume_equals_an_uninterrupted_run(tmp_path, cat, device_pipeline, ema_
         ea, eb = wa["ema"], wb["ema"]  # the shadow saved in latest/ with the state
         assert ea["step"] == eb["step"] == wa["step"]
         assert all(torch.equal(t, eb["params"][n]) for n, t in ea["params"].items())
+
+
+def test_a_latest_with_cpu_step_tensors_resumes_exactly(tmp_path, cat):
+    """latest/ holds Adam's steps as CPU float32 tensors and its lr as a
+    float, the CPU Adam's layout, which every latest/ written before the
+    card's Adam held device steps has; such a directory resumes to the
+    uninterrupted run."""
+    whole = fit(smoke(cat, tmp_path / "whole", epochs=3, device_pipeline=True), cat,
+                device="cpu")[1]
+    fit(smoke(cat, tmp_path / "split", epochs=2, device_pipeline=True), cat, device="cpu")
+    opt = latest_weights(tmp_path / "split")["optimizer"]
+    steps = [st["step"] for st in opt["state"].values()]
+    assert steps and all(t.device.type == "cpu" and t.dtype == torch.float32 and t.ndim == 0
+                         for t in steps)
+    assert all(isinstance(g["lr"], float) for g in opt["param_groups"])
+    resumed = fit(smoke(cat, tmp_path / "split", epochs=3, device_pipeline=True), cat,
+                  device="cpu")[1]
+    assert resumed == whole
+    wa, wb = latest_weights(tmp_path / "whole"), latest_weights(tmp_path / "split")
+    for name, t in wa["model"].items():
+        assert torch.equal(t, wb["model"][name]), name
+
+
+def test_the_capturable_adams_state_is_saved_portable_and_loaded_in_each_form():
+    """The card's Adam (``capturable``, a tensor lr, 0-dim step tensors on
+    its parameters' device) is written in the CPU Adam's layout, and a
+    state_dict of either layout loads into either optimizer in its own
+    form: a tensor lr stays the live tensor holding the saved value, the
+    capturable flag stays, the steps go where the optimizer keeps them."""
+    params = [torch.nn.Parameter(torch.randn(3, 2)), torch.nn.Parameter(torch.randn(4))]
+    lr = torch.tensor(2e-3, dtype=torch.float32)
+    card = torch.optim.Adam(params, lr=lr, capturable=True)
+    for i, p in enumerate(params):
+        card.state[p] = {"step": torch.tensor(7.0 + i), "exp_avg": torch.randn_like(p),
+                         "exp_avg_sq": torch.rand_like(p)}
+    sd = _portable_optimizer(card.state_dict())
+    assert [type(g["lr"]) for g in sd["param_groups"]] == [float]
+    assert all(st["step"].dtype == torch.float32 and st["step"].device.type == "cpu"
+               for st in sd["state"].values())
+    plain = torch.optim.Adam([torch.nn.Parameter(p.detach().clone()) for p in params], lr=1e-3)
+    _load_optimizer(plain, sd)
+    g = plain.param_groups[0]
+    assert isinstance(g["lr"], float) and g["lr"] == float(lr) and not g["capturable"]
+    lr2 = torch.tensor(5.0)
+    again = torch.optim.Adam([torch.nn.Parameter(p.detach().clone()) for p in params], lr=lr2,
+                             capturable=True)
+    _load_optimizer(again, plain.state_dict())
+    g = again.param_groups[0]
+    assert g["lr"] is lr2 and lr2.item() == lr.item() and g["capturable"]
+    for p, q in zip(params, again.param_groups[0]["params"]):
+        for key in ("step", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(card.state[p][key], again.state[q][key]), key
 
 
 def test_resume_refuses_an_ema_of_another_step(tmp_path, cat):
