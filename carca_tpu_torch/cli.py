@@ -298,20 +298,10 @@ _TPU_ONLY = ("pack_tables", "remat", "compilation_cache")
 
 def launch_counts(by_shape: bool = False) -> dict:
     """Every kernel wrapper's launch count in this process; ``by_shape``
-    adds K1's and K2's by (Lq x Lk causal) shape."""
-    from carca_tpu_torch.ops.flash_attention import attention_bwd, fused_attention
-    from carca_tpu_torch.ops.retrieval_topk import catalog_topk, groupmax, tournament_rerank
+    adds K1's and K2's by (Lq x Lk causal) shape (``ops/launches.py``)."""
+    from carca_tpu_torch.ops import launches
 
-    out = {"attention_fwd": fused_attention.launches,
-           "attention_bwd": attention_bwd.launches,
-           **{f"catalog_topk_{kind}": n for kind, n in catalog_topk.launches.items()},
-           **{f"groupmax_layout{lay}": n for lay, n in groupmax.launches.items()},
-           "tournament_rerank": tournament_rerank.launches}
-    if by_shape:
-        for name, fn in (("attention_fwd", fused_attention), ("attention_bwd", attention_bwd)):
-            out[f"{name}_by_shape"] = {f"{lq}x{lk} causal {causal}": n
-                                       for (lq, lk, causal), n in fn.launches_by_shape.items()}
-    return out
+    return launches.report(by_shape)
 
 
 def join_mesh(args, device: str):

@@ -16,6 +16,10 @@
 * **Batch buckets.** Requests are padded up to the nearest of a few batch
   sizes, as in the JAX package (where each bucket is one compiled
   executable); padded rows are all-pad histories, whose outputs are cut.
+  On the card each bucket's call is one CUDA graph replay
+  (``serve/graph.py``): one graph per (bucket, k) of ``recommend`` and per
+  (bucket, n) of ``score_candidates``, the JAX package's jit keys,
+  captured at a key's first call (``warmup`` captures every bucket).
 
 ``load_recommender`` restores a trained run directory (``args.json`` and
 ``ckpt/``, written by ``train/loop.fit``).
@@ -50,6 +54,7 @@ from carca_tpu_torch.parallel.retrieval import (catalog_in_decoder_space,
                                                 query_from_encoded, stable_topk,
                                                 topk_given_queries,
                                                 topk_given_queries_sharded)
+from carca_tpu_torch.serve.graph import GraphedServe
 
 NEG_INF = float("-inf")
 # quantize="auto" stores an index of this many rows or more as int8. It is
@@ -104,6 +109,17 @@ class Recommender:
     "auto" quantizes an index of ≥ ``QUANTIZE_AUTO_MIN_ROWS`` rows.
     ``mesh``: a ``parallel.mesh.Mesh`` whose model axis row-shards the
     stage-1 index (module docstring).
+
+    ``graph``: ``None`` serves each bucket's call as one CUDA graph replay
+    (``serve/graph.py``) on a CUDA model with no mesh, and eagerly
+    otherwise; ``False`` is the eager call on any device (for A/B runs and
+    parity checks); ``True`` raises on a CPU model or with a mesh. Two
+    kinds of request run eagerly on the card even so, through the same
+    kernels: one larger than the largest bucket, served at its exact size
+    (a graph per size would pin a memory pool per size for good), and every
+    request under a mesh (the stage-1 merge is a gloo all-gather, which
+    runs on the host and cannot be captured; the card's machine has one
+    GPU).
     """
 
     def __init__(
@@ -118,6 +134,7 @@ class Recommender:
         index_ids: Optional[np.ndarray] = None,
         quantize=False,
         mesh=None,
+        graph: Optional[bool] = None,
     ):
         # identity checks: `1 in (True, False, "auto")` holds because 1 == True
         if not (quantize is True or quantize is False or quantize == "auto"):
@@ -126,6 +143,12 @@ class Recommender:
         self.model = model.eval()
         self.cfg = cfg
         self.device = next(model.parameters()).device
+        if graph and mesh is not None:
+            raise ValueError("graph=True: a Recommender over a mesh stays eager (its stage-1 "
+                             "all-gather runs on the host and cannot be captured)")
+        if graph and self.device.type != "cuda":
+            raise ValueError("graph=True needs a CUDA model: a CUDA graph captures the card's "
+                             f"work, and this model lies on {self.device}")
         self.exclude_history = exclude_history
         self.batch_buckets = tuple(sorted(batch_buckets))
         self.attrs = torch.as_tensor(attrs_table, dtype=torch.float32, device=self.device)
@@ -158,6 +181,13 @@ class Recommender:
             self.catalog_emb = quantize_index(e) if do_quant else e.contiguous()
             del e
         self._rerank = cfg.decoder == "ca"
+        self._graphs = (GraphedServe(self) if graph is not False and self.mesh is None
+                        and self.device.type == "cuda" else None)
+
+    @property
+    def mode(self) -> str:
+        """"graph" when bucket-sized calls replay CUDA graphs, else "eager"."""
+        return "eager" if self._graphs is None else "graph"
 
     def _bucket(self, b: int) -> int:
         for size in self.batch_buckets:
@@ -165,8 +195,8 @@ class Recommender:
                 return size
         return b  # oversized request: served at its exact size
 
-    def _inputs(self, histories, ctxs, request_ctx, extra=None):
-        """Pad a request to its bucket and move it to the device."""
+    def _padded(self, histories, ctxs, request_ctx, extra=None) -> list:
+        """A request padded to its bucket: numpy (p_x, p_c, rc[, extra])."""
         b = len(histories)
         bb = self._bucket(b)
         cfg = self.cfg
@@ -179,12 +209,16 @@ class Recommender:
                 extra = np.pad(extra, ((0, bb - b), (0, 0)))
         rc = (np.broadcast_to(rc, (bb, cfg.n_ctx)) if rc.ndim == 1
               else np.pad(rc, ((0, bb - b), (0, 0))))
-        dev = self.device
-        out = [torch.as_tensor(p_x, device=dev), torch.as_tensor(p_c, device=dev),
-               torch.as_tensor(np.array(rc, np.float32), device=dev)]  # a writable copy
-        if extra is not None:
-            out.append(torch.as_tensor(extra, device=dev))
-        return out
+        out = [p_x, p_c, np.array(rc, np.float32)]  # a writable copy
+        return out if extra is None else out + [extra]
+
+    def _inputs(self, histories, ctxs, request_ctx, extra=None) -> list:
+        """Pad a request to its bucket and move it to the device."""
+        return [torch.as_tensor(a, device=self.device)
+                for a in self._padded(histories, ctxs, request_ctx, extra)]
+
+    def _graphed(self, bb: int) -> bool:
+        return self._graphs is not None and bb in self.batch_buckets
 
     def recommend(
         self,
@@ -199,7 +233,7 @@ class Recommender:
         ``request_ctx``: [n_ctx] or [B, n_ctx] context the candidates are
         scored under (default ``default_ctx``)."""
         self.check_k(k)
-        p_x, p_c, rc = self._inputs(histories, ctxs, request_ctx)
+        p_x, p_c, rc = self._padded(histories, ctxs, request_ctx)
         return self.recommend_padded(p_x, p_c, rc, len(histories), int(k))
 
     def check_k(self, k: int) -> None:
@@ -208,10 +242,14 @@ class Recommender:
         if k > self._index_rows:
             raise ValueError(f"k={k} exceeds the stage-1 index ({self._index_rows})")
 
-    def recommend_padded(self, p_x: torch.Tensor, p_c: torch.Tensor, rc: torch.Tensor, b: int,
-                         k: int) -> Tuple[np.ndarray, np.ndarray]:
-        """``recommend`` of a request already padded to its bucket and on
-        the device (``_inputs``): the first ``b`` rows' (ids, scores)."""
+    def recommend_padded(self, p_x, p_c, rc, b: int, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        """``recommend`` of a request already padded to its bucket (numpy
+        arrays as ``_padded`` gives them; under a mesh, ``Lockstep``'s
+        tensors on this rank's device): the first ``b`` rows' (ids, scores).
+        One graph replay at a bucket size, else eager."""
+        if self._graphed(p_x.shape[0]):
+            return self._graphs.recommend((p_x, p_c, rc), b, k)
+        p_x, p_c, rc = (torch.as_tensor(a, device=self.device) for a in (p_x, p_c, rc))
         with torch.inference_mode():
             v, ids = self._recommend(p_x, p_c, rc, k)
         return ids[:b].cpu().numpy(), v[:b].cpu().numpy()
@@ -248,21 +286,26 @@ class Recommender:
         ctxs: Optional[Sequence[np.ndarray]] = None,
         request_ctx: Optional[np.ndarray] = None,
     ) -> np.ndarray:
-        """Decoder scores [B, N] for explicit candidate ids [B, N]."""
-        b, n = candidates.shape
-        p_x, p_c, rc, cand = self._inputs(histories, ctxs, request_ctx,
-                                          np.asarray(candidates, np.int64))
+        """Decoder scores [B, N] for explicit candidate ids [B, N]: one graph
+        replay per (bucket, N) at a bucket size, else eager."""
+        b = candidates.shape[0]
+        arrays = self._padded(histories, ctxs, request_ctx, np.asarray(candidates, np.int64))
+        if self._graphed(arrays[0].shape[0]):
+            return self._graphs.score(arrays, b)
         with torch.inference_mode():
-            p_e, p_mask = encode_profile(self.model, (p_x, None, p_c),
-                                         attrs_table=self.attrs)
-            o_c = rc[:, None, :].expand(p_x.shape[0], n, self.cfg.n_ctx)
-            y = score_targets(self.model, p_e, p_mask, [(cand, None, o_c)],
-                              attrs_table=self.attrs)
+            y = self._score(*(torch.as_tensor(a, device=self.device) for a in arrays))
         return y[:b].cpu().numpy()
 
+    def _score(self, p_x, p_c, req_ctx, cand):
+        p_e, p_mask = encode_profile(self.model, (p_x, None, p_c), attrs_table=self.attrs)
+        o_c = req_ctx[:, None, :].expand(p_x.shape[0], cand.shape[1], self.cfg.n_ctx)
+        return score_targets(self.model, p_e, p_mask, [(cand, None, o_c)],
+                             attrs_table=self.attrs)
+
     def warmup(self, k: int = 10) -> None:
-        """Run every batch bucket once ahead of traffic (builds the kernels
-        and warms the allocator)."""
+        """Run every batch bucket once ahead of traffic: builds the kernels
+        and, on the card, captures each bucket's graph for ``k``, as the JAX
+        package compiles each bucket."""
         for bb in self.batch_buckets:
             self.recommend([[1]] * bb, k=k)
 

@@ -16,10 +16,13 @@ A malformed request answers {"error": "..."} and the loop goes on.
 ``--bench`` skips stdin and prints one JSON line of latency per batch
 bucket (p50/p95/p99 over ``--iters`` timed calls after a warm one).
 
-The server runs on the card (``--device cpu`` asks for the CPU). Without
-``--data_dir`` the run's synthetic catalog is regenerated from its
-``args.json``, on the server's device for a device-pipeline run (as the
-run generated it). ``--compilation_cache`` is a TPU knob and is ignored.
+The server runs on the card (``--device cpu`` asks for the CPU), where
+each bucket's call is one CUDA graph replay (``serve/graph.py``; the
+``--bench`` rows say ``step: graph``, and ``--warmup`` captures every
+bucket ahead of traffic). Without ``--data_dir`` the run's synthetic
+catalog is regenerated from its ``args.json``, on the server's device for
+a device-pipeline run (as the run generated it). ``--compilation_cache``
+is a TPU knob and is ignored.
 
 ``--index_shards N`` row-shards the stage-1 index over N ranks of
 ``torch.distributed`` (a ``model`` axis; each rank embeds and holds one
@@ -31,7 +34,8 @@ block), launched by torchrun with N processes:
 N must be the world size. Rank 0 alone reads stdin and writes stdout;
 each request it accepts is broadcast to the other ranks (the padded
 history and contexts as tensors, behind a header with a stop flag), and
-every rank runs ``recommend`` on it in lockstep (``Lockstep``).
+every rank runs ``recommend`` on it in lockstep (``Lockstep``), eagerly:
+the stage-1 merge is a gloo all-gather on the host, which no graph holds.
 """
 
 from __future__ import annotations
@@ -112,9 +116,10 @@ def _sync(device: torch.device) -> None:
 def run_bench(rec, host: HostCSR, k: int, iters: int, seed: int = 0) -> List[Dict]:
     """Steady-state latency of ``recommend`` per batch bucket: p50/p95/p99
     over ``iters`` timed calls after one warm call, and throughput as all
-    users served over the whole timed window (so a stall counts). Each call
-    already ends in a device-to-host copy of its result; the clock also
-    waits for the device before it starts."""
+    users served over the whole timed window (so a stall counts), and
+    ``step``: "graph" (one CUDA graph replay per call) or "eager", as the
+    Recommender serves. Each call already ends in a device-to-host copy of
+    its result; the clock also waits for the device before it starts."""
     rng = np.random.default_rng(seed)
     rows = []
     for bb in rec.batch_buckets:
@@ -136,8 +141,8 @@ def run_bench(rec, host: HostCSR, k: int, iters: int, seed: int = 0) -> List[Dic
         def pct(p):
             return float(lat[min(len(lat) - 1, int(p * len(lat)))])
 
-        rows.append({"batch": bb, "k": k, "p50_ms": pct(0.50), "p95_ms": pct(0.95),
-                     "p99_ms": pct(0.99),
+        rows.append({"batch": bb, "k": k, "step": rec.mode, "p50_ms": pct(0.50),
+                     "p95_ms": pct(0.95), "p99_ms": pct(0.99),
                      "throughput_users_per_sec": bb * iters / window})
     return rows
 
@@ -179,7 +184,10 @@ class Lockstep:
     calls ``recommend`` (as ``answer`` and ``run_bench`` do), which
     broadcasts the padded request to every rank and runs it on all of
     them; the other ranks sit in ``follow`` until rank 0 calls ``stop``.
-    A request that fails its checks fails on rank 0 before any broadcast."""
+    A request that fails its checks fails on rank 0 before any broadcast.
+    The calls run eagerly (``Recommender``'s ``graph``)."""
+
+    mode = "eager"
 
     def __init__(self, rec):
         self.rec = rec

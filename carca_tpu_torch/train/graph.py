@@ -37,14 +37,13 @@ capture that fails raises with its error: there is no eager retry.
 
 from __future__ import annotations
 
-from collections import Counter
 from typing import Callable, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from carca_tpu_torch.ops.flash_attention import (SEED_LIMIT, attention_bwd, fused_attention,
-                                                 kernel_seed, seed_slots)
+from carca_tpu_torch.ops import launches
+from carca_tpu_torch.ops.flash_attention import SEED_LIMIT, kernel_seed, seed_slots
 from carca_tpu_torch.train import sparse_adam
 
 
@@ -107,21 +106,9 @@ def draw_seeds(seed_generator: torch.Generator, n: int) -> torch.Tensor:
     return torch.randint(SEED_LIMIT, (n,), generator=seed_generator, dtype=torch.int64)
 
 
-def launch_counts() -> tuple:
-    return (fused_attention.launches, Counter(fused_attention.launches_by_shape),
-            attention_bwd.launches, Counter(attention_bwd.launches_by_shape))
-
-
-def _set_launch_counts(c: tuple) -> None:
-    (fused_attention.launches, fused_attention.launches_by_shape,
-     attention_bwd.launches, attention_bwd.launches_by_shape) = c
-
-
-def _add_launch_counts(d: tuple) -> None:
-    fused_attention.launches += d[0]
-    fused_attention.launches_by_shape.update(d[1])
-    attention_bwd.launches += d[2]
-    attention_bwd.launches_by_shape.update(d[3])
+# the kernels' launch counters, read before and put back after a capture
+launch_counts = launches.snapshot
+_set_launch_counts = launches.restore
 
 
 class _StaticInputs:
@@ -276,8 +263,7 @@ class GraphedStep:
                 rows["count"] = host[1]
             state.seed_generator.set_state(host[2])
             _set_launch_counts(host[3])
-        self.launched = (after[0] - host[3][0], after[1] - host[3][1],
-                         after[2] - host[3][2], after[3] - host[3][3])
+        self.launched = launches.since(host[3], after)
         if self._key(state, attrs_table, arrays, user_rows) != key:
             raise RuntimeError("the capture created or replaced state tensors (Adam's lazy "
                                "state?): a replay would write into tensors no one reads")
@@ -291,5 +277,5 @@ class GraphedStep:
         state.step += self.k
         if state.items_state is not None:
             state.items_state["count"] += self.k
-        _add_launch_counts(self.launched)
+        launches.add(self.launched)
         return state, self.losses.clone()

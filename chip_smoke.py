@@ -2,7 +2,7 @@
 """Drive the PyTorch port's serving paths and train step on one NVIDIA GPU.
 
     python3 chip_smoke.py             # from the repository root, on a machine with a card
-    python3 chip_smoke.py --profile   # also phase 7: profiler breakdowns of recommend and the train step
+    python3 chip_smoke.py --profile   # also phase 7: K1's enqueue cost and train-step traces
 
 Phases, one or more lines each, each ending with its seconds; any failure
 raises and exits non-zero:
@@ -51,22 +51,34 @@ raises and exits non-zero:
              heads, L=50, ca decoder) with random weights from seed 0,
              serving synthetic_catalog(4096 users, 99,999 items): JSON-lines
              requests and one recommend per batch bucket, over the seen
-             index and the full index. K1 and K3 must launch. The same
-             requests then go through the same weights on the CPU plain
-             path, and must agree.
+             index and the full index, each bucket's call one CUDA graph
+             replay (serve/graph.py; warmup captures them; the pool's
+             reserved bytes logged). K1 and K3 must launch. Every bucket's
+             recommend at k = 10 and score_candidates at bucket 8 through
+             the graph must be bit-equal, ids and scores, to the eager call
+             (graph=False) over the same model and index, with the same
+             kernel launches per request. The same requests then go
+             through the same weights on the CPU plain path, and must agree.
 5c. 10M    — the same preset over synthetic_catalog(4096 users, 9,999,999
              items) with quantize="auto": an int8 index of 10,000,000 rows.
              JSON-lines requests and one recommend per bucket; K1 and the
              stage-1 kernels "auto" picks (K4 and the rerank, or K3) must
-             launch. Stage 1 alone (k = 562) at buckets 8 and 64 against the
+             launch. Graph against eager as in phase 5, and the graphs'
+             pool at most twice the eager bucket-256 call's peak extra
+             memory. Stage 1 alone (k = 562) at buckets 8 and 64 against the
              card's plain version, within the tolerance; the requests and
              buckets 1 and 8 against the CPU plain path.
 5d. bench  — carca_tpu_torch/bench_retrieval.py at 10M items, kernel legs
              (bf16 and int8 indexes, stream, tournament, auto), with the
              recursive stage 2 forced: K3 over bf16 and int8 rows and K4's
              [B, G] layout must launch.
-6. timing  — recommend p50/p95 and throughput per bucket (100k slice; 10M
-             slice over the int8 and an f32 index), each kernel beside its
+6. timing  — recommend p50/p95 and throughput per bucket through the
+             graph against the eager call in one process, in turns eager,
+             graph, graph, eager, 30 calls each (100k slice, seen and full
+             index; 10M slice over the int8 index; an f32 10M index through
+             the graph alone), a torch.profiler trace of 10 calls per
+             bucket each way (100k seen, 10M int8: device busy ms and
+             share, device operations per call), each kernel beside its
              plain version at the slices' shapes (CUDA events) and checked
              against it there within the tolerance (K4 in both layouts at
              [256,64] and [1,64] x 10M int8 rows; the rerank at bucket 256,
@@ -76,9 +88,7 @@ raises and exits non-zero:
              encoder, decoder, men and rerank shapes, and
              F.scaled_dot_product_attention forward and backward at the same
              shapes beside K1/K2 (timed only).
-7. profile — only with --profile: per bucket, a torch.profiler trace of
-             recommend (device busy time and share, device operations per
-             call, the heaviest of them), and the host cost of one K1 launch;
+7. profile — only with --profile: the host cost of one K1 launch;
              device µs per launch of each of K1/K2's device kernels at the
              timed attention shapes; after phase 8, the same as for
              recommend for one call of the train step (K = 8 steps) with the
@@ -118,7 +128,7 @@ raises and exits non-zero:
              metrics.jsonl, ckpt/best and ckpt/latest. Then `python -m
              carca_tpu_torch.serve.service --run_dir` over the seed-0 run
              answers JSON-lines requests on stdin (one malformed) and runs
-             --bench; its answers must equal an in-process Recommender from
+             --bench, whose rows must say step: graph; its answers must equal an in-process Recommender from
              load_recommender(run, which="best"), whose K1 and K3 launches
              are counted, and the CPU plain path's load_recommender (ids
              equal except near-ties, scores within 1e-4). At the shapes this
@@ -310,7 +320,7 @@ from carca_tpu_torch.data.synthetic import (synthetic_catalog, synthetic_catalog
 from carca_tpu_torch.models.attention import NEG_MASK, masked_attention, pair_mask
 from carca_tpu_torch.models.carca import CARCA, encode_profile
 from carca_tpu_torch.native import get_assembler
-from carca_tpu_torch.ops import _build
+from carca_tpu_torch.ops import _build, launches
 from carca_tpu_torch.ops import retrieval_topk as rt
 from carca_tpu_torch.ops.flash_attention import (SEED_LIMIT, attention_bwd,
                                                  attention_grads_plain,
@@ -348,6 +358,7 @@ BUCKETS = (1, 8, 64, 256)
 B, L, D, H = 256, 50, 64, 2
 L_MEN = 200  # the men config's sequence length (carca_tpu_torch/bench.py)
 KK = SHORTLIST + L  # stage 1 retrieves the shortlist plus the exclusion slack
+SERVE_TIMED_CALLS = 30  # recommend calls per bucket and turn in phase 6's graph/eager A/B
 DEVICE = torch.device("cuda")
 K1_TOL, K1_TOL_BF16 = 1e-5, 2e-2
 K2_TOL, K2_TOL_BF16 = 1e-5, 2e-2  # relative norm per gradient tensor
@@ -473,13 +484,7 @@ def bound(bytes_moved: float, ops: float, operand: str):
 
 def reset_counts() -> None:
     """Every kernel's launch count to 0, just before a main path runs."""
-    fused_attention.launches = 0
-    attention_bwd.launches = 0
-    fused_attention.launches_by_shape.clear()
-    attention_bwd.launches_by_shape.clear()
-    catalog_topk.launches.update({kind: 0 for kind in INDEX_KINDS})
-    groupmax.launches.update({0: 0, 1: 0})
-    tournament_rerank.launches = 0
+    launches.reset()
 
 
 def counts() -> dict:
@@ -1030,6 +1035,49 @@ def compare(tag, ids_g, sc_g, ids_c, sc_c, score_tol=SLICE_SCORE_TOL) -> int:
     return int(diff.sum())
 
 
+def eager_twin(rec):
+    """The same Recommender (model, index, buckets) serving every call
+    eagerly: the graph's parity reference and its A/B."""
+    twin = copy.copy(rec)
+    twin._graphs = None
+    return twin
+
+
+def serve_graph_vs_eager(phase, rec, reqs, n_items, seed) -> dict:
+    """Each bucket's recommend at k = K (warmed up: replays) and
+    score_candidates at bucket 8 (101 candidates; its graph captured first)
+    through the graph and through its eager twin: ids and scores bit-equal,
+    the kernels' launches per request equal, K1 launched. Returns the
+    launches per request."""
+    check(rec.mode == "graph", f"{phase}: the Recommender serves {rec.mode}, not graphs")
+    eager = eager_twin(rec)
+    hists8, ctxs8 = reqs[8]
+    cand = np.random.default_rng(seed).integers(1, n_items, size=(8, 101))
+    calls = {f"recommend bucket {bb}": (lambda r, h=h, c=c: r.recommend(h, k=K, ctxs=c))
+             for bb, (h, c) in reqs.items()}
+    calls["score_candidates bucket 8"] = (
+        lambda r: (r.score_candidates(hists8, cand, ctxs=ctxs8),))
+    calls["score_candidates bucket 8"](rec)  # its graph's warm-up and capture
+    per_request = {}
+    for name, call in calls.items():
+        start = launches.snapshot()
+        got = call(rec)
+        mid = launches.snapshot()
+        want = call(eager)
+        lg, le = launches.since(start, mid), launches.since(mid)
+        check(lg == le, f"{phase} {name}: launches through the graph {launches.report(counts=lg)}"
+                        f", eagerly {launches.report(counts=le)}")
+        check(lg.attention_fwd > 0, f"{phase} {name}: no K1 launch")
+        check(all(a.shape == b.shape and np.array_equal(a, b) for a, b in zip(got, want)),
+              f"{phase} {name}: the graph's answer differs from the eager call's")
+        per_request[name] = {n: v for n, v in launches.report(counts=lg).items() if v}
+    log(phase, case="graph vs eager (graph=False) over one model and index: every bucket's "
+        f"recommend at k={K} and score_candidates at bucket 8 x 101", bit_equal=True,
+        launches_equal=True, launches_per_request=per_request, captures=rec._graphs.captures,
+        replays=rec._graphs.replays)
+    return per_request
+
+
 def phase_slice():
     t0 = time.perf_counter()
     cat = synthetic_catalog(n_users=N_USERS, n_real_items=N_REAL_ITEMS, seed=SEED)
@@ -1042,9 +1090,14 @@ def phase_slice():
     rec_full = Recommender(model, cat.attrs, shortlist=SHORTLIST, batch_buckets=BUCKETS)
     check(rec.catalog_emb.shape == (len(seen_ids) + 1, cfg.d), "seen index shape")
     check(rec_full.catalog_emb.shape == (cat.n_items, cfg.d), "full index shape")
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     rec.warmup(k=K)
     rec_full.warmup(k=K)
     torch.cuda.synchronize()
+    log("slice", graph_pool_mib_after_warmup={
+        "seen": rec._graphs.pool_bytes() / 2**20, "full": rec_full._graphs.pool_bytes() / 2**20},
+        warmup_peak_extra_mib=(torch.cuda.max_memory_allocated() - base) / 2**20)
     log("slice", setup_s=time.perf_counter() - t0, n_items=cat.n_items,
         n_events=int(len(cat.items)), seen_index_rows=int(rec.catalog_emb.shape[0]),
         full_index_rows=int(rec_full.catalog_emb.shape[0]),
@@ -1082,6 +1135,8 @@ def phase_slice():
               f"{name} bucket {bb}: shape {ids.shape} or non-finite scores")
     log("slice", responses=len(responses), errors=sum("error" in r for r in responses),
         example=responses[0])
+    for name, r in (("seen", rec), ("full", rec_full)):
+        serve_graph_vs_eager(f"slice {name}", r, reqs, cat.n_items, SEED + 5)
 
     # the same requests, the same weights, the CPU plain path
     t0 = time.perf_counter()
@@ -1134,8 +1189,20 @@ def phase_slice_10m():
     check(isinstance(rec.catalog_emb, QuantizedIndex), "quantize='auto' kept a float index")
     check(rec.catalog_emb.rows == cat.n_items, "10M index shape")
     build_peak = torch.cuda.max_memory_allocated() / 2**20
+    reqs = bucket_requests(host, SEED + 3)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eager_twin(rec).recommend(reqs[256][0], k=K, ctxs=reqs[256][1])
+    eager_peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
     rec.warmup(k=K)
     torch.cuda.synchronize()
+    pool = rec._graphs.pool_bytes()
+    log("slice_10m", graph_pool_mib_after_warmup=pool / 2**20,
+        warmup_peak_extra_mib=(torch.cuda.max_memory_allocated() - base) / 2**20,
+        eager_bucket256_peak_extra_mib=eager_peak / 2**20, limit="pool <= 2 x eager")
+    check(0 < pool <= 2 * eager_peak, f"the 10M graphs' pool {pool} bytes against the eager "
+                                      f"bucket-256 call's peak extra {eager_peak}")
     methods = {bb: rt.resolve_method("auto", cat.n_items, KK, bb) for bb in BUCKETS}
     log("slice_10m", setup_s=time.perf_counter() - t0, n_items=cat.n_items,
         n_events=int(len(cat.items)), index="int8", index_rows=rec.catalog_emb.rows,
@@ -1144,7 +1211,6 @@ def phase_slice_10m():
         device_mib=torch.cuda.memory_allocated() / 2**20)
 
     lines = request_lines(cat, host)
-    reqs = bucket_requests(host, SEED + 3)
     reset_counts()
     responses = list(serve_lines(rec, host, lines, k=K))
     got = {bb: rec.recommend(hists, k=K, ctxs=ctxs) for bb, (hists, ctxs) in reqs.items()}
@@ -1170,6 +1236,7 @@ def phase_slice_10m():
     for bb, (ids, sc) in got.items():
         check(ids.shape == (bb, K) and bool(np.isfinite(sc).all()),
               f"10M bucket {bb}: shape {ids.shape} or non-finite scores")
+    serve_graph_vs_eager("slice_10m", rec, reqs, cat.n_items, SEED + 6)
 
     # stage 1 alone at 10M rows against the card's plain version, at served buckets
     for bb in STAGE1_BUCKETS:
@@ -1237,11 +1304,12 @@ def timing_10m(card, rec, host, cat):
     scratch, with peak device memory.
     Returns (timings, {kernel: max |error|})."""
     timings, errs = {}, {}
-    for row in run_bench(rec, host, k=K, iters=30):
-        log("timing_10m", card=card, index="int8", **row)
+    timing_turns(card, "timing_10m", rec, host, "int8")
+    for r in (rec, eager_twin(rec)):
+        serving_trace(card, "serving_trace", r, host, "10M int8")
     rec_f32 = Recommender(rec.model, cat.attrs, shortlist=SHORTLIST, batch_buckets=BUCKETS,
                           quantize=False)
-    for row in run_bench(rec_f32, host, k=K, iters=30):
+    for row in run_bench(rec_f32, host, k=K, iters=SERVE_TIMED_CALLS):
         log("timing_10m", card=card, index="f32", **row)
     e32 = rec_f32.catalog_emb
     del rec_f32
@@ -1320,10 +1388,50 @@ def timing_10m(card, rec, host, cat):
 # phase 6: timing
 # --------------------------------------------------------------------------
 
+def timing_turns(card, phase, rec, host, index: str) -> dict:
+    """recommend per bucket through the eager twin and through the graph in
+    one process, in turns eager, graph, graph, eager (run_bench: 30 calls
+    after a warm one, k = K). Returns {bucket: {step: [(p50, p95) per turn]}}."""
+    table = {}
+    for turn, r in enumerate((eager_twin(rec), rec, rec, eager_twin(rec))):
+        for row in run_bench(r, host, k=K, iters=SERVE_TIMED_CALLS):
+            log(phase, card=card, index=index, turn=turn, **row)
+            table.setdefault(row["batch"], {}).setdefault(row["step"], []).append(
+                (row["p50_ms"], row["p95_ms"]))
+    for bb, t in table.items():
+        log(phase, card=card, index=index, batch=bb, k=K, summary="recommend (p50, p95) ms per "
+            "turn, graph against eager in turns eager, graph, graph, eager", **t)
+    return table
+
+
+def serving_trace(card, phase, rec, host, index: str, calls: int = 10) -> None:
+    """torch.profiler over ``calls`` recommend calls per bucket: device busy
+    ms (union of kernel and copy intervals), busy share of the unprofiled
+    wall time, device operations per call and the heaviest of them."""
+    reqs = bucket_requests(host, SEED + 2)
+    for bb in BUCKETS:
+        hists, ctxs = reqs[bb]
+
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                rec.recommend(hists, k=K, ctxs=ctxs)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        t = device_trace(run, calls)  # a "step" here: one recommend call
+        log(phase, card=card, index=index, step=rec.mode, batch=bb, calls=calls,
+            wall_ms=t["wall_ms_per_step"], wall_profiled_ms=t["wall_profiled_ms_per_step"],
+            device_busy_ms=t["device_busy_ms_per_step"], busy_share=t["busy_share"],
+            device_ops_per_call=t["device_ops_per_step"], top_ms_per_call=top_ms(t))
+
+
 def phase_timing(card, rec, rec_full, host):
     for name, r in (("seen", rec), ("full", rec_full)):
-        for row in run_bench(r, host, k=K, iters=30):
-            log("timing", card=card, index=name, **row)
+        timing_turns(card, "timing", r, host, name)
+    for r in (rec, eager_twin(rec)):
+        serving_trace(card, "serving_trace", r, host, "seen")
     timings = {}
     with torch.no_grad():
         # the serving encoder's call, without dropout
@@ -1780,6 +1888,8 @@ def phase_fit_serve(card):
         for row in bench:
             log("fit_serve", card=card, bench=row)
         check([row["batch"] for row in bench] == list(BUCKETS), f"bench rows {bench}")
+        check(all(row["step"] == "graph" for row in bench),
+              f"the service's --bench must serve through the graph: {bench}")
 
         reset_counts()
         rec = load_recommender(run_s0, cat.attrs, which="best", index_ids=np.unique(host.items))
@@ -2185,7 +2295,8 @@ def serve_10m(card, run, cat) -> None:
 
 
 # --------------------------------------------------------------------------
-# phase 7 (--profile): where the time of a recommend call goes
+# phase 7 (--profile): K1's enqueue cost and the train step's traces; the
+# trace helpers phase 6's serving traces share
 # --------------------------------------------------------------------------
 
 def top_ms(trace, n: int = 8) -> list:
@@ -2245,12 +2356,9 @@ def profile_attention(card, reps: int = 10) -> None:
             launches={n: len(ts) for n, ts in per_kernel.items()})
 
 
-def phase_profile(card, rec, host, index: str = "seen", calls: int = 10) -> None:
-    """torch.profiler trace of ``calls`` recommend calls per bucket (seen
-    index): device busy time (union of kernel and copy intervals), device
-    operations per call, busy share of the unprofiled wall time, and the
-    heaviest device operations by name. Also the host cost of enqueueing one
-    K1 launch at the bucket-1 encoder shape."""
+def phase_profile(card) -> None:
+    """The host cost of enqueueing one K1 launch at the bucket-1 encoder
+    shape (the per-bucket serving traces run by default, phases 6)."""
     with torch.no_grad():
         q, k, v, qm, km = (t[:1].contiguous() for t in k1_inputs(L, L, 40))
         kw = dict(causal=0, scale=(D / H) ** 0.5, n_heads=H)
@@ -2262,24 +2370,6 @@ def phase_profile(card, rec, host, index: str = "seen", calls: int = 10) -> None
         host_us = (time.perf_counter() - t0) / 200 * 1e6
         torch.cuda.synchronize()
     log("profile", card=card, k1_enqueue_host_us=host_us, shape="[1,50,64] causal 0")
-
-    reqs = bucket_requests(host, SEED + 2)
-    for bb in BUCKETS:
-        hists, ctxs = reqs[bb]
-
-        def run():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(calls):
-                rec.recommend(hists, k=K, ctxs=ctxs)
-            torch.cuda.synchronize()
-            return (time.perf_counter() - t0) * 1e3
-
-        t = device_trace(run, calls)  # a "step" here: one recommend call
-        log("profile", card=card, index=index, batch=bb, calls=calls,
-            wall_ms=t["wall_ms_per_step"], wall_profiled_ms=t["wall_profiled_ms_per_step"],
-            device_busy_ms=t["device_busy_ms_per_step"], busy_share=t["busy_share"],
-            device_ops_per_call=t["device_ops_per_step"], top_ms_per_call=top_ms(t))
 
 
 def sdpa_ms(b, lq, lk, causal, rate, d=D) -> dict:
@@ -3775,11 +3865,9 @@ def main() -> None:
     rec, rec_full, host, serve_launches = timed("5 slice 100k", phase_slice)
     timings = timed("6 timing 100k", phase_timing, card, rec, rec_full, host)
     if profile_run:
-        timed("7 profile 100k", phase_profile, card, rec, host)
+        timed("7 profile K1 enqueue", phase_profile, card)
     del rec, rec_full
     rec10, host10, launches_10m, cat10 = timed("5c slice 10M", phase_slice_10m)
-    if profile_run:
-        timed("7 profile 10M", phase_profile, card, rec10, host10, "10M int8")
     timings_10m, errs_10m = timed("6 timing 10M", timing_10m, card, rec10, host10, cat10)
     timings.update(timings_10m)
     for kind in ("bf16", "int8"):

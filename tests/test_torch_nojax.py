@@ -39,6 +39,7 @@ def test_serving_and_ops_import_without_jax():
         "import carca_tpu_torch.profile_step, carca_tpu_torch.native\n"
         "import carca_tpu_torch.validate_presets, carca_tpu_torch.eval_retrieval_offline\n"
         "import carca_tpu_torch.bench_scaling, carca_tpu_torch.train.graph\n"
+        "import carca_tpu_torch.serve.graph, carca_tpu_torch.ops.launches\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
     )
