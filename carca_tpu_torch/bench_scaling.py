@@ -15,7 +15,11 @@ Each size is one group of n rank processes of this module (``--_child
 n``), started with the environment torchrun gives its ranks; each joins
 through ``parallel/mesh.initialize_distributed``, which takes NCCL where
 every local rank has a card of its own and gloo otherwise, and says which
-on stderr. A size of 1 builds no group and runs the one-device step. The
+on stderr. A size of 1 builds no group and runs the one-device step,
+eagerly (``make_train_step(graph=False)``): sizes of 2 and more run the
+mesh step, which stays eager until the mesh step is captured (ROADMAP A4,
+NCCL on a machine with a card per rank), so every size runs the same eager
+step and the efficiency compares like with like. The
 run goes on the card, with the attention kernels K1/K2 (``use_kernel``
 left at "auto"); ``--device cpu`` asks for gloo ranks on the CPU and the
 plain attention, and nothing falls back to the CPU when no card is found.
@@ -127,7 +131,7 @@ def run_one(n: int, args) -> Optional[dict]:
     state = create_train_state(mc, tc, device)
     attrs = torch.as_tensor(cat.attrs, dtype=attrs_dtype(mc), device=device)
     if n == 1:
-        step = make_train_step(mc, tc)
+        step = make_train_step(mc, tc, graph=False)  # the mesh sizes' eager step (above)
     else:
         mesh = (make_mesh((data_axis, model_par), ("data", "model")) if model_par > 1
                 else make_mesh((n,), ("data",)))

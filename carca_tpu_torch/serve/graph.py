@@ -14,8 +14,8 @@ counterpart of the JAX package's per-bucket jitted executables
 A call reads its request from one static input region: p_x int32 [bb, L],
 p_c float32 [bb, L, n_ctx], rc float32 [bb, n_ctx] (and the candidates
 int64 [bb, n] of ``score_candidates``), sections of one byte buffer on the
-card, each where a fresh tensor would start (``ALIGN``), staged through a
-pinned host twin. It writes its answer to a static output region (ids
+card, each where a fresh tensor would start (``utils/staging.py``'s
+``Region``), staged through a pinned host twin. It writes its answer to a static output region (ids
 int64 [bb, k] and scores float32 [bb, k]; or scores [bb, n]) with a pinned
 twin. The graph holds both copies: the inputs' H2D before the body, the
 outputs' D2H after it. So a request is its host staging, one replay, one
@@ -41,7 +41,6 @@ raises; there is no eager retry.
 from __future__ import annotations
 
 import functools
-import math
 import weakref
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -50,31 +49,10 @@ import torch
 
 from carca_tpu_torch.ops import launches
 from carca_tpu_torch.ops.retrieval_topk import QuantizedIndex
+from carca_tpu_torch.utils import staging
+from carca_tpu_torch.utils.staging import ALIGN, Region  # noqa: F401  (re-exported)
 
-ALIGN = 512  # the caching allocator's alignment: a section starts where a fresh tensor would
 REQUEST = ("p_x", "p_c", "rc", "cand")  # a request's arrays, in the Recommender's order
-
-
-class Region:
-    """Named sections ``(name, dtype, shape)`` of one byte buffer on
-    ``device`` (``d``) and of its host twin (``np``, numpy views), pinned
-    when the device is a card: one copy moves them all."""
-
-    def __init__(self, sections: Sequence[Tuple[str, torch.dtype, tuple]], device):
-        spans, end = [], 0
-        for name, dtype, shape in sections:
-            start = -(-end // ALIGN) * ALIGN
-            end = start + math.prod(shape) * dtype.itemsize
-            spans.append((name, dtype, shape, start, end))
-        device = torch.device(device)
-        self.host = torch.empty(end, dtype=torch.uint8, pin_memory=device.type == "cuda")
-        self.dev = torch.empty(end, dtype=torch.uint8, device=device)
-
-        def views(buf) -> Dict[str, torch.Tensor]:
-            return {name: buf[s:e].view(dtype).view(shape) for name, dtype, shape, s, e in spans}
-
-        self.d = views(self.dev)
-        self.np = {name: t.numpy() for name, t in views(self.host).items()}
 
 
 def request_sections(bb: int, seq_len: int, n_ctx: int, n_cand: Optional[int] = None) -> list:
@@ -194,24 +172,14 @@ class GraphedServe:
         """Run ``body`` once on the side stream, outside any capture."""
         if self.stream is None:
             self.stream = torch.cuda.Stream(self.device)
-        main = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(main)
-        with torch.cuda.stream(self.stream):
-            body()
-        main.wait_stream(self.stream)
+        staging.side_stream_call(self.stream, body)
 
     def _record(self, body) -> torch.cuda.CUDAGraph:
         """``body`` captured on the side stream into this Recommender's pool."""
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-            body()
-        return graph
+        return staging.capture(body, self.stream, self.pool)[0]
 
     def pool_bytes(self) -> int:
         """Device bytes reserved by this Recommender's graph pool."""
-        if self.pool is None:
-            return 0
-        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if tuple(seg["segment_pool_id"]) == tuple(self.pool))
+        return staging.pool_bytes(self.pool)

@@ -1,9 +1,13 @@
-"""The K-step train call as one device dispatch: a CUDA graph of the eager
-call ``loop.make_scanned_device_train_step`` builds. The JAX package has no
-module for this: there ``jax.jit`` compiles its ``lax.scan`` of K steps
-into one dispatch (``carca_tpu/train/loop.py::make_scanned_device_train_step``).
+"""Each train and eval step as one device dispatch: CUDA graphs of the
+eager calls ``train/loop.py``'s step builders make. The JAX package has no
+module for this: there ``jax.jit`` compiles each step (and the K-step
+call's ``lax.scan``) into one dispatch (``carca_tpu/train/loop.py``:
+``make_train_step``, ``make_device_train_step``,
+``make_scanned_device_train_step``, ``make_eval_step``,
+``make_device_eval_step``, ``make_scanned_device_eval_step``).
 
-``GraphedStep`` wraps the eager K-step call on one card:
+``GraphedStep`` wraps a train call on one card — the K-step call, the
+device pipeline's one-step call or the host pipeline's step:
 
 * its first call runs the eager call on a side stream: the warm-up that
   builds Adam's lazy state, loads the kernel library and fills the
@@ -12,32 +16,53 @@ into one dispatch (``carca_tpu/train/loop.py::make_scanned_device_train_step``).
   the Python once and executes nothing) and replays the graph once;
 * every later call replays the graph: one ``CUDAGraph.replay()``.
 
-What differs per call the graph reads from static device memory, written
-before each replay through one pinned host buffer and one ``non_blocking``
-copy: the user rows [K, B], the schedule's K learning rates (which
-``loop.apply_gradients`` copies into Adam's lr tensor), the row-sparse
-Adam's K (lr, 1 − b1^t, 1 − b2^t) and one Philox seed per attention call
-with dropout, drawn from ``TrainState.seed_generator`` in the eager call's
-order (the kernels read them through ``flash_attention.seed_slots``). The
-device generator that draws the negatives and the plain dropouts is
-registered with the graph, so each replay advances it as the eager call
-would. The host's counters — ``TrainState.step``, the sparse row state's
-count, the attention kernels' launch counts — are put back after the
-capture and advanced by K steps' worth at each replay. So a replay is the
-eager call, bit for bit, as far as the eager call repeats itself.
+What differs per call the graph reads from static device memory, one
+``utils/staging.py`` ``Region`` written before each replay through its
+pinned host twin and one ``non_blocking`` copy: the batch (user rows [K, B]
+or [B] of the device pipeline; p_x, p_c, o_x, o_c and y_true of a host
+batch), the schedule's K learning rates (which ``loop.apply_gradients``
+copies into Adam's lr tensor), the row-sparse Adam's K (lr, 1 − b1^t,
+1 − b2^t) and one Philox seed per attention call with dropout, drawn from
+``TrainState.seed_generator`` in the eager call's order (the kernels read
+them through ``flash_attention.seed_slots``). The device generator that
+draws the negatives and the plain dropouts is registered with the graph,
+so each replay advances it as the eager call would. The host's counters —
+``TrainState.step``, the sparse row state's count, the attention kernels'
+launch counts — are put back after the capture and advanced by K steps'
+worth at each replay. So a replay is the eager call, bit for bit, as far
+as the eager call repeats itself. A call waits, before it writes the
+pinned twin, for the last call's copy to have read it (the ``copied``
+event): the host stays at most one call ahead of the card.
 
 The graph is keyed by the identity of what it reads and writes in place:
 the parameters and buffers, Adam's state tensors and lr, the sparse
 moments, the tensors ``watch`` names (the EMA shadow), the catalog arrays,
-the attrs table and the batch shape. ``CheckpointKeeper.restore_latest``
-and ``parallel.mesh.prepare_state_for_mesh`` replace Adam's tensors, so the
-call after either captures anew; it never replays into stale tensors. A
-capture that fails raises with its error: there is no eager retry.
+the attrs table and the batch's shapes and dtypes.
+``CheckpointKeeper.restore_latest`` and
+``parallel.mesh.prepare_state_for_mesh`` replace Adam's tensors, so the
+call after either captures anew; it never replays into stale tensors.
+
+``GraphedEval`` wraps an eval step: one graph per key — the data pointers
+of the model's parameters and buffers, the attrs table and the catalog
+arrays, the input shapes and the eval generator — each with an eager
+warm-up, then a capture and a replay, then replays. The eval generator is
+registered with the graph; re-seeding it (``manual_seed``) between calls
+restarts what the replays draw, as it restarts the eager draws. Its
+graphs share one memory pool, apart from the train graph's: they replay
+one at a time on one stream, and what a graph keeps between calls (its
+region and outputs) stays allocated. The outputs are cloned after each
+replay, which overwrites them. ``restore_best`` and ``load_state_dict``
+copy into the parameters in place, so a replay reads the new values.
+
+A capture that fails raises with its error: there is no eager retry. A
+capture is made in the default ``"global"`` error mode, so no other
+thread may call into CUDA meanwhile: the prefetch thread
+(``data/prefetch.py``) assembles numpy batches and makes no CUDA call.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +70,8 @@ import torch
 from carca_tpu_torch.ops import launches
 from carca_tpu_torch.ops.flash_attention import SEED_LIMIT, kernel_seed, seed_slots
 from carca_tpu_torch.train import sparse_adam
+from carca_tpu_torch.utils import staging
+from carca_tpu_torch.utils.staging import Region, sections_of
 
 
 class _Capture:
@@ -111,45 +138,78 @@ launch_counts = launches.snapshot
 _set_launch_counts = launches.restore
 
 
-class _StaticInputs:
-    """The graph's per-call inputs on the device, and their pinned host
-    staging: int64 user rows [K, B] and seeds [n], float32 lrs [K] and row
-    scalars [K, 3], one byte buffer each side, so one copy moves them."""
+class Feed(NamedTuple):
+    """One call's arguments as a graph takes them: ``keyed`` tensors read in
+    place (part of the key), ``staged`` arrays copied into the region each
+    call, ``args(views)`` the eager call's arguments over the region's
+    device views, and the eval ``generator`` (registered with the graph)."""
 
-    def __init__(self, k: int, b: int, n_seeds: int, device):
-        sizes = [8 * k * b, 8 * n_seeds, 4 * k, 12 * k]  # int64 sections first: aligned
-        ends = np.cumsum(sizes).tolist()
-        self.host = torch.empty(ends[-1], dtype=torch.uint8, pin_memory=True)
-        self.dev = torch.empty(ends[-1], dtype=torch.uint8, device=device)
+    keyed: List[torch.Tensor]
+    staged: Dict[str, object]
+    args: Callable[[Dict[str, torch.Tensor]], tuple]
+    generator: Optional[torch.Generator] = None
+
+
+def device_feed(k: Optional[int]) -> Callable[..., Feed]:
+    """The device pipeline's arguments (catalog arrays, user rows [k, B],
+    or [B] when ``k`` is None, and an eval step's generator): the arrays
+    read in place, the rows staged."""
+    ndim = 1 if k is None else 2
+
+    def feed(arrays, user_rows, *generator) -> Feed:
+        if user_rows.ndim != ndim or (k is not None and user_rows.shape[0] != k):
+            raise ValueError(f"user_rows of shape {tuple(user_rows.shape)}: the step takes "
+                             + ("[B]" if k is None else f"[{k}, B]"))
+        return Feed(list(arrays.values()), {"rows": user_rows},
+                    lambda d: (arrays, d["rows"], *generator),
+                    generator[0] if generator else None)
+
+    return feed
+
+
+def host_feed(batch) -> Feed:
+    """A host batch (``BatchBuilder``'s numpy arrays, or tensors), staged
+    whole."""
+    return Feed([], dict(batch), lambda d: (d,))
+
+
+def train_sections(staged: Dict[str, object], k: int, n_seeds: int) -> list:
+    """The sections of a train call's region: the batch's arrays, then int64
+    seeds [n_seeds], float32 learning rates [k] and row-sparse scalars
+    [k, 3]."""
+    return [*sections_of(staged), ("seeds", torch.int64, (n_seeds,)),
+            ("lrs", torch.float32, (k,)), ("scalars", torch.float32, (k, 3))]
+
+
+class _Inputs:
+    """A graph's per-call inputs: a ``Region`` on the card, written from the
+    host once per call."""
+
+    def __init__(self, sections, device):
+        self.region = Region(sections, device)
+        self.d = self.region.d
         self.copied: Optional[torch.cuda.Event] = None
 
-        def views(buf):
-            cut = [buf[s:e] for s, e in zip([0] + ends[:-1], ends)]
-            return (cut[0].view(torch.int64).view(k, b), cut[1].view(torch.int64),
-                    cut[2].view(torch.float32), cut[3].view(torch.float32).view(k, 3))
-
-        self.h_rows, self.h_seeds, self.h_lrs, self.h_scalars = views(self.host)
-        self.rows, self.seeds, self.lrs, self.scalars = views(self.dev)
-
-    def write(self, state, tc, user_rows: torch.Tensor, n_seeds: int) -> None:
-        """Stage one call's inputs and copy them to the device."""
+    def write(self, values: Dict[str, object]) -> None:
+        """Stage ``values`` (numpy arrays, host or card tensors) into their
+        sections and copy the host twin to the device (card tensors go
+        device to device after it)."""
         if self.copied is not None:
-            self.copied.synchronize()  # the last call's copy has read the host buffer
-        k = self.lrs.shape[0]
-        if n_seeds:
-            self.h_seeds.copy_(draw_seeds(state.seed_generator, n_seeds))
-            kernel_seed.drawn += n_seeds
-        self.h_lrs.copy_(torch.from_numpy(step_lrs(state.schedule, state.step, k)))
-        if state.items_state is not None:
-            self.h_scalars.copy_(torch.from_numpy(row_scalars(tc, state.items_state["count"], k)))
-        on_host = user_rows.device.type == "cpu"
-        if on_host:
-            self.h_rows.copy_(user_rows)
-        self.dev.copy_(self.host, non_blocking=True)
-        self.copied = torch.cuda.Event()
-        self.copied.record()
-        if not on_host:
-            self.rows.copy_(user_rows)
+            self.copied.synchronize()  # the last call's copy has read the host twin
+        on_card = {}
+        for name, v in values.items():
+            if torch.is_tensor(v):
+                if v.device.type != "cpu":
+                    on_card[name] = v
+                    continue
+                v = v.numpy()
+            self.region.np[name][...] = v
+        self.region.dev.copy_(self.region.host, non_blocking=True)
+        if self.region.dev.is_cuda:
+            self.copied = torch.cuda.Event()
+            self.copied.record()
+        for name, v in on_card.items():
+            self.d[name].copy_(v)
 
 
 def _adam_ready(optimizer) -> bool:
@@ -159,91 +219,109 @@ def _adam_ready(optimizer) -> bool:
     return bool(with_grad) and all(optimizer.state.get(p) for p in with_grad)
 
 
+def _device_of(module: torch.nn.Module) -> torch.device:
+    return next(module.parameters()).device
+
+
+def _cpu_call(required: bool, device: torch.device) -> bool:
+    """Whether a call on ``device`` runs the eager step (it is not a card);
+    raises when the graph was ``required``."""
+    if device.type == "cuda":
+        return False
+    if required:
+        raise ValueError("graph=True needs a CUDA state: a CUDA graph captures the "
+                         f"card's work, and this state lies on {device}")
+    return True
+
+
 class GraphedStep:
-    """The K-step call ``eager`` (state, attrs_table, arrays, user_rows
-    [K, B]) → (state, losses [K]) as one CUDA graph on a CUDA state (see
-    the module's docstring); on a CPU state it runs ``eager``, or raises
-    when the graph was ``required``. ``user_rows`` may lie on the host
-    (staged with the other inputs) or on the card. ``watch()`` lists tensors
-    the call updates in place beyond the train state (the EMA shadow)."""
+    """The train call ``eager`` (state, attrs_table, *args) → (state,
+    losses) as one CUDA graph on a CUDA state (see the module's docstring);
+    on a CPU state it runs ``eager``, or raises when the graph was
+    ``required``. ``feed`` says how ``args`` reach the graph (by default the
+    K-step call's catalog arrays and user rows [K, B], which may lie on the
+    host or on the card). ``watch()`` lists tensors the call updates in
+    place beyond the train state (the EMA shadow)."""
 
     mode = "graph"
 
     def __init__(self, eager: Callable, inner_steps: int, tc, required: bool = False,
-                 watch: Optional[Callable[[], Iterable[torch.Tensor]]] = None):
+                 watch: Optional[Callable[[], Iterable[torch.Tensor]]] = None,
+                 feed: Optional[Callable[..., Feed]] = None):
         self.eager, self.k, self.tc = eager, inner_steps, tc
         self.required, self.watch = required, watch
+        self.feed = feed or device_feed(inner_steps)
         self.stream: Optional[torch.cuda.Stream] = None
         self.warm = False
         self.n_seeds = 0  # seeds one call draws, counted in the warm-up
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.key = None
-        self.inputs: Optional[_StaticInputs] = None
+        self.inputs: Optional[_Inputs] = None
         self.losses: Optional[torch.Tensor] = None
         self.launched = None  # the captured call's kernel launches
         self.captures = 0
         self.replays = 0
 
-    def __call__(self, state, attrs_table, arrays, user_rows):
-        device = next(state.model.parameters()).device
-        if device.type != "cuda":
-            if self.required:
-                raise ValueError("graph=True needs a CUDA state: a CUDA graph captures the "
-                                 f"card's work, and this state lies on {device}")
-            return self.eager(state, attrs_table, arrays, user_rows)
-        if user_rows.shape[0] != self.k:
-            raise ValueError(f"user_rows holds {user_rows.shape[0]} batches, "
-                             f"the step takes {self.k}")
+    def __call__(self, state, attrs_table, *args):
+        device = _device_of(state.model)
+        if _cpu_call(self.required, device):
+            return self.eager(state, attrs_table, *args)
+        f = self.feed(*args)
         if self.stream is None:
             self.stream = torch.cuda.Stream(device)
-        key = self._key(state, attrs_table, arrays, user_rows)
+        key = self._key(state, attrs_table, f)
         if self.graph is not None and key == self.key:
-            self.inputs.write(state, self.tc, user_rows, self.n_seeds)
+            self._write(state, f.staged)
             return self._replay(state)
         if not self.warm or not _adam_ready(state.optimizer):
-            return self._warm_up(state, attrs_table, arrays, user_rows)
-        return self._capture(state, attrs_table, arrays, user_rows, key)
+            return self._warm_up(state, attrs_table, args)
+        return self._capture(state, attrs_table, f, key)
 
-    def _key(self, state, attrs_table, arrays, user_rows) -> tuple:
+    def _key(self, state, attrs_table, f: Feed) -> tuple:
         opt = state.optimizer
-        tensors = [*state.model.parameters(), *state.model.buffers(), attrs_table,
-                   *arrays.values()]
+        tensors = [*state.model.parameters(), *state.model.buffers(), attrs_table, *f.keyed]
         tensors += [g["lr"] for g in opt.param_groups if torch.is_tensor(g["lr"])]
         tensors += [v for st in opt.state.values() for v in st.values() if torch.is_tensor(v)]
         if state.items_state is not None:
             tensors.append(state.items_state["munu"])
         if self.watch is not None:
             tensors += list(self.watch())
-        return (id(state.generator), tuple(user_rows.shape),
+        return (id(state.generator), tuple(sections_of(f.staged)),
                 tuple(t.data_ptr() for t in tensors))
 
-    def _warm_up(self, state, attrs_table, arrays, user_rows):
-        main = torch.cuda.current_stream(self.stream.device)
-        self.stream.wait_stream(main)
+    def _write(self, state, staged: Dict[str, object]) -> None:
+        """Stage one call's batch, seeds, learning rates and row scalars."""
+        values = dict(staged, lrs=step_lrs(state.schedule, state.step, self.k))
+        if self.n_seeds:
+            values["seeds"] = draw_seeds(state.seed_generator, self.n_seeds)
+            kernel_seed.drawn += self.n_seeds
+        if state.items_state is not None:
+            values["scalars"] = row_scalars(self.tc, state.items_state["count"], self.k)
+        self.inputs.write(values)
+
+    def _warm_up(self, state, attrs_table, args):
         drawn = kernel_seed.drawn
-        with torch.cuda.stream(self.stream):
-            state, losses = self.eager(state, attrs_table, arrays, user_rows)
-        main.wait_stream(self.stream)
-        losses.record_stream(main)
+        state, losses = staging.side_stream_call(
+            self.stream, lambda: self.eager(state, attrs_table, *args))
         self.n_seeds = kernel_seed.drawn - drawn
         self.warm = True
         return state, losses
 
-    def _capture(self, state, attrs_table, arrays, user_rows, key):
+    def _capture(self, state, attrs_table, f: Feed, key):
         self.graph = self.key = self.inputs = self.losses = None  # frees an older graph
-        inputs = _StaticInputs(self.k, user_rows.shape[1], self.n_seeds, self.stream.device)
-        inputs.write(state, self.tc, user_rows, self.n_seeds)
+        self.inputs = _Inputs(train_sections(f.staged, self.k, self.n_seeds), self.stream.device)
+        self._write(state, f.staged)
+        d = self.inputs.d
         rows = state.items_state
         host = (state.step, None if rows is None else rows["count"],
                 state.seed_generator.get_state(), launch_counts())
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(state.generator)
-        cap = _Capture(inputs.lrs, inputs.scalars)
+        cap = _Capture(d["lrs"], d["scalars"])
         _active.append(cap)
         try:
-            with seed_slots(inputs.seeds) as taken:
-                with torch.cuda.graph(graph, stream=self.stream):
-                    _, losses = self.eager(state, attrs_table, arrays, inputs.rows)
+            with seed_slots(d["seeds"]) as taken:
+                graph, (_, losses) = staging.capture(
+                    lambda: self.eager(state, attrs_table, *f.args({n: d[n] for n in f.staged})),
+                    self.stream, generator=state.generator)
                 n_taken = taken()
             after = launch_counts()
             if n_taken != self.n_seeds:
@@ -264,14 +342,15 @@ class GraphedStep:
             state.seed_generator.set_state(host[2])
             _set_launch_counts(host[3])
         self.launched = launches.since(host[3], after)
-        if self._key(state, attrs_table, arrays, user_rows) != key:
+        if self._key(state, attrs_table, f) != key:
             raise RuntimeError("the capture created or replaced state tensors (Adam's lazy "
                                "state?): a replay would write into tensors no one reads")
-        self.graph, self.key, self.inputs, self.losses = graph, key, inputs, losses
+        self.graph, self.key, self.losses = graph, key, losses
         self.captures += 1
         return self._replay(state)
 
     def _replay(self, state):
+        state.model.train()  # what the eager call leaves
         self.graph.replay()
         self.replays += 1
         state.step += self.k
@@ -279,3 +358,93 @@ class GraphedStep:
             state.items_state["count"] += self.k
         launches.add(self.launched)
         return state, self.losses.clone()
+
+    def pool_bytes(self) -> int:
+        """Device bytes reserved by the graph's private memory pool."""
+        return staging.pool_bytes(None if self.graph is None else self.graph.pool())
+
+
+class _EvalGraph:
+    """One eval graph: its inputs, outputs and launches; it holds the eval
+    generator of its key, so that the generator's id stays its own."""
+
+    def __init__(self, generator: Optional[torch.Generator]):
+        self.generator = generator
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.inputs: Optional[_Inputs] = None
+        self.outputs: tuple = ()
+        self.launched = launches.Launches()
+
+
+class GraphedEval:
+    """The eval step ``eager`` (model, attrs_table, *args) → a tuple of
+    tensors as CUDA graph replays on a CUDA model, one graph per key (see
+    the module's docstring); on a CPU model it runs ``eager``, or raises
+    when the graph was ``required``. ``feed`` says how ``args`` reach the
+    graph."""
+
+    mode = "graph"
+
+    def __init__(self, eager: Callable, feed: Callable[..., Feed], required: bool = False):
+        self.eager, self.feed, self.required = eager, feed, required
+        self.stream: Optional[torch.cuda.Stream] = None
+        self.pool = None
+        self.entries: Dict[tuple, _EvalGraph] = {}
+        self.captures = 0
+        self.replays = 0
+
+    def __call__(self, model, attrs_table, *args):
+        device = _device_of(model)
+        if _cpu_call(self.required, device):
+            return self.eager(model, attrs_table, *args)
+        f = self.feed(*args)
+        key = self._key(model, attrs_table, f)
+        entry = self.entries.get(key)
+        if entry is None:
+            out = self._warm_up(device, lambda: self.eager(model, attrs_table, *args))
+            self.entries[key] = _EvalGraph(f.generator)
+            return out
+        if entry.graph is None:
+            self._capture(entry, model, attrs_table, f)
+        else:
+            entry.inputs.write(f.staged)
+        model.eval()  # what the eager call leaves
+        entry.graph.replay()
+        self.replays += 1
+        launches.add(entry.launched)
+        return tuple(t.clone() for t in entry.outputs)
+
+    def _key(self, model, attrs_table, f: Feed) -> tuple:
+        tensors = [*model.parameters(), *model.buffers(), attrs_table, *f.keyed]
+        return (id(f.generator), tuple(sections_of(f.staged)),
+                tuple((t.data_ptr(), t.shape, t.dtype) for t in tensors))
+
+    def _warm_up(self, device, fn: Callable) -> tuple:
+        """The eager call ``fn()`` on the side stream, outside any capture."""
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(device)
+        return staging.side_stream_call(self.stream, fn)
+
+    def _record(self, fn: Callable, generator: Optional[torch.Generator]):
+        """(graph, outputs): ``fn`` captured on the side stream into the
+        eval graphs' pool, ``generator`` registered with it."""
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        return staging.capture(fn, self.stream, self.pool, generator)
+
+    def _capture(self, entry: _EvalGraph, model, attrs_table, f: Feed) -> None:
+        inputs = _Inputs(sections_of(f.staged), _device_of(model))
+        inputs.write(f.staged)
+        before = launches.snapshot()
+        try:
+            graph, outputs = self._record(
+                lambda: self.eager(model, attrs_table, *f.args(inputs.d)), f.generator)
+            launched = launches.since(before)
+        finally:
+            launches.restore(before)  # the capture launched nothing
+        entry.graph, entry.inputs, entry.outputs, entry.launched = graph, inputs, outputs, launched
+        self.captures += 1
+
+    def pool_bytes(self) -> int:
+        """Device bytes reserved by the eval graphs' pool."""
+        return staging.pool_bytes(self.pool)

@@ -12,14 +12,15 @@ split run. Progress goes to stdout, to the CSV ``time;epoch;split;loss;HR;
 NDCG`` and to ``metrics.jsonl``; the config to ``args.json``.
 
 Batches come from the host (``BatchBuilder`` on a prefetch thread, with
-the native C++ assembler unless ``use_native`` is off, copied to the device
+the native C++ assembler unless ``use_native`` is off, staged to the device
 per step) or, with ``device_pipeline``, are assembled on the
-device from a [B] vector of user rows. PyTorch runs eagerly: a step
-function updates the ``TrainState`` in place and returns it with the loss,
-a device tensor that is read on the host once per epoch. The JAX package's
-``lax.scan`` over K steps per dispatch is a Python loop of K steps per
-call, which on the card runs as one CUDA graph replay from its second call
-on (``train/graph.py``).
+device from a [B] vector of user rows. A step function updates the
+``TrainState`` in place and returns it with the loss, a device tensor that
+is read on the host once per epoch. The JAX package's ``lax.scan`` over K
+steps per dispatch is a Python loop of K steps per call. On one card every
+train and eval step the JAX package jits is one CUDA graph replay from its
+second call on (``train/graph.py``), its eager call the ``graph=False``
+twin; over a mesh the steps run eagerly.
 
 Where ``sparse_adam.resolve`` says so (a device-pipeline run with an item
 table of at least 1M rows), the device step updates the item table with
@@ -232,26 +233,28 @@ def _sparse_device_update(tc: TrainConfig, state: TrainState, batch,
     return loss
 
 
-def make_device_train_step(mc: ModelConfig, tc: Optional[TrainConfig] = None,
-                           reject_width: int = 0, neg_pop: bool = False,
-                           logq: Optional[torch.Tensor] = None,
-                           sparse_items: Optional[bool] = None, *,
-                           mesh: Optional[Mesh] = None,
-                           lookup: Optional[Lookup] = None) -> Callable:
-    """Train step with on-device batch assembly: (state, attrs_table,
-    catalog arrays, user_rows [B]) → (state, loss). The state is updated in
-    place. The item table takes the row-sparse Adam where ``sparse_items``
-    says so, by default where ``sparse_adam.resolve`` turns it on for (mc,
-    tc) on the device pipeline; the state must be built the same way.
+def _graphed(graph: Optional[bool], mesh: Optional[Mesh]) -> bool:
+    """Whether a step builder makes its step a CUDA graph (``train/graph.py``):
+    ``graph`` None or True with no ``mesh``. True with a mesh raises: there
+    the step is the eager call by construction, since gloo's collectives run
+    on the host, outside any graph, and capturing NCCL's waits for a machine
+    with a card per rank (ROADMAP A4). A graph step on a CPU state runs
+    eagerly, or raises at its call when ``graph`` is True."""
+    if graph and mesh is not None:
+        raise ValueError("graph=True: a step over a mesh stays the eager loop (gloo's "
+                         "collectives run on the host; NCCL's are not captured)")
+    return graph is not False and mesh is None
 
-    Over a ``mesh`` every rank assembles the global batch from the shared
-    generator (so the generators stay in step and the data slices together
-    are the one-device batch, bit for bit) and trains on its slice
-    (``apply_gradients``, or ``_sparse_device_update``'s mesh form);
-    ``lookup`` routes the lookups of row-sharded tables. There
-    ``sparse_items`` defaults to the dense Adam, as ``sparse_adam.resolve``
-    decides "auto" under a mesh."""
-    tc = tc or TrainConfig()
+
+def _eager(step: Callable) -> Callable:
+    step.mode = "eager"
+    return step
+
+
+def _device_step(mc: ModelConfig, tc: TrainConfig, reject_width: int, neg_pop: bool,
+                 logq: Optional[torch.Tensor], sparse_items: Optional[bool],
+                 mesh: Optional[Mesh], lookup: Optional[Lookup]) -> Callable:
+    """The eager one-step call of ``make_device_train_step``."""
     if sparse_items is None:
         sparse_items = mesh is None and sparse_adam.resolve(
             Config(mc, DataConfig(device_pipeline=True), tc))
@@ -263,6 +266,7 @@ def make_device_train_step(mc: ModelConfig, tc: Optional[TrainConfig] = None,
             raise ValueError(f"the step uses the {'sparse' if sparse_items else 'dense'} item-"
                              "table Adam, the state the other (create_train_state(sparse_items=))")
         state.model.train()
+        user_rows = torch.as_tensor(user_rows, device=arrays["items"].device)
         batch = assemble_train(arrays, mc.seq_len, mc.n_items, user_rows, state.generator,
                                reject_width, neg_pop, n_neg=n_neg)
         if sparse_items:
@@ -270,6 +274,53 @@ def make_device_train_step(mc: ModelConfig, tc: Optional[TrainConfig] = None,
         return state, _dense_update(state, tc, batch, attrs_table, lq, mesh, lookup)
 
     return train_step
+
+
+def make_device_train_step(mc: ModelConfig, tc: Optional[TrainConfig] = None,
+                           reject_width: int = 0, neg_pop: bool = False,
+                           logq: Optional[torch.Tensor] = None,
+                           sparse_items: Optional[bool] = None, *,
+                           mesh: Optional[Mesh] = None,
+                           lookup: Optional[Lookup] = None,
+                           on_step: Optional[Callable[[TrainState], None]] = None,
+                           watch: Optional[Callable[[], list]] = None,
+                           graph: Optional[bool] = None) -> Callable:
+    """Train step with on-device batch assembly: (state, attrs_table,
+    catalog arrays, user_rows [B] on the host or the device) → (state,
+    loss). The state is updated in place; ``on_step(state)`` runs after the
+    update (the fit loop's EMA), and ``watch()`` lists the tensors it
+    updates in place. The item table takes the row-sparse Adam where
+    ``sparse_items`` says so, by default where ``sparse_adam.resolve`` turns
+    it on for (mc, tc) on the device pipeline; the state must be built the
+    same way.
+
+    ``graph`` None makes the call one CUDA graph on a CUDA state with no
+    ``mesh`` (``train/graph.py`` at K = 1: the first call runs eagerly, the
+    second captures, each later one is a replay equal to the eager call),
+    the counterpart of the JAX package's jitted step; ``False`` is the eager
+    call; ``True`` raises with a mesh, and on a CPU state at its call.
+
+    Over a ``mesh`` every rank assembles the global batch from the shared
+    generator (so the generators stay in step and the data slices together
+    are the one-device batch, bit for bit) and trains on its slice
+    (``apply_gradients``, or ``_sparse_device_update``'s mesh form);
+    ``lookup`` routes the lookups of row-sharded tables. There
+    ``sparse_items`` defaults to the dense Adam, as ``sparse_adam.resolve``
+    decides "auto" under a mesh."""
+    tc = tc or TrainConfig()
+    graphed = _graphed(graph, mesh)
+    step = _device_step(mc, tc, reject_width, neg_pop, logq, sparse_items, mesh, lookup)
+
+    def one_step(state: TrainState, attrs_table, arrays, user_rows):
+        state, loss = step(state, attrs_table, arrays, user_rows)
+        if on_step is not None:
+            on_step(state)
+        return state, loss
+
+    if not graphed:
+        return _eager(one_step)
+    return step_graph.GraphedStep(one_step, 1, tc, required=bool(graph), watch=watch,
+                                  feed=step_graph.device_feed(None))
 
 
 def make_scanned_device_train_step(mc: ModelConfig, inner_steps: int,
@@ -290,21 +341,12 @@ def make_scanned_device_train_step(mc: ModelConfig, inner_steps: int,
     ``on_step(state)`` runs after each (the fit loop's EMA), and ``watch()``
     lists the tensors it updates in place.
 
-    ``graph`` None makes the call one CUDA graph on a CUDA state with no
-    ``mesh`` (``train/graph.py``: the first call runs eagerly, the second
-    captures, each later one is a replay equal to the eager call), the
-    counterpart of the JAX package's jitted scan; on a CPU state it runs
-    eagerly. ``False`` is the eager loop on any device. ``True`` raises with
-    a mesh, and on a CPU state at its call. Under a ``mesh`` the call is the
-    eager loop by construction: gloo's collectives run on the host, outside
-    any graph, and capturing NCCL's waits for a machine with a card per
-    rank (ROADMAP A4)."""
-    if graph and mesh is not None:
-        raise ValueError("graph=True: a step over a mesh stays the eager loop (gloo's "
-                         "collectives run on the host; NCCL's are not captured)")
+    ``graph`` as ``make_device_train_step`` takes it: None makes the call
+    one CUDA graph on a CUDA state with no ``mesh``, the counterpart of the
+    JAX package's jitted scan; ``False`` is the eager loop on any device."""
+    graphed = _graphed(graph, mesh)
     tc = tc or TrainConfig()
-    step = make_device_train_step(mc, tc, reject_width, neg_pop, logq, sparse_items,
-                                  mesh=mesh, lookup=lookup)
+    step = _device_step(mc, tc, reject_width, neg_pop, logq, sparse_items, mesh, lookup)
 
     def scanned_step(state: TrainState, attrs_table, arrays, user_rows):
         if user_rows.shape[0] != inner_steps:
@@ -319,21 +361,33 @@ def make_scanned_device_train_step(mc: ModelConfig, inner_steps: int,
             losses.append(loss)
         return state, torch.stack(losses)
 
-    if graph is False or mesh is not None:
-        scanned_step.mode = "eager"
-        return scanned_step
+    if not graphed:
+        return _eager(scanned_step)
     return step_graph.GraphedStep(scanned_step, inner_steps, tc, required=bool(graph),
                                   watch=watch)
 
 
 def make_train_step(mc: ModelConfig, tc: Optional[TrainConfig] = None,
                     logq: Optional[torch.Tensor] = None, *, mesh: Optional[Mesh] = None,
-                    lookup: Optional[Lookup] = None) -> Callable:
-    """Train step over a host-assembled batch already on the device:
-    (state, attrs_table, batch) → (state, loss). The state is updated in
-    place. It takes the dense Adam only: a row-sparse state raises. Over a
-    ``mesh`` every rank passes the same global batch and trains on its data
-    slice (``make_device_train_step``'s mesh form)."""
+                    lookup: Optional[Lookup] = None,
+                    on_step: Optional[Callable[[TrainState], None]] = None,
+                    watch: Optional[Callable[[], list]] = None,
+                    graph: Optional[bool] = None) -> Callable:
+    """Train step over a host-assembled batch: (state, attrs_table, batch of
+    ``BatchBuilder.train_batch``'s arrays, numpy or tensors) → (state,
+    loss). The state is updated in place; ``on_step`` and ``watch`` as
+    ``make_device_train_step`` takes them. It takes the dense Adam only: a
+    row-sparse state raises. Over a ``mesh`` every rank passes the same
+    global batch and trains on its data slice (``make_device_train_step``'s
+    mesh form).
+
+    ``graph`` as ``make_device_train_step`` takes it: None makes the step
+    one CUDA graph on a CUDA state with no ``mesh``, the batch staged
+    through the graph's pinned region (p_x, p_c, o_x, o_c, y_true), the
+    counterpart of the JAX package's jitted step with the state donated;
+    ``False`` is the eager step, which copies the batch with
+    ``to_device``."""
+    graphed = _graphed(graph, mesh)
     tc = tc or TrainConfig()
     lq = logq if tc.loss == "softmax" else None
 
@@ -342,9 +396,16 @@ def make_train_step(mc: ModelConfig, tc: Optional[TrainConfig] = None,
             raise ValueError("the host-pipeline step uses the dense item-table Adam; the "
                              "row-sparse Adam needs device_pipeline=true")
         state.model.train()
-        return state, _dense_update(state, tc, batch, attrs_table, lq, mesh, lookup)
+        batch = to_device(batch, attrs_table.device)
+        loss = _dense_update(state, tc, batch, attrs_table, lq, mesh, lookup)
+        if on_step is not None:
+            on_step(state)
+        return state, loss
 
-    return train_step
+    if not graphed:
+        return _eager(train_step)
+    return step_graph.GraphedStep(train_step, 1, tc, required=bool(graph), watch=watch,
+                                  feed=step_graph.host_feed)
 
 
 def eval_metrics(model: CARCA, top_k: int, batch, attrs_table: torch.Tensor, *,
@@ -393,28 +454,34 @@ def ema_update(ema: torch.nn.Module, model: torch.nn.Module, decay: float) -> No
 
 
 def make_eval_step(mc: ModelConfig, top_k: int, *, mesh: Optional[Mesh] = None,
-                   lookup: Optional[Lookup] = None) -> Callable:
-    """(model, attrs_table, batch) → (hr_sum, ndcg_sum, loss), in eval mode
-    (``mesh`` and ``lookup`` as ``eval_metrics`` takes them)."""
+                   lookup: Optional[Lookup] = None, graph: Optional[bool] = None) -> Callable:
+    """(model, attrs_table, batch of ``BatchBuilder.eval_batch``'s arrays,
+    numpy or tensors, without ``n_valid``) → (hr_sum, ndcg_sum, loss), in
+    eval mode (``mesh`` and ``lookup`` as ``eval_metrics`` takes them).
+    ``graph`` as ``make_device_train_step`` takes it: None makes each call
+    a CUDA graph replay on a CUDA model with no ``mesh``
+    (``train/graph.py``'s ``GraphedEval``, the batch staged through its
+    pinned region), ``False`` the eager call."""
+    graphed = _graphed(graph, mesh)
 
     def eval_step(model: CARCA, attrs_table, batch):
         model.eval()
+        batch = to_device(batch, attrs_table.device)
         with torch.inference_mode():
             return eval_metrics(model, top_k, batch, attrs_table, mesh=mesh, lookup=lookup)
 
-    return eval_step
+    if not graphed:
+        return _eager(eval_step)
+    return step_graph.GraphedEval(eval_step, step_graph.host_feed, required=bool(graph))
 
 
-def make_device_eval_step(mc: ModelConfig, top_k: int, mode: str, reject_width: int = 0, *,
-                          mesh: Optional[Mesh] = None,
-                          lookup: Optional[Lookup] = None) -> Callable:
-    """(model, attrs_table, catalog arrays, user_rows [B], generator) →
-    (hr_sum, ndcg_sum, loss, n_valid), the batch assembled on the device
-    (over a ``mesh``, the global batch on every rank, of which each
-    evaluates its slice: ``eval_metrics``)."""
+def _device_eval(mc: ModelConfig, top_k: int, mode: str, reject_width: int,
+                 mesh: Optional[Mesh], lookup: Optional[Lookup]) -> Callable:
+    """The eager call of ``make_device_eval_step``."""
 
     def eval_step(model: CARCA, attrs_table, arrays, user_rows, generator):
         model.eval()
+        user_rows = torch.as_tensor(user_rows, device=arrays["items"].device)
         with torch.inference_mode():
             batch = assemble_eval(arrays, mc.seq_len, mc.target_len, mc.n_items, mode,
                                   user_rows, generator, reject_width)
@@ -425,22 +492,45 @@ def make_device_eval_step(mc: ModelConfig, top_k: int, mode: str, reject_width: 
     return eval_step
 
 
+def make_device_eval_step(mc: ModelConfig, top_k: int, mode: str, reject_width: int = 0, *,
+                          mesh: Optional[Mesh] = None, lookup: Optional[Lookup] = None,
+                          graph: Optional[bool] = None) -> Callable:
+    """(model, attrs_table, catalog arrays, user_rows [B] on the host or the
+    device, generator) → (hr_sum, ndcg_sum, loss, n_valid), the batch
+    assembled on the device (over a ``mesh``, the global batch on every
+    rank, of which each evaluates its slice: ``eval_metrics``). ``graph``
+    as ``make_eval_step`` takes it; the graph registers ``generator``."""
+    graphed = _graphed(graph, mesh)
+    step = _device_eval(mc, top_k, mode, reject_width, mesh, lookup)
+    if not graphed:
+        return _eager(step)
+    return step_graph.GraphedEval(step, step_graph.device_feed(None), required=bool(graph))
+
+
 def make_scanned_device_eval_step(mc: ModelConfig, top_k: int, mode: str, inner_steps: int,
                                   reject_width: int = 0, *, mesh: Optional[Mesh] = None,
-                                  lookup: Optional[Lookup] = None) -> Callable:
+                                  lookup: Optional[Lookup] = None,
+                                  graph: Optional[bool] = None) -> Callable:
     """``inner_steps`` eval batches per call: (model, attrs_table, arrays,
     user_rows [K, B], generator) → per-batch (hr, ndcg, loss, n_valid)
-    tensors of length K, the generator drawn in the single steps' order."""
-    step = make_device_eval_step(mc, top_k, mode, reject_width, mesh=mesh, lookup=lookup)
+    tensors of length K, the generator drawn in the single steps' order.
+    ``graph`` as ``make_eval_step`` takes it: None makes the call one CUDA
+    graph replay, the counterpart of the JAX package's jitted scan."""
+    graphed = _graphed(graph, mesh)
+    step = _device_eval(mc, top_k, mode, reject_width, mesh, lookup)
 
     def scanned_eval(model, attrs_table, arrays, user_rows, generator):
         if user_rows.shape[0] != inner_steps:
             raise ValueError(f"user_rows holds {user_rows.shape[0]} batches, "
                              f"the step takes {inner_steps}")
+        user_rows = torch.as_tensor(user_rows, device=arrays["items"].device)
         outs = [step(model, attrs_table, arrays, rows, generator) for rows in user_rows]
         return tuple(torch.stack(x) for x in zip(*outs))
 
-    return scanned_eval
+    if not graphed:
+        return _eager(scanned_eval)
+    return step_graph.GraphedEval(scanned_eval, step_graph.device_feed(inner_steps),
+                                  required=bool(graph))
 
 
 def _totals(results) -> Tuple[float, float, float]:
@@ -457,8 +547,9 @@ def _totals(results) -> Tuple[float, float, float]:
 
 
 def to_device(batch, device) -> Dict[str, torch.Tensor]:
-    """A host batch's numpy arrays as tensors on ``device``."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
+    """A host batch's numpy arrays (or tensors) as tensors on ``device``."""
+    return {k: (v if torch.is_tensor(v) else torch.from_numpy(np.ascontiguousarray(v))).to(device)
+            for k, v in batch.items()}
 
 
 def evaluate(eval_step: Callable, model: CARCA, attrs_table: torch.Tensor,
@@ -466,7 +557,8 @@ def evaluate(eval_step: Callable, model: CARCA, attrs_table: torch.Tensor,
              rng: np.random.Generator, mode: str) -> Tuple[float, float, float]:
     """Host-pipeline evaluator: (HR/total, NDCG/total, mean batch loss)
     (``src/train.py:35-53``); batches are built on a prefetch thread from
-    ``rng`` and copied to ``attrs_table``'s device."""
+    ``rng`` and handed to ``eval_step`` as numpy arrays (an eager step
+    copies them to ``attrs_table``'s device, a graph stages them)."""
     def produce():
         for rows in epoch_batches(users, batch_size, shuffle=False):
             b = builder.eval_batch(rows, rng, mode)
@@ -474,7 +566,7 @@ def evaluate(eval_step: Callable, model: CARCA, attrs_table: torch.Tensor,
 
     results = []
     for n_valid, batch in prefetch(produce()):
-        hr, ndcg, loss = eval_step(model, attrs_table, to_device(batch, attrs_table.device))
+        hr, ndcg, loss = eval_step(model, attrs_table, batch)
         results.append((hr, ndcg, loss, torch.tensor(int(n_valid))))
     return _totals(results)
 
@@ -486,28 +578,28 @@ def evaluate_device(eval_step: Callable, model: CARCA, attrs_table: torch.Tensor
     """Device-pipeline evaluator, the same protocol as ``evaluate``; with
     ``scanned_step``, whole [inner_steps, B] blocks go through one call (the
     generator is drawn in the same order either way)."""
-    dev = arrays["items"].device
     batches = list(epoch_batches(users, batch_size, shuffle=False))
     results = []
     i = 0
     if scanned_step is not None and inner_steps > 1:
-        while i + inner_steps <= len(batches):
-            block = torch.as_tensor(np.stack(batches[i:i + inner_steps]), dtype=torch.int64,
-                                    device=dev)
+        while i + inner_steps <= len(batches):  # rows on the host: the step moves or stages them
+            block = torch.as_tensor(np.stack(batches[i:i + inner_steps]), dtype=torch.int64)
             results.append(scanned_step(model, attrs_table, arrays, block, generator))
             i += inner_steps
     for rows in batches[i:]:
         results.append(eval_step(model, attrs_table, arrays,
-                                 torch.as_tensor(rows, dtype=torch.int64, device=dev),
-                                 generator))
+                                 torch.as_tensor(rows, dtype=torch.int64), generator))
     return _totals(results)
 
 
-def eval_generator(seed: int, salt: int, device) -> torch.Generator:
+def eval_generator(seed: int, salt: int, device,
+                   generator: Optional[torch.Generator] = None) -> torch.Generator:
     """The device pipeline's eval negatives for (run seed, epoch or test
-    salt): a generator on ``device`` seeded from both."""
+    salt): a generator on ``device`` seeded from both; with ``generator``,
+    that one re-seeded in place (``manual_seed``), which then draws what a
+    new one would (an eval graph keeps the generator it registered)."""
     s = int(np.random.SeedSequence([seed, salt]).generate_state(1, np.uint64)[0])
-    return torch.Generator(device=device).manual_seed(s)
+    return (generator or torch.Generator(device=device)).manual_seed(s)
 
 
 class RetrievalEvaluator:
@@ -651,6 +743,7 @@ def make_knn_eval_step(top_k: int) -> Callable:
     NaN on negative dots); the ranking metrics use the raw scores."""
 
     def eval_step(model, attrs_table, batch):
+        batch = to_device(batch, attrs_table.device)
         with torch.inference_mode():
             y_pred = knn_apply((batch["p_x"], None, None), [(batch["o_x"], None, None)],
                                attrs_table=attrs_table)
@@ -709,8 +802,8 @@ def gather_model(model: CARCA, mesh, sharded: bool) -> Optional[CARCA]:
 
 
 def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
-        log: bool = True, device: torch.device | str = "cuda"
-        ) -> Tuple[TrainState, Dict[str, float]]:
+        log: bool = True, device: torch.device | str = "cuda", *,
+        graph: Optional[bool] = None) -> Tuple[TrainState, Dict[str, float]]:
     """Train per the reference protocol on ``device`` (the card unless the
     caller asks for the CPU), from ``state`` or fresh weights, and return
     the final state, holding the best (or under EMA the evaluated) weights,
@@ -727,7 +820,13 @@ def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
     metrics all-reduced over the ranks, so all ranks take the same
     branches. The retrieval monitor runs on rank 0 over the gathered
     tables, as the JAX package runs it on one device, and its two numbers
-    are broadcast. The returned state holds this rank's blocks."""
+    are broadcast. The returned state holds this rank's blocks.
+
+    ``graph`` goes to every step builder: None makes each train and eval
+    step one CUDA graph replay on one card (the steps over a mesh stay
+    eager), ``False`` is the eager A/B twin, ``True`` requires the graphs.
+    ``debug_nans`` runs eagerly: anomaly mode reads every gradient on the
+    host."""
     mc, tc, dc = cfg.model, cfg.train, cfg.data
     device = torch.device(device)
     mesh = None
@@ -757,6 +856,7 @@ def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
         cfg.dump_args_json(os.path.join(tc.out_dir, "args.json"))
     if tc.debug_nans:
         torch.autograd.set_detect_anomaly(True)
+        graph = False
 
     dd = None
     if dc.device_pipeline:
@@ -841,12 +941,12 @@ def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
         if keeper is not None and start_epoch > 1:
             keeper.restore_latest_ema(ema, state.step)
 
-    def rows_on(rows) -> torch.Tensor:
-        return torch.as_tensor(rows, dtype=torch.int64, device=device)
-
     def ema_after(st: TrainState) -> None:
         if ema is not None:
             ema_update(ema, st.model, tc.ema_decay)
+
+    def ema_shadow() -> list:  # what ema_after updates in place, for the graphs' keys
+        return [] if ema is None else list(ema.parameters())
 
     # device-pipeline negative rejection: the user's full history (the
     # reference's protocol) unless histories are long enough that the
@@ -870,31 +970,41 @@ def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
         from carca_tpu_torch.parallel.embedding import make_sharded_lookup
 
         on_mesh["lookup"] = make_sharded_lookup(mesh)
+    # every step runs the EMA after its update (inside the graph, where the
+    # step is one) and is a graph unless under a mesh or told otherwise
+    on_ema = {"on_step": ema_after, "watch": ema_shadow, "graph": graph}
     if dd is not None:
         # over a mesh the catalog is replicated, every rank assembling the
         # global batch and training on its slice
         train_step = make_device_train_step(mc, tc, rw, neg_pop, logq=logq,
-                                            sparse_items=sparse_items, **on_mesh)
-        # anomaly mode (debug_nans) reads every gradient on the host: no graph
+                                            sparse_items=sparse_items, **on_ema, **on_mesh)
         scanned_step = (make_scanned_device_train_step(
-            mc, tc.inner_steps, tc, rw, neg_pop, logq=logq, on_step=ema_after,
-            sparse_items=sparse_items, graph=False if tc.debug_nans else None,
-            watch=lambda: [] if ema is None else list(ema.parameters()), **on_mesh)
-            if tc.inner_steps > 1 else None)
-        eval_steps = {m: make_device_eval_step(mc, tc.top_k, m, rw, **on_mesh)
+            mc, tc.inner_steps, tc, rw, neg_pop, logq=logq, sparse_items=sparse_items,
+            **on_ema, **on_mesh) if tc.inner_steps > 1 else None)
+        eval_steps = {m: make_device_eval_step(mc, tc.top_k, m, rw, graph=graph, **on_mesh)
                       for m in ("val", "test")}
         scanned_evals = {m: (make_scanned_device_eval_step(mc, tc.top_k, m, tc.inner_steps, rw,
-                                                           **on_mesh)
+                                                           graph=graph, **on_mesh)
                              if tc.inner_steps > 1 else None) for m in ("val", "test")}
+        eval_gens: Dict[str, torch.Generator] = {}  # one per mode, re-seeded per epoch
+
+        def eval_gen(mode: str, salt: int) -> torch.Generator:
+            eval_gens[mode] = eval_generator(tc.seed, salt, device, eval_gens.get(mode))
+            return eval_gens[mode]
     else:
         if mesh is not None:
             from carca_tpu_torch.parallel.step import make_sharded_train_step
 
-            train_step = make_sharded_train_step(mc, tc, mesh, shard_embeddings=shard_emb,
-                                                 device_negatives=dc.device_sampling)
+            sharded_step = make_sharded_train_step(mc, tc, mesh, shard_embeddings=shard_emb,
+                                                   device_negatives=dc.device_sampling)
+
+            def train_step(st: TrainState, attrs, batch):
+                st, loss = sharded_step(st, attrs, to_device(batch, device))
+                ema_after(st)
+                return st, loss
         else:
-            train_step = make_train_step(mc, tc)
-        eval_step = make_eval_step(mc, tc.top_k, **on_mesh)
+            train_step = make_train_step(mc, tc, **on_ema)
+        eval_step = make_eval_step(mc, tc.top_k, graph=graph, **on_mesh)
 
     start = datetime.now()
     logpath = os.path.join(tc.out_dir, f"{start.year}-{start.month}-{start.day}T{start.hour}-"
@@ -988,9 +1098,9 @@ def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
                 for rows in epoch_batches(train_users, tc.batch_size, ep_rng, shuffle=True):
                     n_batches += 1
                     n_examples += int((rows >= 0).sum())
-                    if scanned_step is None:
-                        state, loss = train_step(state, attrs_table, dd.arrays, rows_on(rows))
-                        ema_after(state)
+                    if scanned_step is None:  # rows on the host: the step moves or stages them
+                        state, loss = train_step(state, attrs_table, dd.arrays,
+                                                 torch.as_tensor(rows, dtype=torch.int64))
                         losses.append(loss.reshape(1))
                         note_batches(loss)
                         continue
@@ -1003,8 +1113,8 @@ def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
                         note_batches(k_losses)
                         pending = []
                 for rows in pending:  # the remainder, one step per call
-                    state, loss = train_step(state, attrs_table, dd.arrays, rows_on(rows))
-                    ema_after(state)
+                    state, loss = train_step(state, attrs_table, dd.arrays,
+                                             torch.as_tensor(rows, dtype=torch.int64))
                     losses.append(loss.reshape(1))
                     note_batches(loss)
             else:
@@ -1013,9 +1123,8 @@ def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
                         b = builder.train_batch(rows, ep_rng)
                         yield int(b.pop("n_valid")), b
 
-                for n_valid, batch in prefetch(produce()):
-                    state, loss = train_step(state, attrs_table, to_device(batch, device))
-                    ema_after(state)
+                for n_valid, batch in prefetch(produce()):  # numpy: the step copies or stages it
+                    state, loss = train_step(state, attrs_table, batch)
                     losses.append(loss.reshape(1))
                     note_batches(loss)
                     n_batches += 1
@@ -1041,7 +1150,7 @@ def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
             if dd is not None:
                 hr, ndcg, val_loss = evaluate_device(
                     eval_steps["val"], emodel, attrs_table, dd.arrays, val_users, tc.batch_size,
-                    eval_generator(tc.seed, epoch, device), scanned_step=scanned_evals["val"],
+                    eval_gen("val", epoch), scanned_step=scanned_evals["val"],
                     inner_steps=tc.inner_steps)
             else:
                 hr, ndcg, val_loss = evaluate(eval_step, emodel, attrs_table, builder, val_users,
@@ -1117,7 +1226,7 @@ def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
             if dd is not None:
                 hr, ndcg, test_loss = evaluate_device(
                     eval_steps["test"], state.model, attrs_table, dd.arrays, test_users,
-                    tc.batch_size, eval_generator(tc.seed, TEST_SALT, device),
+                    tc.batch_size, eval_gen("test", TEST_SALT),
                     scanned_step=scanned_evals["test"], inner_steps=tc.inner_steps)
             else:
                 hr, ndcg, test_loss = evaluate(eval_step, state.model, attrs_table, builder,

@@ -137,7 +137,8 @@ raises and exits non-zero:
              the best checkpoint through make_eval_step with the kernels
              (K1 at the eval's [256,101] x [256,50] cross-attention) and
              with the plain path on the card: HR and NDCG sums equal, loss
-             within 1e-5.
+             within 1e-5 (each through the eval graph: its warm-up, its
+             capture and a replay, the replays equal to the eager call).
 10. fit 10M — the synthetic10m preset (BASELINE configs[4]) at its full
              size: synthetic_catalog_device(100,000 users, 10,000,000
              items, seed 0) generated on the card twice, bit-equal; one
@@ -227,14 +228,34 @@ raises and exits non-zero:
              --early_stop 8` (a subprocess): each family's run directory
              complete, `assembler: native` in the log, K1 and K2 launched,
              test HR@10 / NDCG@10 at its gate (FAMILY_GATES: the
-             reference's less ~2.5 sigma); then the games fit's train ex/s
-             with the native assembler against numpy (2 epochs each, in
-             turns). 12c: K1/K2 at the families' encoder and `ca` decoder
+             reference's less ~2.5 sigma), its train ex/s logged beside
+             the eager host step's (FAMILY_EXS_EAGER); then the games
+             fit's train ex/s with the native assembler against numpy (2
+             epochs each, in turns). 12g: at games width (d=128, L=50,
+             batch 256), the host step and the device pipeline's one-step
+             call with an EMA inside, at dropout 0.5 and 0: 4 calls
+             through the graph (warm-up, capture, two replays) against 4
+             eager calls run twice: losses, parameters, Adam's state, the
+             shadow and the generator bit-equal where the eager call
+             repeats itself, launches equal; the graph's pool beside the
+             eager call's peak. 12h: make_eval_step over 4 host val
+             batches, the scanned and one-step device eval steps over two
+             epochs (the graphs' generator re-seeded, the eager calls'
+             made afresh): HR, NDCG and loss bit-equal, launches equal.
+             12i: the games fit through the graphs and eagerly
+             (fit(graph=False)) in turns graph, eager, eager, graph, 2
+             epochs each: equal train losses and val HR/NDCG, equal
+             launches; ex/s, candidates/s, the wall split (train, val
+             eval, checkpoints, test), peak memory; the host step's busy
+             share over 10 traced calls each way. 12c: K1/K2 at the
+             families' encoder and `ca` decoder
              shapes (d=128 at L=50, the decoder at L=200) against their
              plain versions (phase 3's tolerances), timed beside them and
              SDPA; one val batch of the games run's best/ through
              make_eval_step with the kernels and without (HR/NDCG sums
-             equal, loss within 1e-5); the fashion run through `python -m
+             equal, loss within 1e-5; each model's warm-up, capture and
+             replay, the replays equal to the eager call); the fashion
+             run through `python -m
              carca_tpu_torch.serve.service --run_dir` against an
              in-process Recommender and the CPU plain path, and K3 f32 at
              d=128 over its seen index against its plain version, timed.
@@ -304,6 +325,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -338,10 +360,14 @@ from carca_tpu_torch.serve.recommender import (Recommender, config_from_run_dir,
 from carca_tpu_torch.serve.service import HostCSR, history, run_bench, serve_lines
 from carca_tpu_torch.train import sparse_adam
 from carca_tpu_torch.train.checkpoint import CheckpointKeeper
+from carca_tpu_torch.train import loop as train_loop
 from carca_tpu_torch.train.loop import (RetrievalEvaluator, _sparse_device_update,
-                                        apply_gradients, attrs_dtype, make_eval_step,
-                                        make_scanned_device_train_step, to_device,
-                                        train_loss, train_loss_terms)
+                                        apply_gradients, attrs_dtype, ema_update,
+                                        eval_generator, make_device_eval_step,
+                                        make_device_train_step, make_eval_step,
+                                        make_scanned_device_eval_step,
+                                        make_scanned_device_train_step, make_train_step,
+                                        to_device, train_loss, train_loss_terms)
 from carca_tpu_torch.train.loop import fit as fit_loop
 from carca_tpu_torch.train.state import create_train_state
 from carca_tpu_torch.validate_presets import FAMILIES, family_catalog, family_config
@@ -1828,7 +1854,9 @@ def eval_kernel_vs_plain(run_dir, cat, tag="fit_serve") -> None:
     """One val batch of the run's best checkpoint through make_eval_step,
     with the kernels and with the plain path on the card: HR and NDCG sums
     equal, loss within TRAIN_LOSS_TOL; K1 launched at the eval decoder's
-    shape by the first only."""
+    shape by the first only. Each model goes through the step three times
+    (the eager warm-up, the capture and its replay, a replay): the graph's
+    two replays equal the eager call."""
     cfg = config_from_run_dir(run_dir)
     mc = cfg.model
     check(mc.use_kernel is not False, f"{run_dir} trained without the kernels")
@@ -1838,13 +1866,17 @@ def eval_kernel_vs_plain(run_dir, cat, tag="fit_serve") -> None:
     batch = to_device(batch, DEVICE)
     attrs = torch.as_tensor(cat.attrs, dtype=torch.float32, device=DEVICE)
     step = make_eval_step(mc, cfg.train.top_k)
+    check(step.mode == "graph", f"make_eval_step on the card gives the {step.mode} step")
     eval_key = (mc.target_len + 1, mc.seq_len, None)
     out = {}
     for use_kernel in (mc.use_kernel, False):
         model = CARCA(dataclasses.replace(mc, use_kernel=use_kernel), device=DEVICE)
         CheckpointKeeper(os.path.join(run_dir, "ckpt")).restore_best(model)
         before = fused_attention.launches_by_shape.get(eval_key, 0), fused_attention.launches
-        out[use_kernel] = [float(x) for x in step(model, attrs, batch)]
+        calls = [[float(x) for x in step(model, attrs, batch)] for _ in range(3)]
+        check(calls[1] == calls[0] == calls[2], f"the eval graph's replays {calls[1:]} differ "
+                                                f"from its eager call {calls[0]}")
+        out[use_kernel] = calls[0]
         after = fused_attention.launches_by_shape.get(eval_key, 0), fused_attention.launches
         if use_kernel is False:
             check(after == before, f"the plain eval launched K1: {before} -> {after}")
@@ -1852,7 +1884,10 @@ def eval_kernel_vs_plain(run_dir, cat, tag="fit_serve") -> None:
             check(after[0] > before[0], f"the eval did not launch K1 at {eval_key}")
     (hr, ndcg, loss), (hr_p, ndcg_p, loss_p) = out[mc.use_kernel], out[False]
     loss_err = abs(loss - loss_p) / abs(loss_p)
-    log(tag, eval_batch=n_valid, hr_sum=hr, ndcg_sum=ndcg, loss=loss,
+    check((step.captures, step.replays) == (2, 4), f"the eval graph: {step.captures} captures, "
+                                                   f"{step.replays} replays")
+    log(tag, eval_batch=n_valid, step="graph, replays = eager", hr_sum=hr, ndcg_sum=ndcg,
+        loss=loss,
         plain_hr_sum=hr_p, plain_ndcg_sum=ndcg_p, plain_loss=loss_p, loss_rel_err=loss_err,
         tol=TRAIN_LOSS_TOL)
     check(hr == hr_p and ndcg == ndcg_p, f"eval with the kernels HR/NDCG {hr}/{ndcg}, plain "
@@ -2681,7 +2716,6 @@ def resume_one_device(card, run) -> dict:
     state (every row of the table, pad rows cut) loads into a one-device
     row-sparse state, which takes one step."""
     from carca_tpu_torch.serve import service
-    from carca_tpu_torch.train.loop import make_device_train_step
 
     t0 = time.perf_counter()
     cfg = config_from_run_dir(run)
@@ -2752,7 +2786,6 @@ def rank_dp_step(out_dir) -> None:
 
     from carca_tpu_torch.parallel.mesh import all_reduce_sum, make_mesh
     from carca_tpu_torch.parallel.step import make_sharded_device_train_step
-    from carca_tpu_torch.train.loop import make_device_train_step
 
     dev = _rank_setup()
     mesh = make_mesh((MESH_RANKS,), ("data",))
@@ -2772,7 +2805,7 @@ def rank_dp_step(out_dir) -> None:
     res = {"loss": float(loss), "launches": counts(), "rank": mesh.rank}
     if mesh.rank == 0:
         one = create_train_state(mc, tc, dev)
-        one, loss1 = make_device_train_step(mc, tc)(one, attrs, dd.arrays, rows)
+        one, loss1 = make_device_train_step(mc, tc, graph=False)(one, attrs, dd.arrays, rows)
         worst, worst_tiny = 0.0, 0.0
         for (name, p), q in zip(state.model.named_parameters(), one.model.parameters()):
             err = (p.detach() - q.detach()).abs()
@@ -2810,10 +2843,9 @@ def one_device_steps(mc, tc, dev, dd, attrs, rows_list, sparse: bool) -> dict:
     steps (for the row-sparse item table: over the steps touching its row),
     and the row state."""
     from carca_tpu_torch.models.losses import masked_mean
-    from carca_tpu_torch.train.loop import make_device_train_step
 
     state = create_train_state(mc, tc, dev, sparse_items=sparse)
-    step = make_device_train_step(mc, tc, sparse_items=sparse)
+    step = make_device_train_step(mc, tc, sparse_items=sparse, graph=False)  # reads .grad
     losses, mag = [], {}
     for rows in rows_list:
         g_items = None
@@ -3222,7 +3254,8 @@ def family_fits(card, out) -> dict:
             "gates": FAMILY_GATES[name],
             "median_examples_per_sec": statistics.median(r["examples_per_sec"] for r in rows),
             "median_epoch_seconds": statistics.median(r["epoch_seconds"] for r in rows),
-            "wall_s": res["wall_seconds"], "device": res["device"], "launches": n}
+            "wall_s": res["wall_seconds"], "device": res["device"], "launches": n,
+            "median_examples_per_sec_eager_step": FAMILY_EXS_EAGER[name]}
         log("family_fit", card=card, family=name, **fits[name])
         check(res["device"] == torch.cuda.get_device_name(0), f"{name} ran on {res['device']}")
         check(n["attention_fwd"] > 0 and n["attention_bwd"] > 0,
@@ -3333,6 +3366,280 @@ def fashion_service(card, run, tmp) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# 12g-12i: the host step and the eval steps as CUDA graphs
+# --------------------------------------------------------------------------
+
+GRAPH_EMA_DECAY = 0.999  # the EMA 12g runs inside the steps (the games family trains without)
+EVAL_GRAPH_K = 4  # 12h: the scanned device eval's batches per call
+FIT_GRAPH_EPOCHS = 2  # 12i: each of the four games fits, graph and eager in turns
+TRACE_CALLS = 10  # 12i: host step calls traced each way
+# the family fits' median train ex/s when the host step ran eagerly (12b of
+# an earlier run of this script, NVIDIA H100 80GB HBM3, 700.00 W), logged
+# beside this run's
+FAMILY_EXS_EAGER = {"games": 15891.1, "fashion": 18672.9, "men": 15426.5}
+
+
+def games_setup(cat):
+    """The games family's config, four host train batches, four [B] user
+    rows and two val batches from the same users, and its catalog arrays on
+    the card."""
+    cfg = family_config(FAMILIES["games"], 1, 1, "unused")
+    mc = cfg.model
+    bs = cfg.train.batch_size
+    builder = BatchBuilder(cat, mc.seq_len, mc.target_len)
+    users = builder.users("train")
+    rng = np.random.default_rng(SEED + 13)
+
+    def host(mode, rows):
+        b = (builder.train_batch(rows, rng) if mode == "train"
+             else builder.eval_batch(rows, rng, mode))
+        b.pop("n_valid")
+        return b
+
+    chunks = [users[i * bs:(i + 1) * bs] for i in range(GRAPH_CALLS)]
+    val = builder.users("val")
+    dd = DeviceDataset(cat, mc.seq_len, mc.target_len, device=DEVICE)
+    return types.SimpleNamespace(
+        cfg=cfg, mc=mc, tc=cfg.train, bs=bs, dd=dd,
+        attrs=torch.as_tensor(cat.attrs, dtype=attrs_dtype(mc), device=DEVICE),
+        train=[host("train", c) for c in chunks],
+        rows=[torch.as_tensor(c, dtype=torch.int64) for c in chunks],
+        val=[host("val", val[i * bs:(i + 1) * bs]) for i in range(GRAPH_CALLS)],
+        val_users=val)
+
+
+def with_ema(state) -> dict:
+    """``state_tensors`` and the EMA shadow's parameters."""
+    out = state_tensors(state)
+    out.update({f"ema {n}": p.detach() for n, p in state.ema.named_parameters()})
+    return out
+
+
+def train_twins(card, g, kind: str, dropout: float) -> dict:
+    """12g, one case: GRAPH_CALLS calls of the host step (``kind`` host) or
+    the device pipeline's one-step call (device) with the EMA inside, from
+    copies of one model, eagerly twice (the eager call's own spread) and
+    through the graph: losses, parameters, Adam's state, the shadow and the
+    device generator bit-equal to the eager call's where the eager call
+    repeats itself (else within its spread), launches equal; then the
+    graph's pool beside the eager call's peak."""
+    mc = dataclasses.replace(g.mc, dropout=dropout)
+    base = CARCA(mc, generator=torch.Generator().manual_seed(SEED), device=DEVICE)
+    build = make_train_step if kind == "host" else make_device_train_step
+    runs = {}
+    for name, graph in (("eager", False), ("eager again", False), ("graph", None)):
+        torch.cuda.empty_cache()
+        state = create_train_state(mc, g.tc, DEVICE, model=copy.deepcopy(base))
+        state.ema = copy.deepcopy(base).eval()
+        step = build(mc, g.tc, on_step=lambda st: ema_update(st.ema, st.model, GRAPH_EMA_DECAY),
+                     watch=lambda st=state: list(st.ema.parameters()), graph=graph)
+        torch.cuda.synchronize()
+        base_mib = torch.cuda.memory_allocated() / 2**20
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses = []
+        for i in range(GRAPH_CALLS):
+            args = (g.train[i],) if kind == "host" else (g.dd.arrays, g.rows[i])
+            state, loss = step(state, g.attrs, *args)
+            losses.append(loss.reshape(1))
+        torch.cuda.synchronize()
+        runs[name] = {"losses": torch.cat(losses), "tensors": with_ema(state),
+                      "launches": counts(), "step": step, "host": state.step,
+                      "peak_extra_mib": torch.cuda.max_memory_allocated() / 2**20 - base_mib,
+                      "pool_mib": (step.pool_bytes() / 2**20 if graph is None else None)}
+        del state
+    eager, again, graph = runs["eager"], runs["eager again"], runs["graph"]
+    spread = max_abs_diffs(eager["tensors"], again["tensors"])
+    diff = max_abs_diffs(graph["tensors"], eager["tensors"])
+    loss_spread = (eager["losses"] - again["losses"]).abs().max().item()
+    loss_diff = (graph["losses"] - eager["losses"]).abs().max().item()
+    over = {n: (diff[n], spread[n]) for n in diff if diff[n] > spread[n]}
+    out = {"case": f"{kind} step, dropout {dropout}, EMA {GRAPH_EMA_DECAY}", "calls": GRAPH_CALLS,
+           "eager_repeats_itself": not any(spread.values()) and loss_spread == 0.0,
+           "graph_bit_equal": not any(diff.values()) and loss_diff == 0.0,
+           "max_eager_spread": max(spread.values()), "max_graph_diff": max(diff.values()),
+           "loss_graph_diff": loss_diff, "launches_graph": graph["launches"],
+           "launches_eager": eager["launches"], "captures": graph["step"].captures,
+           "replays": graph["step"].replays, "eager_peak_extra_mib": eager["peak_extra_mib"],
+           "graph_peak_extra_mib": graph["peak_extra_mib"], "graph_pool_mib": graph["pool_mib"]}
+    log("host_graph", card=card, **out)
+    check(not over and loss_diff <= loss_spread,
+          f"12g {out['case']}: the graph differs from the eager call beyond its own spread: "
+          f"{over or (loss_diff, loss_spread)}")
+    check(graph["launches"] == eager["launches"] and eager["launches"]["attention_fwd"] > 0
+          and eager["launches"]["attention_bwd"] > 0,
+          f"12g {out['case']}: launches graph {graph['launches']} eager {eager['launches']}")
+    check(graph["host"] == eager["host"] == GRAPH_CALLS, f"12g {out['case']}: steps counted "
+                                                         f"{graph['host']} / {eager['host']}")
+    check((out["captures"], out["replays"]) == (1, GRAPH_CALLS - 1),
+          f"12g {out['case']}: {out['captures']} captures, {out['replays']} replays")
+    return out
+
+
+def host_step_graphs(card, g) -> list:
+    """12g: the host step and the device one-step call, graph against
+    eager, at dropout 0.5 and 0."""
+    return [train_twins(card, g, kind, p) for p in (P_DROP, 0.0) for kind in ("host", "device")]
+
+
+def eval_twins(card, g) -> dict:
+    """12h: make_eval_step over GRAPH_CALLS host val batches, then the
+    scanned (EVAL_GRAPH_K batches a call) and the one-step device eval over
+    two "epochs" of the val users, the graphs' generator re-seeded per epoch
+    and the eager calls' made afresh (as fit made them before): HR and NDCG
+    sums and the loss bit-equal, launches equal; the eval pools' MiB."""
+    model = CARCA(g.mc, generator=torch.Generator().manual_seed(SEED), device=DEVICE)
+    rows = list(epoch_batches(g.val_users[:(2 * EVAL_GRAPH_K + 1) * g.bs], g.bs, shuffle=False))
+    blocks = [torch.as_tensor(np.stack(rows[i:i + EVAL_GRAPH_K]), dtype=torch.int64)
+              for i in (0, EVAL_GRAPH_K)]
+    out = {}
+    for case in ("host", "device"):
+        runs = {}
+        for graph in (False, None):
+            torch.cuda.synchronize()
+            base_mib = torch.cuda.memory_allocated() / 2**20
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            if case == "host":
+                step = make_eval_step(g.mc, g.tc.top_k, graph=graph)
+                res = [step(model, g.attrs, b) for b in g.val]
+                steps = (step,)
+            else:
+                one = make_device_eval_step(g.mc, g.tc.top_k, "val", graph=graph)
+                scanned = make_scanned_device_eval_step(g.mc, g.tc.top_k, "val", EVAL_GRAPH_K,
+                                                        graph=graph)
+                steps, res, gen = (one, scanned), [], None
+                for epoch in (1, 2):
+                    gen = eval_generator(SEED, epoch, DEVICE, gen if graph is None else None)
+                    for block in blocks:
+                        res.append(scanned(model, g.attrs, g.dd.arrays, block, gen))
+                    res.append(one(model, g.attrs, g.dd.arrays, torch.as_tensor(rows[-1]), gen))
+            torch.cuda.synchronize()
+            runs[graph] = {"res": [[x.cpu() for x in r] for r in res], "launches": counts(),
+                           "steps": steps,
+                           "peak_extra_mib": torch.cuda.max_memory_allocated() / 2**20 - base_mib}
+        equal = all(torch.equal(u, v) for a, b in zip(runs[False]["res"], runs[None]["res"])
+                    for u, v in zip(a, b))
+        graphed = runs[None]["steps"]
+        out[case] = {"calls": len(runs[None]["res"]), "bit_equal": equal,
+                     "launches_graph": runs[None]["launches"],
+                     "launches_eager": runs[False]["launches"],
+                     "captures": [s.captures for s in graphed],
+                     "replays": [s.replays for s in graphed],
+                     "pool_mib": [s.pool_bytes() / 2**20 for s in graphed],
+                     "eager_peak_extra_mib": runs[False]["peak_extra_mib"],
+                     "graph_peak_extra_mib": runs[None]["peak_extra_mib"],
+                     "last_call_sums": [float(x.sum()) for x in runs[None]["res"][-1]]}
+        log("eval_graph", card=card, case=f"{case} eval steps, graph against eager"
+            + (", two re-seeded epochs" if case == "device" else ""), **out[case])
+        check(equal, f"12h {case}: the eval graph's sums differ from the eager calls'")
+        check(runs[None]["launches"] == runs[False]["launches"]
+              and runs[False]["launches"]["attention_fwd"] > 0,
+              f"12h {case}: launches graph {runs[None]['launches']} eager "
+              f"{runs[False]['launches']}")
+        check(all(c == 1 for c in out[case]["captures"]) and all(out[case]["replays"]),
+              f"12h {case}: captures {out[case]['captures']} replays {out[case]['replays']}")
+    return out
+
+
+@contextlib.contextmanager
+def fit_wall_split(split: dict):
+    """Time ``fit``'s val and test evaluations (``loop.evaluate``) and its
+    checkpoint saves and restores into ``split`` (seconds)."""
+    patched = [(train_loop, "evaluate"), (CheckpointKeeper, "save"),
+               (CheckpointKeeper, "save_latest"), (CheckpointKeeper, "restore_best")]
+    saved = [getattr(obj, name) for obj, name in patched]
+
+    def timer(fn, key_of):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                k = key_of(a)
+                split[k] = split.get(k, 0.0) + time.perf_counter() - t0
+        return wrapped
+
+    train_loop.evaluate = timer(saved[0], lambda a: f"{a[7]}_eval_s")
+    for (obj, name), fn in list(zip(patched, saved))[1:]:
+        setattr(obj, name, timer(fn, lambda a: "checkpoint_s"))
+    try:
+        yield split
+    finally:
+        for (obj, name), fn in zip(patched, saved):
+            setattr(obj, name, fn)
+
+
+def host_step_trace(g, graph) -> dict:
+    """The games host step's busy share over TRACE_CALLS calls
+    (``profile_step.device_trace``), each staging or copying its batch."""
+    state = create_train_state(g.mc, g.tc, DEVICE)
+    step = make_train_step(g.mc, g.tc, graph=graph)
+    for i in range(2):  # a graph's warm-up and capture, outside the trace
+        state, _ = step(state, g.attrs, g.train[i])
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, g.attrs, g.train[0])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    t = device_trace(run, 1, TRACE_CALLS)
+    return {k: v for k, v in t.items() if k != "table"}
+
+
+def games_fit_graph_vs_eager(card, cat, g, tmp) -> dict:
+    """12i: the games fit through the graphs and eagerly, in one process, in
+    turns graph, eager, eager, graph (FIT_GRAPH_EPOCHS each, early stop out
+    of reach): equal train losses and val HR/NDCG in metrics.jsonl and
+    equal launches; train ex/s, candidates/s, the wall split, peak memory;
+    then the host step's busy share each way."""
+    fits = []
+    for i, graph in enumerate((None, False, False, None)):
+        cfg = family_config(FAMILIES["games"], FIT_GRAPH_EPOCHS, 10 * FIT_GRAPH_EPOCHS,
+                            os.path.join(tmp, f"graph_ab{i}"))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        split = {}
+        t0 = time.perf_counter()
+        with fit_wall_split(split), contextlib.redirect_stdout(io.StringIO()):
+            _, final = fit_loop(cfg, cat, device=DEVICE, graph=graph)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        with open(os.path.join(cfg.train.out_dir, "metrics.jsonl")) as fh:
+            rows = [json.loads(ln) for ln in fh]
+        split["train_s"] = sum(r["epoch_seconds"] for r in rows)
+        split["other_s"] = wall - sum(split.values())
+        fits.append({"step": "eager" if graph is False else "graph", "wall_s": wall,
+                     "wall_split": split, "launches": counts(),
+                     "examples_per_sec": [r["examples_per_sec"] for r in rows],
+                     "candidates_per_sec": [r["candidates_per_sec"] for r in rows],
+                     "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20,
+                     "metrics": [(r["train_loss"], r["val_hr"], r["val_ndcg"]) for r in rows],
+                     "final": final})
+        log("fit_graph", card=card, turn=i, **{k: v for k, v in fits[-1].items()
+                                             if k != "final"})
+    same = all(f["metrics"] == fits[0]["metrics"] for f in fits)
+    launches_equal = all(f["launches"] == fits[0]["launches"] for f in fits)
+    traces = {name: host_step_trace(g, graph) for name, graph in (("eager", False),
+                                                                   ("graph", None))}
+    out = {"epochs": FIT_GRAPH_EPOCHS, "metrics_equal": same, "launches_equal": launches_equal,
+           "median_examples_per_sec": {
+               kind: statistics.median(x for f in fits if f["step"] == kind
+                                       for x in f["examples_per_sec"][1:])
+               for kind in ("graph", "eager")},
+           "host_step_trace": traces}
+    log("fit_graph", card=card, case="games fit, graph against eager, in turns", **out)
+    check(same, f"12i: the graph's and the eager fits' metrics differ: "
+                f"{[f['metrics'] for f in fits]}")
+    check(launches_equal and fits[0]["launches"]["attention_fwd"] > 0,
+          f"12i: launches {[f['launches'] for f in fits]}")
+    return out
+
+
 def phase_families(card) -> dict:
     """Phase 12. Returns what the kernels line needs: the fits (their
     launches), the kernels at the families' shapes and the fashion
@@ -3344,11 +3651,17 @@ def phase_families(card) -> dict:
         out = os.path.join(tmp, "validate")
         fits = family_fits(card, out)
         ab = native_vs_numpy_fit(card, games, tmp)
+        g = games_setup(games)
+        step_graphs = host_step_graphs(card, g)
+        eval_graphs = eval_twins(card, g)
+        fit_graph = games_fit_graph_vs_eager(card, games, g, tmp)
+        del g
         torch.cuda.empty_cache()
         attn = family_kernels(card)
         eval_kernel_vs_plain(os.path.join(out, "run_games"), games, tag="family_eval")
         serve = fashion_service(card, os.path.join(out, "run_fashion"), tmp)
-        return {"native": native, "fits": fits, "ab": ab, "attn": attn, "serve": serve}
+        return {"native": native, "fits": fits, "ab": ab, "attn": attn, "serve": serve,
+                "step_graphs": step_graphs, "eval_graphs": eval_graphs, "fit_graph": fit_graph}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
