@@ -32,10 +32,30 @@ directory written before they were one file keeps the shadow in
 Every file is written to a temporary name in its directory
 (``<name>.tmp<pid>``) and then ``os.replace``d, so a crash never leaves a
 torn checkpoint; a temporary file a killed process left behind is never
-read. Saves are synchronous.
+read.
+
+Saves are asynchronous, as the JAX package's orbax saves are: ``save`` and
+``save_latest`` block only for the snapshot, a copy of what they save in
+host memory made on the calling thread (the graph replays update the
+parameters, Adam's moments, the row state and the EMA shadow in place, so
+the file must not read the live tensors). Then they return, and a
+background thread per kind (best/, latest/) runs the ``torch.save`` and
+the ``os.replace`` while the next epoch trains. That thread makes no CUDA
+call: the snapshot is complete before the save returns, and it is
+released on the calling thread at the next wait (a CUDA call from another
+thread would break a graph capture, which runs in the ``"global"`` error
+mode). Each kind waits for its own earlier write before it snapshots
+again; every read (``best_metrics``, ``latest_progress`` and the
+restores) waits for the writes it reads, and ``wait()`` and ``close()``
+for all of them. The owner of a keeper that saves calls ``close()`` when
+it is done (``fit`` does, before it returns). An exception in a write is
+raised again, unchanged, at the keeper's next wait, save or ``close()``.
 
 Over a mesh (``parallel/mesh.py``) every rank calls every method; rank 0
-alone writes, and each save ends in a barrier. With the item table
+alone writes. A save's gathers run in its snapshot, which ends in a
+barrier; only rank 0's file write goes to the thread, and a wait for a
+write in flight ends in a barrier, so no rank reads a file before rank 0
+has written it; ``close()`` ends in a barrier. With the item table
 row-sharded (``table_rows``, its true row count), a save assembles the
 table and its Adam moments on rank 0 in host memory, block by block
 (``gather_rows_on_rank0``: no other rank ever holds the whole table), and
@@ -50,7 +70,8 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Optional
+import threading
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -75,6 +96,68 @@ def _save(obj: Any, path: str) -> None:
 
 def _load(path: str) -> Any:
     return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def _host_copy(obj: Any, keep: Sequence[Optional[torch.Tensor]] = ()) -> Any:
+    """``obj`` (a state_dict, an optimizer's, and the dicts, lists and
+    tuples around them) with every tensor copied to host memory, but the
+    tensors in ``keep``, which are host copies already (the gathered
+    item table). A state_dict keeps its ``_metadata``."""
+    if torch.is_tensor(obj):
+        return obj if any(obj is t for t in keep) else obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        out = type(obj)((k, _host_copy(v, keep)) for k, v in obj.items())
+        if hasattr(obj, "_metadata"):
+            out._metadata = obj._metadata
+        return out
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host_copy(v, keep) for v in obj)
+    return obj
+
+
+class _Writer:
+    """One kind's file writes (best/ or latest/), one at a time, each on a
+    thread of its own. ``pending`` is set on every rank of a mesh alike,
+    though rank 0 alone runs a thread."""
+
+    def __init__(self, kind: str):
+        self.kind = kind
+        self.pending = False
+        self._thread: Optional[threading.Thread] = None
+        self._snapshot: Any = None
+        self._error: Optional[BaseException] = None
+
+    def start(self, write: Optional[Callable[[], None]], snapshot: Any) -> None:
+        """``write()`` on a new thread (None: another rank writes). The
+        ``snapshot`` it writes is held here, so that it is released at
+        ``wait``, on the caller's thread."""
+        self.pending, self._snapshot = True, snapshot
+        if write is None:
+            return
+
+        def run() -> None:
+            try:
+                write()
+            except BaseException as e:  # raised again at the next wait
+                self._error = e
+
+        self._thread = threading.Thread(target=run, name=f"checkpoint-{self.kind}")
+        self._thread.start()
+
+    def failed(self) -> bool:
+        """Whether a write has ended in an exception not raised yet."""
+        return (self._thread is not None and not self._thread.is_alive()
+                and self._error is not None)
+
+    def wait(self) -> Optional[BaseException]:
+        """Join the write in flight and release its snapshot; its exception,
+        or None."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        self.pending, self._snapshot = False, None
+        err, self._error = self._error, None
+        return err
 
 
 def _portable_optimizer(sd: Dict[str, Any]) -> Dict[str, Any]:
@@ -141,13 +224,14 @@ class CheckpointKeeper:
         self.latest = os.path.join(self.dir, "latest", "state.pt")
         self.legacy_ema = os.path.join(self.dir, "ema", "ema.pt")  # before the shadow joined latest/
         self._resumed: Optional[Dict[str, Any]] = None  # what restore_latest read beside the state
+        self._best, self._latest = _Writer("best"), _Writer("latest")
 
-    def _whole(self, sd: Dict[str, Any]) -> Dict[str, Any]:
-        """A state_dict with the item table whole on rank 0 (in host memory),
-        None in its place on the other ranks."""
+    def _whole(self, sd: Dict[str, Any], gather: Callable) -> Dict[str, Any]:
+        """A state_dict with the item table whole on rank 0 (in host memory,
+        through ``gather``), None in its place on the other ranks."""
         if self.table_rows is None or ITEMS not in sd:
             return sd
-        return dict(sd, **{ITEMS: self._gather(sd[ITEMS])})
+        return dict(sd, **{ITEMS: gather(sd[ITEMS])})
 
     def _gather(self, block: torch.Tensor) -> Optional[torch.Tensor]:
         return gather_rows_on_rank0(block, self.mesh, self.table_rows)
@@ -174,51 +258,107 @@ class CheckpointKeeper:
                    for k, v in sd["state"][slot].items()}
         return dict(sd, state={**sd["state"], slot: moments})
 
-    def _write(self, write) -> None:
-        """``write()`` on rank 0 alone, then every rank waits for it."""
+    def _gatherer(self) -> tuple:
+        """(gather, gathered): ``gather(block)`` is ``_gather``, and
+        ``gathered`` lists what it returned, host copies of their own."""
+        gathered: List[Optional[torch.Tensor]] = []
+
+        def gather(block: torch.Tensor) -> Optional[torch.Tensor]:
+            gathered.append(self._gather(block))
+            return gathered[-1]
+
+        return gather, gathered
+
+    def _start(self, writer: _Writer, snapshot: Any, gathered: list,
+               write: Callable[[Any], None]) -> None:
+        """Snapshot ``snapshot`` to host memory (rank 0 alone writes, so the
+        other ranks copy nothing) and hand ``write(host copy)`` to
+        ``writer``'s thread; under a mesh every rank then meets at a
+        barrier."""
         if self.writer:
-            write()
+            host = _host_copy(snapshot, gathered)
+            writer.start(lambda: write(host), host)
+        else:
+            writer.start(None, None)
         if self.mesh is not None:
             barrier()
 
+    def _wait(self, *writers: _Writer) -> None:
+        """Wait for ``writers``' writes in flight; under a mesh every rank
+        then meets at a barrier, so that no rank reads a file rank 0 has
+        not written. Raises a write's exception, unchanged."""
+        pending = [w for w in writers if w.pending]
+        errors = [w.wait() for w in pending]
+        if pending and self.mesh is not None:
+            barrier()
+        for err in errors:
+            if err is not None:
+                raise err
+
+    def _raise_failed(self) -> None:
+        """Raise the exception of a write that has ended in one (a save's
+        first step, so that no failed write goes unreported until close)."""
+        for w in (self._best, self._latest):
+            if w.failed():
+                raise w.wait()
+
+    def wait(self) -> None:
+        """Wait for every write in flight (raises a write's exception)."""
+        self._wait(self._best, self._latest)
+
+    def close(self) -> None:
+        """Wait for every write in flight; under a mesh end in a barrier.
+        Raises a write's exception, unchanged."""
+        try:
+            self.wait()
+        finally:
+            if self.mesh is not None:
+                barrier()
+
     def save(self, epoch: int, model: torch.nn.Module, metrics: Dict[str, Any]) -> None:
         """Retain ``model``'s parameters as best/ unless the kept best
-        selects higher."""
-        prev = self.best_metrics()
+        selects higher: a host snapshot, written in the background."""
+        self._raise_failed()
+        prev = self.best_metrics()  # waits for best/'s earlier write
         if prev is not None and (_selection_metric(metrics, self.select_by)
                                  < _selection_metric(prev, self.select_by)):
             return
-        params = self._whole(model.state_dict())
+        gather, gathered = self._gatherer()
+        sidecar = json.dumps(dict(metrics, epoch=epoch))
 
         def write_sidecar(tmp: str) -> None:
             with open(tmp, "w") as fh:
-                json.dump(dict(metrics, epoch=epoch), fh)
+                fh.write(sidecar)
 
-        def write() -> None:
+        def write(params) -> None:
             _save(params, self.best_params)
             _replace_atomically(self.best_sidecar, write_sidecar)
 
-        self._write(write)
+        self._start(self._best, self._whole(model.state_dict(), gather), gathered, write)
 
     def save_latest(self, epoch: int, state, ema: Optional[torch.nn.Module] = None,
                     progress: Optional[Dict[str, Any]] = None) -> None:
         """The resume checkpoint: with ``ema``, the shadow at the same step,
-        and ``progress``, ``fit``'s retention state, in the same file."""
+        and ``progress``, ``fit``'s retention state, in the same file; a
+        host snapshot, written in the background once latest/'s earlier
+        write has ended."""
+        self._raise_failed()
+        self._wait(self._latest)
+        gather, gathered = self._gatherer()
         rows = state.items_state
         if rows is not None and self.table_rows is not None:
-            rows = dict(rows, munu=self._gather(rows["munu"]))
-        ck = {"model": self._whole(state.model.state_dict()),
+            rows = dict(rows, munu=gather(rows["munu"]))
+        ck = {"model": self._whole(state.model.state_dict(), gather),
               "optimizer": self._moments(state, _portable_optimizer(
-                  state.optimizer.state_dict()), self._gather),
+                  state.optimizer.state_dict()), gather),
               "items_state": rows,
               "generator": state.generator.get_state(),
               "seed_generator": state.seed_generator.get_state(),
               "step": state.step, "epoch": epoch,
-              "ema": None if ema is None else {"params": self._whole(ema.state_dict()),
+              "ema": None if ema is None else {"params": self._whole(ema.state_dict(), gather),
                                                "step": state.step},
               "progress": progress}
-
-        self._write(lambda: _save(ck, self.latest))
+        self._start(self._latest, ck, gathered, lambda host: _save(host, self.latest))
 
     def restore_latest(self, state) -> Optional[int]:
         """Load latest/ into ``state`` in place; its epoch, or None without one.
@@ -226,6 +366,7 @@ class CheckpointKeeper:
         with the other item-table optimizer (row-sparse or dense). The
         shadow and the retention state saved with it wait for
         ``restore_latest_ema`` and ``latest_progress``."""
+        self._wait(self._latest)
         self._resumed = None
         if not os.path.exists(self.latest):
             return None
@@ -251,10 +392,12 @@ class CheckpointKeeper:
     def latest_progress(self) -> Optional[Dict[str, Any]]:
         """``fit``'s retention state saved with the restored latest/; None
         before a restore or for a latest/ saved without one."""
+        self._wait(self._latest)
         return (self._resumed or {}).get("progress")
 
     def restore_latest_model(self, model: torch.nn.Module) -> Optional[int]:
         """Load latest/'s parameters alone into ``model``; its epoch, or None."""
+        self._wait(self._latest)
         if not os.path.exists(self.latest):
             return None
         ck = _load(self.latest)
@@ -266,6 +409,7 @@ class CheckpointKeeper:
         when the run saved none. Raises when its step is not ``step``
         (latest/'s): a shadow in latest/ always has it, a directory of the
         older layout (``ema/ema.pt``) may not."""
+        self._wait(self._latest)
         resumed = self._resumed or {}
         if "ema" in resumed:
             ck, where = resumed.pop("ema"), self.latest
@@ -283,12 +427,16 @@ class CheckpointKeeper:
 
     def restore_best(self, model: torch.nn.Module) -> Optional[int]:
         """Load best/ into ``model`` in place; its epoch, or None without one."""
+        self._wait(self._best)
         if not os.path.exists(self.best_params):
             return None
         model.load_state_dict(self._block(_load(self.best_params)))
         return int(self.best_metrics()["epoch"])
 
     def best_metrics(self) -> Optional[Dict[str, Any]]:
+        """best/'s metrics, once its write in flight has ended; None without
+        one."""
+        self._wait(self._best)
         if not os.path.exists(self.best_sidecar):
             return None
         with open(self.best_sidecar) as fh:

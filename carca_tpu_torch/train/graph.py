@@ -42,10 +42,14 @@ the attrs table and the batch's shapes and dtypes.
 ``parallel.mesh.prepare_state_for_mesh`` replace Adam's tensors, so the
 call after either captures anew; it never replays into stale tensors.
 
-``GraphedEval`` wraps an eval step: one graph per key — the data pointers
+``GraphedEval`` wraps an eval step (the JAX package's jitted eval steps,
+``make_knn_eval_step`` and the retrieval evaluator's ``embed_fn``,
+``space_fn``, ``quant_fn`` and ``batch_metrics``): one graph per key — the data pointers
 of the model's parameters and buffers, the attrs table and the catalog
-arrays, the input shapes and the eval generator — each with an eager
-warm-up, then a capture and a replay, then replays. The eval generator is
+arrays (for the retrieval evaluator also its index and row ids), the input
+shapes and the eval generator — each with an eager warm-up, then a capture
+and a replay, then replays. A step with no model (the KNN baseline's)
+runs on its attrs table's device and is keyed by it. The eval generator is
 registered with the graph; re-seeding it (``manual_seed``) between calls
 restarts what the replays draw, as it restarts the eager draws. Its
 graphs share one memory pool, apart from the train graph's: they replay
@@ -57,7 +61,9 @@ copy into the parameters in place, so a replay reads the new values.
 A capture that fails raises with its error: there is no eager retry. A
 capture is made in the default ``"global"`` error mode, so no other
 thread may call into CUDA meanwhile: the prefetch thread
-(``data/prefetch.py``) assembles numpy batches and makes no CUDA call.
+(``data/prefetch.py``) assembles numpy batches and the checkpoint writers
+(``train/checkpoint.py``) write host snapshots, and neither makes a CUDA
+call.
 """
 
 from __future__ import annotations
@@ -171,6 +177,12 @@ def host_feed(batch) -> Feed:
     """A host batch (``BatchBuilder``'s numpy arrays, or tensors), staged
     whole."""
     return Feed([], dict(batch), lambda d: (d,))
+
+
+def fixed_feed(tensors: Dict[str, torch.Tensor]) -> Feed:
+    """Tensors read in place and nothing staged: a call whose inputs stay
+    put in device memory (the retrieval index's rows and row ids)."""
+    return Feed(list(tensors.values()), {}, lambda d: (tensors,))
 
 
 def train_sections(staged: Dict[str, object], k: int, n_seeds: int) -> list:
@@ -394,7 +406,8 @@ class GraphedEval:
         self.replays = 0
 
     def __call__(self, model, attrs_table, *args):
-        device = _device_of(model)
+        # a step with no model (the KNN baseline's) runs where its attrs lie
+        device = attrs_table.device if model is None else _device_of(model)
         if _cpu_call(self.required, device):
             return self.eager(model, attrs_table, *args)
         f = self.feed(*args)
@@ -405,17 +418,19 @@ class GraphedEval:
             self.entries[key] = _EvalGraph(f.generator)
             return out
         if entry.graph is None:
-            self._capture(entry, model, attrs_table, f)
+            self._capture(entry, device, model, attrs_table, f)
         else:
             entry.inputs.write(f.staged)
-        model.eval()  # what the eager call leaves
+        if model is not None:
+            model.eval()  # what the eager call leaves
         entry.graph.replay()
         self.replays += 1
         launches.add(entry.launched)
         return tuple(t.clone() for t in entry.outputs)
 
     def _key(self, model, attrs_table, f: Feed) -> tuple:
-        tensors = [*model.parameters(), *model.buffers(), attrs_table, *f.keyed]
+        tensors = [] if model is None else [*model.parameters(), *model.buffers()]
+        tensors += [attrs_table, *f.keyed]
         return (id(f.generator), tuple(sections_of(f.staged)),
                 tuple((t.data_ptr(), t.shape, t.dtype) for t in tensors))
 
@@ -432,8 +447,8 @@ class GraphedEval:
             self.pool = torch.cuda.graph_pool_handle()
         return staging.capture(fn, self.stream, self.pool, generator)
 
-    def _capture(self, entry: _EvalGraph, model, attrs_table, f: Feed) -> None:
-        inputs = _Inputs(sections_of(f.staged), _device_of(model))
+    def _capture(self, entry: _EvalGraph, device, model, attrs_table, f: Feed) -> None:
+        inputs = _Inputs(sections_of(f.staged), device)
         inputs.write(f.staged)
         before = launches.snapshot()
         try:

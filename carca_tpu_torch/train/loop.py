@@ -18,9 +18,10 @@ device from a [B] vector of user rows. A step function updates the
 ``TrainState`` in place and returns it with the loss, a device tensor that
 is read on the host once per epoch. The JAX package's ``lax.scan`` over K
 steps per dispatch is a Python loop of K steps per call. On one card every
-train and eval step the JAX package jits is one CUDA graph replay from its
-second call on (``train/graph.py``), its eager call the ``graph=False``
-twin; over a mesh the steps run eagerly.
+train and eval step the JAX package jits (the retrieval evaluator's index
+build and batches, and the KNN baseline's step, among them) is one CUDA
+graph replay from its second call on (``train/graph.py``), its eager call
+the ``graph=False`` twin; over a mesh the steps run eagerly.
 
 Where ``sparse_adam.resolve`` says so (a device-pipeline run with an item
 table of at least 1M rows), the device step updates the item table with
@@ -62,7 +63,7 @@ from carca_tpu_torch.models.embeddings import ItemRows, Lookup
 from carca_tpu_torch.models.knn import knn_apply
 from carca_tpu_torch.models.losses import (Terms, masked_bce, masked_bce_terms, masked_mean,
                                            sampled_softmax_terms)
-from carca_tpu_torch.ops.retrieval_topk import quantize_index
+from carca_tpu_torch.ops.retrieval_topk import QuantizedIndex, quantize_index
 from carca_tpu_torch.parallel.mesh import (Mesh, all_reduce_sum, rank_generators,
                                            shard_batch, sum_gradients)
 from carca_tpu_torch.parallel.retrieval import (catalog_in_decoder_space, embed_catalog,
@@ -618,12 +619,24 @@ class RetrievalEvaluator:
     from its top-k; dead rows never match. ``eval_subsample`` users are
     drawn from ``default_rng(seed)``. ``dd`` reuses a DeviceDataset already
     on ``device``. ``batch(..., use_kernel=False)`` scores one batch with
-    the plain top-k on any device."""
+    the plain top-k on any device.
+
+    ``graph`` as the eval step builders take it: None makes the index build
+    (the JAX package's jitted ``embed_fn``, ``space_fn`` and ``quant_fn``)
+    and each batch (its ``batch_metrics``: the queries, the top-k, the
+    dead-row mask and the HR/NDCG sums) a CUDA graph replay on a CUDA model
+    (``train/graph.py``'s ``GraphedEval``: a key's first call eager, its
+    second the capture, later calls replays), ``False`` the eager calls,
+    ``True`` raises on a CPU model. ``index()`` writes into the evaluator's
+    own index tensors, the first build's, so the batch graph, keyed by
+    them, the parameters, ``attrs``, ``row_ids`` and the batch's shape,
+    keeps its key from one build to the next. ``batch()`` stays eager;
+    ``batch_metrics()`` is the graphed batch."""
 
     def __init__(self, cfg: Config, catalog: Catalog, mode: str = "test",
                  k: Optional[int] = None, log: bool = True, seen_only: bool = True,
                  quantized: bool = False, device: torch.device | str = "cuda",
-                 dd: Optional[DeviceDataset] = None):
+                 dd: Optional[DeviceDataset] = None, graph: Optional[bool] = None):
         mc, tc = cfg.model, cfg.train
         if mc.decoder == "ca":
             raise ValueError("full-catalog retrieval applies to the dot/wdot decoders; the "
@@ -653,6 +666,17 @@ class RetrievalEvaluator:
                                                           replace=False)
         self.row_batches = [torch.as_tensor(rows, dtype=torch.int64, device=device)
                             for rows in epoch_batches(users, tc.batch_size, shuffle=False)]
+        self._index: Optional[tuple] = None  # (rows,) or (qvals, scales), the first build's
+        self._inputs: Dict[str, torch.Tensor] = {}  # what batch_metrics reads in place
+        self._row_ids = {} if self.row_ids is None else {"row_ids": self.row_ids}
+        if graph is False:
+            self._build, self._metrics = self._build_eager, self._metrics_eager
+        else:
+            self._build = step_graph.GraphedEval(self._build_eager, step_graph.fixed_feed,
+                                                 required=bool(graph))
+            self._metrics = step_graph.GraphedEval(self._metrics_eager,
+                                                   step_graph.device_feed(None),
+                                                   required=bool(graph))
 
     @staticmethod
     def _seen_rows(dd: DeviceDataset, n_items: int) -> torch.Tensor:
@@ -672,16 +696,35 @@ class RetrievalEvaluator:
         seen = torch.nonzero(counts[1:]).reshape(-1) + 1  # never the pad id
         return torch.cat([seen.new_zeros(1), seen])
 
-    def index(self, model: CARCA):
-        """The index of ``model``'s item tower: decoder-space rows (int8 when
-        ``quantized``), over the seen rows or every id."""
+    def _build_eager(self, model: CARCA, attrs: torch.Tensor, row_ids) -> tuple:
+        """The eager index build: the first build's tensors (which become
+        the evaluator's index), later builds copied into them. ``row_ids``
+        ({} or {"row_ids": ...}) is passed for the graph's key alone."""
         model.eval()
         with torch.inference_mode():
-            attrs = self.attrs if self.row_ids is None else self.attrs[self.row_ids]
+            if self.row_ids is not None:
+                attrs = attrs[self.row_ids]
             emb = catalog_in_decoder_space(
                 embed_catalog(model, attrs, global_ids=self.row_ids, out_dtype=self.emb_dtype),
                 model.cfg)
-            return quantize_index(emb) if self.quantized else emb.contiguous()
+            built = tuple(quantize_index(emb)) if self.quantized else (emb.contiguous(),)
+            if self._index is None:
+                return built
+            for dst, src in zip(self._index, built):
+                dst.copy_(src)
+        return ()
+
+    def index(self, model: CARCA):
+        """The index of ``model``'s item tower: decoder-space rows (int8 when
+        ``quantized``), over the seen rows or every id, built into the
+        evaluator's own index tensors (the same on every call)."""
+        built = self._build(model, self.attrs, self._row_ids)
+        if self._index is None:
+            self._index = built
+            self._inputs = dict(self.arrays, index=built[0], **self._row_ids)
+            if self.quantized:
+                self._inputs["scales"] = built[1]
+        return QuantizedIndex(*self._index) if self.quantized else self._index[0]
 
     def batch(self, model: CARCA, emb, rows: torch.Tensor, use_kernel: bool = True):
         """One batch of user rows: (queries [B, d], top-k ids [B, k] (−1 on
@@ -700,15 +743,27 @@ class RetrievalEvaluator:
             ids = torch.where(alive[:, None], ids, -1)  # dead rows never match
         return q, ids, pos.long(), alive
 
+    def _metrics_eager(self, model: CARCA, attrs: torch.Tensor, inputs, rows: torch.Tensor):
+        """``batch_metrics``' eager call over the index in ``inputs`` (the
+        catalog arrays beside it)."""
+        emb = inputs["index"] if not self.quantized else QuantizedIndex(inputs["index"],
+                                                                        inputs["scales"])
+        _, ids, pos, alive = self.batch(model, emb, rows)
+        with torch.inference_mode():
+            hr, ndcg = retrieval_hr_ndcg(ids, pos, self.k)
+            return hr, ndcg, alive.sum().to(torch.float32), ids
+
+    def batch_metrics(self, model: CARCA, rows: torch.Tensor) -> tuple:
+        """One batch of user rows [B] on the device, over the index the last
+        ``index()`` built: (HR sum, NDCG sum, live users), 0-dim device
+        tensors, and the top-k ids [B, k] (−1 on dead rows)."""
+        return self._metrics(model, self.attrs, self._inputs, rows)
+
     def __call__(self, model: CARCA) -> Dict[str, float]:
-        emb = self.index(model)
+        self.index(model)
+        sums = [torch.stack(self.batch_metrics(model, rows)[:3]) for rows in self.row_batches]
         hr = ndcg = 0.0
         total = 0
-        sums = []
-        for rows in self.row_batches:
-            _, ids, pos, alive = self.batch(model, emb, rows)
-            sums.append(torch.stack([*retrieval_hr_ndcg(ids, pos, self.k),
-                                     alive.sum().to(torch.float32)]))
         for h, n, t in torch.stack(sums).cpu().tolist() if sums else []:
             hr, ndcg, total = hr + h, ndcg + n, total + int(t)
         m = self.mode
@@ -721,7 +776,8 @@ class RetrievalEvaluator:
 
 def evaluate_retrieval(cfg: Config, catalog: Catalog, model: CARCA, mode: str = "test",
                        k: Optional[int] = None, log: bool = True, seen_only: bool = True,
-                       quantized: bool = False) -> Dict[str, float]:
+                       quantized: bool = False, *, graph: Optional[bool] = None
+                       ) -> Dict[str, float]:
     """Leave-one-out evaluation against the full catalog (BASELINE
     configs[4]; the reference's eval samples 100 negatives instead,
     ``src/data.py:140-192``), on ``model``'s device: each user's held-out
@@ -729,18 +785,22 @@ def evaluate_retrieval(cfg: Config, catalog: Catalog, model: CARCA, mode: str = 
     NDCG@k of its rank averaged. ``seen_only`` indexes the items with a
     training event (the serving posture; unseen items carry random
     embeddings), ``quantized`` scores the int8 serving index
-    (``RetrievalEvaluator``)."""
+    (``RetrievalEvaluator``, ``graph`` as it takes it: on a card the
+    batches after the first are graph replays)."""
     device = next(model.parameters()).device
     return RetrievalEvaluator(cfg, catalog, mode=mode, k=k, log=log, seen_only=seen_only,
-                              quantized=quantized, device=device)(model)
+                              quantized=quantized, device=device, graph=graph)(model)
 
 
-def make_knn_eval_step(top_k: int) -> Callable:
+def make_knn_eval_step(top_k: int, *, graph: Optional[bool] = None) -> Callable:
     """Eval step of the KNN content baseline (``src/knn.py``), pluggable into
     ``evaluate`` as (model, attrs_table, batch) → (hr, ndcg, loss); the
-    model is unused. The BCE loss takes the scores clipped into (0, 1) (the
-    reference feeds raw dot products to BCE, ``src/train.py:45``, which is
-    NaN on negative dots); the ranking metrics use the raw scores."""
+    model is unused (None). The BCE loss takes the scores clipped into (0,
+    1) (the reference feeds raw dot products to BCE, ``src/train.py:45``,
+    which is NaN on negative dots); the ranking metrics use the raw scores.
+    ``graph`` as ``make_eval_step`` takes it: None makes each call a CUDA
+    graph replay when ``attrs_table`` lies on a card (the JAX package jits
+    the step), keyed by the attrs table and the batch's shapes."""
 
     def eval_step(model, attrs_table, batch):
         batch = to_device(batch, attrs_table.device)
@@ -753,18 +813,22 @@ def make_knn_eval_step(top_k: int) -> Callable:
                                     get_mask(batch["o_x"][:, 0]))
         return hr, ndcg, loss
 
-    return eval_step
+    if graph is False:
+        return _eager(eval_step)
+    return step_graph.GraphedEval(eval_step, step_graph.host_feed, required=bool(graph))
 
 
 def evaluate_knn(cfg: Config, catalog: Catalog, log: bool = True,
-                 device: torch.device | str = "cuda") -> Dict[str, float]:
+                 device: torch.device | str = "cuda", *,
+                 graph: Optional[bool] = None) -> Dict[str, float]:
     """The KNN baseline through the shared eval harness (the reference pairs
     ``KNN()`` with the same ``evaluate``) on ``device``: val and test HR,
-    NDCG and loss over host batches."""
+    NDCG and loss over host batches (``graph`` as ``make_knn_eval_step``
+    takes it)."""
     mc, tc = cfg.model, cfg.train
     builder = BatchBuilder(catalog, mc.seq_len, mc.target_len, test=tc.test)
     attrs_table = torch.as_tensor(builder.cat.attrs, dtype=torch.float32, device=device)
-    step = make_knn_eval_step(tc.top_k)
+    step = make_knn_eval_step(tc.top_k, graph=graph)
     rng = np.random.default_rng(tc.seed)
     host_root = np.random.default_rng(tc.seed)
     out: Dict[str, float] = {}
@@ -822,11 +886,15 @@ def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
     tables, as the JAX package runs it on one device, and its two numbers
     are broadcast. The returned state holds this rank's blocks.
 
-    ``graph`` goes to every step builder: None makes each train and eval
-    step one CUDA graph replay on one card (the steps over a mesh stay
-    eager), ``False`` is the eager A/B twin, ``True`` requires the graphs.
-    ``debug_nans`` runs eagerly: anomaly mode reads every gradient on the
-    host."""
+    ``graph`` goes to every step builder and to the retrieval monitor:
+    None makes each train and eval step one CUDA graph replay on one card
+    (the steps and the monitor over a mesh stay eager), ``False`` is the
+    eager A/B twin, ``True`` requires the graphs. ``debug_nans`` runs
+    eagerly: anomaly mode reads every gradient on the host.
+
+    The checkpoint saves return after their host snapshot and write in the
+    background (``train/checkpoint.py``); ``fit`` closes its keeper, so
+    every write has ended, or raised, before it returns."""
     mc, tc, dc = cfg.model, cfg.train, cfg.data
     device = torch.device(device)
     mesh = None
@@ -1028,8 +1096,11 @@ def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
                 emit("note: eval_retrieval_every applies to the dot/wdot decoders; skipping "
                      "retrieval monitoring")
             elif mesh is None or mesh.rank == 0:
+                # under a mesh eager, as the mesh steps are: rank 0 evaluates a
+                # model gathered anew each epoch, so no graph key would repeat
                 retrieval_eval = RetrievalEvaluator(cfg, catalog, mode="val", log=False,
-                                                    device=device, dd=dd)
+                                                    device=device, dd=dd,
+                                                    graph=graph if mesh is None else False)
         monitoring = tc.eval_retrieval_every and mc.decoder != "ca"
 
         def monitor(model) -> Dict[str, float]:
@@ -1215,8 +1286,9 @@ def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
                 emit(f"No improvement in {no_improve} epochs, early stopping...")
                 break
 
-        # the best weights for the test split (src/train.py:141-149); when the
-        # last epoch improved, the live state already holds them
+        # the best weights for the test split (src/train.py:141-149), read
+        # once best/'s write has ended; when the last epoch improved, the
+        # live state already holds them
         if keeper is not None and best_in_memory != epoch:
             if keeper.restore_best(state.model) is None and ema is not None:
                 state.model.load_state_dict(ema.state_dict())
@@ -1239,4 +1311,6 @@ def fit(cfg: Config, catalog: Catalog, state: Optional[TrainState] = None,
                 logfile.write(f"{now};{epoch};test;{test_loss};{hr};{ndcg}\n")
             final.update({"test_hr": hr, "test_ndcg": ndcg, "test_loss": test_loss})
 
+    if keeper is not None:
+        keeper.close()  # latest/'s last write may still be in flight
     return state, final

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py             # from the repository root, on a machine with a card
     python3 chip_smoke.py --profile   # also phase 7: K1's enqueue cost and train-step traces
+    python3 chip_smoke.py --parent DIR   # phase 10 also splits the 10M fit of DIR's package
 
 Phases, one or more lines each, each ending with its seconds; any failure
 raises and exits non-zero:
@@ -153,13 +154,31 @@ raises and exits non-zero:
              --eval_retrieval 10`: retrieval val HR@10 after epoch 1 >= 0.05,
              the retained epoch the first argmax of the retrieval curve,
              sampled test HR@10 >= 0.70, K1, K2 and K3 bf16 launched; ex/s,
-             epoch seconds and peak memory. best/ on the test split through
+             epoch seconds and peak memory; the process's wall split by
+             call, timed from outside the package (FIT_SPLIT_WRAPPER:
+             start-up, imports, the catalog, the fresh weights, the train
+             epochs, the monitor per epoch, the sampled evals, each
+             checkpoint save's blocking seconds beside its write's on the
+             writer thread, the keeper's waits and close, restore_best, the
+             final retrieval eval, teardown) and its peak RSS. With
+             --parent DIR the same split of DIR's package (the parent
+             commit's) in turns parent, this tree, this tree, parent, the
+             gates the main fit's. best/ on the test split through
              evaluate_retrieval's evaluator, (seen, bf16 -> K3), (full, bf16
              -> K4 + rerank), (seen, int8 -> K3 int8): with the kernels (the
              main path, launches counted), then per batch against the plain
              top-k (ids equal but for near-ties, HR sums apart by at most the
              users with a near-tie), each kernel timed beside its plain
-             version at the eval's [256, 64] x k + L = 60; the service over
+             version at the eval's [256, 64] x k + L = 60, and K3 bf16 at
+             the monitor's shape under torch.profiler (device µs per launch
+             of its kernels, its plan, its bound); evaluate_retrieval's
+             evaluator over best/ through its graphs (the index build and
+             the batches) and with graph=False, in turns eager, graph,
+             graph, eager, over the seen bf16 index (K3) and the full int8
+             index (K4 and the rerank): HR and NDCG, every batch's top-k
+             ids and sums and the index bit-equal, launches equal, the
+             one-shot and the replayed seconds each way, the graphs' pool
+             MiB; the service over
              the run (its catalog regenerated on the card) against an
              in-process load_recommender; `python -m carca_tpu_torch.bench
              --config 10m` (`step: graph`; mfu and hbm_bw_util as in phase
@@ -246,8 +265,13 @@ raises and exits non-zero:
              (fit(graph=False)) in turns graph, eager, eager, graph, 2
              epochs each: equal train losses and val HR/NDCG, equal
              launches; ex/s, candidates/s, the wall split (train, val
-             eval, checkpoints, test), peak memory; the host step's busy
-             share over 10 traced calls each way. 12c: K1/K2 at the
+             eval, the saves' blocking seconds, the waits for the writer
+             threads, restore_best, close, test), peak memory; the host step's busy
+             share over 10 traced calls each way. 12j: evaluate_knn (the
+             KNN baseline, `cli --model knn`) at the games catalog through
+             its step's graph and eagerly, in turns graph, eager, eager,
+             graph: val and test HR, NDCG and loss bit-equal, the graph
+             captured and replayed, seconds each way. 12c: K1/K2 at the
              families' encoder and `ca` decoder
              shapes (d=128 at L=50, the decoder at L=200) against their
              plain versions (phase 3's tolerances), timed beside them and
@@ -360,6 +384,7 @@ from carca_tpu_torch.serve.recommender import (Recommender, config_from_run_dir,
 from carca_tpu_torch.serve.service import HostCSR, history, run_bench, serve_lines
 from carca_tpu_torch.train import sparse_adam
 from carca_tpu_torch.train.checkpoint import CheckpointKeeper
+from carca_tpu_torch.train.checkpoint import _Writer as checkpoint_writer
 from carca_tpu_torch.train import loop as train_loop
 from carca_tpu_torch.train.loop import (RetrievalEvaluator, _sparse_device_update,
                                         apply_gradients, attrs_dtype, ema_update,
@@ -2024,16 +2049,162 @@ def sparse_vs_dense_step(card, cat) -> dict:
     return out
 
 
+# The 10M fit's `cli` process, its calls timed from outside the package:
+# `python -c FIT_SPLIT_WRAPPER OUT_JSON T_LAUNCH CLI_ARGS...` from a tree's
+# root imports that tree's package (sys.path[0] is the working directory
+# under -c), wraps the calls below, runs cli.main(CLI_ARGS) and writes
+# OUT_JSON. Each wrapped call's time is kept inclusive and exclusive of the
+# wrapped calls nested in it, so the exclusive times add up. Calls a tree
+# lacks (the keeper's waits before they were asynchronous) are skipped.
+# checkpoint._save, the file write, is timed apart (on whichever thread
+# runs it), so a synchronous save's blocking time includes its write. The
+# peak RSS is sampled from /proc/self/statm every 20 ms (None where that
+# file cannot be read): a child's ru_maxrss starts at its forking parent's
+# RSS, which is chip_smoke's ~17 GB here.
+FIT_SPLIT_WRAPPER = r'''
+import json, os, sys, threading, time
+t_start = time.time()
+out_path, t_launch, argv = sys.argv[1], float(sys.argv[2]), sys.argv[3:]
+import torch
+from carca_tpu_torch import cli
+from carca_tpu_torch.data import device_pipeline
+from carca_tpu_torch.train import checkpoint, loop
+t_imported = time.time()
+calls, writes, local, lock = {}, {}, threading.local(), threading.Lock()
+peak_rss = [0]  # bytes; ru_maxrss would hold the forking parent's RSS
+
+
+def sample_rss():  # this process's resident bytes every 20 ms
+    while True:
+        with open("/proc/self/statm") as fh:
+            peak_rss[0] = max(peak_rss[0], int(fh.read().split()[1]) * os.sysconf("SC_PAGE_SIZE"))
+        time.sleep(0.02)
+
+
+threading.Thread(target=sample_rss, name="rss-sampler", daemon=True).start()
+
+
+def timed(owner, name, key=None):
+    fn = owner.__dict__[name] if isinstance(owner, type) else getattr(owner, name)
+    static = isinstance(fn, staticmethod)
+    inner = fn.__func__ if static else fn
+
+    def wrapped(*a, **kw):
+        stack = local.__dict__.setdefault("stack", [])
+        stack.append(0.0)
+        t0 = time.perf_counter()
+        try:
+            return inner(*a, **kw)
+        finally:
+            dt = time.perf_counter() - t0
+            nested = stack.pop()
+            if stack:
+                stack[-1] += dt
+            k = key(a) if callable(key) else key or name
+            calls.setdefault(k, []).append((dt, dt - nested))
+    setattr(owner, name, staticmethod(wrapped) if static else wrapped)
+
+
+def timed_write(obj, path):
+    t0 = time.perf_counter()
+    try:
+        return real_save(obj, path)
+    finally:
+        with lock:
+            writes.setdefault(path.rsplit("/", 1)[-1], []).append(time.perf_counter() - t0)
+
+
+Keeper, Evaluator = checkpoint.CheckpointKeeper, loop.RetrievalEvaluator
+timed(cli, "main")
+timed(cli, "load_catalog", "catalog")
+timed(loop, "fit")
+timed(loop, "create_train_state", "train_state")
+timed(loop, "evaluate_device", "sampled_eval")
+timed(loop, "evaluate_retrieval", "final_retrieval")
+timed(device_pipeline.DeviceDataset, "__init__", "device_dataset")
+timed(Evaluator, "_seen_rows", "seen_rows")
+timed(Evaluator, "__call__", lambda a: "monitor" if a[0].mode == "val" else "retrieval_call")
+timed(Evaluator, "index", lambda a: "monitor_index" if a[0].mode == "val" else "retrieval_index")
+timed(Keeper, "save", "save_best")
+timed(Keeper, "save_latest")
+timed(Keeper, "restore_best")
+timed(Keeper, "best_metrics")
+for name in ("wait", "close"):
+    if hasattr(Keeper, name):
+        timed(Keeper, name, "keeper_" + name)
+if hasattr(checkpoint, "_Writer"):
+    timed(checkpoint._Writer, "wait", "writer_wait")
+real_save, checkpoint._save = checkpoint._save, timed_write
+cli.main(argv)
+with open(argv[argv.index("--out_dir") + 1] + "/metrics.jsonl") as fh:
+    train_s = sum(json.loads(ln).get("epoch_seconds", 0.0) for ln in fh)
+with open(out_path, "w") as fh:
+    json.dump({"t_launch": t_launch, "startup_s": t_start - t_launch,
+               "imports_s": t_imported - t_start, "calls": calls, "writes": writes,
+               "train_s": train_s, "t_end": time.time(),
+               "threads_alive": sum(t.name.startswith("checkpoint-")
+                                    for t in threading.enumerate()),
+               "peak_rss_mib": peak_rss[0] / 2**20 if peak_rss[0] else None}, fh)
+'''
+
+
+def fit_10m_process(args, timeout, tree=ROOT) -> tuple:
+    """The 10M fit's `python -m carca_tpu_torch.cli ARGS` process from the
+    package in ``tree`` under FIT_SPLIT_WRAPPER: (its stdout, the wall
+    split in seconds). The split's parts add up to the process's wall:
+    start-up and imports, the catalog, the DeviceDatasets and seen rows,
+    the train epochs (metrics.jsonl) and the rest of fit, the retrieval
+    monitor per epoch, the sampled val and test evals, each checkpoint
+    save's blocking time, the keeper's waits and close, restore_best, the
+    fresh weights and optimizer (create_train_state), the final
+    evaluate_retrieval, the rest of cli.main, and teardown."""
+    fd, out_json = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        t_launch = time.time()
+        proc = subprocess.run([sys.executable, "-c", FIT_SPLIT_WRAPPER, out_json, repr(t_launch),
+                               *args], cwd=tree, capture_output=True, text=True, timeout=timeout)
+        t_exit = time.time()
+        if proc.returncode != 0:
+            sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
+        check(proc.returncode == 0, f"the 10M fit in {tree} exited {proc.returncode}")
+        with open(out_json) as fh:
+            got = json.load(fh)
+    finally:
+        os.remove(out_json)
+    excl = {k: sum(c[1] for c in v) for k, v in got["calls"].items()}
+    incl = {k: sum(c[0] for c in v) for k, v in got["calls"].items()}
+    sampled = [c[1] for c in got["calls"].get("sampled_eval", [])]
+    split = {"wall_s": t_exit - t_launch, "startup_s": got["startup_s"],
+             "imports_s": got["imports_s"], "teardown_s": t_exit - got["t_end"],
+             "train_s": got["train_s"], "fit_rest_s": excl.pop("fit") - got["train_s"],
+             "main_rest_s": excl.pop("main"),
+             "sampled_val_s": sum(sampled[:-1]), "sampled_test_s": sampled[-1] if sampled else 0.0,
+             **{f"{k}_s": v for k, v in excl.items() if k != "sampled_eval"}}
+    split["other_s"] = split["wall_s"] - sum(v for k, v in split.items() if k != "wall_s")
+    split["monitor_per_epoch_s"] = [c[0] for c in got["calls"].get("monitor", [])]
+    split["monitor_index_per_epoch_s"] = [c[0] for c in got["calls"].get("monitor_index", [])]
+    split["final_retrieval_inclusive_s"] = incl.get("final_retrieval", 0.0)
+    split["saves_blocking_s"] = {k: [c[0] for c in got["calls"].get(k, [])]
+                                 for k in ("save_best", "save_latest")}
+    split["writes_s"] = got["writes"]
+    split["writer_threads_alive_at_exit"] = got["threads_alive"]
+    split["peak_rss_mib"] = got["peak_rss_mib"]
+    return proc.stdout, split
+
+
+def fit_10m_args(run) -> list:
+    return ["--preset", "synthetic10m", "--epochs", str(FIT10M_EPOCHS), "--eval_retrieval_every",
+            "1", "--select_by", "retrieval_hr", "--eval_retrieval", str(K), "--resume", "false",
+            "--out_dir", run]
+
+
 def fit_10m_run(card, run) -> dict:
     """`python -m carca_tpu_torch.cli --preset synthetic10m` with per-epoch
     retrieval monitoring, retention on retrieval HR and the retrieval eval
-    at the end; its gates and numbers."""
-    t0 = time.perf_counter()
-    out = run_module("carca_tpu_torch.cli", [
-        "--preset", "synthetic10m", "--epochs", str(FIT10M_EPOCHS), "--eval_retrieval_every",
-        "1", "--select_by", "retrieval_hr", "--eval_retrieval", str(K), "--resume", "false",
-        "--out_dir", run], FIT10M_TIMEOUT_S)
-    wall = time.perf_counter() - t0
+    at the end, its calls timed (fit_10m_process); its gates and numbers."""
+    out, split = fit_10m_process(fit_10m_args(run), FIT10M_TIMEOUT_S)
+    wall = split["wall_s"]
     lines = out.splitlines()
     final = ast.literal_eval(next(ln for ln in lines if ln.startswith("final: "))[7:])
     launches = json.loads(next(ln for ln in lines if ln.startswith("launches: "))[10:])
@@ -2061,7 +2232,8 @@ def fit_10m_run(card, run) -> dict:
         "examples_per_sec": [r["examples_per_sec"] for r in epochs],
         "epoch_seconds": [r["epoch_seconds"] for r in epochs],
         "train_loss": [r["train_loss"] for r in epochs],
-        "peak_device_mib": memory["peak_device_mib"], "wall_s": wall, "launches": launches}
+        "peak_device_mib": memory["peak_device_mib"], "wall_s": wall, "launches": launches,
+        "wall_split": split}
     log("fit_10m", card=card, run="cli --preset synthetic10m", **summary)
     check(curve[1] >= FIT10M_RETRIEVAL_FLOOR, f"retrieval val HR@10 after epoch 1 {curve[1]} "
                                               f"below {FIT10M_RETRIEVAL_FLOOR}")
@@ -2138,12 +2310,138 @@ def eval_10m(card, run, cat):
                     lambda: catalog_topk(q, emb, kk, n_items=n_local, method="stream"),
                     lambda: catalog_topk_plain(q, emb, kk, n_items=n_local), reps=20,
                     plain_reps=3)
+                if case == "seen bf16":
+                    timings["K3 seen bf16 profile"] = profile_k3_seen(card, q, emb, kk, n_local)
                 log("timing", card=card, kernel=f"K3 catalog_topk {case}",
                     shape=f"[{q.shape[0]},{D}] x {n_local} rows k={kk}", ms=timings[case][0],
                     plain_ms=timings[case][1])
         timings["rows", case] = n_local
         del emb
     return launches, errs, timings, results
+
+
+def retrieval_graph_vs_eager(card, run, cat) -> dict:
+    """best/ of the 10M run through evaluate_retrieval's evaluator on the
+    test split with its graphs and with graph=False, in turns eager, graph,
+    graph, eager, over the seen bf16 index (K3) and the full int8 index (K4
+    and the rerank): each turn a fresh evaluator called once, as a one-shot
+    evaluate_retrieval is (the graph turn's first batch eager, its second
+    the capture), timed and its launches counted; then the same evaluator
+    scores every batch again (the graph's replays) through batch_metrics,
+    timed. HR and NDCG, every batch's top-k ids and sums, and the index
+    bit-equal across the turns, launches equal; the graphs' pool MiB."""
+    cfg = config_from_run_dir(run)
+    mc = cfg.model
+    model = CARCA(mc, device=DEVICE)
+    check(CheckpointKeeper(os.path.join(run, "ckpt")).restore_best(model) is not None,
+          f"{run}: no best/")
+    dd = DeviceDataset(cat, mc.seq_len, mc.target_len, test=cfg.train.test, device=DEVICE)
+    out = {}
+    for case, seen_only, quantized in (("seen bf16", True, False), ("full int8", False, True)):
+        turns, first = [], None
+        for graph in (False, None, None, False):
+            ev = RetrievalEvaluator(cfg, cat, mode="test", k=K, log=False, seen_only=seen_only,
+                                    quantized=quantized, device=DEVICE, dd=dd, graph=graph)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            metrics = ev(model)
+            torch.cuda.synchronize()
+            once_s, n = time.perf_counter() - t0, counts()
+            t0 = time.perf_counter()
+            batches = [ev.batch_metrics(model, rows) for rows in ev.row_batches]
+            torch.cuda.synchronize()
+            again_s = time.perf_counter() - t0
+            index = ev.index(model)
+            index = list(index) if quantized else [index]
+            mine = {"metrics": metrics, "launches": n, "batches": batches, "index": index,
+                    "users": sum(int(rows.shape[0]) for rows in ev.row_batches)}
+            if first is None:
+                first = mine
+            same = (metrics == first["metrics"] and n == first["launches"]
+                    and all(torch.equal(a, b) for x, y in zip(batches, first["batches"])
+                            for a, b in zip(x, y))
+                    and all(torch.equal(a, b) for a, b in zip(index, first["index"])))
+            turns.append({"step": "eager" if graph is False else "graph", "once_s": once_s,
+                          "batches_again_s": again_s, "equal_to_turn_0": same,
+                          "pool_mib": (0.0 if graph is False else (
+                              ev._build.pool_bytes() + ev._metrics.pool_bytes()) / 2**20)})
+            check(same, f"10M retrieval {case}, {turns[-1]['step']} turn {len(turns) - 1}: "
+                        f"{metrics} / {n} differ from turn 0's {first['metrics']} / "
+                        f"{first['launches']}")
+            del ev, batches, index, mine
+        kernels = first["launches"]
+        check(kernels.get("catalog_topk_bf16", 0) > 0 if not quantized else
+              kernels.get("groupmax_layout0", 0) > 0 and kernels["tournament_rerank"] > 0,
+              f"10M retrieval {case}: kernels {kernels}")
+        out[case] = {"metrics": first["metrics"], "launches": kernels, "turns": turns,
+                     "users": first["users"]}
+        del first
+        torch.cuda.empty_cache()
+        log("fit_10m", card=card, case=f"best/ test retrieval, graph against eager, {case}",
+            **out[case])
+    return out
+
+
+def profile_k3_seen(card, q, emb, kk, n_local, reps: int = 10) -> dict:
+    """K3 bf16 at the retrieval monitor's shape ([256, 64] queries over the
+    seen rows, k + L = 60) under torch.profiler, after a profiled warm-up
+    step of as many calls (profile_attention's method): device µs per
+    launch of each of K3's device kernels (a trace of these few long
+    launches keeps only some of them, so per launch, never per call), the
+    launches the trace kept, K3's plan and its bound."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    def run():
+        catalog_topk(q, emb, kk, n_items=n_local, method="stream")
+
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+            prof.step()
+    per_kernel = {}
+    for op, start, end in device_ops(prof):
+        per_kernel.setdefault(op[:70], []).append(end - start)
+    plan = stream_plan(kk, q.shape[0], n_local, q.shape[1], emb.element_size())
+    out = {"us_per_launch": {n: sum(ts) / len(ts) for n, ts in per_kernel.items()},
+           "launches_traced": {n: len(ts) for n, ts in per_kernel.items()}, "calls": reps,
+           "plan": plan._asdict(), "bound_ms": bound(
+               n_local * emb.element_size() * q.shape[1] + q.numel() * 4 + q.shape[0] * kk * 12,
+               2 * q.shape[0] * n_local * q.shape[1], "bfloat16")}
+    log("profile", card=card, path="K3 bf16, the retrieval monitor's shape",
+        shape=f"[{q.shape[0]},{q.shape[1]}] x {n_local} rows k={kk}", **out)
+    return out
+
+
+def fit_10m_turns(card, parent, tmp, before: bool) -> list:
+    """With --parent DIR (a checkout of the parent commit's package): the
+    10M fit's wall split of DIR's package and of this tree's, each under
+    the same wrappers (fit_10m_process). Called before phase 10's main fit
+    (the parent) and after it (this tree, then the parent), so that the
+    turns run parent, change, change, parent. Gates are the main fit's."""
+    built = os.path.join(ROOT, "build", "carca_tpu_torch")
+    if os.path.isdir(built):  # the same sources build the same library: no second build
+        shutil.copytree(built, os.path.join(parent, "build", "carca_tpu_torch"),
+                        dirs_exist_ok=True)
+    out = []
+    for tree in ([parent] if before else [ROOT, parent]):
+        run = os.path.join(tmp, "turn")
+        stdout, split = fit_10m_process(fit_10m_args(run), FIT10M_TIMEOUT_S, tree)
+        final = ast.literal_eval(next(ln for ln in stdout.splitlines()
+                                      if ln.startswith("final: "))[7:])
+        out.append({"tree": "parent" if tree == parent else "change", "wall_split": split,
+                    "test_hr10": final["test_hr"],
+                    "retrieval_test_hr10": final["retrieval_test_hr"]})
+        log("fit_10m", card=card, case="the 10M fit's wall split, a turn of parent and change",
+            **out[-1])
+        shutil.rmtree(run, ignore_errors=True)
+    return out
 
 
 def offline_eval_10m(card, run, fit, full_hr) -> dict:
@@ -2262,9 +2560,11 @@ def attention_bf16(card) -> dict:
     return res
 
 
-def phase_fit_10m(card, profile_run=False) -> dict:
+def phase_fit_10m(card, profile_run=False, parent=None) -> dict:
     """Phase 10. Returns what the kernels line needs: the fit's launches and
-    the in-process evaluation's, errors and timings."""
+    the in-process evaluation's, errors and timings. With ``parent`` (a
+    directory holding the parent commit's package) also the 10M fit's wall
+    split of the parent and of this tree, in turns."""
     tmp = tempfile.mkdtemp(prefix="carca_fit10m_")
     try:
         t0 = time.perf_counter()
@@ -2285,8 +2585,19 @@ def phase_fit_10m(card, profile_run=False) -> dict:
         step["graph"] = graph_vs_eager(card, "fit_10m", "10m", rates=False)
         torch.cuda.empty_cache()  # its states' and graph's blocks: the fit's process follows
         run = os.path.join(tmp, "run")
+        turns = fit_10m_turns(card, parent, tmp, before=True) if parent else []
         fit = fit_10m_run(card, run)
+        if parent:
+            turns[1:1] = [{"tree": "change", "wall_split": fit["wall_split"],
+                           "test_hr10": fit["test_hr10"],
+                           "retrieval_test_hr10": fit["retrieval_test_hr10"]}]
+            turns += fit_10m_turns(card, parent, tmp, before=False)
+            log("fit_10m", card=card, case="the 10M fit's wall split, parent and change in "
+                "turns", turns=[t["tree"] for t in turns], wall_s=[
+                    t["wall_split"]["wall_s"] for t in turns])
         eval_launches, errs, timings, results = eval_10m(card, run, cat)
+        torch.cuda.empty_cache()
+        fit["retrieval_graph"] = retrieval_graph_vs_eager(card, run, cat)
         torch.cuda.empty_cache()
         offline = offline_eval_10m(card, run, fit, results["full bf16"]["retrieval_test_hr"])
         serve_10m(card, run, cat)
@@ -3545,29 +3856,40 @@ def eval_twins(card, g) -> dict:
 
 @contextlib.contextmanager
 def fit_wall_split(split: dict):
-    """Time ``fit``'s val and test evaluations (``loop.evaluate``) and its
-    checkpoint saves and restores into ``split`` (seconds)."""
-    patched = [(train_loop, "evaluate"), (CheckpointKeeper, "save"),
-               (CheckpointKeeper, "save_latest"), (CheckpointKeeper, "restore_best")]
-    saved = [getattr(obj, name) for obj, name in patched]
+    """Time ``fit``'s val and test evaluations (``loop.evaluate``), its
+    checkpoint saves (the blocking part: the host snapshot), restores and
+    close, and the keeper's waits for its writer threads, into ``split``
+    (seconds, each exclusive of the others nested in it, so they add up)."""
+    patched = [(train_loop, "evaluate", lambda a: f"{a[7]}_eval_s"),
+               (CheckpointKeeper, "save", "checkpoint_save_s"),
+               (CheckpointKeeper, "save_latest", "checkpoint_save_s"),
+               (CheckpointKeeper, "restore_best", "checkpoint_restore_s"),
+               (CheckpointKeeper, "close", "checkpoint_close_s"),
+               (checkpoint_writer, "wait", "checkpoint_wait_s")]
+    saved = [getattr(obj, name) for obj, name, _ in patched]
+    stack = []
 
-    def timer(fn, key_of):
+    def timer(fn, key):
         def wrapped(*a, **kw):
+            stack.append(0.0)
             t0 = time.perf_counter()
             try:
                 return fn(*a, **kw)
             finally:
-                k = key_of(a)
-                split[k] = split.get(k, 0.0) + time.perf_counter() - t0
+                dt = time.perf_counter() - t0
+                nested = stack.pop()
+                if stack:
+                    stack[-1] += dt
+                k = key(a) if callable(key) else key
+                split[k] = split.get(k, 0.0) + dt - nested
         return wrapped
 
-    train_loop.evaluate = timer(saved[0], lambda a: f"{a[7]}_eval_s")
-    for (obj, name), fn in list(zip(patched, saved))[1:]:
-        setattr(obj, name, timer(fn, lambda a: "checkpoint_s"))
+    for (obj, name, key), fn in zip(patched, saved):
+        setattr(obj, name, timer(fn, key))
     try:
         yield split
     finally:
-        for (obj, name), fn in zip(patched, saved):
+        for (obj, name, _), fn in zip(patched, saved):
             setattr(obj, name, fn)
 
 
@@ -3640,6 +3962,38 @@ def games_fit_graph_vs_eager(card, cat, g, tmp) -> dict:
     return out
 
 
+def knn_graph_vs_eager(card, cat) -> dict:
+    """12j: evaluate_knn (the KNN baseline's val and test evals over host
+    batches, `cli --model knn`) at the games catalog through its step's
+    graph and eagerly, in turns graph, eager, eager, graph: the metrics
+    bit-equal, the graph's captures and replays, seconds each way."""
+    cfg = family_config(FAMILIES["games"], 1, 1, "unused")
+    real, steps, turns = train_loop.make_knn_eval_step, [], []
+    train_loop.make_knn_eval_step = (
+        lambda top_k, graph=None: steps.append(real(top_k, graph=graph)) or steps[-1])
+    try:
+        for graph in (None, False, False, None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = train_loop.evaluate_knn(cfg, cat, log=False, device=DEVICE, graph=graph)
+            torch.cuda.synchronize()
+            step = steps[-1]
+            turns.append({"step": step.mode, "seconds": time.perf_counter() - t0,
+                          "metrics": metrics, "captures": getattr(step, "captures", 0),
+                          "replays": getattr(step, "replays", 0)})
+    finally:
+        train_loop.make_knn_eval_step = real
+    out = {"turns": turns, "metrics_equal": all(t["metrics"] == turns[0]["metrics"]
+                                                for t in turns)}
+    log("knn_graph", card=card, case="evaluate_knn at the games catalog, graph against eager",
+        **out)
+    check(out["metrics_equal"], f"12j: the KNN graph's metrics differ from the eager step's: "
+                                f"{[t['metrics'] for t in turns]}")
+    check(all(t["captures"] >= 1 and t["replays"] > 0 for t in turns if t["step"] == "graph"),
+          f"12j: the KNN graph never replayed: {turns}")
+    return out
+
+
 def phase_families(card) -> dict:
     """Phase 12. Returns what the kernels line needs: the fits (their
     launches), the kernels at the families' shapes and the fashion
@@ -3655,13 +4009,15 @@ def phase_families(card) -> dict:
         step_graphs = host_step_graphs(card, g)
         eval_graphs = eval_twins(card, g)
         fit_graph = games_fit_graph_vs_eager(card, games, g, tmp)
+        knn = knn_graph_vs_eager(card, games)
         del g
         torch.cuda.empty_cache()
         attn = family_kernels(card)
         eval_kernel_vs_plain(os.path.join(out, "run_games"), games, tag="family_eval")
         serve = fashion_service(card, os.path.join(out, "run_fashion"), tmp)
         return {"native": native, "fits": fits, "ab": ab, "attn": attn, "serve": serve,
-                "step_graphs": step_graphs, "eval_graphs": eval_graphs, "fit_graph": fit_graph}
+                "step_graphs": step_graphs, "eval_graphs": eval_graphs, "fit_graph": fit_graph,
+                "knn": knn}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4155,9 +4511,13 @@ def main() -> None:
     if sys.argv[1:2] == ["--rank_task"]:  # one rank of phase 11, under torchrun
         RANK_TASKS[sys.argv[2]](*sys.argv[3:])
         return
-    profile_run = "--profile" in sys.argv[1:]
-    if set(sys.argv[1:]) - {"--profile"}:
-        raise SystemExit(f"usage: {sys.argv[0]} [--profile]")
+    p = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
+    p.add_argument("--profile", action="store_true", help="add phase 7's traces")
+    p.add_argument("--parent", default=None, help="a directory holding the parent commit's "
+                   "carca_tpu_torch: phase 10 then also splits its 10M fit's wall, in turns")
+    cli_args = p.parse_args()
+    profile_run = cli_args.profile
+    parent = cli_args.parent and os.path.abspath(cli_args.parent)
     seconds = {}
 
     def timed(name, fn, *args):
@@ -4201,7 +4561,7 @@ def main() -> None:
     _, fit_launches, k3_fit_err = timed("9 fit + serve", phase_fit_serve, card)
     k3_err["f32"] = max(k3_err["f32"], k3_fit_err)
     torch.cuda.empty_cache()
-    fit10m = timed("10 fit 10M", phase_fit_10m, card, profile_run)
+    fit10m = timed("10 fit 10M", phase_fit_10m, card, profile_run, parent)
     torch.cuda.empty_cache()
     mesh = timed("11 mesh", phase_mesh, card)
     torch.cuda.empty_cache()

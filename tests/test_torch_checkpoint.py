@@ -16,11 +16,20 @@ the ``smoke`` preset's size.
 * best/ keeps the best; files are replaced whole; ``checkpoint=False``
   writes nothing; ``checkpoint_resume=False`` drops a stale ``ckpt/``;
   ``profile`` writes a trace of the second epoch.
+* Saves are asynchronous (a writer thread per kind, gated here): a save
+  returns while its write is blocked and the file appears only after it;
+  the file holds the snapshot taken in the call, bit for bit, whatever is
+  changed in place afterwards; a write's exception is raised, the same
+  object, at the next save, wait or close; two saves of one kind write in
+  order; every read waits for the write it reads; ``fit`` returns with no
+  writer alive and a complete run directory.
 """
 
 import dataclasses
 import json
 import os
+import threading
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -192,7 +201,9 @@ def test_a_save_latest_cut_after_its_first_write_still_resumes(tmp_path, cat, mo
     """A save_latest that dies right after its first file write (the
     resume state's, where the shadow once followed in a file of its own)
     leaves a directory that resumes to the state and shadow of one step;
-    the temporary files a killed writer leaves are not read."""
+    the temporary files a killed writer leaves are not read. The write runs
+    on the keeper's writer thread, so its death is raised at the next
+    wait."""
     from carca_tpu_torch.train import checkpoint
 
     cfg = smoke(cat, tmp_path, epochs=2, ema_decay=0.5)
@@ -216,8 +227,9 @@ def test_a_save_latest_cut_after_its_first_write_still_resumes(tmp_path, cat, mo
         raise Killed
 
     monkeypatch.setattr(checkpoint, "_save", dies_after_the_first_write)
+    keeper.save_latest(3, state, ema=ema)
     with pytest.raises(Killed):
-        keeper.save_latest(3, state, ema=ema)
+        keeper.wait()
     monkeypatch.undo()
     assert written == [keeper.latest]
     for d in ("latest", "ema"):  # what a SIGKILL mid-write leaves
@@ -362,3 +374,217 @@ def test_profile_traces_the_second_epoch(tmp_path, cat):
     assert os.listdir(tmp_path / "profile") == ["epoch002.trace.json"]
     with open(tmp_path / "profile" / "epoch002.trace.json") as fh:
         assert json.load(fh)["traceEvents"]
+
+
+# --------------------------------------------------------------------------
+# asynchronous saves
+# --------------------------------------------------------------------------
+
+class Gate:
+    """``checkpoint._save`` held until ``release()``: ``started`` is set
+    when a write begins; ``order`` logs each write's (event, file, epoch)."""
+
+    def __init__(self, monkeypatch, closed=True):
+        from carca_tpu_torch.train import checkpoint
+
+        self.real, self.open = checkpoint._save, threading.Event()
+        self.started, self.order = threading.Event(), []
+        if not closed:
+            self.open.set()
+        monkeypatch.setattr(checkpoint, "_save", self.save)
+
+    def save(self, obj, path):
+        name = os.path.basename(path)
+        self.order.append(("start", name, obj.get("epoch") if "epoch" in obj else None))
+        self.started.set()
+        assert self.open.wait(30), "the gate was never released"
+        self.real(obj, path)
+        self.order.append(("end", name, obj.get("epoch") if "epoch" in obj else None))
+
+    def release(self):
+        self.open.set()
+
+
+def trained_state(cat, sparse=False):
+    """A smoke-preset state one host step on (Adam's moments filled); with
+    ``sparse`` the row-sparse row state, filled at random."""
+    cfg = smoke(cat, "unused")
+    state = create_train_state(cfg.model, cfg.train, device="cpu", sparse_items=sparse)
+    if sparse:
+        state.items_state["munu"].uniform_(-1.0, 1.0, generator=torch.Generator().manual_seed(3))
+        state.items_state["count"] = 5
+        return cfg, state
+    builder = BatchBuilder(cat, cfg.model.seq_len, cfg.model.target_len)
+    rng = np.random.default_rng(0)
+    batch = builder.train_batch(next(iter(epoch_batches(builder.users("train"), 32, rng))), rng)
+    batch.pop("n_valid")
+    make_train_step(cfg.model, cfg.train, graph=False)(state, torch.from_numpy(cat.attrs),
+                                                       batch)
+    return cfg, state
+
+
+def writer_threads():
+    return [t for t in threading.enumerate() if t.name.startswith("checkpoint-")]
+
+
+def test_save_latest_returns_while_its_write_is_blocked(tmp_path, cat, monkeypatch):
+    _, state = trained_state(cat)
+    gate = Gate(monkeypatch)
+    keeper = CheckpointKeeper(str(tmp_path))
+    keeper.save_latest(1, state)  # returns: the write waits at the gate
+    assert gate.started.wait(10)
+    assert not os.path.exists(keeper.latest) and len(writer_threads()) == 1
+    gate.release()
+    keeper.wait()
+    assert not writer_threads()
+    assert torch.load(keeper.latest, weights_only=False)["epoch"] == 1
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+def test_a_file_holds_the_snapshot_whatever_changes_in_place_after(tmp_path, cat, monkeypatch,
+                                                                   sparse):
+    cfg, state = trained_state(cat, sparse)
+    ema = create_train_state(cfg.model, cfg.train, device="cpu").model
+    want_model = {n: t.clone() for n, t in state.model.state_dict().items()}
+    want_ema = {n: t.clone() for n, t in ema.state_dict().items()}
+    want_opt = {i: {k: v.clone() for k, v in st.items()}
+                for i, st in _portable_optimizer(state.optimizer.state_dict())["state"].items()}
+    want_rows = None if not sparse else state.items_state["munu"].clone()
+    assert sparse or want_opt, "no Adam moments to change"
+    gate = Gate(monkeypatch)
+    keeper = CheckpointKeeper(str(tmp_path))
+    keeper.save_latest(2, state, ema=ema)
+    keeper.save(2, state.model, {"ndcg": 0.5, "hr": 0.5, "epoch": 2})
+    with torch.no_grad():  # what the next epoch's replays do, in place
+        for p in [*state.model.parameters(), *ema.parameters()]:
+            p.mul_(-3.0).add_(1.0)
+        for st in state.optimizer.state.values():
+            for k in ("exp_avg", "exp_avg_sq"):
+                if k in st:
+                    st[k].add_(7.0)
+        if sparse:
+            state.items_state["munu"].add_(7.0)
+    gate.release()
+    keeper.close()
+    ck = torch.load(keeper.latest, weights_only=False)
+    best = torch.load(keeper.best_params, weights_only=False)
+    for got, want in ((ck["model"], want_model), (best, want_model),
+                      (ck["ema"]["params"], want_ema)):
+        assert got.keys() == want.keys()
+        assert all(torch.equal(got[n], want[n]) for n in want)
+    for i, st in want_opt.items():
+        assert all(torch.equal(ck["optimizer"]["state"][i][k], v) for k, v in st.items())
+    if sparse:
+        assert torch.equal(ck["items_state"]["munu"], want_rows)
+        assert ck["items_state"]["count"] == 5
+
+
+class DiskFull(RuntimeError):
+    pass
+
+
+@pytest.mark.parametrize("next_call", ["save", "save_latest", "wait", "close"])
+def test_a_writes_exception_is_raised_at_the_next_call(tmp_path, cat, monkeypatch, next_call):
+    from carca_tpu_torch.train import checkpoint
+
+    _, state = trained_state(cat)
+    raised = DiskFull("no space left on device")
+
+    def fails(obj, path):
+        raise raised
+
+    monkeypatch.setattr(checkpoint, "_save", fails)
+    keeper = CheckpointKeeper(str(tmp_path))
+    keeper.save_latest(1, state)  # returns; the write fails on its thread
+    deadline = time.monotonic() + 10
+    while writer_threads() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    monkeypatch.undo()
+    call = {"save": lambda: keeper.save(2, state.model, {"ndcg": 0.1, "hr": 0.1, "epoch": 2}),
+            "save_latest": lambda: keeper.save_latest(2, state),
+            "wait": keeper.wait, "close": keeper.close}[next_call]
+    with pytest.raises(DiskFull) as err:
+        call()
+    assert err.value is raised  # the writer's own exception, unchanged
+    keeper.save_latest(3, state)  # raised once; the keeper goes on
+    keeper.close()
+    assert torch.load(keeper.latest, weights_only=False)["epoch"] == 3
+
+
+@pytest.mark.parametrize("kind", ["best", "latest"])
+def test_two_saves_of_one_kind_write_in_order(tmp_path, cat, monkeypatch, kind):
+    _, state = trained_state(cat)
+    gate = Gate(monkeypatch, closed=False)
+    keeper = CheckpointKeeper(str(tmp_path))
+    for epoch in (1, 2):
+        if kind == "best":
+            keeper.save(epoch, state.model, {"ndcg": 0.1 * epoch, "hr": 0.1, "epoch": epoch})
+        else:
+            keeper.save_latest(epoch, state)
+        with torch.no_grad():
+            next(state.model.parameters()).add_(1.0)
+    keeper.close()
+    name = "params.pt" if kind == "best" else "state.pt"
+    epochs = [None, None] if kind == "best" else [1, 2]
+    assert gate.order == [("start", name, epochs[0]), ("end", name, epochs[0]),
+                          ("start", name, epochs[1]), ("end", name, epochs[1])]
+    if kind == "best":
+        assert keeper.best_metrics()["epoch"] == 2
+    else:
+        assert torch.load(keeper.latest, weights_only=False)["epoch"] == 2
+
+
+READS = ["best_metrics", "restore_best", "restore_latest", "restore_latest_model",
+         "latest_progress", "restore_latest_ema"]
+
+
+@pytest.mark.parametrize("read", READS)
+def test_every_read_waits_for_the_write_it_reads(tmp_path, cat, monkeypatch, read):
+    cfg, state = trained_state(cat)
+    ema = create_train_state(cfg.model, cfg.train, device="cpu").model
+    gate = Gate(monkeypatch)
+    keeper = CheckpointKeeper(str(tmp_path))
+    if read in ("best_metrics", "restore_best"):
+        keeper.save(4, state.model, {"ndcg": 0.5, "hr": 0.5, "epoch": 4})
+    else:
+        keeper.save_latest(4, state, ema=ema, progress={"best": 0.5, "no_improve": 1,
+                                                        "select_by": "ndcg"})
+    assert gate.started.wait(10)
+    fresh = create_train_state(cfg.model, cfg.train, device="cpu")
+    calls = {"best_metrics": lambda: keeper.best_metrics()["epoch"],
+             "restore_best": lambda: keeper.restore_best(fresh.model),
+             "restore_latest": lambda: keeper.restore_latest(fresh),
+             "restore_latest_model": lambda: keeper.restore_latest_model(fresh.model),
+             "latest_progress": keeper.latest_progress,
+             "restore_latest_ema": lambda: keeper.restore_latest_ema(ema, state.step)}
+    got = []
+    reader = threading.Thread(target=lambda: got.append(calls[read]()))
+    reader.start()
+    reader.join(0.3)
+    assert reader.is_alive() and not got  # held while the write is blocked
+    gate.release()
+    reader.join(30)
+    assert not reader.is_alive()
+    want = {"latest_progress": None, "restore_latest_ema": False}.get(read, 4)
+    assert got == [want]
+
+
+def test_fit_returns_with_no_writer_alive_and_a_complete_run(tmp_path, cat, monkeypatch):
+    from carca_tpu_torch.train import checkpoint
+
+    real = checkpoint._save
+
+    def slow(obj, path):  # every write outlasts the epoch that follows it
+        time.sleep(0.3)
+        real(obj, path)
+
+    monkeypatch.setattr(checkpoint, "_save", slow)
+    final = fit(smoke(cat, tmp_path, epochs=2, ema_decay=0.5), cat, device="cpu")[1]
+    assert not writer_threads() and final["epochs_run"] == 2
+    names = sorted(os.path.relpath(os.path.join(d, f), tmp_path)
+                   for d, _, files in os.walk(tmp_path) for f in files)
+    assert [n for n in names if not n.endswith(".csv")] == [
+        "args.json", "ckpt/best/metrics.json", "ckpt/best/params.pt", "ckpt/latest/state.pt",
+        "metrics.jsonl"]
+    ck = latest_weights(tmp_path)  # the smoke preset saves latest/ every epoch
+    assert ck["epoch"] == 2 and ck["ema"]["step"] == ck["step"]

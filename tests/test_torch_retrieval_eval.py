@@ -13,6 +13,12 @@ JAX package's, on the CPU (d = 16, L = 6, 120 real items, 150 users).
   in ``evaluate_retrieval`` and is skipped with a note in ``fit``.
 * ``knn_apply`` equal to JAX's up to 1e-6; ``evaluate_knn`` (the same
   numpy sampler and catalog) HR equal, NDCG and loss within 1e-6.
+* The graphs of the evaluator (index build, batch metrics) and of the KNN
+  step: ``graph=True`` raises on the CPU; with a stand-in capture (the
+  capture records the call, a "replay" reruns it on the region's views)
+  ``graph=None`` over three calls equals ``graph=False`` exactly and the
+  JAX package within the tolerances above, with one capture per graph;
+  ``index()`` builds into the same tensors on every call.
 """
 
 import dataclasses
@@ -38,7 +44,11 @@ from carca_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
 from carca_tpu_torch.data.synthetic import synthetic_catalog
 from carca_tpu_torch.models.carca import CARCA
 from carca_tpu_torch.models.knn import knn_apply
+from carca_tpu_torch.ops import launches
+from carca_tpu_torch.ops.retrieval_topk import QuantizedIndex
 from carca_tpu_torch.parallel.retrieval import retrieval_hr_ndcg
+from carca_tpu_torch.train import graph as step_graph
+from carca_tpu_torch.train import loop
 from carca_tpu_torch.train.checkpoint import CheckpointKeeper
 from carca_tpu_torch.train.loop import (RetrievalEvaluator, evaluate_knn, evaluate_retrieval,
                                         fit)
@@ -177,3 +187,106 @@ def test_evaluate_knn_matches_jax(cat):
     assert set(got) == set(want)
     for key in want:
         assert abs(got[key] - want[key]) <= (0.0 if key.endswith("_hr") else 1e-6), key
+
+
+# --------------------------------------------------------------------------
+# the evaluator's and the KNN step's graphs
+# --------------------------------------------------------------------------
+
+class _Rerun:
+    """Stands in for a captured graph where the CPU has none: a replay
+    reruns the recorded call and writes its results into the outputs the
+    capture returned."""
+
+    def __init__(self, fn, outputs):
+        self.fn, self.outputs = fn, outputs
+
+    def replay(self):
+        counted = launches.snapshot()  # the graph counts its launches itself
+        with torch.inference_mode():
+            for o, new in zip(self.outputs, self.fn()):
+                o.copy_(new)
+        launches.restore(counted)
+
+
+@pytest.fixture
+def stand_in(monkeypatch):
+    """GraphedEval on the CPU: calls take the card's route, the warm-up runs
+    the eager call, the capture records it."""
+    monkeypatch.setattr(step_graph, "_cpu_call", lambda required, device: False)
+    monkeypatch.setattr(step_graph.GraphedEval, "_warm_up", lambda self, device, fn: fn())
+    monkeypatch.setattr(step_graph.GraphedEval, "_record",
+                        lambda self, fn, generator: (lambda out: (_Rerun(fn, out), out))(fn()))
+
+
+@pytest.mark.parametrize("what", ["evaluate_retrieval", "evaluate_knn"])
+def test_graph_true_raises_on_the_cpu(cat, bridged, what):
+    _, _, cfg, model = bridged
+    with pytest.raises(ValueError, match="graph=True"):
+        if what == "evaluate_retrieval":
+            evaluate_retrieval(cfg, cat, model, k=10, log=False, graph=True)
+        else:
+            evaluate_knn(cfg, cat, log=False, device="cpu", graph=True)
+
+
+@pytest.mark.parametrize("seen_only", [True, False])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_graphed_evaluator_equals_eager_and_jax(cat, bridged, stand_in, seen_only, quantized):
+    jcfg, params, cfg, model = bridged
+    want = jax_evaluate_retrieval(jcfg, cat, params, mode="test", k=10, log=False,
+                                  seen_only=seen_only, quantized=quantized)
+    kw = dict(mode="test", k=10, log=False, seen_only=seen_only, quantized=quantized,
+              device="cpu")
+    eager = RetrievalEvaluator(cfg, cat, graph=False, **kw)(model)
+    ev = RetrievalEvaluator(cfg, cat, **kw)
+    for _ in range(3):  # warm-up, capture + replay, replays
+        got = ev(model)
+        assert got == eager
+    for key in want:
+        assert abs(got[key] - want[key]) <= 1.0 / N_USERS, (key, got[key], want[key])
+    assert (ev._build.captures, ev._build.replays) == (1, 2)
+    n = len(ev.row_batches)
+    assert (ev._metrics.captures, ev._metrics.replays) == (1, 3 * n - 1)
+    assert evaluate_retrieval(cfg, cat, model, **{k: v for k, v in kw.items()
+                                                  if k != "device"}) == eager
+
+
+def test_graphed_knn_step_equals_eager_and_jax(cat, stand_in, monkeypatch):
+    jcfg = jax_config(cat, decoder="ca")
+    want = jax_evaluate_knn(jcfg, cat, log=False)
+    steps = []
+    real = loop.make_knn_eval_step
+    monkeypatch.setattr(loop, "make_knn_eval_step",
+                        lambda top_k, graph=None: steps.append(real(top_k, graph=graph))
+                        or steps[-1])
+    got = evaluate_knn(config_from_jax(jcfg), cat, log=False, device="cpu")
+    eager = evaluate_knn(config_from_jax(jcfg), cat, log=False, device="cpu", graph=False)
+    assert got == eager
+    for key in want:
+        assert abs(got[key] - want[key]) <= (0.0 if key.endswith("_hr") else 1e-6), key
+    graphed = steps[0]
+    assert graphed.mode == "graph" and steps[1].mode == "eager"
+    assert graphed.captures >= 1 and graphed.replays > 0
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_the_index_is_built_into_the_same_tensors(cat, bridged, quantized):
+    _, _, cfg, model = bridged
+    model = CARCA(cfg.model, device="cpu")
+    model.load_state_dict(bridged[3].state_dict())
+    ev = RetrievalEvaluator(cfg, cat, k=10, log=False, quantized=quantized, device="cpu")
+    first = ev.index(model)
+    tensors = tuple(first) if quantized else (first,)
+    ptrs = [t.data_ptr() for t in tensors]
+    with torch.no_grad():  # the next epoch's weights, in place
+        for p in model.parameters():
+            p.mul_(0.5)
+    again = ev.index(model)
+    built = tuple(again) if quantized else (again,)
+    assert all(a is b for a, b in zip(built, tensors))
+    assert [t.data_ptr() for t in built] == ptrs
+    fresh = RetrievalEvaluator(cfg, cat, k=10, log=False, quantized=quantized,
+                               device="cpu").index(model)
+    want = tuple(fresh) if quantized else (fresh,)
+    assert all(torch.equal(a, b) for a, b in zip(built, want))
+    assert isinstance(again, QuantizedIndex) == quantized
