@@ -69,12 +69,13 @@ def device_ms(fn, budget_ms: float = 300.0) -> float:
 
 
 def build(items: int, attrs: int, batch: int, d: int, seq_len: int):
-    """(model, attrs table, profile) on the card: random weights from seed
-    0, attributes and profiles from seeded device generators."""
+    """(model, attrs table, profile) on the card: random weights drawn on
+    the card from seed 0, attributes and profiles from seeded device
+    generators."""
     dev = torch.device("cuda")
     mc = ModelConfig(n_items=items, n_attrs=attrs, n_ctx=4, d=d, g=256, seq_len=seq_len,
                      n_blocks=2, n_heads=2, dropout=0.0, embedding="all", decoder="dot")
-    model = CARCA(mc, generator=torch.Generator().manual_seed(0), device=dev).eval()
+    model = CARCA(mc, generator=torch.Generator(device=dev).manual_seed(0), device=dev).eval()
     gen = torch.Generator(device=dev).manual_seed(1)
     table = torch.randn(items, attrs, generator=gen, device=dev)
     p_x = torch.randint(1, items, (batch, seq_len), generator=gen, device=dev)

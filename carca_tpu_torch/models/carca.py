@@ -26,23 +26,36 @@ from carca_tpu_torch.utils.masking import get_mask
 Group = Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]
 
 
+def placed(device: torch.device | str) -> torch.device:
+    """``device`` with its index: a bare "cuda" is the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 class CARCA(nn.Module):
-    """Fresh weights come from ``torch.Generator().manual_seed(seed)``,
-    drawn on the CPU and then moved to ``device``: the card unless the
-    caller asks for the CPU (``device="cpu"``)."""
+    """Fresh weights on ``device`` (the card unless the caller asks for the
+    CPU), drawn from ``generator`` where it lives, as the JAX package draws
+    them on its device: by default ``torch.Generator(device=device)``
+    seeded 0, so the card's weights are drawn on the card and nothing is
+    moved. A generator on another device draws there and the module is then
+    moved to ``device`` (a CPU generator gives the CPU's draw anywhere)."""
 
     def __init__(self, cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
                  device: torch.device | str = "cuda"):
         super().__init__()
+        device = placed(device)
         if generator is None:
-            generator = torch.Generator().manual_seed(0)
+            generator = torch.Generator(device=device).manual_seed(0)
         self.cfg = cfg
         self.embed = embeddings.Embedding(cfg, generator)
         self.blocks = nn.ModuleList(
             [encoder.EncoderBlock(cfg, generator) for _ in range(cfg.n_blocks)])
-        self.norm = layers.LayerNorm(cfg.d)
+        self.norm = layers.LayerNorm(cfg.d, device=generator.device)
         self.decoder = decoders.Decoder(cfg, generator)
-        self.to(device)
+        if placed(generator.device) != device:
+            self.to(device)
 
     def forward(self, profile: Group, targets: Sequence[Group], *,
                 attrs_table: Optional[torch.Tensor] = None,

@@ -23,9 +23,9 @@ class EncoderBlock(nn.Module):
     def __init__(self, cfg: ModelConfig, generator: torch.Generator):
         super().__init__()
         self.cfg = cfg
-        self.norm1 = layers.LayerNorm(cfg.d)
+        self.norm1 = layers.LayerNorm(cfg.d, device=generator.device)
         self.attn = attention.MHA(cfg.d, generator)
-        self.norm2 = layers.LayerNorm(cfg.d)
+        self.norm2 = layers.LayerNorm(cfg.d, device=generator.device)
         self.ffn1 = layers.Dense(cfg.d, cfg.d, generator)
         self.ffn2 = layers.Dense(cfg.d, cfg.d, generator)
 

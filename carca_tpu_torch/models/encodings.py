@@ -2,7 +2,8 @@
 
 Applied only to profile embeddings, never to targets
 (``src/carca.py:91-92``). "positional" is a fixed sin/cos table held as a
-registered buffer: it moves with the module and is not a parameter.
+registered buffer: it moves with the module and is not a parameter. Both
+tables are made on the generator's device.
 """
 
 from __future__ import annotations
@@ -15,12 +16,12 @@ from torch import nn
 from carca_tpu_torch.utils.initializers import xavier_uniform
 
 
-def sinusoid_table(max_len: int, d: int) -> torch.Tensor:
-    """Fixed sin/cos table (``src/carca.py:43-52``)."""
-    position = torch.arange(max_len, dtype=torch.float32)[:, None]
-    div_term = torch.exp(torch.arange(0, d, 2, dtype=torch.float32)
+def sinusoid_table(max_len: int, d: int, device: torch.device | str = "cpu") -> torch.Tensor:
+    """Fixed sin/cos table (``src/carca.py:43-52``) on ``device``."""
+    position = torch.arange(max_len, dtype=torch.float32, device=device)[:, None]
+    div_term = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device)
                          * (-math.log(10000.0) / d))
-    pe = torch.zeros(max_len, d)
+    pe = torch.zeros(max_len, d, device=device)
     pe[:, 0::2] = torch.sin(position * div_term)
     pe[:, 1::2] = torch.cos(position * div_term)
     return pe
@@ -36,7 +37,7 @@ class Encoding(nn.Module):
         if kind == "learnable":
             self.table = nn.Parameter(xavier_uniform((max_len, d), generator))
         elif kind == "positional":
-            self.register_buffer("pe", sinusoid_table(max_len, d))
+            self.register_buffer("pe", sinusoid_table(max_len, d, generator.device))
         elif kind != "identity":
             raise ValueError(f"unknown encoding kind {kind!r}")
 

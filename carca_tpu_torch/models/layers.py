@@ -28,12 +28,12 @@ def round_to(x: torch.Tensor, compute_dtype: str) -> torch.Tensor:
 
 class Dense(nn.Module):
     """Linear layer: xavier-uniform weight, zero bias
-    (``src/carca.py:220-226``)."""
+    (``src/carca.py:220-226``), both on ``generator``'s device."""
 
     def __init__(self, d_in: int, d_out: int, generator: torch.Generator):
         super().__init__()
         self.w = nn.Parameter(xavier_uniform((d_in, d_out), generator))
-        self.b = nn.Parameter(torch.zeros(d_out))
+        self.b = nn.Parameter(torch.zeros(d_out, device=generator.device))
 
     def forward(self, x: torch.Tensor, compute_dtype: str = "float32") -> torch.Tensor:
         return torch.matmul(round_to(x, compute_dtype),
@@ -43,13 +43,13 @@ class Dense(nn.Module):
 class LayerNorm(nn.Module):
     """LayerNorm over the last axis, torch semantics (biased variance, eps
     inside the sqrt; ``src/carca.py:279,283,408``), with the JAX parameter
-    names ``scale`` and ``bias``."""
+    names ``scale`` and ``bias``, created on ``device``."""
 
-    def __init__(self, d: int, eps: float = 1e-5):
+    def __init__(self, d: int, eps: float = 1e-5, device: torch.device | str = "cpu"):
         super().__init__()
         self.eps = eps
-        self.scale = nn.Parameter(torch.ones(d))
-        self.bias = nn.Parameter(torch.zeros(d))
+        self.scale = nn.Parameter(torch.ones(d, device=device))
+        self.bias = nn.Parameter(torch.zeros(d, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(torch.float32)

@@ -38,7 +38,10 @@ Saves are asynchronous, as the JAX package's orbax saves are: ``save`` and
 ``save_latest`` block only for the snapshot, a copy of what they save in
 host memory made on the calling thread (the graph replays update the
 parameters, Adam's moments, the row state and the EMA shadow in place, so
-the file must not read the live tensors). Then they return, and a
+the file must not read the live tensors). A CUDA tensor streams into
+fresh pageable memory through two page-locked chunks that the keeper
+allocates once and reuses (``_Bounce``); a CPU tensor is copied by
+``.to("cpu")``. Then they return, and a
 background thread per kind (best/, latest/) runs the ``torch.save`` and
 the ``os.replace`` while the next epoch trains. That thread makes no CUDA
 call: the snapshot is complete before the save returns, and it is
@@ -98,20 +101,84 @@ def _load(path: str) -> Any:
     return torch.load(path, map_location="cpu", weights_only=False)
 
 
-def _host_copy(obj: Any, keep: Sequence[Optional[torch.Tensor]] = ()) -> Any:
+BOUNCE_BYTES = 64 << 20  # each of the two page-locked chunks a snapshot streams through
+
+
+def _page_locked(nbytes: int) -> torch.Tensor:
+    return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+
+
+class _Bounce:
+    """Two page-locked chunks of ``chunk_bytes`` that the snapshot of a CUDA
+    tensor streams through into fresh pageable host memory, allocated at the
+    keeper's first such snapshot and reused by every later one: the card
+    copies chunk i into one while the host copies chunk i − 1 out of the
+    other (a CPU ``copy_``, on PyTorch's threads), so the device-to-host
+    copy overlaps the host's page faults and copies, where a pageable
+    ``.to("cpu")`` stages through the CUDA runtime's buffers on one thread.
+    Pinning the snapshot itself costs more than it saves where each kind
+    saves once a fit (``PERF.md``). The chunks are drained before
+    ``copy`` returns, so no writer ever reads them. Every call is made on
+    the keeper's calling thread."""
+
+    def __init__(self, chunk_bytes: int = BOUNCE_BYTES) -> None:
+        self.chunk_bytes = chunk_bytes
+        self.chunks: List[torch.Tensor] = []
+
+    @property
+    def nbytes(self) -> int:
+        return sum(c.numel() for c in self.chunks)
+
+    def copy(self, t: torch.Tensor) -> torch.Tensor:
+        """A pageable host copy of the CUDA tensor ``t``, bit for bit."""
+        out = torch.empty(t.shape, dtype=t.dtype)
+        src = t.detach().contiguous().view(-1).view(torch.uint8)
+        dst = out.view(-1).view(torch.uint8)
+        if not self.chunks:
+            self.chunks = [_page_locked(self.chunk_bytes) for _ in range(2)]
+        stream = torch.cuda.current_stream(t.device)
+        inflight: List[tuple] = []  # (event, chunk, start, end), oldest first
+        for i, a in enumerate(range(0, src.numel(), self.chunk_bytes)):
+            if len(inflight) == 2:  # the chunk to refill: its bytes out first
+                self._drain(dst, *inflight.pop(0))
+            b = min(a + self.chunk_bytes, src.numel())
+            chunk = self.chunks[i % 2][:b - a]
+            chunk.copy_(src[a:b], non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(stream)
+            inflight.append((event, chunk, a, b))
+        for item in inflight:
+            self._drain(dst, *item)
+        return out
+
+    @staticmethod
+    def _drain(dst: torch.Tensor, event, chunk: torch.Tensor, a: int, b: int) -> None:
+        event.synchronize()
+        dst[a:b].copy_(chunk)
+
+
+def _host_copy(obj: Any, keep: Sequence[Optional[torch.Tensor]] = (),
+               bounce: Optional[_Bounce] = None) -> Any:
     """``obj`` (a state_dict, an optimizer's, and the dicts, lists and
     tuples around them) with every tensor copied to host memory, but the
     tensors in ``keep``, which are host copies already (the gathered
-    item table). A state_dict keeps its ``_metadata``."""
+    item table). A state_dict keeps its ``_metadata``. With ``bounce``, a
+    CUDA tensor streams through its page-locked chunks; a CPU tensor, and
+    every tensor without ``bounce``, is copied by ``.to("cpu")``. Either
+    way the copy is fresh pageable memory."""
     if torch.is_tensor(obj):
-        return obj if any(obj is t for t in keep) else obj.detach().to("cpu", copy=True)
+        if any(obj is t for t in keep):
+            return obj
+        if bounce is not None and obj.is_cuda:
+            return bounce.copy(obj)
+        return obj.detach().to("cpu", copy=True)
     if isinstance(obj, dict):
-        out = type(obj)((k, _host_copy(v, keep)) for k, v in obj.items())
+        out = type(obj)((k, _host_copy(v, keep, bounce)) for k, v in obj.items())
         if hasattr(obj, "_metadata"):
             out._metadata = obj._metadata
         return out
     if isinstance(obj, (list, tuple)):
-        return type(obj)(_host_copy(v, keep) for v in obj)
+        return type(obj)(_host_copy(v, keep, bounce) for v in obj)
     return obj
 
 
@@ -225,6 +292,7 @@ class CheckpointKeeper:
         self.legacy_ema = os.path.join(self.dir, "ema", "ema.pt")  # before the shadow joined latest/
         self._resumed: Optional[Dict[str, Any]] = None  # what restore_latest read beside the state
         self._best, self._latest = _Writer("best"), _Writer("latest")
+        self._bounce = _Bounce()  # the snapshots' page-locked chunks
 
     def _whole(self, sd: Dict[str, Any], gather: Callable) -> Dict[str, Any]:
         """A state_dict with the item table whole on rank 0 (in host memory,
@@ -276,7 +344,7 @@ class CheckpointKeeper:
         ``writer``'s thread; under a mesh every rank then meets at a
         barrier."""
         if self.writer:
-            host = _host_copy(snapshot, gathered)
+            host = _host_copy(snapshot, gathered, self._bounce)
             writer.start(lambda: write(host), host)
         else:
             writer.start(None, None)
@@ -307,13 +375,20 @@ class CheckpointKeeper:
         self._wait(self._best, self._latest)
 
     def close(self) -> None:
-        """Wait for every write in flight; under a mesh end in a barrier.
-        Raises a write's exception, unchanged."""
+        """Wait for every write in flight and let the snapshots' chunks go;
+        under a mesh end in a barrier. Raises a write's exception,
+        unchanged."""
         try:
             self.wait()
         finally:
+            self._bounce.chunks = []
             if self.mesh is not None:
                 barrier()
+
+    @property
+    def pinned_bytes(self) -> int:
+        """The bytes of page-locked memory the keeper's snapshots hold."""
+        return self._bounce.nbytes
 
     def save(self, epoch: int, model: torch.nn.Module, metrics: Dict[str, Any]) -> None:
         """Retain ``model``'s parameters as best/ unless the kept best

@@ -88,15 +88,19 @@ def create_train_state(mc: ModelConfig, tc: TrainConfig,
                        device: torch.device | str | None = None,
                        model: Optional[CARCA] = None,
                        sparse_items: bool = False) -> TrainState:
-    """Fresh weights from ``tc.seed`` (drawn on the CPU, then moved), unless
-    ``model`` is given; fresh Adam moments (with ``sparse_items``, the item
-    table's in a fresh row state instead); generators seeded from
-    ``tc.seed``. ``device`` defaults to ``model``'s device, else the card."""
+    """Fresh weights from ``tc.seed``, unless ``model`` is given; fresh Adam
+    moments (with ``sparse_items``, the item table's in a fresh row state
+    instead); generators seeded from ``tc.seed``. ``device`` defaults to
+    ``model``'s device, else the card. The weights are drawn on ``device``
+    by a generator there, as the JAX package draws them on its device: on
+    the card from the card's stream (the same weights for a seed on one
+    kind of card; others than the CPU's), on the CPU from the CPU's."""
     if device is None:
         device = next(model.parameters()).device if model is not None else "cuda"
     device = torch.device(device)
     if model is None:
-        model = CARCA(mc, generator=torch.Generator().manual_seed(tc.seed), device=device)
+        model = CARCA(mc, generator=torch.Generator(device=device).manual_seed(tc.seed),
+                      device=device)
     params = [p for n, p in model.named_parameters() if not (sparse_items and n == "embed.items")]
     return TrainState(
         model=model,

@@ -1,10 +1,14 @@
 """Parameter initializers matching the reference's init scheme: Xavier
 uniform weights, zero biases (``src/carca.py:77-83,220-226,291-295``).
 
-Randomness comes only from the ``torch.Generator`` the caller passes, so a
-seed gives the same weights on every run. The stream differs from JAX's
-for the same seed; tests that compare the two packages load JAX weights
-through ``carca_tpu_torch.bridge`` instead.
+Randomness comes only from the ``torch.Generator`` the caller passes, and
+the weights are drawn where it lives (``generator.device``), as the JAX
+package draws them on its default device: a card's generator fills the
+tables on the card, with no host draw and no copy. A seed gives the same
+weights on every run on one kind of device; a CPU generator's are those of
+``torch.rand`` on the CPU, and a card's stream is another. The stream
+differs from JAX's for the same seed; tests that compare the two packages
+load JAX weights through ``carca_tpu_torch.bridge`` instead.
 """
 
 from __future__ import annotations
@@ -22,8 +26,9 @@ def xavier_uniform(shape, generator: torch.Generator, gain: float = 1.0) -> torc
     [out, in] ``nn.init.xavier_uniform_``.
     """
     a = gain * math.sqrt(6.0 / (shape[0] + shape[1]))
-    u = torch.rand(tuple(shape), generator=generator, dtype=torch.float32)
-    return u * (2.0 * a) - a
+    u = torch.rand(tuple(shape), generator=generator, dtype=torch.float32,
+                   device=generator.device)
+    return u.mul_(2.0 * a).sub_(a)  # in place: one [n, d] table at a time on the card
 
 
 def embedding_init(n: int, d: int, generator: torch.Generator, *,

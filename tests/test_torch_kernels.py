@@ -18,6 +18,8 @@ a full sort of the routine's own scores. With weight dropout the plain version i
 fed the kernels' own Philox keep mask.
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -576,7 +578,8 @@ def test_device_generators_rerun_bit_equal_on_the_card(dev, process):
 
 def test_sparse_step_on_the_card_matches_the_cpu_plain_sparse_step(dev):
     """One row-sparse train step (dropout 0, K1/K2 on the card) against the
-    same step on the CPU plain path from the same weights and batch: loss
+    same step on the CPU plain path from the same weights (the CPU's draw,
+    copied to the card: the card draws others for a seed) and batch: loss
     within 1e-5 relative; touched item rows within 1e-5 absolute where the
     row's gradient |g| > 1e-6, and within 2·lr elsewhere (a first Adam step
     moves an element by lr·g/(|g| + eps): where |g| nears eps = 1e-8, the
@@ -598,8 +601,11 @@ def test_sparse_step_on_the_card_matches_the_cpu_plain_sparse_step(dev):
     batch = builder.train_batch(builder.users("train")[:64], np.random.default_rng(0))
     batch.pop("n_valid")
     states = {}
+    fresh = create_train_state(mc, tc, "cpu").model
+    table0 = fresh.embed.items.detach().clone()
     for where in ("cpu", dev):
-        st = create_train_state(mc, tc, where, sparse_items=True)
+        st = create_train_state(mc, tc, where, sparse_items=True,
+                                model=copy.deepcopy(fresh).to(where))
         st.model.train()
         b = {k: torch.from_numpy(v.copy()).to(where) for k, v in batch.items()}
         launches = fused_attention.launches
@@ -608,7 +614,6 @@ def test_sparse_step_on_the_card_matches_the_cpu_plain_sparse_step(dev):
         states[str(where)] = (st, loss.item())
     (cpu, loss_c), (gpu, loss_g) = states["cpu"], states[str(dev)]
     assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
-    table0 = create_train_state(mc, tc, "cpu").model.embed.items.detach()
     ids = np.unique(np.concatenate([batch["p_x"].ravel(), batch["o_x"].ravel()]))
     rest = np.setdiff1d(np.arange(mc.n_items), ids)
     items_g, items_c = gpu.model.embed.items.detach().cpu(), cpu.model.embed.items.detach()
