@@ -30,7 +30,7 @@ from carca_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
 from carca_tpu_torch.models.embeddings import item_table_width
 
 # JAX ModelConfig fields with no counterpart here: TPU-only knobs
-_DROPPED = ("remat", "pack_tables")
+_DROPPED = ("pack_tables",)
 
 
 def _flatten(tree: Any, prefix: str, out: Dict[str, np.ndarray]) -> None:
@@ -71,7 +71,7 @@ def _as_dict(cfg: Any) -> Dict[str, Any]:
 def model_config_from_jax(cfg: Any) -> ModelConfig:
     """A ``carca_tpu`` ModelConfig (or its dict) → this package's
     ``ModelConfig``; ``use_pallas`` maps to ``use_kernel``, the TPU-only
-    ``pack_tables`` and ``remat`` are dropped."""
+    ``pack_tables`` is dropped and ``remat`` kept."""
     d = _as_dict(cfg)
     if "use_pallas" in d:
         d["use_kernel"] = d.pop("use_pallas")

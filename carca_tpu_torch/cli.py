@@ -12,8 +12,11 @@ asks for the CPU, and nothing falls back to it.
 
 * ``--use_pallas`` sets ``use_kernel`` (the CUDA kernels: ``auto``/``true``
   launch them on the card, ``false`` runs the plain PyTorch path).
-* The TPU-only ``--pack_tables``, ``--remat`` and ``--compilation_cache``
-  are accepted and ignored with a note. The host pipeline assembles
+* ``--remat true`` runs each encoder block under activation checkpointing
+  (``models/remat.py``), as the JAX package's ``jax.checkpoint``: less
+  device memory for a second forward of the blocks, the same result.
+* The TPU-only ``--pack_tables`` and ``--compilation_cache`` are accepted
+  and ignored with a note. The host pipeline assembles
   batches with the native C++ assembler (``carca_tpu_torch/native``, built
   with g++ at first use; a failed build raises) unless ``--use_native
   false`` asks for numpy; the run prints ``assembler: native|numpy``.
@@ -109,7 +112,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", type=str, default="float32")
     p.add_argument("--use_pallas", type=parse_kernel_flag, default="auto",
                    help="the CUDA kernels: true | false (plain path) | auto")
-    p.add_argument("--remat", type=parse_bool, default=False, help="TPU only; ignored")
+    p.add_argument("--remat", type=parse_bool, default=False,
+                   help="activation checkpointing of the encoder blocks: recompute them in "
+                        "the backward instead of keeping their activations")
     p.add_argument("--pack_tables", type=parse_kernel_flag, default="auto",
                    help="TPU only; ignored")
     p.add_argument("--compilation_cache", type=str, default="", help="TPU only; ignored")
@@ -198,6 +203,7 @@ _PRESET_OVERLAY = {
         "use_pallas": "use_kernel", "compute_dtype": "compute_dtype",
         "dropout": "dropout", "l2_norm": "l2_norm", "gamma": "gamma",
         "embedding": "embedding", "encoding": "encoding", "decoder": "decoder",
+        "remat": "remat",
     },
 }
 
@@ -245,7 +251,7 @@ def config_from_args(args, n_items: int, n_attrs: int, n_ctx: int) -> Config:
         embedding=args.embedding.lower(), encoding=args.encoding.lower(),
         decoder=args.decoder.lower(), residual_sa=args.residual_sa,
         residual_ca=args.residual_ca, gamma=args.gamma, l2_norm=args.l2_norm,
-        compute_dtype=args.compute_dtype, use_kernel=args.use_pallas)
+        compute_dtype=args.compute_dtype, use_kernel=args.use_pallas, remat=args.remat)
     dc = DataConfig(
         data_dir=args.data_dir, profile_file=args.profile_file,
         attr_file=args.attr_file, ctx_file=args.ctx_file,
@@ -293,7 +299,7 @@ def check_flags(args) -> None:
         raise ValueError(f"--model {args.model}: want carca or knn")
 
 
-_TPU_ONLY = ("pack_tables", "remat", "compilation_cache")
+_TPU_ONLY = ("pack_tables", "compilation_cache")
 
 
 def launch_counts(by_shape: bool = False) -> dict:

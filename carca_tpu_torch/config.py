@@ -14,8 +14,12 @@ either package rebuilds a ``Config`` of either, except:
   There is no size threshold: the TPU's measured crossover does not carry
   over to the GPU.
 * ``pack_tables`` is gone: lane packing exists only for the TPU's (8, 128)
-  tiling (``params_from_jax`` unpacks). ``remat`` is gone: the attention
-  kernels never store the weights, and the rest of the step fits the card.
+  tiling (``params_from_jax`` unpacks).
+
+``remat`` is the JAX package's: each encoder block runs under activation
+checkpointing (``models/remat.py``, the counterpart of its
+``jax.checkpoint``), trading the blocks' saved activations for a second
+forward in the backward; the result is the same, bit for bit.
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ class ModelConfig:
     l2_norm: bool = False
     compute_dtype: str = "float32"
     use_kernel: Any = "auto"
+    remat: bool = False  # checkpoint each encoder block: device memory for a recompute
 
     def __post_init__(self) -> None:
         if self.embedding not in EMBEDDINGS:

@@ -116,6 +116,7 @@ class MHA(nn.Module):
         seed_generator: Optional[torch.Generator] = None,
         compute_dtype: str = "float32",
         use_kernel=False,
+        seed=None,
     ) -> torch.Tensor:
         """query [B,Lq,d], key/value [B,Lk,d], masks [B,Lq]/[B,Lk] → [B,Lq,d].
 
@@ -124,7 +125,9 @@ class MHA(nn.Module):
         kernels on CUDA tensors (K1 forward, K2 backward under autograd,
         weight dropout keyed by a seed from the CPU ``seed_generator``) —
         or a raise, never the plain version. ``False`` runs the plain
-        version on any device, its dropout drawn from ``generator``."""
+        version on any device, its dropout drawn from ``generator``.
+        ``seed``, when given, is the kernels' Philox seed drawn already
+        (``flash_attention.kernel_seed``: a value or a slot)."""
         if train and dropout_rate > 0.0 and generator is None:
             raise ValueError("dropout requires a generator when train=True and rate>0")
         q = self.wq(query, compute_dtype)
@@ -136,7 +139,8 @@ class MHA(nn.Module):
             return fused_attention(
                 q, k, v, q_mask, k_mask, causal=causal, scale=scale,
                 dropout_rate=dropout_rate if train else 0.0, generator=generator,
-                seed_generator=seed_generator, n_heads=n_heads, compute_dtype=compute_dtype)
+                seed_generator=seed_generator, n_heads=n_heads, compute_dtype=compute_dtype,
+                seed=seed)
         return masked_attention(
             q, k, v, q_mask, k_mask, n_heads=n_heads, causal=causal,
             scale=scale, dropout_rate=dropout_rate, train=train,

@@ -21,6 +21,7 @@ from torch import nn
 
 from carca_tpu_torch.config import ModelConfig
 from carca_tpu_torch.models import decoders, embeddings, encoder, layers
+from carca_tpu_torch.models.remat import checkpointed_block
 from carca_tpu_torch.utils.masking import get_mask
 
 Group = Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]
@@ -78,15 +79,22 @@ def encode_profile(
     item_rows: Optional[embeddings.ItemRows] = None,
     lookup: Optional[embeddings.Lookup] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The profile tower: (encoded profile [B, L, d], p_mask [B, L])."""
+    """The profile tower: (encoded profile [B, L, d], p_mask [B, L]). With
+    ``cfg.remat`` and grad enabled each encoder block runs under activation
+    checkpointing (``models/remat.py``), as the JAX package's
+    ``jax.checkpoint``: the same values, gradients and generator states."""
     cfg = model.cfg
     p_x, p_a, p_c = profile
     p_mask = get_mask(p_x)
     p_e = model.embed(p_x, p_a, p_c, p_mask, target=False, attrs_table=attrs_table,
                       item_rows=item_rows, lookup=lookup)
     p_e = layers.dropout(p_e, cfg.dropout, model.training, generator)  # src/carca.py:416
+    remat = cfg.remat and torch.is_grad_enabled()  # nothing to keep for a backward otherwise
     for block in model.blocks:
-        p_e = block(p_e, p_mask, generator, seed_generator)
+        if remat:
+            p_e = checkpointed_block(block, p_e, p_mask, generator, seed_generator)
+        else:
+            p_e = block(p_e, p_mask, generator, seed_generator)
     return model.norm(p_e), p_mask  # src/carca.py:421
 
 

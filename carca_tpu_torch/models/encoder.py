@@ -31,16 +31,19 @@ class EncoderBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
-                seed_generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """x [B, L, d], mask [B, L] → [B, L, d]. ``seed_generator`` keys the
-        attention kernels' weight dropout on the card."""
+                seed_generator: Optional[torch.Generator] = None,
+                seed=None) -> torch.Tensor:
+        """x [B, L, d], mask [B, L] → [B, L, d]. ``generator`` draws the
+        dropouts; ``seed_generator`` keys the attention kernels' weight
+        dropout on the card, unless ``seed`` (a value or a slot) was drawn
+        for it already (``models/remat.py``)."""
         cfg = self.cfg
         train = self.training
         q = self.norm1(x)
         s = self.attn(q, x, x, mask, mask, n_heads=cfg.n_heads, causal=0,
                       dropout_rate=cfg.dropout, train=train, generator=generator,
                       seed_generator=seed_generator, compute_dtype=cfg.compute_dtype,
-                      use_kernel=cfg.use_kernel)
+                      use_kernel=cfg.use_kernel, seed=seed)
         if cfg.residual_sa:
             s = s + q  # residual onto the normed query (src/carca.py:301-302)
         s = self.norm2(s)

@@ -343,12 +343,15 @@ def fused_attention(
     seed_generator: Optional[torch.Generator] = None,
     n_heads: int = 1,
     compute_dtype: str = "float32",
+    seed: Optional[Seed] = None,
 ) -> torch.Tensor:
     """Attention on post-projection tensors: q [B, Lq, d], k/v [B, Lk, d],
     masks [B, Lq]/[B, Lk] (float 0/1) → merged-head context [B, Lq, d]
     float32, with weight dropout at ``dropout_rate``. ``generator`` draws
     the dropout of the CPU path; ``seed_generator`` (a CPU generator) draws
-    the kernels' Philox seed on the card (``kernel_seed``)."""
+    the kernels' Philox seed on the card (``kernel_seed``), unless ``seed``
+    (a value or a slot) was drawn already: a checkpointed encoder block
+    draws its seed before the forward and hands it to the recompute."""
     if compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype!r}")
     if q.device.type == "cpu":
@@ -359,7 +362,10 @@ def fused_attention(
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention runs on cpu or cuda tensors, got {q.device}")
     _check_cuda_inputs((q, k, v, q_mask, k_mask), n_heads)
-    seed = kernel_seed(seed_generator) if dropout_rate > 0.0 else 0
+    if dropout_rate <= 0.0:
+        seed = 0
+    elif seed is None:
+        seed = kernel_seed(seed_generator)
     opts = dict(causal=causal, scale=scale, n_heads=n_heads, compute_dtype=compute_dtype,
                 dropout_rate=dropout_rate, seed=seed)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

@@ -311,14 +311,14 @@ class Recommender:
 
 
 # fields of a JAX run's args.json with no counterpart here: TPU-only knobs
-_JAX_ONLY = ("pack_tables", "remat")
+_JAX_ONLY = ("pack_tables",)
 
 
 def config_from_run_dir(run_dir: str) -> Config:
     """Rebuild the training Config from a run directory's flat
     ``args.json``: this package's, or the JAX package's (whose
-    ``use_pallas`` maps to ``use_kernel``; ``pack_tables`` and ``remat``
-    are dropped)."""
+    ``use_pallas`` maps to ``use_kernel``; ``pack_tables`` is dropped,
+    ``remat`` kept)."""
     with open(os.path.join(run_dir, "args.json")) as fh:
         flat = json.load(fh)
     if "use_pallas" in flat:

@@ -26,7 +26,13 @@ copies into Adam's lr tensor), the row-sparse Adam's K (lr, 1 − b1^t,
 ``TrainState.seed_generator`` in the eager call's order (the kernels read
 them through ``flash_attention.seed_slots``). The device generator that
 draws the negatives and the plain dropouts is registered with the graph,
-so each replay advances it as the eager call would. The host's counters —
+so each replay advances it as the eager call would. Under
+``ModelConfig.remat`` each checkpointed encoder block's recompute draws
+that generator's bits again from a generator of its own
+(``models/remat.py``): the warm-up records where the train generator
+stood at each block's start, the capture hands the blocks one registered
+generator each, and each replay first sets them there
+(``remat.position``). The host's counters —
 ``TrainState.step``, the sparse row state's count, the attention kernels'
 launch counts — are put back after the capture and advanced by K steps'
 worth at each replay. So a replay is the eager call, bit for bit, as far
@@ -73,6 +79,7 @@ from typing import Callable, Dict, Iterable, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from carca_tpu_torch.models import remat
 from carca_tpu_torch.ops import launches
 from carca_tpu_torch.ops.flash_attention import SEED_LIMIT, kernel_seed, seed_slots
 from carca_tpu_torch.train import sparse_adam
@@ -266,6 +273,8 @@ class GraphedStep:
         self.stream: Optional[torch.cuda.Stream] = None
         self.warm = False
         self.n_seeds = 0  # seeds one call draws, counted in the warm-up
+        self.rewinds: List[int] = []  # the generator's offset at each remat block, in the warm-up
+        self.rewind_gens: List[torch.Generator] = []  # the graph's, one per remat block
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.key = None
         self.inputs: Optional[_Inputs] = None
@@ -312,15 +321,21 @@ class GraphedStep:
         self.inputs.write(values)
 
     def _warm_up(self, state, attrs_table, args):
-        drawn = kernel_seed.drawn
-        state, losses = staging.side_stream_call(
-            self.stream, lambda: self.eager(state, attrs_table, *args))
+        drawn, start = kernel_seed.drawn, state.generator.get_offset()
+        with remat.recording() as rewinds:
+            state, losses = staging.side_stream_call(
+                self.stream, lambda: self.eager(state, attrs_table, *args))
         self.n_seeds = kernel_seed.drawn - drawn
+        if any(g is not state.generator for g, _ in rewinds):
+            raise RuntimeError("a checkpointed block draws from a generator the graph does not "
+                               "register: its replays would not draw the eager bits")
+        self.rewinds = [offset - start for _, offset in rewinds]
         self.warm = True
         return state, losses
 
     def _capture(self, state, attrs_table, f: Feed, key):
         self.graph = self.key = self.inputs = self.losses = None  # frees an older graph
+        self.rewind_gens = []
         self.inputs = _Inputs(train_sections(f.staged, self.k, self.n_seeds), self.stream.device)
         self._write(state, f.staged)
         d = self.inputs.d
@@ -328,17 +343,21 @@ class GraphedStep:
         host = (state.step, None if rows is None else rows["count"],
                 state.seed_generator.get_state(), launch_counts())
         cap = _Capture(d["lrs"], d["scalars"])
+        gens = [torch.Generator(device=self.stream.device) for _ in self.rewinds]
         _active.append(cap)
         try:
-            with seed_slots(d["seeds"]) as taken:
+            with seed_slots(d["seeds"]) as taken, remat.rewind_slots(gens) as rewound:
                 graph, (_, losses) = staging.capture(
                     lambda: self.eager(state, attrs_table, *f.args({n: d[n] for n in f.staged})),
-                    self.stream, generator=state.generator)
-                n_taken = taken()
+                    self.stream, generators=(state.generator, *gens))
+                n_taken, n_rewound = taken(), rewound()
             after = launch_counts()
             if n_taken != self.n_seeds:
                 raise RuntimeError(f"the capture took {n_taken} seeds, the warm-up drew "
                                    f"{self.n_seeds}")
+            if n_rewound != len(gens):
+                raise RuntimeError(f"the capture rewound {n_rewound} checkpointed blocks, the "
+                                   f"warm-up {len(gens)}")
             for n, want, what in ((cap.n_lrs, self.k if state.schedule else 0, "learning rates"),
                                   (cap.n_scalars, self.k if rows is not None else 0,
                                    "row-sparse updates")):
@@ -358,11 +377,14 @@ class GraphedStep:
             raise RuntimeError("the capture created or replaced state tensors (Adam's lazy "
                                "state?): a replay would write into tensors no one reads")
         self.graph, self.key, self.losses = graph, key, losses
+        self.rewind_gens = gens
         self.captures += 1
         return self._replay(state)
 
     def _replay(self, state):
         state.model.train()  # what the eager call leaves
+        if self.rewind_gens:
+            remat.position(self.rewind_gens, state.generator, self.rewinds)
         self.graph.replay()
         self.replays += 1
         state.step += self.k
@@ -445,7 +467,7 @@ class GraphedEval:
         eval graphs' pool, ``generator`` registered with it."""
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
-        return staging.capture(fn, self.stream, self.pool, generator)
+        return staging.capture(fn, self.stream, self.pool, (generator,))
 
     def _capture(self, entry: _EvalGraph, device, model, attrs_table, f: Feed) -> None:
         inputs = _Inputs(sections_of(f.staged), device)

@@ -14,6 +14,12 @@ dtype, the JAX package's convention. The port's float32 path runs IEEE
 fp32 GEMMs (``allow_tf32`` off) and its attention kernels as 3xTF32, both
 slower per FLOP than bf16, so an f32 step's MFU is a lower bound on its
 share of what its own arithmetic could reach.
+
+The FLOPs are the model's, as the JAX package counts them, with or without
+``ModelConfig.remat``: the encoder blocks' second forward in a remat step's
+backward is not counted, and the modelled HBM bytes keep their no-remat
+activations. A remat step's ``mfu`` therefore reads lower than the same
+step without remat by its recompute time alone.
 """
 
 from __future__ import annotations

@@ -76,13 +76,15 @@ def side_stream_call(stream: torch.cuda.Stream, fn: Callable):
 
 
 def capture(fn: Callable, stream: torch.cuda.Stream, pool=None,
-            generator: Optional[torch.Generator] = None):
+            generators: Sequence[Optional[torch.Generator]] = ()):
     """(graph, what ``fn()`` returned): ``fn`` captured on ``stream`` into
-    ``pool`` (a private pool when None), with ``generator`` registered so
-    that each replay advances it as the eager call would."""
+    ``pool`` (a private pool when None), with each of ``generators`` (None
+    skipped) registered so that each replay advances it as the eager call
+    would."""
     graph = torch.cuda.CUDAGraph()
-    if generator is not None:
-        graph.register_generator_state(generator)
+    for g in generators:
+        if g is not None:
+            graph.register_generator_state(g)
     with torch.cuda.graph(graph, pool=pool, stream=stream):
         out = fn()
     return graph, out

@@ -311,6 +311,26 @@ raises and exits non-zero:
              bit-deterministic, so the resumed per-epoch train loss is held
              within 1e-3 relative of the control's same epochs and the final
              val and test NDCG@10 within 0.01 (the CPU test holds equality).
+14. remat  — ModelConfig.remat, each encoder block under activation
+             checkpointing (models/remat.py). 14a: the K-step call of
+             bench.build_setup at the men width (L=200) and the flagship
+             width (L=50), d=64, 2 blocks, batch 256, K=8, dropout 0.5,
+             without and with remat, eagerly and through the graph, in
+             turns (4 calls each: warm-up, capture, two replays, from
+             copies of one model): losses, parameters, Adam's state and
+             both generators bit-equal; K1 launched 2 more times a step
+             (the blocks' recompute), K2 and the Philox seeds as often; one
+             rewind generator per checkpointed block registered with the
+             graph. Then at batch 256 and 2,048, in turns no remat, remat,
+             remat, no remat: the eager warm-up's peak allocated over the
+             state's baseline, the graph's pool and ms a step over 3
+             replays; K1/K2 at the batch-2,048 encoders against their plain
+             versions, timed beside them and SDPA. 14b: `python -m
+             carca_tpu_torch.cli --preset men --remat false|true --epochs
+             2` (the cli's synthetic catalog, seed 0), both at once: equal
+             train losses and val HR@10 / NDCG@10, args.json holding the
+             flag, no note that it is ignored, K1 launched more with remat
+             and K2 as often.
 
 Tolerance of the retrieval kernels against their plain versions: K3, K4
 and the rerank score on the tensor cores (csrc/scoring.cuh), the plain
@@ -326,7 +346,7 @@ retrieval bench (5d), the train step (8), the fit and serve entry points
 (10, 12d), the mesh fits and the sharded service (11, counted in each
 rank), the family fits and the fashion service (12), and the scaling
 harness's ranks and the failover's resumed and control runs (13, counted
-in each rank): each runs with every
+in each rank), and the remat train calls and fits (14): each runs with every
 launch counter set to 0 just before it and read just after (the fits run
 as subprocesses, which start at 0 and print their counts at the end). The line before the
 last is a JSON object listing the kernels, each with its launches on the
@@ -377,7 +397,7 @@ from carca_tpu_torch.ops import retrieval_topk as rt
 from carca_tpu_torch.ops.flash_attention import (SEED_LIMIT, attention_bwd,
                                                  attention_grads_plain,
                                                  attention_keep_mask, fused_attention,
-                                                 philox_bits)
+                                                 kernel_seed, philox_bits)
 from carca_tpu_torch.ops.retrieval_topk import (GROUP, SCORE_ORDER_TOL, QuantizedIndex,
                                                 catalog_topk, catalog_topk_plain,
                                                 compare_within_order_tol, groupmax,
@@ -4431,6 +4451,224 @@ def phase_scaling_failover(card) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------
+# phase 14: remat, the encoder blocks under activation checkpointing
+# --------------------------------------------------------------------------
+
+REMAT_CONFIGS = ("men", "flagship")  # bench.build_setup's: d = 64, 2 blocks, L = 200 / 50
+REMAT_COST_BATCHES = (B, 2048)
+REMAT_TIMED_CALLS = 3  # replays timed a turn, after the warm-up and the capture
+REMAT_FIT_EPOCHS = 2
+REMAT_FIT_TIMEOUT_S = 300
+
+
+def remat_state(s, base, remat_on: bool):
+    """A fresh train state over a copy of ``base``'s weights, its config's
+    ``remat`` set as asked (the generators seeded from ``s.tc``)."""
+    model = copy.deepcopy(base)
+    model.cfg = dataclasses.replace(model.cfg, remat=remat_on)
+    return create_train_state(model.cfg, s.tc, DEVICE, model=model,
+                              sparse_items=s.sparse_items)
+
+
+def remat_twins(card, config: str) -> dict:
+    """14a: the K-step call of ``bench.build_setup(config)`` at batch 256
+    and dropout 0.5 without and with remat, eagerly and through the graph,
+    in turns (no remat eager, remat eager, remat graph, no remat graph),
+    GRAPH_CALLS calls each from copies of one model, every launch counter
+    set to 0 before each run: the losses, parameters, Adam's state and both
+    generators bit-equal to the first run's; K1 launched n_blocks more
+    times a step with remat (at the encoder's shape), K2 and the Philox
+    seeds as often; each graph captured once, with one rewind generator
+    per checkpointed block with remat."""
+    t0 = time.perf_counter()
+    s = bench.build_setup(config, B, DEVICE, graph=False)
+    base, s.state = s.state.model, None
+    n_blocks, steps = base.cfg.n_blocks, GRAPH_CALLS * s.inner
+    enc = shape_key(base.cfg.seq_len, base.cfg.seq_len, 0)
+    runs = {}
+    for remat_on, graph in ((False, False), (True, False), (True, None), (False, None)):
+        torch.cuda.empty_cache()
+        state = remat_state(s, base, remat_on)
+        step = make_scanned_device_train_step(state.model.cfg, s.inner, s.tc,
+                                              sparse_items=s.sparse_items, graph=graph)
+        torch.cuda.synchronize()
+        drawn = kernel_seed.drawn
+        reset_counts()
+        losses = []
+        for i in range(GRAPH_CALLS):
+            state, k_losses = step(state, s.attrs, s.dd.arrays, s.chunks[i % len(s.chunks)])
+            losses.append(k_losses)
+        torch.cuda.synchronize()
+        runs[remat_on, graph] = {
+            "losses": torch.cat(losses), "launches": counts(), "step": step,
+            "seeds": kernel_seed.drawn - drawn,
+            "tensors": dict(state_tensors(state),
+                            seed_generator=state.seed_generator.get_state())}
+        del state
+    ref = runs[False, False]
+    out = {"config": config, "batch": B, "steps": steps, "calls": GRAPH_CALLS, "runs": {}}
+    for (remat_on, graph), r in runs.items():
+        tag = f"remat {str(remat_on).lower()} {'graph' if graph is None else 'eager'}"
+        diff = max_abs_diffs(r["tensors"], ref["tensors"])
+        loss_diff = (r["losses"] - ref["losses"]).abs().max().item()
+        extra = n_blocks * steps if remat_on else 0
+        fwd, bwd = r["launches"]["attention_fwd"], r["launches"]["attention_bwd"]
+        fwd_enc = r["launches"]["attention_fwd_by_shape"].get(enc, 0)
+        row = {"bit_equal": not any(diff.values()) and loss_diff == 0.0,
+               "max_diff": max(diff.values()), "loss_diff": loss_diff, "k1": fwd,
+               "k1_encoder": fwd_enc, "k2": bwd, "seeds": r["seeds"],
+               "launches": r["launches"]}
+        if graph is None:
+            row.update(captures=r["step"].captures, replays=r["step"].replays,
+                       rewind_generators=len(r["step"].rewind_gens))
+        out["runs"][tag] = row
+        check(row["bit_equal"], f"{config} {tag}: differs from no remat eager: max "
+                                f"{row['max_diff']}, loss {loss_diff}")
+        check(fwd == ref["launches"]["attention_fwd"] + extra and fwd_enc == ref["launches"][
+            "attention_fwd_by_shape"].get(enc, 0) + extra and fwd_enc > 0,
+              f"{config} {tag}: K1 launched {fwd} ({fwd_enc} at {enc}), no remat "
+              f"{ref['launches']['attention_fwd']}, want {extra} more")
+        check(bwd == ref["launches"]["attention_bwd"] > 0,
+              f"{config} {tag}: K2 launched {bwd}, no remat {ref['launches']['attention_bwd']}")
+        check(r["seeds"] == ref["seeds"] > 0, f"{config} {tag}: {r['seeds']} seeds drawn, "
+                                              f"no remat {ref['seeds']}")
+        if graph is None:
+            check((row["captures"], row["replays"]) == (1, GRAPH_CALLS - 1)
+                  and row["rewind_generators"] == (n_blocks * s.inner if remat_on else 0),
+                  f"{config} {tag}: {row['captures']} captures, {row['replays']} replays, "
+                  f"{row['rewind_generators']} rewind generators")
+    out["seconds"] = time.perf_counter() - t0
+    log("remat", card=card, case=f"{config}: remat against no remat, eager and graph, "
+        "dropout 0.5", **out)
+    del runs, ref, s, base
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_cost(card, config: str, batch: int) -> dict:
+    """14a: at ``batch``, in turns no remat, remat, remat, no remat, each
+    from a fresh state: the eager warm-up call's peak allocated over the
+    baseline (the state, before the call), the graph's pool after its
+    capture, and ms a step over REMAT_TIMED_CALLS replays (host clock,
+    synchronised); the launch counters set to 0 before the turns and read
+    after."""
+    s = bench.build_setup(config, batch, DEVICE, graph=False)
+    base, s.state = s.state.model, None
+    turns = []
+    reset_counts()
+    for remat_on in (False, True, True, False):
+        torch.cuda.empty_cache()
+        state = remat_state(s, base, remat_on)
+        step = make_scanned_device_train_step(state.model.cfg, s.inner, s.tc,
+                                              sparse_items=s.sparse_items)
+        torch.cuda.synchronize()
+        baseline = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        state, _ = step(state, s.attrs, s.dd.arrays, s.chunks[0])  # the eager warm-up
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - baseline
+        state, _ = step(state, s.attrs, s.dd.arrays, s.chunks[1])  # the capture, a replay
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(REMAT_TIMED_CALLS):
+            state, losses = step(state, s.attrs, s.dd.arrays, s.chunks[i % len(s.chunks)])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / (REMAT_TIMED_CALLS * s.inner)
+        check(step.mode == "graph" and step.captures == 1, f"{config} {batch}: not one graph")
+        check(bool(torch.isfinite(losses).all()), f"{config} {batch}: a non-finite loss")
+        turns.append({"remat": remat_on, "peak_over_baseline_mib": peak / 2**20,
+                      "graph_pool_mib": step.pool_bytes() / 2**20, "ms_per_step": ms,
+                      "baseline_mib": baseline / 2**20})
+        del state, step
+    launched = counts()
+    mean = {r: {k: statistics.mean(t[k] for t in turns if t["remat"] == r)
+                for k in ("peak_over_baseline_mib", "graph_pool_mib", "ms_per_step")}
+            for r in (False, True)}
+    out = {"config": config, "batch": batch, "inner_steps": s.inner, "turns": turns,
+           "peak_saving_share": 1 - mean[True]["peak_over_baseline_mib"]
+           / mean[False]["peak_over_baseline_mib"],
+           "pool_saving_share": 1 - mean[True]["graph_pool_mib"] / mean[False]["graph_pool_mib"],
+           "ms_ratio": mean[True]["ms_per_step"] / mean[False]["ms_per_step"],
+           "launches": launched}
+    log("remat", card=card, case=f"{config} batch {batch}: peak memory and ms a step, "
+        "no remat / remat in turns", **out)
+    del s, base
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_fits(card) -> dict:
+    """14b: `python -m carca_tpu_torch.cli --preset men --remat false|true
+    --epochs 2` (the cli's synthetic catalog, seed 0, the host pipeline),
+    the two processes started together: equal train losses and val HR@10 /
+    NDCG@10 in metrics.jsonl, args.json holding the flag, no note that it
+    is ignored, K1 launched more with remat and K2 as often."""
+    tmp = tempfile.mkdtemp(prefix="carca_remat_")
+    procs = {}
+    try:
+        for remat_on in (False, True):
+            out_dir = os.path.join(tmp, f"remat_{str(remat_on).lower()}")
+            procs[remat_on] = (out_dir, subprocess.Popen(
+                [sys.executable, "-m", "carca_tpu_torch.cli", "--preset", "men", "--remat",
+                 str(remat_on).lower(), "--epochs", str(REMAT_FIT_EPOCHS), "--resume", "false",
+                 "--seed", "0", "--out_dir", out_dir],
+                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        runs = {}
+        for remat_on, (out_dir, proc) in procs.items():
+            stdout, stderr = proc.communicate(timeout=REMAT_FIT_TIMEOUT_S)
+            if proc.returncode != 0:
+                sys.stderr.write(stdout[-4000:] + stderr[-4000:])
+            check(proc.returncode == 0, f"cli --preset men --remat {remat_on} exited "
+                                        f"{proc.returncode}")
+            with open(os.path.join(out_dir, "metrics.jsonl")) as fh:
+                rows = [json.loads(ln) for ln in fh]
+            with open(os.path.join(out_dir, "args.json")) as fh:
+                args = json.load(fh)
+            lines = stdout.splitlines()
+            runs[remat_on] = {
+                "train_loss": [r["train_loss"] for r in rows],
+                "val_hr10": [r["val_hr"] for r in rows],
+                "val_ndcg10": [r["val_ndcg"] for r in rows],
+                "args_remat": args.get("remat"),
+                "notes": [ln for ln in lines if ln.startswith("note:")],
+                "launches": json.loads(next(ln for ln in lines
+                                            if ln.startswith("launches: "))[10:]),
+                "memory": json.loads(next(ln for ln in lines if ln.startswith("memory: "))[8:])}
+            check(runs[remat_on]["args_remat"] is remat_on,
+                  f"args.json holds remat {args.get('remat')}, the flag said {remat_on}")
+            check("ignored" not in stdout, f"the remat {remat_on} fit printed a note that a flag "
+                                           f"is ignored: {runs[remat_on]['notes']}")
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    no, yes = runs[False], runs[True]
+    log("remat", card=card, case=f"cli --preset men --epochs {REMAT_FIT_EPOCHS}, remat false / "
+        "true", no_remat=no, remat=yes)
+    for key in ("train_loss", "val_hr10", "val_ndcg10"):
+        check(yes[key] == no[key] and len(no[key]) == REMAT_FIT_EPOCHS,
+              f"the men fits' {key}: remat {yes[key]}, no remat {no[key]}")
+    check(yes["launches"]["attention_fwd"] > no["launches"]["attention_fwd"] > 0
+          and yes["launches"]["attention_bwd"] == no["launches"]["attention_bwd"] > 0,
+          f"the men fits' launches: remat {yes['launches']}, no remat {no['launches']}")
+    return runs
+
+
+def phase_remat(card) -> dict:
+    """Phase 14. Returns what the kernels line needs: the twins' and the
+    cost turns' launches, K1/K2 at the batch-2048 encoders."""
+    twins = {c: remat_twins(card, c) for c in REMAT_CONFIGS}
+    cost = {(c, b): remat_cost(card, c, b) for c in REMAT_CONFIGS for b in REMAT_COST_BATCHES}
+    big = REMAT_COST_BATCHES[-1]
+    attn = {c: attention_at(card, big, L_MEN if c == "men" else L, L_MEN if c == "men" else L,
+                            0, where=f"remat {c}") for c in REMAT_CONFIGS}
+    fits = remat_fits(card)
+    return {"twins": twins, "cost": cost, "attn": attn, "fits": fits}
+
+
 def kernel_entry(name, source, replaces, n, err, ms_plain, bytes_moved, ops, operand, lib=None,
                  shape=None) -> dict:
     """One kernel of the kernels line."""
@@ -4612,6 +4850,43 @@ def kernel_entries(k1_err, k2_err, k3_err, k4_err, timings, k2_times, library, l
     return entries
 
 
+def remat_entries(r, timings, k2_times, library, k1_err, k2_err) -> list:
+    """The kernels line's entries for phase 14: K1/K2 at the encoder of
+    each REMAT_CONFIGS setup, the shapes remat launches K1 at twice: at
+    batch 256 (launches: the twins and the cost turns at 256; errors and
+    times: phases 3 and 6 at the men and encoder shapes) and at batch 2048
+    (launches: the cost turns at 2048; K1/K2 held to their plain versions
+    and timed in phase 14)."""
+    f32 = 4
+    entries = []
+    for c in REMAT_CONFIGS:
+        lq = L_MEN if c == "men" else L
+        key, timed_as = shape_key(lq, lq, 0), "men" if c == "men" else "encoder"
+        for b in REMAT_COST_BATCHES:
+            runs = [t["launches"] for t in r["twins"][c]["runs"].values()] if b == B else []
+            runs.append(r["cost"][c, b]["launches"])
+            n = {k: sum(run[f"attention_{k}_by_shape"].get(key, 0) for run in runs)
+                 for k in ("fwd", "bwd")}
+            if b == B:
+                k1, k1e, k2, k2e = (timings["K1", timed_as], k1_err,
+                                    k2_times[K2_TIMED[timed_as]]["bwd"], k2_err)
+                lib = library[timed_as]
+            else:
+                a = r["attn"][c]
+                k1, k1e, k2, k2e, lib = a["k1"], a["k1_err"], a["k2"], a["k2_err"], a["lib"]
+            masks = b * 2 * lq * f32
+            shape = f"remat {c} encoder [{b},{lq},{D}] causal 0 dropout {P_DROP}"
+            entries.append(kernel_entry(
+                f"attention_fwd_remat_{c}_b{b}", "carca_tpu_torch/csrc/attention_fwd.cu",
+                "carca_tpu/ops/flash_attention.py:113", n["fwd"], k1e, k1,
+                4 * b * lq * D * f32 + masks, 4 * b * lq * lq * D, "3xtf32", lib["fwd"], shape))
+            entries.append(kernel_entry(
+                f"attention_bwd_remat_{c}_b{b}", "carca_tpu_torch/csrc/attention_bwd.cu",
+                "carca_tpu/ops/flash_attention.py:130", n["bwd"], k2e, k2,
+                7 * b * lq * D * f32 + masks, 10 * b * lq * lq * D, "3xtf32", lib["bwd"], shape))
+    return entries
+
+
 def fit10m_entries(f, launches):
     """The kernels line's entries for the synthetic10m path (phase 10): K1/K2
     under bf16 compute at the fit's encoder (launches: the fit), K3 bf16 and
@@ -4722,6 +4997,8 @@ def main() -> None:
     families = timed("12 families", phase_families, card)
     torch.cuda.empty_cache()
     scaling = timed("13 scaling + failover", phase_scaling_failover, card)
+    torch.cuda.empty_cache()
+    remat = timed("14 remat", phase_remat, card)
     launches = {"slice": serve_launches, "slice_10m": launches_10m, "bench": bench_launches,
                 "train": train_launches, "fit_serve": fit_launches,
                 "fit_10m": fit10m["fit"]["launches"], **{
@@ -4733,12 +5010,19 @@ def main() -> None:
                 **{"scaling " + " ".join(run["args"]): run["ranks"]
                    for run in scaling["scaling"]},
                 **{f"failover {tag}": scaling["failover"][tag]["launches_by_rank"]
-                   for tag in ("run_b", "run_control")}}
+                   for tag in ("run_b", "run_control")},
+                **{f"remat {c} {tag}": run["launches"] for c, t in remat["twins"].items()
+                   for tag, run in t["runs"].items()},
+                **{f"remat {c} batch {b}": cost["launches"]
+                   for (c, b), cost in remat["cost"].items()},
+                **{f"remat fit {str(r).lower()}": f["launches"]
+                   for r, f in remat["fits"].items()}}
     log("launches", **launches)
     log("phase_seconds", total=sum(seconds.values()), **seconds)
     entries = (kernel_entries(k1_err, k2_err, k3_err, k4_err, timings, k2_times, library,
                               launches) + fit10m_entries(fit10m, launches) + mesh_entries(mesh)
-               + family_entries(families) + scaling_entries(scaling))
+               + family_entries(families) + scaling_entries(scaling)
+               + remat_entries(remat, timings, k2_times, library, k1_err, k2_err))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

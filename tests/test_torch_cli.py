@@ -1,6 +1,6 @@
 """The port's training command line (``python -m carca_tpu_torch.cli``)
 against the JAX package's: the same flags with the same defaults, the
-preset overlay, the flags the port cannot honour yet, a CPU run end to end
+preset overlay, the TPU-only flags it accepts and ignores, a CPU run end to end
 (when the caller asks for the CPU), and the presets."""
 
 import dataclasses
@@ -39,10 +39,13 @@ def test_parser_has_the_jax_flags_and_defaults():
      "--use_pallas", "false"],
     ["--preset", "games", "--dropout", "0.2", "--seed", "3", "--data_dir", "d"],
     ["--preset", "beauty"],
+    ["--preset", "men", "--remat", "true"],
+    ["--remat", "true", "--n_blocks", "3"],
 ])
 def test_config_from_args_equals_jax(argv):
     """Flags map onto the same Config in both packages (use_pallas becomes
-    use_kernel; the TPU-only pack_tables/remat have no field here)."""
+    use_kernel, remat stays remat; the TPU-only pack_tables has no field
+    here)."""
     ours = cli.config_from_args(cli.build_parser().parse_args(argv), 100, 8, 4)
     theirs = jax_cli.config_from_args(jax_cli.build_parser().parse_args(argv), 100, 8, 4)
     assert ours == config_from_jax(theirs)

@@ -665,3 +665,125 @@ def test_sharded_topk_merges_bit_equal_to_one_shard(dev, kind, method, n_shards,
     got_v, got_i = merge_shard_topk(vals, ids, k)
     torch.cuda.synchronize()
     assert torch.equal(got_i, want_i) and torch.equal(got_v, want_v)
+
+
+# --------------------------------------------------------------------------
+# remat: the encoder blocks under activation checkpointing, K1 launched
+# again in each block's recompute (models/remat.py)
+# --------------------------------------------------------------------------
+
+REMAT_B, REMAT_L, REMAT_K = 32, 50, 3
+
+
+def remat_calls(dev, remat_on, path, graph, compute_dtype="float32", calls=3):
+    """``calls`` train calls of ``path`` ("scanned": the K-step call;
+    "sparse": the same with the row-sparse item Adam; "device": the
+    one-step device call; "host": the host step) at dropout 0.5 on the
+    card, from the weights and generators of seed 5: (losses, state
+    tensors, K1 and K2 launches, seeds drawn, the step, steps taken)."""
+    from carca_tpu_torch.config import ModelConfig, TrainConfig
+    from carca_tpu_torch.data.dataset import BatchBuilder
+    from carca_tpu_torch.data.device_pipeline import DeviceDataset
+    from carca_tpu_torch.data.synthetic import synthetic_catalog
+    from carca_tpu_torch.ops.flash_attention import kernel_seed
+    from carca_tpu_torch.train.loop import (make_device_train_step,
+                                            make_scanned_device_train_step, make_train_step)
+    from carca_tpu_torch.train.state import create_train_state
+
+    cat = synthetic_catalog(n_users=300, n_real_items=2_000, seed=3)
+    mc = ModelConfig(n_items=cat.n_items, n_attrs=cat.n_attrs, n_ctx=cat.n_ctx, d=64, g=256,
+                     seq_len=REMAT_L, target_len=100, n_blocks=2, n_heads=2, dropout=0.5,
+                     decoder="ca", compute_dtype=compute_dtype, remat=remat_on)
+    tc = TrainConfig(batch_size=REMAT_B, inner_steps=REMAT_K, seed=5, lr_schedule="cosine",
+                     lr_decay_steps=20)
+    sparse = path == "sparse"
+    state = create_train_state(mc, tc, dev, sparse_items=sparse)
+    attrs = torch.as_tensor(cat.attrs, device=dev)
+    start = (fused_attention.launches, attention_bwd.launches, kernel_seed.drawn)
+    losses = []
+    if path != "host":
+        dd = DeviceDataset(cat, mc.seq_len, mc.target_len, device=dev)
+        users = dd.users("train")
+        k = 1 if path == "device" else REMAT_K
+        step = (make_device_train_step(mc, tc, graph=graph) if path == "device" else
+                make_scanned_device_train_step(mc, k, tc, sparse_items=sparse, graph=graph))
+        for c in range(calls):
+            rows = torch.as_tensor(np.stack([np.roll(users, -(c * k + i) * REMAT_B)[:REMAT_B]
+                                             for i in range(k)]))
+            state, lo = step(state, attrs, dd.arrays, rows[0] if path == "device" else rows)
+            losses.append(lo.reshape(-1))
+    else:
+        builder = BatchBuilder(cat, mc.seq_len, mc.target_len)
+        users, rng = builder.users("train"), np.random.default_rng(0)
+        step = make_train_step(mc, tc, graph=graph)
+        for c in range(calls):
+            b = builder.train_batch(np.roll(users, -c * REMAT_B)[:REMAT_B], rng)
+            b.pop("n_valid")
+            state, lo = step(state, attrs, b)
+            losses.append(lo.reshape(1))
+    torch.cuda.synchronize()
+    tensors = {f"param {n}": p.detach() for n, p in state.model.named_parameters()}
+    for i, st in enumerate(state.optimizer.state.values()):
+        tensors.update({f"adam {i} {k}": v for k, v in st.items()})
+    if sparse:
+        tensors["munu"] = state.items_state["munu"]
+    tensors["generator"] = state.generator.get_state()
+    tensors["seed_generator"] = state.seed_generator.get_state()
+    counts = (fused_attention.launches - start[0], attention_bwd.launches - start[1],
+              kernel_seed.drawn - start[2])
+    return torch.cat(losses), tensors, counts, step, state.step
+
+
+@pytest.mark.parametrize("path,graph,cd", [
+    ("scanned", False, "float32"), ("scanned", None, "float32"),
+    ("scanned", None, "bfloat16"), ("sparse", None, "float32"), ("device", None, "float32"),
+    ("host", None, "float32")])
+def test_remat_equals_no_remat_on_the_card(dev, path, graph, cd):
+    """K1/K2 under remat, eager and through a ``GraphedStep`` capture: the
+    losses, parameters, Adam's state and both generators bit-equal to the
+    call without remat; K1 launched once more per encoder block and step
+    (the recompute), K2 as often, the same Philox seeds drawn; the graph
+    captured once and replayed."""
+    base = remat_calls(dev, False, path, graph, cd)
+    got = remat_calls(dev, True, path, graph, cd)
+    assert torch.isfinite(base[0]).all()
+    assert torch.equal(got[0], base[0])
+    assert got[1].keys() == base[1].keys()
+    for name in base[1]:
+        assert torch.equal(got[1][name].cpu(), base[1][name].cpu()), name
+    k = REMAT_K if path in ("scanned", "sparse") else 1
+    steps = got[4]
+    assert steps == base[4] == 3 * k
+    k1, k2, seeds = base[2]
+    assert got[2] == (k1 + 2 * steps, k2, seeds) and k1 > 0 and k2 > 0 and seeds > 0
+    if graph is None:
+        assert (got[3].captures, got[3].replays) == (1, 2)
+        assert len(got[3].rewind_gens) == 2 * k
+
+
+def test_remat_capture_without_rewind_generators_raises(dev):
+    """A checkpointed block with dropout captured outside ``GraphedStep``
+    (a seed buffer installed, no rewind generators) raises instead of
+    recomputing with other bits."""
+    from carca_tpu_torch.config import ModelConfig
+    from carca_tpu_torch.models.carca import CARCA, encode_profile
+    from carca_tpu_torch.ops.flash_attention import seed_slots
+
+    mc = ModelConfig(n_items=100, n_attrs=4, n_ctx=2, d=64, n_blocks=2, seq_len=REMAT_L,
+                     dropout=0.5, remat=True)
+    model = CARCA(mc, device=dev).train()
+    g = torch.Generator(device=dev).manual_seed(0)
+    p_x = torch.randint(1, 100, (4, REMAT_L), device=dev, generator=g)
+    p_c = torch.zeros(4, REMAT_L, 2, device=dev)
+    attrs = torch.zeros(100, 4, device=dev)
+    seeds = torch.Generator().manual_seed(0)
+    encode_profile(model, (p_x, None, p_c), attrs_table=attrs, generator=g,
+                   seed_generator=seeds)[0].sum().backward()
+    torch.cuda.synchronize()
+    buf = torch.zeros(8, dtype=torch.int64, device=dev)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(g)
+    with pytest.raises(RuntimeError, match="needs rewind generators"):
+        with seed_slots(buf), torch.cuda.graph(graph):
+            encode_profile(model, (p_x, None, p_c), attrs_table=attrs, generator=g,
+                           seed_generator=seeds)

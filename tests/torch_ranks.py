@@ -400,8 +400,42 @@ def suite_failover(p):
     return fit(p["config"], synthetic_catalog(**p["catalog"]), device="cpu")[1]
 
 
+def suite_remat(p):
+    """tests/test_torch_remat.py's mesh case: the K-step device call over a
+    mesh of 2 data ranks, with and without remat; losses and the state."""
+    import numpy as np
+    import torch
+
+    from carca_tpu_torch.data.device_pipeline import DeviceDataset
+    from carca_tpu_torch.data.synthetic import synthetic_catalog
+    from carca_tpu_torch.parallel.mesh import make_mesh, prepare_state_for_mesh
+    from carca_tpu_torch.parallel.step import make_sharded_device_train_step
+    from carca_tpu_torch.train.state import create_train_state
+
+    cat = synthetic_catalog(**p["catalog"])
+    mesh = make_mesh((2,), ("data",))
+    out = {}
+    for remat_on, (mc, tc) in p["configs"].items():
+        dd = DeviceDataset(cat, mc.seq_len, mc.target_len, device="cpu")
+        users = dd.users("train")
+        b = tc.batch_size
+        rows = torch.as_tensor(np.stack([np.roll(users, -i * b)[:b]
+                                         for i in range(tc.inner_steps)]), dtype=torch.int64)
+        state = create_train_state(mc, tc, device="cpu")
+        prepare_state_for_mesh(state, mesh, False)
+        step = make_sharded_device_train_step(mc, tc, mesh, inner_steps=tc.inner_steps)
+        state, losses = step(state, torch.as_tensor(cat.attrs), dd.arrays, rows)
+        tensors = {f"param {n}": _np(t) for n, t in state.model.named_parameters()}
+        for i, st in enumerate(state.optimizer.state.values()):
+            tensors.update({f"adam {i} {k}": _np(torch.as_tensor(v)) for k, v in st.items()})
+        tensors["generator"] = _np(state.generator.get_state())
+        tensors["seed_generator"] = _np(state.seed_generator.get_state())
+        out[remat_on] = {"losses": _np(losses), "tensors": tensors}
+    return out
+
+
 SUITES = {"parallel": suite_parallel, "mesh_fit": suite_mesh_fit, "serve": suite_serve,
-          "failover": suite_failover}
+          "failover": suite_failover, "remat": suite_remat}
 
 
 def main() -> None:
