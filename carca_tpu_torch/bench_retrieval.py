@@ -22,7 +22,7 @@ queries/s of every leg, and every leg's top-k device time alone.
 
 ``--sweep`` embeds 10M items once and times ``catalog_topk`` alone (CUDA
 events) with the stream and the tournament, over the first 100k, 1M, 2M, 5M
-and 10M rows, B ∈ {1, 8, 64, 256}, k ∈ {10, 562}, f32 and int8 indexes (bf16 at
+and 10M rows, B ∈ {1, 8, 64, 256}, k ∈ {10, 60, 562}, f32 and int8 indexes (bf16 at
 10M), and the flat against the recursive stage 2 at 10M: one JSON line per
 case. It is the measurement behind "auto"'s thresholds and
 ``_RECURSIVE_MIN_GROUPS`` in ``ops/retrieval_topk.py``. Needs a CUDA card.
@@ -44,7 +44,7 @@ from carca_tpu_torch.parallel.retrieval import (catalog_in_decoder_space, embed_
 
 SWEEP_ROWS = (100_000, 1_000_000, 2_000_000, 5_000_000, 10_000_000)
 SWEEP_BATCHES = (1, 8, 64, 256)
-SWEEP_KS = (10, 562)
+SWEEP_KS = (10, 60, 562)
 
 
 def device_ms(fn, budget_ms: float = 300.0) -> float:

@@ -29,40 +29,67 @@
 //
 // Design. The TPU kernel extracts k winners per chunk by k rounds of
 // max-and-suppress; that is not carried over. Instead:
-//   1. select_kernel<T>: one block of 8 warps per (QB <= 8 queries, row
-//      split); the splits cut the rows into ranges of a multiple of 128
-//      rows, as many as fill the card about two waves deep. The block walks
-//      its range in 128-row tiles (rows and int8 scales) copied by cp.async
-//      into a ring of two buffers; each warp scores 16 rows against the block's queries (one n8
-//      tile, scoring.cuh) and offers each (row, query) key to the query's
-//      running list: a key above the query's threshold takes a slot by a
-//      shared-memory atomic. A list holds k + slack slots (slack 256 to
-//      2048, as shared memory allows); before a tile
-//      could overflow it, the query's warp selects the k largest keys by a
-//      radix select (8-bit digits from the top; keys are unique, so exactly
-//      k keys are >= the k-th), compacts them into the first k slots in
-//      place, and raises the threshold to the k-th key. No list is ever
-//      sorted here: work grows with the keys that beat the threshold, not
-//      with the rows. Each (query, split) writes its k keys, unsorted, to
-//      the scratch [B, splits, k] (zeros for empty slots).
-//   2. final_kernel: one block per query streams its splits * k keys
-//      through the same running list, then sorts the <= k survivors
+//   1. select_kernel<T>: one block per (query block, row split); the splits
+//      cut the rows into ranges of a multiple of 128 rows (stream_plan: one
+//      wave of the blocks the card holds, four at k >= 256, at most 528
+//      blocks; ranges as short as 256 rows where few blocks would leave the
+//      card idle). A block is two
+//      producer warps and up to 8 consumer warps. The producers copy the
+//      split's rows (and int8 scales) by cp.async, 64 rows a slot, into a
+//      ring of 2 to 16 slots (32 KB, 64 KB where an SM holds one block
+//      anyway); mbarriers say when a slot is full and when
+//      its consumers have read it, so no __syncthreads follows the set-up
+//      and a consumer waits for no other. The consumers are `groups` query
+//      groups, a warp each: a warp scores its group's n8 tile (per_warp <= 8
+//      queries, fragments in registers) against the four 16-row mma tiles
+//      of every slot, and frees the slot once the scores are in registers.
+//      At B >= 64 a block holds 64 queries, so the index is read once per 64
+//      queries. Where the plan leaves fewer than 264 consumer warps on the
+//      card (few queries, few rows against k), a warp takes fewer queries:
+//      more warps share a block's rows, then more query blocks read them.
+//      Each warp keeps its own list per query (k + slack keys, the slack 64
+//      + 2k as shared memory allows) and in registers each query's
+//      threshold (its key and value) and its list's count. A tile's 16
+//      scores a lane holds are compared with the threshold's value at once
+//      (a bit mask, no branch); only a tile with a hit goes on: the hits'
+//      keys against the threshold's key, each lane's place among the 8
+//      lanes that hold its queries by a scan of shuffles, and the stores.
+//      Before a tile could overflow a list (64 keys a query), the warp trims
+//      it by a radix select (8-bit digits from the highest bit where the
+//      keys differ) that stops at the first digit whose bin leaves at most
+//      (slack - 64) / 2 keys beyond the k largest, keeps the keys >= that
+//      bin's floor at the front, and raises the threshold to it. Only that
+//      warp stops for it. At the end each list is selected exactly (the k
+//      largest keys are exactly those >= the bound the walk ends at: keys
+//      are unique), and each (query, split) writes its k keys,
+//      unsorted, to the scratch [B, splits, k] (zeros for empty
+//      slots).
+//   2. final_kernel: one block per query streams its splits * k
+//      keys, 2048 a step (8 loads a thread issued together: a step is bound
+//      by L2's latency), through one running list (k + 4096 slots, trimmed
+//      as the select pass trims), selects the k largest exactly, sorts them
 //      (bitonic, in shared memory) and decodes keys -> (value, id +
-//      id_offset), -inf -> id 0.
-// The selection is exactly the first k of a full sort of the keys: the
-// radix select finds the k-th key exactly and every key above it is kept.
-// The scratch is B * splits * k * 8 bytes with splits <= ceil(528 QB / B)
-// + 1, independent of R (~20 MB at B = 256, k = 562; the merge tree it
-// replaces took B * ceil(R / 1024) * k * 12 bytes, ~17 GB at 10M rows).
-// What bounds it on the H100: the products at large B (2 B R d operations,
-// on the tensor cores), the index's bytes at small B (R d bytes at int8,
-// read once per QB queries; the query blocks of one split run side by
-// side and meet in L2), and at small R the threshold's warm-up (the first
-// k rows of every split all enter the list).
-// Rows wider than 128 columns (kWide) are scored in 128-column chunks: a
-// tile's chunks are staged one after another into the first buffer and the
-// scores accumulate across them (scoring.cuh, score_acc) before the keys
-// are offered; this path keeps no copy in flight.
+//      id_offset), -inf -> id 0. stream_plan keeps a query's keys at most
+//      32,768 for k <= 4096 (65,536 where fewer blocks than SMs would be
+//      left).
+// The selection is exactly the first k of a full sort of the keys: every
+// trim keeps every key >= its bound, at least k of them, and the last one
+// keeps exactly the k largest.
+// The scratch is B * splits * k * 8 bytes, independent of R.
+// What bounds it on the H100: not the index's bytes (at the retrieval
+// monitor's shape, [256, 64] x 468,273 bf16 rows, four query blocks read
+// 240 MB through L2, ~60 MB from HBM), but the work per (row, query) and
+// per key that beats a threshold, on a few warps an SM (the lists take the
+// shared memory): the products (2 B R d operations on mma.sync, and an int8
+// row's widening to bf16 in every query group), one compare per (row,
+// query), and the keys that enter the lists (about k (1 + ln(rows per
+// split / k)) a list, twice that with the threshold raised only by trims)
+// with the trims they cause. Where k is large against a split's rows, the
+// first rows of every split all enter its lists.
+// Rows wider than 128 columns (kWide) are scored in 128-column chunks: the
+// producer copies a tile's chunks into consecutive slots and the warps
+// accumulate the scores across them (scoring.cuh, score_acc) before the
+// keys are offered.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -79,11 +106,16 @@ using carca::AFrag;
 using carca::QFrag;
 typedef unsigned long long u64;
 
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kTileRows = 16 * kWarps;  // rows per tile: one 16-row mma tile per warp
-constexpr int kFinalSlack = 2048;      // list slots beyond k in the final pass
-constexpr int kMaxQB = kWarps;          // queries per select block: one n8 tile
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxWarps = 8;                  // consumer warps of a select block
+constexpr int kProducers = 2;                 // producer warps of a select block
+constexpr int kSelectThreads = 32 * (kMaxWarps + kProducers);
+constexpr int kTileRows = 64;                 // rows of a ring slot: four 16-row mma tiles
+constexpr int kMT = kTileRows / 16;
+constexpr int kMinSlack = kTileRows;          // list slots beyond k, at least
+constexpr int kThreads = 256;                 // final_kernel
+constexpr int kFinalSlack = 4096;             // list slots beyond k in the final pass
+constexpr int kFinalPer = 8;                  // keys a final-pass thread loads a step
 // below every real key: the key of -inf at the highest row id. Masked rows
 // never enter a list, and an empty slot (key 0) decodes as -inf, id 0.
 constexpr u64 kFloor = 0x007FFFFFFFFFFFFFull;
@@ -95,21 +127,79 @@ __device__ __forceinline__ u64 make_key(float s, long long row) {
   return ((u64)u << 32) | (u64)(~(unsigned int)row);
 }
 
-// The k largest of the n > k distinct keys arr[0..n) into arr[0..k) (any
-// order), by one warp; returns the k-th largest. hist: 256 words of this
-// warp's shared memory.
-__device__ u64 warp_select(u64* arr, int n, int k, unsigned* hist) {
+// the score a key's high word holds (-inf for kFloor and below)
+__device__ __forceinline__ float key_value(u64 key) {
+  const unsigned int u = (unsigned int)(key >> 32);
+  if (u <= 0x007FFFFFu) return -INFINITY;
+  const int k32 = (int)(u ^ 0x80000000u);
+  return __int_as_float(k32 < 0 ? (k32 ^ 0x7FFFFFFF) : k32);
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers (shared memory, CTA scope)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(u64* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(u64* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// one arrival once every cp.async this thread issued before it is complete
+__device__ __forceinline__ void mbar_arrive_cp_async(u64* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(u64* bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// Of the n > k distinct keys arr[0..n), by one warp: a bound lo such that
+// the keys >= lo are the largest, at least k and at most k + loose of them
+// (exactly k for loose = 0: lo is then the k-th largest key, or its
+// prefix), moved to the front of arr (any order); returns lo and writes
+// their count to *kept. hist: 256 words of this warp's shared memory. A
+// radix walk from the highest bit where the keys differ (they share the
+// sign and most of the exponent), 8 bits a pass, that stops once the keys
+// under the current prefix that rank below the k-th number at most loose.
+__device__ u64 warp_select(u64* arr, int n, int k, unsigned* hist, int loose, int* kept) {
   const int lane = threadIdx.x % 32;
   const unsigned lt = (1u << lane) - 1u;
-  u64 prefix = 0, pmask = 0, kth = 0;
+  const u64 first = arr[0];
+  u64 diff = 0;
+  for (int i = lane; i < n; i += 32) diff |= arr[i] ^ first;
+  const unsigned dhi = __reduce_or_sync(kFull, (unsigned)(diff >> 32));
+  const unsigned dlo = __reduce_or_sync(kFull, (unsigned)diff);
+  int hi = dhi != 0 ? 63 - __clz((int)dhi) : 31 - __clz((int)dlo);  // n > 1 distinct keys
+  u64 pmask = ~((2ull << hi) - 1ull);  // the bits above hi, which every key shares
+  u64 prefix = first & pmask;
   int want = k;  // rank of the k-th key among the keys matching prefix
-  bool found = false;
-  for (int shift = 56; shift >= 0 && !found; shift -= 8) {
+  int n_kept = k;
+  for (; hi >= 0; hi -= 8) {
+    const int shift = hi >= 7 ? hi - 7 : 0;
+    const unsigned dmask = (2u << (hi - shift)) - 1u;  // this pass's digit: bits shift..hi
     for (int u = lane; u < 256; u += 32) hist[u] = 0;
     __syncwarp();
     for (int i = lane; i < n; i += 32) {
       const u64 x = arr[i];
-      if ((x & pmask) == prefix) atomicAdd(hist + ((x >> shift) & 255), 1u);
+      if ((x & pmask) == prefix) atomicAdd(hist + ((x >> shift) & dmask), 1u);
     }
     __syncwarp();
     // lane l holds bins 255 - 8l - u, u < 8: the digits from the top
@@ -119,11 +209,11 @@ __device__ u64 warp_select(u64* arr, int n, int k, unsigned* hist) {
     unsigned incl = sum;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-      const unsigned y = __shfl_up_sync(0xffffffffu, incl, off);
+      const unsigned y = __shfl_up_sync(kFull, incl, off);
       if (lane >= off) incl += y;
     }
     const unsigned excl = incl - sum;
-    const unsigned owner = __ballot_sync(0xffffffffu, excl < (unsigned)want && (unsigned)want <= incl);
+    const unsigned owner = __ballot_sync(kFull, excl < (unsigned)want && (unsigned)want <= incl);
     const int src = __ffs(owner) - 1;
     unsigned bin = 0, above = excl, in_bin = 0;
     if (lane == src) {
@@ -137,68 +227,46 @@ __device__ u64 warp_select(u64* arr, int n, int k, unsigned* hist) {
         }
       }
     }
-    bin = __shfl_sync(0xffffffffu, bin, src);
-    above = __shfl_sync(0xffffffffu, above, src);
-    in_bin = __shfl_sync(0xffffffffu, in_bin, src);
+    bin = __shfl_sync(kFull, bin, src);
+    above = __shfl_sync(kFull, above, src);
+    in_bin = __shfl_sync(kFull, in_bin, src);
     prefix |= (u64)bin << shift;
-    pmask |= 0xFFull << shift;
+    pmask |= (u64)dmask << shift;
     want -= (int)above;
-    if (in_bin == 1 && shift > 0) {  // one key left under the prefix: it is the k-th
-      u64 mine = 0;
-      for (int i = lane; i < n; i += 32) {
-        const u64 x = arr[i];
-        if ((x & pmask) == prefix) mine = x;
-      }
-      const unsigned has = __ballot_sync(0xffffffffu, mine != 0);
-      kth = __shfl_sync(0xffffffffu, mine, __ffs(has) - 1);
-      found = true;
-    }
     __syncwarp();
+    if ((int)in_bin - want <= loose) {  // the keys >= prefix: k - want above, in_bin in the bin
+      n_kept = k - want + (int)in_bin;
+      break;
+    }
   }
-  if (!found) kth = prefix;
-  // keepers beyond k to the front of the tail, in order (writes never pass reads)
+  // the keys >= prefix to the front, in order (writes never pass reads)
   int m = 0;
-  for (int base = k; base < n; base += 32) {
+  for (int base = 0; base < n; base += 32) {
     const int i = base + lane;
     const u64 x = i < n ? arr[i] : 0;
-    const bool keep = i < n && x >= kth;
-    const unsigned bal = __ballot_sync(0xffffffffu, keep);
+    const bool keep = i < n && x >= prefix;
+    const unsigned bal = __ballot_sync(kFull, keep);
     __syncwarp();
-    if (keep) arr[k + m + __popc(bal & lt)] = x;
+    if (keep) arr[m + __popc(bal & lt)] = x;
     m += __popc(bal);
     __syncwarp();
   }
-  // then into the holes (keys below the k-th) of the first k slots
-  int h = 0;
-  for (int base = 0; base < k; base += 32) {
-    const int i = base + lane;
-    const bool hole = i < k && arr[i] < kth;
-    const unsigned bal = __ballot_sync(0xffffffffu, hole);
-    if (hole) arr[i] = arr[k + h + __popc(bal & lt)];
-    h += __popc(bal);
-  }
-  __syncwarp();
-  return kth;
+  *kept = n_kept;
+  return prefix;
 }
 
-constexpr int kRing = 2;  // tiles in flight (deeper rings cost more than they hid: fewer blocks fit)
-
-// a tile in shared memory: its rows, then their scales
+// a ring slot in shared memory: its rows, then their scales
 template <typename T, int kD>
-__host__ __device__ constexpr int tile_bytes() {
+__host__ __device__ constexpr int slot_bytes() {
   return kTileRows * (carca::row_stride_bytes<T>(kD) + 4);
 }
 
+// select_kernel's shared memory: the mbarriers, the ring's slots, each
+// consumer warp's lists (per_warp x (k + slack) keys) and histogram
 template <typename T, int kD>
-__host__ __device__ constexpr size_t ring_bytes() {
-  return kRing * (size_t)tile_bytes<T, kD>();
-}
-
-// select_kernel's shared memory: the ring, the lists, thresholds, counts,
-// one histogram per warp
-size_t lists_bytes(int k, int QB, int slack) {
-  return sizeof(u64) * ((size_t)QB * (k + slack) + QB) + sizeof(int) * kMaxQB +
-         sizeof(unsigned) * 256 * kWarps;
+size_t select_bytes(int k, int warps, int per_warp, int slack, int slots) {
+  return 16 * (size_t)slots + slots * (size_t)slot_bytes<T, kD>() +
+         sizeof(u64) * (size_t)warps * per_warp * (k + slack) + sizeof(unsigned) * 256 * warps;
 }
 
 size_t final_bytes(int kpad) {
@@ -210,131 +278,243 @@ struct SelectArgs {
   const void* e;
   const float* scales;
   u64* scratch;
-  int B, R, d, k, QB, slack, splits, rows_per_split, lim0, mask_row0, vec;
+  int B, R, d, k, groups, per_warp, slack, slots, splits, rows_per_split, lim0,
+      mask_row0, vec;
 };
 
+// The producers' copy of rows [row0, row0 + kTileRows), columns [col0, col0
+// + kD), into a slot, by producer thread p of 32 kProducers: cp.async in
+// 16-byte chunks, zeros past R and past d (e 16-byte aligned, d * sizeof(T)
+// a multiple of 16).
+template <typename T, int kD>
+__device__ __forceinline__ void produce_rows(char* dst, const T* __restrict__ e, long long row0,
+                                             long long R, int d, int col0, int p) {
+  constexpr int kChunks = kD * (int)sizeof(T) / 16;  // 4 to 32 a row
+  constexpr int kStride = carca::row_stride_bytes<T>(kD);
+  const int c = p % kChunks;
+  const bool live = c < (d - col0) * (int)sizeof(T) / 16;
+  const char* base = reinterpret_cast<const char*>(e) + (size_t)col0 * sizeof(T) + 16 * c;
+#pragma unroll 4
+  for (int r = p / kChunks; r < kTileRows; r += 32 * kProducers / kChunks) {
+    const long long row = row0 + r;
+    const bool in = live && row < R;
+    carca::cp_async16(dst + r * kStride + 16 * c, in ? base + row * d * (long long)sizeof(T) : base,
+                      in ? 16 : 0);
+  }
+}
+
 template <typename T, int kD, bool kWide>
-__global__ void __launch_bounds__(kThreads) select_kernel(const SelectArgs a) {
+__global__ void __launch_bounds__(kSelectThreads) select_kernel(const SelectArgs a) {
   constexpr int KS = kD / carca::kStep<T>;
   constexpr int stride = carca::row_stride_bytes<T>(kD);
+  constexpr int SB = slot_bytes<T, kD>();
+  // mma tiles scored at once: their A fragments stay within ~64 registers
+  constexpr int kFragRegs = KS * (carca::kIsF32<T> ? 8 : 4);
+  constexpr int kUnroll = kFragRegs >= 64 ? 1 : (64 / kFragRegs >= kMT ? kMT : 64 / kFragRegs);
   extern __shared__ float4 smem4[];
-  char* ring = reinterpret_cast<char*>(smem4);
+  const int NS = a.slots;
+  u64* full = reinterpret_cast<u64*>(smem4);               // [NS]: a slot's rows are in
+  u64* empty = full + NS;                                   // [NS]: its consumers read it
+  char* ring = reinterpret_cast<char*>(empty + NS);         // [NS][SB]
   const int cap = a.k + a.slack;
-  u64* lists = reinterpret_cast<u64*>(ring + ring_bytes<T, kD>());  // [QB][cap]
-  u64* thr = lists + (size_t)a.QB * cap;                              // [QB]
-  int* cnt = reinterpret_cast<int*>(thr + a.QB);                      // [kMaxQB]
-  unsigned* hist = reinterpret_cast<unsigned*>(cnt + kMaxQB);         // [kWarps][256]
+  const int warps = a.groups;
+  u64* lists = reinterpret_cast<u64*>(ring + (size_t)NS * SB);  // [warps][per_warp][cap]
+  unsigned* hist = reinterpret_cast<unsigned*>(lists + (size_t)warps * a.per_warp * cap);
 
-  const T* e = static_cast<const T*>(a.e);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int qblocks = (a.B + a.QB - 1) / a.QB;
-  const int b0 = (blockIdx.x % qblocks) * a.QB;
+  const int qb = a.groups * a.per_warp;
+  const int qblocks = (a.B + qb - 1) / qb;
+  const int b0 = (blockIdx.x % qblocks) * qb;
   const int split = blockIdx.x / qblocks;
-  const int nq = min(a.QB, a.B - b0);
+  const int nq = min(qb, a.B - b0);
+  const int active = (nq + a.per_warp - 1) / a.per_warp;  // groups with a real query
   const long long r_begin = (long long)split * a.rows_per_split;
   const long long r_end = min((long long)a.R, r_begin + a.rows_per_split);
-  const int n_tiles = (int)((r_end - r_begin + kTileRows - 1) / kTileRows);
+  const int nch = kWide ? carca::score_chunks(a.d) : 1;
+  const int n_tiles = r_end > r_begin ? (int)((r_end - r_begin + kTileRows - 1) / kTileRows) : 0;
+  const T* e = static_cast<const T*>(a.e);
 
-  if (threadIdx.x < a.QB) {
-    cnt[threadIdx.x] = 0;
-    thr[threadIdx.x] = kFloor;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + s, 32 * kProducers);  // the producers' lanes
+      mbar_init(empty + s, active);     // one warp of each active group
+    }
   }
-  // column g: query b0 + g (a padding query past nq)
-  const float* my_q = g < nq ? a.q + (size_t)(b0 + g) * a.d : nullptr;
+  __syncthreads();
+
+  if (warp >= warps) {  // the producers: item j = (tile j / nch, chunk j % nch) into slot j % NS
+    const int p = threadIdx.x - 32 * warps;
+    const bool async = a.vec && (a.scales == nullptr || carca::async_scales(a.scales));
+    for (int j = 0; j < n_tiles * nch; ++j) {
+      const int slot = j % NS;
+      if (j >= NS) mbar_wait(empty + slot, (j / NS - 1) & 1);
+      const int i = j / nch, ch = j - i * nch;
+      const long long row0 = r_begin + (long long)i * kTileRows;
+      char* buf = ring + (size_t)slot * SB;
+      if (a.vec)
+        produce_rows<T, kD>(buf, e, row0, a.R, a.d, ch * kD, p);
+      else
+        carca::stage_rows_by<T>(p, 32 * kProducers, buf, e, row0, kTileRows, a.R, a.d, kD, stride,
+                                false, ch * kD);
+      carca::stage_scales_by(p, 32 * kProducers, reinterpret_cast<float*>(buf + kTileRows * stride),
+                             a.scales, row0, kTileRows, a.R);
+      if (async) {
+        mbar_arrive_cp_async(full + slot);
+      } else {
+        carca::cp_async_wait<0>();
+        mbar_arrive(full + slot);
+      }
+    }
+    carca::cp_async_wait<0>();
+    return;
+  }
+  if (warp >= active) return;
+
+  // a consumer: group `warp` scores every tile; lane (g, t) holds the
+  // group's queries 2t and 2t + 1, and column g of the n8 tile is the
+  // group's query g
+  const int qw0 = warp * a.per_warp;  // the group's first query in the block
+  const int nq_w = min(a.per_warp, nq - qw0);
+  const float* my_q = g < nq_w ? a.q + (size_t)(b0 + qw0 + g) * a.d : nullptr;
   QFrag<T> bq[KS];
   if constexpr (!kWide) {
 #pragma unroll
     for (int s = 0; s < KS; ++s) bq[s] = carca::query_frag<T>(my_q, a.d, s, t);
   }
-
-  constexpr int NR = kRing;
-  constexpr int TB = tile_bytes<T, kD>();
-  auto stage = [&](int i) {  // tile i into buffer i % NR
-    char* buf = ring + (i % NR) * TB;
-    const long long row0 = r_begin + (long long)i * kTileRows;
-    carca::stage_rows<T>(buf, e, row0, kTileRows, a.R, a.d, kD, stride, a.vec);
-    carca::stage_scales(reinterpret_cast<float*>(buf + kTileRows * stride), a.scales, row0,
-                        kTileRows, a.R);
-  };
-  // offer tile i's scores c (this warp's rows, scl their int8 scales) to the lists
-  auto offer = [&](int i, const float (&c)[4], const float* scl) {
+  u64* my_lists = lists + (size_t)warp * a.per_warp * cap;
+  unsigned* my_hist = hist + 256 * warp;
+  // per query 2t + u: its threshold, the key and the value it holds (+inf
+  // for a padding query: nothing passes), and its list's count (the same in
+  // the 8 lanes of a t)
+  u64 thr[2];
+  float thr_v[2];
+  int cnt[2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long row = r_begin + (long long)i * kTileRows + 16 * warp + g + 8 * h;
-      const bool live = row < r_end && carca::row_valid((int)row, a.lim0, a.mask_row0);
-      const float sc = a.scales != nullptr ? scl[16 * warp + g + 8 * h] : 1.f;
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int qi = 2 * t + u;
-        if (!live || qi >= nq) continue;
-        const u64 key = make_key(carca::finish<T>(c[2 * h + u], sc, true), row);
-        if (key > thr[qi]) lists[(size_t)qi * cap + atomicAdd(cnt + qi, 1)] = key;
-      }
-    }
-  };
-  auto select_own = [&](int keep_above) {  // the warp of query `warp` trims its list
-    if (warp < nq && cnt[warp] > keep_above) {
-      const u64 kth = warp_select(lists + (size_t)warp * cap, cnt[warp], a.k, hist + 256 * warp);
-      if (lane == 0) {
-        cnt[warp] = a.k;
-        thr[warp] = kth;
-      }
-    }
-  };
-
-  if constexpr (kWide) {
-    const int nch = carca::score_chunks(a.d);
-    const float* scl = reinterpret_cast<const float*>(ring + kTileRows * stride);
-    for (int i = 0; i < n_tiles; ++i) {
-      const long long row0 = r_begin + (long long)i * kTileRows;
-      float c[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int ch = 0; ch < nch; ++ch) {
-        carca::stage_rows<T>(ring, e, row0, kTileRows, a.R, a.d, kD, stride, a.vec, ch * kD);
-        if (ch == 0)
-          carca::stage_scales(reinterpret_cast<float*>(ring + kTileRows * stride), a.scales,
-                              row0, kTileRows, a.R);
-        carca::cp_async_commit();
-        carca::cp_async_wait<0>();
-        __syncthreads();  // the chunk is in
-        carca::chunk_query_frags<T, KS>(bq, my_q, a.d, ch, t);
-        AFrag<T> af[KS];
-        carca::load_a<T, KS>(af, ring + (16 * warp + g) * stride, stride, t);
-        carca::score_acc<T, KS>(c, af, bq);
-        __syncthreads();  // the buffer is free for the next chunk
-      }
-      offer(i, c, scl);
-      __syncthreads();  // every key of tile i is in; the scales are free
-      select_own(cap - kTileRows);
-    }
-  } else {
-#pragma unroll
-  for (int i = 0; i < NR - 1; ++i) {
-    if (i < n_tiles) stage(i);
-    carca::cp_async_commit();
+  for (int u = 0; u < 2; ++u) {
+    thr[u] = kFloor;
+    thr_v[u] = 2 * t + u < nq_w ? -INFINITY : INFINITY;
+    cnt[u] = 0;
   }
+
+  // list qi (warp-uniform), if it holds more than keep keys, down to its
+  // k largest and at most `loose` more; the threshold rises to their bound
+  auto trim = [&](int qi, int keep, int loose) {
+    const int n = __shfl_sync(kFull, (qi & 1) ? cnt[1] : cnt[0], qi >> 1);
+    if (n <= keep) return;
+    __syncwarp();
+    int kept;
+    const u64 lo = warp_select(my_lists + (size_t)qi * cap, n, a.k, my_hist, loose, &kept) - 1;
+    if (t == qi >> 1) {
+      if (qi & 1) {
+        thr[1] = lo, thr_v[1] = key_value(lo), cnt[1] = kept;
+      } else {
+        thr[0] = lo, thr_v[0] = key_value(lo), cnt[0] = kept;
+      }
+    }
+  };
+  // room for the kTileRows keys per query that a tile can offer
+  auto make_room = [&]() {
+    const unsigned over0 = __ballot_sync(kFull, cnt[0] > cap - kTileRows) & 0xFu;
+    const unsigned over1 = __ballot_sync(kFull, cnt[1] > cap - kTileRows) & 0xFu;
+    for (unsigned over = over0 | (over1 << 4); over != 0; over &= over - 1) {
+      const int b = __ffs(over) - 1;  // query 2 (b % 4) + b / 4
+      trim(2 * (b & 3) + (b >> 2), cap - kTileRows, (a.slack - kTileRows) / 2);
+    }
+  };
+
   for (int i = 0; i < n_tiles; ++i) {
-    if (i + NR - 1 < n_tiles) stage(i + NR - 1);  // the buffer tile i - 1 used
-    carca::cp_async_commit();
-    carca::cp_async_wait<NR - 1>();
-    __syncthreads();  // tile i is in; the lists' merges of tile i - 1 are done
-    const char* buf = ring + (i % NR) * TB;
-    const float* scl = reinterpret_cast<const float*>(buf + kTileRows * stride);
-    AFrag<T> af[KS];
-    carca::load_a<T, KS>(af, buf + (16 * warp + g) * stride, stride, t);
-    float c[4];
-    carca::score_tile<T, KS>(c, af, bq);
-    offer(i, c, scl);
-    __syncthreads();              // every key of tile i is in; its buffer is free
-    select_own(cap - kTileRows);  // the next tile must fit
+    float c[kMT][4], sc0[kMT], sc8[kMT];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) c[mt][0] = c[mt][1] = c[mt][2] = c[mt][3] = 0.f;
+    for (int ch = 0; ch < nch; ++ch) {
+      const int j = i * nch + ch, slot = j % NS;
+      mbar_wait(full + slot, (j / NS) & 1);
+      const char* buf = ring + (size_t)slot * SB;
+      const float* scl = reinterpret_cast<const float*>(buf + kTileRows * stride);
+      if constexpr (kWide) carca::chunk_query_frags<T, KS>(bq, my_q, a.d, ch, t);
+#pragma unroll(kUnroll)
+      for (int mt = 0; mt < kMT; ++mt) {
+        AFrag<T> af[KS];
+        carca::load_a<T, KS>(af, buf + (16 * mt + g) * stride, stride, t);
+        carca::score_acc<T, KS>(c[mt], af, bq);  // from zero over the chunks: score_tile's sequence
+      }
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        sc0[mt] = a.scales != nullptr ? scl[16 * mt + g] : 1.f;
+        sc8[mt] = a.scales != nullptr ? scl[16 * mt + g + 8] : 1.f;
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + slot);  // the scores are in registers: the slot is free
+    }
+    // the finished scores; bit 4 mt + 2 h + u: (row 16 mt + g + 8 h, query
+    // 2t + u) passes the threshold's value
+    const long long row0 = r_begin + (long long)i * kTileRows;
+    float sv[kMT][4];
+    unsigned hit = 0;
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        sv[mt][x] = carca::finish<T>(c[mt][x], x < 2 ? sc0[mt] : sc8[mt], true);
+        hit |= (sv[mt][x] >= thr_v[x & 1] ? 1u : 0u) << (4 * mt + x);
+      }
+    // rows past the split's end or the valid rows, and the pad row
+    if (row0 + kTileRows > min(r_end, (long long)a.lim0) || (row0 == 0 && a.mask_row0)) {
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const long long row = row0 + 16 * mt + g + 8 * h;
+          if (!(row < r_end && carca::row_valid((int)row, a.lim0, a.mask_row0)))
+            hit &= ~(3u << (4 * mt + 2 * h));
+        }
+    }
+    if (!__any_sync(kFull, hit != 0)) continue;
+    make_room();
+    // the hits whose key beats the threshold; each lane's count per query
+    // u, its place among the 8 lanes of its t (a scan over g), and the total
+    u64 key[kMT][4];
+    unsigned take = 0;
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        key[mt][x] = make_key(sv[mt][x], row0 + 16 * mt + g + 8 * (x >> 1));
+        take |= (key[mt][x] > thr[x & 1] ? 1u : 0u) << (4 * mt + x);
+      }
+    take &= hit;
+    const int n0 = __popc(take & 0x5555u), n1 = __popc(take & 0xAAAAu);
+    int s0 = n0, s1 = n1;
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {
+      const int y0 = __shfl_up_sync(kFull, s0, off), y1 = __shfl_up_sync(kFull, s1, off);
+      if (lane >= off) s0 += y0, s1 += y1;
+    }
+    u64* at0 = my_lists + (size_t)(2 * t) * cap + cnt[0] + s0 - n0;  // this lane's first slots
+    u64* at1 = my_lists + (size_t)(2 * t + 1) * cap + cnt[1] + s1 - n1;
+    cnt[0] += __shfl_sync(kFull, s0, 28 + t);
+    cnt[1] += __shfl_sync(kFull, s1, 28 + t);
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const unsigned tk = (take >> (4 * mt + x)) & 1u;
+        if (x & 1) {
+          if (tk) *at1 = key[mt][x];
+          at1 += tk;
+        } else {
+          if (tk) *at0 = key[mt][x];
+          at0 += tk;
+        }
+      }
   }
-  }
-  __syncthreads();
-  select_own(a.k);
   __syncwarp();
-  if (warp < nq) {
-    const u64* list = lists + (size_t)warp * cap;
-    u64* out = a.scratch + ((size_t)(b0 + warp) * a.splits + split) * a.k;
-    const int n = cnt[warp];
+  for (int qi = 0; qi < nq_w; ++qi) trim(qi, a.k, 0);
+  __syncwarp();
+  for (int qi = 0; qi < nq_w; ++qi) {
+    const int n = min(a.k, __shfl_sync(kFull, (qi & 1) ? cnt[1] : cnt[0], qi >> 1));
+    const u64* list = my_lists + (size_t)qi * cap;
+    u64* out = a.scratch + ((size_t)(b0 + qw0 + qi) * a.splits + split) * a.k;
     for (int j = lane; j < a.k; j += 32) out[j] = j < n ? list[j] : 0;
   }
 }
@@ -352,12 +532,14 @@ final_kernel(const u64* __restrict__ scratch, float* __restrict__ vals,
   const u64* src = scratch + (size_t)b * splits * k;
   const int total = splits * k;
   const int cap = k + kFinalSlack;
-  auto trim = [&](int keep_above) {
+  // down to the k largest keys and at most `loose` more
+  auto trim = [&](int keep_above, int loose) {
     if (warp == 0 && *cnt > keep_above) {
-      const u64 kth = warp_select(keys, *cnt, k, hist);
+      int kept;
+      const u64 lo = warp_select(keys, *cnt, k, hist, loose, &kept);
       if (threadIdx.x == 0) {
-        *cnt = k;
-        *thr = kth;
+        *cnt = kept;
+        *thr = lo - 1;
       }
     }
   };
@@ -365,22 +547,30 @@ final_kernel(const u64* __restrict__ scratch, float* __restrict__ vals,
     *cnt = 0;
     *thr = kFloor;
   }
-  for (int base = 0; base < total; base += kThreads) {
+  // kFinalPer keys a thread a step, their loads issued together
+  for (int base = 0; base < total; base += kThreads * kFinalPer) {
     __syncthreads();
-    trim(cap - kThreads);
+    trim(cap - kThreads * kFinalPer, kFinalSlack - kThreads * kFinalPer);
     __syncthreads();
-    const int i = base + threadIdx.x;
-    const u64 key = i < total ? src[i] : 0;
-    const bool in = key > *thr;
-    const unsigned ins = __ballot_sync(0xffffffffu, in);  // one atomic per warp
-    int slot = 0;
-    if (ins != 0 && lane == __ffs(ins) - 1) slot = atomicAdd(cnt, __popc(ins));
-    slot = __shfl_sync(0xffffffffu, slot, ins ? __ffs(ins) - 1 : 0) +
-           __popc(ins & ((1u << lane) - 1u));
-    if (in) keys[slot] = key;
+    u64 key[kFinalPer];
+#pragma unroll
+    for (int u = 0; u < kFinalPer; ++u) {
+      const int i = base + u * kThreads + threadIdx.x;
+      key[u] = i < total ? src[i] : 0;
+    }
+    const u64 th = *thr;
+#pragma unroll
+    for (int u = 0; u < kFinalPer; ++u) {
+      const bool in = key[u] > th;
+      const unsigned ins = __ballot_sync(kFull, in);  // one atomic per warp
+      int slot = 0;
+      if (ins != 0 && lane == __ffs(ins) - 1) slot = atomicAdd(cnt, __popc(ins));
+      slot = __shfl_sync(kFull, slot, ins ? __ffs(ins) - 1 : 0) + __popc(ins & ((1u << lane) - 1u));
+      if (in) keys[slot] = key[u];
+    }
   }
   __syncthreads();
-  trim(k);
+  trim(k, 0);
   __syncthreads();
   const int n = *cnt;
   for (int i = n + threadIdx.x; i < kpad; i += kThreads) keys[i] = 0;
@@ -402,14 +592,12 @@ final_kernel(const u64* __restrict__ scratch, float* __restrict__ vals,
   }
   for (int j = threadIdx.x; j < k; j += kThreads) {
     const u64 key = keys[j];
-    const unsigned int u = (unsigned int)(key >> 32);
     const size_t o = (size_t)b * k + j;
-    if (u <= 0x007FFFFFu) {  // -inf (masked row) or an empty slot
+    if ((unsigned int)(key >> 32) <= 0x007FFFFFu) {  // -inf (masked row) or an empty slot
       vals[o] = -INFINITY;
       ids[o] = 0;
     } else {
-      const int k32 = (int)(u ^ 0x80000000u);
-      vals[o] = __int_as_float(k32 < 0 ? (k32 ^ 0x7FFFFFFF) : k32);
+      vals[o] = key_value(key);
       ids[o] = (long long)(~(unsigned int)(key & 0xFFFFFFFFull)) + id_offset;
     }
   }
@@ -421,11 +609,11 @@ int set_smem(const void* kernel, size_t smem) {
 }
 
 struct SelectSmem {
-  int k, QB, slack;
+  int k, warps, per_warp, slack, slots;
   size_t* out;
   template <typename T, int kD, bool kWide>
   int operator()() const {
-    *out = ring_bytes<T, kD>() + lists_bytes(k, QB, slack);
+    *out = select_bytes<T, kD>(k, warps, per_warp, slack, slots);
     return 0;
   }
 };
@@ -438,7 +626,7 @@ struct Launch {
   cudaStream_t st;
   template <typename T, int kD, bool kWide>
   int operator()() const {
-    const size_t smem = ring_bytes<T, kD>() + lists_bytes(a.k, a.QB, a.slack);
+    const size_t smem = select_bytes<T, kD>(a.k, a.groups, a.per_warp, a.slack, a.slots);
     int kpad = 1;
     while (kpad < a.k) kpad <<= 1;
     const size_t fsmem = final_bytes(kpad);
@@ -448,12 +636,13 @@ struct Launch {
     SelectArgs args = a;
     args.vec = carca::vec_rows<T>(a.e, a.d);
     if (!std::is_same<T, int8_t>::value) args.scales = nullptr;
-    const long long qblocks = (a.B + a.QB - 1) / a.QB;
-    select_kernel<T, kD, kWide><<<(unsigned)(qblocks * a.splits), kThreads, smem, st>>>(args);
+    const long long qblocks = (a.B + a.groups * a.per_warp - 1) / (a.groups * a.per_warp);
+    select_kernel<T, kD, kWide>
+        <<<(unsigned)(qblocks * a.splits), 32 * (a.groups + kProducers), smem, st>>>(args);
     err = (int)cudaGetLastError();
     if (err != 0) return err;
-    final_kernel<<<(unsigned)a.B, kThreads, fsmem, st>>>(a.scratch, vals, ids, a.k, a.splits,
-                                                          kpad, id_offset);
+    final_kernel<<<(unsigned)a.B, kThreads, fsmem, st>>>(a.scratch, vals, ids, a.k,
+                                                          a.splits, kpad, id_offset);
     return (int)cudaGetLastError();
   }
 };
@@ -462,27 +651,34 @@ struct Launch {
 
 extern "C" {
 
-// shared memory of the select pass (the final pass takes (pow2(k) + 2049) *
-// 8 bytes and 1 KB more)
-size_t carca_catalog_topk_smem_bytes(int k, int QB, int slack, int d, int dtype) {
+
+// shared memory of the select pass (the final pass takes (pow2(k) + 4097) *
+// 8 bytes and 1 KB more); warps = groups consumer warps
+size_t carca_catalog_topk_smem_bytes(int k, int warps, int per_warp, int slack, int slots, int d,
+                                     int dtype) {
   size_t out = 0;
-  carca::dispatch_index(dtype, d, SelectSmem{k, QB, slack, &out});
+  carca::dispatch_index(dtype, d, SelectSmem{k, warps, per_warp, slack, slots, &out});
   return out;
 }
 
 // q [B, d] f32; e: [R, d] of the type dtype names (carca::IndexType), any
-// d >= 1; scales: [R] f32 for an int8 index, else null. scratch: [B, splits,
-// k] u64, splits = ceil(R / rows_per_split), rows_per_split a multiple of
-// 128; 1 <= QB <= 8; slack >= 256 list slots beyond k. vals [B, k] f32, ids [B, k] int64.
+// d >= 1; scales: [R] f32 for an int8 index, else null. A select block
+// holds groups * per_warp queries (per_warp <= 8) in groups consumer warps
+// (<= 8); slack >= 64 list slots beyond k; slots >= 2 ring slots (every
+// consumer waits for every phase of every slot in turn: a parity wait cannot
+// tell a phase from the one two ahead). scratch: [B, splits, k] u64,
+// splits = ceil(R / rows_per_split), rows_per_split a multiple of 64. vals
+// [B, k] f32, ids [B, k] int64.
 int carca_catalog_topk(const void* q, const void* e, const void* scales, void* vals,
-                       void* ids, void* scratch, int B, int R, int d, int k, int QB,
-                       int slack, int splits, int rows_per_split, int lim0, int mask_row0,
-                       long long id_offset, int dtype, void* stream) {
-  if (QB < 1 || QB > kMaxQB || slack < 2 * kTileRows || rows_per_split % kTileRows != 0)
+                       void* ids, void* scratch, int B, int R, int d, int k, int groups,
+                       int per_warp, int slack, int slots, int splits, int rows_per_split,
+                       int lim0, int mask_row0, long long id_offset, int dtype, void* stream) {
+  if (groups < 1 || groups > kMaxWarps || per_warp < 1 || per_warp > 8 || slack < kMinSlack ||
+      slots < 2 || rows_per_split % kTileRows != 0)
     return (int)cudaErrorInvalidValue;
   const SelectArgs a{static_cast<const float*>(q), e, static_cast<const float*>(scales),
-                     static_cast<u64*>(scratch), B, R, d, k, QB, slack, splits, rows_per_split,
-                     lim0, mask_row0, 0};
+                     static_cast<u64*>(scratch), B, R, d, k, groups, per_warp, slack,
+                     slots, splits, rows_per_split, lim0, mask_row0, 0};
   return carca::dispatch_index(
       dtype, d, Launch{a, static_cast<float*>(vals), static_cast<long long*>(ids), id_offset,
                        static_cast<cudaStream_t>(stream)});

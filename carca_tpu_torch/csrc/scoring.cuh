@@ -107,8 +107,21 @@ using AFrag = typename std::conditional<kIsF32<T>, ATf32, ABf16>::type;
 template <typename T>
 using QFrag = typename std::conditional<kIsF32<T>, float2, uint2>::type;
 
+// Byte k of w as a float, exactly: its bits with the sign flipped (b + 128)
+// under the exponent of 2^23 give 2^23 + b + 128, from which one exact
+// subtraction leaves b. A byte permute and an add, where a conversion
+// instruction runs at a quarter of the rate.
+__device__ __forceinline__ float i8_to_float(uint32_t w, int k) {
+  const uint32_t biased = __byte_perm(w ^ 0x80808080u, 0x4B000000u, 0x7440 + k);
+  return __uint_as_float(biased) - 8388736.f;  // 2^23 + 128
+}
+
+// bytes shift / 8 and shift / 8 + 1 of w, two int8 values, as packed bf16:
+// the float of an int8 has 8 significant bits, so its low 16 bits are zero
+// and its high half is the bf16 (what pack_bf16's rounding would give)
 __device__ __forceinline__ uint32_t pack_i8_pair(uint32_t w, int shift) {
-  return pack_bf16((float)(int8_t)(w >> shift), (float)(int8_t)(w >> (shift + 8)));
+  return __byte_perm(__float_as_uint(i8_to_float(w, shift / 8)),
+                     __float_as_uint(i8_to_float(w, shift / 8 + 1)), 0x7632);
 }
 
 // The A fragments of 16 rows (row_g = row g of the tile, row g + 8 is 8
@@ -210,18 +223,20 @@ __device__ __forceinline__ bool row_valid(int r, int lim0, int mask_row0) {
 // ---------------------------------------------------------------------------
 
 // Columns [col0, col0 + kD) of rows [row0, row0 + n) of e [R, d] into dst
-// (row stride `stride` bytes), zeros past R and past d, by every thread of
-// the block. With `vec` (e 16-byte aligned, d * sizeof(T) a multiple of 16;
-// col0 is 0 or a multiple of 128) the copy is cp.async in 16-byte chunks,
-// to be waited on with cp_async_wait; otherwise plain loads and stores.
+// (row stride `stride` bytes), zeros past R and past d, by threads tid,
+// tid + nth, ... (stage_rows: every thread of the block). With `vec` (e
+// 16-byte aligned, d * sizeof(T) a multiple of 16; col0 is 0 or a multiple
+// of 128) the copy is cp.async in 16-byte chunks, to be waited on with
+// cp_async_wait; otherwise plain loads and stores.
 template <typename T>
-__device__ __forceinline__ void stage_rows(char* dst, const T* __restrict__ e, long long row0,
-                                           int n, long long R, int d, int kD, int stride,
-                                           bool vec, int col0 = 0) {
+__device__ __forceinline__ void stage_rows_by(int tid, int nth, char* dst,
+                                              const T* __restrict__ e, long long row0, int n,
+                                              long long R, int d, int kD, int stride, bool vec,
+                                              int col0 = 0) {
   if (vec) {
     const int chunks = kD * (int)sizeof(T) / 16;
     const int live = (d - col0) * (int)sizeof(T) / 16;
-    for (int idx = threadIdx.x; idx < n * chunks; idx += blockDim.x) {
+    for (int idx = tid; idx < n * chunks; idx += nth) {
       const int r = idx / chunks, c = idx - r * chunks;
       const long long row = row0 + r;
       const bool in = row < R && c < live;
@@ -234,7 +249,7 @@ __device__ __forceinline__ void stage_rows(char* dst, const T* __restrict__ e, l
         sizeof(T) == 1, uint8_t, typename std::conditional<sizeof(T) == 2, uint16_t,
                                                            uint32_t>::type>::type;
     const Raw* src = reinterpret_cast<const Raw*>(e);
-    for (int idx = threadIdx.x; idx < n * kD; idx += blockDim.x) {
+    for (int idx = tid; idx < n * kD; idx += nth) {
       const int r = idx / kD, j = idx - r * kD;
       const long long row = row0 + r;
       reinterpret_cast<Raw*>(dst + r * stride)[j] =
@@ -243,23 +258,41 @@ __device__ __forceinline__ void stage_rows(char* dst, const T* __restrict__ e, l
   }
 }
 
+template <typename T>
+__device__ __forceinline__ void stage_rows(char* dst, const T* __restrict__ e, long long row0,
+                                           int n, long long R, int d, int kD, int stride,
+                                           bool vec, int col0 = 0) {
+  stage_rows_by<T>(threadIdx.x, blockDim.x, dst, e, row0, n, R, d, kD, stride, vec, col0);
+}
+
+// Whether stage_scales copies by cp.async: scales 16-byte aligned.
+__device__ __forceinline__ bool async_scales(const float* scales) {
+  return (reinterpret_cast<uintptr_t>(scales) & 15) == 0;
+}
+
 // Scales [row0, row0 + n) of an int8 index into dst (zeros past R), by
-// every thread of the block: cp.async in 16-byte chunks when `scales` is
-// 16-byte aligned (row0 and n are multiples of 4 at every call), else
-// plain loads. A no-op without scales.
-__device__ __forceinline__ void stage_scales(float* dst, const float* __restrict__ scales,
-                                             long long row0, int n, long long R) {
+// threads tid, tid + nth, ... (stage_scales: every thread of the block):
+// cp.async in 16-byte chunks when `scales` is 16-byte aligned (row0 and n
+// are multiples of 4 at every call), else plain loads. A no-op without
+// scales.
+__device__ __forceinline__ void stage_scales_by(int tid, int nth, float* dst,
+                                                const float* __restrict__ scales,
+                                                long long row0, int n, long long R) {
   if (scales == nullptr) return;
-  if ((reinterpret_cast<uintptr_t>(scales) & 15) == 0) {
-    for (int c = threadIdx.x; c < n / 4; c += blockDim.x) {
+  if (async_scales(scales)) {
+    for (int c = tid; c < n / 4; c += nth) {
       const long long row = row0 + 4 * c;
       const int bytes = row >= R ? 0 : (int)min(16LL, 4 * (R - row));
       cp_async16(dst + 4 * c, scales + (bytes ? row : 0), bytes);
     }
   } else {
-    for (int i = threadIdx.x; i < n; i += blockDim.x)
-      dst[i] = row0 + i < R ? scales[row0 + i] : 0.f;
+    for (int i = tid; i < n; i += nth) dst[i] = row0 + i < R ? scales[row0 + i] : 0.f;
   }
+}
+
+__device__ __forceinline__ void stage_scales(float* dst, const float* __restrict__ scales,
+                                             long long row0, int n, long long R) {
+  stage_scales_by(threadIdx.x, blockDim.x, dst, scales, row0, n, R);
 }
 
 // Whether stage_rows may use cp.async for e [R, d].

@@ -49,9 +49,9 @@ SIGNATURES = {
     "carca_attention_keep_bits": (_I, [_P, _U64, _U64, _P, _U32, _P]),
     "carca_attention_bwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _I, _I, _I, _F, _I, _I, _U64, _P, _U32, _F, _P]),
-    "carca_catalog_topk_smem_bytes": (ctypes.c_size_t, [_I, _I, _I, _I, _I]),
-    "carca_catalog_topk": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                _I, _I, _I, _I64, _I, _P]),
+    "carca_catalog_topk_smem_bytes": (ctypes.c_size_t, [_I, _I, _I, _I, _I, _I, _I]),
+    "carca_catalog_topk": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _I, _I64, _I, _P]),
     "carca_groupmax_smem_bytes": (ctypes.c_size_t, [_I, _I]),
     "carca_groupmax": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "carca_tournament_rerank_smem_bytes": (ctypes.c_size_t, [_I, _I]),

@@ -17,8 +17,8 @@ and on that kernel's plain version for CPU tensors:
   kernel (``tournament_rerank``, ``csrc/groupmax.cu``; plain version
   ``tournament_rerank_plain``). From ``_RECURSIVE_MIN_GROUPS`` groups stage
   2 runs two levels over 128-group super-groups (layout 1).
-* ``"auto"``: for k < 48 the tournament from ``_TOURNAMENT_MIN_ROWS`` rows
-  at a batch of ``_TOURNAMENT_MIN_BATCH`` or more, for larger k from
+* ``"auto"``: for k < ``BIG_K`` the tournament from ``_TOURNAMENT_MIN_ROWS``
+  rows at a batch of ``_TOURNAMENT_MIN_BATCH`` or more, for larger k from
   ``_TOURNAMENT_MIN_ROWS_BIG_K`` rows; else the stream.
 
 Scores. The kernels K3, K4 and the rerank score with one tensor-core
@@ -67,29 +67,46 @@ CHUNK = 128  # the kernels score rows wider than this in chunks of it (csrc/scor
 # int8 scale); see csrc/scoring.cuh.
 SCORE_ORDER_TOL = 1e-5
 BIG_K = 48  # from this k on, "auto" reads the row count alone
-# Stream/tournament crossover measured on the H100 (PERF.md, "crossover";
-# carca_tpu_torch/bench_retrieval.py --sweep over B = 1/8/64/256, 100k-10M
-# rows, f32/bf16/int8, k = 10 and 562). k < 48: the stream wins at B <= 8
-# up to 10M rows (its cost grows with B x rows, the tournament's sorts and
-# launches are ~0.1-0.6 ms), the tournament from B = 64 (at 100k rows only
-# narrowly, and not over an int8 index at B = 64). k >= 48: the stream
-# wins at 100k rows, the tournament from 1M at every B.
-_TOURNAMENT_MIN_ROWS = 100_000
+# Stream/tournament crossover measured on the H100 after K3's redesign
+# (PERF.md, Findings; carca_tpu_torch/bench_retrieval.py --sweep over B =
+# 1/8/64/256, 100k-10M rows, f32/int8 and bf16 at 10M, k = 10, 60 and 562).
+# k = 10: the stream wins at every B below 1M rows and at B <= 8 up to 10M,
+# the tournament from 1M rows at B = 256 and from 2-5M at B = 64 (over a
+# bf16 index the stream still wins at 10M). k >= 48: the tournament from
+# 1M rows, but at k = 60 the stream still wins at B <= 8 up to 10M rows and
+# at B = 64 up to 2M (not routed: the 5M-row shards of a sharded service
+# keep the tournament).
+_TOURNAMENT_MIN_ROWS = 1_000_000
 _TOURNAMENT_MIN_ROWS_BIG_K = 1_000_000
 _TOURNAMENT_MIN_BATCH = 64
 # Two-level stage 2 from this many groups on; off: at 10M rows it saved 4-8 %
 # at B = 256 and cost 5-11 % at B <= 8 on the H100 (PERF.md).
 _RECURSIVE_MIN_GROUPS = 1 << 62
 _RERANK_SLICE_BYTES = 128 << 20  # gathered index rows per slice of the plain rerank
-# K3's plan (csrc/catalog_topk.cu, stream_plan): 128-row tiles, at most 8
-# queries per select block, and about two waves of two select blocks per SM
-# of the H100's 132.
-_K3_TILE = 128
-_K3_MAX_QB = 8
-_K3_BIG_ROWS = 1_000_000
-_K3_BLOCKS = 4 * 132
-_K3_SMEM_TARGET = 112 << 10  # per select block, so that two fit on an SM
-_K3_SPLIT_K = 4  # a split holds at least this many times k rows (and 1024)
+# K3's plan (csrc/catalog_topk.cu, stream_plan): a select block of up to 8
+# consumer warps (query groups of up to 8 queries) and two producer warps;
+# each warp's lists of k + slack keys a query; a ring of 2-16 slots; row
+# splits of a multiple of 128 rows, one wave (four from _K3_BIG_K on) of the
+# blocks the H100's 132 SMs hold.
+_K3_TILE = 64  # rows of a ring slot
+_K3_MAX_WARPS = 8
+_K3_MAX_SLOTS = 16
+_K3_RING_MAX = 32 << 10  # ring bytes, at most (twice that where an SM holds one block)
+_K3_SMS = 132
+_K3_MAX_BLOCKS = 4 * _K3_SMS  # select blocks of a launch, at most (beyond a query block's first)
+_K3_SM_SMEM = 228 << 10  # shared memory of an SM; each block also takes 1 KB
+_K3_SMEM_TARGET = 227 << 10  # per select block
+_K3_WAVES = 1
+_K3_BIG_K = 256  # from this k on (lists of ~10 KB a query, few queries a block), ...
+_K3_WAVES_BIG_K = 4  # ... more waves of shorter splits, and ...
+_K3_BIG_K_GROUPS = 4  # ... at most this many query groups (more queries a warp)
+_K3_MIN_SLACK = 64  # a tile's keys per query
+_K3_MAX_SLACK = 2048
+_K3_SLACK_K = 2  # list slots beyond a tile's keys: this many times k, as shared memory allows
+_K3_SPLIT_K = 4  # a split holds at least this many times k rows (and 1024) ...
+_K3_IDLE_SPLIT_ROWS = 256  # ... or this many where that would leave half the card idle
+_K3_FINAL_KEYS = 32_768  # keys a query's lists hand the final pass, at most (k ≤ 4,096)
+_K3_BUSY_WARPS = 2 * _K3_SMS  # fewer consumer warps than this: a warp takes fewer queries
 _SCORE_CHUNK = 1 << 26  # plain scores per row chunk (256 MB of float32)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}  # carca::IndexType
 INDEX_KINDS = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
@@ -473,48 +490,120 @@ def _tournament_topk(q, e, scales, k: int, lim0: int, mask_row0: bool, id_offset
 
 
 class StreamPlan(NamedTuple):
-    """K3's launch plan: queries per select block, list slots beyond k, row
-    splits, rows per split (a multiple of 128), and the scratch's bytes (B ·
-    splits · k · 8)."""
+    """K3's launch plan: query groups (a select block's consumer warps),
+    queries per group (``per_warp``, the real columns of a warp's n8 tile),
+    list slots beyond k, ring slots, row splits, rows per split (a multiple
+    of 128), and the scratch's bytes (B · splits · k · 8)."""
 
-    qb: int
+    groups: int
+    per_warp: int
     slack: int
+    slots: int
     splits: int
     rows_per_split: int
     scratch_bytes: int
 
+    @property
+    def qb(self) -> int:
+        """Queries per select block."""
+        return self.groups * self.per_warp
 
-def _k3_select_smem(k: int, qb: int, slack: int, d: int, itemsize: int) -> int:
-    """Shared memory of K3's select block (csrc/catalog_topk.cu: the row
-    ring, the running lists and thresholds, counts, a histogram per warp)."""
+
+def _k3_slot_bytes(d: int, itemsize: int) -> int:
+    """A ring slot of K3's select block: 64 rows at their shared-memory
+    stride (csrc/scoring.cuh, row_stride_bytes) and their scales."""
     kd = 64 if d <= 64 else CHUNK
-    ring = 2 * _K3_TILE * (kd * itemsize + (16 if itemsize == 1 else 32) + 4)
-    return ring + 8 * (qb * (k + slack) + qb) + 4 * _K3_MAX_QB + 4 * 256 * 8
+    return _K3_TILE * (kd * itemsize + (16 if itemsize == 1 else 32) + 4)
+
+
+def _k3_select_smem(k: int, warps: int, per_warp: int, slack: int, slots: int, d: int,
+                    itemsize: int) -> int:
+    """Shared memory of K3's select block (csrc/catalog_topk.cu,
+    select_bytes: two mbarriers and a slot per ring slot, each consumer
+    warp's lists and histogram)."""
+    return (slots * (16 + _k3_slot_bytes(d, itemsize)) + 8 * warps * per_warp * (k + slack)
+            + 4 * 256 * warps)
+
+
+def _k3_blocks_per_sm(smem: int, warps: int) -> int:
+    """Select blocks an SM holds: by shared memory (each block also takes 1
+    KB) and by threads (the warps and two producers)."""
+    return max(1, min(_K3_SM_SMEM // (smem + 1024), 2048 // (32 * (warps + 2))))
+
+
+def _k3_plan(k: int, b: int, r: int, d: int, itemsize: int, per_warp: int) -> StreamPlan:
+    """stream_plan's block and splits for at most ``per_warp`` queries a
+    warp."""
+    max_groups = _K3_MAX_WARPS if k < _K3_BIG_K else _K3_BIG_K_GROUPS
+    groups = min(max_groups, -(-b // per_warp))
+    slot = _k3_slot_bytes(d, itemsize)
+    floor = _K3_MIN_SLACK + max(_K3_MIN_SLACK, -(-k // 32) * 32)
+    slack = min(_K3_MAX_SLACK,
+                _K3_MIN_SLACK + max(_K3_MIN_SLACK, -(-_K3_SLACK_K * k // 32) * 32))
+    while (_k3_select_smem(k, groups, per_warp, slack, 2, d, itemsize) > _K3_SMEM_TARGET
+           and (slack, per_warp, groups) != (_K3_MIN_SLACK, 1, 1)):
+        if slack > floor:
+            slack = max(floor, slack // 2 // 32 * 32)
+        elif per_warp > 1:
+            per_warp = -(-per_warp // 2)
+            groups = min(max_groups, -(-b // per_warp))
+        elif groups > 1:
+            groups = -(-groups // 2)
+        else:
+            slack = max(_K3_MIN_SLACK, slack // 2 // 32 * 32)
+    lists = _k3_select_smem(k, groups, per_warp, slack, 0, d, itemsize)
+    for ring in (_K3_RING_MAX, 2 * _K3_RING_MAX):  # the deeper ring where an SM holds one block
+        slots = max(2, min(_K3_MAX_SLOTS, min(_K3_SMEM_TARGET - lists, ring) // (16 + slot)))
+        per_sm = _k3_blocks_per_sm(lists + slots * (16 + slot), groups)
+        if per_sm > 1:
+            break
+    qblocks = -(-b // (groups * per_warp))
+    waves = _K3_WAVES if k < _K3_BIG_K else _K3_WAVES_BIG_K
+    want = max(1, -(-min(_K3_SMS * per_sm * waves, _K3_MAX_BLOCKS) // qblocks))
+    min_rows = max(1024, _K3_SPLIT_K * k)
+    if qblocks * -(-r // min_rows) < _K3_SMS // 2:  # too few blocks to fill half the card
+        min_rows = _K3_IDLE_SPLIT_ROWS
+    rows = max(-(-r // want), min_rows, 1)
+    if 8 * k <= _K3_FINAL_KEYS:  # the final pass merges splits · k keys a query
+        for keys in (_K3_FINAL_KEYS, 2 * _K3_FINAL_KEYS):  # twice where the card would idle
+            capped = max(rows, -(-r // max(1, keys // k)))
+            if qblocks * -(-r // capped) >= _K3_SMS:
+                break
+        rows = capped
+    rows = -(-rows // 128) * 128
+    splits = max(1, -(-r // rows))
+    return StreamPlan(groups, per_warp, slack, slots, splits, rows, b * splits * k * 8)
 
 
 def stream_plan(k: int, b: int, r: int, d: int, itemsize: int) -> StreamPlan:
-    """Queries per select block (≤ 8) and list slack (256–1024) that keep
-    the block within _K3_SMEM_TARGET: from _K3_BIG_ROWS rows the most
-    queries at slack 256 (each select block reads the index once, so fewer
-    blocks read fewer bytes, and small blocks keep more of them resident),
-    below it the most slack first (the index sits in L2, and every 'slack'
-    keys past the threshold cost one radix select). Then
-    as many row splits as fill about _K3_BLOCKS blocks, each split at least
-    max(1024, _K3_SPLIT_K · k) rows. The scratch is B · splits · k · 8 bytes
-    with B · splits ≤ B + _K3_BLOCKS · qb: it does not grow with R."""
-    qbs, slacks = (8, 4, 2, 1), (1024, 512, 256)
-    pairs = ([(q, 256) for q in qbs] if r >= _K3_BIG_ROWS
-             else [(q, s) for s in slacks for q in qbs])
-    qb, slack = next(((q, s) for q, s in pairs
-                      if _k3_select_smem(k, q, s, d, itemsize) <= _K3_SMEM_TARGET), (1, 256))
-    qb = max(1, min(qb, b))
-    qblocks = -(-b // qb)
-    want = max(1, -(-_K3_BLOCKS // qblocks))
-    min_rows = max(8 * _K3_TILE, _K3_SPLIT_K * k)
-    rows = max(-(-r // want), min_rows, 1)
-    rows = -(-rows // _K3_TILE) * _K3_TILE
-    splits = max(1, -(-r // rows))
-    return StreamPlan(qb, slack, splits, rows, b * splits * k * 8)
+    """K3's block shape, list slack, ring and row splits.
+
+    A block takes up to 8 queries a warp (its n8 tile) and up to 8 query
+    groups: 8 groups of 8 at B ≥ 64 for k < _K3_BIG_K (the index is read
+    once per 64 queries), at most _K3_BIG_K_GROUPS groups from _K3_BIG_K on
+    (more queries a warp, fewer warps widening the same rows). Each warp's
+    lists take k + slack keys a query, the slack 64 + _K3_SLACK_K · k (at
+    most _K3_MAX_SLACK: every 'slack' keys past the threshold cost a radix
+    select). Where the lists and a ring of two slots do not fit
+    _K3_SMEM_TARGET, the slack shrinks to 64 + k, then a warp takes fewer
+    queries, then there are fewer groups. The ring takes what is left, up
+    to _K3_MAX_SLOTS slots and _K3_RING_MAX bytes, or twice that where an SM
+    holds only one block anyway. Then as many row splits as fill _K3_WAVES
+    waves of the blocks an SM holds (_K3_WAVES_BIG_K from _K3_BIG_K on; at
+    most _K3_MAX_BLOCKS blocks), each split at least max(1024, _K3_SPLIT_K
+    · k) rows (_K3_IDLE_SPLIT_ROWS where that would leave half the card
+    idle), and, for k ≤ _K3_FINAL_KEYS / 8, few enough that a query's lists
+    hand the final pass at most _K3_FINAL_KEYS keys (twice that where fewer
+    blocks than the card's SMs would be left). Where that gives fewer
+    consumer warps than _K3_BUSY_WARPS (few queries, few rows against k), a
+    warp takes half the queries, and again, down to one: more warps share a
+    block's rows, then more query blocks read them. The scratch is B ·
+    splits · k · 8 bytes with the splits bounded by the blocks: it does not
+    grow with R."""
+    plan = _k3_plan(k, b, r, d, itemsize, max(1, min(8, b)))
+    while plan.per_warp > 1 and -(-b // plan.qb) * plan.splits * plan.groups < _K3_BUSY_WARPS:
+        plan = _k3_plan(k, b, r, d, itemsize, plan.per_warp // 2)
+    return plan
 
 
 def _stream_kernel(q, e, scales, k: int, lim0: int, mask_row0: bool, id_offset: int):
@@ -529,16 +618,17 @@ def _stream_kernel(q, e, scales, k: int, lim0: int, mask_row0: bool, id_offset: 
     if b == 0 or r == 0:
         return vals.fill_(NEG_INF), ids.zero_()
     plan = stream_plan(k, b, r, d, e.element_size())
-    scratch = torch.empty(b * plan.splits * k, dtype=torch.int64, device=q.device)
+    scratch = torch.empty(plan.scratch_bytes // 8, dtype=torch.int64, device=q.device)
     lib = _build.library()
     code = _DTYPE_CODE[e.dtype]
     _launch("catalog_topk", q.device,
-            lib.carca_catalog_topk_smem_bytes(k, plan.qb, plan.slack, d, code),
+            lib.carca_catalog_topk_smem_bytes(k, plan.groups, plan.per_warp, plan.slack, plan.slots,
+                                              d, code),
             lib.carca_catalog_topk, q.data_ptr(), e.data_ptr(),
             None if scales is None else scales.data_ptr(), vals.data_ptr(), ids.data_ptr(),
-            scratch.data_ptr(), b, r, d, k, plan.qb, plan.slack, plan.splits,
-            plan.rows_per_split, lim0,
-            int(mask_row0), int(id_offset), code)
+            scratch.data_ptr(), b, r, d, k, plan.groups, plan.per_warp, plan.slack,
+            plan.slots, plan.splits, plan.rows_per_split, lim0, int(mask_row0), int(id_offset),
+            code)
     catalog_topk.launches[INDEX_KINDS[e.dtype]] += 1
     return vals, ids
 

@@ -1017,6 +1017,7 @@ def phase_k_wide(card) -> None:
             times["K3", kind] = kernel_vs_plain(lambda: catalog_topk(q, idx, KK, method="stream"),
                                                 lambda: catalog_topk_plain(q, idx, KK),
                                                 reps=10, plain_reps=2)
+            k3_turn_case(f"d={D_WIDE} {kind} [{B},{D_WIDE}] x {R_WIDE} rows k={KK}", q, idx, KK)
             for layout in (0, 1):
                 got, errs[f"K4 layout {layout}", kind] = check_groupmax(
                     f"{kind} d={D_WIDE} layout {layout}", q, rows, scales, R_WIDE, True, layout)
@@ -1439,17 +1440,24 @@ def timing_10m(card, rec, host, cat):
                 lambda: catalog_topk(q32, idx, K, n_items=n, method="stream"),
                 lambda: catalog_topk_plain(q32, idx, K, n_items=n), reps=5, plain_reps=2)
             timings["K3", kind] = (ms, plain)
+            k3_turn_case(f"10M {kind} [{K3_10M_B},{D}] x {n} rows k={K}", q32, idx, K, n)
             log("timing", card=card, kernel=f"K3 catalog_topk {kind}",
                 shape=f"[{K3_10M_B},{D}] x {n} rows k={K}", near_tie_slots=swapped,
                 max_abs_err=errs["K3", kind], ms=ms, plain_ms=plain)
         del e32
         torch.cuda.synchronize()
+        # phase 11's shard shape (one 5M-row int8 block, bucket 1: time_shard's
+        # query), over this slice's index
+        k3_turn_case(f"5M int8 block [1,{D}] k={K} (the 10M slice's first rows)",
+                     torch.randn(1, D, generator=torch.Generator().manual_seed(91)).to(DEVICE),
+                     qi, K, rows=N_REAL_ITEMS_10M // 2 + 1)
         for k in (K, KK):
             plan = stream_plan(k, B, n, D, 1)
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
             ms = cuda_ms(lambda: catalog_topk(q, qi, k, n_items=n, method="stream"), 3)
             peak = torch.cuda.max_memory_allocated() - base
+            k3_turn_case(f"10M int8 [{B},{D}] x {n} rows k={k}", q, qi, k, n)
             check(plan.scratch_bytes <= K3_SCRATCH_LIMIT,
                   f"K3 scratch {plan.scratch_bytes} bytes at {n} rows, B = {B}, k = {k}")
             log("timing", card=card, kernel="K3 catalog_topk int8",
@@ -1540,6 +1548,9 @@ def phase_timing(card, rec, rec_full, host):
             ms, plain = kernel_vs_plain(lambda: catalog_topk(q, e, KK, method="stream"),
                                         lambda: catalog_topk_plain(q, e, KK))
             timings["K3", name] = (ms, plain)
+            for bb in (1, 8, 64, B):  # stage 1's buckets
+                k3_turn_case(f"100k {name} f32 [{bb},{D}] x {e.shape[0]} rows k={KK}",
+                             q[:bb].contiguous(), e, KK)
             log("timing", card=card, kernel="K3 catalog_topk", shape=f"[{B},{D}] x "
                 f"{e.shape[0]} rows k={KK}", ms=ms, plain_ms=plain)
     log("timing", card=card, peak_device_mib=torch.cuda.max_memory_allocated() / 2**20)
@@ -2421,6 +2432,9 @@ def eval_10m(card, run, cat):
                     lambda: catalog_topk(q, emb, kk, n_items=n_local, method="stream"),
                     lambda: catalog_topk_plain(q, emb, kk, n_items=n_local), reps=20,
                     plain_reps=3)
+                k3_turn_case(f"monitor {case} [{q.shape[0]},{D}] x {n_local} rows k={kk}", q,
+                             emb, kk, n_local)
+                timings["two calls " + case] = two_call_yardstick(card, case, q, emb, kk)
                 if case == "seen bf16":
                     timings["K3 seen bf16 profile"] = profile_k3_seen(card, q, emb, kk, n_local)
                 log("timing", card=card, kernel=f"K3 catalog_topk {case}",
@@ -2492,6 +2506,21 @@ def retrieval_graph_vs_eager(card, run, cat) -> dict:
         log("fit_10m", card=card, case=f"best/ test retrieval, graph against eager, {case}",
             **out[case])
     return out
+
+
+def two_call_yardstick(card, case, q, emb, kk) -> float:
+    """Beside K3 at the monitor's shape: torch.topk(q.float() @ e.float().T,
+    k), two PyTorch calls (a [B, R] f32 product, then the top-k; the rows
+    made f32, an int8 index's dequantized, outside the timing). A yardstick
+    only: the port never calls it."""
+    ef = rt.dequantize_index(emb) if isinstance(emb, QuantizedIndex) else emb.float()
+    with torch.no_grad():
+        ms = cuda_ms(lambda: torch.topk(q.float() @ ef.T, kk), 5)
+    log("timing", card=card, yardstick="two calls: torch.topk(q.float() @ e.float().T, k)",
+        case=case, shape=f"[{q.shape[0]},{q.shape[1]}] x {ef.shape[0]} rows k={kk}", ms=ms)
+    del ef
+    torch.cuda.empty_cache()
+    return ms
 
 
 def profile_k3_seen(card, q, emb, kk, n_local, reps: int = 10) -> dict:
@@ -3844,6 +3873,7 @@ def fashion_service(card, run, tmp) -> dict:
     with torch.no_grad():
         ms = kernel_vs_plain(lambda: catalog_topk(q, e, KK, n_items=r, method="stream"),
                              lambda: catalog_topk_plain(q, e, KK, n_items=r))
+    k3_turn_case(f"fashion f32 [{B},{e.shape[1]}] x {r} rows k={KK}", q, e, KK, r)
     res = {"launches": launches, "k3_err": err, "k3": ms, "rows": r, "d": e.shape[1]}
     log("family_serve", card=card, run="fashion", requests=len(lines),
         near_tie_slots=near_ties, equal_to_in_process=True, example=served[0], **res)
@@ -4669,6 +4699,97 @@ def phase_remat(card) -> dict:
     return {"twins": twins, "cost": cost, "attn": attn, "fits": fits}
 
 
+# --------------------------------------------------------------------------
+# phase 15 (--parent DIR): K3 of the parent commit against this tree's
+# --------------------------------------------------------------------------
+
+K3_TURN_CASES = {}  # name -> K3's inputs at a phase's timed shape (files), under --parent
+K3_TURN_DIR = [None]  # where phases keep them (a temporary directory under --parent)
+K3_TURN_REPS = 10
+# `python -c K3_TURN_WRAPPER CASES_JSON` from a tree's root: K3 of that
+# tree's package over each kept case, timed as cuda_ms times it
+K3_TURN_WRAPPER = r"""
+import json, sys
+import torch
+from carca_tpu_torch.ops.retrieval_topk import QuantizedIndex, catalog_topk
+
+def cuda_ms(fn, reps):
+    fn()
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+torch.backends.cuda.matmul.allow_tf32 = False
+indexes, out = {}, {}
+for name, c in json.loads(sys.argv[1]).items():
+    if c["index"] not in indexes:
+        x = torch.load(c["index"])
+        scales = None if x["scales"] is None else x["scales"].cuda()
+        indexes[c["index"]] = (x["rows"].cuda(), scales)
+    rows, scales = indexes[c["index"]]
+    n = c["rows"]
+    index = rows[:n] if scales is None else QuantizedIndex(rows[:n], scales[:, :n].contiguous())
+    q = torch.load(c["q"]).cuda()
+    with torch.no_grad():
+        out[name] = cuda_ms(lambda: catalog_topk(q, index, c["k"], n_items=c["n_items"],
+                                                 method="stream"), c["reps"])
+    del q, index
+print("K3_TURN " + json.dumps(out), flush=True)
+"""
+
+
+def k3_turn_case(name, q, index, k, n_items=None, rows=None) -> None:
+    """Under --parent: keep K3's inputs at a phase's timed shape (the
+    queries, the index's first ``rows`` rows, k, n_items) for phase 15; an
+    index is written once, however many cases read it."""
+    if K3_TURN_DIR[0] is None:
+        return
+    e, scales = ((index.qvals, index.scales) if isinstance(index, QuantizedIndex)
+                 else (index, None))
+    tag = f"{e.data_ptr():x}_{tuple(e.shape)}_{e.dtype}"
+    path = os.path.join(K3_TURN_DIR[0], f"index_{abs(hash(tag))}.pt")
+    if not os.path.exists(path):
+        torch.save({"rows": e.cpu(), "scales": None if scales is None else scales.cpu()}, path)
+    q_path = os.path.join(K3_TURN_DIR[0], f"q{len(K3_TURN_CASES)}.pt")
+    torch.save(q.detach().contiguous().cpu(), q_path)
+    K3_TURN_CASES[name] = {"index": path, "q": q_path, "k": k, "n_items": n_items,
+                           "rows": rows or e.shape[0], "reps": K3_TURN_REPS}
+
+
+def k3_parent_turns(card, parent) -> dict:
+    """Phase 15: K3 over each kept case, with the package of ``parent`` (the
+    parent commit's) and with this tree's, in turns parent, change, change,
+    parent, one process a turn (K3_TURN_WRAPPER from the tree's root, each
+    case timed by CUDA events over K3_TURN_REPS calls). Returns, per case,
+    both trees' times and the parent's mean over the change's."""
+    cases = json.dumps(K3_TURN_CASES)
+    turns = []
+    for tag, tree in (("parent", parent), ("change", ROOT), ("change", ROOT),
+                      ("parent", parent)):
+        proc = subprocess.run([sys.executable, "-c", K3_TURN_WRAPPER, cases], cwd=tree,
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
+        check(proc.returncode == 0, f"K3 turns in {tree} exited {proc.returncode}")
+        line = next(ln for ln in proc.stdout.splitlines() if ln.startswith("K3_TURN "))
+        turns.append((tag, json.loads(line[len("K3_TURN "):])))
+    out = {}
+    for name in K3_TURN_CASES:
+        parent_ms = [t[name] for tag, t in turns if tag == "parent"]
+        change_ms = [t[name] for tag, t in turns if tag == "change"]
+        out[name] = {"parent_ms": parent_ms, "change_ms": change_ms,
+                     "parent_over_change": sum(parent_ms) / sum(change_ms)}
+        log("k3_parent", card=card, case=name, turns=[tag for tag, _ in turns], **out[name])
+    return out
+
+
 def kernel_entry(name, source, replaces, n, err, ms_plain, bytes_moved, ops, operand, lib=None,
                  shape=None) -> dict:
     """One kernel of the kernels line."""
@@ -4957,6 +5078,8 @@ def main() -> None:
         return out
 
     card = timed("1 device", phase_device)
+    if parent:
+        K3_TURN_DIR[0] = tempfile.mkdtemp(prefix="carca_k3_turns_")
     timed("2 build", phase_build)
     k1_err = timed("3 K1", phase_k1)
     k2_err, k2_times = timed("3b K2", phase_k2, card)
@@ -4999,6 +5122,9 @@ def main() -> None:
     scaling = timed("13 scaling + failover", phase_scaling_failover, card)
     torch.cuda.empty_cache()
     remat = timed("14 remat", phase_remat, card)
+    if parent:
+        timed("15 K3 parent", k3_parent_turns, card, parent)
+        shutil.rmtree(K3_TURN_DIR[0], ignore_errors=True)
     launches = {"slice": serve_launches, "slice_10m": launches_10m, "bench": bench_launches,
                 "train": train_launches, "fit_serve": fit_launches,
                 "fit_10m": fit10m["fit"]["launches"], **{

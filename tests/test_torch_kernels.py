@@ -460,6 +460,55 @@ def test_topk_scratch_is_independent_of_rows(dev):
         rows_per_split=stream_plan(k, b, 2_000_000, 64, 1).rows_per_split)
 
 
+def check_stream(dev, kind, b, r, k, seed, zero=True):
+    """K3 against its plain version (values within SCORE_ORDER_TOL of
+    sum_j |q_j e_rj|, ids equal but for near-ties), bit-equal to the
+    tournament, and a zero query's top-k the lowest valid ids in order."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn(b, 64, generator=g)
+    e = torch.randn(r, 64, generator=g)
+    e[100:300] = e[7]  # 200 exact ties
+    if zero:
+        q[b // 2] = 0.0
+    q = q.to(dev)
+    index = as_index(e.to(dev), kind)
+    before = catalog_topk.launches[kind]
+    v, i = catalog_topk(q, index, k, method="stream", n_items=r - 3)
+    tv, ti = catalog_topk(q, index, k, method="tournament", n_items=r - 3)
+    pv, pi = catalog_topk_plain(q, index, k, n_items=r - 3)
+    torch.cuda.synchronize()
+    assert catalog_topk.launches[kind] == before + 1
+    compare_within_order_tol(v, i, pv, pi, q, index)
+    assert torch.equal(i, ti) and torch.equal(v, tv)
+    if zero:
+        n = min(k, r - 4)
+        assert torch.equal(i[b // 2, :n].cpu(), torch.arange(1, n + 1))
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_topk_kernel_at_the_retrieval_monitor_shape(dev, kind):
+    """The 10M fit's retrieval monitor: B = 256 queries, k = 60 (k + L),
+    over 50,000 rows (the 468,273 seen rows, reduced): the plan's 8 query
+    groups of 8 queries."""
+    assert stream_plan(60, 256, 50_000, 64, 2 if kind == "bf16" else 1).qb == 64
+    check_stream(dev, kind, 256, 50_000, 60, seed=60)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("b", [1, 7, 8, 9, 15, 16, 17, 63, 64, 65, 256])
+def test_topk_kernel_ragged_query_blocks(dev, kind, b):
+    """B around the query groups (8 queries a warp) and the query blocks
+    (64): padding columns, padding warps and row parts, k = 60."""
+    check_stream(dev, kind, b, 20_000, 60, seed=b)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("k", [1, 16_384])
+def test_topk_kernel_smallest_and_largest_k(dev, kind, k):
+    """k = 1 and k = MAX_K (one query a warp, one warp a block)."""
+    check_stream(dev, kind, 9, 40_000, k, seed=k)
+
+
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
 @pytest.mark.parametrize("recursive", [False, True])
 @pytest.mark.parametrize("b,r,k,offset,n_items", [

@@ -8,9 +8,11 @@
   alike.
 * ``tournament_rerank``'s checks of device, type, shape and contiguity,
   and its CPU path (the plain version).
-* ``stream_plan``: K3's queries per block, list slack, row splits and
-  scratch at 100k and 10M rows, B = 1/256, k = 10/562; the scratch does not
-  grow with R and stays under 0.5 GB.
+* ``stream_plan``: K3's block shape (query groups, queries a warp), list
+  slack, ring slots, row splits and scratch at 100k and 10M rows, B =
+  1/33/256, k = 10/562, and the plan at the retrieval monitor's shape; the
+  shared memory fits a block, the scratch does not grow with R and stays
+  under 0.5 GB.
 * ``compare_within_order_tol``: what the card checks accept (near-ties)
   and refuse.
 """
@@ -160,34 +162,62 @@ def test_rerank_wrapper_refuses_other_devices():
 
 
 @pytest.mark.parametrize("itemsize", [4, 2, 1])
-@pytest.mark.parametrize("b", [1, 256])
+@pytest.mark.parametrize("b", [1, 33, 256])
 @pytest.mark.parametrize("k", [10, 562])
 @pytest.mark.parametrize("r", [100_000, 10_000_000])
 def test_stream_plan_is_bounded(itemsize, b, k, r):
     p = stream_plan(k, b, r, 64, itemsize)
-    assert 1 <= p.qb <= min(8, b) and p.slack in (256, 512, 1024)
+    assert 1 <= p.per_warp <= min(8, b) and 1 <= p.groups <= 8
+    assert (p.groups - 1) * p.per_warp < b  # no empty query group
+    assert p.slack >= 64 and p.slots >= 2
     assert p.rows_per_split % 128 == 0 and p.splits * p.rows_per_split >= r
     assert (p.splits - 1) * p.rows_per_split < r  # no empty split
-    assert p.rows_per_split >= max(1024, rt._K3_SPLIT_K * k)
+    # at least 1024 rows and _K3_SPLIT_K k, or 256 where that left half the card idle
+    idle = -(-b // p.qb) * -(-r // max(1024, rt._K3_SPLIT_K * k)) < rt._K3_SMS // 2
+    assert p.rows_per_split >= (256 if idle else max(1024, rt._K3_SPLIT_K * k))
     assert p.scratch_bytes == b * p.splits * k * 8
-    assert p.scratch_bytes <= (b + rt._K3_BLOCKS * p.qb) * k * 8 <= 512 << 20
-    assert rt._k3_select_smem(k, p.qb, p.slack, 64, itemsize) <= rt._K3_SMEM_TARGET
-    # ten times the rows: the same scratch
-    assert stream_plan(k, b, 10 * r, 64, itemsize).scratch_bytes <= p.scratch_bytes or \
-        r < rt._K3_BIG_ROWS
+    assert p.scratch_bytes <= (b + 4 * rt._K3_SMS * p.qb) * k * 8 <= 512 << 20
+    smem = rt._k3_select_smem(k, p.groups, p.per_warp, p.slack, p.slots, 64, itemsize)
+    assert smem <= rt._K3_SMEM_TARGET <= 232_448
+    # ten times the rows: the same scratch, or at most what fills the card
+    assert stream_plan(k, b, 10 * r, 64, itemsize).scratch_bytes <= max(
+        p.scratch_bytes, (b + 4 * rt._K3_SMS * p.qb) * k * 8)
 
 
 def test_stream_plan_at_the_serving_shapes():
     """10M rows, B = 256, k = 562 (the 10M slice's stage 1 by the stream):
-    ~19 MB of scratch, where the merge tree took ~17 GB; MAX_K fits one
-    query per block."""
+    tens of MB of scratch (the splits of four waves of 132 blocks), where
+    the merge tree took ~17 GB; MAX_K fits one query per warp and one warp
+    per block."""
     p = stream_plan(562, 256, 10_000_000, 64, 1)
-    assert p.scratch_bytes < 32 << 20
-    assert p.qb == 8
+    qblocks = -(-256 // p.qb)
+    smem = rt._k3_select_smem(562, p.groups, p.per_warp, p.slack, p.slots, 64, 1)
+    waves = -(-rt._K3_SMS * rt._k3_blocks_per_sm(smem, p.groups) * rt._K3_WAVES_BIG_K // qblocks)
+    assert p.scratch_bytes == 256 * 562 * 8 * p.splits <= 256 * 562 * 8 * waves
+    assert p.scratch_bytes <= (256 + 4 * rt._K3_SMS * p.qb) * 562 * 8
+    assert p.qb >= 8
     for itemsize in (1, 2, 4):
         big = stream_plan(rt.MAX_K, 1, 10_000_000, 64, itemsize)
-        assert big.qb == 1
-        assert rt._k3_select_smem(rt.MAX_K, 1, big.slack, 64, itemsize) <= 232_448
+        assert big.qb == 1 and big.groups == 1
+        assert rt._k3_select_smem(rt.MAX_K, 1, 1, big.slack, big.slots, 64, itemsize) <= 232_448
+        wide = stream_plan(rt.MAX_K, 3, 40_000, 256, itemsize)  # rows in 128-column chunks
+        assert rt._k3_select_smem(rt.MAX_K, wide.groups, wide.per_warp, wide.slack, wide.slots,
+                                  256, itemsize) <= 232_448
+
+
+@pytest.mark.parametrize("itemsize,slots", [(2, 6), (1, 12)])
+def test_stream_plan_at_the_retrieval_monitor_shape(itemsize, slots):
+    """The 10M fit's retrieval monitor and final eval: [256, 64] queries
+    over 468,273 seen rows (bf16, int8), k = 60. Eight groups of eight
+    queries a block (the index read 4 times, where the old plan read it 64
+    times at bf16), lists of k + 192 keys, the ring what shared memory
+    leaves, one wave of 33 splits: 132 blocks."""
+    p = stream_plan(60, 256, 468_273, 64, itemsize)
+    assert p == rt.StreamPlan(groups=8, per_warp=8, slack=192, slots=slots, splits=33,
+                              rows_per_split=14_208, scratch_bytes=256 * 33 * 60 * 8)
+    assert -(-256 // p.qb) * p.splits == 132
+    assert rt._k3_select_smem(60, p.groups, p.per_warp, p.slack, p.slots, 64,
+                              itemsize) <= 232_448
 
 
 def test_compare_within_order_tol_accepts_near_ties_and_refuses_the_rest():

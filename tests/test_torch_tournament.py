@@ -191,15 +191,15 @@ def test_stream_meets_the_packed_contract_of_jax(kind, k):
 def test_auto_routes_on_rows_and_k():
     rows, rows_big_k, batch = (rt._TOURNAMENT_MIN_ROWS, rt._TOURNAMENT_MIN_ROWS_BIG_K,
                                rt._TOURNAMENT_MIN_BATCH)
-    assert rows < rows_big_k and batch > 1
+    assert rows <= rows_big_k and batch > 1
     assert rt.resolve_method("auto", rows - 1, 10, batch) == "stream"
     assert rt.resolve_method("auto", rows, 10, batch) == "tournament"
     assert rt.resolve_method("auto", rows, 10, 256) == "tournament"
     # a small batch at a small k keeps the stream at any row count
     assert rt.resolve_method("auto", rows, 10, batch - 1) == "stream"
     assert rt.resolve_method("auto", 10 ** 9, 10, 1) == "stream"
-    # a large k reads the rows alone, from the larger row count
-    assert rt.resolve_method("auto", rows, rt.BIG_K, 256) == "stream"
+    # a large k reads the rows alone: a small batch takes the tournament too
+    assert rt.resolve_method("auto", rows_big_k, rt.BIG_K - 1, batch - 1) == "stream"
     assert rt.resolve_method("auto", rows_big_k - 1, rt.BIG_K, 256) == "stream"
     assert rt.resolve_method("auto", rows_big_k, rt.BIG_K, 256) == "tournament"
     assert rt.resolve_method("auto", rows_big_k, 562, 1) == "tournament"
@@ -210,13 +210,15 @@ def test_auto_routes_on_rows_and_k():
 
 
 @pytest.mark.parametrize("rows,k,batch,want", [
-    (100_000, 10, 256, "tournament"), (100_000, 10, 64, "tournament"),
+    (100_000, 10, 256, "stream"), (100_000, 10, 64, "stream"),
     (100_000, 562, 256, "stream"), (1_000_000, 562, 1, "tournament"),
     (10_000_000, 10, 8, "stream"), (10_000_000, 10, 1, "stream"),
-    (10_000_000, 562, 256, "tournament"), (19_157, 562, 256, "stream")])
+    (10_000_000, 562, 256, "tournament"), (19_157, 562, 256, "stream"),
+    (1_000_000, 10, 256, "tournament"), (100_000, 60, 256, "stream")])
 def test_auto_at_the_measured_crossover(rows, k, batch, want):
-    """The H100 sweep's winners (PERF.md, crossover) at the cells "auto"
-    routes: the 100k and 10M serving slices, the bench, small batches."""
+    """The H100 sweep's winners after K3's redesign (PERF.md, Findings) at the
+    cells "auto" routes: the 100k and 10M serving slices, the bench, small
+    batches, and k = 60 (the retrieval monitor's) below 1M rows."""
     assert rt.resolve_method("auto", rows, k, batch) == want
 
 
