@@ -1,0 +1,182 @@
+// Warpgroup tensor-core products (wgmma, sm_90a only) for K1's whole-row
+// kernel (attention_fwd.cu): the shared-memory matrix descriptor of the
+// no-swizzle K-major layout, the async-group fences, and m64nNk8 (TF32) /
+// m64nNk16 (bf16) products with A in registers and B in shared memory.
+//
+// Layouts (PTX ISA, "Matrix Descriptor Format"; the canonical K-major
+// INTERLEAVE layout of CUTLASS's GmmaDescriptor). B is staged as core
+// matrices of 8 rows (N) x 16 bytes (K): 128 contiguous bytes, row r at
+// 16 r. The descriptor holds the start address, the leading byte offset
+// (between core matrices adjacent along K) and the stride byte offset
+// (between core matrices adjacent along N), each in 16-byte units.
+//
+// Fragments. A warpgroup is four warps; warp w holds rows 16w..16w+15 of
+// the 64-row tile, lane (g = lane / 4, t = lane % 4) as mma.sync's m16n8
+// layouts (mma.cuh): the accumulator d[4n + e] is row g + 8 (e / 2),
+// column 8n + 2t + e % 2; a TF32 A step a[0..3] is (g, t), (g + 8, t),
+// (g, t + 4), (g + 8, t + 4); a bf16 A step holds pairs (g, 2t..2t+1),
+// (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..).
+//
+// Hazards. An A register or an accumulator stays in use until the
+// wait_group that retires its product: `hold` after that wait keeps the
+// compiler from reusing it earlier. Shared memory written by threads is
+// made visible to the products by fence_smem() in each writer, then a
+// barrier, then fence().
+#pragma once
+
+#include <stdint.h>
+
+namespace carca {
+namespace wg {
+
+__device__ __forceinline__ uint64_t desc(const void* smem, uint32_t lbo, uint32_t sbo) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem);
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+}
+
+__device__ __forceinline__ void fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+
+__device__ __forceinline__ void commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void fence_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A value the compiler cannot see through: what is derived from it is
+// computed where it is used, not hoisted and kept in registers.
+__device__ __forceinline__ void opaque(uint64_t& x) { asm volatile("" : "+l"(x)); }
+
+__device__ __forceinline__ void hold(float& x) { asm volatile("" : "+f"(x)::"memory"); }
+__device__ __forceinline__ void hold(uint32_t& x) { asm volatile("" : "+r"(x)::"memory"); }
+
+// d (N / 2 accumulators, m64nN layout) = a b + (acc ? d : 0): a one k step
+// of A in registers, b the descriptor of B's [N, k] K-major tile
+template <int N, bool kBf16>
+struct Mma;
+
+template <>
+struct Mma<32, false> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t (&a)[4], uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct Mma<40, false> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t (&a)[4], uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %25, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n40k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19}, "
+        "{%20, %21, %22, %23}, %24, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct Mma<64, false> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t (&a)[4], uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct Mma<32, true> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t (&a)[4], uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct Mma<40, true> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t (&a)[4], uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %25, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19}, "
+        "{%20, %21, %22, %23}, %24, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct Mma<64, true> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t (&a)[4], uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+}  // namespace wg
+}  // namespace carca

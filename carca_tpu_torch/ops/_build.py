@@ -46,6 +46,7 @@ SIGNATURES = {
     "carca_error_string": (ctypes.c_char_p, [_I]),
     "carca_attention_fwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _I, _I, _F, _I, _I, _U64, _P, _U32, _F, _P]),
+    "carca_attention_fwd_branch": (_I, [_I, _I]),
     "carca_attention_keep_bits": (_I, [_P, _U64, _U64, _P, _U32, _P]),
     "carca_attention_bwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _I, _I, _I, _F, _I, _I, _U64, _P, _U32, _F, _P]),

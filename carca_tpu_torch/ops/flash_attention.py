@@ -13,13 +13,17 @@ Two kernels, each beside its plain version:
   dropout bits. Plain version: ``attention_grads_plain``, autograd over
   ``masked_attention``.
 
-Both kernels run their products on the tensor cores (``mma.sync``: 3xTF32
-for float32 compute, bf16 operands for bfloat16) over 64-row tiles, so
-shared memory does not grow with the key length; a head is built for 32,
-64 or 128 dims, and a wider one runs in 128-column chunks, so any key
-length and head width runs. K2 is one block per (batch row, head) that
-holds all of that head's keys in turn and writes its dq, dk and dv whole,
-so it needs no scratch beyond the dropout bits.
+Both kernels run their products on the tensor cores (3xTF32 for float32
+compute, bf16 operands for bfloat16). K1 has two kernels, chosen by a rule
+on shapes (``fwd_branch``): past one 64-key tile and up to men's 200 keys,
+at heads of up to 64 dims, one warpgroup per (batch row, head) holds the
+whole key row in shared memory and its scores in registers (``wgmma``);
+every other shape walks 64-row tiles on ``mma.sync``, so shared memory does
+not grow with the key length there. A head is built for 32, 64 or 128
+dims, and a wider one runs in 128-column chunks, so any key length and
+head width runs. K2 is one block per (batch row, head) that holds all of
+that head's keys in turn and writes its dq, dk and dv whole, so it needs
+no scratch beyond the dropout bits.
 
 Weight dropout on the card draws no tensor: both kernels derive the keep
 bit of weight (b, h, i, j) from a stateless Philox4x32-10 keyed by a 64-bit
@@ -235,6 +239,18 @@ def kernel_seed(seed_generator: Optional[torch.Generator]) -> Seed:
 
 
 kernel_seed.drawn = 0  # seeds drawn from seed generators, for a capture's count
+
+
+WHOLE_ROW_KEYS = 200  # the longest key row of K1's whole-row kernel (csrc/attention_fwd.cu)
+
+
+def fwd_branch(lk: int, dh: int) -> str:
+    """Which of K1's kernels runs at key length ``lk`` and head width ``dh``
+    (``csrc/attention_fwd.cu::takes_whole_row``): ``"whole_row"``, one pass
+    over the whole key row on wgmma, for 64 < lk <= 200 at heads of up to
+    64 dims; ``"rows"``, rows_kernel's walk over 64-key tiles, for every
+    other shape."""
+    return "whole_row" if 64 < lk <= WHOLE_ROW_KEYS and dh <= 64 else "rows"
 
 
 def _launch_fwd(q, k, v, q_mask, k_mask, *, causal, scale, n_heads, compute_dtype,

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py             # from the repository root, on a machine with a card
     python3 chip_smoke.py --profile   # also phase 7: K1's enqueue cost and train-step traces
-    python3 chip_smoke.py --parent DIR   # phase 10 also splits DIR's 10M fit and service
+    python3 chip_smoke.py --parent DIR   # phases 10 and 15 also run DIR's package, in turns
 
 Phases, one or more lines each, each ending with its seconds; any failure
 raises and exits non-zero:
@@ -13,8 +13,13 @@ raises and exits non-zero:
 2. build   — compiles kernels K1–K4 from carca_tpu_torch/csrc/ (one nvcc
              per source, all started together).
 3. K1      — the attention forward kernel against its plain version on
-             CUDA tensors at the serving and training shapes and at men's
-             [256,200,64] (four key tiles); one raise it must give. With
+             CUDA tensors at the serving and training shapes, at men's
+             encoder [256,200,64], decoder (causal -1) and eval cross
+             [256,101] x [256,200] (the whole-row kernel), men's encoder in
+             bf16, and a key row past the whole-row kernel's 200 keys
+             (rows_kernel); each case logs the branch the C rule takes,
+             which must equal flash_attention.fwd_branch; one raise it must
+             give. With
              weight dropout p = 0.5: the keep share over
              1.28M weights within 0.5 ± 0.002, the same seed giving the same
              bits and another seed other bits, the card's Philox bits equal
@@ -331,6 +336,11 @@ raises and exits non-zero:
              train losses and val HR@10 / NDCG@10, args.json holding the
              flag, no note that it is ignored, K1 launched more with remat
              and K2 as often.
+15. parent — only with --parent DIR: K3 over every case a phase kept, then
+             K1 (and K2 where a path trains) at every shape a phase times
+             K1 at (ATTN_TURN_SHAPES), with DIR's package and with this
+             tree's, in turns parent, change, change, parent, one process a
+             turn (CUDA events); K1's cases name the branch this tree runs.
 
 Tolerance of the retrieval kernels against their plain versions: K3, K4
 and the rerank score on the tensor cores (csrc/scoring.cuh), the plain
@@ -397,7 +407,7 @@ from carca_tpu_torch.ops import retrieval_topk as rt
 from carca_tpu_torch.ops.flash_attention import (SEED_LIMIT, attention_bwd,
                                                  attention_grads_plain,
                                                  attention_keep_mask, fused_attention,
-                                                 kernel_seed, philox_bits)
+                                                 fwd_branch, kernel_seed, philox_bits)
 from carca_tpu_torch.ops.retrieval_topk import (GROUP, SCORE_ORDER_TOL, QuantizedIndex,
                                                 catalog_topk, catalog_topk_plain,
                                                 compare_within_order_tol, groupmax,
@@ -651,7 +661,22 @@ K1_CASES = [  # (name, Lq, Lk, causal, compute dtype)
     ("men [256,200,64] causal 0", L_MEN, L_MEN, 0, "float32"),
     # the fit's eval decoder: T + 1 = 101 candidates against the profile
     ("eval q [256,101,64] kv [256,50,64]", FIT_TARGETS + 1, L, None, "float32"),
+    # men's decoder and eval cross-attention, bf16 at L = 200 (the whole-row
+    # kernel), and a key row past the whole-row kernel's longest (rows_kernel)
+    ("men decoder [256,200,64] causal -1", L_MEN, L_MEN, -1, "float32"),
+    ("men eval q [256,101,64] kv [256,200,64]", FIT_TARGETS + 1, L_MEN, None, "float32"),
+    ("men [256,200,64] causal 0 bf16", L_MEN, L_MEN, 0, "bfloat16"),
+    ("q [256,40,64] kv [256,300,64] causal 0", 40, 300, 0, "float32"),
 ]
+
+
+def k1_branch(lk, d=D) -> str:
+    """The K1 kernel csrc/attention_fwd.cu runs at key length lk, width d
+    (H heads): its C rule, which must equal flash_attention.fwd_branch."""
+    c = _build.library().carca_attention_fwd_branch(lk, d // H)
+    branch = "whole_row" if c else "rows"
+    check(branch == fwd_branch(lk, d // H), f"K1's C rule at Lk={lk}, d={d}: {branch}")
+    return branch
 
 
 def phase_k1() -> float:
@@ -670,7 +695,7 @@ def phase_k1() -> float:
         err = (got - want).abs().max().item()
         if cd == "float32":
             worst = max(worst, err)
-        log("K1", case=name, dtype=cd, max_abs_err=err, tol=tol)
+        log("K1", case=name, dtype=cd, branch=k1_branch(lk), max_abs_err=err, tol=tol)
     try:
         fused_attention(q.transpose(0, 1), k, v, qm, km, causal=0, scale=1.0, n_heads=H)
     except ValueError as exc:
@@ -716,7 +741,8 @@ def phase_k1_dropout() -> float:
         err = (got - want).abs().max().item()
         if cd == "float32":
             worst = max(worst, err)
-        log("K1", case=f"{name} dropout {P_DROP}", dtype=cd, max_abs_err=err, tol=tol)
+        log("K1", case=f"{name} dropout {P_DROP}", dtype=cd, branch=k1_branch(lk),
+            max_abs_err=err, tol=tol)
     return worst
 
 
@@ -1778,8 +1804,10 @@ def check_utilisation(line: dict, what: str) -> None:
 
 
 # K1's and K2's device kernels by their names in a trace, demangled
-# (rows_kernel<kDh, kBf16>, bwd_kernel<kDh, kBf16, kN>) or mangled
-K1_K2_KERNELS = {"K1": re.compile(r"rows_kernel(<\d+, (true|false)>|ILi\d+ELb[01]EE)"),
+# (rows_kernel<kDh, kBf16> or whole_row_kernel<kDh, kBf16>, bwd_kernel<kDh,
+# kBf16, kN>) or mangled
+K1_K2_KERNELS = {"K1": re.compile(r"(rows|whole_row)_kernel"
+                                  r"(<\d+, (true|false)>|ILi\d+ELb[01]EE)"),
                  "K2": re.compile(r"bwd_kernel(<\d+, (true|false), \d+>|ILi\d+ELb[01]ELi\d+EE)")}
 
 
@@ -4700,17 +4728,44 @@ def phase_remat(card) -> dict:
 
 
 # --------------------------------------------------------------------------
-# phase 15 (--parent DIR): K3 of the parent commit against this tree's
+# phase 15 (--parent DIR): K1, K2 and K3 of the parent commit against this
+# tree's
 # --------------------------------------------------------------------------
 
 K3_TURN_CASES = {}  # name -> K3's inputs at a phase's timed shape (files), under --parent
 K3_TURN_DIR = [None]  # where phases keep them (a temporary directory under --parent)
 K3_TURN_REPS = 10
-# `python -c K3_TURN_WRAPPER CASES_JSON` from a tree's root: K3 of that
-# tree's package over each kept case, timed as cuda_ms times it
+# every shape a phase times K1 at (name -> batch, Lq, Lk, causal, d, weight
+# dropout, compute dtype, whether K2 is timed there too): phases 3 and 6
+# (ATTN_SHAPES), 10 (the 10M fit's bf16 encoder), 11 and 13 (rank-local),
+# 12 (FAMILY_ATTN) and 14 (the batch-2,048 encoders)
+ATTN_TURN_SHAPES = {
+    "encoder [256,50,64] causal 0": (B, L, L, 0, D, P_DROP, "float32", True),
+    "decoder [512,50,64] causal -1": (2 * B, L, L, -1, D, P_DROP, "float32", True),
+    "men [256,200,64] causal 0": (B, L_MEN, L_MEN, 0, D, P_DROP, "float32", True),
+    "rerank q [256,512,64] kv [256,50,64]": (B, SHORTLIST, L, None, D, 0.0, "float32", False),
+    "10M encoder [256,50,64] causal 0 bf16": (B, L, L, 0, D, P_DROP, "bfloat16", True),
+    "rank-local encoder [128,50,64] causal 0": (B // 2, L, L, 0, D, P_DROP, "float32", True),
+    "rank-local decoder [256,50,64] causal -1": (B, L, L, -1, D, P_DROP, "float32", True),
+    "games encoder [256,50,128] causal 0": (B, L, L, 0, 2 * D, P_DROP, "float32", True),
+    "games decoder [512,50,128] causal -1": (2 * B, L, L, -1, 2 * D, P_DROP, "float32", True),
+    "games eval q [256,101,128] kv [256,50,128]": (B, FIT_TARGETS + 1, L, None, 2 * D, 0.0,
+                                                   "float32", False),
+    "men decoder [512,200,64] causal -1": (2 * B, L_MEN, L_MEN, -1, D, P_DROP, "float32", True),
+    "men eval q [256,101,64] kv [256,200,64]": (B, FIT_TARGETS + 1, L_MEN, None, D, 0.0,
+                                                "float32", False),
+    "remat men [2048,200,64] causal 0": (2048, L_MEN, L_MEN, 0, D, P_DROP, "float32", True),
+    "remat flagship [2048,50,64] causal 0": (2048, L, L, 0, D, P_DROP, "float32", True),
+}
+ATTN_TURN_REPS = 20
+# `python -c K3_TURN_WRAPPER CASES_JSON ATTN_JSON` from a tree's root: K3 of
+# that tree's package over each kept case, then K1 (and K2) at each of
+# ATTN_TURN_SHAPES on inputs drawn here from one seed, timed as cuda_ms
+# times them
 K3_TURN_WRAPPER = r"""
 import json, sys
 import torch
+from carca_tpu_torch.ops.flash_attention import attention_bwd, fused_attention
 from carca_tpu_torch.ops.retrieval_topk import QuantizedIndex, catalog_topk
 
 def cuda_ms(fn, reps):
@@ -4741,6 +4796,22 @@ for name, c in json.loads(sys.argv[1]).items():
         out[name] = cuda_ms(lambda: catalog_topk(q, index, c["k"], n_items=c["n_items"],
                                                  method="stream"), c["reps"])
     del q, index
+del indexes
+attn = json.loads(sys.argv[2])
+for name, (b, lq, lk, causal, d, rate, cd, bwd) in attn["shapes"].items():
+    gen = torch.Generator().manual_seed(90)
+    q, k, v = (torch.randn(b, n, d, generator=gen).cuda() for n in (lq, lk, lk))
+    keep = torch.randint(0, lk + 1, (b,), generator=gen)
+    km = (torch.arange(lk)[None, :] >= (lk - keep)[:, None]).float()
+    qm = km.clone() if lq == lk else (torch.rand(b, lq, generator=gen) > 0.05).float()
+    qm, km = qm.cuda(), km.cuda()
+    kw = dict(causal=causal, scale=(d / 2) ** 0.5, n_heads=2, compute_dtype=cd,
+              dropout_rate=rate, seed=5)
+    with torch.no_grad():
+        out["K1 " + name] = cuda_ms(lambda: fused_attention(q, k, v, qm, km, **kw), attn["reps"])
+    if bwd:
+        g = torch.randn(q.shape, generator=gen).cuda()
+        out["K2 " + name] = cuda_ms(lambda: attention_bwd(q, k, v, qm, km, g, **kw), attn["reps"])
 print("K3_TURN " + json.dumps(out), flush=True)
 """
 
@@ -4764,16 +4835,19 @@ def k3_turn_case(name, q, index, k, n_items=None, rows=None) -> None:
 
 
 def k3_parent_turns(card, parent) -> dict:
-    """Phase 15: K3 over each kept case, with the package of ``parent`` (the
-    parent commit's) and with this tree's, in turns parent, change, change,
-    parent, one process a turn (K3_TURN_WRAPPER from the tree's root, each
-    case timed by CUDA events over K3_TURN_REPS calls). Returns, per case,
-    both trees' times and the parent's mean over the change's."""
+    """Phase 15: K3 over each kept case, then K1 (and K2) at each of
+    ATTN_TURN_SHAPES, with the package of ``parent`` (the parent commit's)
+    and with this tree's, in turns parent, change, change, parent, one
+    process a turn (K3_TURN_WRAPPER from the tree's root, each case timed
+    by CUDA events over K3_TURN_REPS or ATTN_TURN_REPS calls). Returns, per
+    case, both trees' times and the parent's mean over the change's; K1's
+    cases also name the branch this tree runs."""
     cases = json.dumps(K3_TURN_CASES)
+    attn = json.dumps({"shapes": ATTN_TURN_SHAPES, "reps": ATTN_TURN_REPS})
     turns = []
     for tag, tree in (("parent", parent), ("change", ROOT), ("change", ROOT),
                       ("parent", parent)):
-        proc = subprocess.run([sys.executable, "-c", K3_TURN_WRAPPER, cases], cwd=tree,
+        proc = subprocess.run([sys.executable, "-c", K3_TURN_WRAPPER, cases, attn], cwd=tree,
                               capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
@@ -4781,24 +4855,33 @@ def k3_parent_turns(card, parent) -> dict:
         line = next(ln for ln in proc.stdout.splitlines() if ln.startswith("K3_TURN "))
         turns.append((tag, json.loads(line[len("K3_TURN "):])))
     out = {}
-    for name in K3_TURN_CASES:
+    for name in turns[0][1]:
         parent_ms = [t[name] for tag, t in turns if tag == "parent"]
         change_ms = [t[name] for tag, t in turns if tag == "change"]
         out[name] = {"parent_ms": parent_ms, "change_ms": change_ms,
                      "parent_over_change": sum(parent_ms) / sum(change_ms)}
-        log("k3_parent", card=card, case=name, turns=[tag for tag, _ in turns], **out[name])
+        kernel, _, shape = name.partition(" ")
+        extra = {}
+        if kernel == "K1":
+            _, _, lk, _, d, _, _, _ = ATTN_TURN_SHAPES[shape]
+            extra["branch"] = k1_branch(lk, d)
+        log(f"{kernel.lower()}_parent" if kernel in ("K1", "K2") else "k3_parent", card=card,
+            case=shape if kernel in ("K1", "K2") else name, turns=[tag for tag, _ in turns],
+            **out[name], **extra)
     return out
 
 
 def kernel_entry(name, source, replaces, n, err, ms_plain, bytes_moved, ops, operand, lib=None,
-                 shape=None) -> dict:
-    """One kernel of the kernels line."""
+                 shape=None, branch=None) -> dict:
+    """One kernel of the kernels line (K1's with the branch that runs it)."""
     b_ms, b_by = bound(bytes_moved, ops, operand)
     out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
            "launches": n, "max_abs_err": err, "ms": ms_plain[0], "plain_ms": ms_plain[1],
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
     if shape is not None:
         out["shape"] = shape
+    if branch is not None:
+        out["branch"] = branch
     return out
 
 
@@ -4818,7 +4901,7 @@ def family_entries(f) -> list:
         entries.append(kernel_entry(f"attention_fwd_{name}", "carca_tpu_torch/csrc/attention_fwd.cu",
                              "carca_tpu/ops/flash_attention.py:113", n["fwd"], res["k1_err"],
                              res["k1"], 2 * b * (lq + lk) * d * f32 + masks, 4 * b * lq * lk * d,
-                             "3xtf32", res["lib"]["fwd"], shape))
+                             "3xtf32", res["lib"]["fwd"], shape, k1_branch(lk, d)))
         if trained:
             entries.append(kernel_entry(
                 f"attention_bwd_{name}", "carca_tpu_torch/csrc/attention_bwd.cu",
@@ -4855,7 +4938,7 @@ def mesh_entries(m) -> list:
     add("attention_fwd_mesh2", "carca_tpu_torch/csrc/attention_fwd.cu",
         "carca_tpu/ops/flash_attention.py:113", fit["attention_fwd"], attn["k1_err"],
         attn["k1"], 4 * b * L * D * f32 + masks, 4 * b * L * L * D, "3xtf32",
-        attn["lib"]["fwd"], local)
+        attn["lib"]["fwd"], local, k1_branch(L))
     add("attention_bwd_mesh2", "carca_tpu_torch/csrc/attention_bwd.cu",
         "carca_tpu/ops/flash_attention.py:130", fit["attention_bwd"], attn["k2_err"],
         attn["k2"], 7 * b * L * D * f32 + masks, 10 * b * L * L * D, "3xtf32",
@@ -4899,7 +4982,8 @@ def scaling_entries(p) -> list:
         entries.append(kernel_entry(
             f"attention_fwd_{path}_{part}", "carca_tpu_torch/csrc/attention_fwd.cu",
             "carca_tpu/ops/flash_attention.py:113", n["fwd"], res["k1_err"], res["k1"],
-            4 * bb * L * D * f32 + masks, 4 * bb * L * L * D, "3xtf32", res["lib"]["fwd"], shape))
+            4 * bb * L * D * f32 + masks, 4 * bb * L * L * D, "3xtf32", res["lib"]["fwd"], shape,
+            k1_branch(L)))
         entries.append(kernel_entry(
             f"attention_bwd_{path}_{part}", "carca_tpu_torch/csrc/attention_bwd.cu",
             "carca_tpu/ops/flash_attention.py:130", n["bwd"], res["k2_err"], res["k2"],
@@ -4934,7 +5018,7 @@ def kernel_entries(k1_err, k2_err, k3_err, k4_err, timings, k2_times, library, l
             "carca_tpu/ops/flash_attention.py:113",
             launches[path]["attention_fwd_by_shape"].get(key, 0), k1_err,
             timings["K1", shape], 2 * b * (lq + lk) * D * f32 + masks, 4 * b * lq * lk * D,
-            "3xtf32", library[shape]["fwd"], shape)
+            "3xtf32", library[shape]["fwd"], shape, k1_branch(lk))
         if shape in K2_TIMED:
             add(f"attention_bwd{suffix}", "carca_tpu_torch/csrc/attention_bwd.cu",
                 "carca_tpu/ops/flash_attention.py:130",
@@ -5000,7 +5084,8 @@ def remat_entries(r, timings, k2_times, library, k1_err, k2_err) -> list:
             entries.append(kernel_entry(
                 f"attention_fwd_remat_{c}_b{b}", "carca_tpu_torch/csrc/attention_fwd.cu",
                 "carca_tpu/ops/flash_attention.py:113", n["fwd"], k1e, k1,
-                4 * b * lq * D * f32 + masks, 4 * b * lq * lq * D, "3xtf32", lib["fwd"], shape))
+                4 * b * lq * D * f32 + masks, 4 * b * lq * lq * D, "3xtf32", lib["fwd"], shape,
+                k1_branch(lq)))
             entries.append(kernel_entry(
                 f"attention_bwd_remat_{c}_b{b}", "carca_tpu_torch/csrc/attention_bwd.cu",
                 "carca_tpu/ops/flash_attention.py:130", n["bwd"], k2e, k2,
@@ -5020,14 +5105,14 @@ def fit10m_entries(f, launches):
     kk = K + L
     entries = []
 
-    def add(*args):
-        entries.append(kernel_entry(*args, shape="synthetic10m"))
+    def add(*args, branch=None):
+        entries.append(kernel_entry(*args, shape="synthetic10m", branch=branch))
 
     masks = B * 2 * L * f32
     add("attention_fwd_bf16", "carca_tpu_torch/csrc/attention_fwd.cu",
         "carca_tpu/ops/flash_attention.py:113", launches["fit_10m"]["attention_fwd"],
         attn["k1_err"], attn["K1"], 4 * B * L * D * f32 + masks, 4 * B * L * L * D, "bfloat16",
-        attn["lib_fwd"])
+        attn["lib_fwd"], branch=k1_branch(L))
     add("attention_bwd_bf16", "carca_tpu_torch/csrc/attention_bwd.cu",
         "carca_tpu/ops/flash_attention.py:130", launches["fit_10m"]["attention_bwd"],
         attn["k2_err"], attn["K2"], 7 * B * L * D * f32 + masks, 10 * B * L * L * D,
@@ -5064,7 +5149,7 @@ def main() -> None:
     p.add_argument("--profile", action="store_true", help="add phase 7's traces")
     p.add_argument("--parent", default=None, help="a directory holding the parent commit's "
                    "carca_tpu_torch: phase 10 then also splits its 10M fit's and service's "
-                   "walls, in turns")
+                   "walls, and phase 15 times its K1, K2 and K3, in turns")
     cli_args = p.parse_args()
     profile_run = cli_args.profile
     parent = cli_args.parent and os.path.abspath(cli_args.parent)
@@ -5123,7 +5208,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     remat = timed("14 remat", phase_remat, card)
     if parent:
-        timed("15 K3 parent", k3_parent_turns, card, parent)
+        timed("15 K1, K2, K3 parent", k3_parent_turns, card, parent)
         shutil.rmtree(K3_TURN_DIR[0], ignore_errors=True)
     launches = {"slice": serve_launches, "slice_10m": launches_10m, "bench": bench_launches,
                 "train": train_launches, "fit_serve": fit_launches,

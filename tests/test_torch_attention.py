@@ -15,7 +15,7 @@ from carca_tpu.models.attention import masked_attention as jax_masked_attention
 from carca_tpu.ops.flash_attention import fused_attention as jax_fused_attention
 from carca_tpu_torch.models import layers
 from carca_tpu_torch.models.attention import MHA, masked_attention, pair_mask
-from carca_tpu_torch.ops.flash_attention import fused_attention
+from carca_tpu_torch.ops.flash_attention import WHOLE_ROW_KEYS, fused_attention, fwd_branch
 
 torch.set_num_threads(1)
 
@@ -51,6 +51,57 @@ def test_fused_attention_matches_jax(causal, lq, lk):
     # masked query rows and the all-keys-masked batch row are exact zeros
     assert (got[1] == 0).all() and (got[0, 0] == 0).all()
     assert np.isfinite(got).all()
+
+
+# past one 64-key tile: the shapes K1's whole-row kernel takes on the card
+# (csrc/attention_fwd.cu), held here to B1 in interpret mode and the jnp
+# reference through the plain version it is tested against
+@pytest.mark.parametrize("causal,lq,lk", [(None, 70, 70), (0, 70, 70), (-1, 70, 70),
+                                          (None, 101, 70)])
+def test_fused_attention_past_one_key_tile_matches_jax(causal, lq, lk):
+    q, k, v, qm, km = make(5, 2, lq, lk, 16)
+    kw = dict(causal=causal, scale=(16 / H) ** 0.5, n_heads=H)
+    t = torch.from_numpy
+    got = fused_attention(t(q), t(k), t(v), t(qm), t(km), **kw).numpy()
+    want_kernel = np.asarray(jax_fused_attention(q, k, v, qm, km, **kw))
+    want_jnp = np.asarray(jax_masked_attention(q, k, v, qm, km, train=False, **kw))
+    np.testing.assert_allclose(got, want_kernel, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got, want_jnp, rtol=TOL, atol=TOL)
+    assert (got[1] == 0).all() and (got[0, 0] == 0).all()
+    assert np.isfinite(got).all()
+
+
+@pytest.mark.parametrize("causal", [0, -1, 3, -70])
+@pytest.mark.parametrize("lq,lk", [(200, 200), (101, 200), (70, 70)])
+def test_keys_past_the_causal_limit_weigh_exactly_nothing(causal, lq, lk):
+    """The whole-row kernel skips, for each 64-row query tile, the key
+    chunks past its last row + ``causal``: the plain version over the
+    tile's rows (the causal offset moved with them) and the keys cut at
+    that limit equals the full call's rows bit for bit, fully masked rows
+    (a padded query, a batch row with no key, rows before the diagonal)
+    included."""
+    q, k, v, qm, km = (torch.from_numpy(a) for a in make(6, 2, lq, lk, 16))
+    kw = dict(n_heads=H, scale=(16 / H) ** 0.5)
+    full = masked_attention(q, k, v, qm, km, causal=causal, **kw)
+    for row0 in range(0, lq, 64):
+        rows = slice(row0, min(lq, row0 + 64))
+        lim = min(lk, max(rows.stop + causal, 1))
+        cut = masked_attention(q[:, rows], k[:, :lim], v[:, :lim], qm[:, rows], km[:, :lim],
+                               causal=causal + row0, **kw)
+        assert torch.equal(cut, full[:, rows])
+    assert (full[1] == 0).all() and (full[0, 0] == 0).all()
+
+
+def test_fwd_branch_rule():
+    """K1's rule on shapes (csrc/attention_fwd.cu::takes_whole_row): the
+    whole-row kernel past one 64-key tile up to men's 200 keys at heads of
+    up to 64 dims; rows_kernel for every other shape."""
+    assert WHOLE_ROW_KEYS == 200
+    for dh in (1, 6, 16, 32, 33, 64):
+        assert [fwd_branch(lk, dh) for lk in (1, 50, 64, 65, 101, 200, 201, 257, 4000)] == \
+            ["rows"] * 3 + ["whole_row"] * 3 + ["rows"] * 3
+    for dh in (65, 100, 128, 256):
+        assert {fwd_branch(lk, dh) for lk in (1, 64, 65, 200, 201)} == {"rows"}
 
 
 def test_bf16_compute_matches_jax():

@@ -25,9 +25,10 @@ import pytest
 import torch
 
 from carca_tpu_torch.models.attention import MHA, masked_attention
+from carca_tpu_torch.ops import _build
 from carca_tpu_torch.ops.flash_attention import (SEED_LIMIT, attention_bwd,
                                                  attention_grads_plain, attention_keep_mask,
-                                                 fused_attention)
+                                                 fused_attention, fwd_branch)
 from carca_tpu_torch.ops.retrieval_topk import (GROUP, SCORE_ORDER_TOL, QuantizedIndex,
                                                 catalog_topk, catalog_topk_plain,
                                                 compare_within_order_tol, groupmax,
@@ -57,9 +58,17 @@ def attn_inputs(dev, b, lq, lk, d, seed=0):
     return [t.to(dev) for t in (q, k, v, qm, km)]
 
 
+# K1 past one 64-key tile (the whole-row kernel, csrc/attention_fwd.cu): the
+# men encoder and decoder, the eval cross [101] x [200], one query row, a
+# ragged query tile and key chunk, one key past a tile; and key rows past
+# the whole-row kernel's longest, 200 keys (rows_kernel takes them)
+LONG_KEYS = [(0, 200, 200, 3), (-1, 200, 200, 3), (None, 101, 200, 3), (0, 1, 200, 3),
+             (0, 201, 257, 3), (0, 65, 65, 3), (0, 70, 300, 3)]
+
+
 @pytest.mark.parametrize("causal,lq,lk,b", [(0, 50, 50, 8), (None, 512, 50, 8),
                                             (-1, 50, 50, 8), (0, 33, 70, 3),
-                                            (None, 1, 1, 1)])
+                                            (None, 1, 1, 1)] + LONG_KEYS)
 @pytest.mark.parametrize("cd,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
 def test_attention_kernel_matches_plain(dev, causal, lq, lk, b, cd, tol):
     q, k, v, qm, km = attn_inputs(dev, b, lq, lk, 64)
@@ -69,6 +78,7 @@ def test_attention_kernel_matches_plain(dev, causal, lq, lk, b, cd, tol):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
     assert torch.count_nonzero(got[0]) == 0
+    assert torch.count_nonzero(got[qm == 0]) == 0
 
 
 def seed_of(i):
@@ -77,7 +87,7 @@ def seed_of(i):
 
 
 @pytest.mark.parametrize("causal,lq,lk,b", [(0, 50, 50, 8), (None, 40, 50, 8),
-                                            (-1, 50, 50, 8), (0, 33, 70, 3)])
+                                            (-1, 50, 50, 8), (0, 33, 70, 3)] + LONG_KEYS)
 @pytest.mark.parametrize("cd,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
 def test_attention_kernel_dropout_matches_plain_fed_its_bits(dev, causal, lq, lk, b, cd, tol):
     q, k, v, qm, km = attn_inputs(dev, b, lq, lk, 64)
@@ -88,6 +98,70 @@ def test_attention_kernel_dropout_matches_plain_fed_its_bits(dev, causal, lq, lk
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
     assert torch.count_nonzero(got[0]) == 0
+    assert torch.count_nonzero(got[qm == 0]) == 0
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128, 256])
+@pytest.mark.parametrize("causal,lq,lk", [(0, 200, 200), (-1, 200, 200), (None, 101, 200),
+                                          (0, 40, 300)])
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("cd,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_attention_kernel_long_keys_every_head_width(dev, dh, causal, lq, lk, rate, cd, tol):
+    """K1 at Lk = 200 and past the whole-row kernel's longest key row, at
+    32-, 64- and 128-dim heads and 256-dim ones (128-column chunks), with
+    and without weight dropout (the plain version fed the kernel's bits):
+    within the tolerance, fully masked rows exactly 0."""
+    b, heads = 3, 2
+    q, k, v, qm, km = attn_inputs(dev, b, lq, lk, dh * heads, seed=dh + lk)
+    kw = dict(causal=causal, scale=dh ** 0.5, n_heads=heads, compute_dtype=cd,
+              dropout_rate=rate)
+    got = fused_attention(q, k, v, qm, km, seed_generator=torch.Generator().manual_seed(5), **kw)
+    keep = attention_keep_mask(seed_of(5), (b, heads, lq, lk), rate, dev) if rate else None
+    want = masked_attention(q, k, v, qm, km, keep_mask=keep, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    assert torch.count_nonzero(got[0]) == 0
+    assert torch.count_nonzero(got[qm == 0]) == 0
+
+
+def test_attention_fwd_branch_rule_is_the_kernels(dev):
+    """flash_attention.fwd_branch, the rule the CPU tests hold, is the one
+    csrc/attention_fwd.cu dispatches by (its C query)."""
+    lib = _build.library()
+    for dh in (1, 8, 31, 32, 33, 64, 65, 128, 129, 256):
+        for lk in (1, 64, 65, 120, 200, 201, 240, 280, 281, 4000):
+            c = lib.carca_attention_fwd_branch(lk, dh)
+            assert ("whole_row" if c else "rows") == fwd_branch(lk, dh), (dh, lk)
+
+
+def test_attention_kernel_long_keys_deterministic_and_graphed(dev):
+    """K1 at the men encoder [256,200,64] (the whole-row kernel, no atomics,
+    no split over keys): two calls bit-equal, with and without dropout;
+    a CUDA graph of the call replays bit-equal to the eager call."""
+    b, lq = 256, 200
+    q, k, v, qm, km = attn_inputs(dev, b, lq, lq, 64, seed=11)
+    kw = dict(causal=0, scale=32 ** 0.5, n_heads=2)
+    for rate in (0.0, 0.5):
+        f1, f2 = (fused_attention(q, k, v, qm, km, dropout_rate=rate, seed=77, **kw)
+                  for _ in range(2))
+        assert torch.equal(f1, f2)
+    eager = fused_attention(q, k, v, qm, km, dropout_rate=0.5, seed=78, **kw)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # warm up outside the capture
+        fused_attention(q, k, v, qm, km, dropout_rate=0.5, seed=78, **kw)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fused_attention(q, k, v, qm, km, dropout_rate=0.5, seed=78, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    q.mul_(-1.0)  # a replay reads its inputs anew
+    graph.replay()
+    want = fused_attention(q, k, v, qm, km, dropout_rate=0.5, seed=78, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
 
 
 def test_keep_mask_on_the_card_equals_the_numpy_generator(dev):
