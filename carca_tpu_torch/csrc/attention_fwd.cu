@@ -88,14 +88,6 @@ namespace attn {
 // K1's whole-row kernel (64 < Lk <= 200, heads of up to 64 dims)
 // ---------------------------------------------------------------------------
 
-constexpr int kRowKeys = 40;  // keys of one score chunk: one wgmma m64n40
-constexpr int kRowNB = kRowKeys / 8;
-
-// Score chunks a thread holds: 5, 200 keys in 100 registers (men's L). At
-// 64-dim heads in float32 K and V^T, hi and lo, take 1 KB a key of the
-// 227 KB of shared memory, so 200 keys is also all that fits there.
-constexpr int kRowChunks = 5;
-
 // Whether the whole-row kernel takes key length Lk at head width dh: one
 // key tile is rows_kernel's, and heads wider than 64 dims stay there too.
 inline bool takes_whole_row(int Lk, int dh) {
@@ -111,52 +103,6 @@ constexpr size_t row_smem_bytes(int chunks) {
   const size_t vkeys = kBf16 ? (keys + 15) / 16 * 16 : keys;
   const size_t el = kBf16 ? 2 : 4, parts = kBf16 ? 1 : 2;
   return parts * (keys + vkeys) * kDh * el + keys * sizeof(float);
-}
-
-// fn(std::integral_constant<int, n>) for n live key chunks, 1..kRowChunks:
-// each count's products are straight-line code. Under a branch per chunk
-// ptxas serialized every float32 wgmma (C7512: a wait after each product).
-template <typename Fn>
-__device__ __forceinline__ void with_chunks(int n, Fn&& fn) {
-  static_assert(kRowChunks == 5, "one case per chunk count");
-  switch (n) {
-    case 1: fn(std::integral_constant<int, 1>{}); break;
-    case 2: fn(std::integral_constant<int, 2>{}); break;
-    case 3: fn(std::integral_constant<int, 3>{}); break;
-    case 4: fn(std::integral_constant<int, 4>{}); break;
-    default: fn(std::integral_constant<int, 5>{}); break;
-  }
-}
-
-// z = (s + (m > 0 ? 0 : -(2^32 - 1))) / scale, as s / scale + neg where neg
-// = -(2^32 - 1) / scale: a live logit is rounded as logit() rounds it; a
-// masked one differs, and weighs nothing either way: in a row with a live
-// key its exp underflows to exactly 0, and a row with none is re-masked to
-// 0. Staged keys past Lk have a zero key mask, so they are masked alike.
-__device__ __forceinline__ float masked_logit(float s, float m, float inv_scale, float neg) {
-  return fmaf(s, inv_scale, m > 0.f ? 0.f : neg);
-}
-
-// f32: the TF32 k step reads keys 8s..8s+7 of V^T in the order its A
-// fragment (P in accumulator layout) holds them: position k <-> key 2k
-// (k < 4), key 2(k - 4) + 1 (k >= 4). So key j sits at position vpos(j).
-__device__ __forceinline__ int vpos(int j) {
-  const int r = j & 7;
-  return (j & ~7) | ((r & 1) ? 4 + (r >> 1) : (r >> 1));
-}
-
-// x[i] for a lane-dependent i in 0..3, without indexing registers
-__device__ __forceinline__ float pick4(const float* x, int i) {
-  return i < 2 ? (i == 0 ? x[0] : x[1]) : (i == 2 ? x[2] : x[3]);
-}
-
-// Four columns e..e+3 of one row (zeros past dh); `vec`: one 16-byte load.
-__device__ __forceinline__ float4 load4(const float* __restrict__ row, int e, int dh, bool vec) {
-  if (vec) return e < dh ? __ldg(reinterpret_cast<const float4*>(row + e)) : make_float4(0, 0, 0, 0);
-  float x[4];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) x[c] = e + c < dh ? __ldg(row + e + c) : 0.f;
-  return make_float4(x[0], x[1], x[2], x[3]);
 }
 
 // Block (h, b): K and V of the (b, h) staged once, then the block's one
@@ -358,7 +304,7 @@ __global__ void __launch_bounds__(kThreads, 1) whole_row_kernel(const Args a) {
 
     // S = Q K^T, chunk by chunk (float32: lo*hi, hi*lo, hi*hi as mma.cuh)
     float s[kC][kRowNB][4];
-    with_chunks(nl, [&](auto chunks) {
+    with_count<kRowChunks, 1>(nl, [&](auto chunks) {
       wg::fence();
 #pragma unroll
       for (int c = 0; c < decltype(chunks)::value; ++c)
@@ -474,7 +420,7 @@ __global__ void __launch_bounds__(kThreads, 1) whole_row_kernel(const Args a) {
     // O = P V over the live chunks
     float o[kDh / 8][4];
     if constexpr (kBf16) {
-      with_chunks(nl, [&](auto chunks) {
+      with_count<kRowChunks, 1>(nl, [&](auto chunks) {
         constexpr int kNB = decltype(chunks)::value * kRowNB;  // n8 blocks of P
         constexpr int kK2 = (kNB + 1) / 2;                     // k16 steps: two blocks each
         uint32_t pa[kK2][4];
@@ -504,7 +450,7 @@ __global__ void __launch_bounds__(kThreads, 1) whole_row_kernel(const Args a) {
           for (int e = 0; e < 4; ++e) wg::hold(pa[k2][e]);
       });
     } else {
-      with_chunks(nl, [&](auto chunks) {
+      with_count<kRowChunks, 1>(nl, [&](auto chunks) {
         uint32_t lo[kRowNB][4];  // P's lo parts, a ring of five k steps
 #pragma unroll
         for (int c = 0; c < decltype(chunks)::value; ++c) {

@@ -33,6 +33,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "mma.cuh"
 #include "philox.cuh"
 
@@ -106,10 +108,13 @@ __device__ __forceinline__ Split split_as(float x) {
 
 // acc[n] += A B^T over kDh: A is the warp's 16 rows in shared memory, rows
 // a0 (fragment row g) and a1 (fragment row g + 8) of this lane; B a
-// [kTile, kDh + 4] tile whose rows are the columns of acc.
+// [kTile, kDh + 4] tile whose rows are the columns of acc. Blocks n >= live
+// (warp-uniform) are left as they are: K2's causal tiles skip the keys past
+// the warp's last row's diagonal.
 template <int kDh, bool kBf16, int kN, bool kFast = false>
 __device__ __forceinline__ void mma_rows_bt(float (&acc)[kN][4], const float* a0,
-                                            const float* a1, const float* bt, int g, int t) {
+                                            const float* a1, const float* bt, int g, int t,
+                                            int live = kN) {
   constexpr int LD = kDh + 4;
   // one k step: 16 (bf16) or 8 (TF32) columns of A and B
   auto step = [&](int kk) {
@@ -122,6 +127,7 @@ __device__ __forceinline__ void mma_rows_bt(float (&acc)[kN][4], const float* a0
                              pack_bf16(x2.x, x2.y), pack_bf16(x3.x, x3.y)};
 #pragma unroll
       for (int n = 0; n < kN; ++n) {
+        if (n >= live) break;
         const float* br = bt + (8 * n + g) * LD + kk + 2 * t;
         const float2 y0 = *reinterpret_cast<const float2*>(br);
         const float2 y1 = *reinterpret_cast<const float2*>(br + 8);
@@ -132,6 +138,7 @@ __device__ __forceinline__ void mma_rows_bt(float (&acc)[kN][4], const float* a0
                           split_as<kFast>(a0[kk + t + 4]), split_as<kFast>(a1[kk + t + 4])};
 #pragma unroll
       for (int n = 0; n < kN; ++n) {
+        if (n >= live) break;
         const float* br = bt + (8 * n + g) * LD + kk + t;
         mma_3xtf32(acc[n], a, split_as<kFast>(br[0]), split_as<kFast>(br[4]));
       }
@@ -149,14 +156,18 @@ __device__ __forceinline__ void mma_rows_bt(float (&acc)[kN][4], const float* a0
 
 // out[n] += P B over kCols n8 blocks of columns: P is a [16, 8 kN] tile in
 // registers (accumulator layout), B a [8 kN, *] tile of row stride kDh + 4
-// whose rows are P's columns (b: its first column).
+// whose rows are P's columns (b: its first column). P's k blocks outside
+// [lo, hi) (warp-uniform; bf16 rounds lo down to a pair) are zero and
+// skipped: K2's causal tiles.
 template <int kDh, bool kBf16, int kN, int kCols = kDh / 8, bool kFast = false>
 __device__ __forceinline__ void mma_regs_b(float (&out)[kCols][4], const float (&p)[kN][4],
-                                           const float* b, int g, int t) {
+                                           const float* b, int g, int t, int lo = 0,
+                                           int hi = kN) {
   constexpr int LD = kDh + 4;
   if constexpr (kBf16) {
 #pragma unroll
     for (int k2 = 0; k2 < kN / 2; ++k2) {
+      if (2 * k2 + 1 < lo || 2 * k2 >= hi) continue;
       const uint32_t a[4] = {pack_bf16(p[2 * k2][0], p[2 * k2][1]),
                              pack_bf16(p[2 * k2][2], p[2 * k2][3]),
                              pack_bf16(p[2 * k2 + 1][0], p[2 * k2 + 1][1]),
@@ -169,6 +180,7 @@ __device__ __forceinline__ void mma_regs_b(float (&out)[kCols][4], const float (
     }
     if constexpr (kN % 2 == 1) {  // an odd last block of P: one k = 8 step
       constexpr int kt = kN - 1;
+      if (kt < lo || kt >= hi) return;
       const uint32_t a0 = pack_bf16(p[kt][0], p[kt][1]), a1 = pack_bf16(p[kt][2], p[kt][3]);
       const float* br = b + (8 * kt + 2 * t) * LD + g;
 #pragma unroll
@@ -178,6 +190,7 @@ __device__ __forceinline__ void mma_regs_b(float (&out)[kCols][4], const float (
   } else {
 #pragma unroll
     for (int kt = 0; kt < kN; ++kt) {
+      if (kt < lo || kt >= hi) continue;
       // k = t <-> column 2t, k = t + 4 <-> column 2t + 1 of block kt
       const Split a[4] = {split_as<kFast>(p[kt][0]), split_as<kFast>(p[kt][2]),
                           split_as<kFast>(p[kt][1]), split_as<kFast>(p[kt][3])};
@@ -550,6 +563,77 @@ cudaError_t dispatch(int dh, int bf16, Fn&& fn) {
       return bf16 ? fn.template operator()<128, true>() : fn.template operator()<128, false>();
     default: return cudaErrorInvalidValue;
   }
+}
+
+// ---------------------------------------------------------------------------
+// the whole-row kernels' shared pieces (K1's whole_row_kernel, K2's
+// whole_row_bwd_kernel): the key row in chunks of one wgmma m64n40 each
+// ---------------------------------------------------------------------------
+
+constexpr int kRowKeys = 40;  // keys of one score chunk: one wgmma m64n40
+constexpr int kRowNB = kRowKeys / 8;
+
+// Score chunks a thread holds: 5, 200 keys in 100 registers (men's L). At
+// 64-dim heads in float32 K and V^T, hi and lo, take 1 KB a key of the
+// 227 KB of shared memory, so 200 keys is also all that fits there.
+constexpr int kRowChunks = 5;
+
+// fn(std::integral_constant<int, n>) for n in kMin..kMax (n clamped to that
+// range): each count's products are straight-line code. Under a branch per
+// chunk ptxas serialized every float32 wgmma (C7512: a wait after each
+// product).
+template <int kMax, int kMin = 0, typename Fn>
+__device__ __forceinline__ void with_count(int n, Fn&& fn) {
+  if constexpr (kMax == kMin) {
+    fn(std::integral_constant<int, kMin>{});
+  } else {
+    if (n >= kMax) {
+      fn(std::integral_constant<int, kMax>{});
+    } else {
+      with_count<kMax - 1, kMin>(n, fn);
+    }
+  }
+}
+
+// Named barriers of `threads` threads (id 0 is __syncthreads'): sync waits
+// for all of them, arrive counts this warp in and goes on.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// z = (s + (m > 0 ? 0 : -(2^32 - 1))) / scale, as s / scale + neg where neg
+// = -(2^32 - 1) / scale: a live logit is rounded as logit() rounds it; a
+// masked one differs, and weighs nothing either way: in a row with a live
+// key its exp underflows to exactly 0, and a row with none is re-masked to
+// 0. Staged keys past Lk have a zero key mask, so they are masked alike.
+__device__ __forceinline__ float masked_logit(float s, float m, float inv_scale, float neg) {
+  return fmaf(s, inv_scale, m > 0.f ? 0.f : neg);
+}
+
+// f32: the TF32 k step reads keys 8s..8s+7 of V^T in the order its A
+// fragment (P in accumulator layout) holds them: position k <-> key 2k
+// (k < 4), key 2(k - 4) + 1 (k >= 4). So key j sits at position vpos(j).
+__device__ __forceinline__ int vpos(int j) {
+  const int r = j & 7;
+  return (j & ~7) | ((r & 1) ? 4 + (r >> 1) : (r >> 1));
+}
+
+// x[i] for a lane-dependent i in 0..3, without indexing registers
+__device__ __forceinline__ float pick4(const float* x, int i) {
+  return i < 2 ? (i == 0 ? x[0] : x[1]) : (i == 2 ? x[2] : x[3]);
+}
+
+// Four columns e..e+3 of one row (zeros past dh); `vec`: one 16-byte load.
+__device__ __forceinline__ float4 load4(const float* __restrict__ row, int e, int dh, bool vec) {
+  if (vec) return e < dh ? __ldg(reinterpret_cast<const float4*>(row + e)) : make_float4(0, 0, 0, 0);
+  float x[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) x[c] = e + c < dh ? __ldg(row + e + c) : 0.f;
+  return make_float4(x[0], x[1], x[2], x[3]);
 }
 
 }  // namespace attn

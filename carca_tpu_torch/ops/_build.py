@@ -50,6 +50,7 @@ SIGNATURES = {
     "carca_attention_keep_bits": (_I, [_P, _U64, _U64, _P, _U32, _P]),
     "carca_attention_bwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _I, _I, _I, _F, _I, _I, _U64, _P, _U32, _F, _P]),
+    "carca_attention_bwd_branch": (_I, [_I, _I]),
     "carca_catalog_topk_smem_bytes": (ctypes.c_size_t, [_I, _I, _I, _I, _I, _I, _I]),
     "carca_catalog_topk": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _I64, _I, _P]),

@@ -21,9 +21,12 @@ whole key row in shared memory and its scores in registers (``wgmma``);
 every other shape walks 64-row tiles on ``mma.sync``, so shared memory does
 not grow with the key length there. A head is built for 32, 64 or 128
 dims, and a wider one runs in 128-column chunks, so any key length and
-head width runs. K2 is one block per (batch row, head) that holds all of
-that head's keys in turn and writes its dq, dk and dv whole, so it needs
-no scratch beyond the dropout bits.
+head width runs. K2 is one block per (batch row, head) that writes its dq,
+dk and dv whole, so it needs no scratch beyond the dropout bits; it too has
+two kernels by a rule on shapes (``bwd_branch``): past one 64-key tile and
+up to 200 keys, at heads of up to 32 dims (men), two warpgroups hold the
+whole key row's scores and dW in registers and run all five products on
+``wgmma``; every other shape walks key and query tiles on ``mma.sync``.
 
 Weight dropout on the card draws no tensor: both kernels derive the keep
 bit of weight (b, h, i, j) from a stateless Philox4x32-10 keyed by a 64-bit
@@ -251,6 +254,16 @@ def fwd_branch(lk: int, dh: int) -> str:
     64 dims; ``"rows"``, rows_kernel's walk over 64-key tiles, for every
     other shape."""
     return "whole_row" if 64 < lk <= WHOLE_ROW_KEYS and dh <= 64 else "rows"
+
+
+def bwd_branch(lk: int, dh: int) -> str:
+    """Which of K2's kernels runs at key length ``lk`` and head width ``dh``
+    (``csrc/attention_bwd.cu::takes_whole_row_bwd``): ``"whole_row"``, the
+    whole key row per (batch row, head) on wgmma, for 64 < lk <= 200 at
+    heads of up to 32 dims (wider heads' K, V and Kᵀ, split for 3xTF32,
+    would not fit in shared memory); ``"rows"``, bwd_kernel's walk over
+    64-key tiles, for every other shape."""
+    return "whole_row" if 64 < lk <= WHOLE_ROW_KEYS and dh <= 32 else "rows"
 
 
 def _launch_fwd(q, k, v, q_mask, k_mask, *, causal, scale, n_heads, compute_dtype,

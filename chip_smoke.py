@@ -11,7 +11,8 @@ raises and exits non-zero:
 1. device  — a CUDA card must be present (there is no CPU fallback);
              prints nvidia-smi's name and power limit; TF32 off.
 2. build   — compiles kernels K1–K4 from carca_tpu_torch/csrc/ (one nvcc
-             per source, all started together).
+             per source, all started together); with --parent DIR, DIR's
+             kernels at the same time, in a process of their own.
 3. K1      — the attention forward kernel against its plain version on
              CUDA tensors at the serving and training shapes, at men's
              encoder [256,200,64], decoder (causal -1) and eval cross
@@ -33,8 +34,10 @@ raises and exits non-zero:
              ([256,200,128] with 64-dim heads, [256,320,64]), and with
              256-dim heads (128-column chunks) at Lk = 50 and 200: per-tensor
              relative error, exact zeros for fully masked rows, two runs
-             bit-equal; fwd+bwd and bwd-only times against the plain
-             version's.
+             bit-equal; each case logs the branch K2's C rule takes (the
+             whole-row kernel at men's shapes), which must equal
+             flash_attention.bwd_branch; fwd+bwd and bwd-only times against
+             the plain version's.
 4. K3      — the stream top-k kernel over f32, bf16 and int8 indexes against
              its plain version within the summation-order tolerance (below):
              ties, id_offset with an n_items limit, k beyond the valid rows,
@@ -406,8 +409,9 @@ from carca_tpu_torch.ops import _build, launches
 from carca_tpu_torch.ops import retrieval_topk as rt
 from carca_tpu_torch.ops.flash_attention import (SEED_LIMIT, attention_bwd,
                                                  attention_grads_plain,
-                                                 attention_keep_mask, fused_attention,
-                                                 fwd_branch, kernel_seed, philox_bits)
+                                                 attention_keep_mask, bwd_branch,
+                                                 fused_attention, fwd_branch, kernel_seed,
+                                                 philox_bits)
 from carca_tpu_torch.ops.retrieval_topk import (GROUP, SCORE_ORDER_TOL, QuantizedIndex,
                                                 catalog_topk, catalog_topk_plain,
                                                 compare_within_order_tol, groupmax,
@@ -572,6 +576,15 @@ def bound(bytes_moved: float, ops: float, operand: str):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def live_pairs(lq, lk, causal) -> int:
+    """The (query, key) pairs K1's and K2's products need: key j of query i
+    where j <= i + causal, all lq * lk when causal is None. Past that limit
+    every weight is exactly 0 and the kernels skip those key chunks."""
+    if causal is None:
+        return lq * lk
+    return sum(min(lk, max(0, i + causal + 1)) for i in range(lq))
+
+
 def reset_counts() -> None:
     """Every kernel's launch count to 0, just before a main path runs."""
     launches.reset()
@@ -622,12 +635,25 @@ def phase_device() -> str:
 # phase 2: build
 # --------------------------------------------------------------------------
 
-def phase_build() -> None:
-    res = _build.build()
-    _build.library()  # loads, and declares every C signature
+def phase_build(parent=None) -> None:
+    # the parent's kernels (phases 10 and 15 run them) build beside this
+    # tree's, from its own sources, into its own build/
+    other = parent and subprocess.Popen(
+        [sys.executable, "-c", "from carca_tpu_torch.ops import _build; _build.build()"],
+        cwd=parent, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        res = _build.build()
+        _build.library()  # loads, and declares every C signature
+    except BaseException:
+        if other:
+            other.kill()
+        raise
     usage = [ln.strip() for ln in res.log.splitlines()
              if "Compiling entry" in ln or "Used" in ln]
     log("build", seconds=res.seconds, library=str(res.path), ptxas=usage)
+    if other:
+        out = other.communicate()[0]
+        check(other.returncode == 0, f"the kernels of {parent} did not build: {out[-4000:]}")
 
 
 # --------------------------------------------------------------------------
@@ -676,6 +702,15 @@ def k1_branch(lk, d=D) -> str:
     c = _build.library().carca_attention_fwd_branch(lk, d // H)
     branch = "whole_row" if c else "rows"
     check(branch == fwd_branch(lk, d // H), f"K1's C rule at Lk={lk}, d={d}: {branch}")
+    return branch
+
+
+def k2_branch(lk, d=D) -> str:
+    """The K2 kernel csrc/attention_bwd.cu runs at key length lk, width d
+    (H heads): its C rule, which must equal flash_attention.bwd_branch."""
+    c = _build.library().carca_attention_bwd_branch(lk, d // H)
+    branch = "whole_row" if c else "rows"
+    check(branch == bwd_branch(lk, d // H), f"K2's C rule at Lk={lk}, d={d}: {branch}")
     return branch
 
 
@@ -817,8 +852,8 @@ def phase_k2(card) -> tuple:
             abs_err = max((a - w).abs().max().item() for a, w in zip(got, want))
             if cd == "float32":
                 worst = max(worst, abs_err)
-            log("K2", case=name, dropout=rate, dtype=cd, rel_err=errs, max_abs_err=abs_err,
-                tol=tol, bit_equal_runs=True)
+            log("K2", case=name, dropout=rate, dtype=cd, branch=k2_branch(lk, d), rel_err=errs,
+                max_abs_err=abs_err, tol=tol, bit_equal_runs=True)
         if name in K2_TIMED.values():
             timings[name] = time_k2(card, name, inputs, g, i, causal=causal,
                                     scale=(d / H) ** 0.5, n_heads=H, compute_dtype=cd,
@@ -1805,10 +1840,11 @@ def check_utilisation(line: dict, what: str) -> None:
 
 # K1's and K2's device kernels by their names in a trace, demangled
 # (rows_kernel<kDh, kBf16> or whole_row_kernel<kDh, kBf16>, bwd_kernel<kDh,
-# kBf16, kN>) or mangled
+# kBf16, kN> or whole_row_bwd_kernel<kDh, kBf16>) or mangled
 K1_K2_KERNELS = {"K1": re.compile(r"(rows|whole_row)_kernel"
                                   r"(<\d+, (true|false)>|ILi\d+ELb[01]EE)"),
-                 "K2": re.compile(r"bwd_kernel(<\d+, (true|false), \d+>|ILi\d+ELb[01]ELi\d+EE)")}
+                 "K2": re.compile(r"bwd_kernel(<\d+, (true|false)(, \d+)?>"
+                                  r"|ILi\d+ELb[01]E(Li\d+E)?E)")}
 
 
 def bench_utilisation(card) -> None:
@@ -2593,10 +2629,6 @@ def fit_10m_turns(card, parent, tmp, before: bool) -> list:
     the same wrappers (fit_10m_process). Called before phase 10's main fit
     (the parent) and after it (this tree, then the parent), so that the
     turns run parent, change, change, parent. Gates are the main fit's."""
-    built = os.path.join(ROOT, "build", "carca_tpu_torch")
-    if os.path.isdir(built):  # the same sources build the same library: no second build
-        shutil.copytree(built, os.path.join(parent, "build", "carca_tpu_torch"),
-                        dirs_exist_ok=True)
     out = []
     for tree in ([parent] if before else [ROOT, parent]):
         run = os.path.join(tmp, "turn")
@@ -3847,11 +3879,12 @@ def family_kernels(card) -> dict:
     return out
 
 
-# K2 at most SDPA's backward where a fit trains: the games/fashion encoder,
-# men's encoder (phase 3b's "men") and decoder. At the games/fashion decoder
-# [512,50,128]^2 it is not (157.0 us against 153.6-159.5 us, NVIDIA H100
-# 80GB HBM3, 700.00 W): logged, not held.
-K2_NO_SLOWER_THAN_SDPA = ("games_encoder", "men", "men_decoder")
+# K2 at most SDPA's backward where a fit trains: the games/fashion encoder
+# and decoder, men's encoder (phase 3b's "men") and decoder. The games
+# decoder [512,50,128]^2, causal -1, by bwd_kernel's causal block skips:
+# 0.1486-0.1493 ms against SDPA's 0.1529-0.1546 in the same processes
+# (NVIDIA H100 80GB HBM3, 700.00 W).
+K2_NO_SLOWER_THAN_SDPA = ("games_encoder", "games_decoder", "men", "men_decoder")
 
 
 def k2_vs_library(card, shape, k2_ms, library_ms) -> None:
@@ -4862,9 +4895,9 @@ def k3_parent_turns(card, parent) -> dict:
                      "parent_over_change": sum(parent_ms) / sum(change_ms)}
         kernel, _, shape = name.partition(" ")
         extra = {}
-        if kernel == "K1":
+        if kernel in ("K1", "K2"):
             _, _, lk, _, d, _, _, _ = ATTN_TURN_SHAPES[shape]
-            extra["branch"] = k1_branch(lk, d)
+            extra["branch"] = (k1_branch if kernel == "K1" else k2_branch)(lk, d)
         log(f"{kernel.lower()}_parent" if kernel in ("K1", "K2") else "k3_parent", card=card,
             case=shape if kernel in ("K1", "K2") else name, turns=[tag for tag, _ in turns],
             **out[name], **extra)
@@ -4900,14 +4933,14 @@ def family_entries(f) -> list:
         shape = f"{name} [{b},{lq},{d}] x [{b},{lk},{d}] causal {causal}"
         entries.append(kernel_entry(f"attention_fwd_{name}", "carca_tpu_torch/csrc/attention_fwd.cu",
                              "carca_tpu/ops/flash_attention.py:113", n["fwd"], res["k1_err"],
-                             res["k1"], 2 * b * (lq + lk) * d * f32 + masks, 4 * b * lq * lk * d,
+                             res["k1"], 2 * b * (lq + lk) * d * f32 + masks, 4 * b * live_pairs(lq, lk, causal) * d,
                              "3xtf32", res["lib"]["fwd"], shape, k1_branch(lk, d)))
         if trained:
             entries.append(kernel_entry(
                 f"attention_bwd_{name}", "carca_tpu_torch/csrc/attention_bwd.cu",
                 "carca_tpu/ops/flash_attention.py:130", n["bwd"], res["k2_err"], res["k2"],
-                (3 * lq + 4 * lk) * b * d * f32 + masks, 10 * b * lq * lk * d, "3xtf32",
-                res["lib"]["bwd"], shape))
+                (3 * lq + 4 * lk) * b * d * f32 + masks, 10 * b * live_pairs(lq, lk, causal) * d, "3xtf32",
+                res["lib"]["bwd"], shape, k2_branch(lk, d)))
     s = f["serve"]
     r, d = s["rows"], s["d"]
     entries.append(kernel_entry("catalog_topk_fashion", "carca_tpu_torch/csrc/catalog_topk.cu",
@@ -4937,12 +4970,12 @@ def mesh_entries(m) -> list:
     local = f"mesh 2 rank-local encoder [{b},{L},{D}] causal 0 dropout {P_DROP}"
     add("attention_fwd_mesh2", "carca_tpu_torch/csrc/attention_fwd.cu",
         "carca_tpu/ops/flash_attention.py:113", fit["attention_fwd"], attn["k1_err"],
-        attn["k1"], 4 * b * L * D * f32 + masks, 4 * b * L * L * D, "3xtf32",
+        attn["k1"], 4 * b * L * D * f32 + masks, 4 * b * live_pairs(L, L, 0) * D, "3xtf32",
         attn["lib"]["fwd"], local, k1_branch(L))
     add("attention_bwd_mesh2", "carca_tpu_torch/csrc/attention_bwd.cu",
         "carca_tpu/ops/flash_attention.py:130", fit["attention_bwd"], attn["k2_err"],
-        attn["k2"], 7 * b * L * D * f32 + masks, 10 * b * L * L * D, "3xtf32",
-        attn["lib"]["bwd"], local)
+        attn["k2"], 7 * b * L * D * f32 + masks, 10 * b * live_pairs(L, L, 0) * D, "3xtf32",
+        attn["lib"]["bwd"], local, k2_branch(L))
     shard = f"index_shards 2: one {rows}-row int8 block, bucket 1"
     add("catalog_topk_int8_shard", "carca_tpu_torch/csrc/catalog_topk.cu",
         "carca_tpu/ops/retrieval_topk.py:526", serve["catalog_topk_int8"], t["k3_err"],
@@ -4982,13 +5015,13 @@ def scaling_entries(p) -> list:
         entries.append(kernel_entry(
             f"attention_fwd_{path}_{part}", "carca_tpu_torch/csrc/attention_fwd.cu",
             "carca_tpu/ops/flash_attention.py:113", n["fwd"], res["k1_err"], res["k1"],
-            4 * bb * L * D * f32 + masks, 4 * bb * L * L * D, "3xtf32", res["lib"]["fwd"], shape,
+            4 * bb * L * D * f32 + masks, 4 * bb * live_pairs(L, L, causal) * D, "3xtf32", res["lib"]["fwd"], shape,
             k1_branch(L)))
         entries.append(kernel_entry(
             f"attention_bwd_{path}_{part}", "carca_tpu_torch/csrc/attention_bwd.cu",
             "carca_tpu/ops/flash_attention.py:130", n["bwd"], res["k2_err"], res["k2"],
-            7 * bb * L * D * f32 + masks, 10 * bb * L * L * D, "3xtf32", res["lib"]["bwd"],
-            shape))
+            7 * bb * L * D * f32 + masks, 10 * bb * live_pairs(L, L, causal) * D, "3xtf32", res["lib"]["bwd"],
+            shape, k2_branch(L)))
     return entries
 
 
@@ -5006,8 +5039,8 @@ def kernel_entries(k1_err, k2_err, k3_err, k4_err, timings, k2_times, library, l
 
     # K1 and K2 at each timed shape: bytes of q/out (K2: q, dO, dq) at Lq and
     # k/v (K2: k, v, dk, dv) at Lk plus the masks; 2 (K2: 5) products of
-    # Lq Lk d multiply-adds, counted whole (causal masking skips none), at
-    # the 3xTF32 rate. Launches at the shape on the path that runs it (the
+    # d multiply-adds for each (query, key) pair the causal offset leaves
+    # (live_pairs), at the 3xTF32 rate. Launches at the shape on the path that runs it (the
     # train step runs encoder and decoder, phase 12's men fit men's encoder)
     for shape, (b, lq, lk, causal, rate) in ATTN_SHAPES.items():
         suffix = "" if shape == "encoder" else f"_{shape}"
@@ -5017,14 +5050,14 @@ def kernel_entries(k1_err, k2_err, k3_err, k4_err, timings, k2_times, library, l
         add(f"attention_fwd{suffix}", "carca_tpu_torch/csrc/attention_fwd.cu",
             "carca_tpu/ops/flash_attention.py:113",
             launches[path]["attention_fwd_by_shape"].get(key, 0), k1_err,
-            timings["K1", shape], 2 * b * (lq + lk) * D * f32 + masks, 4 * b * lq * lk * D,
+            timings["K1", shape], 2 * b * (lq + lk) * D * f32 + masks, 4 * b * live_pairs(lq, lk, causal) * D,
             "3xtf32", library[shape]["fwd"], shape, k1_branch(lk))
         if shape in K2_TIMED:
             add(f"attention_bwd{suffix}", "carca_tpu_torch/csrc/attention_bwd.cu",
                 "carca_tpu/ops/flash_attention.py:130",
                 launches[path]["attention_bwd_by_shape"].get(key, 0),
                 k2_err, k2_times[K2_TIMED[shape]]["bwd"], (3 * lq + 4 * lk) * b * D * f32 + masks,
-                10 * b * lq * lk * D, "3xtf32", library[shape]["bwd"], shape)
+                10 * b * live_pairs(lq, lk, causal) * D, "3xtf32", library[shape]["bwd"], shape, k2_branch(lk))
     add("catalog_topk", "carca_tpu_torch/csrc/catalog_topk.cu",
         "carca_tpu/ops/retrieval_topk.py:526", launches["slice"]["catalog_topk_f32"],
         k3_err["f32"], timings["K3", "seen"], r_seen * D * f32 + B * D * f32 + B * KK * 12,
@@ -5084,12 +5117,13 @@ def remat_entries(r, timings, k2_times, library, k1_err, k2_err) -> list:
             entries.append(kernel_entry(
                 f"attention_fwd_remat_{c}_b{b}", "carca_tpu_torch/csrc/attention_fwd.cu",
                 "carca_tpu/ops/flash_attention.py:113", n["fwd"], k1e, k1,
-                4 * b * lq * D * f32 + masks, 4 * b * lq * lq * D, "3xtf32", lib["fwd"], shape,
+                4 * b * lq * D * f32 + masks, 4 * b * live_pairs(lq, lq, 0) * D, "3xtf32", lib["fwd"], shape,
                 k1_branch(lq)))
             entries.append(kernel_entry(
                 f"attention_bwd_remat_{c}_b{b}", "carca_tpu_torch/csrc/attention_bwd.cu",
                 "carca_tpu/ops/flash_attention.py:130", n["bwd"], k2e, k2,
-                7 * b * lq * D * f32 + masks, 10 * b * lq * lq * D, "3xtf32", lib["bwd"], shape))
+                7 * b * lq * D * f32 + masks, 10 * b * live_pairs(lq, lq, 0) * D, "3xtf32", lib["bwd"], shape,
+                k2_branch(lq)))
     return entries
 
 
@@ -5111,12 +5145,12 @@ def fit10m_entries(f, launches):
     masks = B * 2 * L * f32
     add("attention_fwd_bf16", "carca_tpu_torch/csrc/attention_fwd.cu",
         "carca_tpu/ops/flash_attention.py:113", launches["fit_10m"]["attention_fwd"],
-        attn["k1_err"], attn["K1"], 4 * B * L * D * f32 + masks, 4 * B * L * L * D, "bfloat16",
+        attn["k1_err"], attn["K1"], 4 * B * L * D * f32 + masks, 4 * B * live_pairs(L, L, 0) * D, "bfloat16",
         attn["lib_fwd"], branch=k1_branch(L))
     add("attention_bwd_bf16", "carca_tpu_torch/csrc/attention_bwd.cu",
         "carca_tpu/ops/flash_attention.py:130", launches["fit_10m"]["attention_bwd"],
-        attn["k2_err"], attn["K2"], 7 * B * L * D * f32 + masks, 10 * B * L * L * D,
-        "bfloat16", attn["lib_bwd"])
+        attn["k2_err"], attn["K2"], 7 * B * L * D * f32 + masks, 10 * B * live_pairs(L, L, 0) * D,
+        "bfloat16", attn["lib_bwd"], branch=k2_branch(L))
     for case, row_bytes, n in (
             ("seen bf16", D * bf16, launches["fit_10m"]["catalog_topk_bf16"]),
             ("seen int8", D + f32, launches["eval_10m seen int8"]["catalog_topk_int8"])):
@@ -5165,7 +5199,7 @@ def main() -> None:
     card = timed("1 device", phase_device)
     if parent:
         K3_TURN_DIR[0] = tempfile.mkdtemp(prefix="carca_k3_turns_")
-    timed("2 build", phase_build)
+    timed("2 build", phase_build, parent)
     k1_err = timed("3 K1", phase_k1)
     k2_err, k2_times = timed("3b K2", phase_k2, card)
     k3_err = timed("4 K3", phase_k3)

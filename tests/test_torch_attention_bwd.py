@@ -22,9 +22,9 @@ import torch
 from carca_tpu.ops.flash_attention import fused_attention as jax_fused_attention
 from carca_tpu_torch.models.attention import masked_attention
 from carca_tpu_torch.ops import flash_attention as fa
-from carca_tpu_torch.ops.flash_attention import (attention_bwd, attention_grads_plain,
-                                                 attention_keep_mask, fused_attention,
-                                                 keep_bits_words,
+from carca_tpu_torch.ops.flash_attention import (WHOLE_ROW_KEYS, attention_bwd,
+                                                 attention_grads_plain, attention_keep_mask,
+                                                 bwd_branch, fused_attention, keep_bits_words,
                                                  keep_threshold, philox4x32_10, philox_bits)
 
 torch.set_num_threads(1)
@@ -53,11 +53,13 @@ def jax_grads(q, k, v, qm, km, g, **kw):
 
 # (batch, Lq, Lk, d, causal): small shapes, then the families' head widths
 # (games and fashion: d = 128 in 2 heads of 64 at L = 50; men: 2 heads of 32
-# at L = 70, past one 64-key tile)
+# at L = 70, past one 64-key tile, and at L = 130, past three of K2's
+# 40-key chunks and two 64-row query tiles, the last one ragged)
 BWD_CASES = [(3, lq, lk, D, causal) for causal in (None, 0, -1) for lq, lk in ((8, 8), (12, 5))]
 BWD_IDS = [f"{lq}-{lk}-{causal}" for _, lq, lk, _, causal in BWD_CASES]
-BWD_CASES += [(2, 50, 50, 128, 0), (2, 50, 50, 128, -1), (2, 70, 70, 64, -1)]
-BWD_IDS += ["dh64-L50-0", "dh64-L50--1", "dh32-L70--1"]
+BWD_CASES += [(2, 50, 50, 128, 0), (2, 50, 50, 128, -1), (2, 70, 70, 64, -1),
+              (2, 130, 130, 64, -1)]
+BWD_IDS += ["dh64-L50-0", "dh64-L50--1", "dh32-L70--1", "dh32-L130--1"]
 
 
 @pytest.mark.parametrize("b,lq,lk,d,causal", BWD_CASES, ids=BWD_IDS)
@@ -246,3 +248,54 @@ def test_keep_bits_words_cover_every_window(n):
     if n:
         assert ((n - 1) >> 5) + 2 < words
 
+
+
+def test_bwd_branch_rule():
+    """K2's rule on shapes (csrc/attention_bwd.cu::takes_whole_row_bwd): the
+    whole-row kernel past one 64-key tile up to men's 200 keys at heads of
+    up to 32 dims; bwd_kernel for every other shape, 64-dim heads
+    included."""
+    assert WHOLE_ROW_KEYS == 200
+    lks = (1, 50, 64, 65, 101, 200, 201, 257)
+    for dh in (1, 16, 32):
+        assert [bwd_branch(lk, dh) for lk in lks] == ["rows"] * 3 + ["whole_row"] * 3 + \
+            ["rows"] * 2
+    for dh in (33, 64, 128):
+        assert {bwd_branch(lk, dh) for lk in lks} == {"rows"}
+
+
+CHUNK_KEYS, ROW_TILE = 40, 64  # the whole-row kernel's key chunks and query tiles
+
+
+@pytest.mark.parametrize("causal", [0, -1, 3, -70])
+@pytest.mark.parametrize("lq,lk", [(200, 200), (130, 200), (70, 70), (20, 150)])
+def test_bwd_keys_past_the_causal_chunk_limit_get_exactly_nothing(causal, lq, lk):
+    """The whole-row backward skips, for each 64-row query tile, the 40-key
+    chunks past its last row + ``causal``. For the tile's rows (the causal
+    offset moved with them), the plain gradient with the keys cut at the
+    first such chunk gives the uncut call's dK and dV bit for bit, and dQ
+    within 1e-6 (the CPU's matrix product groups its sums by the key
+    count); the uncut call's dK and dV of the cut keys are exactly zero;
+    and other values in K and V at the cut keys change no gradient bit (dQ
+    included: the same key count, and exact zeros where the keys differ)."""
+    q, k, v, qm, km, g = (torch.from_numpy(a) for a in make(8, 2, lq, lk, d=64))
+    kw = dict(n_heads=H, scale=32 ** 0.5)
+    for row0 in range(0, lq, ROW_TILE):
+        rows = slice(row0, min(lq, row0 + ROW_TILE))
+        lim = min(lk, max(rows.stop + causal, 1))
+        cut = min(lk, -(-lim // CHUNK_KEYS) * CHUNK_KEYS)
+        tile = dict(kw, causal=causal + row0)
+        full = attention_grads_plain(q[:, rows], k, v, qm[:, rows], km, g[:, rows], **tile)
+        part = attention_grads_plain(q[:, rows], k[:, :cut], v[:, :cut], qm[:, rows],
+                                     km[:, :cut], g[:, rows], **tile)
+        torch.testing.assert_close(part[0], full[0], rtol=0, atol=1e-6)
+        for got, want in zip(part[1:], full[1:]):
+            assert torch.equal(got, want[:, :cut])
+            assert torch.count_nonzero(want[:, cut:]) == 0
+        other_k, other_v = k.clone(), v.clone()
+        other_k[:, cut:] = 1e3 * torch.randn(other_k[:, cut:].shape, dtype=torch.float64).float()
+        other_v[:, cut:] = -other_v[:, cut:] + 7.0
+        other = attention_grads_plain(q[:, rows], other_k, other_v, qm[:, rows], km,
+                                      g[:, rows], **tile)
+        for got, want in zip(other, full):
+            assert torch.equal(got, want)

@@ -28,7 +28,7 @@ from carca_tpu_torch.models.attention import MHA, masked_attention
 from carca_tpu_torch.ops import _build
 from carca_tpu_torch.ops.flash_attention import (SEED_LIMIT, attention_bwd,
                                                  attention_grads_plain, attention_keep_mask,
-                                                 fused_attention, fwd_branch)
+                                                 bwd_branch, fused_attention, fwd_branch)
 from carca_tpu_torch.ops.retrieval_topk import (GROUP, SCORE_ORDER_TOL, QuantizedIndex,
                                                 catalog_topk, catalog_topk_plain,
                                                 compare_within_order_tol, groupmax,
@@ -164,6 +164,16 @@ def test_attention_kernel_long_keys_deterministic_and_graphed(dev):
     assert torch.equal(out, want)
 
 
+def test_attention_bwd_branch_rule_is_the_kernels(dev):
+    """flash_attention.bwd_branch, the rule the CPU tests hold, is the one
+    csrc/attention_bwd.cu dispatches K2 by (its C query)."""
+    lib = _build.library()
+    for dh in (1, 8, 31, 32, 33, 64, 65, 128, 129, 256):
+        for lk in (1, 50, 64, 65, 101, 120, 199, 200, 201, 257, 4000):
+            c = lib.carca_attention_bwd_branch(lk, dh)
+            assert ("whole_row" if c else "rows") == bwd_branch(lk, dh), (dh, lk)
+
+
 def test_keep_mask_on_the_card_equals_the_numpy_generator(dev):
     shape = (3, 2, 50, 70)
     for seed in (0, 2**40 + 17, SEED_LIMIT - 1):
@@ -181,13 +191,21 @@ def rel(a, b):
 # second one), Lk = 1, Lq != Lk (several query tiles over one key tile; a
 # causal query tile that reaches only the first of three key tiles, so the
 # others' dK/dV are written as zeros), and B·H = 4 and 1,200 (far below and
-# above one wave of blocks)
+# above one wave of blocks); then the whole-row kernel's edges (bwd_branch
+# "whole_row": 64 < Lk <= 200 at 32-dim heads): Lk = 65 (two key chunks, one
+# a warpgroup), 199 and 200 at causal 0 and -1 (Lq = 200: an 8-row last
+# query tile), Lq != Lk (20 x 150, 130 x 200), B·H = 4 and 4,096 (the remat
+# batch)
 BWD_CASES = [(0, 50, 50, 8, 64), (-1, 50, 50, 16, 64), (0, 200, 200, 4, 64),
              (None, 33, 70, 3, 64), (0, 1, 1, 1, 64),
              (0, 50, 50, 8, 128), (-1, 50, 50, 16, 128), (-1, 200, 200, 4, 64),
              (0, 64, 64, 4, 128), (-1, 65, 65, 4, 64), (None, 30, 65, 3, 128),
              (None, 40, 1, 3, 128), (0, 130, 50, 3, 128), (-1, 20, 150, 3, 64),
-             (0, 50, 50, 2, 128), (-1, 50, 50, 600, 128)]
+             (0, 50, 50, 2, 128), (-1, 50, 50, 600, 128),
+             (0, 65, 65, 2, 64), (0, 199, 199, 3, 64), (-1, 199, 199, 3, 64),
+             (None, 130, 200, 3, 64), (0, 20, 150, 3, 64), (-1, 200, 200, 2048, 64),
+             (3, 200, 200, 2, 64), (-70, 200, 200, 2, 64), (0, 200, 200, 2, 48),
+             (0, 200, 200, 2, 44)]
 
 
 @pytest.mark.parametrize("causal,lq,lk,b,d", BWD_CASES)
@@ -218,23 +236,29 @@ def test_attention_bwd_kernel_matches_plain_autograd(dev, causal, lq, lk, b, d, 
     assert torch.count_nonzero(kk.grad[0]) == 0 and torch.count_nonzero(vv.grad[0]) == 0
 
 
-@pytest.mark.parametrize("lq,lk,d,batch", [(50, 50, 64, 32), (200, 320, 64, 32),
-                                           (50, 50, 128, 32), (200, 200, 64, 32),
-                                           (64, 64, 128, 4), (65, 65, 64, 4), (8, 1, 128, 8),
-                                           (130, 50, 128, 3), (20, 150, 64, 3),
-                                           (50, 50, 128, 2), (50, 50, 128, 600)])
-def test_attention_bwd_kernel_is_deterministic(dev, lq, lk, d, batch):
+@pytest.mark.parametrize("lq,lk,d,batch,causal", [
+    (50, 50, 64, 32, -1), (200, 320, 64, 32, -1), (50, 50, 128, 32, -1), (200, 200, 64, 32, -1),
+    (64, 64, 128, 4, -1), (65, 65, 64, 4, -1), (8, 1, 128, 8, -1), (130, 50, 128, 3, -1),
+    (20, 150, 64, 3, -1), (50, 50, 128, 2, -1), (50, 50, 128, 600, -1), (65, 65, 64, 2, -1),
+    (199, 199, 64, 3, -1), (130, 200, 64, 3, -1), (200, 200, 64, 2048, -1),
+    (200, 200, 64, 2, -1), (200, 200, 64, 2, 3), (200, 200, 64, 2, -70), (200, 200, 48, 2, 0),
+    (200, 200, 44, 2, 0)])
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+def test_attention_bwd_kernel_is_deterministic(dev, lq, lk, d, batch, causal, cd):
     """No atomics: two runs of K2 (and of K1) are bit-equal, with one key
-    tile and with several, 32- and 64-dim heads, at K2's edges (as in
-    test_attention_bwd_kernel_matches_plain_autograd); another seed changes
-    the result."""
+    tile and with several, 22- to 64-dim heads, causal offsets that skip
+    key chunks, at K2's edges (as in
+    test_attention_bwd_kernel_matches_plain_autograd, the whole-row
+    kernel's too), in float32 and bf16; another seed changes the result."""
     q, k, v, qm, km = attn_inputs(dev, batch, lq, lk, d)
     g = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)).to(dev)
-    kw = dict(causal=-1, scale=(d / 2) ** 0.5, n_heads=2, dropout_rate=0.5, seed=123)
+    kw = dict(causal=causal, scale=(d / 2) ** 0.5, n_heads=2, compute_dtype=cd,
+              dropout_rate=0.5, seed=123)
     a = attention_bwd(q, k, v, qm, km, g, **kw)
     b = attention_bwd(q, k, v, qm, km, g, **kw)
     c = attention_bwd(q, k, v, qm, km, g, **dict(kw, seed=124))
-    fkw = dict(causal=-1, scale=(d / 2) ** 0.5, n_heads=2, dropout_rate=0.5)
+    fkw = dict(causal=causal, scale=(d / 2) ** 0.5, n_heads=2, compute_dtype=cd,
+               dropout_rate=0.5)
     f1, f2 = (fused_attention(q, k, v, qm, km, seed_generator=torch.Generator().manual_seed(7),
                               **fkw) for _ in range(2))
     torch.cuda.synchronize()
