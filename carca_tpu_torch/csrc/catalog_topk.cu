@@ -98,12 +98,17 @@
 
 #include <type_traits>
 
+#include "mbarrier.cuh"
 #include "scoring.cuh"
 
 namespace {
 
 using carca::AFrag;
 using carca::QFrag;
+using carca::mbar_arrive;
+using carca::mbar_arrive_cp_async;
+using carca::mbar_init;
+using carca::mbar_wait;
 typedef unsigned long long u64;
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -133,42 +138,6 @@ __device__ __forceinline__ float key_value(u64 key) {
   if (u <= 0x007FFFFFu) return -INFINITY;
   const int k32 = (int)(u ^ 0x80000000u);
   return __int_as_float(k32 < 0 ? (k32 ^ 0x7FFFFFFF) : k32);
-}
-
-// ---------------------------------------------------------------------------
-// mbarriers (shared memory, CTA scope)
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(u64* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(u64* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-// one arrival once every cp.async this thread issued before it is complete
-__device__ __forceinline__ void mbar_arrive_cp_async(u64* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(u64* bar, int parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
 }
 
 // Of the n > k distinct keys arr[0..n), by one warp: a bound lo such that

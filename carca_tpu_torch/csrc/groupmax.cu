@@ -14,31 +14,55 @@
 // rows r in [128 g, 128 g + 128) of score(q[b], e[r]), where rows r >= R,
 // r >= lim0, and row 0 when mask_row0, score -inf; groups past the index
 // (layout 1 pads G up to a multiple of 128) come out -inf. score() is
-// scoring.cuh's routine, which K3 and the rerank below also run: group
+// scoring.cuh's arithmetic, which K3 and the rerank below also run: group
 // maxima equal the rerank's scores bit for bit, so the tournament's
 // containment argument is exact (the k + 8 best groups, ties to the lowest
 // group, hold the true top-k) and the tournament returns K3's ids and
 // values.
 //
-// Design. A persistent block of 8 warps walks stages of kStageRows rows
-// (256 at int8: two 16-row tiles per warp; 128 at bf16 and f32: one). Each
-// stage's rows (and int8 scales) are copied by cp.async, in their own
-// type, into a ring of three buffers (two at f32), so the next stages'
-// copies overlap this stage's products. The call's queries (up to kQC = 256 at bf16/int8, 128
-// at f32) sit in shared memory as the N operand's fragments, staged once
-// per block: the index is read from device memory once per call for B <=
-// kQC (a larger B walks query chunks inside the stage, restaging them). A
-// warp widens its rows into A fragments once per stage and then loops over
-// the n8 query tiles: kMT x KS mma.sync per tile, the scale and mask, a
-// running maximum over its rows, a shuffle maximum over the 8 row lanes;
-// the warps of a group meet in shared memory, and the block writes the
-// stage's maxima. At B = 1 the one query pads one n8 tile and every warp
-// still loads and scores rows.
-// What bounds it on the H100: at B = 256 the products (2 B R d operations,
-// 0.33 ms at the bf16 tensor-core peak for 10M rows; mma.sync reaches a
-// fraction of the wgmma peak, and each mma needs a 64-bit fragment load
-// from shared memory); at B = 1 the index's bytes (0.19 ms for 10M int8
-// rows). Both layouts share the kernel; layout 1's stores are 8 bytes wide.
+// Which kernel runs (groupmax_branch; ops/retrieval_topk.py::groupmax_branch
+// is the same rule): bf16 and int8 rows of up to 128 columns take
+// groupmax_wg_kernel, f32 rows groupmax_kernel, wider rows
+// groupmax_wide_kernel.
+//
+// groupmax_wg_kernel (bf16 and int8, the 10M serving and eval indexes).
+// What bounds it on the H100: at B = 256 the products, 2 B R d operations
+// (0.331 ms at the bf16 tensor-core peak over 10M rows), and beside them
+// one maximum per score (B R of them on the ALU pipe, half the FP32 rate)
+// and, at int8, one scale multiply per score; at B = 1 the index's bytes
+// (0.19 ms for 10M int8 rows). Its design, per block (one an SM):
+//   * a producer warpgroup: its first warp keeps one tensor copy (TMA) of
+//     each 128-row group in flight into a ring of up to 16 slots, the rows
+//     as 64- or 128-byte swizzled boxes (zeros past R and d), the int8
+//     scales by cp.async, each slot's arrival and release on mbarriers; it
+//     gives its registers up (setmaxnreg) to
+//   * two consumer warpgroups that take the groups in turn. The block's
+//     queries (up to 256) are staged once per call in shared memory as
+//     wgmma's B operand, in score_tile's column map, so the index is read
+//     once per call for B <= 256 (more queries walk it once per 256). A
+//     warpgroup loads a group's rows as A fragments (int8 widened once, by
+//     load_a_slot, which reads the swizzle without bank conflicts) and frees
+//     the slot, then runs the group's query chunks (8 queries for B <= 8,
+//     else 64; two 64-row tiles a chunk: m64nNQk16 k-steps ascending from
+//     the first product, which the probe test holds bit-equal to
+//     score_tile's mma.sync) pipelined over two accumulators: chunk c + 1's products are
+//     issued before chunk c's epilogue. The chunk loop is unrolled (a
+//     runtime loop or a branch around a product makes ptxas serialize every
+//     wgmma). The epilogue finishes each score (the int8 scale, then the
+//     mask, as finish()), keeps the maximum of a lane's four rows, and meets
+//     the warpgroup's other 124 rows through shared memory (a transpose, one
+//     barrier a chunk), and writes the chunk's maxima.
+// PERF.md holds its times: at B = 256 the warpgroups' own instruction
+// streams (the maxima, the row loads, the meetings), not the tensor cores,
+// hold it above its bound.
+//
+// groupmax_kernel (f32 rows, 3xTF32): a persistent block of 8 warps walks
+// stages of 128 rows copied by cp.async into a ring of two buffers; the
+// queries (up to 128) sit in shared memory as mma.sync's N fragments; a
+// warp loads its rows' A fragments once per stage and loops over the n8
+// query tiles (mma.sync, the mask, a running maximum, a shuffle maximum over
+// the 8 row lanes); the warps of a group meet in shared memory. Both
+// layouts share each kernel; layout 1's stores are scattered.
 //
 // The rerank (carca_tournament_rerank) is stage 3: for each query b its kg
 // winner groups gi[b, :] (ascending), scores [B, kg * 128] of the groups'
@@ -59,15 +83,19 @@
 // query chunk restages the group. The rerank stages a winner group's chunks
 // one after another. These wide paths keep no copy in flight.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <algorithm>
 #include <type_traits>
 
+#include "mbarrier.cuh"
 #include "scoring.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -80,14 +108,11 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kRerankSlots = 8;  // winner groups per rerank block
 constexpr int kWideQC = 32;      // queries per step of groupmax_wide_kernel
 
-template <typename T>
-constexpr int kMT = sizeof(T) == 1 ? 2 : 1;  // 16-row tiles per warp and stage
-template <typename T>
-constexpr int kStageRows = kWarps * 16 * kMT<T>;
-template <typename T>
-constexpr int kQC = carca::kIsF32<T> ? 128 : 256;  // queries staged at once
-template <typename T>
-constexpr int kRing = carca::kIsF32<T> ? 2 : 3;  // stage buffers in flight
+// groupmax_kernel (f32 rows): a 16-row tile per warp and stage, queries
+// staged at once, stage buffers in flight
+constexpr int kStageRows = kWarps * 16;
+constexpr int kQC = 128;
+constexpr int kRing = 2;
 
 // a stage in shared memory: its rows, then their scales
 template <typename T, int kD>
@@ -97,10 +122,10 @@ __host__ __device__ constexpr int stage_bytes(int rows) {
 
 template <typename T, int kD>
 __host__ __device__ constexpr size_t groupmax_smem() {
-  return kRing<T> * (size_t)stage_bytes<T, kD>(kStageRows<T>) +
+  return kRing * (size_t)stage_bytes<T, kD>(kStageRows) +
          // four lanes hold each query's fragment of a k-step
-         sizeof(QFrag<T>) * 4 * (size_t)kQC<T> * (kD / carca::kStep<T>) +
-         sizeof(float) * (size_t)kWarps * kQC<T>;
+         sizeof(QFrag<T>) * 4 * (size_t)kQC * (kD / carca::kStep<T>) +
+         sizeof(float) * (size_t)kWarps * kQC;
 }
 
 template <typename T, int kD>
@@ -111,11 +136,6 @@ __host__ __device__ constexpr size_t rerank_smem() {
 template <typename T>
 __host__ __device__ constexpr size_t groupmax_wide_smem() {
   return (size_t)stage_bytes<T, carca::kChunk>(kGroup) + sizeof(float) * kWarps * kWideQC;
-}
-
-template <typename T, int kD>
-constexpr int min_blocks() {
-  return (kD == 64 && !carca::kIsF32<T>) ? 2 : 1;
 }
 
 // The maxima over this warp's rows of the finished scores against one n8
@@ -146,18 +166,19 @@ struct GroupmaxArgs {
 };
 
 template <typename T, int kD>
-__global__ void __launch_bounds__(kThreads, (min_blocks<T, kD>()))
+__global__ void __launch_bounds__(kThreads, 1)
 groupmax_kernel(const GroupmaxArgs a) {
   constexpr int KS = kD / carca::kStep<T>;
-  constexpr int MT = kMT<T>;
-  constexpr int SR = kStageRows<T>;
-  constexpr int QC = kQC<T>;
+  static_assert(carca::kIsF32<T>, "bf16 and int8 rows take groupmax_wg_kernel");
+  constexpr int MT = 1;
+  constexpr int SR = kStageRows;
+  constexpr int QC = kQC;
   constexpr int NT = QC / 8;
   constexpr int GPS = SR / kGroup;            // groups per stage
   constexpr int WPG = kWarps / GPS;           // warps per group
   constexpr int stride = carca::row_stride_bytes<T>(kD);
   extern __shared__ float4 smem4[];
-  constexpr int NR = kRing<T>;
+  constexpr int NR = kRing;
   constexpr int SB = stage_bytes<T, kD>(SR);
   char* ring = reinterpret_cast<char*>(smem4);                 // [NR][SR rows, SR scales]
   QFrag<T>* qf = reinterpret_cast<QFrag<T>*>(ring + NR * SB);  // [NT][KS][32]
@@ -345,6 +366,446 @@ __global__ void __launch_bounds__(kThreads) groupmax_wide_kernel(const GroupmaxA
   }
 }
 
+// ---------------------------------------------------------------------------
+// K4 on warpgroup products: bf16 and int8 rows of up to 128 columns
+// ---------------------------------------------------------------------------
+
+constexpr int kWgConsumers = 2;                          // consumer warpgroups of a block
+constexpr int kWgThreads = 128 * (kWgConsumers + 1);     // and a producer warpgroup (the last)
+constexpr int kWgProducerRegs = 40;                      // registers a thread after setmaxnreg
+constexpr int kWgConsumerRegs = 232;                     // (65,536 / 384 = 168 at launch)
+constexpr int kWgQueries = 256;                          // queries staged at once
+constexpr int kWgMaxSlots = 16;                          // ring slots, at most
+constexpr int kWgMaxNQ = 64;                             // queries a product, at most
+constexpr size_t kSmemLimit = 232448;                    // dynamic shared memory of a block
+
+// Physical column of k slot j of a 16-column k-step: score_tile's map
+// (scoring.cuh), which load_a gives the rows' A fragments.
+__device__ __forceinline__ int slot_col(int j) {
+  return (j & 7) / 2 * 4 + (j & 1) + (j >= 8 ? 2 : 0);
+}
+
+// Queries [b0, b0 + kWgQueries) of q [B, d] into qs as wgmma's B operand:
+// [kWgQueries / 8][kD / 8] core matrices of 8 queries x 8 k slots (16
+// bytes, 128 a matrix), query n's k-step s in slots 16 s .. 16 s + 15 in
+// score_tile's column map, rounded to bf16 (nearest even, as query_frag),
+// zeros past d and past B. Threads tid, tid + nth, ...
+template <int kD>
+__device__ void stage_query_tiles(uint8_t* qs, const float* __restrict__ q, int B, int d, int b0,
+                                  int tid, int nth) {
+  constexpr int kKG = kD / 8;
+  for (int idx = tid; idx < kWgQueries * kKG; idx += nth) {
+    const int n = idx / (8 * kKG) * 8 + idx % 8, kg = idx / 8 % kKG;
+    const float* row = b0 + n < B ? q + (size_t)(b0 + n) * d : nullptr;
+    float x[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int col = kg / 2 * 16 + slot_col((kg & 1) * 8 + u);
+      x[u] = row != nullptr && col < d ? __ldg(row + col) : 0.f;
+    }
+    *reinterpret_cast<uint4*>(qs + (size_t)idx * 16) =
+        make_uint4(carca::pack_bf16(x[0], x[1]), carca::pack_bf16(x[2], x[3]),
+                   carca::pack_bf16(x[4], x[5]), carca::pack_bf16(x[6], x[7]));
+  }
+}
+
+// acc (NQ / 2 a lane, m64nNQ's layout) = the warpgroup's 64 rows (A: af,
+// KS k-steps) against the NQ queries whose core matrices start at
+// descriptor dq, k-steps ascending: score_tile's instruction sequence,
+// widened to 64 rows x NQ queries, from the k-step 0 product (scale-d =
+// 0). The caller fences, commits and waits.
+template <int NQ, int KS>
+__device__ __forceinline__ void tile_products(float* acc, const carca::ABf16 (&af)[KS],
+                                              uint64_t dq) {
+#pragma unroll
+  for (int s = 0; s < KS; ++s)  // a k16 step spans two core matrices: 256 bytes
+    carca::wg::Mma<NQ, true>::run(acc, af[s].x, dq + s * 16, s > 0);
+}
+
+// A slot's rows as the tensor copy leaves them: one box of the group's 128
+// rows by kBoxBytes (64 or 128: int8 64 columns, or 128 bytes of columns),
+// two at bf16 with 128 columns, each row's 16-byte chunks swizzled (64B:
+// chunk ^ (r >> 1) % 4, 128B: chunk ^ r % 8, the tensor map's swizzle), so
+// the A-fragment loads of 8 rows at one chunk meet distinct banks.
+template <typename T, int kD>
+struct SlotRows {
+  static constexpr int kRowBytes = kD * (int)sizeof(T);
+  static constexpr int kBoxBytes = kRowBytes < 128 ? kRowBytes : 128;
+  static constexpr int kBoxes = kRowBytes / kBoxBytes;
+  static constexpr int kBoxCols = kBoxBytes / (int)sizeof(T);
+  static constexpr int kBytes = kGroup * kRowBytes;  // a multiple of 1024
+  // where byte b of row r (0 to 127) of the group lies in the slot
+  static __device__ __forceinline__ int offset(int r, int b) {
+    const int box = b / kBoxBytes, bb = b % kBoxBytes;
+    const int swz = kBoxBytes == 64 ? (r >> 1) & 3 : r & 7;
+    return box * kGroup * kBoxBytes + r * kBoxBytes + (((bb >> 4) ^ swz) << 4) + (bb & 15);
+  }
+};
+
+// The A fragments of rows r and r + 8 of a slot (0 <= r < 120), as load_a
+// gives them from a row-major tile: the same values in the same fragment
+// registers (int8 widened to bf16 here, once per row tile).
+template <typename T, int kD, int KS>
+__device__ __forceinline__ void load_a_slot(carca::ABf16 (&a)[KS], const uint8_t* rows, int r,
+                                            int t) {
+  using S = SlotRows<T, kD>;
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+    if constexpr (sizeof(T) == 1) {
+      const int b = 16 * s + 4 * t;
+      const uint32_t u = *reinterpret_cast<const uint32_t*>(rows + S::offset(r, b));
+      const uint32_t v = *reinterpret_cast<const uint32_t*>(rows + S::offset(r + 8, b));
+      a[s].x[0] = carca::pack_i8_pair(u, 0);
+      a[s].x[1] = carca::pack_i8_pair(v, 0);
+      a[s].x[2] = carca::pack_i8_pair(u, 16);
+      a[s].x[3] = carca::pack_i8_pair(v, 16);
+    } else {
+      const int b = 2 * (16 * s + 4 * t);
+      const uint2 u = *reinterpret_cast<const uint2*>(rows + S::offset(r, b));
+      const uint2 v = *reinterpret_cast<const uint2*>(rows + S::offset(r + 8, b));
+      a[s].x[0] = u.x;
+      a[s].x[1] = v.x;
+      a[s].x[2] = u.y;
+      a[s].x[3] = v.y;
+    }
+  }
+}
+
+// A chunk's maxima on their way across the warpgroup's rows: per query
+// column, one entry for each (warp, g) of its 32, at a stride that puts a
+// warp's 32 stores of one k (8 g by 4 t) in 32 banks.
+constexpr int kRedStride = 36;
+
+// Shared memory past the 1024-byte alignment of the row slots: the
+// staged queries, each consumer warpgroup's two buffers of chunk maxima.
+template <int kD>
+__host__ __device__ constexpr size_t wg_fixed_bytes() {
+  return 1024 + (size_t)kWgQueries * kD * 2 +
+         sizeof(float) * kWgConsumers * 2 * kWgMaxNQ * kRedStride;
+}
+
+// a slot: its rows, their scales, two mbarriers
+template <typename T, int kD>
+__host__ __device__ constexpr size_t wg_slot_bytes() {
+  return (size_t)SlotRows<T, kD>::kBytes + 4 * kGroup + 16;
+}
+
+// ring slots: as many as fit, a multiple of kWgConsumers (slot s is always
+// warpgroup s % kWgConsumers'), at most kWgMaxSlots
+template <typename T, int kD>
+__host__ __device__ constexpr int wg_slots() {
+  const size_t fit =
+      (kSmemLimit - wg_fixed_bytes<kD>()) / wg_slot_bytes<T, kD>() / kWgConsumers * kWgConsumers;
+  return fit < (size_t)kWgMaxSlots ? (int)fit : kWgMaxSlots;
+}
+
+template <typename T, int kD>
+__host__ __device__ constexpr size_t groupmax_wg_smem() {
+  return wg_fixed_bytes<kD>() + (size_t)wg_slots<T, kD>() * wg_slot_bytes<T, kD>();
+}
+
+// The maxima of the lane's four rows (g, g + 8 of both tiles) for each of
+// its NQ / 4 query columns: v[2n + u] is column 8n + 2t + u. Without
+// kMasked every row is known to score.
+template <typename T, int NQ, bool kMasked>
+__device__ __forceinline__ void fold_rows(float (&v)[NQ / 4], const float (&acc)[2][NQ / 2],
+                                          const float (&sc)[2][2], const bool (&ok)[2][2]) {
+#pragma unroll
+  for (int n = 0; n < NQ / 8; ++n)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      float m = carca::finish<T>(acc[0][4 * n + u], sc[0][0], !kMasked || ok[0][0]);
+      m = fmaxf(m, carca::finish<T>(acc[0][4 * n + 2 + u], sc[0][1], !kMasked || ok[0][1]));
+      m = fmaxf(m, carca::finish<T>(acc[1][4 * n + u], sc[1][0], !kMasked || ok[1][0]));
+      m = fmaxf(m, carca::finish<T>(acc[1][4 * n + 2 + u], sc[1][1], !kMasked || ok[1][1]));
+      v[2 * n + u] = m;
+    }
+}
+
+// K4 for bf16 and int8 rows of up to kD = 64 or 128 columns (the file's
+// header), NQ queries a product (8 or kWgMaxNQ), kChunks products a group
+// and query set (kChunks NQ <= kWgQueries).
+template <typename T, int kD, int NQ, int kChunks>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    groupmax_wg_kernel(const GroupmaxArgs a, const __grid_constant__ CUtensorMap rows_map) {
+  using S = SlotRows<T, kD>;
+  constexpr int KS = kD / 16;
+  constexpr int NS = wg_slots<T, kD>();
+  constexpr uint32_t kSbo = kD / 8 * 128;  // bytes between 8-query core-matrix groups
+  constexpr int J = NQ / 4;                // a lane's query columns
+  constexpr int kTPC = 128 / NQ;           // threads that reduce a column's 32 entries
+  constexpr int kPer = 32 / kTPC;          // ... each this many
+  static_assert(NS >= kWgConsumers && NQ <= kWgMaxNQ && kChunks * NQ <= kWgQueries,
+                "K4's ring or chunks");
+  extern __shared__ __align__(1024) uint8_t smem[];
+  uint8_t* ring = smem + ((1024 - (carca::smem_addr(smem) & 1023)) & 1023);  // [NS][S::kBytes]
+  uint8_t* qs = ring + (size_t)NS * S::kBytes;                               // the queries
+  float* scl_ring = reinterpret_cast<float*>(qs + (size_t)kWgQueries * kD * 2);  // [NS][128]
+  float* red = scl_ring + NS * kGroup;  // [kWgConsumers][2][kWgMaxNQ][kRedStride]
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(
+      red + kWgConsumers * 2 * kWgMaxNQ * kRedStride);     // [NS]: a slot's rows are in
+  unsigned long long* empty = full + NS;                   // [NS]: its warpgroup read them
+
+  const T* e = static_cast<const T*>(a.e);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long n_mine =
+      a.n_groups > (int)blockIdx.x ? (a.n_groups - 1 - (long long)blockIdx.x) / gridDim.x + 1 : 0;
+  const int n_sc = (a.B + kWgQueries - 1) / kWgQueries;  // query sets: each walks the index
+  const long long items = n_mine * n_sc;                  // (query set, group) in that order
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      carca::mbar_init(full + s, 33);  // the tensor copy's lane, each lane's scales
+      carca::mbar_init(empty + s, 4);  // each warp of the slot's warpgroup
+    }
+    carca::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kWgConsumers) {
+    // the producer warpgroup gives registers up; its first warp copies item
+    // i's rows (one tensor copy a box, zeros past R and d) and scales
+    // (cp.async) into slot i % NS
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kWgProducerRegs));
+    if (warp > 4 * kWgConsumers) return;
+    const bool scales16 = a.scales != nullptr && carca::async_scales(a.scales);
+    for (long long i = 0; i < items; ++i) {
+      const int slot = (int)(i % NS);
+      if (i >= NS) carca::mbar_wait(empty + slot, (int)((i / NS - 1) & 1));
+      const long long row0 = (blockIdx.x + (i % n_mine) * gridDim.x) * (long long)kGroup;
+      const int rows = (int)max(0LL, min((long long)kGroup, (long long)a.R - row0));
+      uint8_t* buf = ring + (size_t)slot * S::kBytes;
+      if (a.vec) {
+        if (lane == 0) {
+          carca::mbar_arrive_expect_tx(full + slot, (uint32_t)S::kBytes);
+#pragma unroll
+          for (int box = 0; box < S::kBoxes; ++box)
+            carca::tma_load_2d(buf + box * kGroup * S::kBoxBytes, &rows_map, box * S::kBoxCols,
+                               (int)row0, full + slot);
+        }
+      } else {  // unaligned or ragged rows: plain copies, zeros past d and R
+        using Raw = typename std::conditional<sizeof(T) == 1, uint8_t, uint16_t>::type;
+        const Raw* src = reinterpret_cast<const Raw*>(e);
+        for (int idx = lane; idx < kGroup * kD; idx += 32) {
+          const int r = idx / kD, j = idx % kD;
+          *reinterpret_cast<Raw*>(buf + S::offset(r, j * (int)sizeof(T))) =
+              r < rows && j < a.d ? src[(row0 + r) * a.d + j] : Raw(0);
+        }
+        __syncwarp();
+        if (lane == 0) carca::mbar_arrive_expect_tx(full + slot, 0u);
+      }
+      if (a.scales != nullptr) {
+        float* dst = scl_ring + slot * kGroup;
+        if (scales16) {
+          const int n = min(4, max(0, rows - 4 * lane));
+          carca::cp_async16(dst + 4 * lane, a.scales + (n ? row0 + 4 * lane : 0), 4 * n);
+        } else {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int r = 4 * lane + u;
+            carca::cp_async4(dst + r, a.scales + (r < rows ? row0 + r : 0), r < rows ? 4 : 0);
+          }
+        }
+      }
+      carca::mbar_arrive_cp_async(full + slot);
+    }
+    carca::cp_async_wait<0>();
+    return;
+  }
+
+  // a consumer warpgroup: wg takes items wg, wg + kWgConsumers, ... (their
+  // groups), each in kChunks chunks of NQ queries. Warp wl holds rows 16 wl
+  // .. 16 wl + 15 of both 64-row tiles of a group. Within an item the
+  // chunks are pipelined: chunk c + 1's products are issued into the other
+  // accumulator before chunk c's epilogue. The chunk loop is unrolled, so
+  // ptxas sees which accumulator each wgmma and each read touches (a runtime
+  // loop or a branch around a product serializes them all: C7514, C7518);
+  // an item ends with no product in flight.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kWgConsumerRegs));
+  const int wg = warp / 4, wl = warp % 4, g = lane / 4, t = lane % 4;
+  const int tw = threadIdx.x % 128;
+  const uint64_t dq0 = carca::wg::desc(qs, 128, kSbo);
+  int pb = 0;  // which of the warp's two part buffers
+  struct Rows {
+    carca::ABf16 af[2][KS];
+    float sc[2][2];
+    bool ok[2][2], all_valid;
+    long long grp;
+  };
+  Rows cur;
+  // item i's slot: its rows' A fragments (int8 widened once), scales and
+  // validity into cur; then the slot is free
+  auto begin_item = [&](long long i) {
+    const int slot = (int)(i % NS);
+    carca::mbar_wait(full + slot, (int)((i / NS) & 1));
+    const uint8_t* buf = ring + (size_t)slot * S::kBytes;
+    const float* scl = scl_ring + slot * kGroup;
+    cur.grp = blockIdx.x + (i % n_mine) * gridDim.x;
+    bool all = true;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int local = 64 * h + 16 * wl + g;
+      load_a_slot<T, kD, KS>(cur.af[h], buf, local, t);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const long long row = cur.grp * kGroup + local + 8 * e;
+        cur.ok[h][e] = carca::row_valid((int)min(row, (long long)a.R), a.lim0, a.mask_row0);
+        cur.sc[h][e] = a.scales != nullptr ? scl[local + 8 * e] : 1.f;
+        all = all && cur.ok[h][e];
+      }
+    }
+    __syncwarp();
+    if (lane == 0) carca::mbar_arrive(empty + slot);
+    cur.all_valid = __all_sync(0xffffffffu, all);
+  };
+  // chunk c's products of the item's rows into acc, committed as one group
+  auto issue = [&](float (&acc)[2][NQ / 2], int c) {
+    uint64_t dq = dq0 + (uint64_t)(c * (NQ / 8) * kSbo >> 4);
+    carca::wg::opaque(dq);
+    carca::wg::fence();
+    tile_products<NQ, KS>(acc[0], cur.af[0], dq);
+    tile_products<NQ, KS>(acc[1], cur.af[1], dq);
+    carca::wg::commit();
+  };
+  // the finished scores' maxima over the lane's four rows, then over the
+  // warpgroup's 128 through red (a transpose: no shuffle rounds, no
+  // selects); chunk c of query set sc written. After the wait that retires
+  // acc's products: no register of acc or of the A fragments is reused
+  // before it.
+  auto epilogue = [&](float (&acc)[2][NQ / 2], int sc, int c) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int e = 0; e < NQ / 2; ++e) carca::wg::hold(acc[h][e]);
+#pragma unroll
+      for (int s = 0; s < KS; ++s)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) carca::wg::hold(cur.af[h][s].x[e]);
+    }
+    float v[J];  // v[2n + u]: query column 8n + 2t + u
+    if (cur.all_valid) fold_rows<T, NQ, false>(v, acc, cur.sc, cur.ok);
+    else fold_rows<T, NQ, true>(v, acc, cur.sc, cur.ok);
+    float* my = red + (wg * 2 + pb) * kWgMaxNQ * kRedStride;
+#pragma unroll
+    for (int k = 0; k < J; ++k)
+      my[(8 * (k / 2) + 2 * t + k % 2) * kRedStride + 8 * wl + g] = v[k];
+    carca::named_barrier(2 + wg, 128);
+    // thread tw: column tw / kTPC, entries kPer (tw % kTPC) onwards
+    const float* col = my + (tw / kTPC) * kRedStride + kPer * (tw % kTPC);
+    float m;
+    if constexpr (kPer >= 4) {
+      m = -INFINITY;
+#pragma unroll
+      for (int k = 0; k < kPer / 4; ++k) {
+        const float4 x = reinterpret_cast<const float4*>(col)[k];
+        m = fmaxf(m, fmaxf(fmaxf(x.x, x.y), fmaxf(x.z, x.w)));
+      }
+    } else {
+      const float2 x = *reinterpret_cast<const float2*>(col);
+      m = fmaxf(x.x, x.y);
+    }
+#pragma unroll
+    for (int off = 1; off < kTPC; off <<= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    const int b = sc * kWgQueries + c * NQ + tw / kTPC;
+    if (tw % kTPC == 0 && b < a.B) {
+      if (a.layout == 0) a.out[cur.grp * a.B + b] = m;
+      else a.out[(size_t)b * a.n_groups + cur.grp] = m;
+    }
+    pb ^= 1;  // the other buffer next: the barrier above orders its reuse
+  };
+
+  float acc[2][2][NQ / 2];
+  for (int sc = 0; sc < n_sc; ++sc) {
+    carca::named_barrier(1, 4 * 32 * kWgConsumers);  // the last set's products are done
+    stage_query_tiles<kD>(qs, a.q, a.B, a.d, sc * kWgQueries, threadIdx.x, 4 * 32 * kWgConsumers);
+    carca::wg::fence_smem();
+    carca::named_barrier(1, 4 * 32 * kWgConsumers);
+    const long long first = sc * n_mine;
+    for (long long i = first + (wg - first % kWgConsumers + kWgConsumers) % kWgConsumers;
+         i < first + n_mine; i += kWgConsumers) {
+      begin_item(i);
+      issue(acc[0], 0);
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        if (c + 1 < kChunks) {
+          issue(acc[(c + 1) % 2], c + 1);
+          carca::wg::wait<1>();  // chunk c's products are in
+        } else {
+          carca::wg::wait<0>();
+        }
+        epilogue(acc[c % 2], sc, c);
+      }
+    }
+  }
+}
+
+// The probe of the scoring routine's two instruction sequences: one 64-row
+// tile e [64, d] (bf16 or int8) against B <= 256 queries, by score_tile
+// (mma.sync, out_mma) and by K4's warpgroup products (out_wg), both
+// [B, 64] raw sums (before the int8 scale). One warpgroup; zero_acc: the
+// warpgroup products start from a zeroed accumulator instead of from the
+// first product (scale-d = 0).
+template <typename T, int kD, bool kZero>
+__global__ void __launch_bounds__(128) probe_kernel(const float* q, const void* e, float* out_mma,
+                                                    float* out_wg, int B, int d) {
+  constexpr int KS = kD / 16;
+  constexpr int stride = carca::row_stride_bytes<T>(kD);
+  constexpr uint32_t kSbo = kD / 8 * 128;
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint8_t* qs = smem;
+  uint8_t* rows = qs + (size_t)kWgQueries * kD * 2;
+  stage_query_tiles<kD>(qs, q, B, d, 0, threadIdx.x, 128);
+  using Raw = typename std::conditional<sizeof(T) == 1, uint8_t, uint16_t>::type;
+  for (int idx = threadIdx.x; idx < 64 * kD; idx += 128) {
+    const int r = idx / kD, j = idx % kD;
+    reinterpret_cast<Raw*>(rows + r * stride)[j] =
+        j < d ? reinterpret_cast<const Raw*>(e)[r * d + j] : Raw(0);
+  }
+  carca::wg::fence_smem();
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  carca::ABf16 af[KS];
+  carca::load_a<T, KS>(af, reinterpret_cast<const char*>(rows) + (16 * warp + g) * stride, stride,
+                       t);
+  for (int j = 0; j < kWgQueries / 8; ++j) {
+    QFrag<T> bq[KS];
+    const int b = 8 * j + g;
+#pragma unroll
+    for (int s = 0; s < KS; ++s) bq[s] = carca::query_frag<T>(b < B ? q + (size_t)b * d : nullptr, d, s, t);
+    float c[4];
+    carca::score_tile<T, KS>(c, af, bq);
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int bb = 8 * j + 2 * t + (x & 1);
+      if (bb < B) out_mma[bb * 64 + 16 * warp + g + 8 * (x >> 1)] = c[x];
+    }
+  }
+  const uint64_t dq0 = carca::wg::desc(qs, 128, kSbo);
+  for (int ch = 0; ch < kWgQueries / 128; ++ch) {
+    float acc[64];
+    uint64_t dq = dq0 + (uint64_t)(ch * 16 * kSbo >> 4);
+    carca::wg::opaque(dq);
+    carca::wg::fence();
+    if constexpr (kZero) {
+#pragma unroll
+      for (int x = 0; x < 64; ++x) acc[x] = 0.f;
+#pragma unroll
+      for (int s = 0; s < KS; ++s) carca::wg::Mma<128, true>::run(acc, af[s].x, dq + s * 16, 1);
+    } else {
+      tile_products<128, KS>(acc, af, dq);
+    }
+    carca::wg::commit();
+    carca::wg::wait<0>();
+#pragma unroll
+    for (int x = 0; x < 64; ++x) carca::wg::hold(acc[x]);
+#pragma unroll
+    for (int x = 0; x < 64; ++x) {
+      const int bb = ch * 128 + 8 * (x / 4) + 2 * t + (x & 1);
+      if (bb < B) out_wg[bb * 64 + 16 * warp + g + 8 * ((x / 2) & 1)] = acc[x];
+    }
+  }
+}
+
 struct RerankArgs {
   const float* q;
   const void* e;
@@ -455,45 +916,153 @@ int resident_blocks(K kernel, size_t smem) {
   return sms * (per_sm > 0 ? per_sm : 1);
 }
 
+// The kernel K4 runs for an index of type dtype (carca::IndexType) and width
+// d: ops/retrieval_topk.py::groupmax_branch is the same rule.
+enum GroupmaxBranch { kBranchMma = 0, kBranchWgmma = 1, kBranchWide = 2 };
+inline int groupmax_branch(int dtype, int d) {
+  if (d > carca::kChunk) return kBranchWide;              // groupmax_wide_kernel
+  return dtype == carca::kF32 ? kBranchMma : kBranchWgmma;  // groupmax_kernel (3xTF32), or
+}                                                          // groupmax_wg_kernel
+
 struct SmemBytes {
   size_t* out;
   bool rerank;
   template <typename T, int kD, bool kWide>
   int operator()() const {
-    *out = rerank ? rerank_smem<T, kD>() : kWide ? groupmax_wide_smem<T>() : groupmax_smem<T, kD>();
+    if (rerank) *out = rerank_smem<T, kD>();
+    else if constexpr (kWide) *out = groupmax_wide_smem<T>();
+    else if constexpr (carca::kIsF32<T>) *out = groupmax_smem<T, kD>();
+    else *out = groupmax_wg_smem<T, kD>();
     return 0;
   }
 };
 
+// cuTensorMapEncodeTiled, looked up at run time by the CUDA runtime (no
+// link against libcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// groupmax_wg_kernel at NQ queries a product, one block an SM; the rows'
+// tensor map (128-row boxes, S::kBoxBytes wide, swizzled) where they are
+// 16-byte aligned with 16-byte rows (a.vec), else the producer copies them
+template <typename T, int kD, int NQ, int kChunks>
+int launch_wg(const GroupmaxArgs& a, cudaStream_t st) {
+  using S = SlotRows<T, kD>;
+  constexpr size_t smem = groupmax_wg_smem<T, kD>();
+  int err = set_smem(groupmax_wg_kernel<T, kD, NQ, kChunks>, smem);
+  if (err != 0) return err;
+  CUtensorMap map;
+  memset(&map, 0, sizeof(map));
+  if (a.vec) {
+    const EncodeTiledFn encode = encode_tiled();
+    if (encode == nullptr) return (int)cudaErrorNotSupported;
+    const cuuint64_t dims[2] = {(cuuint64_t)a.d, (cuuint64_t)a.R};
+    const cuuint64_t strides[1] = {(cuuint64_t)a.d * sizeof(T)};
+    const cuuint32_t box[2] = {(cuuint32_t)S::kBoxCols, (cuuint32_t)kGroup};
+    const cuuint32_t unit[2] = {1, 1};
+    const CUresult res = encode(
+        &map, sizeof(T) == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+        const_cast<void*>(a.e), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+        S::kBoxBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (res != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  }
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int grid = std::min(a.n_groups, sms);
+  groupmax_wg_kernel<T, kD, NQ, kChunks><<<(unsigned)grid, kWgThreads, smem, st>>>(a, map);
+  return (int)cudaGetLastError();
+}
+
+// one product of 8 queries for B <= 8 (the bucket-1 and bucket-8 requests,
+// a shard's single query), else chunks of kWgMaxNQ: 1, 2 or 4 of them a
+// query set (a partial last set computes the same count)
+template <typename T, int kD>
+int launch_wg_for_batch(const GroupmaxArgs& a, cudaStream_t st) {
+  static_assert(kWgMaxNQ == 64 && kWgQueries == 256, "the products K4 instantiates");
+  if (a.B <= 8) return launch_wg<T, kD, 8, 1>(a, st);
+  if (a.B <= 64) return launch_wg<T, kD, 64, 1>(a, st);
+  if (a.B <= 128) return launch_wg<T, kD, 64, 2>(a, st);
+  return launch_wg<T, kD, 64, 4>(a, st);
+}
+
 struct GroupmaxLaunch {
   GroupmaxArgs a;
   cudaStream_t st;
+  int branch;  // groupmax_branch(dtype, d)
   template <typename T, int kD, bool kWide>
   int operator()() const {
+    GroupmaxArgs args = a;
+    args.vec = carca::vec_rows<T>(a.e, a.d);
+    if (!std::is_same<T, int8_t>::value) args.scales = nullptr;
     if constexpr (kWide) {
+      if (branch != kBranchWide) return (int)cudaErrorInvalidValue;
       constexpr size_t smem = groupmax_wide_smem<T>();
       const int err = set_smem(groupmax_wide_kernel<T>, smem);
       if (err != 0) return err;
-      GroupmaxArgs args = a;
-      args.vec = carca::vec_rows<T>(a.e, a.d);
-      if (!std::is_same<T, int8_t>::value) args.scales = nullptr;
       const long long grid =
           std::min((long long)a.n_groups, (long long)resident_blocks(groupmax_wide_kernel<T>, smem));
       groupmax_wide_kernel<T><<<(unsigned)grid, kThreads, smem, st>>>(args);
       return (int)cudaGetLastError();
+    } else if constexpr (carca::kIsF32<T>) {
+      if (branch != kBranchMma) return (int)cudaErrorInvalidValue;
+      constexpr size_t smem = groupmax_smem<T, kD>();
+      const int err = set_smem(groupmax_kernel<T, kD>, smem);
+      if (err != 0) return err;
+      const long long n_stages =
+          ((long long)a.n_groups * kGroup + kStageRows - 1) / kStageRows;
+      const long long grid =
+          std::min(n_stages, (long long)resident_blocks(groupmax_kernel<T, kD>, smem));
+      groupmax_kernel<T, kD><<<(unsigned)grid, kThreads, smem, st>>>(args);
+      return (int)cudaGetLastError();
+    } else {
+      if (branch != kBranchWgmma) return (int)cudaErrorInvalidValue;
+      return launch_wg_for_batch<T, kD>(args, st);
     }
-    constexpr size_t smem = groupmax_smem<T, kD>();
-    const int err = set_smem(groupmax_kernel<T, kD>, smem);
-    if (err != 0) return err;
-    GroupmaxArgs args = a;
-    args.vec = carca::vec_rows<T>(a.e, a.d);
-    if (!std::is_same<T, int8_t>::value) args.scales = nullptr;
-    const long long n_stages =
-        ((long long)a.n_groups * kGroup + kStageRows<T> - 1) / kStageRows<T>;
-    const long long grid =
-        std::min(n_stages, (long long)resident_blocks(groupmax_kernel<T, kD>, smem));
-    groupmax_kernel<T, kD><<<(unsigned)grid, kThreads, smem, st>>>(args);
-    return (int)cudaGetLastError();
+  }
+};
+
+struct ProbeLaunch {
+  const float* q;
+  const void* e;
+  float* out_mma;
+  float* out_wg;
+  int B, d, zero_acc;
+  cudaStream_t st;
+  template <typename T, int kD, bool kWide>
+  int operator()() const {
+    if constexpr (kWide || carca::kIsF32<T>) {
+      return (int)cudaErrorInvalidValue;
+    } else {
+      constexpr size_t smem = (size_t)kWgQueries * kD * 2 + 64 * carca::row_stride_bytes<T>(kD);
+      auto kernel = zero_acc ? probe_kernel<T, kD, true> : probe_kernel<T, kD, false>;
+      const int err = set_smem(kernel, smem);
+      if (err != 0) return err;
+      kernel<<<1, 128, smem, st>>>(q, e, out_mma, out_wg, B, d);
+      return (int)cudaGetLastError();
+    }
   }
 };
 
@@ -532,7 +1101,28 @@ int carca_groupmax(const void* q, const void* e, const void* scales, void* out, 
                    void* stream) {
   const GroupmaxArgs a{static_cast<const float*>(q), e, static_cast<const float*>(scales),
                        static_cast<float*>(out), B, R, d, lim0, mask_row0, n_groups, layout, 0};
-  return carca::dispatch_index(dtype, d, GroupmaxLaunch{a, static_cast<cudaStream_t>(stream)});
+  return carca::dispatch_index(
+      dtype, d, GroupmaxLaunch{a, static_cast<cudaStream_t>(stream), groupmax_branch(dtype, d)});
+}
+
+// The kernel carca_groupmax runs for this index type and width: 0
+// groupmax_kernel (mma.sync, 3xTF32: f32 rows of up to 128 columns), 1
+// groupmax_wg_kernel (warpgroup products: bf16 and int8 rows of up to 128
+// columns), 2 groupmax_wide_kernel (rows of more than 128 columns).
+int carca_groupmax_branch(int dtype, int d) { return groupmax_branch(dtype, d); }
+
+// The scoring routine's probe (probe_kernel): e [64, d] bf16 or int8 rows,
+// q [B, d] f32 with B <= 256 and d <= 128; out_mma and out_wg [B, 64] f32,
+// the raw sums by score_tile and by K4's warpgroup products (zero_acc: from
+// a zeroed accumulator).
+int carca_groupmax_probe(const void* q, const void* e, void* out_mma, void* out_wg, int B, int d,
+                         int dtype, int zero_acc, void* stream) {
+  if (B < 1 || B > kWgQueries || d > carca::kChunk || dtype == carca::kF32)
+    return (int)cudaErrorInvalidValue;
+  return carca::dispatch_index(
+      dtype, d, ProbeLaunch{static_cast<const float*>(q), e, static_cast<float*>(out_mma),
+                            static_cast<float*>(out_wg), B, d, zero_acc,
+                            static_cast<cudaStream_t>(stream)});
 }
 
 size_t carca_tournament_rerank_smem_bytes(int d, int dtype) {

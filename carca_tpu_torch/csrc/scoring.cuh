@@ -1,10 +1,24 @@
-// The catalog-scoring routine shared by K3 (catalog_topk.cu), K4
+// The catalog-scoring arithmetic shared by K3 (catalog_topk.cu), K4
 // (groupmax.cu) and the tournament's rerank (groupmax.cu,
 // carca_tournament_rerank): one warp scores a tile of 16 index rows (the M
-// side of mma.sync) against 8 queries (the N side) on the tensor cores.
+// side of mma.sync) against 8 queries (the N side) on the tensor cores
+// (score_tile); K4's bf16 and int8 kernel runs the same arithmetic as a
+// warpgroup product of 64 rows against up to 64 queries (groupmax.cu,
+// tile_products).
+//
+// One arithmetic: score_tile and K4's wgmma sequence, shown bit-equal by
+// the card test test_wgmma_scores_equal_score_tile (the probe,
+// groupmax.cu::probe_kernel: one 64-row tile against 256 queries, bf16 and
+// widened int8 rows, N(0,1), cancelling and tied inputs, d = 64 and 128; the
+// raw sums equal bit for bit, sign of zero included, from a zeroed
+// accumulator and from the first product alike). The wgmma sequence keeps
+// score_tile's operands: the rows are A, in registers in mma.sync's
+// fragment layout (load_a's values), the queries B in shared memory with
+// the same column-to-k-slot map, k-steps ascending.
 //
 // score(q, row) is one fixed instruction sequence:
-//   bf16 and int8 index  mma.sync m16n8k16, bf16 operands, f32 accumulator.
+//   bf16 and int8 index  mma.sync m16n8k16, bf16 operands, f32 accumulator
+//                        (K4: wgmma m64nNk16, the same sums).
 //                        The query is rounded to bf16 (nearest even, as
 //                        torch's .to(torch.bfloat16)); int8 rows are widened
 //                        to bf16, which is exact.
@@ -40,12 +54,12 @@
 //
 // What bounds the routine on the H100: mma.sync reaches a fraction of the
 // tensor cores' wgmma peak (989 TFLOP/s bf16), and every mma needs its
-// fragments from shared memory or registers; the callers keep the A
-// fragments of their rows in registers across many query tiles (K4) or
-// score a tile once (K3, the rerank), where the index's bytes or the
-// selection bound them instead. wgmma would be faster but is an
-// instruction family of its own: all three kernels move to it together or
-// not at all.
+// fragments from shared memory or registers; K3 and the rerank score a
+// tile once, where the index's bytes or the selection bound them instead.
+// K4's warpgroup products (bf16 and int8) reach the tensor cores' wgmma
+// rate; its f32 kernel stays on mma.sync (3xTF32). Any other change of the
+// instruction sequence must keep the probe test passing, or move all three
+// kernels together.
 //
 // Fragment layout (lane = 4 g + t). A row's k-step s covers its physical
 // columns [K s, K s + K), K = 16 (bf16) or 8 (tf32). For bf16 a lane loads

@@ -1,8 +1,9 @@
 // Warpgroup tensor-core products (wgmma, sm_90a only) for the whole-row
-// attention kernels (K1's in attention_fwd.cu, K2's in attention_bwd.cu):
-// the shared-memory matrix descriptor of the no-swizzle K-major layout, the
-// async-group fences, and m64nNk8 (TF32) / m64nNk16 (bf16) products with A
-// in registers and B in shared memory, N = 32, 40, 64, 80 and 120.
+// attention kernels (K1's in attention_fwd.cu, K2's in attention_bwd.cu)
+// and K4's group maxima (groupmax.cu): the shared-memory matrix descriptor
+// of the no-swizzle K-major layout, the async-group fences, and m64nNk8
+// (TF32) / m64nNk16 (bf16) products with A in registers and B in shared
+// memory, N = 32, 40, 64, 80 and 120 (K4's bf16: 8, 64 and 128).
 //
 // Layouts (PTX ISA, "Matrix Descriptor Format"; the canonical K-major
 // INTERLEAVE layout of CUTLASS's GmmaDescriptor). B is staged as core
@@ -287,6 +288,53 @@ struct Mma<120, true> {
           "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct Mma<8, true> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t (&a)[4], uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3"
+        "}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct Mma<128, true> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t (&a)[4], uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+          "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+          "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
   }
 };

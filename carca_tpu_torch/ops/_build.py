@@ -56,6 +56,8 @@ SIGNATURES = {
                                 _I, _I, _I, _I, _I64, _I, _P]),
     "carca_groupmax_smem_bytes": (ctypes.c_size_t, [_I, _I]),
     "carca_groupmax": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "carca_groupmax_branch": (_I, [_I, _I]),
+    "carca_groupmax_probe": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "carca_tournament_rerank_smem_bytes": (ctypes.c_size_t, [_I, _I]),
     "carca_tournament_rerank": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
 }

@@ -22,10 +22,11 @@ and on that kernel's plain version for CPU tensors:
   ``_TOURNAMENT_MIN_ROWS_BIG_K`` rows; else the stream.
 
 Scores. The kernels K3, K4 and the rerank score with one tensor-core
-routine (``csrc/scoring.cuh``): against a bf16 or int8 index the query is
+arithmetic (``csrc/scoring.cuh``): against a bf16 or int8 index the query is
 rounded to bf16 first (the JAX package's ``q.astype(cd)``) and the products
-run as bf16 ``mma.sync``; against an f32 index as 3xTF32; an int8 row's
-scale multiplies the finished sum. A score depends only on the query and
+run as bf16 ``mma.sync`` (K4: warpgroup ``wgmma`` products that a card test
+holds bit-equal to it; ``groupmax_branch``); against an f32 index as
+3xTF32; an int8 row's scale multiplies the finished sum. A score depends only on the query and
 the row, so the three kernels agree bit for bit: K4's group maxima equal
 the rerank's scores, which makes the tournament's containment argument
 exact, and stream and tournament return the same ids and values on the
@@ -359,6 +360,25 @@ def _launch(what: str, device: torch.device, smem: int, fn, *args) -> None:
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     _build.check(err, what)
+
+
+# K4's kernels by the C rule's code (csrc/groupmax.cu, carca_groupmax_branch)
+GROUPMAX_BRANCHES = ("mma", "wgmma", "wide")
+
+
+def groupmax_branch(dtype: torch.dtype, d: int) -> str:
+    """The kernel K4 runs over an index of this dtype and width (the rule of
+    ``csrc/groupmax.cu::groupmax_branch``, which a card test and
+    chip_smoke hold equal to this one): "wgmma" (``groupmax_wg_kernel``,
+    warpgroup products fed by a producer warp) for bf16 and int8 rows of up
+    to 128 columns, "mma" (``groupmax_kernel``, 3xTF32 on ``mma.sync``) for
+    f32 rows of up to 128 columns, "wide" (``groupmax_wide_kernel``, 128-column
+    chunks) past 128 columns."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"K4 takes float32, bfloat16 or int8 rows, got {dtype}")
+    if d > CHUNK:
+        return "wide"
+    return "mma" if dtype == torch.float32 else "wgmma"
 
 
 def groupmax(q: torch.Tensor, e: torch.Tensor, scales: Optional[torch.Tensor],

@@ -50,7 +50,9 @@ raises and exits non-zero:
              over each group, and the rerank within the tolerance of
              tournament_rerank_plain; the tournament (K4 + rerank, flat and
              recursive) bit-equal to the stream, ids and values, up to 1M
-             rows at B = 256, k = 562.
+             rows at B = 256, k = 562; the C rule for which K4 kernel runs
+             (warpgroup products for bf16/int8 rows of up to 128 columns)
+             equal to groupmax_branch, each case logging its branch.
 4w. d=256  — rows wider than 128 columns (128-column chunks): K3 at
              f32/bf16/int8, K4 in both layouts and the rerank at [256,256] x
              100,000 rows, k = 562, within the tolerance of their plain
@@ -172,8 +174,8 @@ raises and exits non-zero:
              keeper's waits and close, restore_best, the final retrieval
              eval, teardown), its peak RSS and the keeper's pinned snapshot
              bytes. With --parent DIR the same split of DIR's package (the
-             parent commit's) in turns parent, this tree, this tree,
-             parent, the gates the main fit's. best/ on the test split through
+             parent commit's) first, then this tree's, the gates the main
+             fit's. best/ on the test split through
              evaluate_retrieval's evaluator, (seen, bf16 -> K3), (full, bf16
              -> K4 + rerank), (seen, int8 -> K3 int8): with the kernels (the
              main path, launches counted), then per batch against the plain
@@ -339,11 +341,14 @@ raises and exits non-zero:
              train losses and val HR@10 / NDCG@10, args.json holding the
              flag, no note that it is ignored, K1 launched more with remat
              and K2 as often.
-15. parent — only with --parent DIR: K3 over every case a phase kept, then
-             K1 (and K2 where a path trains) at every shape a phase times
-             K1 at (ATTN_TURN_SHAPES), with DIR's package and with this
-             tree's, in turns parent, change, change, parent, one process a
-             turn (CUDA events); K1's cases name the branch this tree runs.
+15. parent — only with --parent DIR: K3 over every case a phase kept, K4
+             at the 10M paths' shapes over the same files ([256,64] int8
+             in both layouts, [256,64] bf16, [1,64] int8 over 10M rows and
+             over one 5M-row shard), then K1 (and K2 where a path trains)
+             at every shape a phase times K1 at (ATTN_TURN_SHAPES), with
+             DIR's package and with this tree's, in turns parent, change,
+             change, parent, one process a turn (CUDA events); K1's, K2's
+             and K4's cases name the branch this tree runs.
 
 Tolerance of the retrieval kernels against their plain versions: K3, K4
 and the rerank score on the tensor cores (csrc/scoring.cuh), the plain
@@ -714,6 +719,14 @@ def k2_branch(lk, d=D) -> str:
     return branch
 
 
+def k4_branch(dtype, d=D) -> str:
+    """The K4 kernel csrc/groupmax.cu runs over an index of this dtype and
+    width: its C rule, which must equal retrieval_topk.groupmax_branch."""
+    branch = rt.GROUPMAX_BRANCHES[_build.library().carca_groupmax_branch(rt._DTYPE_CODE[dtype], d)]
+    check(branch == rt.groupmax_branch(dtype, d), f"K4's C rule for {dtype} rows of {d}: {branch}")
+    return branch
+
+
 def phase_k1() -> float:
     worst = 0.0
     for i, (name, lq, lk, causal, cd) in enumerate(K1_CASES):
@@ -1002,6 +1015,9 @@ def phase_k4() -> dict:
     big = torch.randn(K4_BIG_ROWS, D, generator=gen).to(DEVICE)
     q, q300 = q[:B].contiguous(), q
     worst = {0: 0.0, 1: 0.0, "rerank": 0.0}
+    branches = {f"{rt.INDEX_KINDS[dt]} d={d}": k4_branch(dt, d) for dt in rt.INDEX_KINDS
+                for d in (1, 50, 64, 65, 128, 129, 256)}
+    log("K4", case="the C rule for which kernel runs equals groupmax_branch", branches=branches)
     before = sum(groupmax.launches.values()), tournament_rerank.launches
     for kind in INDEX_KINDS:
         for name, qq, ee, lim0, row0 in (
@@ -1020,7 +1036,7 @@ def phase_k4() -> dict:
             gi = torch.arange(n_g, device=DEVICE).expand(qq.shape[0], n_g).contiguous()
             worst["rerank"] = max(worst["rerank"], check_rerank(
                 f"{kind} {name}", qq, rows, scales, gi, lim0, row0, got[:, :n_g]))
-            log("K4", case=f"{kind} {name}", layouts=[0, 1],
+            log("K4", case=f"{kind} {name}", layouts=[0, 1], branch=k4_branch(rows.dtype),
                 tol=f"{SCORE_ORDER_TOL} * sum|q e|", rerank_group_maxima_bit_equal=True)
     check(sum(groupmax.launches.values()) > before[0], "K4 never launched")
     check(tournament_rerank.launches > before[1], "the rerank kernel never launched")
@@ -1111,6 +1127,7 @@ def phase_k_wide(card) -> None:
                                                + -(-R_WIDE // GROUP) * B * 4,
                                                2 * B * R_WIDE * D_WIDE)
             log("K4w", card=card, case=f"{kind} [{B},{D_WIDE}] x {R_WIDE} rows k={KK}",
+                k4_branch=k4_branch(rows.dtype, D_WIDE),
                 tournament_equals_stream=True, rerank_group_maxima_bit_equal=True,
                 rerank_groups=n_g,
                 kernels={name: dict(zip(("ms", "plain_ms"), times[name, kind]),
@@ -1519,6 +1536,18 @@ def timing_10m(card, rec, host, cat):
             ms = cuda_ms(lambda: catalog_topk(q, qi, k, n_items=n, method="stream"), 3)
             peak = torch.cuda.max_memory_allocated() - base
             k3_turn_case(f"10M int8 [{B},{D}] x {n} rows k={k}", q, qi, k, n)
+            if k == K:  # K4 at the path's shapes, over the same files
+                q256 = f"10M int8 [{B},{D}] x {n} rows k={K}"
+                for layout in (0, 1):
+                    k4_turn_case(f"[{B},{D}] x {n} int8 rows layout {layout}", "int8", q256,
+                                 q256, layout)
+                k4_turn_case(f"[1,{D}] x {n} int8 rows layout 0", "int8", q256, q256, 0, b=1)
+                k4_turn_case(f"[{B},{D}] x {n} bf16 rows layout 0", "bf16",
+                             f"10M bf16 [{K3_10M_B},{D}] x {n} rows k={K}", q256, 0)
+                k4_turn_case(f"[1,{D}] x {N_REAL_ITEMS_10M // 2 + 1} int8 rows (one shard) "
+                             "layout 0", "int8",
+                             f"5M int8 block [1,{D}] k={K} (the 10M slice's first rows)",
+                             f"5M int8 block [1,{D}] k={K} (the 10M slice's first rows)", 0, b=1)
             check(plan.scratch_bytes <= K3_SCRATCH_LIMIT,
                   f"K3 scratch {plan.scratch_bytes} bytes at {n} rows, B = {B}, k = {k}")
             log("timing", card=card, kernel="K3 catalog_topk int8",
@@ -2623,24 +2652,20 @@ def profile_k3_seen(card, q, emb, kk, n_local, reps: int = 10) -> dict:
     return out
 
 
-def fit_10m_turns(card, parent, tmp, before: bool) -> list:
+def fit_10m_parent_turn(card, parent, tmp) -> dict:
     """With --parent DIR (a checkout of the parent commit's package): the
-    10M fit's wall split of DIR's package and of this tree's, each under
-    the same wrappers (fit_10m_process). Called before phase 10's main fit
-    (the parent) and after it (this tree, then the parent), so that the
-    turns run parent, change, change, parent. Gates are the main fit's."""
-    out = []
-    for tree in ([parent] if before else [ROOT, parent]):
-        run = os.path.join(tmp, "turn")
-        stdout, split = fit_10m_process(fit_10m_args(run), FIT10M_TIMEOUT_S, tree)
-        final = ast.literal_eval(next(ln for ln in stdout.splitlines()
-                                      if ln.startswith("final: "))[7:])
-        out.append({"tree": "parent" if tree == parent else "change", "wall_split": split,
-                    "test_hr10": final["test_hr"],
-                    "retrieval_test_hr10": final["retrieval_test_hr"]})
-        log("fit_10m", card=card, case="the 10M fit's wall split, a turn of parent and change",
-            **out[-1])
-        shutil.rmtree(run, ignore_errors=True)
+    10M fit's wall split of DIR's package under the same wrappers as this
+    tree's (fit_10m_process), run before phase 10's main fit, so that the
+    turns run parent, change (one pair: the script's time limit holds no
+    second). Gates are the main fit's."""
+    run = os.path.join(tmp, "turn")
+    stdout, split = fit_10m_process(fit_10m_args(run), FIT10M_TIMEOUT_S, parent)
+    final = ast.literal_eval(next(ln for ln in stdout.splitlines()
+                                  if ln.startswith("final: "))[7:])
+    out = {"tree": "parent", "wall_split": split, "test_hr10": final["test_hr"],
+           "retrieval_test_hr10": final["retrieval_test_hr"]}
+    log("fit_10m", card=card, case="the 10M fit's wall split, a turn of parent and change", **out)
+    shutil.rmtree(run, ignore_errors=True)
     return out
 
 
@@ -2786,13 +2811,12 @@ def phase_fit_10m(card, profile_run=False, parent=None) -> dict:
         step["graph"] = graph_vs_eager(card, "fit_10m", "10m", rates=False)
         torch.cuda.empty_cache()  # its states' and graph's blocks: the fit's process follows
         run = os.path.join(tmp, "run")
-        turns = fit_10m_turns(card, parent, tmp, before=True) if parent else []
+        turns = [fit_10m_parent_turn(card, parent, tmp)] if parent else []
         fit = fit_10m_run(card, run)
         if parent:
-            turns[1:1] = [{"tree": "change", "wall_split": fit["wall_split"],
-                           "test_hr10": fit["test_hr10"],
-                           "retrieval_test_hr10": fit["retrieval_test_hr10"]}]
-            turns += fit_10m_turns(card, parent, tmp, before=False)
+            turns.append({"tree": "change", "wall_split": fit["wall_split"],
+                          "test_hr10": fit["test_hr10"],
+                          "retrieval_test_hr10": fit["retrieval_test_hr10"]})
             log("fit_10m", card=card, case="the 10M fit's wall split, parent and change in "
                 "turns", turns=[t["tree"] for t in turns], wall_s=[
                     t["wall_split"]["wall_s"] for t in turns])
@@ -2868,11 +2892,10 @@ def serve_10m(card, run, cat, parent=None) -> None:
     in-process load_recommender over the catalog this process generated
     (its template, restore, index build and first answer timed the same
     way). With ``parent`` the parent's service too, in turns parent,
-    change, change, parent, each answering as this tree's does."""
+    change, each answering as this tree's does."""
     host = HostCSR(cat)
     lines = serve_requests(host)
-    turns = [("parent", parent)] if parent else []
-    turns += [("change", ROOT)] + ([("change", ROOT), ("parent", parent)] if parent else [])
+    turns = ([("parent", parent)] if parent else []) + [("change", ROOT)]
     runs = []
     for tree_name, tree in turns:
         served, split = serve_10m_process(run, lines, tree)
@@ -4761,11 +4784,13 @@ def phase_remat(card) -> dict:
 
 
 # --------------------------------------------------------------------------
-# phase 15 (--parent DIR): K1, K2 and K3 of the parent commit against this
+# phase 15 (--parent DIR): K1-K4 of the parent commit against this
 # tree's
 # --------------------------------------------------------------------------
 
 K3_TURN_CASES = {}  # name -> K3's inputs at a phase's timed shape (files), under --parent
+K4_TURN_CASES = {}  # name -> K4's shape over K3's files (index, queries), under --parent
+K4_TURN_REPS = 20
 K3_TURN_DIR = [None]  # where phases keep them (a temporary directory under --parent)
 K3_TURN_REPS = 10
 # every shape a phase times K1 at (name -> batch, Lq, Lk, causal, d, weight
@@ -4799,7 +4824,7 @@ K3_TURN_WRAPPER = r"""
 import json, sys
 import torch
 from carca_tpu_torch.ops.flash_attention import attention_bwd, fused_attention
-from carca_tpu_torch.ops.retrieval_topk import QuantizedIndex, catalog_topk
+from carca_tpu_torch.ops.retrieval_topk import QuantizedIndex, catalog_topk, groupmax
 
 def cuda_ms(fn, reps):
     fn()
@@ -4829,6 +4854,14 @@ for name, c in json.loads(sys.argv[1]).items():
         out[name] = cuda_ms(lambda: catalog_topk(q, index, c["k"], n_items=c["n_items"],
                                                  method="stream"), c["reps"])
     del q, index
+for name, c in json.loads(sys.argv[3]).items():
+    rows, scales = indexes[c["index"]]
+    n = c["rows"]
+    e, s = rows[:n], None if scales is None else scales[:, :n].contiguous()
+    q = torch.load(c["q"]).cuda()[:c["b"]].contiguous()
+    with torch.no_grad():
+        out["K4 " + name] = cuda_ms(lambda: groupmax(q, e, s, n, True, c["layout"]), c["reps"])
+    del q, e, s
 del indexes
 attn = json.loads(sys.argv[2])
 for name, (b, lq, lk, causal, d, rate, cd, bwd) in attn["shapes"].items():
@@ -4867,20 +4900,35 @@ def k3_turn_case(name, q, index, k, n_items=None, rows=None) -> None:
                            "rows": rows or e.shape[0], "reps": K3_TURN_REPS}
 
 
+def k4_turn_case(name, kind, index_case, q_case, layout, b=B) -> None:
+    """Under --parent: K4 (groupmax, lim0 = the rows, the pad row masked)
+    at one of the path's shapes for phase 15, over the index and queries
+    K3's kept cases already hold (the first b queries), so that no other
+    index is written."""
+    if K3_TURN_DIR[0] is None:
+        return
+    c = K3_TURN_CASES[index_case]
+    K4_TURN_CASES[name] = {"index": c["index"], "rows": c["rows"], "q": K3_TURN_CASES[q_case]["q"],
+                           "b": b, "layout": layout, "kind": kind, "reps": K4_TURN_REPS}
+
+
 def k3_parent_turns(card, parent) -> dict:
-    """Phase 15: K3 over each kept case, then K1 (and K2) at each of
-    ATTN_TURN_SHAPES, with the package of ``parent`` (the parent commit's)
-    and with this tree's, in turns parent, change, change, parent, one
-    process a turn (K3_TURN_WRAPPER from the tree's root, each case timed
-    by CUDA events over K3_TURN_REPS or ATTN_TURN_REPS calls). Returns, per
-    case, both trees' times and the parent's mean over the change's; K1's
-    cases also name the branch this tree runs."""
+    """Phase 15: K3 over each kept case, K4 at each of K4_TURN_CASES, then
+    K1 (and K2) at each of ATTN_TURN_SHAPES, with the package of ``parent``
+    (the parent commit's) and with this tree's, in turns parent, change,
+    change, parent, one process a turn (K3_TURN_WRAPPER from the tree's
+    root, each case timed by CUDA events over K3_TURN_REPS, K4_TURN_REPS or
+    ATTN_TURN_REPS calls). Returns, per case, both trees' times and the
+    parent's mean over the change's; K1's, K2's and K4's cases also name
+    the branch this tree runs."""
     cases = json.dumps(K3_TURN_CASES)
+    k4_cases = json.dumps(K4_TURN_CASES)
     attn = json.dumps({"shapes": ATTN_TURN_SHAPES, "reps": ATTN_TURN_REPS})
     turns = []
     for tag, tree in (("parent", parent), ("change", ROOT), ("change", ROOT),
                       ("parent", parent)):
-        proc = subprocess.run([sys.executable, "-c", K3_TURN_WRAPPER, cases, attn], cwd=tree,
+        proc = subprocess.run([sys.executable, "-c", K3_TURN_WRAPPER, cases, attn, k4_cases],
+                              cwd=tree,
                               capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
@@ -4898,8 +4946,12 @@ def k3_parent_turns(card, parent) -> dict:
         if kernel in ("K1", "K2"):
             _, _, lk, _, d, _, _, _ = ATTN_TURN_SHAPES[shape]
             extra["branch"] = (k1_branch if kernel == "K1" else k2_branch)(lk, d)
-        log(f"{kernel.lower()}_parent" if kernel in ("K1", "K2") else "k3_parent", card=card,
-            case=shape if kernel in ("K1", "K2") else name, turns=[tag for tag, _ in turns],
+        elif kernel == "K4":
+            kind = K4_TURN_CASES[shape]["kind"]
+            extra["branch"] = k4_branch(torch.int8 if kind == "int8" else torch.bfloat16)
+        named = kernel in ("K1", "K2", "K4")
+        log(f"{kernel.lower()}_parent" if named else "k3_parent", card=card,
+            case=shape if named else name, turns=[tag for tag, _ in turns],
             **out[name], **extra)
     return out
 
@@ -4984,7 +5036,8 @@ def mesh_entries(m) -> list:
     groups = -(-rows // GROUP)
     add("groupmax_shard", "carca_tpu_torch/csrc/groupmax.cu",
         "carca_tpu/ops/retrieval_topk.py:183", serve["groupmax_layout0"], t["k4_err"], t["K4"],
-        rows * (D + f32) + D * f32 + groups * f32, 2 * rows * D, "bfloat16", None, shard)
+        rows * (D + f32) + D * f32 + groups * f32, 2 * rows * D, "bfloat16", None, shard,
+        k4_branch(torch.int8))
     kg = t["kg"]
     add("tournament_rerank_shard", "carca_tpu_torch/csrc/groupmax.cu",
         "carca_tpu/ops/retrieval_topk.py:497", serve["tournament_rerank"], t["rerank_err"],
@@ -5074,7 +5127,7 @@ def kernel_entries(k1_err, k2_err, k3_err, k4_err, timings, k2_times, library, l
         add("groupmax" if layout == 0 else "groupmax_bq", "carca_tpu_torch/csrc/groupmax.cu",
             replaces, launches[path][f"groupmax_layout{layout}"], k4_err[layout],
             timings["K4", layout], n10 * (D + f32) + B * D * f32 + groups * B * f32,
-            2 * B * n10 * D, "bfloat16")
+            2 * B * n10 * D, "bfloat16", branch=k4_branch(torch.int8))
     # the rerank at bucket 256, k = 562 on the 10M int8 slice: each winner
     # row and its scale read once, the group ids and queries, the scores
     # written; its products at the bf16 rate (the JAX package's stage-3
@@ -5163,7 +5216,8 @@ def fit10m_entries(f, launches):
     add("groupmax_10m_bf16", "carca_tpu_torch/csrc/groupmax.cu",
         "carca_tpu/ops/retrieval_topk.py:183", full["groupmax_layout0"],
         max(errs["full bf16"], errs["K4 full bf16"]), t["K4 full bf16"],
-        n10 * D * bf16 + B * D * f32 + groups * B * f32, 2 * B * n10 * D, "bfloat16")
+        n10 * D * bf16 + B * D * f32 + groups * B * f32, 2 * B * n10 * D, "bfloat16",
+        branch=k4_branch(torch.bfloat16))
     # the rows of the winner groups read once (the trained queries share
     # most of their groups), each query's kg groups scored
     kg = t["kg"]
@@ -5183,7 +5237,7 @@ def main() -> None:
     p.add_argument("--profile", action="store_true", help="add phase 7's traces")
     p.add_argument("--parent", default=None, help="a directory holding the parent commit's "
                    "carca_tpu_torch: phase 10 then also splits its 10M fit's and service's "
-                   "walls, and phase 15 times its K1, K2 and K3, in turns")
+                   "walls, and phase 15 times its K1-K4, in turns")
     cli_args = p.parse_args()
     profile_run = cli_args.profile
     parent = cli_args.parent and os.path.abspath(cli_args.parent)
@@ -5242,7 +5296,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     remat = timed("14 remat", phase_remat, card)
     if parent:
-        timed("15 K1, K2, K3 parent", k3_parent_turns, card, parent)
+        timed("15 K1-K4 parent", k3_parent_turns, card, parent)
         shutil.rmtree(K3_TURN_DIR[0], ignore_errors=True)
     launches = {"slice": serve_launches, "slice_10m": launches_10m, "bench": bench_launches,
                 "train": train_launches, "fit_serve": fit_launches,

@@ -124,7 +124,11 @@ def test_a_jax_run_agrees_with_the_jax_script(tmp_path, capsys):
     shutil.copy(f"{jrun}/args.json", ours_run / "args.json")
     cfg = config_from_run_dir(str(ours_run))
     model = load_into(CARCA(cfg.model, device="cpu"), jax.tree.map(np.asarray, state.params))
-    CheckpointKeeper(str(ours_run / "ckpt")).save(epoch, model, metrics)
+    ours_keeper = CheckpointKeeper(str(ours_run / "ckpt"))
+    try:
+        ours_keeper.save(epoch, model, metrics)
+    finally:
+        ours_keeper.close()  # the write runs on a thread of its own: land it first
     script = jax_script()
     for flags in ([], ["--full_index"], ["--quantized"]):
         capsys.readouterr()

@@ -29,11 +29,12 @@ from carca_tpu_torch.ops import _build
 from carca_tpu_torch.ops.flash_attention import (SEED_LIMIT, attention_bwd,
                                                  attention_grads_plain, attention_keep_mask,
                                                  bwd_branch, fused_attention, fwd_branch)
-from carca_tpu_torch.ops.retrieval_topk import (GROUP, SCORE_ORDER_TOL, QuantizedIndex,
-                                                catalog_topk, catalog_topk_plain,
-                                                compare_within_order_tol, groupmax,
-                                                groupmax_plain, quantize_index, stream_plan,
-                                                tournament_rerank, tournament_rerank_plain)
+from carca_tpu_torch.ops.retrieval_topk import (GROUP, GROUPMAX_BRANCHES, SCORE_ORDER_TOL,
+                                                QuantizedIndex, catalog_topk,
+                                                catalog_topk_plain, compare_within_order_tol,
+                                                groupmax, groupmax_branch, groupmax_plain,
+                                                quantize_index, stream_plan, tournament_rerank,
+                                                tournament_rerank_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -457,17 +458,28 @@ def group_magnitudes(q, rows, scales, layout):
 
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
 @pytest.mark.parametrize("layout", [0, 1])
-@pytest.mark.parametrize("b,r,lim0,mask_row0", [
-    (256, 20_000, 20_000, True), (33, 19_156, 15_000, False), (17, 1_000, 1_000, True),
-    (9, 300, 250, True), (1, 2_049, 2_049, True), (5, 129, 129, False),
-    (300, 3_000, 3_000, True)])
-def test_groupmax_kernel_within_order_tol_of_plain(dev, kind, layout, b, r, lim0, mask_row0):
+@pytest.mark.parametrize("b,r,lim0,mask_row0,d", [
+    (256, 20_000, 20_000, True, 64), (33, 19_156, 15_000, False, 64), (17, 1_000, 1_000, True, 64),
+    (9, 300, 250, True, 64), (1, 2_049, 2_049, True, 64), (5, 129, 129, False, 64),
+    (300, 3_000, 3_000, True, 64),
+    # the warpgroup kernel's edges: one, two or four products of 64
+    # queries a query set of 256 (B = 64, 65, 128, 129, 255, 257, 520), rows
+    # one either side of a 64-row tile and a 128-row slot, lim0 inside a
+    # tile, more groups than a block's ring holds (300,000 rows), 128
+    # columns, a ragged width
+    (64, 63, 63, True, 64), (65, 65, 65, False, 64), (128, 127, 100, True, 64),
+    (129, 129, 129, True, 64), (255, 255, 230, True, 64), (257, 257, 257, False, 64),
+    (520, 20_000, 19_999, True, 64), (33, 300_000, 299_990, True, 64),
+    (1, 65, 60, True, 128), (65, 1_025, 1_000, True, 128), (129, 4_000, 3_999, True, 128),
+    (257, 383, 300, True, 128), (17, 1_000, 990, True, 50)])
+def test_groupmax_kernel_within_order_tol_of_plain(dev, kind, layout, b, r, lim0, mask_row0, d):
     """K4 against groupmax_plain: -inf groups alike, maxima within
     SCORE_ORDER_TOL of each group's largest sum_j |q_j e_rj| (B = 300 walks
-    two query chunks)."""
-    g = torch.Generator(device="cpu").manual_seed(b * r)
-    q = torch.randn(b, 64, generator=g)
-    e = torch.randn(r, 64, generator=g)
+    two query chunks of the f32 kernel, B > 256 two query sets of the
+    warpgroup kernel)."""
+    g = torch.Generator(device="cpu").manual_seed(b * r if d == 64 else b * r + d)
+    q = torch.randn(b, d, generator=g)
+    e = torch.randn(r, d, generator=g)
     e[120:140] = e[min(3, r - 1)]  # exact ties across a group boundary
     q[0] = 0.0
     q, e = q.to(dev), e.to(dev)
@@ -486,15 +498,17 @@ def test_groupmax_kernel_within_order_tol_of_plain(dev, kind, layout, b, r, lim0
 
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
 @pytest.mark.parametrize("layout", [0, 1])
-@pytest.mark.parametrize("b", [1, 8, 256])
-def test_groupmax_equals_the_rerank_group_maxima(dev, kind, layout, b):
+@pytest.mark.parametrize("b", [1, 8, 16, 17, 32, 64, 65, 128, 129, 255, 256, 257])
+@pytest.mark.parametrize("d", [64, 128])
+def test_groupmax_equals_the_rerank_group_maxima(dev, kind, layout, b, d):
     """The one scoring routine: K4's maxima equal, bit for bit, the maxima
-    over each group of the rerank kernel's scores of every group; the rerank
-    is within the summation-order tolerance of its plain version."""
+    over each group of the rerank kernel's scores of every group (the
+    warpgroup products against score_tile's mma.sync at bf16 and int8); the
+    rerank is within the summation-order tolerance of its plain version."""
     r, lim0 = 5_000, 4_900
-    g = torch.Generator(device="cpu").manual_seed(b + layout)
-    q = torch.randn(b, 64, generator=g).to(dev)
-    e = torch.randn(r, 64, generator=g).to(dev)
+    g = torch.Generator(device="cpu").manual_seed(b + layout if d == 64 else b + layout + d)
+    q = torch.randn(b, d, generator=g).to(dev)
+    e = torch.randn(r, d, generator=g).to(dev)
     rows, scales = rows_of(as_index(e, kind))
     n_g = -(-r // GROUP)
     gi = torch.arange(n_g, device=dev).expand(b, n_g).contiguous()
@@ -510,6 +524,116 @@ def test_groupmax_equals_the_rerank_group_maxima(dev, kind, layout, b):
     assert torch.equal(torch.isfinite(s), fin)
     bound = SCORE_ORDER_TOL * tournament_rerank_plain(q.abs(), rows.abs(), scales, gi, r, False)
     assert bool(((s - plain).abs()[fin] <= bound[fin]).all())
+
+
+def probe_inputs(kind, case, b, d, seed):
+    """q [b, d] f32 and 64 rows [64, d] (bf16, or int8 widened in the
+    kernel) for the scoring probe: N(0,1) values; cancelling sums (powers
+    of two over 2^-12..2^12 with random signs, each row's second half the
+    negation of its first, so exact sums are 0 or tiny against their
+    terms); exact ties (one row repeated, one query repeated); a zero
+    query."""
+    rng = np.random.default_rng(seed)
+    if case == "normal":
+        q = rng.standard_normal((b, d))
+        e = rng.standard_normal((64, d))
+    elif case == "cancelling":
+        q = np.sign(rng.standard_normal((b, d))) * 2.0 ** rng.integers(-12, 13, (b, d))
+        e = np.sign(rng.standard_normal((64, d))) * 2.0 ** rng.integers(-6, 7, (64, d))
+        h = d // 2
+        q[:, h:2 * h] = q[:, :h]
+        e[:, h:2 * h] = -e[:, :h]
+        e[1::2] = rng.standard_normal((32, d))
+    else:  # ties
+        q = rng.standard_normal((b, d))
+        e = rng.standard_normal((64, d))
+        e[8:40] = e[3]
+        q[b // 2:] = q[0]
+    q[b - 1] = 0.0
+    q = torch.from_numpy(q.astype(np.float32))
+    if kind == "int8":
+        e = np.clip(np.round(e / np.abs(e).max() * 127), -127, 127)
+        return q, torch.from_numpy(e.astype(np.int8))
+    return q, torch.from_numpy(e.astype(np.float32)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("case", ["normal", "cancelling", "ties"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("zero_acc", [0, 1])
+def test_wgmma_scores_equal_score_tile(dev, kind, case, d, zero_acc):
+    """The probe (csrc/groupmax.cu, probe_kernel): one 64-row tile against
+    256 queries by score_tile (mma.sync m16n8k16, k-steps ascending from a
+    zero accumulator) and by K4's warpgroup products (wgmma m64n128k16, A the
+    rows from load_a, B the queries staged in score_tile's column map,
+    k-steps ascending; zero_acc 0: from the first product, 1: from a zeroed
+    accumulator). The raw sums must be equal bit for bit (sign of zero
+    included): K4 may run on wgmma only if its group maxima stay bit-equal
+    to the rerank's and K3's scores."""
+    b = 256
+    q, e = probe_inputs(kind, case, b, d, seed=d + len(case))
+    q, e = q.to(dev), e.to(dev)
+    out = [torch.full((b, 64), float("nan"), device=dev) for _ in range(2)]
+    lib = _build.library()
+    err = lib.carca_groupmax_probe(q.data_ptr(), e.data_ptr(), out[0].data_ptr(),
+                                   out[1].data_ptr(), b, d, 1 if kind == "bf16" else 2, zero_acc,
+                                   torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "carca_groupmax_probe")
+    torch.cuda.synchronize()
+    mma, wg = (x.cpu() for x in out)
+    assert torch.isfinite(mma).all()
+    differ = (mma.view(torch.int32) != wg.view(torch.int32))
+    assert not differ.any(), (int(differ.sum()), (mma - wg).abs().max().item())
+
+
+def test_groupmax_branch_rule_is_the_kernels(dev):
+    """retrieval_topk.groupmax_branch, the rule the CPU tests hold, is the
+    one csrc/groupmax.cu launches by."""
+    lib = _build.library()
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1), (torch.int8, 2)):
+        for d in (1, 8, 50, 63, 64, 65, 100, 128, 129, 256, 300):
+            assert GROUPMAX_BRANCHES[lib.carca_groupmax_branch(code, d)] == \
+                groupmax_branch(dtype, d), (dtype, d)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("layout", [0, 1])
+@pytest.mark.parametrize("b", [1, 256, 300])
+def test_groupmax_kernel_is_deterministic(dev, kind, layout, b):
+    """Two launches of K4 over the same inputs give the same bits."""
+    g = torch.Generator(device="cpu").manual_seed(b)
+    q = torch.randn(b, 64, generator=g).to(dev)
+    rows, scales = rows_of(as_index(torch.randn(200_000, 64, generator=g).to(dev), kind))
+    first = groupmax(q, rows, scales, 199_000, True, layout)
+    second = groupmax(q, rows, scales, 199_000, True, layout)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("layout", [0, 1])
+def test_groupmax_kernel_takes_unaligned_rows_and_scales(dev, kind, layout):
+    """Rows that start 8 bytes past a 16-byte boundary (the producer's plain
+    copies instead of bulk copies) and int8 scales 4 bytes past one (4-byte
+    cp.async): the same bits as over aligned copies of the same index."""
+    b, r, d = 65, 3_000, 64
+    g = torch.Generator(device="cpu").manual_seed(7)
+    q = torch.randn(b, d, generator=g).to(dev)
+    rows, scales = rows_of(as_index(torch.randn(r, d, generator=g).to(dev), kind))
+    off = 8 // rows.element_size()
+    flat = torch.empty(r * d + off, dtype=rows.dtype, device=dev)
+    flat[off:] = rows.reshape(-1)
+    odd_rows = flat[off:].view(r, d)
+    odd_scales = None
+    if scales is not None:
+        sflat = torch.empty(r + 1, device=dev)
+        sflat[1:] = scales.reshape(-1)
+        odd_scales = sflat[1:].view(1, r)
+    assert odd_rows.data_ptr() % 16 == 8
+    want = groupmax(q, rows, scales, r - 5, True, layout)
+    got = groupmax(q, odd_rows, odd_scales, r - 5, True, layout)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])

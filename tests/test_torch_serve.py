@@ -319,7 +319,11 @@ def test_a_jax_run_served_by_the_port(runs, tmp_path):
     cfg = config_from_run_dir(str(tmp_path))
     assert cfg.model == model_config_from_jax(dataclasses.asdict(jcfg.model))
     model = load_into(CARCA(cfg.model, device="cpu"), jax.tree.map(np.asarray, state.params))
-    CheckpointKeeper(str(tmp_path / "ckpt")).save(epoch, model, metrics)
+    ours_keeper = CheckpointKeeper(str(tmp_path / "ckpt"))
+    try:
+        ours_keeper.save(epoch, model, metrics)
+    finally:
+        ours_keeper.close()  # the write runs on a thread of its own: land it first
     ours = load_recommender(str(tmp_path), cat.attrs, device="cpu", **REC_KW)
     theirs = jax_load_recommender(jrun, cat.attrs, **REC_KW)
     hists, ctxs = histories_of(cat, range(9)), ctxs_of(cat, range(9))

@@ -17,6 +17,7 @@ CPU tensors) against the JAX package's Pallas kernels in interpret mode.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -33,7 +34,10 @@ from carca_tpu_torch.bridge import load_into, model_config_from_jax
 from carca_tpu_torch.data.synthetic import synthetic_catalog
 from carca_tpu_torch.models.carca import CARCA
 from carca_tpu_torch.ops.retrieval_topk import (GROUP, QuantizedIndex, catalog_topk,
-                                                groupmax_plain, ordered_scores)
+                                                groupmax_branch, groupmax_plain,
+                                                ordered_scores)
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
 
 torch.set_num_threads(1)
 
@@ -149,6 +153,97 @@ def test_groupmax_plain_is_the_max_of_ordered_scores(kind, layout):
         assert got.shape == (5, GROUP)
         np.testing.assert_array_equal(got[:, :6], want)
         assert np.isneginf(got[:, 6:]).all()
+
+
+def jax_stage1(q: np.ndarray, index, lim0: int, mask_row0: bool, layout: int) -> np.ndarray:
+    """The JAX package's stage 1 as its ``_tournament_topk`` calls it, in
+    interpret mode: B4 (``_groupmax_kernel``, layout 0, [G, B]) or B5
+    (``_groupmax_bq_kernel``, layout 1, [B, G'], G' a multiple of 128), over
+    chunks of 8 groups (B5: 8 programs share each 128-group output block),
+    the index zero-padded to whole chunks, a batch below 8 padded to 8."""
+    rows, scales = (index.qvals, index.scales) if isinstance(index, jrt.QuantizedIndex) \
+        else (index, None)
+    b_req, d = q.shape
+    r = rows.shape[0]
+    qj = jnp.pad(jnp.asarray(q), ((0, max(0, 8 - b_req)), (0, 0)))
+    b = qj.shape[0]
+    c = 8 * GROUP
+    rp = -(-r // (GROUP * GROUP if layout else c)) * (GROUP * GROUP if layout else c)
+    rows = jnp.pad(rows, ((0, rp - r), (0, 0)))
+    lim = jnp.asarray([lim0, int(mask_row0)], jnp.int32)
+    specs = [pl.BlockSpec(memory_space=pltpu.SMEM),
+             pl.BlockSpec((b, d), lambda j: (0, 0), memory_space=pltpu.VMEM),
+             pl.BlockSpec((c, d), lambda j: (j, 0), memory_space=pltpu.VMEM)]
+    args = [lim, qj, rows]
+    n_groups = rp // GROUP
+    if layout == 1:
+        if scales is not None:
+            specs.append(pl.BlockSpec((1, c), lambda j: (0, j), memory_space=pltpu.VMEM))
+            args.append(jnp.pad(scales, ((0, 0), (0, rp - r))))
+        out = pl.pallas_call(
+            functools.partial(jrt._groupmax_bq_kernel, c, GROUP, GROUP // 8), grid=(rp // c,),
+            in_specs=specs,
+            out_specs=pl.BlockSpec((b, 128), lambda j: (0, j // (GROUP // 8)),
+                                   memory_space=pltpu.VMEM),
+            out_shape=jax.ShapeDtypeStruct((b, n_groups), jnp.float32), interpret=True)(*args)
+        return np.asarray(out)[:b_req]
+    if scales is not None:
+        specs.append(pl.BlockSpec((c, 1), lambda j: (j, 0), memory_space=pltpu.VMEM))
+        args.append(jnp.pad(scales, ((0, 0), (0, rp - r))).reshape(-1, 1))
+    out = pl.pallas_call(
+        functools.partial(jrt._groupmax_kernel, c, GROUP), grid=(rp // c,), in_specs=specs,
+        out_specs=pl.BlockSpec((c // GROUP, b), lambda j: (j, 0), memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((n_groups, b), jnp.float32), interpret=True)(*args)
+    return np.asarray(out)[:, :b_req]
+
+
+@pytest.mark.parametrize("layout", [0, 1])
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("b,r,d,lim0,mask_row0", [
+    (1, 63, 16, 63, True), (8, 65, 16, 60, True), (64, 127, 16, 127, False),
+    (65, 129, 32, 129, True), (129, 255, 16, 200, True), (257, 257, 8, 257, False),
+    (33, 1_025, 128, 1_000, True)])
+def test_groupmax_plain_matches_jax_stage1(kind, layout, b, r, d, lim0, mask_row0):
+    """K4's plain version against the JAX package's B4 and B5 (interpret
+    mode) at the warpgroup kernel's edges: batches around its products and
+    query sets (8 to 257), rows one either side of its 64-row tiles and
+    128-row slots, lim0 inside a tile, 128 columns: the same -inf groups,
+    maxima within rtol 1e-5 / atol 1e-6 (two summation orders). Groups past
+    the index are -inf in both."""
+    q, e = data(b * 7 + r, b, r, d)
+    q[0] = 0.0
+    e[40:70] = e[1]  # ties across a tile boundary
+    je, te = indexes(e, kind)
+    rows, scales = (te.qvals, te.scales) if kind == "int8" else (te, None)
+    got = groupmax_plain(torch.from_numpy(q), rows, scales, lim0, mask_row0, layout).numpy()
+    want = jax_stage1(q, je, lim0, mask_row0, layout)
+    g = -(-r // GROUP)
+    if layout == 0:
+        assert got.shape == (g, b)
+        assert np.isneginf(want[g:]).all()
+        want = want[:g]
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "wgmma"), (torch.int8, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.int8, 1, "wgmma"), (torch.int8, 100, "wgmma"), (torch.bfloat16, 50, "wgmma"),
+    (torch.float32, 64, "mma"), (torch.float32, 128, "mma"), (torch.float32, 1, "mma"),
+    (torch.bfloat16, 129, "wide"), (torch.int8, 256, "wide"), (torch.float32, 256, "wide")])
+def test_groupmax_branch_routes_by_type_and_width(dtype, d, want):
+    """The rule for which K4 kernel runs (csrc/groupmax.cu keeps the same
+    rule beside the launch; a card test holds the two equal): warpgroup
+    products for bf16 and int8 rows of up to 128 columns, 3xTF32 on
+    mma.sync for f32 rows, 128-column chunks past 128 columns."""
+    assert groupmax_branch(dtype, d) == want
+
+
+def test_groupmax_branch_raises_on_other_types():
+    with pytest.raises(TypeError):
+        groupmax_branch(torch.float16, 64)
 
 
 @pytest.mark.parametrize("kind", ["bf16", "int8"])
