@@ -16,12 +16,14 @@
 // tournament's rerank run, so the tournament returns exactly this kernel's
 // ids and values.
 //
-// Keys. Each candidate is ordered by one 64-bit key: the order-preserving
-// integer of the score (the _float_key trick of the JAX package, sign bit
-// flipped to make it unsigned) in the high word and the complemented row id
-// in the low word. Keys are unique per row, ties go to the lowest id, and
-// no id bit ever enters a float (the flush-to-zero trap of packing ids
-// into mantissas, which a zero query would hit). For bf16 and int8 indexes
+// Keys. Each candidate is ordered by one 64-bit key (select.cuh, shared
+// with the select kernel): the order-preserving integer of the score (the
+// _float_key trick of the JAX package, sign bit flipped to make it
+// unsigned) in the high word and the complemented row id in the low word,
+// so -0.0 ranks below +0.0 as in lax.top_k. Keys are unique per row, ties
+// go to the lowest id, and no id bit ever enters a float (the
+// flush-to-zero trap of packing ids into mantissas, which a zero query
+// would hit). For bf16 and int8 indexes
 // the TPU kernel packs a 12-bit lane id into the low bits of a 32-bit key,
 // so its values come back truncated (by at most 2^-11 relative) and its
 // near-tie order is unspecified; this kernel keeps the full key for every
@@ -100,6 +102,7 @@
 
 #include "mbarrier.cuh"
 #include "scoring.cuh"
+#include "select.cuh"
 
 namespace {
 
@@ -109,7 +112,10 @@ using carca::mbar_arrive;
 using carca::mbar_arrive_cp_async;
 using carca::mbar_init;
 using carca::mbar_wait;
-typedef unsigned long long u64;
+using carca::key_value;
+using carca::make_key;
+using carca::u64;
+using carca::warp_select;
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxWarps = 8;                  // consumer warps of a select block
@@ -124,105 +130,6 @@ constexpr int kFinalPer = 8;                  // keys a final-pass thread loads 
 // below every real key: the key of -inf at the highest row id. Masked rows
 // never enter a list, and an empty slot (key 0) decodes as -inf, id 0.
 constexpr u64 kFloor = 0x007FFFFFFFFFFFFFull;
-
-__device__ __forceinline__ u64 make_key(float s, long long row) {
-  if (s == 0.f) s = 0.f;  // -0.0 and +0.0 compare equal: one key
-  const int b = __float_as_int(s);
-  const unsigned int u = (unsigned int)(b < 0 ? (b ^ 0x7FFFFFFF) : b) ^ 0x80000000u;
-  return ((u64)u << 32) | (u64)(~(unsigned int)row);
-}
-
-// the score a key's high word holds (-inf for kFloor and below)
-__device__ __forceinline__ float key_value(u64 key) {
-  const unsigned int u = (unsigned int)(key >> 32);
-  if (u <= 0x007FFFFFu) return -INFINITY;
-  const int k32 = (int)(u ^ 0x80000000u);
-  return __int_as_float(k32 < 0 ? (k32 ^ 0x7FFFFFFF) : k32);
-}
-
-// Of the n > k distinct keys arr[0..n), by one warp: a bound lo such that
-// the keys >= lo are the largest, at least k and at most k + loose of them
-// (exactly k for loose = 0: lo is then the k-th largest key, or its
-// prefix), moved to the front of arr (any order); returns lo and writes
-// their count to *kept. hist: 256 words of this warp's shared memory. A
-// radix walk from the highest bit where the keys differ (they share the
-// sign and most of the exponent), 8 bits a pass, that stops once the keys
-// under the current prefix that rank below the k-th number at most loose.
-__device__ u64 warp_select(u64* arr, int n, int k, unsigned* hist, int loose, int* kept) {
-  const int lane = threadIdx.x % 32;
-  const unsigned lt = (1u << lane) - 1u;
-  const u64 first = arr[0];
-  u64 diff = 0;
-  for (int i = lane; i < n; i += 32) diff |= arr[i] ^ first;
-  const unsigned dhi = __reduce_or_sync(kFull, (unsigned)(diff >> 32));
-  const unsigned dlo = __reduce_or_sync(kFull, (unsigned)diff);
-  int hi = dhi != 0 ? 63 - __clz((int)dhi) : 31 - __clz((int)dlo);  // n > 1 distinct keys
-  u64 pmask = ~((2ull << hi) - 1ull);  // the bits above hi, which every key shares
-  u64 prefix = first & pmask;
-  int want = k;  // rank of the k-th key among the keys matching prefix
-  int n_kept = k;
-  for (; hi >= 0; hi -= 8) {
-    const int shift = hi >= 7 ? hi - 7 : 0;
-    const unsigned dmask = (2u << (hi - shift)) - 1u;  // this pass's digit: bits shift..hi
-    for (int u = lane; u < 256; u += 32) hist[u] = 0;
-    __syncwarp();
-    for (int i = lane; i < n; i += 32) {
-      const u64 x = arr[i];
-      if ((x & pmask) == prefix) atomicAdd(hist + ((x >> shift) & dmask), 1u);
-    }
-    __syncwarp();
-    // lane l holds bins 255 - 8l - u, u < 8: the digits from the top
-    unsigned cnt[8], sum = 0;
-#pragma unroll
-    for (int u = 0; u < 8; ++u) sum += (cnt[u] = hist[255 - 8 * lane - u]);
-    unsigned incl = sum;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const unsigned y = __shfl_up_sync(kFull, incl, off);
-      if (lane >= off) incl += y;
-    }
-    const unsigned excl = incl - sum;
-    const unsigned owner = __ballot_sync(kFull, excl < (unsigned)want && (unsigned)want <= incl);
-    const int src = __ffs(owner) - 1;
-    unsigned bin = 0, above = excl, in_bin = 0;
-    if (lane == src) {
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        if (in_bin == 0 && above + cnt[u] >= (unsigned)want) {
-          bin = 255 - 8 * lane - u;
-          in_bin = cnt[u];
-        } else if (in_bin == 0) {
-          above += cnt[u];
-        }
-      }
-    }
-    bin = __shfl_sync(kFull, bin, src);
-    above = __shfl_sync(kFull, above, src);
-    in_bin = __shfl_sync(kFull, in_bin, src);
-    prefix |= (u64)bin << shift;
-    pmask |= (u64)dmask << shift;
-    want -= (int)above;
-    __syncwarp();
-    if ((int)in_bin - want <= loose) {  // the keys >= prefix: k - want above, in_bin in the bin
-      n_kept = k - want + (int)in_bin;
-      break;
-    }
-  }
-  // the keys >= prefix to the front, in order (writes never pass reads)
-  int m = 0;
-  for (int base = 0; base < n; base += 32) {
-    const int i = base + lane;
-    const u64 x = i < n ? arr[i] : 0;
-    const bool keep = i < n && x >= prefix;
-    const unsigned bal = __ballot_sync(kFull, keep);
-    __syncwarp();
-    if (keep) arr[m + __popc(bal & lt)] = x;
-    m += __popc(bal);
-    __syncwarp();
-  }
-  *kept = n_kept;
-  return prefix;
-}
 
 // a ring slot in shared memory: its rows, then their scales
 template <typename T, int kD>
@@ -497,7 +404,7 @@ final_kernel(const u64* __restrict__ scratch, float* __restrict__ vals,
   int* cnt = reinterpret_cast<int*>(thr + 1);
   unsigned* hist = reinterpret_cast<unsigned*>(cnt + 4);
   const int b = blockIdx.x;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
   const u64* src = scratch + (size_t)b * splits * k;
   const int total = splits * k;
   const int cap = k + kFinalSlack;
@@ -529,14 +436,7 @@ final_kernel(const u64* __restrict__ scratch, float* __restrict__ vals,
     }
     const u64 th = *thr;
 #pragma unroll
-    for (int u = 0; u < kFinalPer; ++u) {
-      const bool in = key[u] > th;
-      const unsigned ins = __ballot_sync(kFull, in);  // one atomic per warp
-      int slot = 0;
-      if (ins != 0 && lane == __ffs(ins) - 1) slot = atomicAdd(cnt, __popc(ins));
-      slot = __shfl_sync(kFull, slot, ins ? __ffs(ins) - 1 : 0) + __popc(ins & ((1u << lane) - 1u));
-      if (in) keys[slot] = key[u];
-    }
+    for (int u = 0; u < kFinalPer; ++u) carca::offer_key(key[u], th, keys, cnt);
   }
   __syncthreads();
   trim(k, 0);
@@ -544,21 +444,7 @@ final_kernel(const u64* __restrict__ scratch, float* __restrict__ vals,
   const int n = *cnt;
   for (int i = n + threadIdx.x; i < kpad; i += kThreads) keys[i] = 0;
   __syncthreads();
-  // bitonic sort of the kpad keys, descending
-  const int half = kpad / 2;
-  for (int size = 2; size <= kpad; size <<= 1) {
-    for (int stride = size / 2; stride > 0; stride >>= 1) {
-      for (int p = threadIdx.x; p < half; p += kThreads) {
-        const int i = 2 * p - (p & (stride - 1));
-        const u64 x = keys[i], y = keys[i + stride];
-        if ((x < y) == ((i & size) == 0)) {
-          keys[i] = y;
-          keys[i + stride] = x;
-        }
-      }
-      __syncthreads();
-    }
-  }
+  carca::bitonic_sort_desc<kThreads>(keys, kpad);
   for (int j = threadIdx.x; j < k; j += kThreads) {
     const u64 key = keys[j];
     const size_t o = (size_t)b * k + j;
@@ -567,7 +453,7 @@ final_kernel(const u64* __restrict__ scratch, float* __restrict__ vals,
       ids[o] = 0;
     } else {
       vals[o] = key_value(key);
-      ids[o] = (long long)(~(unsigned int)(key & 0xFFFFFFFFull)) + id_offset;
+      ids[o] = carca::key_pos(key) + id_offset;
     }
   }
 }

@@ -9,7 +9,9 @@ beside its plain PyTorch version:
   f32, bf16 or int8 index: the stream top-k (kernel K3,
   ``csrc/catalog_topk.cu``) or the tournament (group maxima, kernel K4, and
   its rerank, ``csrc/groupmax.cu``), all three on one tensor-core scoring
-  routine (``csrc/scoring.cuh``).
+  routine (``csrc/scoring.cuh``); the tournament's stage 2 and final top-k
+  run ``select_topk``, the select kernel (``csrc/select_topk.cu``,
+  ``jax.lax.top_k``'s counterpart).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises. ``build()`` compiles the kernels ahead of

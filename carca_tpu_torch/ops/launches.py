@@ -6,8 +6,9 @@ nowhere else: K1 ``flash_attention.fused_attention.launches`` (with
 ``launches_by_shape`` by (Lq, Lk, causal)), K2
 ``flash_attention.attention_bwd.launches`` (the same), K3
 ``retrieval_topk.catalog_topk.launches`` by index kind, K4
-``retrieval_topk.groupmax.launches`` by layout and the rerank
-``retrieval_topk.tournament_rerank.launches``.
+``retrieval_topk.groupmax.launches`` by layout, the rerank
+``retrieval_topk.tournament_rerank.launches`` and the select kernel
+``retrieval_topk.select_topk.launches`` by mode.
 
 A CUDA graph capture runs the Python once and launches nothing; each
 replay launches what the capture enqueued. So the graphs
@@ -23,12 +24,14 @@ from collections import Counter
 from typing import Dict, NamedTuple
 
 from carca_tpu_torch.ops.flash_attention import attention_bwd, fused_attention
-from carca_tpu_torch.ops.retrieval_topk import catalog_topk, groupmax, tournament_rerank
+from carca_tpu_torch.ops.retrieval_topk import (catalog_topk, groupmax, select_topk,
+                                                tournament_rerank)
 
 
 class Launches(NamedTuple):
-    """The five counters' values (K1 and K2 also by shape). A shorter tuple
-    given to ``restore``, ``add`` or ``since`` counts 0 for the rest."""
+    """The six counters' values (K1 and K2 also by shape, the select kernel
+    by mode). A shorter tuple given to ``restore``, ``add`` or ``since``
+    counts 0 for the rest."""
 
     attention_fwd: int = 0
     attention_fwd_by_shape: Counter = Counter()
@@ -37,6 +40,7 @@ class Launches(NamedTuple):
     catalog_topk: Dict[str, int] = {}
     groupmax: Dict[int, int] = {}
     tournament_rerank: int = 0
+    select_topk: Dict[str, int] = {"positions": 0, "values": 0}
 
 
 def snapshot() -> Launches:
@@ -44,7 +48,7 @@ def snapshot() -> Launches:
     return Launches(fused_attention.launches, Counter(fused_attention.launches_by_shape),
                     attention_bwd.launches, Counter(attention_bwd.launches_by_shape),
                     dict(catalog_topk.launches), dict(groupmax.launches),
-                    tournament_rerank.launches)
+                    tournament_rerank.launches, dict(select_topk.launches))
 
 
 def _refill(counts: dict, values: dict) -> None:
@@ -64,6 +68,7 @@ def restore(saved) -> None:
     _refill(catalog_topk.launches, s.catalog_topk)
     _refill(groupmax.launches, s.groupmax)
     tournament_rerank.launches = s.tournament_rerank
+    _refill(select_topk.launches, s.select_topk)
 
 
 def reset() -> None:
@@ -83,7 +88,8 @@ def since(before, after=None) -> Launches:
                     a.attention_bwd - b.attention_bwd,
                     Counter(_minus(a.attention_bwd_by_shape, b.attention_bwd_by_shape)),
                     _minus(a.catalog_topk, b.catalog_topk), _minus(a.groupmax, b.groupmax),
-                    a.tournament_rerank - b.tournament_rerank)
+                    a.tournament_rerank - b.tournament_rerank,
+                    {mode: n - b.select_topk.get(mode, 0) for mode, n in a.select_topk.items()})
 
 
 def add(delta) -> None:
@@ -93,7 +99,8 @@ def add(delta) -> None:
     fused_attention.launches_by_shape.update(d.attention_fwd_by_shape)
     attention_bwd.launches += d.attention_bwd
     attention_bwd.launches_by_shape.update(d.attention_bwd_by_shape)
-    for counts, more in ((catalog_topk.launches, d.catalog_topk), (groupmax.launches, d.groupmax)):
+    for counts, more in ((catalog_topk.launches, d.catalog_topk), (groupmax.launches, d.groupmax),
+                         (select_topk.launches, d.select_topk)):
         for key, n in more.items():
             counts[key] = counts.get(key, 0) + n
     tournament_rerank.launches += d.tournament_rerank
@@ -101,13 +108,15 @@ def add(delta) -> None:
 
 def report(by_shape: bool = False, counts=None) -> dict:
     """The counters (or ``counts``, a ``Launches``) as one flat dict
-    (``catalog_topk_<kind>``, ``groupmax_layout<n>``); ``by_shape`` adds
+    (``catalog_topk_<kind>``, ``groupmax_layout<n>``,
+    ``select_topk_<mode>``); ``by_shape`` adds
     K1's and K2's by "Lq x Lk causal c"."""
     c = snapshot() if counts is None else Launches(*counts)
     out = {"attention_fwd": c.attention_fwd, "attention_bwd": c.attention_bwd,
            **{f"catalog_topk_{kind}": n for kind, n in c.catalog_topk.items()},
            **{f"groupmax_layout{lay}": n for lay, n in c.groupmax.items()},
-           "tournament_rerank": c.tournament_rerank}
+           "tournament_rerank": c.tournament_rerank,
+           **{f"select_topk_{mode}": n for mode, n in c.select_topk.items()}}
     if by_shape:
         for name, shapes in (("attention_fwd", c.attention_fwd_by_shape),
                              ("attention_bwd", c.attention_bwd_by_shape)):

@@ -12,14 +12,19 @@ and on that kernel's plain version for CPU tensors:
   computes the maximum score of every 128-row group, replacing both
   ``_groupmax_kernel`` (layout 0, group-major [G, B]) and
   ``_groupmax_bq_kernel`` (layout 1, query-major [B, G]); plain version
-  ``groupmax_plain``. Stage 2 keeps the k + 8 best groups (a stable sort:
-  ties to the lowest group) and stage 3 rescores their rows with the rerank
-  kernel (``tournament_rerank``, ``csrc/groupmax.cu``; plain version
-  ``tournament_rerank_plain``). From ``_RECURSIVE_MIN_GROUPS`` groups stage
-  2 runs two levels over 128-group super-groups (layout 1).
+  ``groupmax_plain``. Stage 2 keeps the k + 8 best groups (ties to the
+  lowest group) and stage 3 rescores their rows with the rerank kernel
+  (``tournament_rerank``, ``csrc/groupmax.cu``; plain version
+  ``tournament_rerank_plain``); the select kernel (``select_topk``,
+  ``csrc/select_topk.cu``, lax.top_k's counterpart; plain version
+  ``select_topk_plain``) takes both stage 2's groups and the final k. From
+  ``_RECURSIVE_MIN_GROUPS`` groups stage 2 runs two levels over 128-group
+  super-groups (layout 1).
 * ``"auto"``: for k < ``BIG_K`` the tournament from ``_TOURNAMENT_MIN_ROWS``
   rows at a batch of ``_TOURNAMENT_MIN_BATCH`` or more, for larger k from
-  ``_TOURNAMENT_MIN_ROWS_BIG_K`` rows; else the stream.
+  ``_TOURNAMENT_MIN_ROWS_BIG_K`` rows; else the stream. On the card the
+  stream takes k up to ``MAX_K`` and the tournament up to
+  ``TOURNAMENT_MAX_K`` (= MAX_K − 8); "auto" gives a larger k the stream.
 
 Scores. The kernels K3, K4 and the rerank score with one tensor-core
 arithmetic (``csrc/scoring.cuh``): against a bf16 or int8 index the query is
@@ -37,10 +42,12 @@ summation order: |kernel − plain| ≤ 1e-5 · Σⱼ|q_j e_rj| (× the int8 sca
 and ids differ only where two candidates' plain scores lie within that
 bound at the k-th place (``SCORE_ORDER_TOL``).
 
-Order: values descending, ties to the lowest id (``lax.top_k``'s order);
-rows ≥ ``n_items`` and the pad id 0 score −inf; a −inf slot returns id 0.
-The plain versions sort stably, never with ``torch.topk``, whose tie order
-is unspecified.
+Order: ``lax.top_k``'s: values descending in IEEE total order (−0.0 below
++0.0; ``order_key``), ties to the lowest id; rows ≥ ``n_items`` and the pad
+id 0 score −inf; a −inf slot returns id 0. The kernels order by 64-bit
+keys (``csrc/select.cuh``); the plain versions sort stably by the same
+order (``stable_desc``), never with ``torch.topk``, whose tie order is
+unspecified.
 
 Against the JAX package: its f32 paths and its tournament return the same
 true f32 scores, to summation order. Its bf16/int8 stream packs a 12-bit
@@ -61,6 +68,9 @@ from carca_tpu_torch.ops import _build
 
 NEG_INF = float("-inf")
 MAX_K = 16_384  # the largest k whose running list and final sort fit K3's shared memory
+# the tournament's largest k on the card: its stage 2 selects k + 8 groups
+# with the select kernel, which takes at most MAX_K
+TOURNAMENT_MAX_K = MAX_K - 8
 GROUP = 128  # rows per tournament group
 CHUNK = 128  # the kernels score rows wider than this in chunks of it (csrc/scoring.cuh)
 # The kernels against the plain versions: two summation orders of the same
@@ -108,6 +118,12 @@ _K3_SPLIT_K = 4  # a split holds at least this many times k rows (and 1024) ...
 _K3_IDLE_SPLIT_ROWS = 256  # ... or this many where that would leave half the card idle
 _K3_FINAL_KEYS = 32_768  # keys a query's lists hand the final pass, at most (k ≤ 4,096)
 _K3_BUSY_WARPS = 2 * _K3_SMS  # fewer consumer warps than this: a warp takes fewer queries
+# The select kernel's plan (select_plan): two pass-1 blocks an H100 SM,
+# splits short enough to spread a few rows over many SMs, and one pass for
+# rows of under twice a split (the eval's 8,704 reranked scores)
+_SELECT_BLOCKS = 2 * _K3_SMS  # blocks a launch's pass 1 should have
+_SELECT_SPLIT_MIN = 8_192  # values a split holds, at least ...
+_SELECT_SPLIT_K = 16  # ... and this many times k
 _SCORE_CHUNK = 1 << 26  # plain scores per row chunk (256 MB of float32)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}  # carca::IndexType
 INDEX_KINDS = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
@@ -277,18 +293,31 @@ def _window(r: int, n_items: Optional[int], id_offset: int) -> Tuple[int, bool]:
     return max(0, min(n_items - id_offset, r)), id_offset == 0
 
 
-def _stable_desc(v: torch.Tensor, n: int) -> torch.Tensor:
-    """Positions of the n largest along dim 1, ties to the lowest position."""
-    return torch.sort(v, dim=1, descending=True, stable=True).indices[:, :n]
+def order_key(v: torch.Tensor) -> torch.Tensor:
+    """int32 keys whose signed order is lax.top_k's order of the float32
+    values v: IEEE total order, −0.0 below +0.0 (the float's bits with the
+    low 31 flipped where the sign is set, the JAX package's ``_float_key``;
+    the kernels' 64-bit keys, ``csrc/select.cuh``, hold it in their high
+    word). Any float dtype is widened to float32 first, exactly."""
+    b = v.to(torch.float32).view(torch.int32)
+    return torch.where(b < 0, b ^ 0x7FFFFFFF, b)
+
+
+def stable_desc(v: torch.Tensor, n: int) -> torch.Tensor:
+    """Positions of the n largest along the last axis in lax.top_k's order:
+    by ``order_key``, ties to the lowest position. The one plain selection
+    of the port (``_top_k``, ``select_topk_plain`` and
+    ``parallel.retrieval.stable_topk`` take it)."""
+    return torch.sort(order_key(v), dim=-1, descending=True, stable=True).indices[..., :n]
 
 
 def _top_k(s: torch.Tensor, ids: torch.Tensor, k: int, id_offset: int):
-    """The first k of a stable descending sort of s [B, N] (−inf-padded to
-    k), with their ids [B, N] (+ id_offset; 0 in a −inf slot)."""
+    """The first k of s [B, N] in lax.top_k's order (−inf-padded to k), with
+    their ids [B, N] (+ id_offset; 0 in a −inf slot)."""
     if k > s.shape[1]:
         s = torch.cat([s, s.new_full((s.shape[0], k - s.shape[1]), NEG_INF)], dim=1)
         ids = torch.cat([ids, ids.new_zeros(ids.shape[0], k - ids.shape[1])], dim=1)
-    sel = _stable_desc(s, k)
+    sel = stable_desc(s, k)
     v = torch.gather(s, 1, sel)
     return v, torch.where(v > NEG_INF, torch.gather(ids, 1, sel) + id_offset,
                           torch.zeros_like(sel))
@@ -473,10 +502,115 @@ def tournament_rerank(q: torch.Tensor, e: torch.Tensor, scales: Optional[torch.T
 tournament_rerank.launches = 0
 
 
+def select_topk_plain(v: torch.Tensor, k: int, *, positions_sorted: bool = False,
+                      gi: Optional[torch.Tensor] = None, id_offset: int = 0):
+    """The plain version of ``select_topk``: a stable sort by ``order_key``
+    (``stable_desc``), the same contract."""
+    if positions_sorted:
+        if k > v.shape[1]:
+            raise ValueError(f"select_topk: positions of k={k} of {v.shape[1]} values")
+        return stable_desc(v, k).sort(dim=1).values
+    b, n = v.shape
+    ids = (_winner_rows(gi) if gi is not None
+           else torch.arange(n, device=v.device).expand(b, n))
+    return _top_k(v, ids, k, id_offset)
+
+
+class SelectPlan(NamedTuple):
+    """The select kernel's row splits: pass 1 runs ``splits`` blocks a row
+    of ``per_split`` values each (one pass where ``splits`` is 1), pass 2 a
+    block a row over their B · splits · k keys (``scratch_bytes``)."""
+
+    splits: int
+    per_split: int
+    scratch_bytes: int
+
+
+def select_plan(b: int, n: int, k: int) -> SelectPlan:
+    """Row splits for the select kernel (``csrc/select_topk.cu``): as many
+    as give the launch _SELECT_BLOCKS blocks, each split at least
+    _SELECT_SPLIT_MIN values and _SELECT_SPLIT_K · k (a split keeps k of its
+    values, and pass 2 walks all that the splits keep); one split (one
+    pass) for a row shorter than twice that."""
+    min_split = max(_SELECT_SPLIT_MIN, _SELECT_SPLIT_K * k)
+    splits = max(1, min(n // min_split, -(-_SELECT_BLOCKS // max(b, 1))))
+    per_split = -(-n // splits)
+    splits = -(-n // per_split)
+    return SelectPlan(splits, per_split, b * splits * k * 8 if splits > 1 else 0)
+
+
+def _select_operands(v: torch.Tensor, k: int, positions_sorted: bool,
+                     gi: Optional[torch.Tensor]) -> None:
+    """Raise unless (v, k, gi) are what the select kernel takes."""
+    if v.dtype != torch.float32 or v.dim() != 2:
+        raise TypeError(f"select_topk takes float32 [B, N] values, got {v.dtype} "
+                        f"{tuple(v.shape)}")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"select_topk: k={k} outside the kernel's 1..{MAX_K}")
+    if v.shape[1] >= 1 << 31 or min(v.stride()) < 0:
+        raise ValueError(f"select_topk: {v.shape[1]} values a row, strides {v.stride()}")
+    if positions_sorted:
+        if gi is not None:
+            raise ValueError("select_topk: the position mode takes no group ids")
+        if k > v.shape[1]:
+            raise ValueError(f"select_topk: positions of k={k} of {v.shape[1]} values")
+    if gi is not None:
+        if gi.device != v.device or gi.dtype != torch.int64:
+            raise TypeError(f"select_topk takes int64 group ids on {v.device}, got "
+                            f"{gi.dtype} on {gi.device}")
+        if (gi.dim() != 2 or gi.shape[0] != v.shape[0] or gi.shape[1] * GROUP != v.shape[1]
+                or not gi.is_contiguous()):
+            raise ValueError(f"select_topk takes contiguous group ids [{v.shape[0]}, "
+                             f"{v.shape[1]} / {GROUP}], got {tuple(gi.shape)}")
+
+
+def select_topk(v: torch.Tensor, k: int, *, positions_sorted: bool = False,
+                gi: Optional[torch.Tensor] = None, id_offset: int = 0):
+    """The k largest of each row of v [B, N] (float32, any strides) in
+    lax.top_k's order (``order_key``: −0.0 below +0.0, ties to the lowest
+    position): the select kernel (``csrc/select_topk.cu``) on CUDA tensors,
+    ``select_topk_plain`` on CPU tensors.
+
+    ``positions_sorted``: int64 positions [B, k], ascending (k ≤ N).
+    Otherwise (values [B, k], ids [B, k] int64): values descending; position
+    p's id is gi[b, p // 128] · 128 + p % 128 + id_offset with ``gi`` [B,
+    N / 128] int64 (the tournament's winner groups), else p + id_offset; a
+    −inf value gets id 0, and k > N pads with (−inf, 0)."""
+    if v.device.type == "cpu":
+        return select_topk_plain(v, k, positions_sorted=positions_sorted, gi=gi,
+                                 id_offset=id_offset)
+    if v.device.type != "cuda":
+        raise ValueError(f"select_topk runs on cpu or cuda tensors, got {v.device}")
+    _select_operands(v, k, positions_sorted, gi)
+    b, n = v.shape
+    ids = torch.empty(b, k, dtype=torch.int64, device=v.device)
+    vals = None if positions_sorted else torch.empty(b, k, dtype=torch.float32, device=v.device)
+    if b == 0 or n == 0:
+        return ids if positions_sorted else (vals.fill_(NEG_INF), ids.zero_())
+    plan = select_plan(b, n, k)
+    scratch = (torch.empty(plan.scratch_bytes // 8, dtype=torch.int64, device=v.device)
+               if plan.splits > 1 else None)
+    lib = _build.library()
+    _launch("select_topk", v.device, lib.carca_select_topk_smem_bytes(k), lib.carca_select_topk,
+            v.data_ptr(), v.stride(0), v.stride(1), b, n, k, plan.splits, plan.per_split,
+            int(positions_sorted), None if gi is None else gi.data_ptr(),
+            0 if gi is None else gi.shape[1], int(id_offset),
+            None if scratch is None else scratch.data_ptr(),
+            None if vals is None else vals.data_ptr(), ids.data_ptr())
+    select_topk.launches["positions" if positions_sorted else "values"] += 1
+    return ids if positions_sorted else (vals, ids)
+
+
+# kernel launches by mode (stage 2's positions, the final k's values), for
+# checks that a path ran the select kernel
+select_topk.launches = {"positions": 0, "values": 0}
+
+
 def _tournament_topk(q, e, scales, k: int, lim0: int, mask_row0: bool, id_offset: int):
     """Top-k by group maxima (stage 1, ``groupmax``), the k + 8 best groups
-    (stage 2) and an exact rescoring of their rows (stage 3,
-    ``tournament_rerank``). The union of the k best groups holds the true
+    (stage 2, ``select_topk`` by position) and an exact rescoring of their
+    rows (stage 3, ``tournament_rerank``), then the final k (``select_topk``
+    by value, ids from the winner groups). The union of the k best groups holds the true
     top-k: an element of it in an unpicked group would follow k group
     maxima in (value, lowest id) order. K4 and the rerank score
     bit-identically (one routine on the card, one order on the CPU), so the
@@ -486,27 +620,31 @@ def _tournament_topk(q, e, scales, k: int, lim0: int, mask_row0: bool, id_offset
     b, d = q.shape
     r = e.shape[0]
     dev = q.device
+    if dev.type == "cuda" and k > TOURNAMENT_MAX_K:
+        raise ValueError(f"the tournament takes k <= {TOURNAMENT_MAX_K} on the card (stage 2 "
+                         f"selects k + 8 groups, the select kernel at most {MAX_K}), got k={k}")
     if b == 0 or r == 0:
         return (torch.full((b, k), NEG_INF, dtype=torch.float32, device=dev),
                 torch.zeros(b, k, dtype=torch.int64, device=dev))
-    offs = torch.arange(GROUP, device=dev)
     if -(-r // GROUP) >= _RECURSIVE_MIN_GROUPS:
         gmat = groupmax(q, e, scales, lim0, mask_row0, layout=1)  # [B, G'], query-major
         n_groups = gmat.shape[1]
         n2 = n_groups // GROUP
         # level 2: super-group maxima are maxima of the same level-1 values,
         # so the containment argument holds at each level as it stands
-        gi2 = _stable_desc(gmat.view(b, n2, GROUP).amax(dim=2), min(k + 8, n2))
-        cand = (gi2.sort(dim=1).values[:, :, None] * GROUP + offs).reshape(b, -1)
-        sel = _stable_desc(torch.gather(gmat, 1, cand), min(k + 8, n_groups))
-        gi = torch.gather(cand, 1, sel).sort(dim=1).values
+        gi2 = select_topk(gmat.view(b, n2, GROUP).amax(dim=2), min(k + 8, n2),
+                          positions_sorted=True)
+        cand = (gi2[:, :, None] * GROUP + torch.arange(GROUP, device=dev)).reshape(b, -1)
+        sel = select_topk(torch.gather(gmat, 1, cand), min(k + 8, n_groups),
+                          positions_sorted=True)
+        gi = torch.gather(cand, 1, sel)  # ascending: cand ascends, and so does sel
     else:
         gm = groupmax(q, e, scales, lim0, mask_row0, layout=0)  # [G, B], group-major
-        gi = _stable_desc(gm.t(), min(k + 8, gm.shape[0])).sort(dim=1).values
-    # winner groups ascending: candidates run in global row order, so the
-    # stable sort below breaks ties to the lowest id, as the stream does
-    s2 = tournament_rerank(q, e, scales, gi.contiguous(), lim0, mask_row0)
-    return _top_k(s2, _winner_rows(gi), k, id_offset)
+        gi = select_topk(gm.t(), min(k + 8, gm.shape[0]), positions_sorted=True)
+    # winner groups ascending: candidates run in global row order, so ties
+    # in the final selection go to the lowest id, as in the stream
+    s2 = tournament_rerank(q, e, scales, gi, lim0, mask_row0)
+    return select_topk(s2, k, gi=gi, id_offset=id_offset)
 
 
 class StreamPlan(NamedTuple):
@@ -655,7 +793,8 @@ def _stream_kernel(q, e, scales, k: int, lim0: int, mask_row0: bool, id_offset: 
 
 def resolve_method(method: str, rows: int, k: int, batch: int) -> str:
     """"auto" → "tournament" where the crossover measured for (rows, k,
-    batch) says so, else "stream"; the other methods as they are."""
+    batch) says so and k ≤ TOURNAMENT_MAX_K, else "stream"; the other
+    methods as they are."""
     if method not in ("auto", "stream", "tournament"):
         raise ValueError(f"method must be auto|stream|tournament, got {method!r}")
     if method != "auto":
@@ -664,7 +803,7 @@ def resolve_method(method: str, rows: int, k: int, batch: int) -> str:
         big = batch >= _TOURNAMENT_MIN_BATCH and rows >= _TOURNAMENT_MIN_ROWS
     else:
         big = rows >= _TOURNAMENT_MIN_ROWS_BIG_K
-    return "tournament" if big and rows >= 2 * GROUP else "stream"
+    return "tournament" if big and rows >= 2 * GROUP and k <= TOURNAMENT_MAX_K else "stream"
 
 
 def catalog_topk(

@@ -29,7 +29,7 @@ from carca_tpu_torch.config import ModelConfig
 from carca_tpu_torch.models.carca import encode_profile
 from carca_tpu_torch.models.embeddings import Lookup
 from carca_tpu_torch.ops.retrieval_topk import (Index, QuantizedIndex, catalog_topk,
-                                                catalog_topk_plain)
+                                                catalog_topk_plain, stable_desc)
 from carca_tpu_torch.parallel.embedding import make_sharded_lookup
 from carca_tpu_torch.parallel.mesh import Mesh, all_gather
 
@@ -102,11 +102,11 @@ def catalog_in_decoder_space(e: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def stable_topk(v: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(values, positions) of the k largest along the last axis, ties to
-    the lowest position (``lax.top_k``'s order; ``torch.topk`` leaves it
-    unspecified)."""
-    vals, pos = torch.sort(v, dim=-1, descending=True, stable=True)
-    return vals[..., :k], pos[..., :k]
+    """(values, positions) of the k largest along the last axis in
+    ``lax.top_k``'s order (``retrieval_topk.stable_desc``: −0.0 below +0.0,
+    ties to the lowest position; ``torch.topk`` leaves ties unspecified)."""
+    pos = stable_desc(v, k)
+    return torch.gather(v, -1, pos), pos
 
 
 def filter_excluded(v: torch.Tensor, ids: torch.Tensor, exclude: torch.Tensor,

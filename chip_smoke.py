@@ -52,7 +52,12 @@ raises and exits non-zero:
              recursive) bit-equal to the stream, ids and values, up to 1M
              rows at B = 256, k = 562; the C rule for which K4 kernel runs
              (warpgroup products for bf16/int8 rows of up to 128 columns)
-             equal to groupmax_branch, each case logging its branch.
+             equal to groupmax_branch, each case logging its branch; the
+             select kernel (csrc/select_topk.cu, lax.top_k's counterpart:
+             the tournament's stage 2 and final top-k) bit-equal to its
+             plain version, values (sign of zero included), ids and
+             positions, over rows of signed zeros, -inf halves and exact
+             ties, k up to and past the row.
 4w. d=256  — rows wider than 128 columns (128-column chunks): K3 at
              f32/bf16/int8, K4 in both layouts and the rerank at [256,256] x
              100,000 rows, k = 562, within the tolerance of their plain
@@ -77,8 +82,10 @@ raises and exits non-zero:
              launch. Graph against eager as in phase 5, and the graphs'
              pool at most twice the eager bucket-256 call's peak extra
              memory. Stage 1 alone (k = 562) at buckets 8 and 64 against the
-             card's plain version, within the tolerance; the requests and
-             buckets 1 and 8 against the CPU plain path.
+             card's plain version, within the tolerance; three of the
+             requests (SLICE_10M_CPU_REQUESTS: phase 5 holds every request
+             to the CPU at 100k; each a bucket-1 call) and the malformed
+             line against the CPU plain path.
 5d. bench  — carca_tpu_torch/bench_retrieval.py at 10M items, kernel legs
              (bf16 and int8 indexes, stream, tournament, auto), with the
              recursive stage 2 forced: K3 over bf16 and int8 rows and K4's
@@ -93,7 +100,10 @@ raises and exits non-zero:
              plain version at the slices' shapes (CUDA events) and checked
              against it there within the tolerance (K4 in both layouts at
              [256,64] and [1,64] x 10M int8 rows; the rerank at bucket 256,
-             k = 562, its group maxima bit-equal to K4's; K3 bf16/int8 at
+             k = 562, its group maxima bit-equal to K4's; the select kernel
+             at stage 2 (K4's [G, B] read in place) and at
+             the final top-k, buckets 256, 8 and 1, bit-equal to its plain
+             version and timed beside it, torch.topk and its bound; K3 bf16/int8 at
              [32,64] x 10M rows), K3's scratch (planned and measured, at
              most 0.5 GB) and the tournament's memory at 10M rows, K1 at the
              encoder, decoder, men and rerank shapes, and
@@ -177,8 +187,10 @@ raises and exits non-zero:
              parent commit's) first, then this tree's, the gates the main
              fit's. best/ on the test split through
              evaluate_retrieval's evaluator, (seen, bf16 -> K3), (full, bf16
-             -> K4 + rerank), (seen, int8 -> K3 int8): with the kernels (the
-             main path, launches counted), then per batch against the plain
+             -> K4 + rerank + the select kernel), (seen, int8 -> K3 int8):
+             with the kernels (the main path, launches counted; the full
+             index must launch K4, the rerank and the select kernel), then
+             per batch against the plain
              top-k (ids equal but for near-ties, HR sums apart by at most the
              users with a near-tie), each kernel timed beside its plain
              version at the eval's [256, 64] x k + L = 60, and K3 bf16 at
@@ -234,7 +246,11 @@ raises and exits non-zero:
              training stack: `cli --preset synthetic10m --mesh 1x2
              --shard_embeddings true --sparse_items_adam true --epochs 1
              --eval_retrieval_every 1 --eval_retrieval 10 --retrieval_index
-             full` (sampled test HR@10 >= 0.70, K1/K2 on both ranks, ex/s,
+             full` (sampled test HR@10 >= 0.70; the retrieval monitor, the
+             sharded model gathered onto rank 0 mid-fit and its val numbers
+             broadcast, at retrieval val HR@10 >= 0.05 with K3 on rank 0;
+             the sharded full-index retrieval of the test users after the
+             fit; K1/K2 on both ranks, ex/s,
              wall and peak memory per rank); its latest/ resumed on one
              device (the whole row state) for one step; on its run, in
              each rank: the sharded lookup
@@ -344,7 +360,11 @@ raises and exits non-zero:
 15. parent — only with --parent DIR: K3 over every case a phase kept, K4
              at the 10M paths' shapes over the same files ([256,64] int8
              in both layouts, [256,64] bf16, [1,64] int8 over 10M rows and
-             over one 5M-row shard), then K1 (and K2 where a path trains)
+             over one 5M-row shard), the tournament at buckets 1, 8, 64 and
+             256 over the 10M int8 rows (k = 562) and at the eval's [256,64]
+             x 10M bf16 rows (k = 60): its stage 2 and final selections
+             alone (the select kernel; the parent's stable sorts) and the
+             whole call, then K1 (and K2 where a path trains)
              at every shape a phase times K1 at (ATTN_TURN_SHAPES), with
              DIR's package and with this tree's, in turns parent, change,
              change, parent, one process a turn (CUDA events); K1's, K2's
@@ -420,7 +440,8 @@ from carca_tpu_torch.ops.flash_attention import (SEED_LIMIT, attention_bwd,
 from carca_tpu_torch.ops.retrieval_topk import (GROUP, SCORE_ORDER_TOL, QuantizedIndex,
                                                 catalog_topk, catalog_topk_plain,
                                                 compare_within_order_tol, groupmax,
-                                                groupmax_plain, quantize_index, stream_plan,
+                                                groupmax_plain, quantize_index, select_plan,
+                                                select_topk, select_topk_plain, stream_plan,
                                                 tournament_rerank, tournament_rerank_plain)
 from carca_tpu_torch.parallel.retrieval import query_from_encoded, retrieval_hr_ndcg
 from carca_tpu_torch.profile_step import device_ops, device_trace
@@ -449,6 +470,7 @@ SEED = 0
 N_USERS, N_REAL_ITEMS = 4096, 99_999
 N_REAL_ITEMS_10M = 9_999_999  # the >=1M-row slice: 10,000,000 item ids
 STAGE1_BUCKETS = (8, 64)  # stage 1 at 10M rows against the plain [B, 10M] sort (B = 256: tens of GB)
+SLICE_10M_CPU_REQUESTS = ("history", "k-override", "last-user")  # 5c's requests held to the CPU
 K3_10M_B = 32  # K3 bf16/int8 at 10M rows against the plain [B, 10M] sort
 K4_BIG_ROWS = 1_000_000  # the largest tournament-vs-stream case of phase 4c
 BENCH_ITEMS = 10_000_000  # the retrieval bench path of phase 5d
@@ -1000,6 +1022,56 @@ def check_rerank(tag, q, rows, scales, gi, lim0, row0, gmax):
     return err.max().item()
 
 
+def check_select(tag, v, k, gi=None, id_offset=0, positions=True):
+    """The select kernel against select_topk_plain on the same values, bit
+    for bit: value mode (values as int32 bits, so the sign of zero counts,
+    and ids) and, where ``positions`` and k <= N, position mode. Returns
+    the kernel's positions (position mode) or (values, ids)."""
+    vals, ids = select_topk(v, k, gi=gi, id_offset=id_offset)
+    pv, pids = select_topk_plain(v, k, gi=gi, id_offset=id_offset)
+    torch.cuda.synchronize()
+    check(torch.equal(vals.view(torch.int32), pv.view(torch.int32)) and torch.equal(ids, pids),
+          f"select {tag} k={k}: values or ids differ from the plain version")
+    if not (positions and gi is None and k <= v.shape[1]):
+        return vals, ids
+    pos = select_topk(v, k, positions_sorted=True)
+    torch.cuda.synchronize()
+    check(torch.equal(pos, select_topk_plain(v, k, positions_sorted=True)),
+          f"select {tag} k={k}: positions differ from the plain version")
+    return pos
+
+
+def select_rows(kind, b, n, seed):
+    """[b, n] float32 on the card: "signed_zeros" (mostly +-0.0, some +-1,
+    2 and -inf), "half_neg_inf" or normal with 30 exact ties."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    if kind == "signed_zeros":
+        pick = torch.tensor([0.0, -0.0, 0.0, -0.0, 1.0, -1.0, 2.0, float("-inf")], device=DEVICE)
+        return pick[torch.randint(0, 8, (b, n), generator=g, device=DEVICE)]
+    x = torch.randn(b, n, generator=g, device=DEVICE)
+    if kind == "half_neg_inf":
+        x[:, ::2] = float("-inf")
+    else:
+        x[:, 10:40] = x[:, 7:8]
+    return x
+
+
+def time_select(card, tag, kernel, plain, library, b, n, k, out_bytes) -> dict:
+    """The select kernel, its plain version (in turns) and torch.topk on the
+    same values (the nearest single call; its tie order is unspecified),
+    with the bound: the B x N values read once and the outputs written
+    once at 3.35 TB/s (the keys' few integer operations a value are far
+    under the card's rate). Logs and returns them."""
+    ms, plain_ms = kernel_vs_plain(kernel, plain, reps=20, plain_reps=5)
+    lib_ms = cuda_ms(library, 20)
+    bound_ms, bound_by = bound(b * n * 4 + out_bytes, 0, "bfloat16")
+    plan = select_plan(b, n, k)
+    log("timing", card=card, kernel="select_topk", case=tag, shape=f"[{b},{n}] k={k}", ms=ms,
+        plain_ms=plain_ms, torch_topk_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+        splits=plan.splits, per_split=plan.per_split)
+    return {"ms": (ms, plain_ms), "lib": lib_ms, "bytes": b * n * 4 + out_bytes}
+
+
 def phase_k4() -> dict:
     """K4 in both layouts and the rerank within the tolerance of their plain
     versions, K4's maxima bit-equal to the rerank's group maxima, and the
@@ -1067,6 +1139,17 @@ def phase_k4() -> dict:
                     cases=[c[0] for c in cases])
     finally:
         rt._RECURSIVE_MIN_GROUPS = old
+    # the select kernel (lax.top_k's order) against its plain version at
+    # rows that random scores never give: signed zeros, -inf halves, ties
+    before = sum(select_topk.launches.values())
+    for kind in ("signed_zeros", "half_neg_inf", "ties"):
+        for b, n, k in ((1, 78_126, 570), (64, 8_704, 68), (257, 127, 132), (8, 300, 300)):
+            check_select(f"{kind} [{b},{n}]", select_rows(kind, b, n, seed=n), k)
+            if n + 5 <= rt.MAX_K:
+                check_select(f"{kind} [{b},{n}] past the row", select_rows(kind, b, n, seed=n),
+                             n + 5, positions=False)
+        log("K4", case=f"select kernel == plain, bit-equal: {kind} rows", both_modes=True)
+    check(sum(select_topk.launches.values()) > before, "the select kernel never launched")
     return worst
 
 
@@ -1380,6 +1463,8 @@ def phase_slice_10m():
     if "tournament" in methods.values():
         check(launches["groupmax_layout0"] > 0, "the 10M slice never launched K4")
         check(launches["tournament_rerank"] > 0, "the 10M slice never launched the rerank")
+        check(launches["select_topk_positions"] > 0 and launches["select_topk_values"] > 0,
+              "the 10M slice did not launch the select kernel in both modes")
     if "stream" in methods.values():
         check(launches["catalog_topk_int8"] > 0, "the 10M slice never launched K3 (int8)")
 
@@ -1415,15 +1500,18 @@ def phase_slice_10m():
     rec_cpu = Recommender(cpu_model, cat.attrs, shortlist=SHORTLIST, batch_buckets=BUCKETS,
                           quantize="auto")
     near_ties = 0
-    for resp, cpu_resp in zip(responses, serve_lines(rec_cpu, host, lines, k=K)):
+    # a CPU call scores all 10M rows in index order (~7 s on the host), so
+    # a subset of phase 5's requests (every one is held to the CPU there);
+    # each is a bucket-1 call, so bucket 1 needs no call of its own
+    picked = [i for i, ln in enumerate(lines) if not ln.startswith("{\"") or
+              json.loads(ln)["id"] in SLICE_10M_CPU_REQUESTS]
+    cpu_lines = serve_lines(rec_cpu, host, [lines[i] for i in picked], k=K)
+    for resp, cpu_resp in zip((responses[i] for i in picked), cpu_lines):
         if "error" in resp:
             check("error" in cpu_resp, "CPU path answered a malformed line")
             continue
         near_ties += compare(f"10M request {resp['id']}", resp["items"], resp["scores"],
                              cpu_resp["items"], cpu_resp["scores"])
-    for bb in (1, 8):  # the plain 10M stage 1 is slow on the host; 1 and 8 cover it
-        cids, csc = rec_cpu.recommend(reqs[bb][0], k=K, ctxs=reqs[bb][1])
-        near_ties += compare(f"10M bucket {bb}", *got[bb], cids, csc)
     log("slice_10m", cpu_agreement="ok", near_tie_slots=near_ties,
         cpu_seconds=time.perf_counter() - t0)
     del rec_cpu, cpu_model
@@ -1492,22 +1580,40 @@ def timing_10m(card, rec, host, cat):
                     timings["K4", layout] = (ms, plain)
                 log("timing", card=card, kernel="K4 groupmax", layout=layout,
                     shape=f"[{bb},{D}] x {n} int8 rows", max_abs_err=err, ms=ms, plain_ms=plain)
-        # the rerank at bucket 256, k = 562: the k + 8 best groups by K4
-        gm = groupmax(q, qi.qvals, qi.scales, n, True, 0)
+        # the tournament's stages 2 and 3 at buckets 256, 8 and 1, k = 562:
+        # the k + 8 best groups by K4 (the select kernel reads K4's [G, B]
+        # in place), the rerank, the final k (ids from the winner groups)
         kg = KK + 8
-        gi = torch.sort(gm.t(), dim=1, descending=True, stable=True).indices[:, :kg]
-        gi = gi.sort(dim=1).values.contiguous()
-        errs["rerank"] = check_rerank(f"bucket {B} k={KK} at {n} int8 rows", q, qi.qvals,
-                                      qi.scales, gi, n, True, torch.gather(gm.t(), 1, gi))
-        del gm
-        ms, plain = kernel_vs_plain(
-            lambda: tournament_rerank(q, qi.qvals, qi.scales, gi, n, True),
-            lambda: tournament_rerank_plain(q, qi.qvals, qi.scales, gi, n, True),
-            reps=20, plain_reps=2)
-        timings["rerank"] = (ms, plain)
-        log("timing", card=card, kernel="tournament_rerank", shape=f"[{B},{D}] x {kg} groups "
-            f"x {GROUP} int8 rows", group_maxima_bit_equal_to_K4=True,
-            max_abs_err=errs["rerank"], ms=ms, plain_ms=plain)
+        for bb in (B, 8, 1):
+            qb = q[:bb].contiguous()
+            gm = groupmax(qb, qi.qvals, qi.scales, n, True, 0)
+            n_g = gm.shape[0]
+            gi = check_select(f"stage 2 at bucket {bb}, {n} int8 rows", gm.t(), kg)
+            s2 = tournament_rerank(qb, qi.qvals, qi.scales, gi, n, True)
+            check_select(f"final top-k at bucket {bb}", s2, KK, gi=gi)
+            timings["select", "stage 2", bb] = time_select(
+                card, f"stage 2, bucket {bb}, K4 layout 0 [G, B] read in place",
+                lambda: select_topk(gm.t(), kg, positions_sorted=True),
+                lambda: select_topk_plain(gm.t(), kg, positions_sorted=True),
+                lambda: torch.topk(gm.t(), kg), bb, n_g, kg, bb * kg * 8)
+            timings["select", "final", bb] = time_select(
+                card, f"final top-k, bucket {bb}, ids from {kg} winner groups",
+                lambda: select_topk(s2, KK, gi=gi), lambda: select_topk_plain(s2, KK, gi=gi),
+                lambda: torch.topk(s2, KK), bb, kg * GROUP, KK, bb * kg * 8 + bb * KK * 12)
+            if bb == B:
+                errs["rerank"] = check_rerank(
+                    f"bucket {B} k={KK} at {n} int8 rows", q, qi.qvals, qi.scales, gi, n, True,
+                    torch.gather(gm.t(), 1, gi))
+                ms, plain = kernel_vs_plain(
+                    lambda: tournament_rerank(q, qi.qvals, qi.scales, gi, n, True),
+                    lambda: tournament_rerank_plain(q, qi.qvals, qi.scales, gi, n, True),
+                    reps=20, plain_reps=2)
+                timings["rerank"] = (ms, plain)
+                log("timing", card=card, kernel="tournament_rerank",
+                    shape=f"[{B},{D}] x {kg} groups x {GROUP} int8 rows",
+                    group_maxima_bit_equal_to_K4=True, max_abs_err=errs["rerank"], ms=ms,
+                    plain_ms=plain)
+            del gm, s2, gi
         q32 = q[:K3_10M_B].contiguous()
         for kind, idx in (("bf16", e32.to(torch.bfloat16)), ("int8", qi)):
             v, i = catalog_topk(q32, idx, K, n_items=n, method="stream")
@@ -1548,6 +1654,12 @@ def timing_10m(card, rec, host, cat):
                              "layout 0", "int8",
                              f"5M int8 block [1,{D}] k={K} (the 10M slice's first rows)",
                              f"5M int8 block [1,{D}] k={K} (the 10M slice's first rows)", 0, b=1)
+                for bb in BUCKETS:  # the serving path's tournament, stage 1 at k = 562
+                    tournament_turn_case(f"[{bb},{D}] x {n} int8 rows k={KK}", q256, q256, bb,
+                                         KK)
+                tournament_turn_case(f"the eval's [{B},{D}] x {n} bf16 rows k={K + L}",
+                                     f"10M bf16 [{K3_10M_B},{D}] x {n} rows k={K}", q256, B,
+                                     K + L)
             check(plan.scratch_bytes <= K3_SCRATCH_LIMIT,
                   f"K3 scratch {plan.scratch_bytes} bytes at {n} rows, B = {B}, k = {k}")
             log("timing", card=card, kernel="K3 catalog_topk int8",
@@ -2486,6 +2598,12 @@ def eval_10m(card, run, cat):
         torch.cuda.synchronize()
         main_s = time.perf_counter() - t0
         launches[case], results[case] = counts(), metrics
+        if not seen_only:  # the full index runs the tournament: K4, the rerank, the select
+            check(min(launches[case][name] for name in ("groupmax_layout0", "tournament_rerank",
+                                                        "select_topk_positions",
+                                                        "select_topk_values")) > 0,
+                  f"10M eval {case}: the tournament's kernels did not all launch: "
+                  f"{launches[case]}")
         emb = ev.index(model)
         n_local = emb.rows if quantized else emb.shape[0]
         kk = min(K + mc.seq_len, n_local)
@@ -2712,19 +2830,29 @@ def time_tournament_10m(card, q, e, kk, errs) -> dict:
     n = e.shape[0]
     got, errs["K4 full bf16"] = check_groupmax(f"layout 0 at [{q.shape[0]},{D}] x {n} bf16 rows",
                                                q, e, None, n, True, 0)
-    kg = kk + 8
-    gi = torch.sort(got.t(), dim=1, descending=True, stable=True).indices[:, :kg]
-    gi = gi.sort(dim=1).values.contiguous()
+    kg, b = kk + 8, q.shape[0]
+    gi = check_select(f"the eval's stage 2 over {n} bf16 rows", got.t(), kg)
     errs["rerank full bf16"] = check_rerank(f"[{q.shape[0]},{D}] x {kg} groups of {n} bf16 rows",
                                             q, e, None, gi, n, True, torch.gather(got.t(), 1, gi))
-    del got
+    s2 = tournament_rerank(q, e, None, gi, n, True)
+    check_select("the eval's final top-k", s2, kk, gi=gi)
     out = {"K4 full bf16": kernel_vs_plain(lambda: groupmax(q, e, None, n, True, 0),
                                            lambda: groupmax_plain(q, e, None, n, True, 0),
                                            reps=20, plain_reps=2),
            "rerank full bf16": kernel_vs_plain(
                lambda: tournament_rerank(q, e, None, gi, n, True),
                lambda: tournament_rerank_plain(q, e, None, gi, n, True), reps=20, plain_reps=2),
+           "select stage 2": time_select(
+               card, "the eval's stage 2, K4 layout 0 read in place",
+               lambda: select_topk(got.t(), kg, positions_sorted=True),
+               lambda: select_topk_plain(got.t(), kg, positions_sorted=True),
+               lambda: torch.topk(got.t(), kg), b, got.shape[0], kg, b * kg * 8),
+           "select final": time_select(
+               card, "the eval's final top-k", lambda: select_topk(s2, kk, gi=gi),
+               lambda: select_topk_plain(s2, kk, gi=gi), lambda: torch.topk(s2, kk), b,
+               kg * GROUP, kk, b * kg * 8 + b * kk * 12),
            "kg": kg, "unique_groups": int(torch.unique(gi).numel())}
+    del got, s2
     for name in ("K4 full bf16", "rerank full bf16"):
         log("timing", card=card, kernel=name, shape=f"[{q.shape[0]},{D}] x {n} bf16 rows, "
             f"{kg} groups", max_abs_err=errs[name], ms=out[name][0], plain_ms=out[name][1])
@@ -3278,6 +3406,8 @@ def phase_mesh(card) -> dict:
             rows = [json.loads(ln) for ln in fh]
         fit10["examples_per_sec"] = [r["examples_per_sec"] for r in rows if "train_loss" in r]
         fit10["epoch_seconds"] = [r["epoch_seconds"] for r in rows if "train_loss" in r]
+        fit10["retrieval_val_hr10_by_epoch"] = {r["epoch"]: r["retrieval_val_hr"] for r in rows
+                                                if "retrieval_val_hr" in r}
         log("mesh_fit_10m", card=card, run="torchrun cli --preset synthetic10m --mesh 1x2 "
             "--shard_embeddings true --sparse_items_adam true --epochs 1 "
             "--eval_retrieval_every 1 --eval_retrieval 10 --retrieval_index full", **fit10)
@@ -3289,6 +3419,16 @@ def phase_mesh(card) -> dict:
         for r, n in enumerate(fit10["launches_by_rank"]):
             check(n["attention_fwd"] > 0 and n["attention_bwd"] > 0,
                   f"--mesh 1x2: rank {r} did not run K1 and K2 ({n})")
+        # the monitor: the sharded model gathered onto rank 0 mid-fit, its
+        # retrieval over the val users there (K3 bf16, the seen index), the
+        # two numbers broadcast to every rank, training going on after it
+        curve = fit10["retrieval_val_hr10_by_epoch"]
+        check(list(curve) == [1] and curve[1] >= FIT10M_RETRIEVAL_FLOOR,
+              f"--mesh 1x2: the retrieval monitor's val HR@10 by epoch {curve}, want one epoch "
+              f"at {FIT10M_RETRIEVAL_FLOOR} or more")
+        check(fit10["launches_by_rank"][0]["catalog_topk_bf16"] > 0,
+              f"--mesh 1x2: the retrieval monitor did not run K3 on rank 0 "
+              f"({fit10['launches_by_rank'][0]})")
         fit10["resume"] = resume_one_device(card, run10)
         t0 = time.perf_counter()
         shard = rank_task("shard_10m", tmp, run10)
@@ -3718,7 +3858,7 @@ def time_shard(block, d) -> dict:
                                 lambda: groupmax_plain(q, e, scales, rows, True, 0), reps=10,
                                 plain_reps=5)
     kg = K + L + 8
-    gi = rt._stable_desc(g.t(), kg).sort(dim=1).values.contiguous()
+    gi = select_topk(g.t(), kg, positions_sorted=True)
     out["rerank_err"] = check_rerank(f"shard of {rows} rows, {kg} groups", q, e, scales, gi,
                                      rows, True, g.t().gather(1, gi))
     out["rerank"] = kernel_vs_plain(lambda: tournament_rerank(q, e, scales, gi, rows, True),
@@ -4791,6 +4931,8 @@ def phase_remat(card) -> dict:
 K3_TURN_CASES = {}  # name -> K3's inputs at a phase's timed shape (files), under --parent
 K4_TURN_CASES = {}  # name -> K4's shape over K3's files (index, queries), under --parent
 K4_TURN_REPS = 20
+TOURNAMENT_TURN_CASES = {}  # name -> the tournament's shape over K3's files, under --parent
+TOURNAMENT_TURN_REPS = 20
 K3_TURN_DIR = [None]  # where phases keep them (a temporary directory under --parent)
 K3_TURN_REPS = 10
 # every shape a phase times K1 at (name -> batch, Lq, Lk, causal, d, weight
@@ -4816,15 +4958,31 @@ ATTN_TURN_SHAPES = {
     "remat flagship [2048,50,64] causal 0": (2048, L, L, 0, D, P_DROP, "float32", True),
 }
 ATTN_TURN_REPS = 20
-# `python -c K3_TURN_WRAPPER CASES_JSON ATTN_JSON` from a tree's root: K3 of
-# that tree's package over each kept case, then K1 (and K2) at each of
+# `python -c K3_TURN_WRAPPER CASES_JSON ATTN_JSON K4_JSON TOURNAMENT_JSON`
+# from a tree's root: K3 of that tree's package over each kept case, K4, the
+# tournament's stage 2 and final selections (the select kernel, or before it
+# the stable sorts) and the whole tournament, then K1 (and K2) at each of
 # ATTN_TURN_SHAPES on inputs drawn here from one seed, timed as cuda_ms
 # times them
 K3_TURN_WRAPPER = r"""
 import json, sys
 import torch
+import carca_tpu_torch.ops.retrieval_topk as rt
 from carca_tpu_torch.ops.flash_attention import attention_bwd, fused_attention
 from carca_tpu_torch.ops.retrieval_topk import QuantizedIndex, catalog_topk, groupmax
+
+if hasattr(rt, "select_topk"):  # the select kernel
+    def stage2(gm, kg):
+        return rt.select_topk(gm.t(), kg, positions_sorted=True)
+
+    def final(s2, k, gi):
+        return rt.select_topk(s2, k, gi=gi)
+else:  # before it: a stable sort of every row
+    def stage2(gm, kg):
+        return rt._stable_desc(gm.t(), kg).sort(dim=1).values
+
+    def final(s2, k, gi):
+        return rt._top_k(s2, rt._winner_rows(gi), k, 0)
 
 def cuda_ms(fn, reps):
     fn()
@@ -4862,7 +5020,23 @@ for name, c in json.loads(sys.argv[3]).items():
     with torch.no_grad():
         out["K4 " + name] = cuda_ms(lambda: groupmax(q, e, s, n, True, c["layout"]), c["reps"])
     del q, e, s
+for name, c in json.loads(sys.argv[4]).items():
+    rows, scales = indexes[c["index"]]
+    n, k = c["rows"], c["k"]
+    e, s = rows[:n], None if scales is None else scales[:, :n].contiguous()
+    index = e if s is None else QuantizedIndex(e, s)
+    q = torch.load(c["q"]).cuda()[:c["b"]].contiguous()
+    with torch.no_grad():
+        gm = groupmax(q, e, s, n, True, 0)
+        gi = stage2(gm, k + 8).contiguous()
+        s2 = rt.tournament_rerank(q, e, s, gi, n, True)
+        out["select-stage2 " + name] = cuda_ms(lambda: stage2(gm, k + 8), c["reps"])
+        out["select-final " + name] = cuda_ms(lambda: final(s2, k, gi), c["reps"])
+        out["tournament " + name] = cuda_ms(
+            lambda: catalog_topk(q, index, k, n_items=n, method="tournament"), c["reps"])
+    del q, e, s, index, gm, gi, s2
 del indexes
+torch.cuda.empty_cache()  # K1/K2 from an empty cache in both trees, whatever ran before
 attn = json.loads(sys.argv[2])
 for name, (b, lq, lk, causal, d, rate, cd, bwd) in attn["shapes"].items():
     gen = torch.Generator().manual_seed(90)
@@ -4912,6 +5086,19 @@ def k4_turn_case(name, kind, index_case, q_case, layout, b=B) -> None:
                            "b": b, "layout": layout, "kind": kind, "reps": K4_TURN_REPS}
 
 
+def tournament_turn_case(name, index_case, q_case, b, k) -> None:
+    """Under --parent: the tournament (lim0 = the rows, the pad row masked)
+    at one of the path's shapes for phase 15, its stage 2 and final
+    selections alone and the whole call, over the index and queries K3's
+    kept cases already hold (the first b queries)."""
+    if K3_TURN_DIR[0] is None:
+        return
+    c = K3_TURN_CASES[index_case]
+    TOURNAMENT_TURN_CASES[name] = {"index": c["index"], "rows": c["rows"],
+                                   "q": K3_TURN_CASES[q_case]["q"], "b": b, "k": k,
+                                   "reps": TOURNAMENT_TURN_REPS}
+
+
 def k3_parent_turns(card, parent) -> dict:
     """Phase 15: K3 over each kept case, K4 at each of K4_TURN_CASES, then
     K1 (and K2) at each of ATTN_TURN_SHAPES, with the package of ``parent``
@@ -4923,11 +5110,13 @@ def k3_parent_turns(card, parent) -> dict:
     the branch this tree runs."""
     cases = json.dumps(K3_TURN_CASES)
     k4_cases = json.dumps(K4_TURN_CASES)
+    tournament_cases = json.dumps(TOURNAMENT_TURN_CASES)
     attn = json.dumps({"shapes": ATTN_TURN_SHAPES, "reps": ATTN_TURN_REPS})
     turns = []
     for tag, tree in (("parent", parent), ("change", ROOT), ("change", ROOT),
                       ("parent", parent)):
-        proc = subprocess.run([sys.executable, "-c", K3_TURN_WRAPPER, cases, attn, k4_cases],
+        proc = subprocess.run([sys.executable, "-c", K3_TURN_WRAPPER, cases, attn, k4_cases,
+                               tournament_cases],
                               cwd=tree,
                               capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
@@ -4949,7 +5138,7 @@ def k3_parent_turns(card, parent) -> dict:
         elif kernel == "K4":
             kind = K4_TURN_CASES[shape]["kind"]
             extra["branch"] = k4_branch(torch.int8 if kind == "int8" else torch.bfloat16)
-        named = kernel in ("K1", "K2", "K4")
+        named = kernel in ("K1", "K2", "K4", "tournament", "select-stage2", "select-final")
         log(f"{kernel.lower()}_parent" if named else "k3_parent", card=card,
             case=shape if named else name, turns=[tag for tag, _ in turns],
             **out[name], **extra)
@@ -5138,6 +5327,16 @@ def kernel_entries(k1_err, k2_err, k3_err, k4_err, timings, k2_times, library, l
         k4_err["rerank"], timings["rerank"],
         B * kg * GROUP * (D + f32) + B * kg * 8 + B * D * f32 + B * kg * GROUP * f32,
         2 * B * kg * GROUP * D, "bfloat16")
+    # the select kernel at bucket 256 over the 10M int8 slice: stage 2 over
+    # K4's [G, B] read in place (position mode), the final k of the
+    # reranked scores (value mode); launches: the slice's, by mode;
+    # bit-equal to its plain version; library: torch.topk
+    for stage, mode, replaces in (("stage 2", "positions", "carca_tpu/ops/retrieval_topk.py:481"),
+                                  ("final", "values", "carca_tpu/ops/retrieval_topk.py:520")):
+        t = timings["select", stage, B]
+        add(f"select_topk_{stage.replace(' ', '')}", "carca_tpu_torch/csrc/select_topk.cu",
+            replaces, launches["slice_10m"][f"select_topk_{mode}"], 0.0, t["ms"], t["bytes"], 0,
+            "bfloat16", t["lib"], f"10M int8 slice, bucket {B}, {stage}, k + 8 = {kg} groups")
     return entries
 
 
@@ -5185,7 +5384,8 @@ def fit10m_entries(f, launches):
     under bf16 compute at the fit's encoder (launches: the fit), K3 bf16 and
     int8 over the seen index at the eval's [256, 64] queries and k + L = 60
     (launches: the fit's monitoring and final eval, and the in-process int8
-    eval), K4 layout 0 and the rerank over the 10M bf16 index (launches: the
+    eval), K4 layout 0, the rerank and the select kernel (stage 2 by
+    position, the final k by value) over the 10M bf16 index (launches: the
     in-process full-index eval)."""
     f32, bf16, n10 = 4, 2, FIT10M_ITEMS + 1
     t, errs, attn = f["timings"], f["errs"], f["attn"]
@@ -5226,6 +5426,12 @@ def fit10m_entries(f, launches):
         errs["rerank full bf16"], t["rerank full bf16"],
         t["unique_groups"] * GROUP * D * bf16 + B * kg * 8 + B * D * f32 + B * kg * GROUP * f32,
         2 * B * kg * GROUP * D, "bfloat16")
+    for stage, mode, replaces in (("stage 2", "positions", "carca_tpu/ops/retrieval_topk.py:481"),
+                                  ("final", "values", "carca_tpu/ops/retrieval_topk.py:520")):
+        sel = t["select " + stage]
+        add(f"select_topk_{stage.replace(' ', '')}_10m_bf16", "carca_tpu_torch/csrc/select_topk.cu",
+            replaces, full[f"select_topk_{mode}"], 0.0, sel["ms"], sel["bytes"], 0, "bfloat16",
+            sel["lib"])
     return entries
 
 

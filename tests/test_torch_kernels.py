@@ -13,8 +13,9 @@ K3, K4 and the rerank score on the tensor cores with one routine
 SCORE_ORDER_TOL (1e-5) of sum_j |q_j e_rj| (two summation orders of the
 same products), ids equal but for near-ties within that bound; between the
 kernels bit-equality: K4's maxima = the rerank's group maxima, the
-tournament (K4 and the rerank) = the stream (K3), ids and values, and K3 =
-a full sort of the routine's own scores. With weight dropout the plain version is
+tournament (K4, the rerank and the select kernel) = the stream (K3), ids
+and values, and K3 = a full sort of the routine's own scores. The select
+kernel equals its plain version bit for bit (lax.top_k's order). With weight dropout the plain version is
 fed the kernels' own Philox keep mask.
 """
 
@@ -29,11 +30,13 @@ from carca_tpu_torch.ops import _build
 from carca_tpu_torch.ops.flash_attention import (SEED_LIMIT, attention_bwd,
                                                  attention_grads_plain, attention_keep_mask,
                                                  bwd_branch, fused_attention, fwd_branch)
-from carca_tpu_torch.ops.retrieval_topk import (GROUP, GROUPMAX_BRANCHES, SCORE_ORDER_TOL,
-                                                QuantizedIndex, catalog_topk,
-                                                catalog_topk_plain, compare_within_order_tol,
-                                                groupmax, groupmax_branch, groupmax_plain,
-                                                quantize_index, stream_plan, tournament_rerank,
+from carca_tpu_torch.ops.retrieval_topk import (GROUP, GROUPMAX_BRANCHES, MAX_K,
+                                                SCORE_ORDER_TOL, TOURNAMENT_MAX_K, QuantizedIndex,
+                                                catalog_topk, catalog_topk_plain,
+                                                compare_within_order_tol, groupmax,
+                                                groupmax_branch, groupmax_plain, quantize_index,
+                                                resolve_method, select_topk, select_topk_plain,
+                                                stream_plan, tournament_rerank,
                                                 tournament_rerank_plain)
 
 pytestmark = pytest.mark.cuda
@@ -749,12 +752,151 @@ def test_tournament_equals_stream_on_the_card(dev, monkeypatch, kind, recursive,
     q[b // 2] = 0.0
     index = as_index(e.to(dev), kind)
     kw = dict(n_items=n_items, id_offset=offset)
-    before = sum(groupmax.launches.values()), tournament_rerank.launches
+    before = (sum(groupmax.launches.values()), tournament_rerank.launches,
+              select_topk.launches["positions"], select_topk.launches["values"])
     tv, ti = catalog_topk(q.to(dev), index, k, method="tournament", **kw)
     sv, si = catalog_topk(q.to(dev), index, k, method="stream", **kw)
     torch.cuda.synchronize()
-    assert (sum(groupmax.launches.values()), tournament_rerank.launches) == \
-        (before[0] + 1, before[1] + 1)
+    assert (sum(groupmax.launches.values()), tournament_rerank.launches,
+            select_topk.launches["positions"], select_topk.launches["values"]) == \
+        (before[0] + 1, before[1] + 1, before[2] + 1 + recursive, before[3] + 1)
+    assert torch.equal(ti, si) and torch.equal(tv, sv)
+
+
+# The select kernel (csrc/select_topk.cu) against its plain version, bit for
+# bit (values as int32 bits: the sign of zero counts) and ids / positions.
+SELECT_KINDS = ("signed_zeros", "all_equal", "half_neg_inf", "normal")
+SELECT_B = (1, 8, 64, 256, 257)
+SELECT_N = (1, 127, 128, 8_704, 72_960, 78_126, 1_000_000)
+
+
+def select_rows(dev, kind, b, n, seed=0):
+    """[b, n] float32 on the card, of one kind (the CPU tests' kinds)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "signed_zeros":
+        pick = torch.tensor([0.0, -0.0, 0.0, -0.0, 1.0, -1.0, 2.0, float("-inf")], device=dev)
+        return pick[torch.randint(0, 8, (b, n), generator=g, device=dev)]
+    if kind == "all_equal":
+        x = torch.full((b, n), 0.5, device=dev)
+        x[1::3] = -0.0
+        x[2::3] = float("-inf")
+        return x
+    x = torch.randn(b, n, generator=g, device=dev)
+    if kind == "half_neg_inf":
+        x[:, ::2] = float("-inf")
+    else:
+        x[:, 10:40] = x[:, 7:8]  # 30 exact ties
+    return x
+
+
+def check_select(v, k, gi=None, id_offset=0):
+    """Both modes of the kernel against the plain version on the same
+    values (its sorts run on the card too)."""
+    before = dict(select_topk.launches)
+    vals, ids = select_topk(v, k, gi=gi, id_offset=id_offset)
+    pos = select_topk(v, k, positions_sorted=True) if k <= v.shape[1] else None
+    torch.cuda.synchronize()
+    assert select_topk.launches == {"values": before["values"] + 1,
+                                    "positions": before["positions"] + (pos is not None)}
+    pv, pids = select_topk_plain(v, k, gi=gi, id_offset=id_offset)
+    assert torch.equal(vals.view(torch.int32), pv.view(torch.int32))
+    assert torch.equal(ids, pids)
+    if pos is not None:
+        assert torch.equal(pos, select_topk_plain(v, k, positions_sorted=True))
+
+
+def select_cases():
+    """(B, N, k) of the matrix: k in 1, 10, 60, 68, 562, 570, N, N + 5 up
+    to MAX_K; at most ~80M values a case."""
+    for n in SELECT_N:
+        for b in SELECT_B:
+            if b * n > 80_000_000:
+                continue
+            for k in sorted({1, 10, 60, 68, 562, 570, n, n + 5}):
+                if k <= MAX_K:
+                    yield b, n, k
+
+
+@pytest.mark.parametrize("b,n,k", list(select_cases()))
+def test_select_kernel_is_bit_equal_to_plain(dev, b, n, k):
+    check_select(select_rows(dev, "normal", b, n, seed=b + n + k), k, id_offset=5)
+
+
+@pytest.mark.parametrize("kind", SELECT_KINDS)
+@pytest.mark.parametrize("b,n,k", [(8, 8_704, 68), (257, 72_960, 570), (1, 78_126, 562),
+                                   (64, 127, 132), (3, 1_000_000, MAX_K), (256, 9_000, 600)])
+@pytest.mark.parametrize("column_major", [False, True])
+def test_select_kernel_every_kind_of_row(dev, kind, b, n, k, column_major):
+    v = select_rows(dev, kind, b, n, seed=k)
+    check_select(v.t().contiguous().t() if column_major else v, k)
+
+
+@pytest.mark.parametrize("b,kg,k", [(256, 570, 562), (256, 68, 60), (1, 570, 562), (9, 3, 400)])
+def test_select_kernel_ids_from_winner_groups(dev, b, kg, k):
+    """Value mode with the winner groups (the tournament's final top-k)."""
+    g = torch.Generator(device="cpu").manual_seed(kg)
+    gi = torch.sort(torch.rand(b, 80_000, generator=g).argsort(dim=1)[:, :kg], dim=1).values
+    v = select_rows(dev, "normal", b, kg * GROUP, seed=k)
+    v[:, -GROUP:] = float("-inf")  # masked rows past the index
+    check_select(v, k, gi=gi.to(dev).contiguous(), id_offset=11)
+
+
+@pytest.mark.parametrize("b,g,k", [(256, 78_126, 570), (256, 78_126, 68), (8, 78_126, 570),
+                                   (257, 1_000, 100), (1, 78_126, 570), (129, 5_000, 1),
+                                   (128, 20_000, 640), (200, 3_000, 641), (135, 70_000, 10)])
+def test_select_kernel_reads_the_group_major_layout_through_strides(dev, b, g, k):
+    """K4's layout 0 [G, B] read in place as [B, G] (gm.t()): both modes."""
+    gm = select_rows(dev, "normal", g, b, seed=b)  # [G, B]
+    assert gm.t().stride() == (1, b)
+    check_select(gm.t(), k)
+
+
+def test_select_kernel_raises_on_what_it_lacks(dev):
+    v = torch.randn(4, 300, device=dev)
+    for bad, err, match in (
+            (lambda: select_topk(v.double(), 5), TypeError, "float32"),
+            (lambda: select_topk(v[None], 5), TypeError, "float32"),
+            (lambda: select_topk(v, 0), ValueError, "outside"),
+            (lambda: select_topk(v, MAX_K + 1), ValueError, "outside"),
+            (lambda: select_topk(v, 301, positions_sorted=True), ValueError, "positions"),
+            (lambda: select_topk(v[:, :256], 5, gi=torch.zeros(4, 2, dtype=torch.int32,
+                                                                 device=dev)),
+             TypeError, "int64"),
+            (lambda: select_topk(v[:, :256], 5, gi=torch.zeros(4, 2, dtype=torch.int64)),
+             TypeError, "int64"),
+            (lambda: select_topk(v[:, :256], 5, gi=torch.zeros(4, 3, dtype=torch.int64,
+                                                                 device=dev)),
+             ValueError, "group ids")):
+        with pytest.raises(err, match=match):
+            bad()
+
+
+@pytest.mark.parametrize("k", [TOURNAMENT_MAX_K, TOURNAMENT_MAX_K + 1])
+def test_tournament_largest_k_on_the_card(dev, k):
+    """The tournament takes k up to TOURNAMENT_MAX_K = MAX_K - 8 on the card
+    (stage 2 selects k + 8 groups, the select kernel at most MAX_K): at the
+    limit, over more than MAX_K groups, it equals the stream; one past it
+    the tournament raises and "auto" gives that k the stream."""
+    assert TOURNAMENT_MAX_K == MAX_K - 8
+    r = (MAX_K + 8) * GROUP
+    g = torch.Generator(device="cpu").manual_seed(k)
+    q = torch.randn(2, 16, generator=g).to(dev)
+    e = torch.randn(r, 16, generator=g).to(dev)
+    sv, si = catalog_topk(q, e, k, method="stream")
+    if k > TOURNAMENT_MAX_K:
+        assert resolve_method("auto", r, k, 2) == "stream"
+        with pytest.raises(ValueError, match=f"the tournament takes k <= {TOURNAMENT_MAX_K}"):
+            catalog_topk(q, e, k, method="tournament")
+        av, ai = catalog_topk(q, e, k)
+        torch.cuda.synchronize()
+        assert torch.equal(ai, si) and torch.equal(av, sv)
+        return
+    assert resolve_method("auto", r, k, 2) == "tournament"
+    before = dict(select_topk.launches)
+    tv, ti = catalog_topk(q, e, k, method="tournament")
+    torch.cuda.synchronize()
+    assert select_topk.launches == {"positions": before["positions"] + 1,
+                                    "values": before["values"] + 1}
     assert torch.equal(ti, si) and torch.equal(tv, sv)
 
 
