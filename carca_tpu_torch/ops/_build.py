@@ -60,9 +60,10 @@ SIGNATURES = {
     "carca_groupmax_probe": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "carca_tournament_rerank_smem_bytes": (ctypes.c_size_t, [_I, _I]),
     "carca_tournament_rerank": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
-    "carca_select_topk_smem_bytes": (ctypes.c_size_t, [_I]),
-    "carca_select_topk": (_I, [_P, _I64, _I64, _I, _I, _I, _I, _I, _I, _P, _I, _I64, _P, _P,
-                               _P, _P]),
+    "carca_select_topk_smem_bytes": (ctypes.c_size_t, [_I, _I, _I]),
+    "carca_select_topk_tma": (_I, [_P, _I64, _I64, _I, _I, _I]),
+    "carca_select_topk": (_I, [_P, _I64, _I64, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I64,
+                               _P, _P, _P]),
 }
 
 

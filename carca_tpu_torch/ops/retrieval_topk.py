@@ -118,12 +118,22 @@ _K3_SPLIT_K = 4  # a split holds at least this many times k rows (and 1024) ...
 _K3_IDLE_SPLIT_ROWS = 256  # ... or this many where that would leave half the card idle
 _K3_FINAL_KEYS = 32_768  # keys a query's lists hand the final pass, at most (k ≤ 4,096)
 _K3_BUSY_WARPS = 2 * _K3_SMS  # fewer consumer warps than this: a warp takes fewer queries
-# The select kernel's plan (select_plan): two pass-1 blocks an H100 SM,
-# splits short enough to spread a few rows over many SMs, and one pass for
-# rows of under twice a split (the eval's 8,704 reranked scores)
-_SELECT_BLOCKS = 2 * _K3_SMS  # blocks a launch's pass 1 should have
-_SELECT_SPLIT_MIN = 8_192  # values a split holds, at least ...
-_SELECT_SPLIT_K = 16  # ... and this many times k
+# The select kernel's plan (select_plan; csrc/select_topk.cu): blocks of
+# 1-8 queries over one split of their row, a query group's splits one
+# thread-block cluster of at most 8, one block an H100 SM; a ring of up to
+# 24 slots of 16 KB (4,096 values) a block
+_SELECT_MAX_SPLITS = 8  # a portable cluster
+# clusters of 1, 2, 4 and 8 blocks (one block an SM) that an H100 holds at
+# once (cudaOccupancyMaxActiveClusters; PERF.md §6): more query groups
+# than these run in a second wave
+_SELECT_RESIDENT_CLUSTERS = {1: _K3_SMS, 2: 66, 4: 30, 8: 15}
+_SELECT_SPLIT_MIN = 2_048  # values a split holds, at least, ...
+_SELECT_SPLIT_K = 4  # ... and this many times k
+_SELECT_SPLIT_ROUND = 256  # a split holds a multiple of this many values (a tensor copy)
+_SELECT_SLOT_BYTES = 16_384
+_SELECT_MAX_SLOTS = 24  # as many as shared memory holds: a trimming warp holds the ring back
+_SELECT_MIN_SLOTS = 4  # fewer queries a block before fewer slots than this (but 2 at 1 query)
+_SELECT_CTL_BYTES = 1_280  # a query's control block
 _SCORE_CHUNK = 1 << 26  # plain scores per row chunk (256 MB of float32)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}  # carca::IndexType
 INDEX_KINDS = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
@@ -517,26 +527,62 @@ def select_topk_plain(v: torch.Tensor, k: int, *, positions_sorted: bool = False
 
 
 class SelectPlan(NamedTuple):
-    """The select kernel's row splits: pass 1 runs ``splits`` blocks a row
-    of ``per_split`` values each (one pass where ``splits`` is 1), pass 2 a
-    block a row over their B · splits · k keys (``scratch_bytes``)."""
+    """The select kernel's launch: ``queries`` rows a block (1, 2, 4 or 8),
+    ``splits`` blocks a query group (one thread-block cluster, at most 8)
+    of ``per_split`` values each, and ``slots`` ring slots of 16 KB a
+    block."""
 
+    queries: int
     splits: int
     per_split: int
-    scratch_bytes: int
+    slots: int
 
 
-def select_plan(b: int, n: int, k: int) -> SelectPlan:
-    """Row splits for the select kernel (``csrc/select_topk.cu``): as many
-    as give the launch _SELECT_BLOCKS blocks, each split at least
-    _SELECT_SPLIT_MIN values and _SELECT_SPLIT_K · k (a split keeps k of its
-    values, and pass 2 walks all that the splits keep); one split (one
-    pass) for a row shorter than twice that."""
+def _select_smem(k: int, queries: int, slots: int) -> int:
+    """Shared memory of a select block (``csrc/select_topk.cu``,
+    smem_bytes, the same formula): alignment, the ring, each query's list
+    of max(k + slack, kpad) keys and its control block, the mbarriers."""
+    kpad = 1 << max(0, k - 1).bit_length()
+    slack = max(1024, 2 * 256 * (16 // queries))  # two slots of the query's warps' keys
+    cap = max(k + slack, kpad)
+    return 1024 + slots * _SELECT_SLOT_BYTES + queries * (cap * 8 + _SELECT_CTL_BYTES) + 16 * slots
+
+
+def select_plan(b: int, n: int, k: int, column: bool = False) -> SelectPlan:
+    """The select kernel's launch for B rows of N values (``column``: read
+    column-major, K4's [G, B] as [B, G], in boxes of 8 or 4 queries, a
+    whole or half 32-byte sector a row). Each of a block's 16 consumer
+    warps reads queries / 16 of every value of its split, so a launch takes about
+    waves x queries / splits of a block's time at one query and one split:
+    of the queries a block whose lists and _SELECT_MIN_SLOTS ring slots fit
+    (2 slots at one query), the one that makes this least (ties to more
+    queries). Splits a query group: 8, 4 or 2 where the card holds every
+    group's cluster at once (_SELECT_RESIDENT_CLUSTERS), else 1; each split
+    at least _SELECT_SPLIT_MIN values and _SELECT_SPLIT_K · k (a split
+    keeps k of its values), and the splits' k largest within the block's
+    ring, where the merge gathers them."""
     min_split = max(_SELECT_SPLIT_MIN, _SELECT_SPLIT_K * k)
-    splits = max(1, min(n // min_split, -(-_SELECT_BLOCKS // max(b, 1))))
+    best = None
+    for queries in (8, 4) if column else (8, 4, 2, 1):
+        room = _build.SMEM_LIMIT - _select_smem(k, queries, 0)
+        slots = min(_SELECT_MAX_SLOTS, room // (_SELECT_SLOT_BYTES + 16))
+        if slots < (_SELECT_MIN_SLOTS if queries > 1 else 2):
+            continue
+        groups = -(-max(b, 1) // queries)
+        most = min(_SELECT_MAX_SPLITS, n // min_split, slots * _SELECT_SLOT_BYTES // 8 // k)
+        splits = next((c for c in (8, 4, 2)
+                       if c <= most and groups <= _SELECT_RESIDENT_CLUSTERS[c]), 1)
+        cost = -(-groups // _SELECT_RESIDENT_CLUSTERS[splits]) * queries / splits
+        if best is None or cost < best[0]:
+            best = cost, queries, splits, slots
+    if best is None:  # a large k: one query a block (column-major reads take plain loads)
+        slots = min(_SELECT_MAX_SLOTS,
+                    (_build.SMEM_LIMIT - _select_smem(k, 1, 0)) // (_SELECT_SLOT_BYTES + 16))
+        best = 0, 1, 1, slots
+    _, queries, splits, slots = best
     per_split = -(-n // splits)
-    splits = -(-n // per_split)
-    return SelectPlan(splits, per_split, b * splits * k * 8 if splits > 1 else 0)
+    per_split = -(-per_split // _SELECT_SPLIT_ROUND) * _SELECT_SPLIT_ROUND
+    return SelectPlan(queries, -(-n // per_split), per_split, slots)
 
 
 def _select_operands(v: torch.Tensor, k: int, positions_sorted: bool,
@@ -587,16 +633,13 @@ def select_topk(v: torch.Tensor, k: int, *, positions_sorted: bool = False,
     vals = None if positions_sorted else torch.empty(b, k, dtype=torch.float32, device=v.device)
     if b == 0 or n == 0:
         return ids if positions_sorted else (vals.fill_(NEG_INF), ids.zero_())
-    plan = select_plan(b, n, k)
-    scratch = (torch.empty(plan.scratch_bytes // 8, dtype=torch.int64, device=v.device)
-               if plan.splits > 1 else None)
+    plan = select_plan(b, n, k, column=n > 1 and v.stride(1) != 1)
     lib = _build.library()
-    _launch("select_topk", v.device, lib.carca_select_topk_smem_bytes(k), lib.carca_select_topk,
-            v.data_ptr(), v.stride(0), v.stride(1), b, n, k, plan.splits, plan.per_split,
-            int(positions_sorted), None if gi is None else gi.data_ptr(),
-            0 if gi is None else gi.shape[1], int(id_offset),
-            None if scratch is None else scratch.data_ptr(),
-            None if vals is None else vals.data_ptr(), ids.data_ptr())
+    _launch("select_topk", v.device, lib.carca_select_topk_smem_bytes(k, plan.queries, plan.slots),
+            lib.carca_select_topk, v.data_ptr(), v.stride(0), v.stride(1), b, n, k,
+            plan.queries, plan.splits, plan.per_split, plan.slots, int(positions_sorted),
+            None if gi is None else gi.data_ptr(), 0 if gi is None else gi.shape[1],
+            int(id_offset), None if vals is None else vals.data_ptr(), ids.data_ptr())
     select_topk.launches["positions" if positions_sorted else "values"] += 1
     return ids if positions_sorted else (vals, ids)
 

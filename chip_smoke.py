@@ -103,7 +103,8 @@ raises and exits non-zero:
              k = 562, its group maxima bit-equal to K4's; the select kernel
              at stage 2 (K4's [G, B] read in place) and at
              the final top-k, buckets 256, 8 and 1, bit-equal to its plain
-             version and timed beside it, torch.topk and its bound; K3 bf16/int8 at
+             version and timed beside it, torch.topk and its bound (the
+             10M traces: two select launches a call, one a selection); K3 bf16/int8 at
              [32,64] x 10M rows), K3's scratch (planned and measured, at
              most 0.5 GB) and the tournament's memory at 10M rows, K1 at the
              encoder, decoder, men and rerank shapes, and
@@ -363,7 +364,7 @@ raises and exits non-zero:
              over one 5M-row shard), the tournament at buckets 1, 8, 64 and
              256 over the 10M int8 rows (k = 562) and at the eval's [256,64]
              x 10M bf16 rows (k = 60): its stage 2 and final selections
-             alone (the select kernel; the parent's stable sorts) and the
+             alone (the select kernel, or a parent's stable sorts) and the
              whole call, then K1 (and K2 where a path trains)
              at every shape a phase times K1 at (ATTN_TURN_SHAPES), with
              DIR's package and with this tree's, in turns parent, change,
@@ -678,6 +679,11 @@ def phase_build(parent=None) -> None:
     usage = [ln.strip() for ln in res.log.splitlines()
              if "Compiling entry" in ln or "Used" in ln]
     log("build", seconds=res.seconds, library=str(res.path), ptxas=usage)
+    # the select kernel's instantiations (queries a block x read), with spills
+    sel = res.log.split("== select_topk.cu", 1)[-1].split("\n== ", 1)[0]
+    log("build", kernel="select_topk", ptxas=[
+        ln.strip() for ln in sel.splitlines()
+        if "Compiling entry" in ln or "Used" in ln or "spill" in ln])
     if other:
         out = other.communicate()[0]
         check(other.returncode == 0, f"the kernels of {parent} did not build: {out[-4000:]}")
@@ -1056,19 +1062,21 @@ def select_rows(kind, b, n, seed):
     return x
 
 
-def time_select(card, tag, kernel, plain, library, b, n, k, out_bytes) -> dict:
+def time_select(card, tag, kernel, plain, library, b, n, k, out_bytes, column=False) -> dict:
     """The select kernel, its plain version (in turns) and torch.topk on the
     same values (the nearest single call; its tie order is unspecified),
     with the bound: the B x N values read once and the outputs written
     once at 3.35 TB/s (the keys' few integer operations a value are far
-    under the card's rate). Logs and returns them."""
+    under the card's rate); ``column``: the values read column-major (K4's
+    [G, B]). Logs them with the launch's plan and returns them."""
     ms, plain_ms = kernel_vs_plain(kernel, plain, reps=20, plain_reps=5)
     lib_ms = cuda_ms(library, 20)
     bound_ms, bound_by = bound(b * n * 4 + out_bytes, 0, "bfloat16")
-    plan = select_plan(b, n, k)
+    plan = select_plan(b, n, k, column)
     log("timing", card=card, kernel="select_topk", case=tag, shape=f"[{b},{n}] k={k}", ms=ms,
         plain_ms=plain_ms, torch_topk_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
-        splits=plan.splits, per_split=plan.per_split)
+        queries_a_block=plan.queries, splits=plan.splits, per_split=plan.per_split,
+        slots=plan.slots)
     return {"ms": (ms, plain_ms), "lib": lib_ms, "bytes": b * n * 4 + out_bytes}
 
 
@@ -1552,8 +1560,8 @@ def timing_10m(card, rec, host, cat):
     Returns (timings, {kernel: max |error|})."""
     timings, errs = {}, {}
     timing_turns(card, "timing_10m", rec, host, "int8")
-    for r in (rec, eager_twin(rec)):
-        serving_trace(card, "serving_trace", r, host, "10M int8")
+    for r in (rec, eager_twin(rec)):  # the tournament's two selections, one launch each
+        serving_trace(card, "serving_trace", r, host, "10M int8", select_launches=2)
     rec_f32 = Recommender(rec.model, cat.attrs, shortlist=SHORTLIST, batch_buckets=BUCKETS,
                           quantize=False)
     for row in run_bench(rec_f32, host, k=K, iters=SERVE_TIMED_CALLS):
@@ -1595,7 +1603,8 @@ def timing_10m(card, rec, host, cat):
                 card, f"stage 2, bucket {bb}, K4 layout 0 [G, B] read in place",
                 lambda: select_topk(gm.t(), kg, positions_sorted=True),
                 lambda: select_topk_plain(gm.t(), kg, positions_sorted=True),
-                lambda: torch.topk(gm.t(), kg), bb, n_g, kg, bb * kg * 8)
+                lambda: torch.topk(gm.t(), kg), bb, n_g, kg, bb * kg * 8,
+                column=gm.t().stride(1) != 1)
             timings["select", "final", bb] = time_select(
                 card, f"final top-k, bucket {bb}, ids from {kg} winner groups",
                 lambda: select_topk(s2, KK, gi=gi), lambda: select_topk_plain(s2, KK, gi=gi),
@@ -1694,10 +1703,13 @@ def timing_turns(card, phase, rec, host, index: str) -> dict:
     return table
 
 
-def serving_trace(card, phase, rec, host, index: str, calls: int = 10) -> None:
+def serving_trace(card, phase, rec, host, index: str, calls: int = 10,
+                  select_launches=None) -> None:
     """torch.profiler over ``calls`` recommend calls per bucket: device busy
     ms (union of kernel and copy intervals), busy share of the unprofiled
-    wall time, device operations per call and the heaviest of them."""
+    wall time, device operations per call and the heaviest of them, and
+    the select kernel's launches per call (``select_launches``: what they
+    must be, one a selection)."""
     reqs = bucket_requests(host, SEED + 2)
     for bb in BUCKETS:
         hists, ctxs = reqs[bb]
@@ -1711,10 +1723,16 @@ def serving_trace(card, phase, rec, host, index: str, calls: int = 10) -> None:
             return (time.perf_counter() - t0) * 1e3
 
         t = device_trace(run, calls)  # a "step" here: one recommend call
+        # op_table counts launches per run(), which makes `calls` recommend calls
+        selects = sum(n for name, _, _, n in t["table"] if "select_kernel" in name) / calls
         log(phase, card=card, index=index, step=rec.mode, batch=bb, calls=calls,
             wall_ms=t["wall_ms_per_step"], wall_profiled_ms=t["wall_profiled_ms_per_step"],
             device_busy_ms=t["device_busy_ms_per_step"], busy_share=t["busy_share"],
-            device_ops_per_call=t["device_ops_per_step"], top_ms_per_call=top_ms(t))
+            device_ops_per_call=t["device_ops_per_step"], top_ms_per_call=top_ms(t),
+            select_launches_per_call=selects)
+        if select_launches is not None:
+            check(selects == select_launches, f"{index} bucket {bb} ({rec.mode}): {selects} select "
+                  f"kernel launches a call, not {select_launches}")
 
 
 def phase_timing(card, rec, rec_full, host):
@@ -2846,7 +2864,8 @@ def time_tournament_10m(card, q, e, kk, errs) -> dict:
                card, "the eval's stage 2, K4 layout 0 read in place",
                lambda: select_topk(got.t(), kg, positions_sorted=True),
                lambda: select_topk_plain(got.t(), kg, positions_sorted=True),
-               lambda: torch.topk(got.t(), kg), b, got.shape[0], kg, b * kg * 8),
+               lambda: torch.topk(got.t(), kg), b, got.shape[0], kg, b * kg * 8,
+               column=got.t().stride(1) != 1),
            "select final": time_select(
                card, "the eval's final top-k", lambda: select_topk(s2, kk, gi=gi),
                lambda: select_topk_plain(s2, kk, gi=gi), lambda: torch.topk(s2, kk), b,

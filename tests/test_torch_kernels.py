@@ -35,7 +35,8 @@ from carca_tpu_torch.ops.retrieval_topk import (GROUP, GROUPMAX_BRANCHES, MAX_K,
                                                 catalog_topk, catalog_topk_plain,
                                                 compare_within_order_tol, groupmax,
                                                 groupmax_branch, groupmax_plain, quantize_index,
-                                                resolve_method, select_topk, select_topk_plain,
+                                                resolve_method, select_plan, select_topk,
+                                                select_topk_plain,
                                                 stream_plan, tournament_rerank,
                                                 tournament_rerank_plain)
 
@@ -869,6 +870,112 @@ def test_select_kernel_raises_on_what_it_lacks(dev):
              ValueError, "group ids")):
         with pytest.raises(err, match=match):
             bad()
+
+
+def select_reads_by_tma(v, k):
+    """Whether the select kernel reads v by tensor copies (else its
+    producer's plain loads), at the plan's queries a block."""
+    b, n = v.shape
+    plan = select_plan(b, n, k, column=n > 1 and v.stride(1) != 1)
+    return bool(_build.library().carca_select_topk_tma(v.data_ptr(), v.stride(0), v.stride(1), b,
+                                                      n, plan.queries))
+
+
+def test_select_plan_shared_memory_is_the_kernels(dev):
+    """select_plan sizes a block by retrieval_topk._select_smem, the C
+    side's smem_bytes formula: the two agree at every k, queries a block
+    and ring slots."""
+    import carca_tpu_torch.ops.retrieval_topk as rt
+
+    lib = _build.library()
+    for k in (1, 60, 68, 562, 570, 1_000, 4_096, MAX_K):
+        for qb in (1, 2, 4, 8):
+            for slots in (2, 8, 24):
+                assert lib.carca_select_topk_smem_bytes(k, qb, slots) == rt._select_smem(k, qb, slots)
+
+
+@pytest.mark.parametrize("g,k", [(78_126, 570), (5_000, 68), (300, 300)])
+@pytest.mark.parametrize("b", [1, 3, 9, 257])
+def test_select_kernel_group_major_rows_past_a_box(dev, b, g, k):
+    """K4's [G, B] read in place with B not a multiple of 8: the tensor
+    copies' boxes of 8 queries run past B (and the plain loads take the
+    strides a tensor map cannot), and no value past B or past a split is
+    offered."""
+    gm = select_rows(dev, "normal", g, b, seed=b + g)
+    check_select(gm.t(), k)
+
+
+@pytest.mark.parametrize("make,tma", [
+    (lambda x: x.t().contiguous().t(), True),             # [G, 256] read as [256, G]
+    (lambda x: x, True),                                  # rows of 80,000 bytes
+    (lambda x: x[:3].t().contiguous().t(), False),        # [G, 3]: a 12-byte stride
+    (lambda x: x[:, 1:], False),                          # rows from an unaligned pointer
+    (lambda x: x[:, ::3], False),                         # every third value
+    (lambda x: torch.cat([x, x[:, :1]], 1)[:, :-1], False),  # rows 80,004 bytes apart
+])
+@pytest.mark.parametrize("k", [1, 570])
+def test_select_kernel_strides_a_tensor_map_cannot_take(dev, make, tma, k):
+    """Views a 2-D tensor map cannot describe go through the producer's
+    plain loads, a path of the same kernel, bit-equal like the copies."""
+    v = make(select_rows(dev, "normal", 256, 20_000, seed=k))
+    assert select_reads_by_tma(v, k) == tma
+    check_select(v, k)
+
+
+@pytest.mark.parametrize("column_major", [False, True])
+@pytest.mark.parametrize("b,n,k", [(8, 5_000, 1), (8, 5_000, 5_000), (3, 100_000, MAX_K),
+                                   (2, MAX_K, MAX_K), (256, 40_000, 1), (1, 78_126, 78_126 // 5)])
+def test_select_kernel_smallest_and_largest_k(dev, b, n, k, column_major):
+    """k = 1, k = N and k = 16,384 (one query a block, the sort in shared
+    memory past 2,048 slots)."""
+    v = select_rows(dev, "normal", b, n, seed=n + k)
+    check_select(v.t().contiguous().t() if column_major else v, k)
+
+
+@pytest.mark.parametrize("b,n,k,splits", [(256, 1_000, 60, 1), (256, 2_000, 570, 1),
+                                          (1, 78_126, 570, 8), (8, 78_126, 570, 8),
+                                          (16, 78_126, 570, 8)])
+@pytest.mark.parametrize("column_major", [False, True])
+def test_select_kernel_one_split_and_a_cluster_of_8(dev, b, n, k, splits, column_major):
+    """One block a query group (no merge across blocks) and clusters of 8
+    blocks (rank r merges the queries r, r + 8, ...): both modes
+    bit-equal."""
+    v = select_rows(dev, "half_neg_inf" if splits == 1 else "normal", b, n, seed=b * splits)
+    v = v.t().contiguous().t() if column_major else v
+    assert select_plan(b, n, k, column=column_major).splits == splits
+    check_select(v, k)
+
+
+@pytest.mark.parametrize("b,n,k,column_major", [(1, 78_126, 570, True), (8, 72_960, 562, False),
+                                                (256, 78_126, 570, True)])
+def test_select_kernel_back_to_back_and_graphed(dev, b, n, k, column_major):
+    """100 calls in a row and 10 replays of one captured CUDA graph, each
+    bit-equal to the plain version: the clusters' merge leaves nothing
+    behind for the next call."""
+    v = select_rows(dev, "normal", b, n, seed=7)
+    v = v.t().contiguous().t() if column_major else v
+    pv, pids = select_topk_plain(v, k, id_offset=3)
+    ppos = select_topk_plain(v, k, positions_sorted=True)
+    outs = [(select_topk(v, k, id_offset=3), select_topk(v, k, positions_sorted=True))
+            for _ in range(100)]
+    torch.cuda.synchronize()
+    for (vals, ids), pos in outs:
+        assert torch.equal(vals.view(torch.int32), pv.view(torch.int32))
+        assert torch.equal(ids, pids) and torch.equal(pos, ppos)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        select_topk(v, k, id_offset=3)  # warm on the capture stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        (vals, ids), pos = select_topk(v, k, id_offset=3), select_topk(v, k, positions_sorted=True)
+    for _ in range(10):
+        vals.zero_(), ids.zero_(), pos.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(vals.view(torch.int32), pv.view(torch.int32))
+        assert torch.equal(ids, pids) and torch.equal(pos, ppos)
 
 
 @pytest.mark.parametrize("k", [TOURNAMENT_MAX_K, TOURNAMENT_MAX_K + 1])

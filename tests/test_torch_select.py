@@ -19,7 +19,7 @@ import torch
 
 import carca_tpu.ops.retrieval_topk as jrt
 from carca_tpu_torch.ops import retrieval_topk as rt
-from carca_tpu_torch.ops import launches
+from carca_tpu_torch.ops import _build, launches
 from carca_tpu_torch.ops.retrieval_topk import (GROUP, MAX_K, TOURNAMENT_MAX_K, catalog_topk,
                                                 ordered_scores, resolve_method, select_plan,
                                                 select_topk, select_topk_plain)
@@ -145,18 +145,45 @@ def test_select_topk_takes_the_plain_version_on_the_cpu():
         select_topk(x, N + 1, positions_sorted=True)
 
 
-@pytest.mark.parametrize("b,n,k", [(1, 78_126, 570), (8, 78_126, 570), (64, 78_126, 570),
-                                   (256, 78_126, 570), (256, 72_960, 562), (256, 78_126, 68),
-                                   (256, 8_704, 60), (1, 1, 1), (257, 127, 132),
-                                   (3, 1_000_000, MAX_K)])
-def test_select_plan_covers_every_value_once(b, n, k):
-    """Every value in exactly one split, no split empty; the scratch holds
-    each split's k keys, none with one split (one pass)."""
-    p = select_plan(b, n, k)
+SELECT_PLAN_CASES = [(1, 78_126, 570), (8, 78_126, 570), (64, 78_126, 570), (256, 78_126, 570),
+                     (256, 72_960, 562), (256, 78_126, 68), (256, 8_704, 60), (1, 1, 1),
+                     (257, 127, 132), (3, 1_000_000, MAX_K)]
+
+
+@pytest.mark.parametrize("column", [False, True])
+@pytest.mark.parametrize("b,n,k", SELECT_PLAN_CASES)
+def test_select_plan_covers_every_value_once(b, n, k, column):
+    """Every value in exactly one split, no split empty, each split at
+    least the plan's least (or the whole row); 1, 2, 4 or 8 queries a
+    block, 4 or 8 over a column-major read (a tensor copy's box of half or
+    a whole 32-byte sector a row); the block's lists and ring fit its
+    shared memory."""
+    p = select_plan(b, n, k, column)
     assert p.splits >= 1 and p.splits * p.per_split >= n > (p.splits - 1) * p.per_split
-    assert p.scratch_bytes == (b * p.splits * k * 8 if p.splits > 1 else 0)
     want = max(rt._SELECT_SPLIT_MIN, rt._SELECT_SPLIT_K * k)  # a split's values, at least
     assert p.per_split >= min(n, want)
+    assert p.queries in (1, 2, 4, 8) and 2 <= p.slots <= rt._SELECT_MAX_SLOTS
+    if column and k <= 1_024:
+        assert p.queries in (4, 8)
+    assert rt._select_smem(k, p.queries, p.slots) <= _build.SMEM_LIMIT
+    if p.splits > 1:  # the merge gathers the splits' k largest into the ring
+        assert p.splits * k <= p.slots * rt._SELECT_SLOT_BYTES // 8
+
+
+@pytest.mark.parametrize("b,n,k", SELECT_PLAN_CASES + [(1, 10_000_000, 1), (1, 2_000_000_000, 10),
+                                                       (8, 78_126, 570), (2, 50_000, 16)])
+@pytest.mark.parametrize("column", [False, True])
+def test_select_plan_clusters_never_exceed_8_blocks(b, n, k, column):
+    """A query group's splits are one thread-block cluster: at most 8
+    blocks, the portable size, however long the row; a long row at B = 1
+    gets 8 longer splits, not more of them, and the launch stays about
+    one block an SM (query groups x splits <= 132 where B allows)."""
+    p = select_plan(b, n, k, column)
+    assert 1 <= p.splits <= 8
+    groups = -(-b // p.queries)
+    assert p.splits == 1 or groups <= rt._SELECT_RESIDENT_CLUSTERS[p.splits]  # one wave
+    if b == 1 and n >= 8 * max(rt._SELECT_SPLIT_MIN, rt._SELECT_SPLIT_K * k):
+        assert p.splits == 8 and p.per_split >= n // 8
 
 
 @pytest.mark.parametrize("recursive", [False, True])
